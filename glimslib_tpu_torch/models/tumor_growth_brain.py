@@ -1,0 +1,82 @@
+"""Brain tumor-growth model with per-tissue parameters (counterpart of
+``glimslib_tpu/models/tumor_growth_brain.py``).
+
+13 per-tissue parameters (reference brain_quad.py:17-23) over the tissue
+map {0: outside, 1: CSF, 2: GM, 3: WM, 4: Ventricles}, with zero
+diffusion/proliferation outside GM+WM and a fixed stiff 'outside'
+material E=10e3, nu=0.45.  Per-cell coefficients are lookups of the
+per-tissue values by cell label.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from glimslib_tpu_torch.models.tumor_growth import TumorGrowth
+from glimslib_tpu_torch.ops import forms
+
+# fixed material for the 'outside' region (reference brain_quad.py:38-39)
+E_OUT = 10e3
+NU_OUT = 0.45
+
+
+class TumorGrowthBrain(TumorGrowth):
+    TISSUES = ("outside", "CSF", "GM", "WM", "Ventricles")
+
+    def _define_model_params(self):
+        self.required_params = [
+            "E_GM", "E_WM", "E_CSF", "E_VENT",
+            "nu_GM", "nu_WM", "nu_CSF", "nu_VENT",
+            "D_GM", "D_WM",
+            "rho_GM", "rho_WM",
+            "coupling",
+        ]
+        self.optional_params = ["body_force", "rd_source_term"]
+
+    def _tissue_lookup(self, by_name: Dict[str, object], fill=0.0):
+        """{tissue_name: value} -> lookup tensor indexed by label id."""
+        id_name = self.subdomains.tissue_id_name_map
+        max_id = max(
+            [int(self.subdomains.cell_labels.max())] + list(id_name.keys())
+        )
+        vals = []
+        for tid in range(max_id + 1):
+            name = id_name.get(tid)
+            vals.append(by_name.get(name, fill) if name is not None else fill)
+        return self._tensor(vals)
+
+    def make_theta(self, params: Dict):
+        p = params
+        self._check_static(p.get("rd_source_term", 0.0), p.get("body_force"))
+        labels = torch.as_tensor(
+            self.subdomains.cell_labels, dtype=torch.int64, device=self.device
+        )
+        E_lut = self._tissue_lookup(
+            {"CSF": p["E_CSF"], "GM": p["E_GM"], "WM": p["E_WM"],
+             "Ventricles": p["E_VENT"], "outside": E_OUT},
+            fill=E_OUT,
+        )
+        nu_lut = self._tissue_lookup(
+            {"CSF": p["nu_CSF"], "GM": p["nu_GM"], "WM": p["nu_WM"],
+             "Ventricles": p["nu_VENT"], "outside": NU_OUT},
+            fill=NU_OUT,
+        )
+        # zero D / rho outside GM+WM (reference brain_quad.py:95-104)
+        D_lut = self._tissue_lookup({"GM": p["D_GM"], "WM": p["D_WM"]}, fill=0.0)
+        rho_lut = self._tissue_lookup(
+            {"GM": p["rho_GM"], "WM": p["rho_WM"]}, fill=0.0
+        )
+        E = E_lut[labels]
+        nu = nu_lut[labels]
+        return {
+            "D": D_lut[labels],
+            "rho": rho_lut[labels],
+            "coupling": self._tensor(p["coupling"]),
+            "mu": forms.compute_mu(E, nu),
+            "lam": forms.compute_lambda(E, nu),
+            "dt": self._tensor(float(p["sim_time_step"])),
+            "body_force": self._body_force(p.get("body_force")),
+            "source": self._tensor(p.get("rd_source_term", 0.0)),
+        }

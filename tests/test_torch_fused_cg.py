@@ -1,0 +1,145 @@
+"""Port parity: mask folding and the whole-solve stencil PCG
+(glimslib_tpu_torch/ops/fused_cg.py) against the JAX package
+(glimslib_tpu/ops/pallas_cg.py, glimslib_tpu/solvers/cg.py).
+
+- fold_mask_* at f64 against JAX's: rel 1e-12.
+- The plain fused solves at f32 against the Pallas whole-solve kernels in
+  interpret mode: |Δiters| <= 2 (reductions re-associate near the
+  tolerance) and rel 1e-4.
+- The plain fused solves at f64 against JAX ``pcg`` on the where-masked
+  operator: equal iteration counts and rel 1e-10.
+"""
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from glimslib_tpu.core.mesh import box_mesh as jax_box_mesh
+from glimslib_tpu.ops import pallas_cg as jpc
+from glimslib_tpu.ops.stencil import StencilOperators as JaxStencilOperators
+from glimslib_tpu.solvers.cg import pcg as jax_pcg
+from glimslib_tpu_torch.core.mesh import box_mesh
+from glimslib_tpu_torch.ops import fused_cg as fc
+from glimslib_tpu_torch.ops.stencil import StencilOperators
+
+N = 5
+
+
+def _rel(a, b):
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    return np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-300)
+
+
+def _problem(seed, jdtype, tdtype):
+    """The masked scalar (rd Jacobian) and vector (elasticity) systems of a
+    small lattice, built by both packages from the same numpy inputs."""
+    mesh_j = jax_box_mesh((0, 0, 0), (1, 1, 1), N, N, N)
+    mesh_t = box_mesh((0, 0, 0), (1, 1, 1), N, N, N)
+    n, nc = mesh_t.n_nodes, mesh_t.n_cells
+    rng = np.random.default_rng(seed)
+    mu = 1.0 + rng.random(nc)
+    c = rng.random(n)
+    mask_u = np.zeros((n, 3), bool)
+    mask_u[mesh_t.boundary_nodes] = True
+    mask_c = np.isin(np.arange(n), mesh_t.boundary_nodes[::3])
+    b_u = np.where(mask_u, 0.0, rng.standard_normal((n, 3)))
+    b_c = np.where(mask_c, 0.0, rng.standard_normal(n))
+    out = {}
+    for name, ops, xp, dt in (
+        ("jax", JaxStencilOperators(mesh_j, dtype=jdtype),
+         lambda a, d: jnp.asarray(a, dtype=d), jdtype),
+        ("torch", StencilOperators(mesh_t, dtype=tdtype),
+         lambda a, d: torch.as_tensor(a, dtype=d), tdtype),
+    ):
+        Wel = ops.build_elasticity(xp(mu, dt), xp(4.0 * mu, dt))
+        Wrd = ops.build_rd_jacobian(xp(c, dt), xp(0.1, dt), xp(0.1, dt), 1.0)
+        out[name] = dict(
+            ops=ops, Wel=Wel, Binv=ops.block_jacobi_inverse(Wel), Wrd=Wrd,
+            mask_u=xp(mask_u, bool), mask_c=xp(mask_c, bool),
+            b_u=xp(b_u, dt), b_c=xp(b_c, dt),
+        )
+    return out
+
+
+@pytest.mark.parametrize("which", ["scalar", "vector", "binv", "invdiag"])
+def test_fold_mask_matches_jax_f64(which):
+    P = _problem(0, jnp.float64, torch.float64)
+    j, t = P["jax"], P["torch"]
+    offs = t["ops"].offsets
+    if which == "scalar":
+        want = jpc.fold_mask_scalar(offs, j["Wrd"], j["mask_c"])
+        got = fc.fold_mask_scalar(offs, t["Wrd"], t["mask_c"])
+    elif which == "vector":
+        want = jpc.fold_mask_vector(offs, j["Wel"], j["mask_u"])
+        got = fc.fold_mask_vector(offs, t["Wel"], t["mask_u"])
+    elif which == "binv":
+        want = jpc.fold_mask_binv(j["Binv"], j["mask_u"])
+        got = fc.fold_mask_binv(t["Binv"], t["mask_u"])
+    else:
+        o0 = offs.index(0)
+        want = jpc.fold_mask_invdiag(j["Wrd"][o0], j["mask_c"])
+        got = fc.fold_mask_invdiag(t["Wrd"][o0], t["mask_c"])
+    assert tuple(got.shape) == tuple(want.shape)
+    assert _rel(got, want) <= 1e-12
+
+
+def _torch_solve(t, kind, rtol, maxiter):
+    offs = t["ops"].offsets
+    if kind == "scalar":
+        Wm = fc.fold_mask_scalar(offs, t["Wrd"], t["mask_c"])
+        invd = fc.fold_mask_invdiag(t["Wrd"][offs.index(0)], t["mask_c"])
+        return fc.cg_scalar(offs, Wm, invd, t["b_c"], rtol, 0.0, maxiter)
+    Wm = fc.fold_mask_vector(offs, t["Wel"], t["mask_u"])
+    Bm = fc.fold_mask_binv(t["Binv"], t["mask_u"])
+    return fc.cg_vector(offs, Wm, Bm, t["b_u"], rtol, 0.0, maxiter)
+
+
+@pytest.mark.parametrize("kind", ["scalar", "vector"])
+def test_plain_fused_solve_matches_pallas_interpret_f32(kind, monkeypatch):
+    monkeypatch.setenv("GLIMS_PALLAS_INTERPRET", "1")
+    P = _problem(1, jnp.float32, torch.float32)
+    j, t = P["jax"], P["torch"]
+    offs = j["ops"].offsets
+    n = j["b_c"].shape[0]
+    if kind == "scalar":
+        Wt = jpc.tile_scalar_planes(
+            jpc.fold_mask_scalar(offs, j["Wrd"], j["mask_c"]), n)
+        invdt = jpc.tile_field(
+            jpc.fold_mask_invdiag(j["Wrd"][offs.index(0)], j["mask_c"]), n)
+        x_j, info_j = jpc.cg_scalar(offs, Wt, invdt, j["b_c"], 1e-6, 0.0, 400, n)
+    else:
+        Wt = jpc.tile_vector_planes(
+            jpc.fold_mask_vector(offs, j["Wel"], j["mask_u"]), n)
+        Bt = jpc.tile_binv(jpc.fold_mask_binv(j["Binv"], j["mask_u"]), n)
+        x_j, info_j = jpc.cg_vector(offs, Wt, Bt, j["b_u"], 1e-6, 0.0, 400, n)
+    x_t, info_t = _torch_solve(t, kind, 1e-6, 400)
+    assert x_t.dtype == torch.float32
+    assert abs(int(info_t["iters"]) - int(info_j["iters"])) <= 2
+    assert _rel(x_t, x_j) <= 1e-4
+
+
+@pytest.mark.parametrize("kind", ["scalar", "vector"])
+def test_plain_fused_solve_matches_jax_pcg_f64(kind):
+    P = _problem(2, jnp.float64, torch.float64)
+    j, t = P["jax"], P["torch"]
+    ops = j["ops"]
+    if kind == "scalar":
+        m = j["mask_c"]
+        diag = jnp.where(m, 1.0, j["Wrd"][ops.offsets.index(0)])
+        A = lambda v: jnp.where(  # noqa: E731
+            m, v, ops.apply_scalar(j["Wrd"], jnp.where(m, 0.0, v)))
+        x_j, info_j = jax_pcg(A, j["b_c"], M=lambda r: r / diag,
+                              rtol=1e-10, atol=0.0, maxiter=500)
+    else:
+        m = j["mask_u"]
+        A = lambda v: jnp.where(  # noqa: E731
+            m, v, ops.apply_vector(j["Wel"], jnp.where(m, 0.0, v)))
+        M = lambda r: jnp.where(  # noqa: E731
+            m, r, ops.apply_block_jacobi(j["Binv"], jnp.where(m, 0.0, r)))
+        x_j, info_j = jax_pcg(A, j["b_u"], M=M, rtol=1e-10, atol=0.0,
+                              maxiter=500)
+    x_t, info_t = _torch_solve(t, kind, 1e-10, 500)
+    assert int(info_t["iters"]) == int(info_j["iters"])
+    assert _rel(x_t, x_j) <= 1e-10
