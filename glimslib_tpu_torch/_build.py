@@ -1,13 +1,14 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled by ``nvcc`` into a shared library with a plain C
-interface, at first use, into ``build/kernels/`` beside the package.  The
-library's name carries a hash of the sources and flags, so an edited
-source builds anew and a built one is reused.  It is loaded with
+Each source is compiled by ``nvcc`` into a shared library of its own with
+a plain C interface, at first use, into ``build/kernels/`` beside the
+package; the ``nvcc`` processes of all sources start together.  A
+library's name carries a hash of its source and the flags, so an edited
+source builds anew and a built one is reused.  Libraries are loaded with
 ``ctypes``; pointers and the stream pass as ``c_void_p``.
 
-Nothing here runs at import: ``load()`` is called by the kernel wrappers
-when they are first given a CUDA tensor.  A failed build raises.
+Nothing here runs at import: ``load(name)`` is called by the kernel
+wrappers when they are first given a CUDA tensor.  A failed build raises.
 """
 
 from __future__ import annotations
@@ -21,7 +22,10 @@ import tempfile
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
-SOURCES = (_PKG / "csrc" / "stencil.cu",)
+SOURCES = {
+    "stencil": _PKG / "csrc" / "stencil.cu",
+    "bell": _PKG / "csrc" / "bell.cu",
+}
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -29,9 +33,26 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-# what the last build printed (the ptxas register/shared-memory report);
-# None when the library was already built
-build_log = None
+# what the last build of each source printed (the ptxas register and
+# shared-memory report), by source name; empty when every library was
+# already built
+build_log: dict = {}
+
+
+def _signatures():
+    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    return {
+        "stencil": {
+            "glims_stencil_apply": [i32, i32, vp, vp, vp, i32, vp, i32, vp],
+            "glims_stencil_pcg": [
+                i32, vp, vp, vp, vp, vp, vp, vp, i32, vp, i32, f32, f32, i32,
+                vp,
+            ],
+        },
+        "bell": {
+            "glims_bell_bmv": [vp, vp, vp, i32, i32, i32, vp],
+        },
+    }
 
 
 def _nvcc() -> str:
@@ -45,46 +66,52 @@ def _nvcc() -> str:
     return nvcc
 
 
-def library_path() -> Path:
+def library_path(name: str) -> Path:
     h = hashlib.sha256()
-    for src in SOURCES:
-        h.update(src.read_bytes())
+    h.update(SOURCES[name].read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libglims_kernels_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libglims_{name}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the sources unless the library for their hash exists."""
-    global build_log
-    so = library_path()
-    if so.exists():
-        return so
+def build_all() -> None:
+    """Compile every source whose library is missing, one ``nvcc`` each,
+    all started together; raise if any of them fails."""
+    todo = [name for name in SOURCES if not library_path(name).exists()]
+    if not todo:
+        return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n{build_log}"
-        )
-    os.replace(tmp, so)
-    return so
+    nvcc = _nvcc()
+    jobs = []
+    for name in todo:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(SOURCES[name])]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, tmp, cmd, proc))
+    failed = []
+    for name, tmp, cmd, proc in jobs:
+        out, _ = proc.communicate()
+        build_log[name] = out
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed (exit {proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}")
+        else:
+            os.replace(tmp, library_path(name))
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 @functools.lru_cache(maxsize=None)
-def load() -> ctypes.CDLL:
-    """Build if needed, load, and declare the C functions' signatures."""
-    lib = ctypes.CDLL(str(build()))
-    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.glims_stencil_apply.argtypes = [i32, i32, vp, vp, vp, i32, vp, i32, vp]
-    lib.glims_stencil_apply.restype = i32
-    lib.glims_stencil_pcg.argtypes = [
-        i32, vp, vp, vp, vp, vp, vp, vp, i32, vp, i32, f32, f32, i32, vp,
-    ]
-    lib.glims_stencil_pcg.restype = i32
+def load(name: str) -> ctypes.CDLL:
+    """Build every missing library, load ``name``'s, and declare its C
+    functions' signatures."""
+    build_all()
+    lib = ctypes.CDLL(str(library_path(name)))
+    for fn, argtypes in _signatures()[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
     return lib
 
 

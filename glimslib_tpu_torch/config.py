@@ -6,9 +6,10 @@ Counterpart of ``glimslib_tpu/config.py``.  What differs:
   convolutions run in full float32, never TF32.  TF32 keeps about three
   decimal digits, the Hopper counterpart of the TPU's silent bf16 element
   contractions, and would stall Newton and CG short of their tolerances.
-- There is no global device and no global default dtype.  Classes take an
-  explicit ``device`` and ``dtype``; :func:`resolve_device` refuses a CUDA
-  device when CUDA is absent instead of running on the CPU.
+- There is no global device and no global default dtype.  Models run on
+  the card (``cuda``) unless the caller asks for the CPU;
+  :func:`resolve_device` raises when CUDA is absent instead of moving the
+  work to the CPU.
 - Mixed-precision refinement (``refine_f64``) is not ported yet, so
   :func:`resolve_refine_f64` resolves "auto" to False for every dtype.
 """
@@ -64,11 +65,12 @@ def resolve_refine_f64(dtype=None):
 
 
 def resolve_device(device=None) -> torch.device:
-    """The explicit device a model runs on (default: the CPU).
+    """The device a model runs on (default: ``cuda``; pass ``"cpu"`` for
+    the CPU).
 
     A CUDA device without CUDA raises: the port never moves work to the
     CPU behind the caller's back."""
-    dev = torch.device("cpu" if device is None else device)
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {str(dev)!r} requested but torch.cuda.is_available() "

@@ -4,20 +4,29 @@
 ``brain_sim(n=32)`` is the main path's configuration: an n^3-voxel Kuhn
 lattice of [0, 10]^3 (35,937 nodes and 196,608 tets at n=32) with
 concentric-ellipsoid tissue labels, a clamped boundary and a Gaussian seed
-off-centre in white matter; sim_time 5, dt 1.
+off-centre in white matter; sim_time 5, dt 1.  ``unstructured=True``
+strips the lattice structure and reorders the nodes along a Morton curve
+(``bench.py run_unstructured``): the same tets through the unstructured
+lane, which the benchmark times with :data:`UNSTRUCT_STEP_CONFIG`.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from glimslib_tpu_torch.core.mesh import box_mesh
+from glimslib_tpu_torch.core.mesh import Mesh, box_mesh
 from glimslib_tpu_torch.models.tumor_growth_brain import TumorGrowthBrain
 from glimslib_tpu_torch.solvers.coupled import StepConfig
 
 # the f32 operating point the benchmark times (bench.py build_problem)
 BENCH_STEP_CONFIG = StepConfig(
     newton_rtol=1e-4, newton_atol=1e-5, cg_rtol=1e-7, cg_maxiter=800
+)
+# the f32 operating point of the unstructured lane (bench.py
+# run_unstructured): inexact-Newton forcing on the c-block, chord method on
+UNSTRUCT_STEP_CONFIG = StepConfig(
+    newton_rtol=1e-4, newton_atol=1e-5, cg_rtol=1e-7, cg_maxiter=800,
+    rd_cg_rtol=1e-3,
 )
 
 
@@ -26,10 +35,12 @@ class _Boundary:
         return on_boundary
 
 
-def brain_sim(n=10, dtype=None, device=None, plain=False):
+def brain_sim(n=10, dtype=None, device=None, plain=False, unstructured=False):
     """TumorGrowthBrain on the synthetic brain box, set up as the reference
-    benchmark sets it up."""
+    benchmark sets it up; on the card unless ``device`` says otherwise."""
     mesh = box_mesh((0, 0, 0), (10, 10, 10), n, n, n)
+    if unstructured:
+        mesh = Mesh.from_arrays(mesh.points, mesh.cells).reordered_morton()
     r = np.linalg.norm((mesh.points - 5.0) / 5.0, axis=1)
     labels = np.zeros(mesh.n_nodes)
     labels[r < 0.95] = 1

@@ -1,24 +1,35 @@
-"""Time-dependent simulation, lattice lane (counterpart of
+"""Time-dependent simulation (counterpart of
 ``glimslib_tpu/models/base.py``).
 
 Same orchestration API as the reference:
 
-    sim = Model(mesh, dtype=torch.float32, device="cuda")
+    sim = Model(mesh, dtype=torch.float32)      # on the card by default
     sim.setup_global_parameters(label_function=..., domain_names=...,
                                 boundaries=..., dirichlet_bcs=...)
     sim.setup_model_parameters(iv_expression=..., ..., sim_time=...,
                                sim_time_step=...)
     u_traj, c_traj, ok, newton_iters = sim.run()
 
-The hot path: offset-stencil operators (``ops/stencil.py``) built once per
-simulate, the block-triangular Newton-CG step (``solvers/coupled.py``) with
-both linear solves in the whole-solve CUDA PCG kernel, and streaming
-residuals through the CUDA stencil kernel.  Solver non-convergence freezes
-the carried state and flags the remaining steps, as in the reference.
+Two operator lanes, chosen by the mesh:
 
-``plain=True`` routes every stencil apply and whole-solve PCG through the
-plain torch versions on any device: a reference run for checking the
-kernels on the card.  Outside the slice (unstructured meshes, P2
+- **Lattice meshes**: offset-stencil operators (``ops/stencil.py``) built
+  once per simulate, the block-triangular Newton-CG step
+  (``solvers/coupled.py``) with both linear solves in the whole-solve
+  CUDA PCG kernel, and streaming residuals through the CUDA stencil
+  kernel.
+- **Unstructured meshes** (P1): supernode halo-ELL operators
+  (``ops/bell.py``) assembled once per simulate, every matvec and
+  supernode block-Jacobi apply through the CUDA batched-matvec kernel;
+  ``pcg`` preconditioned by supernode block-Jacobi plus the two-level
+  coarse level (``solvers/twolevel.py``), the chord method, extrapolated
+  warm starts with anchored tolerances and the algebraic rd anchor.  The
+  frozen preconditioner state (supernode inverses, coarse factors) is
+  built once per model at the set-up parameters (:meth:`runtime_aux`).
+
+Solver non-convergence freezes the carried state and flags the remaining
+steps, as in the reference.  ``plain=True`` routes every kernel call
+through its plain torch version on any device: a reference run for
+checking the kernels on the card.  Outside the port so far (P2
 concentration, sharding, refinement, Chebyshev preconditioning, von
 Neumann BCs, time-dependent sources) the model raises
 ``NotImplementedError``.
@@ -27,6 +38,8 @@ Neumann BCs, time-dependent sources) the model raises
 from __future__ import annotations
 
 import logging
+import os
+import time
 import types
 from abc import ABC, abstractmethod
 from typing import Dict
@@ -39,29 +52,39 @@ from glimslib_tpu_torch.core.bcs import BoundaryConditions
 from glimslib_tpu_torch.core.functionspace import FunctionSpace
 from glimslib_tpu_torch.core.params import Parameters
 from glimslib_tpu_torch.core.subdomains import SubDomains
-from glimslib_tpu_torch.ops import fused_cg, stencil_kernels
+from glimslib_tpu_torch.ops import bell, bell_kernels, ell, fused_cg, stencil_kernels
 from glimslib_tpu_torch.ops.assembly import P1Kernels
 from glimslib_tpu_torch.ops.stencil import StencilOperators
+from glimslib_tpu_torch.solvers import twolevel
 from glimslib_tpu_torch.solvers.coupled import StepConfig, make_step
 
 logger = logging.getLogger(__name__)
 
 
 def _kernel_ops(plain: bool):
-    """The stencil applies and whole-solve PCGs the step calls: the kernel
-    wrappers, or (``plain``) their plain torch versions."""
-    sk, fc = stencil_kernels, fused_cg
+    """The kernel calls the step makes: the kernel wrappers, or
+    (``plain``) their plain torch versions."""
+    sk, fc, bk = stencil_kernels, fused_cg, bell_kernels
     if plain:
         return types.SimpleNamespace(
             apply_scalar=sk.apply_scalar_plain, apply_vector=sk.apply_vector_plain,
             apply_coupling=sk.apply_coupling_plain,
             cg_scalar=fc.cg_scalar_plain, cg_vector=fc.cg_vector_plain,
+            bmv=bk.batched_matvec_plain,
         )
     return types.SimpleNamespace(
         apply_scalar=sk.apply_scalar, apply_vector=sk.apply_vector,
         apply_coupling=sk.apply_coupling,
         cg_scalar=fc.cg_scalar, cg_vector=fc.cg_vector,
+        bmv=bk.batched_matvec,
     )
+
+
+def _coarse_k(dim_c):
+    """Spectral-truncation width of a coarse factor: the reference's
+    default, max(2048, 3/5 dim_c) columns, or None (the full factor)."""
+    k = max(2048, (3 * dim_c) // 5)
+    return k if k < dim_c else None
 
 
 class Simulation(ABC):
@@ -73,15 +96,11 @@ class Simulation(ABC):
 
     def __init__(self, mesh, time_dependent=True, dtype=None, device=None,
                  plain=False):
-        if mesh.lattice_strides is None:
-            raise NotImplementedError(
-                "the port runs lattice meshes only; the unstructured lane "
-                "is not ported yet"
-            )
         if self.CONCENTRATION_DEGREE != 1:
             raise NotImplementedError("P2 concentration is not ported yet")
         self.logger = logging.getLogger(type(self).__name__)
         self.mesh = mesh
+        self.lattice = mesh.lattice_strides is not None
         self.time_dependent = time_dependent
         self.dtype = config.resolve_dtype(dtype)
         self.device = config.resolve_device(device)
@@ -90,18 +109,19 @@ class Simulation(ABC):
         self._define_model_params()
         self.kernels = P1Kernels(mesh, dtype=self.dtype, device=self.device)
         self._stencil_ops = None
+        self._bell_plan = None
+        self._agg_plan = None
+        self._aux_cache = None
         self._bc_cache = None
         # per-solve CG iteration counts (0-d tensors) of the last simulate
         self.solver_info = {"rd_cg_iters": [], "el_cg_iters": []}
         # solver tolerances scale with the working precision, as in the
-        # reference (f32 cannot reach the f64 defaults); the 'reference'
-        # profile's inexact-Newton forcing (rd_cg_rtol=1e-3) is dropped: the
-        # reference's fused lattice path ignores it too
+        # reference (f32 cannot reach the f64 defaults)
         profile = config.resolve_profile()
         if self.dtype == torch.float64:
             if profile == "reference":
                 self.step_config = StepConfig(
-                    newton_rtol=1e-8, cg_rtol=1e-5,
+                    newton_rtol=1e-8, cg_rtol=1e-5, rd_cg_rtol=1e-3,
                     precond_degree=config.precond_degree,
                 )
             else:
@@ -109,8 +129,8 @@ class Simulation(ABC):
         elif profile == "reference":
             self.step_config = StepConfig(
                 newton_rtol=1e-4, newton_atol=1e-5, cg_rtol=1e-5,
-                cg_maxiter=1000, precond_degree=config.precond_degree,
-                refine_f64=False,
+                cg_maxiter=1000, rd_cg_rtol=1e-3,
+                precond_degree=config.precond_degree, refine_f64=False,
             )
         else:
             self.step_config = StepConfig(
@@ -173,6 +193,7 @@ class Simulation(ABC):
         self.bcs.setup_dirichlet_boundary_conditions(dirichlet_bcs)
         self.bcs.setup_von_neumann_boundary_conditions(von_neumann_bcs)
         self._bc_cache = None
+        self._aux_cache = None
 
     def setup_model_parameters(self, iv_expression, **kwargs):
         self._define_model_params()
@@ -183,8 +204,9 @@ class Simulation(ABC):
         self.params.define_required_params(self.required_params)
         self.params.define_optional_params(self.optional_params)
         self.params.init_parameters(kwargs)
+        self._aux_cache = None
 
-    # -- masks, operators, step ------------------------------------------------
+    # -- masks ------------------------------------------------------------------
 
     def _tensor(self, x, dtype=None):
         return torch.as_tensor(x, dtype=dtype or self.dtype, device=self.device)
@@ -223,6 +245,8 @@ class Simulation(ABC):
             )
         return self._bc_cache
 
+    # -- lattice lane: offset stencils and whole-solve PCG ------------------------
+
     def _stencil_operators(self):
         """Offset-stencil operators and the two whole-solve PCG callables
         (reference base.py:1023-1192, lattice branch; the TPU's VMEM
@@ -251,9 +275,8 @@ class Simulation(ABC):
 
         return rd_cg, el_cg
 
-    def _augment_theta_with_operators(self, theta):
-        """Theta-only stencil planes and mask-folded solver state, built
-        once per simulate and never in the time loop (reference
+    def _augment_lattice(self, theta):
+        """Theta-only stencil planes and mask-folded solver state (reference
         base.py:1440-1503, lattice branch).  Keys: ``_Wel``/``_Binv``
         elasticity planes and block inverse, ``_WelM``/``_BinvM``/``_invdM``
         their mask-folded forms for the PCG kernels, ``_Wrd_const``/``_Mst``
@@ -263,7 +286,6 @@ class Simulation(ABC):
         mask_u, mask_c, _, _ = self._bc_masks_and_values()
         n = self.mesh.n_nodes
         Wel = ops.build_elasticity(theta["mu"], theta["lam"])
-        theta = dict(theta)
         theta["_Wel"] = Wel
         theta["_Binv"] = ops.block_jacobi_inverse(Wel)
         theta["_WelM"] = fused_cg.fold_mask_vector(ops.offsets, Wel, mask_u)
@@ -282,46 +304,275 @@ class Simulation(ABC):
         theta["_Cuc"] = ops.build_coupling_uc(
             theta["mu"], theta["lam"], theta["coupling"]
         )
-        lumped = self.kernels.lumped_mass()
-        theta["_el_load"] = lumped[:, None] * theta["body_force"].expand(
-            self.mesh.dim
-        )[None, :]
+        theta["_el_load"] = self._body_load(theta)
         return theta
+
+    def _body_load(self, theta):
+        """Constant body load ∫ b·v = lumped mass ⊗ body force, (n, d)."""
+        lumped = self.kernels.lumped_mass()
+        return lumped[:, None] * theta["body_force"].expand(self.mesh.dim)[None, :]
+
+    # -- unstructured lane: supernode halo-ELL and two-level PCG ------------------
+
+    def _get_bell_plan(self):
+        if self._bell_plan is None:
+            self._bell_plan = bell.BellPlan(self.mesh, s=32, device=self.device)
+        return self._bell_plan
+
+    def _mesh_arrays(self):
+        return self.kernels.grads_T, self.kernels.vol
+
+    def _twolevel_aggplan(self):
+        """The coarse aggregation plan (64-node aggregates), or None on
+        meshes below ``GLIMS_TWOLEVEL_MIN_NODES`` nodes (default 4000), as
+        in the reference (base.py:704-733)."""
+        if self.mesh.n_nodes < int(os.environ.get("GLIMS_TWOLEVEL_MIN_NODES",
+                                                  "4000")):
+            return None
+        if self._agg_plan is None:
+            self._agg_plan = twolevel.AggPlan(self.mesh, agg_size=64)
+        return self._agg_plan
+
+    def runtime_aux(self):
+        """Frozen preconditioner state of the unstructured lane, built once
+        per model from the set-up parameters and cached (reference
+        base.py:755-846, 902-970): the supernode block-Jacobi inverses
+        ``_BinvSN`` (nb, s d, s d) and ``_McSN`` (nb, s, s), and, when the
+        two-level level is on, the coarse Gram factors ``_TLCfac`` /
+        ``_TLCfacS`` and masked mode matrices ``_TLMt`` (n_pad, d, q) /
+        ``_TLMtS`` (n_pad, qs).  A preconditioner shapes iteration counts
+        only, so freezing it across parameter updates never changes a
+        solution.  ``setup_seconds`` records what the build took.  {} on
+        lattice meshes."""
+        if self.lattice:
+            return {}
+        if self._aux_cache is not None:
+            return self._aux_cache
+        theta0 = self.make_theta(self.params.as_dict())
+        mask_u, mask_c, _, _ = self._bc_masks_and_values()
+        bplan = self._get_bell_plan()
+        arrays = self._mesh_arrays()
+        m0 = self.kernels._m0
+        times = {}
+        t0 = time.perf_counter()
+        Wel = bell.build_bell_elasticity(bplan, arrays, theta0["mu"], theta0["lam"])
+        Wrd = bell.build_bell_rd_const(bplan, arrays, theta0["D"], theta0["rho"],
+                                       theta0["dt"], m0)
+        aux = {
+            "_BinvSN": bell.supernode_jacobi_inverse(
+                bplan, bell.extract_self_blocks_vector(bplan, Wel), mask=mask_u),
+            "_McSN": bell.supernode_jacobi_inverse(
+                bplan, bell.extract_self_blocks_scalar(bplan, Wrd), mask=mask_c),
+        }
+        del Wel, Wrd
+        times["supernode_jacobi"] = time.perf_counter() - t0
+        agg = self._twolevel_aggplan()
+        if agg is not None:
+            t0 = time.perf_counter()
+            eplan = ell.EllPlan(self.mesh, device=self.device)
+            B = ell.build_ell_elasticity(eplan, arrays, theta0["mu"], theta0["lam"])
+            Ac = twolevel.build_coarse(agg, eplan.adj_idx, B, mask_u)
+            W = ell.build_ell_rd_const(eplan, arrays, theta0["D"], theta0["rho"],
+                                       theta0["dt"], m0)
+            Acs = twolevel.build_coarse_scalar(agg, eplan.adj_idx, W, mask_c)
+            del B, W
+            times["coarse_build"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            aux["_TLCfac"] = twolevel.coarse_inverse(Ac, k=_coarse_k(Ac.shape[0]))
+            aux["_TLCfacS"] = twolevel.coarse_inverse(Acs, k=_coarse_k(Acs.shape[0]))
+            times["coarse_inverse"] = time.perf_counter() - t0
+            f_u = 1.0 - mask_u.cpu().numpy().astype(np.float64)
+            f_c = 1.0 - mask_c.cpu().numpy().astype(np.float64)
+            aux["_TLMt"] = self._tensor(agg.mode_matrix(f_u))
+            aux["_TLMtS"] = self._tensor(agg.mode_matrix_scalar(f_c))
+        self.setup_seconds = times
+        self.logger.info("runtime aux built: %s", {k: f"{v:.2f} s"
+                                                   for k, v in times.items()})
+        self._aux_cache = aux
+        return aux
+
+    def _augment_bell(self, theta):
+        """Theta-only supernode halo-ELL planes through one fused assembly
+        (reference base.py:1223-1362, bell branch, canonical layout):
+        ``_BellWel`` (nb, s, d, Kh, d), ``_BellCuc`` (nb, s, d, Kh),
+        ``_BellWrdC`` and ``_BellMrd`` (nb, s, Kh), the constant loads
+        ``_Bell_el_load`` and ``_Bell_rd_load``, and the supernode inverses
+        ``_BinvSN``/``_McSN`` when the aux did not carry them."""
+        bplan = self._get_bell_plan()
+        arrays = self._mesh_arrays()
+        m0 = self.kernels._m0
+        mask_u, mask_c, _, _ = self._bc_masks_and_values()
+        Wel, Wc, Wrd, Mrd = bell.assemble_fused(bplan, [
+            bell.elasticity_entries(arrays, theta["mu"], theta["lam"]),
+            bell.coupling_uc_entries(arrays, theta["mu"], theta["lam"],
+                                     theta["coupling"]),
+            bell.rd_const_entries(arrays, theta["D"], theta["rho"], theta["dt"],
+                                  m0),
+            bell.mass_entries(arrays, m0),
+        ])
+        theta["_BellWel"] = Wel.permute(0, 1, 3, 2, 4).contiguous()
+        theta["_BellCuc"] = Wc.permute(0, 1, 3, 2).contiguous()
+        theta["_BellWrdC"] = Wrd
+        theta["_BellMrd"] = Mrd
+        theta["_Bell_el_load"] = self._body_load(theta)
+        zeros = torch.zeros(self.mesh.n_nodes, dtype=self.dtype, device=self.device)
+        theta["_Bell_rd_load"] = -self.kernels.rd_residual(
+            zeros, zeros, theta["D"], theta["rho"], theta["dt"],
+            source=theta["source"],
+        )  # r(0) = -dt s v
+        if "_BinvSN" not in theta:
+            theta["_BinvSN"] = bell.supernode_jacobi_inverse(
+                bplan, bell.extract_self_blocks_vector(bplan, theta["_BellWel"]),
+                mask=mask_u)
+        if "_McSN" not in theta:
+            theta["_McSN"] = bell.supernode_jacobi_inverse(
+                bplan, bell.extract_self_blocks_scalar(bplan, Wrd), mask=mask_c)
+        return theta
+
+    def _bell_builders(self):
+        """Operator and preconditioner builders of the pcg branch
+        (reference base.py:522-616 bell branch, :1580-1692)."""
+        bplan = self._get_bell_plan()
+        arrays = self._mesh_arrays()
+        kern = self.kernels
+        bmv = self._k.bmv
+        agg = self._twolevel_aggplan()
+
+        def el_operator(theta):
+            W = theta["_BellWel"]
+            return lambda u: bell.apply_bell_vector(bplan, W, u, bmv)
+
+        def rd_jacobian(theta, c):
+            W = theta["_BellWrdC"] + bell.build_bell_rd_wc(
+                bplan, arrays, kern.cells_flat, c, theta["rho"], theta["dt"],
+                kern._t0, 1.0)
+            return lambda v: bell.apply_bell_scalar(bplan, W, v, bmv)
+
+        def rd_jacobian_chord(theta, c):
+            # constant planes + the lumped logistic diagonal: skips the
+            # per-step halo-ELL assembly of the exact correction
+            W = theta["_BellWrdC"]
+            dl = bell.build_bell_rd_wc_lumped(
+                bplan, arrays, kern.cells_flat, c, theta["rho"], theta["dt"],
+                kern._t0, 1.0)
+            return lambda v: bell.apply_bell_scalar(bplan, W, v, bmv) + dl * v
+
+        def el_precond(theta):
+            Binv = theta["_BinvSN"]
+            base = lambda r: bell.apply_supernode_jacobi(bplan, Binv, r, bmv)  # noqa: E731
+            if agg is None or "_TLCfac" not in theta:
+                return base
+            return twolevel.make_twolevel_precond(
+                agg, theta["_TLCfac"], theta["_TLMt"], base)
+
+        def rd_precond(theta):
+            Minv = theta["_McSN"]
+            base = lambda r: bell.apply_supernode_jacobi(bplan, Minv, r, bmv)  # noqa: E731
+            if agg is None or "_TLCfacS" not in theta:
+                return base
+            return twolevel.make_twolevel_precond_scalar(
+                agg, theta["_TLCfacS"], theta["_TLMtS"], base)
+
+        return dict(rd_jacobian=rd_jacobian, el_operator=el_operator,
+                    rd_precond=rd_precond, el_precond=el_precond,
+                    rd_jacobian_chord=rd_jacobian_chord)
+
+    def _streamed_mass_action(self, theta):
+        """v -> M v through the assembled mass plane (feeds the algebraic
+        rd anchor), or None on the lattice lane."""
+        if "_BellMrd" not in theta:
+            return None
+        bplan, Mrd, bmv = self._get_bell_plan(), theta["_BellMrd"], self._k.bmv
+        return lambda v: bell.apply_bell_scalar(bplan, Mrd, v, bmv)
+
+    # -- step and time loop ----------------------------------------------------
+
+    def _augment_theta_with_operators(self, theta):
+        """Theta-only operator planes, built once per simulate and never in
+        the time loop."""
+        theta = dict(theta)
+        if self.lattice:
+            return self._augment_lattice(theta)
+        return self._augment_bell(theta)
 
     def _build_step(self):
         mask_u, mask_c, gu, gc = self._bc_masks_and_values()
-        rd_cg, el_cg = self._stencil_operators()
-        return make_step(
+        common = dict(
             rd_residual=self.rd_residual, el_residual=self.el_residual,
             mask_c=mask_c, mask_u=mask_u, bc_values_c=gc, bc_values_u=gu,
-            config=self.step_config, rd_cg=rd_cg, el_cg=el_cg,
+            config=self.step_config,
         )
+        if self.lattice:
+            rd_cg, el_cg = self._stencil_operators()
+            return make_step(rd_cg=rd_cg, el_cg=el_cg, **common)
+
+        def record(kind, info):
+            self.solver_info[f"{kind}_cg_iters"].append(info["iters"])
+
+        return make_step(record=record, **self._bell_builders(), **common)
 
     def build_simulate_fn(self, n_steps: int, dt: float):
-        """``simulate(theta, u0, c0) -> (u_traj, c_traj, ok, newton_iters)``
-        with arrays (n_steps, ...) on the model's device (``newton_iters``
-        on the host).  Once a step fails to converge, the state freezes and
-        every later step is flagged (reference base.py:1843-1845)."""
-        step = self._build_step()
+        """``simulate(theta, u0, c0, aux=None) -> (u_traj, c_traj, ok,
+        newton_iters)`` with arrays (n_steps, ...) on the model's device
+        (``newton_iters`` on the host).  ``aux`` (default
+        :meth:`runtime_aux`) is merged into theta before the operators are
+        built; keys it lacks are built per simulate.  Once a step fails to
+        converge, the state freezes and every later step is flagged
+        (reference base.py:1843-1845).
 
-        def simulate(theta, u0, c0):
+        On the unstructured lane each step starts from the linear
+        extrapolation 2 x_k - x_{k-1} of the last two states, and, without
+        concentration Dirichlet conditions, carries the Newton anchor
+        ||r_c(c_prev)|| algebraically as ||M (c_k - c_{k-1})|| (reference
+        base.py:1746-1886)."""
+        step = self._build_step()
+        warm = not self.lattice
+        # the algebraic anchor is exact only when the concentration clamp
+        # values are step-invariant: no concentration Dirichlet conditions
+        no_c_dirichlet = not any(
+            bc.subspace_id == self.SUBSPACE_CONCENTRATION
+            for bc in self.bcs.dirichlet_bcs
+        )
+        _, mask_c, _, gc = self._bc_masks_and_values()
+
+        def simulate(theta, u0, c0, aux=None):
             self.solver_info = {"rd_cg_iters": [], "el_cg_iters": []}
+            theta = {**theta, **(self.runtime_aux() if aux is None else aux)}
             theta = self._augment_theta_with_operators(theta)
+            mass_fn = (self._streamed_mass_action(theta)
+                       if warm and no_c_dirichlet else None)
+            anchor = None
+            if mass_fn is not None:
+                c0a = torch.where(mask_c, gc(dt), c0)
+                r0a = torch.where(mask_c, 0.0, self.rd_residual(c0a, c0a, theta, dt))
+                anchor = torch.linalg.vector_norm(r0a)
             u_traj = torch.empty((n_steps,) + tuple(u0.shape), dtype=u0.dtype,
                                  device=u0.device)
             c_traj = torch.empty((n_steps,) + tuple(c0.shape), dtype=c0.dtype,
                                  device=c0.device)
             ok_traj = torch.empty(n_steps, dtype=torch.bool, device=c0.device)
             newton = []
-            u_prev, c_prev = u0, c0
+            u_prev, c_prev, u_pp, c_pp = u0, c0, u0, c0
             ok = torch.ones((), dtype=torch.bool, device=c0.device)
             for i in range(n_steps):
-                u, c, conv, n_newton = step(theta, u_prev, c_prev, (i + 1.0) * dt)
+                t = (i + 1.0) * dt
+                if warm:
+                    guess = (2.0 * u_prev - u_pp, 2.0 * c_prev - c_pp)
+                    u, c, conv, n_newton = step(theta, u_prev, c_prev, t,
+                                                guess, anchor)
+                else:
+                    u, c, conv, n_newton = step(theta, u_prev, c_prev, t)
                 ok = ok & conv
-                u_prev = torch.where(ok, u, u_prev)
-                c_prev = torch.where(ok, c, c_prev)
-                u_traj[i] = u_prev
-                c_traj[i] = c_prev
+                u_out = torch.where(ok, u, u_prev)
+                c_out = torch.where(ok, c, c_prev)
+                if anchor is not None:
+                    # next step's ||r_c(c_out)|| = ||r_final - M dc||, with
+                    # ||r_final|| <= ftol; a frozen step keeps its anchor
+                    mdc = torch.where(mask_c, 0.0, mass_fn(c_out - c_prev))
+                    anchor = torch.where(ok, torch.linalg.vector_norm(mdc), anchor)
+                u_pp, c_pp, u_prev, c_prev = u_prev, c_prev, u_out, c_out
+                u_traj[i] = u_out
+                c_traj[i] = c_out
                 ok_traj[i] = ok
                 newton.append(n_newton)
             return u_traj, c_traj, ok_traj, torch.tensor(newton, dtype=torch.int32)

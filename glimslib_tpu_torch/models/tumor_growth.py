@@ -1,5 +1,5 @@
 """Mechanically-coupled reaction-diffusion tumor-growth model (counterpart
-of ``glimslib_tpu/models/tumor_growth.py``), lattice lane.
+of ``glimslib_tpu/models/tumor_growth.py``).
 
 Weak forms (reference simulation_tumor_growth.py:110-122):
 
@@ -8,8 +8,9 @@ Weak forms (reference simulation_tumor_growth.py:110-122):
   F_rd = c v dx + dt D grad(c).grad(v) dx - c_prev v dx
          - dt rho c (1-c) v dx - dt source v dx
 
-Both residuals are evaluated in their fully-streaming stencil form, every
-plane apply going through the CUDA stencil kernel on the card.
+Both residuals are evaluated in their fully-streaming form: stencil
+planes through the CUDA stencil kernel on a lattice, assembled halo-ELL
+planes through the CUDA batched-matvec kernel on an unstructured mesh.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import torch
 
 from glimslib_tpu_torch.core.params import TissueCoefficient
 from glimslib_tpu_torch.models.base import Simulation
-from glimslib_tpu_torch.ops import forms
+from glimslib_tpu_torch.ops import bell, forms
 
 
 class TumorGrowth(Simulation):
@@ -74,8 +75,18 @@ class TumorGrowth(Simulation):
     # -- residuals (streaming stencil form) ----------------------------------
 
     def rd_residual(self, c, c_prev, theta, t):
-        """R = W_const c + wc(c) c / 2 - M c_prev - load."""
-        ops, k = self._stencil_ops, self._k
+        """Lattice: R = W_const c + wc(c) c / 2 - M c_prev - load.
+        Unstructured: R = W_const c + dt rho / c_max ∫c²φ - M c_prev - load,
+        two halo-ELL matvecs and the per-cell quadratic pull."""
+        k = self._k
+        if "_Bell_rd_load" in theta:
+            bplan = self._get_bell_plan()
+            lin = (bell.apply_bell_scalar(bplan, theta["_BellWrdC"], c, k.bmv)
+                   - bell.apply_bell_scalar(bplan, theta["_BellMrd"], c_prev, k.bmv))
+            quad = self.kernels.rd_quad_residual(c, theta["rho"], theta["dt"],
+                                                 conc_max=1.0)
+            return lin + quad - theta["_Bell_rd_load"]
+        ops = self._stencil_ops
         wc = ops.build_rd_wc(c, theta["rho"], theta["dt"], conc_max=1.0)
         return (
             k.apply_scalar(ops.offsets, theta["_Wrd_const"], c)
@@ -85,8 +96,17 @@ class TumorGrowth(Simulation):
         )
 
     def el_residual(self, u, c, theta, t):
-        """R = W_el u + C_uc c - load."""
-        ops, k = self._stencil_ops, self._k
+        """R = W_el u + C_uc c - load (stencil planes on a lattice,
+        halo-ELL matvecs on an unstructured mesh)."""
+        k = self._k
+        if "_Bell_el_load" in theta:
+            bplan = self._get_bell_plan()
+            return (
+                bell.apply_bell_vector(bplan, theta["_BellWel"], u, k.bmv)
+                + bell.apply_bell_coupling(bplan, theta["_BellCuc"], c, k.bmv)
+                - theta["_Bell_el_load"]
+            )
+        ops = self._stencil_ops
         return (
             k.apply_vector(ops.offsets, theta["_Wel"], u)
             + k.apply_coupling(ops.offsets, theta["_Cuc"], c)

@@ -1,23 +1,70 @@
 """Matrix-free P1 element assembly in torch (counterpart of the
-``P1Kernels`` members of ``glimslib_tpu/ops/assembly.py`` that the lattice
-step reads).
+``P1Kernels`` members of ``glimslib_tpu/ops/assembly.py`` that the forward
+step reads, and of its ``ScatterPlan`` pull-gather).
 
 Per-cell tensors keep the reference's cell-axis-last layout: cells
 (npe, nc), gradients (npe, d, nc), element contributions (npe, nc).  Node
-accumulation is ``index_add_`` over the npe-major entry order.  On the
-TPU this was a pull-gather because TPU scatters are slow; here the
-scatter is the plain formulation, and it runs once per simulate (or once
-at set-up), never inside the solver loops.
+accumulation of residuals is ``index_add_`` over the npe-major entry
+order; it runs once per simulate or once per Newton iteration, never
+inside the CG loops.  Operator assembly (``ops/bell.py``, ``ops/ell.py``)
+and the per-Newton quadratic residual pull through a static
+:class:`ScatterPlan` as the reference does: one ``index_select`` of
+padded entries and a sum over the slots, with no TPU gather tricks
+(width-2 duplicated rows, row chunking).
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from glimslib_tpu_torch.core.elements import p1_mass_matrix
+
+
+class ScatterPlan(NamedTuple):
+    """Static pull-gather plan for entry -> segment accumulation.
+
+    pull_table (n_segments, K) entry index per incident slot, where
+                               n_entries is the zero-pad slot
+    n_entries  int             number of real entries
+    n_segments int             number of segments (nodes, pairs, slots)
+    """
+
+    pull_table: np.ndarray
+    n_entries: int
+    n_segments: int
+
+
+def make_scatter_plan(index_map: np.ndarray, n_segments: int) -> ScatterPlan:
+    """Numpy copy of ``glimslib_tpu/ops/assembly.py make_scatter_plan``."""
+    flat = np.asarray(index_map, dtype=np.int64).ravel()
+    n_entries = len(flat)
+    order = np.argsort(flat, kind="stable")
+    sorted_ids = flat[order]
+    starts = np.searchsorted(sorted_ids, np.arange(n_segments))
+    ends = np.searchsorted(sorted_ids, np.arange(n_segments) + 1)
+    counts = ends - starts
+    K = int(counts.max()) if n_segments else 0
+    # padded slots point at the sentinel entry (index n_entries -> zero row)
+    table = np.full((n_segments, max(K, 1)), n_entries, dtype=np.int32)
+    within = np.arange(n_entries) - starts[sorted_ids]
+    table[sorted_ids, within] = order
+    return ScatterPlan(
+        pull_table=table, n_entries=n_entries, n_segments=int(n_segments)
+    )
+
+
+def pull_accumulate(pull_table, n_segments: int, contrib):
+    """Accumulate entries into segments: pad ``contrib`` (n_entries, ...)
+    with one zero row (the sentinel target), gather the (n_segments, K)
+    int64 ``pull_table``'s entries and sum over K."""
+    pad = contrib.new_zeros((1,) + tuple(contrib.shape[1:]))
+    padded = torch.cat([contrib, pad])
+    pulled = padded.index_select(0, pull_table.reshape(-1))
+    return pulled.reshape((n_segments, -1) + tuple(contrib.shape[1:])).sum(dim=1)
 
 
 class P1Kernels:
@@ -95,6 +142,36 @@ class P1Kernels:
             - (dt * source / (self.dim + 1))
         )
         return self._scatter_scalar(contrib)
+
+    @property
+    def _quad_pull_cells(self):
+        """(n, K) int64 CELL index per incident slot of the node pull plan
+        (sentinel nc): entries are npe-major, so cell = entry % nc."""
+        if not hasattr(self, "_quad_pull_cells_cache"):
+            cells_T = self.cells_T.cpu().numpy()
+            plan = make_scatter_plan(cells_T, self.n_nodes)
+            pt = plan.pull_table.astype(np.int64)
+            nc = self.n_cells
+            self._quad_pull_cells_cache = torch.as_tensor(
+                np.where(pt == plan.n_entries, nc, pt % nc), device=self.device
+            )
+        return self._quad_pull_cells_cache
+
+    def rd_quad_residual(self, c, rho, dt, conc_max=1.0):
+        """Only the quadratic logistic term of :meth:`rd_residual`,
+        q_i = dt rho / c_max ∫ c² φ_i dx: per-cell scalars
+        [rho vol (S²+Q), rho vol S, rho vol] pulled to the nodes, then
+        q_i = (dt t0 / c_max)(A_i + 2 c_i (B_i + c_i C_i))."""
+        rho = self._cellco(rho)
+        ce = self._gather_T(c)
+        S = ce.sum(dim=0)
+        Q = (ce * ce).sum(dim=0)
+        rv = (rho * self.vol).expand(self.n_cells)
+        pack = torch.stack([rv * (S * S + Q), rv * S, rv], dim=-1)  # (nc, 3)
+        agg = pull_accumulate(self._quad_pull_cells, self.n_nodes, pack)
+        return (dt / conc_max) * self._t0 * (
+            agg[:, 0] + 2.0 * c * (agg[:, 1] + c * agg[:, 2])
+        )
 
     def rd_mass_stiffness_diag(self, D, rho, dt):
         """Diagonal of (M + dt D K), the Jacobi preconditioner of the

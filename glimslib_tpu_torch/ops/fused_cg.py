@@ -115,7 +115,7 @@ def _pcg_cuda(d, offsets, W4, Minv, b, rtol, atol, maxiter):
     nd = n * d
     scratch = torch.empty(4 * nd + 3 * (-(-nd // _PCG_BLOCK)),
                           dtype=torch.float32, device=dev)
-    lib = _build.load()
+    lib = _build.load("stencil")
     _build.check(lib.glims_stencil_pcg(
         d, W4.data_ptr(), Minv.data_ptr(), b.data_ptr(), x.data_ptr(),
         iters.data_ptr(), resnorm.data_ptr(), scratch.data_ptr(), n,

@@ -58,7 +58,7 @@ def stencil_apply_cuda(offsets, W, v):
     _check_cuda("W", W, (n_off, d_out, d_in, n), W.device)
     _check_cuda("v", v, (n, d_in), W.device)
     y = torch.empty((n, d_out), dtype=torch.float32, device=W.device)
-    lib = _build.load()
+    lib = _build.load("stencil")
     _build.check(lib.glims_stencil_apply(
         d_out, d_in, W.data_ptr(), v.data_ptr(), y.data_ptr(), n,
         _build.offsets_array(offsets), n_off,

@@ -1,7 +1,8 @@
 """Preconditioned conjugate gradients (counterpart of
 ``glimslib_tpu/solvers/cg.py:pcg``).
 
-The plain reference of the whole-solve CUDA kernels in
+The solver of the unstructured lane's pcg branch (``solvers/coupled.py``)
+and the plain reference of the whole-solve CUDA kernels in
 ``ops/fused_cg.py``: the same update order and the same stopping rule,
 ``rr <= max(rtol * |b|, atol)**2`` or ``maxiter``.  The loop reads ``rr``
 on the host once per iteration; the kernels do not.

@@ -6,16 +6,21 @@ file imports no JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Tolerances: stencil applies max rel 1e-5 (f32 summation order); whole
-solves |Δiters| <= 3 and max rel 1e-4 (reductions re-associate near the
-stopping tolerance).
+Tolerances: stencil applies and batched matvecs max rel 1e-5 (f32
+summation order); whole solves |Δiters| <= 3 and max rel 1e-4
+(reductions re-associate near the stopping tolerance); the unstructured
+slice against its plain path rel-L2 1e-4 (f32 operators, Newton and CG
+stopped at 1e-4 and 1e-7).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from glimslib_tpu_torch.examples import BENCH_STEP_CONFIG, brain_sim
+from glimslib_tpu_torch.examples import (
+    BENCH_STEP_CONFIG, UNSTRUCT_STEP_CONFIG, brain_sim,
+)
+from glimslib_tpu_torch.ops import bell_kernels as bk
 from glimslib_tpu_torch.ops import fused_cg as fc
 from glimslib_tpu_torch.ops import stencil_kernels as sk
 
@@ -99,3 +104,65 @@ def test_slice_runs_through_the_kernels(lattice):
     assert bool(ok.all())
     assert bool(torch.isfinite(c_tr).all()) and bool(torch.isfinite(u_tr).all())
     assert all(w.launches > 0 for w in wrappers)
+
+
+@pytest.fixture
+def unstructured(monkeypatch):
+    """The n=12 Morton brain box on the card, f32, with the two-level
+    level on (it is off below 4000 nodes by default)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    monkeypatch.setenv("GLIMS_TWOLEVEL_MIN_NODES", "100")
+    dev = torch.device("cuda", 0)
+    sim = brain_sim(n=12, dtype=torch.float32, device=dev, unstructured=True)
+    sim.step_config = UNSTRUCT_STEP_CONFIG
+    sim._build_step()
+    aux = sim.runtime_aux()
+    theta = sim._augment_theta_with_operators(
+        {**sim.make_theta(sim.params.as_dict()), **aux})
+    return sim, aux, theta
+
+
+@pytest.mark.parametrize("role", ["_BellWel", "_BellCuc", "_BinvSN",
+                                  "_BellWrdC", "_McSN"])
+def test_bell_bmv_kernel_matches_plain(unstructured, role):
+    sim, _, theta = unstructured
+    A = theta[role]
+    A = A.reshape(A.shape[0], A.shape[1] * (A.shape[2] if A.dim() > 3 else 1), -1)
+    x = torch.as_tensor(np.random.default_rng(5).standard_normal(
+        (A.shape[0], A.shape[2])), dtype=torch.float32, device=A.device)
+    before = bk.batched_matvec.launches
+    got = bk.batched_matvec(A, x)
+    torch.cuda.synchronize()
+    assert bk.batched_matvec.launches == before + 1
+    assert _rel_max(got, bk.batched_matvec_plain(A, x)) <= 1e-5
+
+
+def test_bell_bmv_rejects_what_the_kernel_does_not_take(unstructured):
+    _, _, theta = unstructured
+    A = theta["_BellWrdC"]
+    x = torch.zeros(A.shape[0], A.shape[2], device=A.device)
+    with pytest.raises(TypeError):
+        bk.batched_matvec(A.double(), x.double())
+    with pytest.raises(ValueError):
+        bk.batched_matvec(A, x[:, :-1])
+
+
+def test_unstructured_slice_runs_through_the_kernel(unstructured):
+    """5 steps through bell_bmv against the same model's plain path with
+    the same frozen preconditioners."""
+    sim, aux, _ = unstructured
+    theta = sim.make_theta(sim.params.as_dict())
+    u0, c0 = sim.initial_state()
+    bk.batched_matvec.launches = 0
+    u_k, c_k, ok_k, _ = sim.build_simulate_fn(5, 1.0)(theta, u0, c0)
+    torch.cuda.synchronize()
+    assert bool(ok_k.all()) and bk.batched_matvec.launches > 0
+    ref = brain_sim(n=12, dtype=torch.float32, device=u0.device,
+                    unstructured=True, plain=True)
+    ref.step_config = UNSTRUCT_STEP_CONFIG
+    launches = bk.batched_matvec.launches
+    u_p, c_p, ok_p, _ = ref.build_simulate_fn(5, 1.0)(theta, u0, c0, aux)
+    assert bool(ok_p.all()) and bk.batched_matvec.launches == launches
+    for got, want in ((u_k[-1], u_p[-1]), (c_k[-1], c_p[-1])):
+        assert float((got - want).norm() / want.norm()) <= 1e-4

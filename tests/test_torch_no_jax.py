@@ -1,4 +1,5 @@
-"""The port runs without JAX, and never moves a CUDA request to the CPU."""
+"""The port runs without JAX, runs on the card by default, and never
+moves a CUDA request to the CPU."""
 
 import os
 import subprocess
@@ -14,11 +15,14 @@ import sys
 import torch
 from glimslib_tpu_torch.examples import brain_sim
 
-sim = brain_sim(n=4, dtype=torch.float64)
-u0, c0 = sim.initial_state()
-theta = sim.make_theta(sim.params.as_dict())
-u, c, ok, newton = sim.build_simulate_fn(1, 1.0)(theta, u0, c0)
-assert bool(ok.all()) and bool(torch.isfinite(c).all())
+for unstructured in (False, True):
+    sim = brain_sim(n=4, dtype=torch.float64, device="cpu",
+                    unstructured=unstructured)
+    assert (sim.mesh.lattice_strides is None) == unstructured
+    u0, c0 = sim.initial_state()
+    theta = sim.make_theta(sim.params.as_dict())
+    u, c, ok, newton = sim.build_simulate_fn(1, 1.0)(theta, u0, c0)
+    assert bool(ok.all()) and bool(torch.isfinite(c).all())
 jax_mods = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
             or m.startswith("jaxlib") or m.startswith("glimslib_tpu.")
             or m == "glimslib_tpu"]
@@ -47,3 +51,25 @@ def test_cuda_request_without_cuda_raises(monkeypatch):
         config.resolve_device("cuda")
     with pytest.raises(RuntimeError, match="cuda"):
         brain_sim(n=2, device="cuda")
+
+
+def test_default_device_is_cuda(monkeypatch):
+    from glimslib_tpu_torch import config
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert config.resolve_device(None) == torch.device("cuda")
+    assert config.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_unstructured_model_without_device_needs_cuda(monkeypatch):
+    """TumorGrowthBrain on a non-lattice mesh, no device given: the card,
+    which raises without CUDA."""
+    from glimslib_tpu_torch.core.mesh import Mesh, box_mesh
+    from glimslib_tpu_torch.models.tumor_growth_brain import TumorGrowthBrain
+
+    m = box_mesh((0, 0, 0), (1, 1, 1), 2, 2, 2)
+    mesh = Mesh.from_arrays(m.points, m.cells).reordered_morton()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        TumorGrowthBrain(mesh)
+    assert TumorGrowthBrain(mesh, device="cpu").device == torch.device("cpu")

@@ -46,7 +46,7 @@ class Boundary:
 
 def test_theta_carried_across_equals_port_make_theta():
     sim_j = jax_brain_sim(n=4, dims=3, dtype=jnp.float64)
-    sim_t = brain_sim(n=4, dtype=torch.float64)
+    sim_t = brain_sim(n=4, dtype=torch.float64, device="cpu")
     theta_j = sim_j.make_theta(sim_j.params.as_dict())
     carried = convert.theta_from_numpy(
         {k: np.asarray(v) for k, v in theta_j.items()}, dtype=torch.float64
@@ -61,7 +61,7 @@ def test_theta_carried_across_equals_port_make_theta():
 def test_projected_initial_values_match_jax():
     """The L2-projected initial state of both packages (f64)."""
     sim_j = jax_brain_sim(n=4, dims=3, dtype=jnp.float64)
-    sim_t = brain_sim(n=4, dtype=torch.float64)
+    sim_t = brain_sim(n=4, dtype=torch.float64, device="cpu")
     iv_j = sim_j.params.create_initial_value_function()
     u0, c0 = sim_t.initial_state()
     assert _rel(c0, iv_j[1]) <= 1e-10
@@ -81,7 +81,7 @@ def test_forward_matches_jax_f64():
     u_j, c_j, ok_j, _ = jax.jit(sim_j.build_simulate_fn(n_steps, 1.0))(
         theta_j, u0_j, c0_j)
 
-    sim_t = brain_sim(n=6, dtype=torch.float64)
+    sim_t = brain_sim(n=6, dtype=torch.float64, device="cpu")
     sim_t.step_config = StepConfig(**TIGHT)
     theta_t = convert.theta_from_numpy(
         {k: np.asarray(v) for k, v in theta_j.items()}, dtype=torch.float64)
@@ -105,7 +105,7 @@ def test_forward_matches_reference_fem():
     labels[r < 0.8] = 2
     labels[r < 0.6] = 3
     labels[r < 0.2] = 4
-    sim = TumorGrowthBrain(mesh, dtype=torch.float64)
+    sim = TumorGrowthBrain(mesh, dtype=torch.float64, device="cpu")
     sim.setup_global_parameters(
         label_function=labels,
         domain_names={0: "outside", 1: "CSF", 2: "GM", 3: "WM", 4: "Ventricles"},
@@ -144,11 +144,12 @@ def test_forward_matches_reference_fem():
 
 
 def _tumor_growth_2d(**kw):
-    sim = TumorGrowth(rectangle_mesh((-5, -5), (5, 5), 6, 6),
-                      dtype=torch.float64)
+    mesh = kw.pop("mesh", None) or rectangle_mesh((-5, -5), (5, 5), 6, 6)
+    d = mesh.dim
+    sim = TumorGrowth(mesh, dtype=torch.float64, device="cpu")
     sim.setup_global_parameters(
         boundaries={"boundary_all": Boundary()},
-        dirichlet_bcs={"clamped": {"bc_value": np.zeros(2),
+        dirichlet_bcs={"clamped": {"bc_value": np.zeros(d),
                                    "named_boundary": "boundary_all",
                                    "subspace_id": 0}},
         von_neumann_bcs=kw.pop("von_neumann_bcs", None),
@@ -157,17 +158,21 @@ def _tumor_growth_2d(**kw):
                   poisson=0.45, sim_time=1, sim_time_step=1)
     params.update(kw)
     sim.setup_model_parameters(
-        iv_expression={0: np.zeros(2), 1: lambda x: np.exp(-(x ** 2).sum(axis=1))},
+        iv_expression={0: np.zeros(d), 1: lambda x: np.exp(-(x ** 2).sum(axis=1))},
         **params,
     )
     return sim
 
 
 def _unstructured():
+    """Von Neumann conditions on an unstructured mesh: still outside the
+    port (the unstructured lane itself runs, tests/test_torch_unstructured.py)."""
     from glimslib_tpu_torch.core.mesh import Mesh
 
     m = box_mesh((0, 0, 0), (1, 1, 1), 2, 2, 2)
-    TumorGrowthBrain(Mesh.from_arrays(m.points, m.cells))
+    _tumor_growth_2d(mesh=Mesh.from_arrays(m.points, m.cells), von_neumann_bcs={
+        "flux": {"bc_value": 1.0, "named_boundary": "boundary_all",
+                 "subspace_id": 1}})
 
 
 def _von_neumann():
