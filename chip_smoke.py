@@ -16,6 +16,14 @@ Phases, each printed on lines of their own:
    each kernel's time beside the plain version's: the wrapper call
    (CUDA events over back-to-back calls, launch overhead included), the
    kernel alone on the device (torch.profiler), and the plain version.
+   Every stencil_pcg launch also prints its mode (resident, streamed or
+   streamed_global), iterations, device time from CUDA events right
+   around single launches (the stream held busy first, so the host's work
+   before the launch does not count), us an iteration, the bound (inputs
+   once) and the
+   per-iteration streaming figure (planes, preconditioner and four vector
+   passes from HBM every iteration), each with its share of the time; the
+   elasticity solve is also timed in the mode the plan did not choose.
 3. The lattice path: TumorGrowthBrain on the N=32 brain box (35,937
    nodes, 196,608 tets), f32, the benchmark's StepConfig, 5 implicit-Euler
    steps through build_simulate_fn.  Every step must converge, every
@@ -25,10 +33,12 @@ Phases, each printed on lines of their own:
    that counts launches, then 3 timed runs), Newton and CG iteration
    counts, peak memory, and the device time by kernel of one profiled run.
 4. The lattice path at N=64 (274,625 nodes, 1,572,864 tets), f32, bench
-   StepConfig, 2 steps: every step converges through stencil_pcg<3>
-   (launches > 0), and one elasticity solve is held against the plain
-   pcg (|Δiters| <= 3, max rel <= 1e-4), with its device time beside its
-   per-iteration streaming bound.
+   StepConfig, 2 steps: every step converges through the lattice kernels
+   (launches > 0), and one elasticity solve (stencil_pcg<3>, streamed;
+   and again forced to streamed_global, the layout larger lattices or
+   cards with fewer SMs take) and one rd solve (stencil_pcg<1>, resident)
+   are held against the plain pcg (|Δiters| <= 3, max rel <= 1e-4) and
+   timed as in [2].
 5. bell_bmv against its plain version at the five shapes the unstructured
    flagship gives it (max rel <= 1e-5), each with the wrapper call time,
    the device time, the plain time, torch.bmm's time (a yardstick only,
@@ -117,8 +127,13 @@ def _kernel_device_ms(torch, fn, reps, pattern):
     return us / count / 1e3 if count and us > 0 else None
 
 
-def _fmt_ms(ms):
-    return "not measured" if ms is None else f"{ms:.4f} ms"
+def _device_ms(torch, fn, reps, pattern):
+    """(device ms of one call of fn(), its source): the profiler's kernel
+    time where it records one, else CUDA events around single calls."""
+    ms = _kernel_device_ms(torch, fn, reps, pattern)
+    if ms is not None:
+        return ms, "profiler"
+    return _launch_ms(torch, fn, reps), "CUDA events"
 
 
 def _time_ms(torch, fn, reps):
@@ -142,6 +157,25 @@ def _host_ms(torch, fn):
     fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3
+
+
+def _launch_ms(torch, fn, reps):
+    """Mean device time in ms of single calls of fn(), each bracketed by
+    CUDA events right around it.  A sleep kernel holds the stream first,
+    so the host's work inside fn() before its launch overlaps the sleep
+    and is not counted."""
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(4_000_000)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
 
 
 def phase_device(torch):
@@ -176,6 +210,12 @@ def _pcg_work(n_off, d, n, iters):
     nbytes = 4 * (n_off * d * d * n + m_len + 2 * n * d)
     flops = (iters + 1) * (2 * n_off * d * d * n + 2 * m_len + 12 * n * d)
     return nbytes, flops
+
+
+def _pcg_stream_bytes(n_off, d, n):
+    """Bytes an iteration if planes, preconditioner and four vector passes
+    came from HBM every iteration (the streaming figure)."""
+    return 4 * (n_off * d * d * n + d * d * n + 4 * n * d)
 
 
 def phase_kernels(torch, sim, theta, dev):
@@ -213,13 +253,13 @@ def phase_kernels(torch, sim, theta, dev):
         ms = _time_ms(torch, lambda: kern(offs, W, x), 50)
         plain_ms = _time_ms(torch, lambda: plain(offs, W, x), 20)
         d_out, d_in = name[len("stencil_apply<"):-1].split(",")
-        dev_ms = _kernel_device_ms(torch, lambda: kern(offs, W, x), 20,
+        dev_ms, dev_src = _device_ms(torch, lambda: kern(offs, W, x), 20,
                                    rf"stencil_apply_kernel<{d_out}, ?{d_in}>")
         bound_ms, bound_by = _bound(4 * (W.numel() + x.numel() + got.numel()),
                                     2 * W.numel())
         print(f"[2] {name}: shape W {tuple(W.shape)}, max abs err {err:.3e}, "
               f"max rel err {rel:.3e} (<= {APPLY_RTOL}); wrapper call "
-              f"{ms:.4f} ms, kernel on device {_fmt_ms(dev_ms)}, plain "
+              f"{ms:.4f} ms, kernel on device {dev_ms:.4f} ms ({dev_src}), plain "
               f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
         results.append(dict(name=name, route="cuda", source=STENCIL_SRC,
                             replaces=replaces, wrapper=kern, max_abs_err=err,
@@ -241,13 +281,33 @@ def phase_kernels(torch, sim, theta, dev):
     for name, kern, plain, Wm, Minv, b, replaces in solves:
         results.append(_check_pcg(torch, name, kern, plain, offs, Wm, Minv, b,
                                   cfg, replaces, "[2]"))
+    # the elasticity solve in the mode the plan did not choose (printed only)
+    other = "streamed" if results[-1]["mode"] == "resident" else "resident"
+    _, kern, plain, Wm, Minv, b, replaces = solves[1]
+    _check_pcg(torch, "stencil_pcg<3>", kern, plain, offs, Wm, Minv, b, cfg,
+               replaces, f"[2] (forced {other})", mode=other)
     return results
 
 
-def _check_pcg(torch, name, kern, plain, offs, Wm, Minv, b, cfg, replaces, tag):
-    """One whole solve of the kernel against the plain pcg, and its times."""
+def _check_pcg(torch, name, kern, plain, offs, Wm, Minv, b, cfg, replaces, tag,
+               mode=None):
+    """One whole solve of the kernel against the plain pcg, and its times:
+    through the wrapper ``kern`` as the path calls it, or with ``mode``
+    forcing the launch plan's mode."""
+    from glimslib_tpu_torch.ops import fused_cg as fc
+
     args = (offs, Wm, Minv, b, cfg.cg_rtol, cfg.cg_atol, cfg.cg_maxiter)
-    x_k, info_k = kern(*args)
+    d = b.shape[1] if b.dim() > 1 else 1
+    if mode is None:
+        def call():
+            x, info = kern(*args)
+            return x, info, kern.last_plan
+    else:
+        W4 = Wm if d > 1 else Wm[:, None, None, :]
+
+        def call():
+            return fc._pcg_cuda(d, offs, W4, Minv, b, *args[4:], mode)
+    x_k, info_k, plan = call()
     x_p, info_p = plain(*args)
     torch.cuda.synchronize()
     it_k, it_p = int(info_k["iters"]), int(info_p["iters"])
@@ -255,23 +315,36 @@ def _check_pcg(torch, name, kern, plain, offs, Wm, Minv, b, cfg, replaces, tag):
     if (not bool(torch.isfinite(x_k).all()) or abs(it_k - it_p) > PCG_DITERS
             or rel > PCG_RTOL):
         raise AssertionError(f"{name}: iters {it_k} vs {it_p}, rel err {rel:.3e}")
-    ms = _time_ms(torch, lambda: kern(*args), 3)
-    dev_ms = _kernel_device_ms(torch, lambda: kern(*args), 2,
-                               rf"stencil_pcg_kernel<{name[len('stencil_pcg<')]}>")
+    ms = _time_ms(torch, call, 3)
+    dev_ms = _launch_ms(torch, call, 3)
+    prof_ms = _kernel_device_ms(torch, call, 2,
+                                rf"stencil_pcg_kernel<{d}, ?{fc.MODES[plan.mode]}>")
     plain_ms = _host_ms(torch, lambda: plain(*args))
-    n_off, d, n = Wm.shape[0], b.shape[1] if b.dim() > 1 else 1, b.shape[0]
+    n_off, n = Wm.shape[0], b.shape[0]
     bound_ms, bound_by = _bound(*_pcg_work(n_off, d, n, it_k))
-    print(f"{tag} {name}: n={n}, iters kernel {it_k} / plain {it_p} "
+    stream_it = _pcg_stream_bytes(n_off, d, n)
+    stream_ms = stream_it * it_k / HBM_BPS * 1e3
+    us_it = 1e3 * dev_ms / max(it_k, 1)
+    print(f"{tag} {name}: n={n}, mode {plan.mode} ({plan.blocks} blocks of "
+          f"{plan.nloc} nodes, {plan.stages} stage(s), {plan.smem_bytes} B of "
+          f"shared memory a block), iters kernel {it_k} / plain {it_p} "
           f"(|Δ| <= {PCG_DITERS}), resnorm {float(info_k['resnorm']):.3e} / "
           f"{float(info_p['resnorm']):.3e}, max abs err {err:.3e}, max rel "
-          f"err {rel:.3e} (<= {PCG_RTOL}); wrapper call {ms:.4f} ms, "
-          f"kernel on device {_fmt_ms(dev_ms)}, plain {plain_ms:.4f} ms "
-          f"(host clock, syncs every iteration), bound {bound_ms:.4f} ms "
-          f"({bound_by})")
+          f"err {rel:.3e} (<= {PCG_RTOL})")
+    print(f"{tag} {name}: kernel on device {dev_ms:.4f} ms (CUDA events, "
+          "single launches"
+          + ("" if prof_ms is None else f"; profiler {prof_ms:.4f} ms")
+          + f") = {us_it:.2f} us an "
+          f"iteration; wrapper call {ms:.4f} ms; plain {plain_ms:.4f} ms (host "
+          f"clock, syncs every iteration); bound {bound_ms:.4f} ms ({bound_by}) "
+          f"= {100 * bound_ms / dev_ms:.1f}% of the device time; streaming "
+          f"figure {stream_it / 1e6:.1f} MB = {1e3 * stream_ms / max(it_k, 1):.2f} "
+          f"us an iteration at 3.35 TB/s = {100 * stream_ms / dev_ms:.1f}% of it")
     return dict(name=name, route="cuda", source=STENCIL_SRC, replaces=replaces,
                 wrapper=kern, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                device_ms=dev_ms, iters=it_k)
+                device_ms=dev_ms, profiler_ms=prof_ms, mode=plan.mode,
+                us_per_iter=us_it, iters=it_k)
 
 
 def _print_breakdown(torch, run, run_ms, tag):
@@ -288,7 +361,7 @@ def _print_breakdown(torch, run, run_ms, tag):
     evts.sort(key=_self_device_us, reverse=True)
     busy_ms = sum(_self_device_us(e) for e in evts) / 1e3
     if busy_ms <= 0:
-        print(f"{tag} device time breakdown: not measured (profiler recorded "
+        print(f"{tag} device time breakdown: none (the profiler recorded "
               "no device time)")
         return
     print(f"{tag} profiled run: device busy {busy_ms:.3f} ms = "
@@ -386,9 +459,12 @@ def phase_slice(torch, sim, dev, kernels):
 
 
 def phase_lattice64(torch, dev):
-    """K3c: the lattice path at N=64 through stencil_pcg<3>."""
+    """K3c: the lattice path at N=64, its elasticity solve streamed."""
+    import numpy as np
+
     from glimslib_tpu_torch.examples import BENCH_STEP_CONFIG, brain_sim
     from glimslib_tpu_torch.ops import fused_cg as fc
+    from glimslib_tpu_torch.ops import stencil_kernels as sk
 
     t0 = time.perf_counter()
     sim = brain_sim(n=N64, dtype=torch.float32, device=dev)
@@ -398,32 +474,40 @@ def phase_lattice64(torch, dev):
     simulate = sim.build_simulate_fn(N64_STEPS, 1.0)
     torch.cuda.synchronize()
     print(f"[4] N={N64} model set-up {time.perf_counter() - t0:.1f} s")
-    _, launches, _ = _drive(torch, sim, simulate, (theta, u0, c0),
-                            [fc.cg_vector], f"[4] N={N64}:", N64_STEPS)
+    wrappers = [sk.apply_scalar, sk.apply_vector, sk.apply_coupling,
+                fc.cg_scalar, fc.cg_vector]
+    _, launches, _ = _drive(torch, sim, simulate, (theta, u0, c0), wrappers,
+                            f"[4] N={N64}:", N64_STEPS)
 
     aug = sim._augment_theta_with_operators(theta)
-    mask_u = sim._bc_masks_and_values()[0]
+    mask_u, mask_c, _, _ = sim._bc_masks_and_values()
     # the first step's elasticity system: the rhs of u from rest
     ru = sim.el_residual(torch.where(mask_u, 0.0, u0), c0, aug, 1.0)
     b = torch.where(mask_u, 0.0, -ru).contiguous()
     ops = sim._stencil_ops
-    res = _check_pcg(torch, "stencil_pcg<3>", fc.cg_vector, fc.cg_vector_plain,
-                     ops.offsets, aug["_WelM"], aug["_BinvM"], b,
-                     sim.step_config, "glimslib_tpu/ops/pallas_cg.py:497", "[4]")
-    n, n_off = sim.mesh.n_nodes, len(ops.offsets)
-    per_iter = 4 * (n_off * 9 * n + 9 * n + 4 * 3 * n)
-    stream_ms = per_iter * res["iters"] / HBM_BPS * 1e3
-    # one launch a solve: the wrapper call's CUDA-event time is the
-    # kernel's plus one launch
-    print(f"[4] N={N64} elasticity solve: {res['iters']} iterations; planes, "
-          f"Binv and four vector passes stream {per_iter / 1e6:.1f} MB an "
-          f"iteration, {stream_ms:.3f} ms at 3.35 TB/s; kernel on device "
-          f"{_fmt_ms(res['device_ms'])}, wrapper call {res['ms']:.4f} ms = "
-          f"{1e3 * res['ms'] / res['iters']:.1f} us an iteration, "
-          f"{100 * stream_ms / res['ms']:.1f}% of that streaming bound")
-    res["name"] = "stencil_pcg<3>@N=64"
-    res["launches"] = launches[fc.cg_vector]
-    return res
+    cfg = sim.step_config
+    el = _check_pcg(torch, "stencil_pcg<3>", fc.cg_vector, fc.cg_vector_plain,
+                    ops.offsets, aug["_WelM"], aug["_BinvM"], b, cfg,
+                    "glimslib_tpu/ops/pallas_cg.py:497", "[4]")
+    el["name"] = "stencil_pcg<3>@N=64"
+    el["launches"] = launches[fc.cg_vector]
+    # the same solve with x, r and Ap in global memory, the layout the plan
+    # takes where they do not fit beside two ring stages (printed only)
+    _check_pcg(torch, "stencil_pcg<3>", fc.cg_vector, fc.cg_vector_plain,
+               ops.offsets, aug["_WelM"], aug["_BinvM"], b, cfg,
+               "glimslib_tpu/ops/pallas_cg.py:497", "[4] (forced streamed_global)",
+               mode="streamed_global")
+    # an rd Newton system of the first step, from the initial state
+    Wrd = aug["_Wrd_const"] + ops.build_rd_wc(c0, aug["rho"], aug["dt"])
+    v = torch.as_tensor(np.random.default_rng(2).standard_normal(sim.mesh.n_nodes),
+                        dtype=torch.float32, device=dev)
+    rd = _check_pcg(torch, "stencil_pcg<1>", fc.cg_scalar, fc.cg_scalar_plain,
+                    ops.offsets, fc.fold_mask_scalar(ops.offsets, Wrd, mask_c),
+                    aug["_invdM"], torch.where(mask_c, 0.0, v), cfg,
+                    "glimslib_tpu/ops/pallas_cg.py:204", "[4]")
+    rd["name"] = "stencil_pcg<1>@N=64"
+    rd["launches"] = launches[fc.cg_scalar]
+    return [el, rd]
 
 
 def phase_bmv(torch, usim, theta, dev):
@@ -454,19 +538,19 @@ def phase_bmv(torch, usim, theta, dev):
         if not bool(torch.isfinite(got).all()) or rel > BMV_RTOL:
             raise AssertionError(f"bell_bmv {role}: rel err {rel:.3e} > {BMV_RTOL}")
         ms = _time_ms(torch, lambda: bk.batched_matvec(A, x), 50)
-        dev_ms = _kernel_device_ms(torch, lambda: bk.batched_matvec(A, x), 20,
+        dev_ms, dev_src = _device_ms(torch, lambda: bk.batched_matvec(A, x), 20,
                                    r"bell_bmv_kernel")
         plain_ms = _time_ms(torch, lambda: bk.batched_matvec_plain(A, x), 20)
         lib_ms = _time_ms(torch, lambda: torch.bmm(A, x[:, :, None]), 50)
         bound_ms, bound_by = _bound(4 * (B * M * K + B * K + B * M), 2 * B * M * K)
-        share = None if dev_ms is None else bound_ms / dev_ms
+        share = bound_ms / dev_ms
         print(f"[5] bell_bmv {role} (B, M, K) = {(B, M, K)}: max abs err "
               f"{err:.3e}, max rel err {rel:.3e} (<= {BMV_RTOL}); wrapper call "
-              f"{ms:.4f} ms, kernel on device {_fmt_ms(dev_ms)}, plain "
+              f"{ms:.4f} ms, kernel on device {dev_ms:.4f} ms ({dev_src}), plain "
               f"{plain_ms:.4f} ms, torch.bmm {lib_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}, {4 * B * M * K / 1e6:.1f} MB of "
               "table)"
-              + ("" if share is None else f", {100 * share:.1f}% of the bound"))
+              + f", {100 * share:.1f}% of the bound)")
         shapes.append(dict(role=role, shape=[B, M, K], max_abs_err=err, ms=ms,
                            device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
                            bound_ms=bound_ms, bound_by=bound_by))
@@ -572,7 +656,7 @@ def main():
     phase_slice(torch, sim, dev, kernels)
     del sim
 
-    kernels.append(phase_lattice64(torch, dev))
+    kernels += phase_lattice64(torch, dev)
     torch.cuda.empty_cache()
 
     kernels.append(phase_unstructured(torch, dev))

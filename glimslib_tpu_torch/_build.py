@@ -46,7 +46,7 @@ def _signatures():
             "glims_stencil_apply": [i32, i32, vp, vp, vp, i32, vp, i32, vp],
             "glims_stencil_pcg": [
                 i32, vp, vp, vp, vp, vp, vp, vp, i32, vp, i32, f32, f32, i32,
-                vp,
+                vp, i32, i32, i32, i32,
             ],
         },
         "bell": {

@@ -278,7 +278,7 @@ class Mesh:
         meshes should NOT be reordered (the offset-stencil fast path needs
         lattice node order).
         """
-        from glimslib_tpu.native.meshops import rcm_permutation
+        from glimslib_tpu_torch.native.meshops import rcm_permutation
 
         perm = np.asarray(rcm_permutation(self.cells, self.n_nodes))
         order = np.argsort(perm)  # order[new] = old

@@ -19,21 +19,75 @@
 // neighbour directly.
 //
 // stencil_pcg<D> replaces the whole-solve Pallas CG kernels
-//   glimslib_tpu/ops/pallas_cg.py:_cg_scalar_kernel   (D=1, Jacobi)
-//   glimslib_tpu/ops/pallas_cg.py:_cg_vector_kernel   (D=3, block-Jacobi)
-// with the same update order and stopping rule as solvers/cg.py:pcg
-// (x0 = 0; stop when rr <= max(rtol^2 bb, atol^2) or at maxiter).
-// What bounds it: per iteration one plane pass (as above) plus ~10 vector
-// passes of 4 n D bytes, and three grid-wide barriers.  At N=32 the planes
-// (19.4 MB) and vectors (~2 MB) fit the 50 MB L2, so an iteration is bound
-// by L2 bandwidth and barrier latency, not by HBM.  Design: one persistent
-// cooperative launch per solve (cudaLaunchCooperativeKernel, grid sized to
-// the co-resident limit and to the work), so the host never syncs inside
-// the solve.  Dot products go to per-block partials; after each
-// grid.sync() every block sums all partials in the same fixed order, so
-// every block takes the same stopping decision.  Vectors that change
-// during the solve are read with __ldcg (L2, never a stale L1 line); the
-// read-only planes and preconditioner go through the read-only path.
+//   glimslib_tpu/ops/pallas_cg.py:_cg_scalar_kernel           (D=1, Jacobi)
+//   glimslib_tpu/ops/pallas_cg.py:_cg_vector_kernel           (D=3, VMEM-resident)
+//   glimslib_tpu/ops/pallas_cg.py:_cg_vector_streamed_kernel  (D=3, streamed)
+// with the update order and stopping rule of solvers/cg.py:pcg (x0 = 0;
+// stop when rr <= max(rtol^2 bb, atol^2) or at maxiter), in one
+// cooperative launch per solve and no host sync inside it.
+//
+// Design: a persistent grid of one block per SM (the wrapper passes the
+// SM count).  Block b owns the node range [b*nloc, (b+1)*nloc) for the
+// whole solve and keeps x, r and Ap, which only it reads, in shared
+// memory where they fit (below).  p, which neighbours read, and z go to
+// global memory, stored (D, n) so that a warp's loads of one component
+// are 128 contiguous bytes.  In this sweep order only the owner reads z
+// too; it stays in global memory because at N=64 d=3 it does not fit
+// beside x, r, Ap and two ring stages, and one place for z serves every
+// mode.  An iteration is three sweeps, each closed by a grid barrier:
+//   C) x += alpha p (x lags one iteration), p = z + beta p on the own rows.
+//   A) Ap = A p; the partial of p.Ap.
+//   B) r -= alpha Ap, z = M r; the partials of r.z and r.r.
+// After barriers A and B every block sums all per-block partials in one
+// fixed order (grid_sum2), so every block takes the same stopping
+// decision.  The TPU streamed kernel's two-sweep order (p recomputed from
+// z and the last p inside sweep A, p double-buffered) was timed against
+// this one on the H100: it saves barrier C but doubles sweep A's
+// gathers, and loses at N=64 (both d) and at N=32 d=3.  The barriers are
+// cooperative groups' grid sync:
+// an epoch-tagged flag per block, and a fire-and-forget add with an
+// acquire spin, were both slower on the H100.
+// Sweep A runs on chunks of U*T nodes (T=128, U nodes a thread) with 3
+// threads a node: thread (l, g) sums the offsets g, g+3, ... of its nodes
+// for all D outputs (each p[j, 0..D) is loaded once and used for every
+// output row; the offset loop is unrolled, so all loads of a thread's
+// nodes are issued before the sums); the three partials meet in shared
+// memory and are added in a fixed order one chunk later, so a chunk costs
+// one block sync.  The gathers are plain loads, cached in L1: each grid
+// barrier is an acquire at GPU scope, so no line of a vector from before
+// the barrier is read after it.
+//
+// Modes in one source, chosen by the wrapper from the bytes per SM
+// (ops/fused_cg.py:launch_plan sizes the shared memory and the ring and
+// passes both; the kernel traps if its layout would not fit):
+//   RESIDENT (the VMEM-resident kernels' analogue): the owned range's
+//     planes and preconditioner are copied into shared memory once per
+//     solve (N=32 d=3: 197 KB a block; U=3 for d=3, 4 for d=1), so an
+//     iteration reads no plane from L2 or HBM.  What bounds it: latency,
+//     not bytes: the three grid barriers with the two reads of the 132
+//     partials after them (about 1 us each), and one L1-miss round trip
+//     to L2 a chunk in sweep A (tools/pcg_phase_times.py).
+//   STREAMED (the streamed kernel's analogue, N=64 d=3: 1.1 MB of planes a
+//     block): the wrapper's call first copies the planes into scratch with
+//     rows padded to a multiple of 4 (one pass a solve); each sweep A then
+//     streams the owned planes through a ring of S stages of T nodes with
+//     16-byte cp.async copies that bypass L1 and are evicted first from L2,
+//     so the vectors keep both caches; chunk c+S-1 is issued as chunk c is
+//     summed, and the next iteration's first chunks before the barriers.
+//     The preconditioner is read from global memory in sweep B.  What
+//     bounds it: HBM bandwidth on the planes (4 n_off D^2 bytes a node an
+//     iteration) against one chunk's transfer and gathers a step: only 2
+//     stages fit beside x, r and Ap at N=64 (64-node chunks with 6
+//     threads a node were slower on the H100).
+//   STREAMED_GLOBAL: the same with x, r and Ap in global memory (x in the
+//     output), for when they do not fit beside two ring stages (N=64 d=3
+//     on fewer than 118 SMs, N >= 67 d=3 on 132); up to 4 stages.  What
+//     bounds it: the plane stream as in STREAMED (a third stage does not
+//     speed sweep A), plus 6 D floats of global-memory traffic a node an
+//     iteration in sweeps B and C (82.6 against 70.5 us at N=64 d=3 on
+//     the H100), so it is taken only where the other does not fit.
+// Partials are read with __ldcg (L2); read-only inputs through the
+// read-only path.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -42,23 +96,32 @@ namespace cg = cooperative_groups;
 
 #define GLIMS_MAX_OFF 32
 #define GLIMS_APPLY_BLOCK 256
-#define GLIMS_PCG_BLOCK 256
+
+// whole-solve PCG geometry; ops/fused_cg.py mirrors these numbers
+#define GLIMS_PCG_T 128  // nodes a thread row; a streamed chunk
+#define GLIMS_PCG_G 3    // offset groups: threads a node
+#define GLIMS_PCG_THREADS (GLIMS_PCG_T * GLIMS_PCG_G)
+#define GLIMS_PCG_WARPS (GLIMS_PCG_THREADS / 32)
+#define GLIMS_PCG_MAX_OFF 15  // the 3D Kuhn lattice's 15 offsets
+#define GLIMS_PCG_OFF_PER_G (GLIMS_PCG_MAX_OFF / GLIMS_PCG_G)
+#define GLIMS_PCG_MAX_STAGES 4
+// nodes a thread sums per chunk: 1 streamed, GLIMS_PCG_U_RESIDENT(D) resident
+#define GLIMS_PCG_U_RESIDENT(D) ((D) == 1 ? 4 : 3)
+#define GLIMS_PCG_UB 4  // nodes a thread updates per step of sweeps B and C
+#define GLIMS_PCG_RESIDENT 0
+#define GLIMS_PCG_STREAMED 1
+#define GLIMS_PCG_STREAMED_GLOBAL 2
 
 struct Offsets {
   int n;
   int v[GLIMS_MAX_OFF];  // offsets taken mod n into [0, n)
 };
 
-template <bool MUTABLE>
-__device__ __forceinline__ float load_vec(const float* p) {
-  return MUTABLE ? __ldcg(p) : __ldg(p);
-}
-
 // y[i, a] = sum_o sum_b W[o, a, b, i] * v[(i + off_o) mod n, b]
-template <int DOUT, int DIN, bool MUTABLE_V>
+template <int DOUT, int DIN>
 __device__ __forceinline__ float stencil_row(const float* __restrict__ W,
-                                             const float* v, int n,
-                                             const Offsets& off, int i,
+                                             const float* __restrict__ v,
+                                             int n, const Offsets& off, int i,
                                              int a) {
   const size_t plane = (size_t)n;
   float acc = 0.0f;
@@ -69,8 +132,7 @@ __device__ __forceinline__ float stencil_row(const float* __restrict__ W,
     const float* w = W + ((size_t)(o * DOUT + a) * DIN) * plane + i;
 #pragma unroll
     for (int b = 0; b < DIN; ++b) {
-      acc += __ldg(w + (size_t)b * plane) *
-             load_vec<MUTABLE_V>(v + (size_t)j * DIN + b);
+      acc += __ldg(w + (size_t)b * plane) * __ldg(v + (size_t)j * DIN + b);
     }
   }
   return acc;
@@ -85,173 +147,484 @@ __global__ void __launch_bounds__(GLIMS_APPLY_BLOCK)
   if (e >= n * DOUT) return;
   const int a = e / n;
   const int i = e - a * n;
-  y[(size_t)i * DOUT + a] = stencil_row<DOUT, DIN, false>(W, v, n, off, i, a);
+  y[(size_t)i * DOUT + a] = stencil_row<DOUT, DIN>(W, v, n, off, i, a);
 }
 
 // -- whole-solve PCG ---------------------------------------------------------
 
-// z = M r at node i: Jacobi (D=1, Minv = masked inverse diagonal (n,)) or
-// block-Jacobi (D=3, Minv = masked Binv (D, D, n)).
+struct PcgArgs {
+  const float* W;     // (n_off, D, D, ldw) mask-folded planes
+  int ldw;            // plane stride: n (resident), n rounded up to 4 (streamed)
+  const float* M;     // (D, D, n) masked preconditioner ((n,) for D=1)
+  const float* b;     // (n, D)
+  float* x;           // (n, D) out
+  float* z;           // (D, n) scratch
+  float* p;           // (D, n) scratch
+  float* part;        // (4, blocks) scratch: partials
+  float* r;           // (n, D) scratch, STREAMED_GLOBAL only
+  float* ap;          // (n, D) scratch, STREAMED_GLOBAL only
+  int* iters;
+  float* resnorm;
+  int n, nloc, stages, maxiter;
+  float rtol, atol;
+  Offsets off;
+};
+
+// L2 policy for plane copies: evicted first, so that the vectors the
+// gathers read stay in the L2 while the planes stream past.
+__device__ __forceinline__ unsigned long long l2_evict_first() {
+  unsigned long long pol;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(pol));
+  return pol;
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          unsigned long long pol) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile(
+      "cp.async.ca.shared.global.L2::cache_hint [%0], [%1], 4, %2;\n" ::"r"(s),
+      "l"(src), "l"(pol)
+      : "memory");
+}
+
+// 16-byte copy that bypasses L1 (which keeps the vectors' lines).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           unsigned long long pol) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile(
+      "cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2;\n" ::"r"(s),
+      "l"(src), "l"(pol)
+      : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Wait until at most ``pending`` of this thread's newest groups are in
+// flight.
+__device__ __forceinline__ void cp_async_wait_pending(int pending) {
+  switch (pending) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    default: cp_async_wait<3>(); break;
+  }
+}
+
+// Copy rows [node0, node0 + cnt) of n_planes planes of stride ldn into
+// dst[q * ld + l] (cnt <= ld), by the whole block, 4 bytes a copy.
+__device__ __forceinline__ void stage_planes(const float* __restrict__ src,
+                                             int ldn, int n_planes, int node0,
+                                             int cnt, int ld, float* dst,
+                                             unsigned long long pol) {
+  for (int e = threadIdx.x; e < n_planes * ld; e += GLIMS_PCG_THREADS) {
+    const int q = e / ld;
+    const int l = e - q * ld;
+    if (l < cnt) cp_async4(dst + e, src + (size_t)q * ldn + node0 + l, pol);
+  }
+}
+
+// The same for one streamed chunk of UT nodes, 16 bytes a copy: ldn and
+// node0 are multiples of 4, and the 3 nodes a copy may take past cnt
+// land in shared memory that is never read.
+template <int UT>
+__device__ __forceinline__ void stage_chunk(const float* __restrict__ src,
+                                            int ldn, int n_planes, int node0,
+                                            int cnt, float* dst,
+                                            unsigned long long pol) {
+  constexpr int V = UT / 4;
+  for (int e = threadIdx.x; e < n_planes * V; e += GLIMS_PCG_THREADS) {
+    const int q = e / V;
+    const int l = 4 * (e - q * V);
+    if (l < cnt) cp_async16(dst + q * UT + l, src + (size_t)q * ldn + node0 + l, pol);
+  }
+}
+
+// p_k = z + beta p_{k-1}, in one rounding.
+__device__ __forceinline__ float p_next(float beta, float p_old, float z) {
+  return __fmaf_rn(beta, p_old, z);
+}
+
+// Grid-wide sums of u and v, identical in every block: the block's sums
+// (warps in order) go to pa[block], pb[block]; after a grid barrier warp
+// 0 sums all partials in one fixed order (lane k sums k, k+32, ...
+// ascending, then a shuffle tree) and broadcasts them.
+__device__ __forceinline__ float2 grid_sum2(float u, float v, float* pa,
+                                            float* pb, cg::grid_group& grid,
+                                            float (*red)[GLIMS_PCG_WARPS],
+                                            float* bcast) {
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) {
+    u += __shfl_down_sync(0xffffffffu, u, s);
+    v += __shfl_down_sync(0xffffffffu, v, s);
+  }
+  if (lane == 0) {
+    red[0][wid] = u;
+    red[1][wid] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float su = 0.0f, sv = 0.0f;
+#pragma unroll
+    for (int w = 0; w < GLIMS_PCG_WARPS; ++w) {
+      su += red[0][w];
+      sv += red[1][w];
+    }
+    pa[blockIdx.x] = su;
+    pb[blockIdx.x] = sv;
+  }
+  grid.sync();
+  if (wid == 0) {
+    const int nb = gridDim.x;
+    float s = 0.0f, t = 0.0f;
+    for (int k = lane; k < nb; k += 32) {
+      s += __ldcg(pa + k);
+      t += __ldcg(pb + k);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      s += __shfl_down_sync(0xffffffffu, s, o);
+      t += __shfl_down_sync(0xffffffffu, t, o);
+    }
+    if (lane == 0) {
+      bcast[0] = s;
+      bcast[1] = t;
+    }
+  }
+  __syncthreads();
+  return make_float2(bcast[0], bcast[1]);
+}
+
+// Phase timer of block 0 (built with -DGLIMS_PCG_TIMING only, by
+// tools/pcg_phase_times.py): SM cycles summed by phase over a solve.
+#ifdef GLIMS_PCG_TIMING
+__device__ unsigned long long glims_pcg_cycles[8];
+#define PCG_MARK(phase)                                           \
+  if (blockIdx.x == 0 && threadIdx.x == 0) {                      \
+    const long long now = clock64();                              \
+    glims_pcg_cycles[phase] += (unsigned long long)(now - t_mark); \
+    t_mark = now;                                                 \
+  }
+#else
+#define PCG_MARK(phase)
+#endif
+
+// Row i of the preconditioner (owned node l): from shared memory
+// (resident) or from global memory (streamed).
+template <int D, bool STREAMED>
+__device__ __forceinline__ void load_m(const float* __restrict__ Mg,
+                                       const float* ms, int nloc, int n, int l,
+                                       int i, float (&m)[D * D]) {
+#pragma unroll
+  for (int q = 0; q < D * D; ++q)
+    m[q] = STREAMED ? __ldg(Mg + (size_t)q * n + i) : ms[q * nloc + l];
+}
+
+// z = M r at one node.
 template <int D>
-__device__ __forceinline__ void precond(const float* __restrict__ Minv, int n,
-                                        int i, const float (&r)[D],
-                                        float (&z)[D]) {
+__device__ __forceinline__ void apply_m(const float (&m)[D * D],
+                                        const float (&r)[D], float (&z)[D]) {
 #pragma unroll
   for (int a = 0; a < D; ++a) {
     float s = 0.0f;
 #pragma unroll
-    for (int b = 0; b < D; ++b) {
-      s += __ldg(Minv + (size_t)(a * D + b) * n + i) * r[b];
-    }
+    for (int b = 0; b < D; ++b) s = fmaf(m[a * D + b], r[b], s);
     z[a] = s;
   }
 }
 
-// Sum over the block; the result is valid in thread 0.
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  const int lane = threadIdx.x & 31;
-  const int wid = threadIdx.x >> 5;
-#pragma unroll
-  for (int s = 16; s > 0; s >>= 1) v += __shfl_down_sync(0xffffffffu, v, s);
-  if (lane == 0) red[wid] = v;
-  __syncthreads();
-  float t = 0.0f;
-  if (wid == 0) {
-    t = lane < (GLIMS_PCG_BLOCK / 32) ? red[lane] : 0.0f;
-#pragma unroll
-    for (int s = 16; s > 0; s >>= 1) t += __shfl_down_sync(0xffffffffu, t, s);
-  }
-  __syncthreads();
-  return t;
+__device__ __forceinline__ unsigned dynamic_smem_bytes() {
+  unsigned v;
+  asm("mov.u32 %0, %%dynamic_smem_size;" : "=r"(v));
+  return v;
 }
 
-// Sum of the per-block partials in one fixed order, broadcast to every
-// thread of the block; identical in every block.
-__device__ __forceinline__ float grid_total(const float* partials, int nb,
-                                            float* bcast) {
-  if (threadIdx.x < 32) {
-    float s = 0.0f;
-    for (int k = threadIdx.x; k < nb; k += 32) s += __ldcg(partials + k);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      s += __shfl_down_sync(0xffffffffu, s, off);
-    if (threadIdx.x == 0) *bcast = s;
-  }
-  __syncthreads();
-  const float t = *bcast;
-  __syncthreads();
-  return t;
-}
-
-template <int D>
-__global__ void __launch_bounds__(GLIMS_PCG_BLOCK)
-    stencil_pcg_kernel(const float* __restrict__ W,
-                       const float* __restrict__ Minv,
-                       const float* __restrict__ b, float* x, float* r,
-                       float* z, float* p, float* Ap, float* partials,
-                       int* iters_out, float* resnorm_out, int n, Offsets off,
-                       float rtol, float atol, int maxiter) {
+template <int D, int MODE>
+__global__ void __launch_bounds__(GLIMS_PCG_THREADS, 1)
+    stencil_pcg_kernel(PcgArgs args) {
+  constexpr bool STREAMED = MODE != GLIMS_PCG_RESIDENT;
+  constexpr bool VG = MODE == GLIMS_PCG_STREAMED_GLOBAL;  // x, r, Ap global
+  constexpr int NT = GLIMS_PCG_THREADS;
+  constexpr int G = GLIMS_PCG_G;
+  constexpr int T = GLIMS_PCG_T;
+  constexpr int OFF_PER_G = GLIMS_PCG_OFF_PER_G;
+  constexpr int U = STREAMED ? 1 : GLIMS_PCG_U_RESIDENT(D);  // nodes a thread
+  constexpr int UT = U * T;                                // nodes a chunk
+  constexpr int CRED = G * D * UT;  // floats of one chunk's partial sums
+  constexpr int DD = D * D;
   cg::grid_group grid = cg::this_grid();
-  __shared__ float red[GLIMS_PCG_BLOCK / 32];
-  __shared__ float bcast;
-  const int nb = gridDim.x;
-  float* part_pap = partials;
-  float* part_rz = partials + nb;
-  float* part_rr = partials + 2 * nb;
-  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
-  const int nthreads = nb * blockDim.x;
-  const int nd = n * D;
+  extern __shared__ float smem[];
+  __shared__ float red[2][GLIMS_PCG_WARPS];
+  __shared__ float bcast[2];
+  __shared__ int offs[GLIMS_PCG_MAX_OFF];
 
-  // x = 0, r = b, z = M b, p = z
-  float l_rz = 0.0f, l_bb = 0.0f;
-  for (int i = tid; i < n; i += nthreads) {
-    float ri[D], zi[D];
+  const int n = args.n, nloc = args.nloc, n_off = args.off.n;
+  const int nb = gridDim.x, tid = threadIdx.x;
+  const int tl = tid % T, g = tid / T;
+  const int i0 = min(n, (int)blockIdx.x * nloc);
+  const int cnt = min(n, i0 + nloc) - i0;  // owned nodes
+  const int nchunks = (cnt + UT - 1) / UT;
+  const int n_planes = n_off * DD;
+  const int S = args.stages;
+  // partials: pAp (with a row for grid_sum2's unused second value), rz, rr
+  float* part_pap = args.part;
+  float* part_rz = args.part + 2 * nb;
+  float* part_rr = args.part + 3 * nb;
+  float* zg = args.z;  // z and p are (D, n): a warp's component loads are
+                       // 128 contiguous bytes
+  const unsigned long long pol = l2_evict_first();
+
+  // shared memory: x, r, Ap (nloc, D) each (global in STREAMED_GLOBAL),
+  // the partial sums of two chunks (2, G, D, UT), then the planes and M
+  // of the owned range (resident) or the ring of S chunks of planes
+  // (streamed)
+  float* xs = VG ? args.x + (size_t)i0 * D : smem;
+  float* rs = VG ? args.r + (size_t)i0 * D : xs + nloc * D;
+  float* aps = VG ? args.ap + (size_t)i0 * D : rs + nloc * D;
+  float* cred = VG ? smem : aps + nloc * D;
+  float* planes = cred + 2 * CRED;
+  float* ms = planes + n_planes * nloc;  // resident only
+  const float* smem_end = STREAMED ? planes + S * n_planes * UT : ms + DD * nloc;
+  if ((size_t)(smem_end - smem) * sizeof(float) > dynamic_smem_bytes())
+    __trap();  // the launch plan's size is short of this layout
+
+  if (tid < n_off) offs[tid] = args.off.v[tid];
+  if (!STREAMED) {
+    stage_planes(args.W, args.ldw, n_planes, i0, cnt, nloc, planes, pol);
+    stage_planes(args.M, n, DD, i0, cnt, nloc, ms, pol);
+    cp_async_commit();
+    cp_async_wait<0>();
+  }
+  __syncthreads();
+
+  // chunk c of the owned range into ring stage c % S (one commit group,
+  // empty past the range)
+  auto issue_chunk = [&](int c) {
+    if (c * UT < cnt)
+      stage_chunk<UT>(args.W, args.ldw, n_planes, i0 + c * UT,
+                      min(UT, cnt - c * UT), planes + (c % S) * n_planes * UT,
+                      pol);
+    cp_async_commit();
+  };
+
+  // x = 0, r = b, z = M b, p_{-1} = 0
+  float rz_l = 0.0f, bb_l = 0.0f;
+  float* pg = args.p;
+  for (int l = tid; l < cnt; l += NT) {
+    const int i = i0 + l;
+    float r[D], z[D], m[DD];
+    load_m<D, STREAMED>(args.M, ms, nloc, n, l, i, m);
 #pragma unroll
     for (int a = 0; a < D; ++a) {
-      const int q = i * D + a;
-      ri[a] = __ldg(b + q);
-      x[q] = 0.0f;
-      r[q] = ri[a];
+      r[a] = __ldg(args.b + (size_t)i * D + a);
+      xs[l * D + a] = 0.0f;
+      rs[l * D + a] = r[a];
+      pg[(size_t)a * n + i] = 0.0f;
     }
-    precond<D>(Minv, n, i, ri, zi);
+    apply_m<D>(m, r, z);
 #pragma unroll
     for (int a = 0; a < D; ++a) {
-      const int q = i * D + a;
-      z[q] = zi[a];
-      p[q] = zi[a];
-      l_rz += ri[a] * zi[a];
-      l_bb += ri[a] * ri[a];
+      zg[(size_t)a * n + i] = z[a];
+      rz_l += r[a] * z[a];
+      bb_l += r[a] * r[a];
     }
   }
-  l_rz = block_sum(l_rz, red);
-  l_bb = block_sum(l_bb, red);
-  if (threadIdx.x == 0) {
-    part_rz[blockIdx.x] = l_rz;
-    part_rr[blockIdx.x] = l_bb;
-  }
-  grid.sync();
-  float rz = grid_total(part_rz, nb, &bcast);
-  float rr = grid_total(part_rr, nb, &bcast);
-  const float tol2 = fmaxf(rtol * rtol * rr, atol * atol);
+  if (STREAMED)
+    for (int c = 0; c < S - 1; ++c) issue_chunk(c);
+  float2 t = grid_sum2(rz_l, bb_l, part_rz, part_rr, grid, red, bcast);
+  float rz = t.x, rr = t.y;
+  const float tol2 = fmaxf(args.rtol * args.rtol * rr, args.atol * args.atol);
 
+#ifdef GLIMS_PCG_TIMING
+  long long t_mark = clock64();
+#endif
   int k = 0;
-  while (k < maxiter && rr > tol2) {
-    // Ap = A p and the partials of p.Ap
-    float l_pap = 0.0f;
-    for (int e = tid; e < nd; e += nthreads) {
-      const int a = e / n;
-      const int i = e - a * n;
-      const float y = stencil_row<D, D, true>(W, p, n, off, i, a);
-      Ap[i * D + a] = y;
-      l_pap += __ldcg(p + i * D + a) * y;
-    }
-    l_pap = block_sum(l_pap, red);
-    if (threadIdx.x == 0) part_pap[blockIdx.x] = l_pap;
-    grid.sync();
-    const float pAp = grid_total(part_pap, nb, &bcast);
-    const float alpha = rz / (pAp == 0.0f ? 1.0f : pAp);
-
-    // x += alpha p, r -= alpha Ap, z = M r, partials of r.z and r.r
-    float l_rz2 = 0.0f, l_rr = 0.0f;
-    for (int i = tid; i < n; i += nthreads) {
-      float ri[D], zi[D];
+  float beta = 0.0f;
+  float alpha = 0.0f;
+  while (k < args.maxiter && rr > tol2) {
+    // C) x += alpha p, p = z + beta p on the own rows (x lags one
+    // iteration behind; the last step follows the loop)
+    for (int l0 = tid; l0 < cnt; l0 += GLIMS_PCG_UB * NT) {
+      float po[GLIMS_PCG_UB][D], zo[GLIMS_PCG_UB][D];
 #pragma unroll
-      for (int a = 0; a < D; ++a) {
-        const int q = i * D + a;
-        x[q] = __ldcg(x + q) + alpha * __ldcg(p + q);
-        ri[a] = __ldcg(r + q) - alpha * __ldcg(Ap + q);
-        r[q] = ri[a];
+      for (int u = 0; u < GLIMS_PCG_UB; ++u) {
+        const int l = l0 + u * NT;
+        if (l < cnt) {
+#pragma unroll
+          for (int a = 0; a < D; ++a) {
+            po[u][a] = pg[(size_t)a * n + i0 + l];
+            zo[u][a] = zg[(size_t)a * n + i0 + l];
+          }
+        }
       }
-      precond<D>(Minv, n, i, ri, zi);
 #pragma unroll
-      for (int a = 0; a < D; ++a) {
-        z[i * D + a] = zi[a];
-        l_rz2 += ri[a] * zi[a];
-        l_rr += ri[a] * ri[a];
+      for (int u = 0; u < GLIMS_PCG_UB; ++u) {
+        const int l = l0 + u * NT;
+        if (l < cnt) {
+#pragma unroll
+          for (int a = 0; a < D; ++a) {
+            xs[l * D + a] += alpha * po[u][a];
+            pg[(size_t)a * n + i0 + l] = p_next(beta, po[u][a], zo[u][a]);
+          }
+        }
       }
     }
-    l_rz2 = block_sum(l_rz2, red);
-    l_rr = block_sum(l_rr, red);
-    if (threadIdx.x == 0) {
-      part_rz[blockIdx.x] = l_rz2;
-      part_rr[blockIdx.x] = l_rr;
-    }
     grid.sync();
-    const float rz_new = grid_total(part_rz, nb, &bcast);
-    rr = grid_total(part_rr, nb, &bcast);
-    const float beta = rz_new / (rz == 0.0f ? 1.0f : rz);
+    PCG_MARK(3)  // p sweep and its barrier
 
-    // p = z + beta p
-    for (int e = tid; e < nd; e += nthreads) {
-      p[e] = __ldcg(z + e) + beta * __ldcg(p + e);
+    // A) Ap = A p and the partial of p.Ap.  Step c sums chunk c's offset
+    // groups and, after one block sync, chunk c-1's groups (the thread
+    // (tl, 0) that loaded the own rows of p).
+    float pap_l = 0.0f;
+    float own_p[U][D];
+    for (int c = 0; c <= nchunks; ++c) {
+      if (STREAMED && c < nchunks) cp_async_wait_pending(S - 2);
+      __syncthreads();
+      if (STREAMED) {
+        if (c < nchunks) {
+          issue_chunk(c + S - 1);
+        } else {  // the next iteration's first chunks
+          for (int q = 0; q < S - 1; ++q) issue_chunk(q);
+        }
+      }
+      if (c > 0 && g == 0) {
+        const float* cr = cred + ((c - 1) & 1) * CRED;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int lc = u * T + tl;
+          const int l = (c - 1) * UT + lc;
+          if (l < cnt) {
+#pragma unroll
+            for (int a = 0; a < D; ++a) {
+              float y = cr[a * UT + lc];
+#pragma unroll
+              for (int h = 1; h < G; ++h) y += cr[(h * D + a) * UT + lc];
+              aps[l * D + a] = y;
+              pap_l += own_p[u][a] * y;
+            }
+          }
+        }
+      }
+      if (c < nchunks) {
+        const float* wc = STREAMED ? planes + (c % S) * n_planes * UT : planes;
+        const int ldw = STREAMED ? UT : nloc;
+        float* cw = cred + (c & 1) * CRED;
+        float pj[U][OFF_PER_G][D];
+        // every load of the thread's U nodes first, then the sums
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int l = c * UT + u * T + tl;
+          if (l < cnt) {
+            const int i = i0 + l;
+            if (g == 0) {
+#pragma unroll
+              for (int a = 0; a < D; ++a) own_p[u][a] = pg[(size_t)a * n + i];
+            }
+#pragma unroll
+            for (int m = 0; m < OFF_PER_G; ++m) {
+              const int o = g + G * m;
+              if (o < n_off) {
+                int j = i + offs[o];
+                if (j >= n) j -= n;
+#pragma unroll
+                for (int b = 0; b < D; ++b)
+                  pj[u][m][b] = pg[(size_t)b * n + j];
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int lc = u * T + tl;
+          const int l = c * UT + lc;
+          if (l < cnt) {
+            const float* w = wc + (STREAMED ? lc : l);
+            float acc[D];
+#pragma unroll
+            for (int a = 0; a < D; ++a) acc[a] = 0.0f;
+#pragma unroll
+            for (int m = 0; m < OFF_PER_G; ++m) {
+              const int o = g + G * m;
+              if (o < n_off) {
+#pragma unroll
+                for (int a = 0; a < D; ++a)
+#pragma unroll
+                  for (int b = 0; b < D; ++b)
+                    acc[a] = fmaf(w[(o * DD + a * D + b) * ldw], pj[u][m][b],
+                                  acc[a]);
+              }
+            }
+#pragma unroll
+            for (int a = 0; a < D; ++a) cw[(g * D + a) * UT + lc] = acc[a];
+          }
+        }
+      }
     }
-    grid.sync();
-    rz = rz_new;
+    PCG_MARK(0)  // sweep A
+    const float pAp =
+        grid_sum2(pap_l, 0.0f, part_pap, part_pap + nb, grid, red, bcast).x;
+    PCG_MARK(1)  // grid sums
+    alpha = rz / (pAp == 0.0f ? 1.0f : pAp);
+
+    // B) r -= alpha Ap, z = M r, partials of r.z and r.r (x waits for the
+    // next p sweep); GLIMS_PCG_UB nodes a thread, their loads first
+    float rz_p = 0.0f, rr_p = 0.0f;
+    for (int l0 = tid; l0 < cnt; l0 += GLIMS_PCG_UB * NT) {
+      float m[GLIMS_PCG_UB][DD];
+#pragma unroll
+      for (int u = 0; u < GLIMS_PCG_UB; ++u) {
+        const int l = l0 + u * NT;
+        if (l < cnt) load_m<D, STREAMED>(args.M, ms, nloc, n, l, i0 + l, m[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < GLIMS_PCG_UB; ++u) {
+        const int l = l0 + u * NT;
+        if (l < cnt) {
+          float r[D], z[D];
+#pragma unroll
+          for (int a = 0; a < D; ++a) {
+            r[a] = rs[l * D + a] - alpha * aps[l * D + a];
+            rs[l * D + a] = r[a];
+          }
+          apply_m<D>(m[u], r, z);
+#pragma unroll
+          for (int a = 0; a < D; ++a) {
+            zg[(size_t)a * n + i0 + l] = z[a];
+            rz_p += r[a] * z[a];
+            rr_p += r[a] * r[a];
+          }
+        }
+      }
+    }
+    PCG_MARK(2)  // sweep B
+    t = grid_sum2(rz_p, rr_p, part_rz, part_rr, grid, red, bcast);
+    PCG_MARK(1)
+    beta = t.x / (rz == 0.0f ? 1.0f : rz);
+    rz = t.x;
+    rr = t.y;
     ++k;
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    *iters_out = k;
-    *resnorm_out = sqrtf(rr);
+  if (STREAMED) cp_async_wait<0>();
+  // the last x += alpha p (p is 0 and alpha 0 if the loop did not run)
+  for (int l = tid; l < cnt; l += NT) {
+#pragma unroll
+    for (int a = 0; a < D; ++a) {
+      args.x[(size_t)(i0 + l) * D + a] =
+          xs[l * D + a] + alpha * pg[(size_t)a * n + i0 + l];
+    }
+  }
+  if (blockIdx.x == 0 && tid == 0) {
+    *args.iters = k;
+    *args.resnorm = sqrtf(rr);
   }
 }
 
@@ -277,11 +650,10 @@ static int launch_apply(const float* W, const float* v, float* y, int n,
   return (int)cudaGetLastError();
 }
 
-// Blocks of one PCG launch: the co-resident limit, capped by the work
-// (one thread per vector entry).  The partials scratch holds 3 floats a
-// block, so the caller sizes it for ceil(n * D / GLIMS_PCG_BLOCK) blocks.
-template <int D>
-static int pcg_blocks(int n, int* blocks) {
+template <int D, int MODE>
+static int launch_pcg(PcgArgs& args, int blocks, size_t smem,
+                      cudaStream_t stream) {
+  auto kern = stencil_pcg_kernel<D, MODE>;
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
@@ -290,41 +662,17 @@ static int pcg_blocks(int n, int* blocks) {
   err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (err != cudaSuccess) return (int)err;
   if (!coop) return (int)cudaErrorNotSupported;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, stencil_pcg_kernel<D>, GLIMS_PCG_BLOCK, 0);
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
   if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
-  const int need = (n * D + GLIMS_PCG_BLOCK - 1) / GLIMS_PCG_BLOCK;
-  int nb = per_sm * sms;
-  if (nb > need) nb = need;
-  *blocks = nb < 1 ? 1 : nb;
-  return 0;
-}
-
-template <int D>
-static int launch_pcg(const float* W, const float* Minv, const float* b,
-                      float* x, int* iters, float* resnorm, float* scratch,
-                      int n, const Offsets& off, float rtol, float atol,
-                      int maxiter, cudaStream_t stream) {
-  int nb = 0;
-  int err = pcg_blocks<D>(n, &nb);
-  if (err) return err;
-  const size_t nd = (size_t)n * D;
-  float* r = scratch;
-  float* z = scratch + nd;
-  float* p = scratch + 2 * nd;
-  float* Ap = scratch + 3 * nd;
-  float* partials = scratch + 4 * nd;
-  Offsets off_v = off;
-  void* args[] = {(void*)&W,       (void*)&Minv,    (void*)&b,
-                  (void*)&x,       (void*)&r,       (void*)&z,
-                  (void*)&p,       (void*)&Ap,      (void*)&partials,
-                  (void*)&iters,   (void*)&resnorm, (void*)&n,
-                  (void*)&off_v,   (void*)&rtol,    (void*)&atol,
-                  (void*)&maxiter};
-  return (int)cudaLaunchCooperativeKernel((void*)stencil_pcg_kernel<D>,
-                                          dim3(nb), dim3(GLIMS_PCG_BLOCK),
-                                          args, 0, stream);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                      GLIMS_PCG_THREADS, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (blocks > per_sm * sms) return (int)cudaErrorCooperativeLaunchTooLarge;
+  void* kargs[] = {(void*)&args};
+  return (int)cudaLaunchCooperativeKernel((void*)kern, dim3(blocks),
+                                          dim3(GLIMS_PCG_THREADS), kargs, smem,
+                                          stream);
 }
 
 extern "C" {
@@ -343,23 +691,88 @@ int glims_stencil_apply(int dout, int din, const float* W, const float* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// Whole-solve PCG of the mask-folded stencil system W x = b.
-// scratch: 4 * n * d + 3 * ceil(n * d / 256) floats.
+// Whole-solve PCG of the mask-folded stencil system W x = b, in one
+// cooperative launch of ``blocks`` blocks (one an SM), each owning
+// ceil(n / blocks) nodes rounded up to 4, with ``smem_bytes`` of dynamic
+// shared memory a block (the launch plan's).  mode: 0 resident, 1
+// streamed through ``stages`` (2..4) ring stages, after a copy of the
+// planes with rows padded to a multiple of 4 into the scratch; 2 the
+// same with x, r and Ap in global memory.
+// scratch: 2 * n * d + 4 * blocks floats, plus n_off * d * d * ceil4(n)
+// in front of them when streamed, plus 2 * n * d behind them in mode 2.
 int glims_stencil_pcg(int d, const float* W, const float* Minv,
                       const float* b, float* x, int* iters, float* resnorm,
                       float* scratch, int n, const int* offsets, int n_off,
-                      float rtol, float atol, int maxiter, void* stream) {
-  Offsets off;
-  int err = make_offsets(offsets, n_off, n, &off);
+                      float rtol, float atol, int maxiter, void* stream,
+                      int mode, int blocks, int stages, int smem_bytes) {
+  PcgArgs args;
+  int err = make_offsets(offsets, n_off, n, &args.off);
   if (err) return err;
+  const bool streamed = mode == GLIMS_PCG_STREAMED ||
+                        mode == GLIMS_PCG_STREAMED_GLOBAL;
+  if (n_off > GLIMS_PCG_MAX_OFF || blocks < 1 || smem_bytes < 0 ||
+      (mode != GLIMS_PCG_RESIDENT && !streamed) ||
+      (streamed && (stages < 2 || stages > GLIMS_PCG_MAX_STAGES)))
+    return (int)cudaErrorInvalidValue;
+  const size_t nd = (size_t)n * d;
+  const int n_planes = n_off * d * d;
+  const int ldw = streamed ? (n + 3) / 4 * 4 : n;
+  const size_t plane_floats = streamed ? (size_t)n_planes * ldw : 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (d == 1)
-    return launch_pcg<1>(W, Minv, b, x, iters, resnorm, scratch, n, off, rtol,
-                         atol, maxiter, s);
-  if (d == 3)
-    return launch_pcg<3>(W, Minv, b, x, iters, resnorm, scratch, n, off, rtol,
-                         atol, maxiter, s);
+  args.W = W;
+  args.ldw = ldw;
+  if (streamed) {  // planes with 16-byte aligned rows for the ring's copies
+    float* Wp = scratch;
+    err = (int)cudaMemcpy2DAsync(Wp, ldw * sizeof(float), W, n * sizeof(float),
+                                 n * sizeof(float), n_planes,
+                                 cudaMemcpyDeviceToDevice, s);
+    if (err) return err;
+    args.W = Wp;
+  }
+  args.M = Minv;
+  args.b = b;
+  args.x = x;
+  args.z = scratch + plane_floats;
+  args.p = args.z + nd;
+  args.part = args.z + 2 * nd;
+  args.r = args.part + 4 * (size_t)blocks;
+  args.ap = args.r + nd;
+  args.iters = iters;
+  args.resnorm = resnorm;
+  args.n = n;
+  args.nloc = ((n + blocks - 1) / blocks + 3) / 4 * 4;
+  args.stages = streamed ? stages : 1;
+  args.maxiter = maxiter;
+  args.rtol = rtol;
+  args.atol = atol;
+  const size_t smem = (size_t)smem_bytes;
+  switch (d * 4 + mode) {
+    case 4 + GLIMS_PCG_RESIDENT:
+      return launch_pcg<1, GLIMS_PCG_RESIDENT>(args, blocks, smem, s);
+    case 4 + GLIMS_PCG_STREAMED:
+      return launch_pcg<1, GLIMS_PCG_STREAMED>(args, blocks, smem, s);
+    case 4 + GLIMS_PCG_STREAMED_GLOBAL:
+      return launch_pcg<1, GLIMS_PCG_STREAMED_GLOBAL>(args, blocks, smem, s);
+    case 12 + GLIMS_PCG_RESIDENT:
+      return launch_pcg<3, GLIMS_PCG_RESIDENT>(args, blocks, smem, s);
+    case 12 + GLIMS_PCG_STREAMED:
+      return launch_pcg<3, GLIMS_PCG_STREAMED>(args, blocks, smem, s);
+    case 12 + GLIMS_PCG_STREAMED_GLOBAL:
+      return launch_pcg<3, GLIMS_PCG_STREAMED_GLOBAL>(args, blocks, smem, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
+
+#ifdef GLIMS_PCG_TIMING
+// Block 0's SM cycles by phase (PCG_MARK 0-3), summed since the last call
+// (which zeroes them): sweep A, the two grid sums (block sums, barrier,
+// partial reads), sweep B, the p sweep with its barrier.
+int glims_pcg_cycles_take(unsigned long long* out) {
+  int err = (int)cudaMemcpyFromSymbol(out, glims_pcg_cycles, sizeof(glims_pcg_cycles));
+  if (err) return err;
+  unsigned long long zero[8] = {0};
+  return (int)cudaMemcpyToSymbol(glims_pcg_cycles, zero, sizeof(zero));
+}
+#endif
 
 }  // extern "C"

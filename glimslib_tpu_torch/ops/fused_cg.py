@@ -12,17 +12,26 @@ zero-offset diagonal of masked dofs, so the kernel applies no masks.
 
 - :func:`cg_scalar`  Jacobi PCG on W'' (n_off, n), invd (n,), b (n,)      [K3a]
 - :func:`cg_vector`  block-Jacobi PCG on W'' (n_off, d, d, n),
-  Binv'' (d, d, n), b (n, d)                                               [K3b]
+  Binv'' (d, d, n), b (n, d)                                          [K3b, K3c]
 
 Both start from x0 = 0 and follow ``solvers/cg.py:pcg`` (same update order,
 same stopping rule) and return ``(x, {"iters", "resnorm"})`` with the info
 as 0-d tensors on the input's device.  Given CPU tensors they run the plain
 version; given CUDA tensors they launch ``stencil_pcg<d>`` (one cooperative
-launch per solve, ``csrc/stencil.cu``) or raise.  Each wrapper counts its
-kernel launches in its ``launches`` attribute.
+launch per solve, ``csrc/stencil.cu``) or raise.  :func:`launch_plan`
+chooses the kernel's mode from the bytes per SM: ``resident`` (the owned
+planes in shared memory; the TPU's VMEM-resident kernels K3a/K3b),
+``streamed`` (planes streamed through a ring of shared-memory stages; the
+TPU's streamed kernel K3c), or ``streamed_global`` (the same with x, r and
+Ap in global memory, where they do not fit beside two stages), and sizes
+the kernel's shared memory.  Each wrapper counts its kernel launches in
+its ``launches`` attribute and keeps the plan of its last launch in
+``last_plan``.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -31,7 +40,82 @@ from glimslib_tpu_torch.ops.stencil import apply_block_jacobi
 from glimslib_tpu_torch.ops.stencil_kernels import _check_cuda, stencil_apply_plain
 from glimslib_tpu_torch.solvers.cg import pcg
 
-_PCG_BLOCK = 256  # GLIMS_PCG_BLOCK in csrc/stencil.cu
+# the kernel's compile-time geometry (GLIMS_PCG_* in csrc/stencil.cu); the
+# shared-memory layout is sized here only, and the kernel traps if a size
+# is short of what it lays out
+PCG_ROW = 128            # T: nodes a thread row, nodes of a streamed chunk
+PCG_GROUPS = 3           # G: threads a node (offset groups)
+PCG_RESIDENT_U = {1: 4, 3: 3}  # nodes a thread per resident chunk, by d
+PCG_MAX_OFF = 15
+PCG_MAX_STAGES = 4
+# dynamic shared memory a block may take: the card's 232,448-byte opt-in
+# limit less room for the kernel's static shared memory
+SMEM_BYTES = 232_448 - 1024
+MODES = {"resident": 0, "streamed": 1, "streamed_global": 2}
+
+
+@dataclasses.dataclass(frozen=True)
+class PcgPlan:
+    """One launch of ``stencil_pcg``: mode, blocks (one an SM), nodes a
+    block owns, ring stages (streamed), dynamic shared memory a block,
+    floats of scratch (z, p, four partials a block; when streamed also a
+    copy of the planes with 16-byte aligned rows in front; in
+    ``streamed_global`` also r and Ap behind)."""
+
+    mode: str
+    blocks: int
+    nloc: int
+    stages: int
+    smem_bytes: int
+    scratch_floats: int
+
+    def ranges(self, n):
+        """The node range [i0, i1) each block owns."""
+        return [(min(n, b * self.nloc), min(n, (b + 1) * self.nloc))
+                for b in range(self.blocks)]
+
+
+def launch_plan(n, d, n_off, blocks, mode=None):
+    """The launch of ``stencil_pcg<d>`` on ``n`` nodes in ``blocks`` blocks:
+    resident when the owned range's planes, preconditioner and vectors fit
+    a block's shared memory; else streamed with as many ring stages (2..4)
+    as fit beside x, r and Ap; else streamed_global, those three in global
+    memory.  ``mode`` forces one; raises if it does not fit."""
+    if n_off > PCG_MAX_OFF:
+        raise NotImplementedError(f"stencil_pcg takes at most {PCG_MAX_OFF} offsets")
+    if mode is not None and mode not in MODES:
+        raise ValueError(f"unknown stencil_pcg mode {mode!r}")
+    nloc = (-(-n // blocks) + 3) // 4 * 4  # ceil(n / blocks), up to a multiple of 4
+    planes = n_off * d * d
+    cred = 2 * PCG_GROUPS * d * PCG_ROW  # the partial sums of two chunks
+    vectors = 3 * d * nloc  # x, r, Ap
+
+    def smem_of(m):
+        """(floats, stages) of mode m's layout in a block's shared memory."""
+        if m == "resident":
+            u = PCG_RESIDENT_U[d]
+            return vectors + u * cred + (planes + d * d) * nloc, 1
+        fixed = cred + (vectors if m == "streamed" else 0)
+        stages = max(0, min(PCG_MAX_STAGES, (SMEM_BYTES // 4 - fixed) // (planes * PCG_ROW)))
+        return fixed + stages * planes * PCG_ROW, stages
+
+    def fits(m):
+        floats, stages = smem_of(m)
+        return 4 * floats <= SMEM_BYTES and (m == "resident" or stages >= 2)
+
+    if mode is None:
+        mode = next(m for m in MODES if fits(m))
+    elif not fits(mode):
+        raise ValueError(f"stencil_pcg {mode}: the layout of n={n}, d={d} on "
+                         f"{blocks} blocks does not fit {SMEM_BYTES} bytes of "
+                         "shared memory a block")
+    floats, stages = smem_of(mode)
+    scratch = 2 * n * d + 4 * blocks
+    if mode != "resident":  # the planes with rows padded to 16 bytes
+        scratch += planes * (-(-n // 4) * 4)
+    if mode == "streamed_global":  # r and Ap
+        scratch += 2 * n * d
+    return PcgPlan(mode, blocks, nloc, stages, 4 * floats, scratch)
 
 
 # -- mask folding (torch, once per theta or per Newton iteration) -----------
@@ -99,7 +183,12 @@ def cg_vector_plain(offsets, Wm, Binv, b, rtol, atol, maxiter):
 # -- kernel wrappers ---------------------------------------------------------
 
 
-def _pcg_cuda(d, offsets, W4, Minv, b, rtol, atol, maxiter):
+def _pcg_cuda(d, offsets, W4, Minv, b, rtol, atol, maxiter, mode=None,
+              blocks=None):
+    """Launch ``stencil_pcg<d>`` on the current stream; ``mode`` and
+    ``blocks`` force the launch plan's mode and grid (by default the plan
+    chooses the mode, and the grid is one block an SM).  Returns x, the
+    info and the plan."""
     n_off, n = W4.shape[0], W4.shape[-1]
     if d not in (1, 3):
         raise NotImplementedError(f"stencil_pcg has no kernel for d={d}")
@@ -109,20 +198,22 @@ def _pcg_cuda(d, offsets, W4, Minv, b, rtol, atol, maxiter):
     _check_cuda("W", W4, (n_off, d, d, n), dev)
     _check_cuda("M", Minv, (n,) if d == 1 else (d, d, n), dev)
     _check_cuda("b", b, (n,) if d == 1 else (n, d), dev)
+    if blocks is None:
+        blocks = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = launch_plan(n, d, n_off, blocks, mode)
     x = torch.empty_like(b)
     iters = torch.empty((), dtype=torch.int32, device=dev)
     resnorm = torch.empty((), dtype=torch.float32, device=dev)
-    nd = n * d
-    scratch = torch.empty(4 * nd + 3 * (-(-nd // _PCG_BLOCK)),
-                          dtype=torch.float32, device=dev)
+    scratch = torch.empty(plan.scratch_floats, dtype=torch.float32, device=dev)
     lib = _build.load("stencil")
     _build.check(lib.glims_stencil_pcg(
         d, W4.data_ptr(), Minv.data_ptr(), b.data_ptr(), x.data_ptr(),
         iters.data_ptr(), resnorm.data_ptr(), scratch.data_ptr(), n,
         _build.offsets_array(offsets), n_off, float(rtol), float(atol),
         int(maxiter), torch.cuda.current_stream(dev).cuda_stream,
-    ), f"stencil_pcg<{d}> launch")
-    return x, {"iters": iters, "resnorm": resnorm}
+        MODES[plan.mode], plan.blocks, plan.stages, plan.smem_bytes,
+    ), f"stencil_pcg<{d}> {plan.mode} launch")
+    return x, {"iters": iters, "resnorm": resnorm}, plan
 
 
 def _dispatch(wrapper, plain, d, offsets, W, W4, Minv, b, rtol, atol, maxiter):
@@ -130,9 +221,10 @@ def _dispatch(wrapper, plain, d, offsets, W, W4, Minv, b, rtol, atol, maxiter):
         return plain(offsets, W, Minv, b, rtol, atol, maxiter)
     if W.device.type != "cuda":
         raise ValueError(f"unsupported device {W.device}")
-    out = _pcg_cuda(d, offsets, W4, Minv, b, rtol, atol, maxiter)
+    x, info, wrapper.last_plan = _pcg_cuda(d, offsets, W4, Minv, b, rtol, atol,
+                                           maxiter)
     wrapper.launches += 1
-    return out
+    return x, info
 
 
 def cg_scalar(offsets, Wm, invd, b, rtol, atol, maxiter):
@@ -149,5 +241,5 @@ def cg_vector(offsets, Wm, Binv, b, rtol, atol, maxiter):
                      Binv, b, rtol, atol, maxiter)
 
 
-cg_scalar.launches = 0
-cg_vector.launches = 0
+cg_scalar.launches = cg_vector.launches = 0
+cg_scalar.last_plan = cg_vector.last_plan = None

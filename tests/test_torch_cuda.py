@@ -7,8 +7,9 @@ file imports no JAX, so it also runs where JAX is absent:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerances: stencil applies and batched matvecs max rel 1e-5 (f32
-summation order); whole solves |Δiters| <= 3 and max rel 1e-4
-(reductions re-associate near the stopping tolerance); the unstructured
+summation order); whole solves, in every mode of ``stencil_pcg``,
+|Δiters| <= 3 and max rel 1e-4 (reductions re-associate near the
+stopping tolerance); the unstructured
 slice against its plain path rel-L2 1e-4 (f32 operators, Newton and CG
 stopped at 1e-4 and 1e-7).
 """
@@ -80,6 +81,58 @@ def test_stencil_pcg_kernel_matches_plain(lattice, d):
     torch.cuda.synchronize()
     assert abs(int(info_k["iters"]) - int(info_p["iters"])) <= 3
     assert _rel_max(x_k, x_p) <= 1e-4
+
+
+def _pcg_system(sim, theta, v, u, d):
+    offs = sim._stencil_ops.offsets
+    mask_u, mask_c, _, _ = sim._bc_masks_and_values()
+    if d == 1:
+        Wm = fc.fold_mask_scalar(offs, theta["_Wrd_const"], mask_c)
+        return fc.cg_scalar_plain, Wm[:, None, None, :], (
+            offs, Wm, theta["_invdM"], torch.where(mask_c, 0.0, v))
+    return fc.cg_vector_plain, theta["_WelM"], (
+        offs, theta["_WelM"], theta["_BinvM"], torch.where(mask_u, 0.0, u))
+
+
+@pytest.mark.parametrize("mode,blocks", [
+    ("resident", None), ("streamed", None), ("streamed_global", None),
+    ("resident", 16), ("streamed", 4), ("streamed_global", 4)])
+@pytest.mark.parametrize("d", [1, 3])
+def test_stencil_pcg_modes_match_plain(lattice, d, mode, blocks):
+    """Every kernel mode, forced through the C entry point's mode argument,
+    on one block an SM and on fewer blocks (several chunks a block; on 4
+    blocks the streamed ring cycles through all its stages)."""
+    sim, theta, v, u = lattice
+    plain, W4, args = _pcg_system(sim, theta, v, u, d)
+    offs, _, M, b = args
+    x_k, info_k, plan = fc._pcg_cuda(d, offs, W4, M, b, 1e-7, 0.0, 800,
+                                     mode, blocks)
+    x_p, info_p = plain(*args, 1e-7, 0.0, 800)
+    torch.cuda.synchronize()
+    assert plan.mode == mode
+    if blocks is not None:
+        assert plan.blocks == blocks and plan.nloc > fc.PCG_ROW
+    assert abs(int(info_k["iters"]) - int(info_p["iters"])) <= 3
+    assert _rel_max(x_k, x_p) <= 1e-4
+
+
+def test_stencil_pcg_wrapper_counts_and_keeps_its_plan(lattice):
+    sim, theta, v, u = lattice
+    _, _, args = _pcg_system(sim, theta, v, u, 3)
+    before = fc.cg_vector.launches
+    fc.cg_vector(*args, 1e-7, 0.0, 800)
+    torch.cuda.synchronize()
+    assert fc.cg_vector.launches == before + 1
+    assert fc.cg_vector.last_plan.mode == "resident"
+
+
+def test_stencil_pcg_refused_launch_raises(lattice):
+    """A launch the card refuses (more blocks than can be co-resident)
+    raises; nothing falls back to another route."""
+    sim, theta, v, u = lattice
+    _, W4, (offs, _, M, b) = _pcg_system(sim, theta, v, u, 3)
+    with pytest.raises(RuntimeError, match="stencil_pcg<3> resident launch"):
+        fc._pcg_cuda(3, offs, W4, M, b, 1e-7, 0.0, 800, "resident", 100_000)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(lattice):

@@ -8,6 +8,12 @@
   tolerance) and rel 1e-4.
 - The plain fused solves at f64 against JAX ``pcg`` on the where-masked
   operator: equal iteration counts and rel 1e-10.
+- The plain vector solve at f32 against the streamed Pallas kernel (K3c)
+  in interpret mode, chunked small so that several chunks and the halo
+  rows run: |Δiters| <= 2 and rel 1e-4.
+- The CUDA kernel's launch plan (Python, so testable here): the mode for
+  each lattice size up to N=128 and on 132 or 114 SMs, the owned node
+  ranges, the shared-memory bytes of every mode that fits.
 """
 
 import numpy as np
@@ -143,3 +149,83 @@ def test_plain_fused_solve_matches_jax_pcg_f64(kind):
     x_t, info_t = _torch_solve(t, kind, 1e-10, 500)
     assert int(info_t["iters"]) == int(info_j["iters"])
     assert _rel(x_t, x_j) <= 1e-10
+
+
+def test_plain_vector_solve_matches_streamed_pallas_interpret_f32(monkeypatch):
+    monkeypatch.setenv("GLIMS_PALLAS_INTERPRET", "1")
+    P = _problem(1, jnp.float32, torch.float32)
+    j, t = P["jax"], P["torch"]
+    offs = j["ops"].offsets
+    n = j["b_u"].shape[0]
+    Wt = jpc.tile_vector_planes(
+        jpc.fold_mask_vector(offs, j["Wel"], j["mask_u"]), n)
+    Bt = jpc.tile_binv(jpc.fold_mask_binv(j["Binv"], j["mask_u"]), n)
+    cfg = jpc.streamed_cfg(offs, n, 3, rv_candidates=(8,))
+    assert cfg is not None and cfg[2] // cfg[0] >= 2  # several chunks
+    x_j, info_j = jpc.cg_vector_streamed(offs, Wt, Bt, j["b_u"], 1e-6, 0.0,
+                                         400, n, cfg=cfg)
+    x_t, info_t = _torch_solve(t, "vector", 1e-6, 400)
+    assert x_t.dtype == torch.float32
+    assert abs(int(info_t["iters"]) - int(info_j["iters"])) <= 2
+    assert _rel(x_t, x_j) <= 1e-4
+
+
+SMS = 132  # an H100 SXM's SMs; an H100 PCIe has 114
+MODE_FITS = {  # (N, d, blocks) -> mode: whether each forced mode fits
+    "resident": {(32, 1, SMS), (32, 3, SMS), (64, 1, SMS), (64, 1, 114)},
+    "streamed": {(32, 1, SMS), (32, 3, SMS), (64, 1, SMS), (64, 3, SMS),
+                 (64, 1, 114), (96, 1, SMS), (128, 1, SMS)},
+}
+
+
+@pytest.mark.parametrize("N,d,blocks,mode", [
+    (32, 1, SMS, "resident"), (32, 3, SMS, "resident"),
+    (64, 1, SMS, "resident"), (64, 3, SMS, "streamed"),
+    (64, 1, 114, "resident"), (64, 3, 114, "streamed_global"),
+    (96, 1, SMS, "streamed"), (96, 3, SMS, "streamed_global"),
+    (128, 1, SMS, "streamed"), (128, 3, SMS, "streamed_global"),
+])
+def test_launch_plan_mode_ranges_and_shared_memory(N, d, blocks, mode):
+    """Every lattice size gets a plan: the mode that fits first, owned
+    ranges that cover [0, n) exactly, and shared memory within the card's
+    232,448 bytes a block in every mode that fits."""
+    n = (N + 1) ** 3
+    plan = fc.launch_plan(n, d, 15, blocks)
+    assert plan.mode == mode and plan.blocks == blocks
+    ranges = plan.ranges(n)
+    assert ranges[0][0] == 0 and ranges[-1][1] == n
+    assert all(r0 <= r1 and r1 - r0 <= plan.nloc for r0, r1 in ranges)
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert sum(r1 - r0 for r0, r1 in ranges) == n
+    for forced in fc.MODES:
+        if forced != "streamed_global" and (N, d, blocks) not in MODE_FITS[forced]:
+            with pytest.raises(ValueError, match=forced):
+                fc.launch_plan(n, d, 15, blocks, mode=forced)
+            continue
+        p = fc.launch_plan(n, d, 15, blocks, mode=forced)
+        assert p.smem_bytes <= 232_448
+        if forced != "resident":
+            assert 2 <= p.stages <= fc.PCG_MAX_STAGES
+    assert plan.smem_bytes <= 232_448
+
+
+def test_launch_plan_rejects_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="resident"):
+        fc.launch_plan(65 ** 3, 3, 15, SMS, mode="resident")
+    with pytest.raises(ValueError, match="mode"):
+        fc.launch_plan(100, 1, 15, SMS, mode="fast")
+    with pytest.raises(NotImplementedError):
+        fc.launch_plan(100, 1, 27, SMS)
+
+
+def test_cuda_wrappers_take_the_plain_path_on_cpu():
+    P = _problem(3, jnp.float64, torch.float64)
+    t = P["torch"]
+    offs = t["ops"].offsets
+    Wm = fc.fold_mask_vector(offs, t["Wel"], t["mask_u"])
+    Bm = fc.fold_mask_binv(t["Binv"], t["mask_u"])
+    want, _ = fc.cg_vector_plain(offs, Wm, Bm, t["b_u"], 1e-8, 0.0, 300)
+    before = fc.cg_vector.launches
+    got, _ = fc.cg_vector(offs, Wm, Bm, t["b_u"], 1e-8, 0.0, 300)
+    assert fc.cg_vector.launches == before
+    assert torch.equal(got, want)

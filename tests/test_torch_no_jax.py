@@ -1,10 +1,13 @@
-"""The port runs without JAX, runs on the card by default, and never
-moves a CUDA request to the CPU."""
+"""The port runs without JAX, imports nothing of it (a static scan of
+every source), runs on the card by default, and never moves a CUDA
+request to the CPU."""
 
+import ast
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -73,3 +76,63 @@ def test_unstructured_model_without_device_needs_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         TumorGrowthBrain(mesh)
     assert TumorGrowthBrain(mesh, device="cpu").device == torch.device("cpu")
+
+
+def _import_roots(tree):
+    """Top-level package of every import and from-import in an AST, at any
+    depth (inside functions and classes too)."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.lineno, node.module.split(".")[0]
+
+
+def _port_sources():
+    pkg = os.path.join(ROOT, "glimslib_tpu_torch")
+    for dirpath, _, files in os.walk(pkg):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def test_port_sources_import_nothing_of_jax():
+    """Static scan: no import of jax, jaxlib or glimslib_tpu anywhere in
+    the port or chip_smoke.py, lazy imports inside functions included."""
+    banned = {"jax", "jaxlib", "glimslib_tpu"}
+    hits, n_files = [], 0
+    for path in _port_sources():
+        n_files += 1
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), filename=path)
+        hits += [f"{os.path.relpath(path, ROOT)}:{line} imports {root}"
+                 for line, root in _import_roots(tree) if root in banned]
+    assert n_files > 20
+    assert not hits, hits
+
+
+def test_import_scan_sees_lazy_imports():
+    tree = ast.parse("def f():\n    from glimslib_tpu.native.meshops import x\n"
+                     "    import jax.numpy as jnp\n")
+    assert [r for _, r in _import_roots(tree)] == ["glimslib_tpu", "jax"]
+
+
+def test_reordered_rcm_matches_jax_package():
+    """The port's own RCM copy gives the JAX package's permutation, points
+    and cells on a small box mesh."""
+    from glimslib_tpu.core.mesh import box_mesh as jax_box_mesh
+    from glimslib_tpu_torch.core.mesh import box_mesh
+
+    want = jax_box_mesh((0, 0, 0), (1, 2, 1), 4, 5, 3).reordered_rcm()
+    got = box_mesh((0, 0, 0), (1, 2, 1), 4, 5, 3).reordered_rcm()
+    np.testing.assert_array_equal(got.points, want.points)
+    np.testing.assert_array_equal(got.cells, want.cells)
+
+    from glimslib_tpu.native.meshops import rcm_permutation as jax_rcm
+    from glimslib_tpu_torch.native.meshops import rcm_permutation
+
+    m = box_mesh((0, 0, 0), (1, 1, 1), 3, 4, 2)
+    np.testing.assert_array_equal(rcm_permutation(m.cells, m.n_nodes),
+                                  jax_rcm(m.cells, m.n_nodes))
