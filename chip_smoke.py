@@ -10,12 +10,23 @@ Phases, each printed on lines of their own:
    together; seconds, ptxas report).
 2. Every lattice kernel against its plain torch version on the card, at
    the N=32 shapes the lattice path gives it: stencil_apply for
-   (d_out, d_in) = (1,1), (3,3), (3,1) (max rel error <= 1e-5, f32
-   summation order) and stencil_pcg for d=1 and d=3 (|Δiters| <= 3 and max
-   rel error of x <= 1e-4: reductions re-associate near the tolerance);
-   each kernel's time beside the plain version's: the wrapper call
-   (CUDA events over back-to-back calls, launch overhead included), the
-   kernel alone on the device (torch.profiler), and the plain version.
+   (d_out, d_in) = (1,1), (3,3), (3,1) and the rd residual's three-term
+   form <1,1,3> (max rel error <= 1e-5) and stencil_pcg for d=1 and d=3
+   (|Δiters| <= 3 and max rel error of x <= 1e-4: reductions re-associate
+   near the tolerance).  Every stencil_apply form prints its device time
+   L2-cold (before each single launch a 256 MB tensor is written and
+   128 MB of another read, so the L2 holds neither input and no dirty
+   line: the kernel's duration from torch.profiler is the JSON's ``ms``
+   and the share of the bound is taken on it; CUDA events right around
+   the launch, which add the launch's own latency, are printed beside
+   it) and warm (torch.profiler over back-to-back calls on the same
+   planes), the wrapper call (CUDA events over back-to-back calls, host
+   overhead included) and its host cost by part, the plain version, and
+   the same operator as one torch.sparse CSR matrix (int32 indices,
+   built once outside the timing; cuSPARSE's matvec, cold and warm,
+   ``library_ms`` the cold one: a yardstick the port never calls).  The
+   rd residual in one launch is also timed against the three single
+   launches and elementwise passes it replaces, in turns (3, 1, 1, 3).
    Every stencil_pcg launch also prints its mode (resident, streamed or
    streamed_global), iterations, device time from CUDA events right
    around single launches (the stream held busy first, so the host's work
@@ -31,10 +42,14 @@ Phases, each printed on lines of their own:
    final c and u must agree to rel-L2 <= 5e-5 with the port's plain path
    at f64 on the card with tight tolerances.  Prints steps/s (one run
    that counts launches, then 3 timed runs), Newton and CG iteration
-   counts, peak memory, and the device time by kernel of one profiled run.
+   counts, peak memory, and the device time by kernel of one profiled run
+   (each stencil_apply kernel with its time a launch on the path).  K1's
+   kernel runs on the path as the rd residual (apply_scalar_sum); its row
+   counts the launches of both of its wrappers.
 4. The lattice path at N=64 (274,625 nodes, 1,572,864 tets), f32, bench
    StepConfig, 2 steps: every step converges through the lattice kernels
-   (launches > 0), and one elasticity solve (stencil_pcg<3>, streamed;
+   (launches > 0); every stencil_apply form is held against its plain
+   version and timed as in [2]; one elasticity solve (stencil_pcg<3>, streamed;
    and again forced to streamed_global, the layout larger lattices or
    cards with fewer SMs take) and one rd solve (stencil_pcg<1>, resident)
    are held against the plain pcg (|Δiters| <= 3, max rel <= 1e-4) and
@@ -47,8 +62,9 @@ Phases, each printed on lines of their own:
    lattice structure stripped and its nodes in Morton order, f32, the
    benchmark's unstructured StepConfig, 5 steps: set-up seconds (plans,
    frozen preconditioners), the first run, then the mean of 3 runs.  Every
-   step must converge and bell_bmv must launch; prints Newton and CG
-   counts, peak memory, the profiler breakdown and the device's idle
+   step must converge and bell_bmv must launch; prints its launches by
+   shape and the share of the bound weighted by them (with [5]'s times),
+   Newton and CG counts, peak memory, the profiler breakdown and the device's idle
    share, and rel-L2 of the final c and u against the port's plain f64
    path on the card with tight tolerances (<= 1e-4).
 
@@ -64,6 +80,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -72,6 +89,12 @@ N64 = 64
 N_STEPS = 5
 N64_STEPS = 2
 APPLY_RTOL = 1e-5
+# the CSR yardstick sums in cuSPARSE's order, with the planes of the rd
+# residual's terms added into one matrix first: it must compute the same
+# function, to f32 rounding
+CSR_RTOL = 1e-4
+# written between launches for L2-cold times: five times the H100's 50 MB L2
+FLUSH_BYTES = 256 << 20
 PCG_RTOL = 1e-4
 PCG_DITERS = 3
 SLICE_RTOL = 5e-5
@@ -159,23 +182,283 @@ def _host_ms(torch, fn):
     return (time.perf_counter() - t0) * 1e3
 
 
-def _launch_ms(torch, fn, reps):
+def _launch_ms(torch, fn, reps, prep=None):
     """Mean device time in ms of single calls of fn(), each bracketed by
-    CUDA events right around it.  A sleep kernel holds the stream first,
-    so the host's work inside fn() before its launch overlaps the sleep
-    and is not counted."""
+    CUDA events right around it.  A sleep kernel holds the stream first
+    (``prep()``, where given, ends with one), so the host's work inside
+    fn() before its launch overlaps the sleep and is not counted."""
     fn()
     total = 0.0
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(4_000_000)
+        if prep is None:
+            torch.cuda._sleep(4_000_000)
+        else:
+            prep()
         start.record()
         fn()
         end.record()
         torch.cuda.synchronize()
         total += start.elapsed_time(end)
     return total / reps
+
+
+def _cold_l2(torch, dev):
+    """prep() for L2-cold timing: write FLUSH_BYTES (five times the L2; an
+    in-place add, a kernel no timed call launches), read half as many of
+    another tensor, so the L2 holds clean lines of neither input and a
+    timed kernel pays no write-back of the flush's dirty lines, then hold
+    the stream with a sleep kernel."""
+    dirty = torch.zeros(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    clean = torch.ones(FLUSH_BYTES // 8, dtype=torch.float32, device=dev)
+
+    def prep():
+        dirty.add_(1.0)
+        clean.sum()
+        torch.cuda._sleep(1_000_000)
+    return prep
+
+
+def _device_records(torch, run):
+    """The profiler's device records of run(), in the order the device ran
+    them.  A 1 ms sleep kernel opens the window: on this card the profiler
+    drops the first records of a window now and then."""
+    from torch.autograd import DeviceType
+
+    def settled():
+        torch.cuda._sleep(2_000_000)
+        run()
+    prof = _profile(torch, settled)
+    return sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+
+
+def _cold_device_ms(torch, fn, reps, prep):
+    """(mean device time in ms of one call of fn() after prep(), or None;
+    why not), from the profiler: the kernels fn() launches and how often
+    (a profile of ``reps`` calls alone), each kernel's mean duration over
+    ``reps`` calls after prep(), summed.  Means of each kernel's records
+    do not care for a dropped record."""
+    from collections import Counter
+
+    prep_names = {r.name for r in _device_records(torch, lambda: [prep() for _ in range(3)])}
+    if not prep_names:
+        return None, "no records of the flush"
+    calls = Counter(r.name for r in _device_records(
+        torch, lambda: [fn() for _ in range(reps)]))
+    # kernels of fn(), not the flush's or the window's opening sleep
+    mix = {name: round(c / reps) for name, c in calls.items()
+           if name not in prep_names and round(c / reps) > 0}
+    if not mix:
+        return None, f"no kernels of the call in {sum(calls.values())} records"
+    durations = {}
+    for r in _device_records(torch, lambda: [(prep(), fn()) for _ in range(reps)]):
+        if r.name in mix:
+            durations.setdefault(r.name, []).append(r.time_range.elapsed_us())
+    if set(durations) != set(mix):
+        return None, f"no cold records of {sorted(set(mix) - set(durations))}"
+    return sum(mix[k] * sum(d) / len(d) for k, d in durations.items()) / 1e3, ""
+
+
+def _csr(torch, offsets, terms, n, d_out, d_in, n_cols):
+    """The operator sum_k s_k A_k of stencil planes as one torch sparse CSR
+    matrix (int32 indices, exact zeros dropped): term (W, s, col0) with W
+    (n_off, d_out, d_in, n) puts s W[o, a, b, i] at row i d_out + a, column
+    col0 + ((i + off_o) mod n) d_in + b.  A yardstick only: the port never
+    calls it."""
+    rows, cols, vals = [], [], []
+    i = torch.arange(n, device=terms[0][0].device)
+    for W, s, col0 in terms:
+        for o, off in enumerate(offsets):
+            j = (i + off) % n
+            for a in range(d_out):
+                for b in range(d_in):
+                    w = W[o, a, b]
+                    keep = w != 0
+                    rows.append((i * d_out + a)[keep])
+                    cols.append((col0 + j * d_in + b)[keep])
+                    vals.append((s * w)[keep])
+    with warnings.catch_warnings():  # torch's note that sparse CSR is beta
+        warnings.simplefilter("ignore", UserWarning)
+        coo = torch.sparse_coo_tensor(
+            torch.stack([torch.cat(rows), torch.cat(cols)]), torch.cat(vals),
+            (n * d_out, n_cols), check_invariants=False).coalesce()
+        csr = coo.to_sparse_csr()
+        return torch.sparse_csr_tensor(
+            csr.crow_indices().int(), csr.col_indices().int(), csr.values(),
+            csr.shape, check_invariants=False)
+
+
+def _cold_ms(torch, fn, prep):
+    """(L2-cold device ms of fn(), its source, the same by CUDA events
+    right around single calls): the profiler's records
+    (``_cold_device_ms``), else the events, which count the launch too."""
+    events = _launch_ms(torch, fn, 30, prep)
+    for _ in range(2):
+        ms, why = _cold_device_ms(torch, fn, 20, prep)
+        if ms is not None:
+            return ms, "profiler", events
+    return events, f"CUDA events; the profiler's records: {why}", events
+
+
+def _apply_row(torch, name, kern, plain, args, lib_fn, lib_shape, wrappers,
+               pattern, nbytes, flops, replaces, tag, cold):
+    """One stencil_apply form against its plain version (max rel <=
+    APPLY_RTOL) and its times: L2-cold and warm device time, the wrapper
+    call, the plain version and the CSR matvec (cold and warm)."""
+    got = kern(*args)
+    want = plain(*args)
+    lib = lib_fn().reshape(lib_shape)
+    torch.cuda.synchronize()
+    err, rel = _rel_max(got, want)
+    if not bool(torch.isfinite(got).all()) or rel > APPLY_RTOL:
+        raise AssertionError(f"{name}: rel err {rel:.3e} > {APPLY_RTOL}")
+    _, lib_rel = _rel_max(lib, want)
+    if lib_rel > CSR_RTOL:
+        raise AssertionError(f"{name}: the CSR yardstick is off by {lib_rel:.3e}")
+    call_ms = _time_ms(torch, lambda: kern(*args), 50)
+    cold_ms, cold_src, cold_ev = _cold_ms(torch, lambda: kern(*args), cold)
+    warm_ms, warm_src = _device_ms(torch, lambda: kern(*args), 20, pattern)
+    plain_ms = _time_ms(torch, lambda: plain(*args), 10)
+    lib_cold, lib_src, lib_cold_ev = _cold_ms(torch, lib_fn, cold)
+    lib_warm = _launch_ms(torch, lib_fn, 30)
+    bound_ms, bound_by = _bound(nbytes, flops)
+    print(f"{tag} {name}: max abs err {err:.3e}, max rel err {rel:.3e} (<= "
+          f"{APPLY_RTOL}); device L2-cold {cold_ms:.5f} ms ({cold_src}; CUDA events "
+          f"around single launches {cold_ev:.5f}), warm {warm_ms:.5f} ms "
+          f"({warm_src}); wrapper call {call_ms:.5f} ms; plain {plain_ms:.4f} ms; "
+          f"bound {bound_ms:.5f} ms ({bound_by}) = {100 * bound_ms / cold_ms:.1f}% "
+          f"of the cold time; torch.sparse CSR (int32) {lib_cold:.5f} ms cold "
+          f"({lib_src}; events {lib_cold_ev:.5f}), {lib_warm:.5f} ms warm (events) = "
+          f"{lib_cold / cold_ms:.2f}x the kernel's cold time")
+    return dict(name=name, route="cuda", source=STENCIL_SRC, replaces=replaces,
+                wrappers=wrappers, pattern=pattern, max_abs_err=err, ms=cold_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=lib_cold, cold_events_ms=cold_ev, call_ms=call_ms,
+                warm_ms=warm_ms, library_cold_events_ms=lib_cold_ev,
+                library_warm_ms=lib_warm)
+
+
+def _wrapper_host_us(torch, offs, W, v, reps=400, rounds=5):
+    """Host microseconds a call of each step of apply_scalar's launch path
+    and of the whole wrapper: the least over ``rounds`` rounds of ``reps``
+    calls by perf_counter (the host's neighbours make single rounds
+    spread; the launches queue on the device, which keeps up)."""
+    from glimslib_tpu_torch import _build
+    from glimslib_tpu_torch.ops import stencil_kernels as sk
+
+    n, dev = W.shape[-1], W.device
+    y = torch.empty(n, dtype=torch.float32, device=dev)
+    entry = sk._entry("glims_stencil_apply")
+    pack = _build.pack_offsets(offs, n)[1]
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    ptrs = (W.data_ptr(), v.data_ptr(), y.data_ptr())
+    parts = {
+        "two tensor checks": lambda: (sk._check("W", W, (len(offs), n), dev),
+                                      sk._check("v", v, (n,), dev)),
+        "torch.empty_like": lambda: torch.empty_like(v),
+        "pack_offsets": lambda: _build.pack_offsets(offs, n),
+        "raw stream": lambda: torch._C._cuda_getCurrentRawStream(dev.index),
+        "C entry (launch)": lambda: entry(1, 1, *ptrs, n, pack, stream),
+        "whole wrapper": lambda: sk.apply_scalar(offs, W, v),
+    }
+    us = {}
+    for name, fn in parts.items():
+        fn()
+        best = float("inf")
+        for _ in range(rounds):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            best = min(best, time.perf_counter() - t0)
+        us[name] = best / reps * 1e6
+        torch.cuda.synchronize()
+    return us
+
+
+def phase_applies(torch, offs, theta, wc, dev, tag, suffix=""):
+    """Every stencil_apply form at one lattice's shapes (the path's planes,
+    random vectors from a seed): K1 and K2 against their plain versions
+    and the CSR matvec, then the rd residual in one launch against the
+    three launches it replaces, both timed as the path calls them."""
+    import numpy as np
+
+    from glimslib_tpu_torch.ops import stencil_kernels as sk
+
+    n = theta["_Wel"].shape[-1]
+    rng = np.random.default_rng(0)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    v = f32(rng.standard_normal(n))
+    v2 = f32(rng.standard_normal(n))
+    u = f32(rng.standard_normal((n, 3)))
+    cold = _cold_l2(torch, dev)
+    k1 = "glimslib_tpu/ops/stencil_pallas.py:108"
+    k2 = "glimslib_tpu/ops/stencil_pallas.py:151"
+    rows = []
+    for name, kern, plain, W, x, d_out, d_in, replaces, wrappers in (
+        ("stencil_apply<1,1>", sk.apply_scalar, sk.apply_scalar_plain,
+         theta["_Wrd_const"], v, 1, 1, k1, (sk.apply_scalar, sk.apply_scalar_sum)),
+        ("stencil_apply<3,3>", sk.apply_vector, sk.apply_vector_plain,
+         theta["_Wel"], u, 3, 3, k2, (sk.apply_vector,)),
+        ("stencil_apply<3,1>", sk.apply_coupling, sk.apply_coupling_plain,
+         theta["_Cuc"], v, 3, 1, k2, (sk.apply_coupling,)),
+    ):
+        W4 = W.reshape(len(offs), d_out, d_in, n)
+        A = _csr(torch, offs, [(W4, 1.0, 0)], n, d_out, d_in, n * d_in)
+        xf = x.reshape(-1)
+        rows.append(_apply_row(
+            torch, name + suffix, kern, plain, (offs, W, x),
+            lambda A=A, xf=xf: torch.mv(A, xf), (n, d_out) if d_out > 1 else (n,),
+            wrappers, rf"stencil_apply_kernel<{d_out}, ?{d_in}, ?1>",
+            4 * (W.numel() + x.numel() + n * d_out), 2 * W.numel(), replaces,
+            tag, cold))
+        del A
+    host = _wrapper_host_us(torch, offs, theta["_Wrd_const"], v)
+    print(f"{tag} apply_scalar host cost a call, us (perf_counter, the least "
+          "of 5 rounds of 400 calls): "
+          + ", ".join(f"{k} {us:.2f}" for k, us in host.items()))
+    rows[0]["host_us"] = host
+
+    # the lattice rd residual: W_const c + wc c / 2 - M c_prev - load
+    Wc, M, load = theta["_Wrd_const"], theta["_Mst"], theta["_rd_load"]
+    terms = ((Wc, v, 1.0), (wc, v, 0.5), (M, v2, -1.0))
+    A = _csr(torch, offs, [(Wc[:, None, None], 1.0, 0), (wc[:, None, None], 0.5, 0),
+                           (M[:, None, None], -1.0, n)], n, 1, 1, 2 * n)
+    x2 = torch.cat([v, v2])
+    row = _apply_row(
+        torch, "stencil_apply<1,1,3>" + suffix, sk.apply_scalar_sum,
+        sk.apply_scalar_sum_plain, (offs, terms, load),
+        lambda: torch.addmv(load, A, x2, beta=-1.0), (n,), (sk.apply_scalar_sum,),
+        r"stencil_apply_kernel<1, ?1, ?3>", 4 * (3 * Wc.numel() + 4 * n),
+        6 * Wc.numel() + 4 * n, k1, tag, cold)
+    del A
+
+    def three():
+        return (sk.apply_scalar(offs, Wc, v) + 0.5 * sk.apply_scalar(offs, wc, v)
+                - sk.apply_scalar(offs, M, v2) - load)
+
+    def one():
+        return sk.apply_scalar_sum(offs, terms, load)
+
+    err, rel = _rel_max(one(), three())
+    ab = {"3 launches": [], "1 launch": []}
+    for label in ("3 launches", "1 launch", "1 launch", "3 launches"):
+        fn = three if label == "3 launches" else one
+        cold_ms, cold_src, cold_ev = _cold_ms(torch, fn, cold)
+        ab[label].append((_time_ms(torch, fn, 50), cold_ms, cold_ev))
+        if cold_src != "profiler":
+            print(f"{tag} rd residual, {label}: L2-cold time from {cold_src}")
+    print(f"{tag} rd residual, in-path A/B (turns 3, 1, 1, 3; ms: wrapper "
+          "calls back to back / L2-cold device time of its kernels (profiler) / "
+          "the same by CUDA events around the call): " + "; ".join(
+              f"{k} " + ", ".join(f"{c:.5f} / {d:.5f} / {e:.5f}" for c, d, e in v_)
+              for k, v_ in ab.items())
+          + f"; one launch vs three max rel {rel:.3e}")
+    row["ab_ms"] = {k: [list(p) for p in v_] for k, v_ in ab.items()}
+    rows.append(row)
+    return rows
 
 
 def phase_device(torch):
@@ -223,53 +506,21 @@ def phase_kernels(torch, sim, theta, dev):
     import numpy as np
 
     from glimslib_tpu_torch.ops import fused_cg as fc
-    from glimslib_tpu_torch.ops import stencil_kernels as sk
 
     ops = sim._stencil_ops
     offs = ops.offsets
     n = sim.mesh.n_nodes
     mask_u, mask_c, _, _ = sim._bc_masks_and_values()
+    c0 = sim.initial_state()[1]
+    wc = ops.build_rd_wc(c0, theta["rho"], theta["dt"])
+    results = phase_applies(torch, offs, theta, wc, dev, "[2]")
+
     rng = np.random.default_rng(0)
     f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
     v = f32(rng.standard_normal(n))
     u = f32(rng.standard_normal((n, 3)))
-    results = []
-
-    applies = [
-        ("stencil_apply<1,1>", sk.apply_scalar, sk.apply_scalar_plain,
-         theta["_Wrd_const"], v, "glimslib_tpu/ops/stencil_pallas.py:108"),
-        ("stencil_apply<3,3>", sk.apply_vector, sk.apply_vector_plain,
-         theta["_Wel"], u, "glimslib_tpu/ops/stencil_pallas.py:151"),
-        ("stencil_apply<3,1>", sk.apply_coupling, sk.apply_coupling_plain,
-         theta["_Cuc"], v, "glimslib_tpu/ops/stencil_pallas.py:151"),
-    ]
-    for name, kern, plain, W, x, replaces in applies:
-        got = kern(offs, W, x)
-        want = plain(offs, W, x)
-        torch.cuda.synchronize()
-        err, rel = _rel_max(got, want)
-        if not bool(torch.isfinite(got).all()) or rel > APPLY_RTOL:
-            raise AssertionError(f"{name}: rel err {rel:.3e} > {APPLY_RTOL}")
-        ms = _time_ms(torch, lambda: kern(offs, W, x), 50)
-        plain_ms = _time_ms(torch, lambda: plain(offs, W, x), 20)
-        d_out, d_in = name[len("stencil_apply<"):-1].split(",")
-        dev_ms, dev_src = _device_ms(torch, lambda: kern(offs, W, x), 20,
-                                   rf"stencil_apply_kernel<{d_out}, ?{d_in}>")
-        bound_ms, bound_by = _bound(4 * (W.numel() + x.numel() + got.numel()),
-                                    2 * W.numel())
-        print(f"[2] {name}: shape W {tuple(W.shape)}, max abs err {err:.3e}, "
-              f"max rel err {rel:.3e} (<= {APPLY_RTOL}); wrapper call "
-              f"{ms:.4f} ms, kernel on device {dev_ms:.4f} ms ({dev_src}), plain "
-              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-        results.append(dict(name=name, route="cuda", source=STENCIL_SRC,
-                            replaces=replaces, wrapper=kern, max_abs_err=err,
-                            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                            bound_by=bound_by, library_ms=None,
-                            device_ms=dev_ms))
-
     cfg = sim.step_config
-    c0 = sim.initial_state()[1]
-    Wrd = theta["_Wrd_const"] + ops.build_rd_wc(c0, theta["rho"], theta["dt"])
+    Wrd = theta["_Wrd_const"] + wc
     solves = [
         ("stencil_pcg<1>", fc.cg_scalar, fc.cg_scalar_plain,
          fc.fold_mask_scalar(offs, Wrd, mask_c), theta["_invdM"],
@@ -341,16 +592,18 @@ def _check_pcg(torch, name, kern, plain, offs, Wm, Minv, b, cfg, replaces, tag,
           f"figure {stream_it / 1e6:.1f} MB = {1e3 * stream_ms / max(it_k, 1):.2f} "
           f"us an iteration at 3.35 TB/s = {100 * stream_ms / dev_ms:.1f}% of it")
     return dict(name=name, route="cuda", source=STENCIL_SRC, replaces=replaces,
-                wrapper=kern, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                wrappers=(kern,), max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                 device_ms=dev_ms, profiler_ms=prof_ms, mode=plan.mode,
                 us_per_iter=us_it, iters=it_k)
 
 
-def _print_breakdown(torch, run, run_ms, tag):
+def _print_breakdown(torch, run, run_ms, tag, detail=None):
     """Device time by kernel over one profiled simulate, and the device's
     busy share: of the profiled run's wall time (the profiler adds host
-    overhead) and of ``run_ms``, the unprofiled run's mean wall time."""
+    overhead) and of ``run_ms``, the unprofiled run's mean wall time.
+    Kernels whose name matches ``detail`` are printed too, with their time
+    a launch; returns {name: ms a launch} for them."""
     from torch.autograd import DeviceType
 
     t0 = time.perf_counter()
@@ -363,21 +616,31 @@ def _print_breakdown(torch, run, run_ms, tag):
     if busy_ms <= 0:
         print(f"{tag} device time breakdown: none (the profiler recorded "
               "no device time)")
-        return
+        return {}
     print(f"{tag} profiled run: device busy {busy_ms:.3f} ms = "
           f"{100 * busy_ms / wall_ms:.1f}% of its wall {wall_ms:.2f} ms; "
           f"{100 * busy_ms / run_ms:.1f}% of the unprofiled run's "
           f"{run_ms:.2f} ms, so the device idles "
           f"{100 * max(0.0, 1 - busy_ms / run_ms):.1f}% of it")
-    for e in evts[:10]:
+    per_launch = {}
+    for k, e in enumerate(evts):
         us = _self_device_us(e)
-        print(f"{tag}   {100 * us / 1e3 / busy_ms:5.1f}%  {us / 1e3:8.3f} ms  "
-              f"x{e.count:<6d} {e.key[:90]}")
+        hit = detail is not None and re.search(detail, e.key)
+        if k < 10 or hit:
+            print(f"{tag}   {100 * us / 1e3 / busy_ms:5.1f}%  {us / 1e3:8.3f} ms  "
+                  f"x{e.count:<6d} {e.key[:90]}"
+                  + (f"  ({us / max(e.count, 1):.2f} us a launch)" if hit else ""))
+        if hit:
+            per_launch[e.key] = us / max(e.count, 1) / 1e3
+    return per_launch
 
 
-def _drive(torch, sim, simulate, args, wrappers, tag, n_steps):
+def _drive(torch, sim, simulate, args, groups, tag, n_steps):
     """One run of the path with every count set to 0 just before it:
-    returns the trajectory, the launches by wrapper and the seconds."""
+    returns the trajectory, the launches by wrapper and the seconds.
+    ``groups`` holds one tuple of wrappers a kernel (the wrappers that
+    launch it); each kernel must launch at least once."""
+    wrappers = [w for g in groups for w in g]
     for w in wrappers:
         w.launches = 0
     torch.cuda.synchronize()
@@ -397,7 +660,8 @@ def _drive(torch, sim, simulate, args, wrappers, tag, n_steps):
         f"{w.__name__}={n}" for w, n in launches.items()))
     if not bool(ok.all()):
         raise AssertionError(f"{tag} a step did not converge")
-    missing = [w.__name__ for w, n in launches.items() if n < 1]
+    missing = [[w.__name__ for w in g] for g in groups
+               if sum(launches[w] for w in g) < 1]
     if missing:
         raise AssertionError(f"{tag} kernels not launched on the path: {missing}")
     if not (bool(torch.isfinite(u_tr).all()) and bool(torch.isfinite(c_tr).all())):
@@ -407,7 +671,9 @@ def _drive(torch, sim, simulate, args, wrappers, tag, n_steps):
     return (u_tr, c_tr), launches, first_s
 
 
-def _time_runs(torch, simulate, args, dev, tag, n_steps):
+def _time_runs(torch, simulate, args, dev, tag, n_steps, detail=None):
+    """Steps/s over 3 runs, peak memory, and the breakdown of one profiled
+    run (returns its ms a launch of the kernels matching ``detail``)."""
     torch.cuda.reset_peak_memory_stats(dev)
     times = []
     for _ in range(3):
@@ -422,9 +688,18 @@ def _time_runs(torch, simulate, args, dev, tag, n_steps):
     print(f"{tag} steps/s {sps:.4f} (3 runs of {n_steps} steps: "
           f"{', '.join(f'{t:.4f}' for t in times)} s); peak memory "
           f"{peak / 2**20:.1f} MiB")
-    _print_breakdown(torch, lambda: simulate(*args),
-                     1e3 * sum(times) / len(times), tag)
-    return sps
+    return _print_breakdown(torch, lambda: simulate(*args),
+                            1e3 * sum(times) / len(times), tag, detail)
+
+
+def _set_launches(rows, launches):
+    """Each row's launches on the path: the sum over the wrappers that
+    launch its kernel (K1's kernel is launched by apply_scalar and, as the
+    rd residual, by apply_scalar_sum), with the split where there are two."""
+    for k in rows:
+        k["launches"] = sum(launches[w] for w in k["wrappers"])
+        if len(k["wrappers"]) > 1:
+            k["launches_by_wrapper"] = {w.__name__: launches[w] for w in k["wrappers"]}
 
 
 def phase_slice(torch, sim, dev, kernels):
@@ -434,12 +709,16 @@ def phase_slice(torch, sim, dev, kernels):
     theta = sim.make_theta(sim.params.as_dict())
     u0, c0 = sim.initial_state()
     simulate = sim.build_simulate_fn(N_STEPS, 1.0)
-    wrappers = [k["wrapper"] for k in kernels]
-    (u_tr, c_tr), launches, _ = _drive(torch, sim, simulate, (theta, u0, c0),
-                                       wrappers, f"[3] N={N}:", N_STEPS)
+    (u_tr, c_tr), launches, _ = _drive(
+        torch, sim, simulate, (theta, u0, c0), [k["wrappers"] for k in kernels],
+        f"[3] N={N}:", N_STEPS)
+    _set_launches(kernels, launches)
+    in_path = _time_runs(torch, simulate, (theta, u0, c0), dev, "[3]", N_STEPS,
+                         r"stencil_apply_kernel")
     for k in kernels:
-        k["launches"] = launches[k["wrapper"]]
-    _time_runs(torch, simulate, (theta, u0, c0), dev, "[3]", N_STEPS)
+        if "pattern" in k:
+            k["in_path_ms"] = next((ms for key, ms in in_path.items()
+                                    if re.search(k["pattern"], key)), None)
 
     ref = brain_sim(n=N, dtype=torch.float64, device=dev, plain=True)
     ref.step_config = StepConfig(newton_rtol=1e-10, newton_atol=1e-14,
@@ -474,17 +753,21 @@ def phase_lattice64(torch, dev):
     simulate = sim.build_simulate_fn(N64_STEPS, 1.0)
     torch.cuda.synchronize()
     print(f"[4] N={N64} model set-up {time.perf_counter() - t0:.1f} s")
-    wrappers = [sk.apply_scalar, sk.apply_vector, sk.apply_coupling,
-                fc.cg_scalar, fc.cg_vector]
-    _, launches, _ = _drive(torch, sim, simulate, (theta, u0, c0), wrappers,
+    groups = [(sk.apply_scalar, sk.apply_scalar_sum), (sk.apply_vector,),
+              (sk.apply_coupling,), (sk.apply_scalar_sum,), (fc.cg_scalar,),
+              (fc.cg_vector,)]
+    _, launches, _ = _drive(torch, sim, simulate, (theta, u0, c0), groups,
                             f"[4] N={N64}:", N64_STEPS)
 
     aug = sim._augment_theta_with_operators(theta)
     mask_u, mask_c, _, _ = sim._bc_masks_and_values()
+    ops = sim._stencil_ops
+    wc = ops.build_rd_wc(c0, aug["rho"], aug["dt"])
+    applies = phase_applies(torch, ops.offsets, aug, wc, dev, "[4]", f"@N={N64}")
+    _set_launches(applies, launches)
     # the first step's elasticity system: the rhs of u from rest
     ru = sim.el_residual(torch.where(mask_u, 0.0, u0), c0, aug, 1.0)
     b = torch.where(mask_u, 0.0, -ru).contiguous()
-    ops = sim._stencil_ops
     cfg = sim.step_config
     el = _check_pcg(torch, "stencil_pcg<3>", fc.cg_vector, fc.cg_vector_plain,
                     ops.offsets, aug["_WelM"], aug["_BinvM"], b, cfg,
@@ -498,7 +781,7 @@ def phase_lattice64(torch, dev):
                "glimslib_tpu/ops/pallas_cg.py:497", "[4] (forced streamed_global)",
                mode="streamed_global")
     # an rd Newton system of the first step, from the initial state
-    Wrd = aug["_Wrd_const"] + ops.build_rd_wc(c0, aug["rho"], aug["dt"])
+    Wrd = aug["_Wrd_const"] + wc
     v = torch.as_tensor(np.random.default_rng(2).standard_normal(sim.mesh.n_nodes),
                         dtype=torch.float32, device=dev)
     rd = _check_pcg(torch, "stencil_pcg<1>", fc.cg_scalar, fc.cg_scalar_plain,
@@ -507,7 +790,7 @@ def phase_lattice64(torch, dev):
                     "glimslib_tpu/ops/pallas_cg.py:204", "[4]")
     rd["name"] = "stencil_pcg<1>@N=64"
     rd["launches"] = launches[fc.cg_scalar]
-    return [el, rd]
+    return applies + [el, rd]
 
 
 def phase_bmv(torch, usim, theta, dev):
@@ -556,7 +839,7 @@ def phase_bmv(torch, usim, theta, dev):
                            bound_ms=bound_ms, bound_by=bound_by))
     top = shapes[0]
     return dict(name="bell_bmv", route="cuda", source=BELL_SRC,
-                replaces="glimslib_tpu/ops/bell_pallas.py:56", wrapper=bk.batched_matvec,
+                replaces="glimslib_tpu/ops/bell_pallas.py:56", wrappers=(bk.batched_matvec,),
                 max_abs_err=max(r["max_abs_err"] for r in shapes),
                 ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
                 bound_by=top["bound_by"], library_ms=top["library_ms"],
@@ -564,6 +847,26 @@ def phase_bmv(torch, usim, theta, dev):
                 also_replaces=["glimslib_tpu/ops/bell_pallas.py:199",
                                "glimslib_tpu/ops/bell_pallas.py:229"],
                 shapes=shapes)
+
+
+def _bmv_split(kern, by_shape):
+    """bell_bmv's launches on the path by (B, M, K), and the share of the
+    bound weighted by them: sum of launches x bound over sum of launches x
+    device time, with [5]'s times of each shape."""
+    times = {tuple(r["shape"]): r for r in kern["shapes"]}
+    timed = {s: c for s, c in by_shape.items() if s in times}
+    bound = sum(c * times[s]["bound_ms"] for s, c in timed.items())
+    device = sum(c * times[s]["device_ms"] for s, c in timed.items())
+    share = bound / device if device > 0 else None
+    print("[6] bell_bmv launches in that run by (B, M, K): " + ", ".join(
+        f"{s}: {c}" for s, c in sorted(by_shape.items(), key=lambda x: -x[1]))
+        + (f"; weighted by them, the device time is {device:.3f} ms against a "
+           f"bound of {bound:.3f} ms = {100 * share:.1f}% of the bound"
+           if share is not None else "")
+        + (f" (shapes not timed in [5]: {sorted(set(by_shape) - set(timed))})"
+           if len(timed) < len(by_shape) else ""))
+    kern["launches_by_shape"] = {"x".join(map(str, s)): c for s, c in by_shape.items()}
+    kern["weighted_bound_share"] = share
 
 
 def phase_unstructured(torch, dev):
@@ -598,9 +901,11 @@ def phase_unstructured(torch, dev):
     del aug
 
     simulate = sim.build_simulate_fn(N_STEPS, 1.0)
+    bk.batched_matvec.launches_by_shape = {}
     (u_tr, c_tr), launches, _ = _drive(torch, sim, simulate, (theta, u0, c0),
-                                       [bk.batched_matvec], f"[6] n={N}:", N_STEPS)
+                                       [(bk.batched_matvec,)], f"[6] n={N}:", N_STEPS)
     kern["launches"] = launches[bk.batched_matvec]
+    _bmv_split(kern, dict(bk.batched_matvec.launches_by_shape))
     _time_runs(torch, simulate, (theta, u0, c0), dev, "[6]", N_STEPS)
 
     ref = brain_sim(n=N, dtype=torch.float64, device=dev, plain=True,
@@ -661,7 +966,7 @@ def main():
 
     kernels.append(phase_unstructured(torch, dev))
 
-    drop = ("wrapper", "iters")
+    drop = ("wrappers", "pattern", "iters")
     print(json.dumps({"kernels": [
         {k: v for k, v in kern.items() if k not in drop} for kern in kernels
     ]}))

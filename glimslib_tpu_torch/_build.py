@@ -43,9 +43,12 @@ def _signatures():
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     return {
         "stencil": {
-            "glims_stencil_apply": [i32, i32, vp, vp, vp, i32, vp, i32, vp],
+            "glims_stencil_apply": [i32, i32, vp, vp, vp, i32, vp, vp],
+            "glims_stencil_apply_sum": [
+                i32, vp, vp, f32, vp, vp, f32, vp, vp, f32, vp, vp, i32, vp, vp,
+            ],
             "glims_stencil_pcg": [
-                i32, vp, vp, vp, vp, vp, vp, vp, i32, vp, i32, f32, f32, i32,
+                i32, vp, vp, vp, vp, vp, vp, vp, i32, vp, f32, f32, i32,
                 vp, i32, i32, i32, i32,
             ],
         },
@@ -121,6 +124,28 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what} failed: cudaError_t {err}")
 
 
-def offsets_array(offsets):
-    """Host int32 array of stencil offsets for the C entry points."""
-    return (ctypes.c_int * len(offsets))(*[int(o) for o in offsets])
+# the 3D Kuhn lattice's 15 offsets: csrc/stencil.cu GLIMS_MAX_OFF
+MAX_OFF = 15
+
+
+class Offsets(ctypes.Structure):
+    """csrc/stencil.cu's ``Offsets``: the count, then the offsets mod n."""
+
+    _fields_ = [("n", ctypes.c_int), ("v", ctypes.c_int * MAX_OFF)]
+
+
+@functools.lru_cache(maxsize=64)
+def _pack(offsets: tuple, n: int):
+    if not 1 <= len(offsets) <= MAX_OFF:
+        raise ValueError(f"{len(offsets)} stencil offsets; the kernels take "
+                         f"1 to {MAX_OFF}")
+    pack = Offsets(len(offsets),
+                   (ctypes.c_int * MAX_OFF)(*[int(o) % n for o in offsets]))
+    return pack, ctypes.addressof(pack)
+
+
+def pack_offsets(offsets, n: int):
+    """``(Offsets, its address)`` for the C entry points: the offsets taken
+    mod ``n``, packed once per (offsets, n) and cached by their values, so
+    a changed sequence gets a pack of its own."""
+    return _pack(tuple(offsets), n)

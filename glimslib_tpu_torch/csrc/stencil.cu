@@ -5,18 +5,33 @@
 // neighbour is read at (i + off) mod n; planes are zero wherever a node
 // has no neighbour, so wrapped reads contribute exactly 0.
 //
-// stencil_apply<DOUT, DIN> replaces the Pallas matvecs
+// stencil_apply<DOUT, DIN, TERMS> replaces the Pallas matvecs
 //   glimslib_tpu/ops/stencil_pallas.py:_scalar_kernel            (DOUT=DIN=1)
 //   glimslib_tpu/ops/stencil_pallas.py:_vector_kernel_streamed   (DOUT=DIN=3,
 //     and DOUT=3, DIN=1 for the growth-strain coupling planes).
+// It computes y = sum_k s_k A_k v_k (- b), TERMS operators on one offset
+// set: TERMS=1 (s=1, no b) is the plain matvec; TERMS=3 at d=1 is the
+// lattice rd residual W_const c + wc c / 2 - M c_prev - load in one launch.
 // What bounds it: one pass over the planes (4 * n_off * DOUT * DIN bytes a
-// node; 19.4 MB for the N=32 elasticity operator) and nothing else, so it
-// is bandwidth-bound at 0.25 flop/byte.  Design: one thread per (node,
-// output component), threads of a warp on consecutive nodes, so every
-// plane read is coalesced; the vector reads hit the same few cache lines
-// per warp and come from L1/L2.  The TPU kernel's (R, 128) tiling and
-// in-register lane rolls are not carried over: a CUDA thread indexes its
-// neighbour directly.
+// node; 19.4 MB for the N=32 elasticity operator) and the vectors, so it
+// is bandwidth-bound at 0.25 flop/byte; at N=32 the whole pass is a few
+// microseconds, so the latency of a round trip to HBM counts as much.
+// Design: one thread a node for all DOUT outputs, threads of a warp on
+// consecutive nodes, so every plane read is coalesced.  The offset loop
+// is unrolled to the lattice's 15 offsets (loads predicated on off.n):
+// a thread issues all its plane and neighbour loads before the first sum,
+// so a launch waits for about one round trip, not 15.  (3,3) issues them
+// in two chunks (offsets 0-7, 8-14) and is held to 128 registers, so four
+// blocks fit an SM and the N=32 grid (281 blocks) runs in one wave; with
+// all 180 loads at once it took 217 registers and two waves, and was
+// slower at N=32 on the H100.  Each neighbour's DIN components are loaded
+// once and used for every output row.  DOUT=3 outputs go through shared
+// memory, so a warp stores 32*DOUT contiguous floats in DOUT coalesced
+// stores.  Products and sums are rounded one by one (no FMA contraction),
+// o outer and b inner, as the plain torch version does them, so on the
+// same inputs the two agree to the bit.  The TPU kernel's (R, 128) tiling
+// and in-register lane rolls are not carried over: a CUDA thread indexes
+// its neighbour directly.
 //
 // stencil_pcg<D> replaces the whole-solve Pallas CG kernels
 //   glimslib_tpu/ops/pallas_cg.py:_cg_scalar_kernel           (D=1, Jacobi)
@@ -94,15 +109,21 @@
 
 namespace cg = cooperative_groups;
 
-#define GLIMS_MAX_OFF 32
-#define GLIMS_APPLY_BLOCK 256
+// the 3D Kuhn lattice's 15 offsets; _build.py's Offsets mirrors the struct
+#define GLIMS_MAX_OFF 15
+#define GLIMS_APPLY_BLOCK 128
+// (3,3): offsets a chunk of loads, and blocks an SM (at most 128 registers
+// a thread), so that the N=32 grid fits the card in one wave
+#define GLIMS_APPLY_CHUNK33 8
+#define GLIMS_APPLY_MIN_BLOCKS33 4
+#define GLIMS_APPLY_MAX_TERMS 3
 
 // whole-solve PCG geometry; ops/fused_cg.py mirrors these numbers
 #define GLIMS_PCG_T 128  // nodes a thread row; a streamed chunk
 #define GLIMS_PCG_G 3    // offset groups: threads a node
 #define GLIMS_PCG_THREADS (GLIMS_PCG_T * GLIMS_PCG_G)
 #define GLIMS_PCG_WARPS (GLIMS_PCG_THREADS / 32)
-#define GLIMS_PCG_MAX_OFF 15  // the 3D Kuhn lattice's 15 offsets
+#define GLIMS_PCG_MAX_OFF GLIMS_MAX_OFF
 #define GLIMS_PCG_OFF_PER_G (GLIMS_PCG_MAX_OFF / GLIMS_PCG_G)
 #define GLIMS_PCG_MAX_STAGES 4
 // nodes a thread sums per chunk: 1 streamed, GLIMS_PCG_U_RESIDENT(D) resident
@@ -117,37 +138,104 @@ struct Offsets {
   int v[GLIMS_MAX_OFF];  // offsets taken mod n into [0, n)
 };
 
-// y[i, a] = sum_o sum_b W[o, a, b, i] * v[(i + off_o) mod n, b]
+struct ApplyArgs {
+  const float* W[GLIMS_APPLY_MAX_TERMS];  // (n_off, DOUT, DIN, n) each
+  const float* v[GLIMS_APPLY_MAX_TERMS];  // (n, DIN) each
+  float s[GLIMS_APPLY_MAX_TERMS];
+  const float* b;  // (n, DOUT), subtracted; null for none
+  float* y;        // (n, DOUT)
+  int n;
+  Offsets off;
+};
+
+// t[a] = sum_o sum_b W[o, a, b, i] * v[(i + off_o) mod n, b] for every a:
+// all loads first (offsets past off.n load nothing and add exact zeros),
+// then the sums in the plain version's order and rounding.
 template <int DOUT, int DIN>
-__device__ __forceinline__ float stencil_row(const float* __restrict__ W,
+__device__ __forceinline__ void stencil_node(const float* __restrict__ W,
                                              const float* __restrict__ v,
                                              int n, const Offsets& off, int i,
-                                             int a) {
+                                             float (&t)[DOUT]) {
+  constexpr int CH = DOUT * DIN == 9 ? GLIMS_APPLY_CHUNK33 : GLIMS_MAX_OFF;
   const size_t plane = (size_t)n;
-  float acc = 0.0f;
-#pragma unroll 1
-  for (int o = 0; o < off.n; ++o) {
-    int j = i + off.v[o];
-    if (j >= n) j -= n;
-    const float* w = W + ((size_t)(o * DOUT + a) * DIN) * plane + i;
 #pragma unroll
-    for (int b = 0; b < DIN; ++b) {
-      acc += __ldg(w + (size_t)b * plane) * __ldg(v + (size_t)j * DIN + b);
+  for (int a = 0; a < DOUT; ++a) t[a] = 0.0f;
+#pragma unroll
+  for (int o0 = 0; o0 < GLIMS_MAX_OFF; o0 += CH) {
+    float vj[CH][DIN];
+    float w[CH][DOUT][DIN];
+#pragma unroll
+    for (int q = 0; q < CH; ++q) {
+      const int o = o0 + q;
+      const bool on = o < off.n && o < GLIMS_MAX_OFF;
+      int j = i + off.v[on ? o : 0];
+      if (j >= n) j -= n;
+#pragma unroll
+      for (int b = 0; b < DIN; ++b)
+        vj[q][b] = on ? __ldg(v + (size_t)j * DIN + b) : 0.0f;
+#pragma unroll
+      for (int a = 0; a < DOUT; ++a)
+#pragma unroll
+        for (int b = 0; b < DIN; ++b)
+          w[q][a][b] =
+              on ? __ldg(W + ((size_t)(o * DOUT + a) * DIN + b) * plane + i) : 0.0f;
     }
+#pragma unroll
+    for (int q = 0; q < CH; ++q)
+#pragma unroll
+      for (int a = 0; a < DOUT; ++a)
+#pragma unroll
+        for (int b = 0; b < DIN; ++b)
+          t[a] = __fadd_rn(t[a], __fmul_rn(w[q][a][b], vj[q][b]));
   }
-  return acc;
 }
 
-template <int DOUT, int DIN>
-__global__ void __launch_bounds__(GLIMS_APPLY_BLOCK)
-    stencil_apply_kernel(const float* __restrict__ W,
-                         const float* __restrict__ v, float* __restrict__ y,
-                         int n, Offsets off) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n * DOUT) return;
-  const int a = e / n;
-  const int i = e - a * n;
-  y[(size_t)i * DOUT + a] = stencil_row<DOUT, DIN>(W, v, n, off, i, a);
+// y[i] = s_0 A_0 v_0 + ... + s_{TERMS-1} A_{TERMS-1} v_{TERMS-1} (- b),
+// summed left to right; one thread a node.
+template <int DOUT, int DIN, int TERMS>
+__global__ void __launch_bounds__(GLIMS_APPLY_BLOCK,
+                                  DOUT * DIN == 9 ? GLIMS_APPLY_MIN_BLOCKS33 : 1)
+    stencil_apply_kernel(const ApplyArgs args) {
+  const int n = args.n;
+  const int i = blockIdx.x * GLIMS_APPLY_BLOCK + threadIdx.x;
+  float out[DOUT];
+#pragma unroll
+  for (int a = 0; a < DOUT; ++a) out[a] = 0.0f;
+  if (i < n) {
+#pragma unroll
+    for (int k = 0; k < TERMS; ++k) {
+      float t[DOUT];
+      stencil_node<DOUT, DIN>(args.W[k], args.v[k], n, args.off, i, t);
+#pragma unroll
+      for (int a = 0; a < DOUT; ++a) {
+        const float st = __fmul_rn(args.s[k], t[a]);
+        out[a] = k == 0 ? st : __fadd_rn(out[a], st);
+      }
+    }
+    if (args.b != nullptr) {
+#pragma unroll
+      for (int a = 0; a < DOUT; ++a)
+        out[a] = __fsub_rn(out[a], __ldg(args.b + (size_t)i * DOUT + a));
+    }
+  }
+  if (DOUT == 1) {
+    if (i < n) args.y[i] = out[0];
+    return;
+  }
+  // a warp's 32 nodes' outputs are 32 * DOUT contiguous floats of y
+  __shared__ float ys[GLIMS_APPLY_BLOCK * DOUT];
+  const int lane = threadIdx.x & 31;
+  float* yw = ys + (threadIdx.x - lane) * DOUT;
+#pragma unroll
+  for (int a = 0; a < DOUT; ++a) yw[lane * DOUT + a] = out[a];
+  __syncwarp();
+  const size_t e0 = (size_t)(i - lane) * DOUT;
+  const size_t end = (size_t)n * DOUT;
+#pragma unroll
+  for (int q = 0; q < DOUT; ++q) {
+    const size_t e = e0 + q * 32 + lane;
+    if (e < end) args.y[e] = yw[q * 32 + lane];
+  }
 }
 
 // -- whole-solve PCG ---------------------------------------------------------
@@ -630,23 +718,21 @@ __global__ void __launch_bounds__(GLIMS_PCG_THREADS, 1)
 
 // -- host side ---------------------------------------------------------------
 
-static int make_offsets(const int* offsets, int n_off, int n, Offsets* out) {
-  if (n_off < 1 || n_off > GLIMS_MAX_OFF || n < 1) return (int)cudaErrorInvalidValue;
-  out->n = n_off;
-  for (int o = 0; o < n_off; ++o) {
-    int m = offsets[o] % n;
-    out->v[o] = m < 0 ? m + n : m;
-  }
+// The offsets come packed by the caller (_build.py pack_offsets), already
+// taken mod n; a pack that does not fit n is refused.
+static int check_offsets(const Offsets* off, int n) {
+  if (off == nullptr || n < 1 || off->n < 1 || off->n > GLIMS_MAX_OFF)
+    return (int)cudaErrorInvalidValue;
+  for (int o = 0; o < off->n; ++o)
+    if (off->v[o] < 0 || off->v[o] >= n) return (int)cudaErrorInvalidValue;
   return 0;
 }
 
-template <int DOUT, int DIN>
-static int launch_apply(const float* W, const float* v, float* y, int n,
-                        const Offsets& off, cudaStream_t stream) {
-  const int total = n * DOUT;
-  const int grid = (total + GLIMS_APPLY_BLOCK - 1) / GLIMS_APPLY_BLOCK;
-  stencil_apply_kernel<DOUT, DIN>
-      <<<grid, GLIMS_APPLY_BLOCK, 0, stream>>>(W, v, y, n, off);
+template <int DOUT, int DIN, int TERMS>
+static int launch_apply(const ApplyArgs& args, cudaStream_t stream) {
+  const int grid = (args.n + GLIMS_APPLY_BLOCK - 1) / GLIMS_APPLY_BLOCK;
+  stencil_apply_kernel<DOUT, DIN, TERMS>
+      <<<grid, GLIMS_APPLY_BLOCK, 0, stream>>>(args);
   return (int)cudaGetLastError();
 }
 
@@ -679,15 +765,37 @@ extern "C" {
 
 // y (n, dout) = stencil(W (n_off, dout, din, n), v (n, din)).
 int glims_stencil_apply(int dout, int din, const float* W, const float* v,
-                        float* y, int n, const int* offsets, int n_off,
-                        void* stream) {
-  Offsets off;
-  int err = make_offsets(offsets, n_off, n, &off);
+                        float* y, int n, const Offsets* off, void* stream) {
+  const int err = check_offsets(off, n);
   if (err) return err;
+  ApplyArgs args = {};
+  args.W[0] = W;
+  args.v[0] = v;
+  args.s[0] = 1.0f;
+  args.y = y;
+  args.n = n;
+  args.off = *off;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dout == 1 && din == 1) return launch_apply<1, 1>(W, v, y, n, off, s);
-  if (dout == 3 && din == 3) return launch_apply<3, 3>(W, v, y, n, off, s);
-  if (dout == 3 && din == 1) return launch_apply<3, 1>(W, v, y, n, off, s);
+  if (dout == 1 && din == 1) return launch_apply<1, 1, 1>(args, s);
+  if (dout == 3 && din == 3) return launch_apply<3, 3, 1>(args, s);
+  if (dout == 3 && din == 1) return launch_apply<3, 1, 1>(args, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// y (n,) = s0 W0 v0 + s1 W1 v1 + s2 W2 v2 - b, scalar planes (n_off, n)
+// on one offset set; the first ``terms`` (2 or 3) terms are read.
+int glims_stencil_apply_sum(int terms, const float* W0, const float* v0,
+                            float s0, const float* W1, const float* v1,
+                            float s1, const float* W2, const float* v2,
+                            float s2, const float* b, float* y, int n,
+                            const Offsets* off, void* stream) {
+  const int err = check_offsets(off, n);
+  if (err) return err;
+  if (b == nullptr) return (int)cudaErrorInvalidValue;
+  ApplyArgs args = {{W0, W1, W2}, {v0, v1, v2}, {s0, s1, s2}, b, y, n, *off};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (terms == 2) return launch_apply<1, 1, 2>(args, s);
+  if (terms == 3) return launch_apply<1, 1, 3>(args, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -702,15 +810,17 @@ int glims_stencil_apply(int dout, int din, const float* W, const float* v,
 // in front of them when streamed, plus 2 * n * d behind them in mode 2.
 int glims_stencil_pcg(int d, const float* W, const float* Minv,
                       const float* b, float* x, int* iters, float* resnorm,
-                      float* scratch, int n, const int* offsets, int n_off,
+                      float* scratch, int n, const Offsets* off,
                       float rtol, float atol, int maxiter, void* stream,
                       int mode, int blocks, int stages, int smem_bytes) {
   PcgArgs args;
-  int err = make_offsets(offsets, n_off, n, &args.off);
+  int err = check_offsets(off, n);
   if (err) return err;
+  args.off = *off;
+  const int n_off = off->n;
   const bool streamed = mode == GLIMS_PCG_STREAMED ||
                         mode == GLIMS_PCG_STREAMED_GLOBAL;
-  if (n_off > GLIMS_PCG_MAX_OFF || blocks < 1 || smem_bytes < 0 ||
+  if (blocks < 1 || smem_bytes < 0 ||
       (mode != GLIMS_PCG_RESIDENT && !streamed) ||
       (streamed && (stages < 2 || stages > GLIMS_PCG_MAX_STAGES)))
     return (int)cudaErrorInvalidValue;

@@ -67,13 +67,14 @@ def _kernel_ops(plain: bool):
     sk, fc, bk = stencil_kernels, fused_cg, bell_kernels
     if plain:
         return types.SimpleNamespace(
-            apply_scalar=sk.apply_scalar_plain, apply_vector=sk.apply_vector_plain,
+            apply_scalar_sum=sk.apply_scalar_sum_plain,
+            apply_vector=sk.apply_vector_plain,
             apply_coupling=sk.apply_coupling_plain,
             cg_scalar=fc.cg_scalar_plain, cg_vector=fc.cg_vector_plain,
             bmv=bk.batched_matvec_plain,
         )
     return types.SimpleNamespace(
-        apply_scalar=sk.apply_scalar, apply_vector=sk.apply_vector,
+        apply_scalar_sum=sk.apply_scalar_sum, apply_vector=sk.apply_vector,
         apply_coupling=sk.apply_coupling,
         cg_scalar=fc.cg_scalar, cg_vector=fc.cg_vector,
         bmv=bk.batched_matvec,

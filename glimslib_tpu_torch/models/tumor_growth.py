@@ -88,11 +88,11 @@ class TumorGrowth(Simulation):
             return lin + quad - theta["_Bell_rd_load"]
         ops = self._stencil_ops
         wc = ops.build_rd_wc(c, theta["rho"], theta["dt"], conc_max=1.0)
-        return (
-            k.apply_scalar(ops.offsets, theta["_Wrd_const"], c)
-            + 0.5 * k.apply_scalar(ops.offsets, wc, c)
-            - k.apply_scalar(ops.offsets, theta["_Mst"], c_prev)
-            - theta["_rd_load"]
+        # one launch of stencil_apply on the card
+        return k.apply_scalar_sum(
+            ops.offsets,
+            ((theta["_Wrd_const"], c, 1.0), (wc, c, 0.5), (theta["_Mst"], c_prev, -1.0)),
+            theta["_rd_load"],
         )
 
     def el_residual(self, u, c, theta, t):

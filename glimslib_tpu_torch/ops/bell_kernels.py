@@ -12,7 +12,8 @@ its lanes; the port keeps the canonical layout and one kernel.
 
 :func:`batched_matvec` given CPU tensors runs the plain version; given
 CUDA tensors it launches ``bell_bmv`` (``csrc/bell.cu``) or raises.  It
-counts its kernel launches in its ``launches`` attribute.
+counts its kernel launches in its ``launches`` attribute, and by the
+shape of A in ``launches_by_shape``.
 """
 
 from __future__ import annotations
@@ -51,7 +52,12 @@ def batched_matvec(A, x):
         raise ValueError(f"unsupported device {A.device}")
     y = batched_matvec_cuda(A, x)
     batched_matvec.launches += 1
+    shape = tuple(A.shape)
+    batched_matvec.launches_by_shape[shape] = (
+        batched_matvec.launches_by_shape.get(shape, 0) + 1)
     return y
 
 
 batched_matvec.launches = 0
+# the same launches split by (B, M, K); reset together with ``launches``
+batched_matvec.launches_by_shape = {}

@@ -209,7 +209,7 @@ def _pcg_cuda(d, offsets, W4, Minv, b, rtol, atol, maxiter, mode=None,
     _build.check(lib.glims_stencil_pcg(
         d, W4.data_ptr(), Minv.data_ptr(), b.data_ptr(), x.data_ptr(),
         iters.data_ptr(), resnorm.data_ptr(), scratch.data_ptr(), n,
-        _build.offsets_array(offsets), n_off, float(rtol), float(atol),
+        _build.pack_offsets(offsets, n)[1], float(rtol), float(atol),
         int(maxiter), torch.cuda.current_stream(dev).cuda_stream,
         MODES[plan.mode], plan.blocks, plan.stages, plan.smem_bytes,
     ), f"stencil_pcg<{d}> {plan.mode} launch")

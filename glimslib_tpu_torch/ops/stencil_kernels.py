@@ -1,16 +1,23 @@
 """Offset-stencil matvecs: the CUDA kernel ``stencil_apply`` and its plain
 torch version (counterpart of ``glimslib_tpu/ops/stencil_pallas.py``).
 
-Three wrappers, one per shape the lattice step applies:
+Four wrappers, one per form the lattice step applies:
 
-- :func:`apply_scalar`   W (n_off, n),       v (n,)   -> (n,)    [K1]
-- :func:`apply_vector`   W (n_off, d, d, n), u (n, d) -> (n, d)  [K2]
-- :func:`apply_coupling` C (n_off, d, n),    c (n,)   -> (n, d)  [K2, d_in=1]
+- :func:`apply_scalar`     W (n_off, n),       v (n,)   -> (n,)    [K1]
+- :func:`apply_vector`     W (n_off, d, d, n), u (n, d) -> (n, d)  [K2]
+- :func:`apply_coupling`   C (n_off, d, n),    c (n,)   -> (n, d)  [K2, d_in=1]
+- :func:`apply_scalar_sum` 2 or 3 terms (W_k (n_off, n), v_k (n,), s_k) and
+  b (n,) -> sum_k s_k W_k v_k - b                            [K1, one launch]
 
-all computing ``y[i, a] = sum_o sum_b W[o, a, b, i] v[(i + off_o) mod n, b]``.
+all built on ``y[i, a] = sum_o sum_b W[o, a, b, i] v[(i + off_o) mod n, b]``.
+:func:`apply_scalar_sum` is the lattice rd residual
+``W_const c + wc c / 2 - M c_prev - load`` in one launch of the same kernel.
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches ``stencil_apply<d_out, d_in>`` (``csrc/stencil.cu``) or raises.
-Each wrapper counts its kernel launches in its ``launches`` attribute.
+launches ``stencil_apply<d_out, d_in, terms>`` (``csrc/stencil.cu``) or
+raises.  The launch path is lean: the offsets are packed once per
+(offsets, n) (``_build.pack_offsets``), the C entry points are bound once,
+and the wrappers reach them without views.  Each wrapper counts its
+kernel launches in its ``launches`` attribute.
 """
 
 from __future__ import annotations
@@ -18,9 +25,6 @@ from __future__ import annotations
 import torch
 
 from glimslib_tpu_torch import _build
-
-# (d_out, d_in) instantiated in csrc/stencil.cu
-KERNEL_SHAPES = ((1, 1), (3, 3), (3, 1))
 
 
 def stencil_apply_plain(offsets, W, v):
@@ -46,34 +50,45 @@ def _check_cuda(name, t, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def stencil_apply_cuda(offsets, W, v):
+def _plain_here(*tensors):
+    """True where every tensor lies on the CPU (the plain version runs),
+    False where the first lies on a CUDA device (the kernel launches);
+    raises for any other device."""
+    if tensors[0].is_cuda:
+        return False
+    if all(t.device.type == "cpu" for t in tensors):
+        return True
+    raise ValueError(f"unsupported devices {[str(t.device) for t in tensors]}")
+
+
+_entries = {}
+
+
+def _entry(name):
+    """The C entry point ``name`` of the stencil library, bound once."""
+    fn = _entries.get(name)
+    if fn is None:
+        fn = _entries[name] = getattr(_build.load("stencil"), name)
+    return fn
+
+
+def _check(name, t, shape, dev):
+    """Raise unless t is float32, contiguous, of this shape and on dev: one
+    fast test, and _check_cuda's precise error where it fails."""
+    if not (t.dtype is torch.float32 and t.shape == shape
+            and t.is_contiguous() and t.device == dev):
+        _check_cuda(name, t, shape, dev)
+
+
+def _launch(offsets, d_out, d_in, W, v, y):
     """Launch ``stencil_apply<d_out, d_in>`` on the current stream."""
-    n_off, d_out, d_in, n = W.shape
-    if (d_out, d_in) not in KERNEL_SHAPES:
-        raise NotImplementedError(
-            f"stencil_apply has no kernel for (d_out, d_in)={(d_out, d_in)}"
-        )
-    if len(offsets) != n_off:
-        raise ValueError(f"{len(offsets)} offsets for {n_off} planes")
-    _check_cuda("W", W, (n_off, d_out, d_in, n), W.device)
-    _check_cuda("v", v, (n, d_in), W.device)
-    y = torch.empty((n, d_out), dtype=torch.float32, device=W.device)
-    lib = _build.load("stencil")
-    _build.check(lib.glims_stencil_apply(
+    n = y.shape[0]
+    err = _entry("glims_stencil_apply")(
         d_out, d_in, W.data_ptr(), v.data_ptr(), y.data_ptr(), n,
-        _build.offsets_array(offsets), n_off,
-        torch.cuda.current_stream(W.device).cuda_stream,
-    ), "stencil_apply launch")
-    return y
-
-
-def _dispatch(wrapper, offsets, W4, v2):
-    if W4.device.type == "cpu" and v2.device.type == "cpu":
-        return stencil_apply_plain(offsets, W4, v2)
-    if W4.device.type != "cuda":
-        raise ValueError(f"unsupported device {W4.device}")
-    y = stencil_apply_cuda(offsets, W4, v2)
-    wrapper.launches += 1
+        _build.pack_offsets(offsets, n)[1],
+        torch._C._cuda_getCurrentRawStream(y.get_device()))
+    if err:
+        _build.check(err, "stencil_apply launch")
     return y
 
 
@@ -83,7 +98,14 @@ def apply_scalar_plain(offsets, W, v):
 
 def apply_scalar(offsets, W, v):
     """(A v)[i] = sum_o W[o, i] v[i + off_o]; W (n_off, n), v (n,)."""
-    return _dispatch(apply_scalar, offsets, W[:, None, None, :], v[:, None])[:, 0]
+    if _plain_here(W, v):
+        return apply_scalar_plain(offsets, W, v)
+    n = W.shape[-1]
+    _check("W", W, (len(offsets), n), W.device)
+    _check("v", v, (n,), W.device)
+    y = _launch(offsets, 1, 1, W, v, torch.empty_like(v))
+    apply_scalar.launches += 1
+    return y
 
 
 def apply_vector_plain(offsets, W, u):
@@ -92,7 +114,14 @@ def apply_vector_plain(offsets, W, u):
 
 def apply_vector(offsets, W, u):
     """(A u)[i, a] = sum_o sum_b W[o, a, b, i] u[i + off_o, b]."""
-    return _dispatch(apply_vector, offsets, W, u)
+    if _plain_here(W, u):
+        return apply_vector_plain(offsets, W, u)
+    n = W.shape[-1]
+    _check("W", W, (len(offsets), 3, 3, n), W.device)
+    _check("u", u, (n, 3), W.device)
+    y = _launch(offsets, 3, 3, W, u, torch.empty_like(u))
+    apply_vector.launches += 1
+    return y
 
 
 def apply_coupling_plain(offsets, C, c):
@@ -101,9 +130,55 @@ def apply_coupling_plain(offsets, C, c):
 
 def apply_coupling(offsets, C, c):
     """(C c)[i, a] = sum_o C[o, a, i] c[i + off_o]; returns (n, d)."""
-    return _dispatch(apply_coupling, offsets, C[:, :, None, :], c[:, None])
+    if _plain_here(C, c):
+        return apply_coupling_plain(offsets, C, c)
+    n = C.shape[-1]
+    _check("C", C, (len(offsets), 3, n), C.device)
+    _check("c", c, (n,), C.device)
+    y = _launch(offsets, 3, 1, C, c, c.new_empty((n, 3)))
+    apply_coupling.launches += 1
+    return y
+
+
+def apply_scalar_sum_plain(offsets, terms, b):
+    """sum_k s_k (W_k v_k) - b, summed left to right, each term a plain
+    scalar apply.  With s = (1, 0.5, -1) this is exactly the lattice rd
+    residual's A1 c + 0.5 A2 c - A3 c_prev - load (1 x and -1 x are exact)."""
+    acc = None
+    for W, v, s in terms:
+        t = s * apply_scalar_plain(offsets, W, v)
+        acc = t if acc is None else acc + t
+    return acc - b
+
+
+def apply_scalar_sum(offsets, terms, b):
+    """y = s_1 W_1 v_1 + ... + s_k W_k v_k - b for k = 2 or 3 terms
+    ``(W_k (n_off, n), v_k (n,), s_k float)`` on one offset set, in one
+    launch."""
+    if not b.is_cuda and _plain_here(b, *(t for W, v, _ in terms for t in (W, v))):
+        return apply_scalar_sum_plain(offsets, terms, b)
+    if len(terms) not in (2, 3):
+        raise ValueError(f"apply_scalar_sum takes 2 or 3 terms, got {len(terms)}")
+    n, dev = b.shape[0], b.device
+    _check("b", b, (n,), dev)
+    args = []
+    for W, v, s in terms:
+        _check("W", W, (len(offsets), n), dev)
+        _check("v", v, (n,), dev)
+        args += (W.data_ptr(), v.data_ptr(), float(s))
+    args += (None, None, 0.0) * (3 - len(terms))
+    y = torch.empty_like(b)
+    err = _entry("glims_stencil_apply_sum")(
+        len(terms), *args, b.data_ptr(), y.data_ptr(), n,
+        _build.pack_offsets(offsets, n)[1],
+        torch._C._cuda_getCurrentRawStream(y.get_device()))
+    if err:
+        _build.check(err, "stencil_apply_sum launch")
+    apply_scalar_sum.launches += 1
+    return y
 
 
 apply_scalar.launches = 0
 apply_vector.launches = 0
 apply_coupling.launches = 0
+apply_scalar_sum.launches = 0

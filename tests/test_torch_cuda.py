@@ -6,8 +6,8 @@ file imports no JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Tolerances: stencil applies and batched matvecs max rel 1e-5 (f32
-summation order); whole solves, in every mode of ``stencil_pcg``,
+Tolerances: stencil applies (and the rd residual's one-launch sum) and
+batched matvecs max rel 1e-5 (f32 summation order); whole solves, in every mode of ``stencil_pcg``,
 |Δiters| <= 3 and max rel 1e-4 (reductions re-associate near the
 stopping tolerance); the unstructured
 slice against its plain path rel-L2 1e-4 (f32 operators, Newton and CG
@@ -62,6 +62,58 @@ def test_stencil_apply_kernel_matches_plain(lattice, shape):
     torch.cuda.synchronize()
     assert kern.launches == before + 1
     assert _rel_max(got, plain(offs, W, x)) <= 1e-5
+
+
+@pytest.mark.parametrize("n_terms", [2, 3])
+def test_stencil_apply_sum_kernel_matches_plain_applies(lattice, n_terms):
+    """The rd residual's one launch against the plain applies it replaces,
+    summed in the same order (1 x and -1 x are exact)."""
+    sim, theta, v, _ = lattice
+    offs = sim._stencil_ops.offsets
+    wc = sim._stencil_ops.build_rd_wc(v.abs(), theta["rho"], theta["dt"])
+    v2 = torch.flip(v, (0,)).contiguous()
+    terms = ((theta["_Wrd_const"], v, 1.0), (wc, v, 0.5),
+             (theta["_Mst"], v2, -1.0))[:n_terms]
+    before = sk.apply_scalar_sum.launches
+    got = sk.apply_scalar_sum(offs, terms, theta["_rd_load"])
+    torch.cuda.synchronize()
+    assert sk.apply_scalar_sum.launches == before + 1
+    want = sum(s * sk.apply_scalar_plain(offs, W, x) for W, x, s in terms)
+    assert _rel_max(got, want - theta["_rd_load"]) <= 1e-5
+
+
+@pytest.mark.parametrize("shape", ["scalar", "vector", "coupling", "sum"])
+def test_stencil_apply_kernel_at_odd_n(shape):
+    """Random planes at n = 1001 (odd, not a multiple of the 128-node
+    block) and 15 offsets drawn at random, negative and past n included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(9)
+    n = 1001
+    offs = [0] + [int(o) for o in rng.integers(-2 * n, 2 * n, 14)]
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device="cuda")  # noqa: E731
+    v = f32(rng.standard_normal(n))
+    if shape == "sum":
+        terms = tuple((f32(rng.standard_normal((15, n))), f32(rng.standard_normal(n)), s)
+                      for s in (1.0, 0.5, -1.0))
+        b = f32(rng.standard_normal(n))
+        got = sk.apply_scalar_sum(offs, terms, b)
+        want = sk.apply_scalar_sum_plain(offs, terms, b)
+    else:
+        kern, plain, W, x = {
+            "scalar": (sk.apply_scalar, sk.apply_scalar_plain,
+                       f32(rng.standard_normal((15, n))), v),
+            "vector": (sk.apply_vector, sk.apply_vector_plain,
+                       f32(rng.standard_normal((15, 3, 3, n))),
+                       f32(rng.standard_normal((n, 3)))),
+            "coupling": (sk.apply_coupling, sk.apply_coupling_plain,
+                         f32(rng.standard_normal((15, 3, n))), v),
+        }[shape]
+        got = kern(offs, W, x)
+        want = plain(offs, W, x)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    assert _rel_max(got, want) <= 1e-5
 
 
 @pytest.mark.parametrize("d", [1, 3])
@@ -148,7 +200,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(lattice):
 
 def test_slice_runs_through_the_kernels(lattice):
     sim, _, _, _ = lattice
-    wrappers = (sk.apply_scalar, sk.apply_vector, sk.apply_coupling,
+    wrappers = (sk.apply_scalar_sum, sk.apply_vector, sk.apply_coupling,
                 fc.cg_scalar, fc.cg_vector)
     for w in wrappers:
         w.launches = 0
@@ -185,9 +237,11 @@ def test_bell_bmv_kernel_matches_plain(unstructured, role):
     x = torch.as_tensor(np.random.default_rng(5).standard_normal(
         (A.shape[0], A.shape[2])), dtype=torch.float32, device=A.device)
     before = bk.batched_matvec.launches
+    by_shape = bk.batched_matvec.launches_by_shape.get(tuple(A.shape), 0)
     got = bk.batched_matvec(A, x)
     torch.cuda.synchronize()
     assert bk.batched_matvec.launches == before + 1
+    assert bk.batched_matvec.launches_by_shape[tuple(A.shape)] == by_shape + 1
     assert _rel_max(got, bk.batched_matvec_plain(A, x)) <= 1e-5
 
 

@@ -6,19 +6,29 @@ Inputs are made with numpy from a seed and fed to both packages.  Planes
 are compared at f64 (rel 1e-12: the same sums, accumulated in another
 order).  The plain stencil applies are compared at f32 with the Pallas
 matvec kernels run in interpret mode (rel 1e-6: f32 summation order).
+The lattice rd residual as one multi-operand apply is compared with the
+JAX package's at f64 (rel 1e-12).
 """
+
+import os
+import sys
 
 import numpy as np
 import pytest
 import jax.numpy as jnp
 import torch
 
-from glimslib_tpu.core.mesh import box_mesh as jax_box_mesh
-from glimslib_tpu.ops import stencil_pallas as sp
-from glimslib_tpu.ops.stencil import StencilOperators as JaxStencilOperators
-from glimslib_tpu_torch.core.mesh import box_mesh
-from glimslib_tpu_torch.ops import stencil_kernels as sk
-from glimslib_tpu_torch.ops.stencil import StencilOperators
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from __graft_entry__ import _brain_sim as jax_brain_sim  # noqa: E402
+from glimslib_tpu.core.mesh import box_mesh as jax_box_mesh  # noqa: E402
+from glimslib_tpu.ops import stencil_pallas as sp  # noqa: E402
+from glimslib_tpu.ops.stencil import StencilOperators as JaxStencilOperators  # noqa: E402
+from glimslib_tpu_torch import _build as kernel_build  # noqa: E402
+from glimslib_tpu_torch.core.mesh import box_mesh  # noqa: E402
+from glimslib_tpu_torch.examples import brain_sim  # noqa: E402
+from glimslib_tpu_torch.ops import stencil_kernels as sk  # noqa: E402
+from glimslib_tpu_torch.ops.stencil import StencilOperators  # noqa: E402
 
 
 def _rel(a, b):
@@ -121,20 +131,76 @@ def test_plain_stencil_apply_matches_jax_f32(shape, lattice_f32, monkeypatch):
     assert _rel(got, want) <= 1e-6
 
 
-def test_cpu_wrappers_take_the_plain_path_and_count_nothing(lattice_f32):
+@pytest.mark.parametrize("wrapper", ["apply_vector", "apply_scalar",
+                                     "apply_coupling", "apply_scalar_sum"])
+def test_cpu_wrappers_take_the_plain_path_and_count_nothing(lattice_f32, wrapper):
     """On CPU tensors the wrappers return the plain version's result and
     launch no kernel."""
     _, ops_t, p, u, c = lattice_f32
     W = ops_t.build_elasticity(torch.as_tensor(p["mu"], dtype=torch.float32),
                                torch.as_tensor(p["lam"], dtype=torch.float32))
-    ut = torch.as_tensor(u)
-    before = sk.apply_vector.launches
-    got = sk.apply_vector(ops_t.offsets, W, ut)
-    assert sk.apply_vector.launches == before
-    assert torch.equal(got, sk.apply_vector_plain(ops_t.offsets, W, ut))
     Ws = W[:, 0, 0].contiguous()
     ct = torch.as_tensor(c)
-    before = sk.apply_scalar.launches
-    assert torch.equal(sk.apply_scalar(ops_t.offsets, Ws, ct),
-                       sk.apply_scalar_plain(ops_t.offsets, Ws, ct))
-    assert sk.apply_scalar.launches == before
+    args = {
+        "apply_vector": (W, torch.as_tensor(u)),
+        "apply_scalar": (Ws, ct),
+        "apply_coupling": (W[:, :, 0].contiguous(), ct),
+        "apply_scalar_sum": (((Ws, ct, 1.0), (W[:, 1, 1], ct, 0.5),
+                              (W[:, 2, 2], ct.flip(0), -1.0)), ct),
+    }[wrapper]
+    kern = getattr(sk, wrapper)
+    before = kern.launches
+    got = kern(ops_t.offsets, *args)
+    assert kern.launches == before
+    assert torch.equal(got, getattr(sk, wrapper + "_plain")(ops_t.offsets, *args))
+
+
+@pytest.mark.parametrize("n", [4, 5])
+@pytest.mark.parametrize("entry", ["plain_sum", "model"])
+def test_rd_residual_sum_matches_jax_f64(n, entry):
+    """The lattice rd residual W_const c + wc(c) c / 2 - M c_prev - load as
+    one multi-operand apply (its plain form, and the model's rd_residual,
+    which calls the wrapper) against the JAX package's lattice rd_residual
+    at f64 (rel 1e-12: the same sums)."""
+    sim_j = jax_brain_sim(n=n, dims=3, dtype=jnp.float64)
+    sim_j._build_step()
+    theta_j = sim_j._augment_theta_with_operators(sim_j.make_theta(sim_j.params.as_dict()))
+    sim_t = brain_sim(n=n, dtype=torch.float64, device="cpu")
+    sim_t._build_step()
+    theta_t = sim_t._augment_theta_with_operators(sim_t.make_theta(sim_t.params.as_dict()))
+    rng = np.random.default_rng(n)
+    c = rng.random(sim_t.mesh.n_nodes)
+    c_prev = rng.random(sim_t.mesh.n_nodes)
+    want = sim_j.rd_residual(jnp.asarray(c), jnp.asarray(c_prev), theta_j, 1.0)
+    ct, cpt = torch.as_tensor(c), torch.as_tensor(c_prev)
+    if entry == "model":
+        got = sim_t.rd_residual(ct, cpt, theta_t, 1.0)
+    else:
+        ops = sim_t._stencil_ops
+        wc = ops.build_rd_wc(ct, theta_t["rho"], theta_t["dt"], conc_max=1.0)
+        got = sk.apply_scalar_sum_plain(
+            ops.offsets, ((theta_t["_Wrd_const"], ct, 1.0), (wc, ct, 0.5),
+                          (theta_t["_Mst"], cpt, -1.0)), theta_t["_rd_load"])
+    assert got.dtype == torch.float64
+    assert _rel(got, want) <= 1e-12
+
+
+@pytest.mark.parametrize("offsets", [(0, 1, -1, 7, -7, 49, -49, 48, -48, 6, -6,
+                                      42, -42, 43, -43), (0, 1, -1, 6, -6, 5, -5)])
+def test_packed_offsets_cached_by_value(offsets):
+    """The C entry points' offsets are packed once per (offsets, n), mod n;
+    a sequence changed in place is packed anew, never served a stale pack."""
+    n = 343
+    pack, addr = kernel_build.pack_offsets(list(offsets), n)
+    assert pack.n == len(offsets)
+    assert list(pack.v)[:len(offsets)] == [o % n for o in offsets]
+    assert all(0 <= o < n for o in pack.v)
+    assert kernel_build.pack_offsets(list(offsets), n)[1] == addr  # cached
+    changed = list(offsets)
+    changed[1] = 2
+    pack2, addr2 = kernel_build.pack_offsets(changed, n)
+    assert addr2 != addr and pack2.v[1] == 2 and pack.v[1] == 1
+    assert list(kernel_build.pack_offsets(offsets, 100)[0].v)[:len(offsets)] == [
+        o % 100 for o in offsets]
+    with pytest.raises(ValueError):
+        kernel_build.pack_offsets(list(range(kernel_build.MAX_OFF + 1)), n)
