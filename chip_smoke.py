@@ -67,9 +67,28 @@ Phases, each printed on lines of their own:
    Newton and CG counts, peak memory, the profiler breakdown and the device's idle
    share, and rel-L2 of the final c and u against the port's plain f64
    path on the card with tight tolerances (<= 1e-4).
+7. The adjoint: ``examples.adjoint_problem`` (the benchmark's adjoint
+   cell: D_WM and rho_WM, targets from a forward run, 5 steps) on the
+   sims of [3] and [6], one ``InverseProblem.value_and_grad`` after
+   another.  Per lane: the first call, value_and_grad/s (the mean of 3
+   calls), the forward and backward time of one call split by a CUDA
+   event at the backward's start, the adjoint CG iterations, each
+   kernel's launches in that call by forward and backward (every kernel
+   of the lane must launch in the backward), peak memory, the profiler's
+   breakdown and idle share, and the device time of the plain-torch VJP
+   passes (dW outer products, dx = sum_m A y_bar, the assembly
+   backward).  J and the f32 gradient are held against the port's plain
+   f64 path on the card (the f64 models of [3] and [6]) with the f64
+   default tolerances and the same targets: rel error of J <= 1e-4
+   (lattice) and 5e-4 (unstructured), rel-L2 of the gradient <= 1e-3
+   (lattice) and 1e-2 (unstructured); on the lattice one directional
+   central difference of the f64 objective against its gradient, rel <=
+   1e-5.  Each lane ends with its seconds by stage.
 
-Then one JSON line with every kernel's numbers, the card's line, and as
-the last line {"ok": true, "device": {...}}.  Any failure raises (exit
+Then one JSON line with [7]'s numbers, one with every kernel's numbers
+(each with its launches in [7]'s value_and_grad by forward and
+backward), the card's line, and as the last line {"ok": true, "device":
+{...}}.  Any failure raises (exit
 code != 0).  Needs CUDA: without it the script exits non-zero and prints
 no result.
 """
@@ -100,6 +119,15 @@ PCG_DITERS = 3
 SLICE_RTOL = 5e-5
 UNSTRUCT_RTOL = 1e-4
 BMV_RTOL = 1e-5
+# J's limit on the unstructured lane sits above the lattice's: its
+# operating point (newton_rtol 1e-4, the chord method, rd forcing 1e-3)
+# leaves c at ~6e-5 of the f64 state, and the threshold's slope (50 at
+# the front) carries that into J at 1.5-1.9e-4 (n=6 to 32)
+ADJ_J_RTOL = {"lattice": 1e-4, "unstructured": 5e-4}
+ADJ_G_RTOL = {"lattice": 1e-3, "unstructured": 1e-2}
+ADJ_FD_RTOL = 1e-5
+ADJ_FD_EPS = 1e-5
+ADJ_FD_DIR = (0.6, 0.8)
 STENCIL_SRC = "glimslib_tpu_torch/csrc/stencil.cu"
 BELL_SRC = "glimslib_tpu_torch/csrc/bell.cu"
 # published H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s and
@@ -125,11 +153,14 @@ def _bound(nbytes, flops):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def _profile(torch, fn):
-    """Run fn() once under torch.profiler (CPU + CUDA activity)."""
+def _profile(torch, fn, cpu=True):
+    """Run fn() once under torch.profiler (CPU + CUDA activity, or CUDA
+    alone: the CPU events of a run of many torch ops take the profiler
+    seconds to process)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=activities) as prof:
         fn()
         torch.cuda.synchronize()
     return prof
@@ -355,12 +386,14 @@ def _wrapper_host_us(torch, offs, W, v, reps=400, rounds=5):
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
     ptrs = (W.data_ptr(), v.data_ptr(), y.data_ptr())
     parts = {
+        "grad check": lambda: sk._needs_grad(W, v),
         "two tensor checks": lambda: (sk._check("W", W, (len(offs), n), dev),
                                       sk._check("v", v, (n,), dev)),
         "torch.empty_like": lambda: torch.empty_like(v),
         "pack_offsets": lambda: _build.pack_offsets(offs, n),
         "raw stream": lambda: torch._C._cuda_getCurrentRawStream(dev.index),
         "C entry (launch)": lambda: entry(1, 1, *ptrs, n, pack, stream),
+        "launch path without the grad check": lambda: sk._scalar_raw(offs, W, v),
         "whole wrapper": lambda: sk.apply_scalar(offs, W, v),
     }
     us = {}
@@ -607,7 +640,7 @@ def _print_breakdown(torch, run, run_ms, tag, detail=None):
     from torch.autograd import DeviceType
 
     t0 = time.perf_counter()
-    prof = _profile(torch, run)
+    prof = _profile(torch, run, cpu=False)
     wall_ms = (time.perf_counter() - t0) * 1e3
     evts = [e for e in prof.key_averages()
             if getattr(e, "device_type", None) == DeviceType.CUDA]
@@ -721,6 +754,7 @@ def phase_slice(torch, sim, dev, kernels):
                                     if re.search(k["pattern"], key)), None)
 
     ref = brain_sim(n=N, dtype=torch.float64, device=dev, plain=True)
+    f64_defaults = ref.step_config
     ref.step_config = StepConfig(newton_rtol=1e-10, newton_atol=1e-14,
                                  cg_rtol=1e-12, cg_maxiter=4000)
     t0 = time.perf_counter()
@@ -735,6 +769,9 @@ def phase_slice(torch, sim, dev, kernels):
           f"(<= {SLICE_RTOL})")
     if rel_c > SLICE_RTOL or rel_u > SLICE_RTOL:
         raise AssertionError(f"slice vs f64 reference: c {rel_c:.3e}, u {rel_u:.3e}")
+    # [7] takes the gradient of the same model at the f64 defaults
+    ref.step_config = f64_defaults
+    return ref
 
 
 def phase_lattice64(torch, dev):
@@ -910,16 +947,15 @@ def phase_unstructured(torch, dev):
 
     ref = brain_sim(n=N, dtype=torch.float64, device=dev, plain=True,
                     unstructured=True)
+    f64_defaults = ref.step_config
     ref.step_config = StepConfig(newton_rtol=1e-10, newton_atol=1e-14,
                                  cg_rtol=1e-12, cg_maxiter=4000)
     # the frozen coarse factors carry over (a preconditioner changes
     # iteration counts only); the supernode inverses are rebuilt in f64
-    aux64 = {k: v.double() for k, v in aux.items() if k.startswith("_TL")}
+    ref._aux_cache = {k: v.double() for k, v in aux.items() if k.startswith("_TL")}
     t0 = time.perf_counter()
-    theta64 = ref.make_theta(ref.params.as_dict())
-    u0r, c0r = ref.initial_state()
     u_r, c_r, ok_r, newton_r = ref.build_simulate_fn(N_STEPS, 1.0)(
-        theta64, u0r, c0r, aux64)
+        ref.make_theta(ref.params.as_dict()), *ref.initial_state())
     torch.cuda.synchronize()
     if not bool(ok_r.all()):
         raise AssertionError("unstructured f64 plain reference did not converge")
@@ -932,7 +968,214 @@ def phase_unstructured(torch, dev):
     if rel_c > UNSTRUCT_RTOL or rel_u > UNSTRUCT_RTOL:
         raise AssertionError(
             f"unstructured slice vs f64 reference: c {rel_c:.3e}, u {rel_u:.3e}")
-    return kern
+    ref.step_config = f64_defaults
+    return kern, sim, ref
+
+
+def _call_device_ms(torch, fn, reps=3):
+    """(device ms of one call of fn(), its source): all its kernels' time
+    from the profiler over ``reps`` calls (after one warm-up; the window
+    opened by a sleep kernel, which is not counted) divided by ``reps``,
+    else CUDA events around single calls."""
+    fn()
+    recs = [r for r in _device_records(torch, lambda: [fn() for _ in range(reps)])
+            if "sleep" not in r.name]
+    if recs:
+        return sum(r.time_range.elapsed_us() for r in recs) / reps / 1e3, "profiler"
+    return _launch_ms(torch, fn, reps), "CUDA events"
+
+
+def _vjp_passes(torch, sim, c, lane, tag):
+    """Device ms a call of the plain-torch VJP passes the lane's backward
+    runs, at the N=32 shapes (random cotangents from a seed; ``c`` the
+    initial concentration): the reference's XLA VJPs, not kernel ports."""
+    import numpy as np
+
+    from glimslib_tpu_torch.ops import bell
+    from glimslib_tpu_torch.ops import stencil_kernels as sk
+
+    rng = np.random.default_rng(4)
+    dev = sim.device
+    f32 = lambda *s: torch.as_tensor(rng.standard_normal(s), dtype=torch.float32,  # noqa: E731
+                                     device=dev)
+    theta = sim.make_theta(sim.params.as_dict())
+    n = sim.mesh.n_nodes
+    D = theta["D"].detach().clone().requires_grad_()
+    rho = theta["rho"].detach().clone().requires_grad_()
+    passes = {}
+    if lane == "lattice":
+        ops = sim._stencil_ops
+        offs = ops.offsets
+        y, v = f32(n), f32(n)
+        gW = f32(len(offs), n)
+        passes["dW = y_bar (x) shifted v, (15, n)"] = lambda: sk.plane_grad(offs, y, v)
+        passes["assembly backward: rd constant planes -> D, rho"] = lambda: torch.autograd.grad(
+            ops.build_rd_jacobian_const(D, rho, theta["dt"]), (D, rho), gW)
+        passes["assembly backward: rd logistic planes wc(c) -> rho"] = lambda: torch.autograd.grad(
+            ops.build_rd_wc(c, rho, theta["dt"]), (rho,), gW)
+    else:
+        plan = sim._get_bell_plan()
+        arrays = sim._mesh_arrays()
+        nb, s, Kh = plan.nb, plan.s, plan.Kh
+        A_c, A_r = f32(nb, 3 * s, Kh), f32(nb, s, Kh)
+        y_c, y_r, x_r = f32(nb, 3 * s), f32(nb, s), f32(nb, Kh)
+        gW = f32(nb, s, Kh)
+        passes[f"dA = y_bar x^T, ({nb}, {s}, {Kh})"] = lambda: y_r[:, :, None] * x_r[:, None, :]
+        passes[f"dx = sum_m A y_bar, coupling ({nb}, {3 * s}, {Kh})"] = lambda: (
+            A_c * y_c[:, :, None]).sum(1)
+        passes[f"dx = sum_m A y_bar, mass ({nb}, {s}, {Kh})"] = lambda: (
+            A_r * y_r[:, :, None]).sum(1)
+        passes["assembly backward: rd constant planes -> D, rho"] = lambda: torch.autograd.grad(
+            bell.build_bell_rd_const(plan, arrays, D, rho, theta["dt"], sim.kernels._m0),
+            (D, rho), gW)
+        passes["assembly backward: rd logistic planes wc(c) -> rho"] = lambda: torch.autograd.grad(
+            bell.build_bell_rd_wc(plan, arrays, sim.kernels.cells_flat, c, rho,
+                                  theta["dt"], sim.kernels._t0, 1.0), (rho,), gW)
+    out = {name: _call_device_ms(torch, fn) for name, fn in passes.items()}
+    print(f"{tag} plain-torch VJP passes, device ms a call (3 calls): "
+          + "; ".join(f"{k} {ms:.4f} ({src})" for k, (ms, src) in out.items()))
+    return {k: ms for k, (ms, _) in out.items()}
+
+
+def _adjoint_lane(torch, sim, ref, lane, groups, tag):
+    """value_and_grad on one lane (module docstring, [7]); ``ref`` is the
+    lane's plain f64 model at its default tolerances.  Returns the
+    launches of the instrumented call by wrapper and direction, and the
+    lane's numbers."""
+    import numpy as np
+
+    from glimslib_tpu_torch.examples import adjoint_problem
+    from glimslib_tpu_torch.ops import bell_kernels as bk
+
+    dev = sim.device
+    t_lane = time.perf_counter()
+    ip, v0 = adjoint_problem(sim=sim)
+    t0 = time.perf_counter()
+    J, g = ip.value_and_grad(v0)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    if not (np.isfinite(J) and np.isfinite(g).all()):
+        raise AssertionError(f"{tag} J {J} or gradient {g} not finite")
+
+    # one call with every count at 0, split at the backward's start
+    wrappers = [w for grp in groups for w in grp]
+    for w in wrappers:
+        w.launches = 0
+    bk.batched_matvec.launches_by_shape = {}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    vt = ip._param(v0, True)
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    ev[0].record()
+    with torch.enable_grad():
+        J_t = ip._objective(vt)
+    ev[1].record()
+    h1 = time.perf_counter()
+    fwd = {w: w.launches for w in wrappers}
+    (g_t,) = torch.autograd.grad(J_t, vt)
+    ev[2].record()
+    torch.cuda.synchronize()
+    h2 = time.perf_counter()
+    bwd = {w: w.launches - fwd[w] for w in wrappers}
+    fwd_ms, bwd_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    info = {k: [int(i) for i in v] for k, v in sim.solver_info.items()}
+    print(f"{tag} {lane}: first value_and_grad {first_s:.3f} s; J {J:.6e}, "
+          f"gradient {g.tolist()}")
+    print(f"{tag} {lane}: one call, forward {fwd_ms:.3f} ms / backward {bwd_ms:.3f} "
+          f"ms (CUDA events, split at the backward's start; host "
+          f"{1e3 * (h1 - h0):.3f} / {1e3 * (h2 - h1):.3f} ms) = backward/forward "
+          f"{bwd_ms / fwd_ms:.2f}; adjoint CG iterations rd {info['rd_adj_cg_iters']}, "
+          f"elasticity {info['el_adj_cg_iters']} (forward rd {info['rd_cg_iters']}, "
+          f"elasticity {info['el_cg_iters']})")
+    print(f"{tag} {lane}: launches in that call, forward / backward: " + ", ".join(
+        f"{w.__name__}={fwd[w]}/{bwd[w]}" for w in wrappers))
+    if lane == "unstructured":
+        print(f"{tag} {lane}: bell_bmv launches in that call by (B, M, K): "
+              + ", ".join(f"{s_}: {c_}" for s_, c_ in sorted(
+                  bk.batched_matvec.launches_by_shape.items(), key=lambda x: -x[1])))
+    missing = [[w.__name__ for w in grp] for grp in groups
+               if sum(bwd[w] for w in grp) < 1 or sum(fwd[w] for w in grp) < 1]
+    if missing:
+        raise AssertionError(f"{tag} {lane}: kernels not launched in both the "
+                             f"forward and the backward: {missing}")
+    if abs(float(J_t.detach()) - J) > 1e-6 * abs(J) or not torch.isfinite(g_t).all():
+        raise AssertionError(f"{tag} {lane}: the instrumented call differs")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        ip.value_and_grad(v0)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(dev)
+    vgs = 1.0 / (sum(times) / len(times))
+    print(f"{tag} {lane}: value_and_grad/s {vgs:.4f} (3 calls: "
+          f"{', '.join(f'{t:.4f}' for t in times)} s); peak memory "
+          f"{peak / 2**20:.1f} MiB")
+    t_prof = time.perf_counter()
+    _print_breakdown(torch, lambda: ip.value_and_grad(v0),
+                     1e3 * sum(times) / len(times), f"{tag} {lane}:")
+    t_vjp = time.perf_counter()
+    passes = _vjp_passes(torch, sim, ip._c0, lane, f"{tag} {lane}:")
+
+    # the plain f64 path on the card ([3]'s or [6]'s model), the same targets
+    t0 = time.perf_counter()
+    ip64 = type(ip)(ref, ip.param_names, ip.targets, update_fn=ip.update_fn,
+                    n_steps=ip.n_steps, dt=ip.dt)
+    J64, g64 = ip64.value_and_grad(v0)
+    rel_J = abs(J - J64) / abs(J64)
+    rel_g = float(np.linalg.norm(g - g64) / np.linalg.norm(g64))
+    line = (f"{tag} {lane}: f64 plain reference on the card: J {J64:.6e}, gradient "
+            f"{g64.tolist()}; rel err J {rel_J:.3e} (<= {ADJ_J_RTOL[lane]}), rel-L2 "
+            f"gradient {rel_g:.3e} (<= {ADJ_G_RTOL[lane]})")
+    rel_fd = None
+    if lane == "lattice":
+        d = np.asarray(ADJ_FD_DIR)
+        fd = (ip64.objective(v0 + ADJ_FD_EPS * d)
+              - ip64.objective(v0 - ADJ_FD_EPS * d)) / (2 * ADJ_FD_EPS)
+        rel_fd = abs(fd - float(g64 @ d)) / abs(float(g64 @ d))
+        line += (f"; central difference along {ADJ_FD_DIR} (eps {ADJ_FD_EPS}) "
+                 f"{fd:.9e} vs gradient {float(g64 @ d):.9e}, rel {rel_fd:.3e} "
+                 f"(<= {ADJ_FD_RTOL})")
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    print(line + f" ({t_end - t0:.1f} s)")
+    print(f"{tag} {lane}: seconds by stage: problem and calls {t_prof - t_lane:.1f}, "
+          f"profiled call {t_vjp - t_prof:.1f}, VJP passes {t0 - t_vjp:.1f}, "
+          f"f64 reference {t_end - t0:.1f}")
+    if rel_J > ADJ_J_RTOL[lane] or rel_g > ADJ_G_RTOL[lane] or (
+            rel_fd is not None and rel_fd > ADJ_FD_RTOL):
+        raise AssertionError(f"{tag} {lane}: against the f64 reference J {rel_J:.3e}, "
+                             f"gradient {rel_g:.3e}, central difference {rel_fd}")
+    return {"forward": fwd, "backward": bwd}, dict(
+        value_and_grad_per_s=vgs, first_s=first_s, forward_ms=fwd_ms,
+        backward_ms=bwd_ms, peak_mib=peak / 2**20, adjoint_cg_iters={
+            "rd": info["rd_adj_cg_iters"], "el": info["el_adj_cg_iters"]},
+        rel_J=rel_J, rel_grad=rel_g, rel_fd=rel_fd, vjp_passes_ms=passes)
+
+
+def phase_adjoint(torch, sim, usim, refs, kernels):
+    """[7]: value_and_grad on both lanes; every kernel row gains its
+    launches in one call, forward and backward."""
+    from glimslib_tpu_torch.ops import bell_kernels as bk
+    from glimslib_tpu_torch.ops import fused_cg as fc
+    from glimslib_tpu_torch.ops import stencil_kernels as sk
+
+    t0 = time.perf_counter()
+    lattice_groups = [(sk.apply_scalar, sk.apply_scalar_sum, sk.apply_vector,
+                       sk.apply_coupling), (fc.cg_scalar,), (fc.cg_vector,)]
+    lat, lat_nums = _adjoint_lane(torch, sim, refs[0], "lattice", lattice_groups, "[7]")
+    uns, uns_nums = _adjoint_lane(torch, usim, refs[1], "unstructured",
+                                  [(bk.batched_matvec,)], "[7]")
+    for k in kernels:
+        if k["name"].endswith("@N=64"):
+            continue
+        counts = uns if k["name"] == "bell_bmv" else lat
+        k["adjoint_launches"] = {
+            way: sum(counts[way][w] for w in k["wrappers"]) for way in counts}
+    print(f"[7] adjoint phase {time.perf_counter() - t0:.1f} s")
+    return {"lattice": lat_nums, "unstructured": uns_nums}
 
 
 def main():
@@ -958,19 +1201,23 @@ def main():
     print(f"[2] N={N} model set-up {time.perf_counter() - t0:.1f} s")
     kernels = phase_kernels(torch, sim, theta, dev)
     del theta
-    phase_slice(torch, sim, dev, kernels)
-    del sim
+    ref = phase_slice(torch, sim, dev, kernels)
 
     kernels += phase_lattice64(torch, dev)
     torch.cuda.empty_cache()
 
-    kernels.append(phase_unstructured(torch, dev))
+    kern, usim, uref = phase_unstructured(torch, dev)
+    kernels.append(kern)
+
+    adjoint = phase_adjoint(torch, sim, usim, (ref, uref), kernels)
+    del sim, usim, ref, uref
 
     drop = ("wrappers", "pattern", "iters")
+    print(json.dumps({"adjoint": adjoint}))
     print(json.dumps({"kernels": [
         {k: v for k, v in kern.items() if k not in drop} for kern in kernels
     ]}))
-    print(f"[7] total {time.perf_counter() - t_start:.1f} s")
+    print(f"[8] total {time.perf_counter() - t_start:.1f} s")
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -118,19 +118,21 @@ class FunctionSpace:
         qp, qw = simplex_quadrature(mesh.dim, 4)
         vals, _ = P1Element(mesh.dim).tabulate(qp)  # (nq, npe)
         X = mesh.points[mesh.cells]  # (nc, npe, d)
-        xq = np.einsum("qi,cid->cqd", vals, X)
+        # contractions as matmuls (BLAS): a multi-operand einsum runs its
+        # naive loop, seconds at 10^5 cells
+        xq = np.matmul(vals, X)  # (nc, nq, d)
         detJ = mesh.cell_volumes * math.factorial(mesh.dim)
         fq = self._eval_expression(
             expr, xq.reshape(-1, mesh.dim), ss.value_size, time
         )
         if ss.value_size == 1:
             fq = fq.reshape(mesh.n_cells, len(qw))
-            loc = np.einsum("c,cq,q,qi->ci", detJ, fq, qw, vals)
+            loc = (detJ[:, None] * fq * qw) @ vals  # (nc, npe)
             b = np.zeros(mesh.n_nodes)
             np.add.at(b, mesh.cells.ravel(), loc.ravel())
         else:
             fq = fq.reshape(mesh.n_cells, len(qw), ss.value_size)
-            loc = np.einsum("c,cqa,q,qi->cia", detJ, fq, qw, vals)
+            loc = np.matmul(vals.T, detJ[:, None, None] * fq * qw[:, None])  # (nc, npe, a)
             b = np.zeros((mesh.n_nodes, ss.value_size))
             np.add.at(b, mesh.cells.ravel(), loc.reshape(-1, ss.value_size))
         k = self._kernels()

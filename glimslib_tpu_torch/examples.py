@@ -8,11 +8,15 @@ off-centre in white matter; sim_time 5, dt 1.  ``unstructured=True``
 strips the lattice structure and reorders the nodes along a Morton curve
 (``bench.py run_unstructured``): the same tets through the unstructured
 lane, which the benchmark times with :data:`UNSTRUCT_STEP_CONFIG`.
+
+``adjoint_problem`` is the benchmark's adjoint cell (``bench.py
+run_adjoint``): the 2-parameter inverse problem on that box.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from glimslib_tpu_torch.core.mesh import Mesh, box_mesh
 from glimslib_tpu_torch.models.tumor_growth_brain import TumorGrowthBrain
@@ -74,3 +78,36 @@ def brain_sim(n=10, dtype=None, device=None, plain=False, unstructured=False):
         sim_time=5, sim_time_step=1,
     )
     return sim
+
+
+# the adjoint cell's schedule (bench.py run_adjoint): 5 steps of dt = 1
+ADJ_STEPS = 5
+
+
+def adjoint_problem(n=16, unstructured=False, dtype=None, device=None, sim=None):
+    """``(InverseProblem, v0)`` of the benchmark's adjoint cell, as
+    ``bench.py run_adjoint`` sets it up: the brain box (``sim``, or a new
+    :func:`brain_sim`), at f32 the benchmark's StepConfig of its lane,
+    targets ``conc_T2 = thresh(c_T, 0.12)`` and ``disp = u_T`` from a
+    forward run at the set-up parameters, parameter map type 2 (D_WM,
+    rho_WM), 5 steps of dt = 1, and ``v0 = [0.05, 0.05]``."""
+    from glimslib_tpu_torch.optimize.adjoint import (
+        InverseProblem, param_map_for_type, thresh,
+    )
+
+    if sim is None:
+        sim = brain_sim(n=n, dtype=dtype, device=device, unstructured=unstructured)
+    if sim.dtype == torch.float32:
+        sim.step_config = (UNSTRUCT_STEP_CONFIG if sim.mesh.lattice_strides is None
+                           else BENCH_STEP_CONFIG)
+    theta = sim.make_theta(sim.params.as_dict())
+    u0, c0 = sim.initial_state()
+    with torch.no_grad():
+        u_tr, c_tr, ok, _ = sim.build_simulate_fn(ADJ_STEPS, 1.0)(theta, u0, c0)
+    if not bool(ok.all()):
+        raise RuntimeError("the forward run for the targets did not converge")
+    targets = {"conc_T2": thresh(c_tr[-1], 0.12), "disp": u_tr[-1]}
+    names, update = param_map_for_type(2)
+    ip = InverseProblem(sim, names, targets, update_fn=update, n_steps=ADJ_STEPS,
+                        dt=1.0)
+    return ip, np.array([0.05, 0.05])

@@ -26,6 +26,11 @@ Two operator lanes, chosen by the mesh:
   frozen preconditioner state (supernode inverses, coarse factors) is
   built once per model at the set-up parameters (:meth:`runtime_aux`).
 
+Both lanes are differentiable: ``simulate`` keeps the autograd graph
+through the time loop (each step is the implicit-function-theorem adjoint
+of ``solvers/coupled.py``), so ``torch.autograd.grad`` of an objective of
+the trajectory gives the reference's exact gradient (``optimize/``).
+
 Solver non-convergence freezes the carried state and flags the remaining
 steps, as in the reference.  ``plain=True`` routes every kernel call
 through its plain torch version on any device: a reference run for
@@ -63,13 +68,15 @@ logger = logging.getLogger(__name__)
 
 def _kernel_ops(plain: bool):
     """The kernel calls the step makes: the kernel wrappers, or
-    (``plain``) their plain torch versions."""
+    (``plain``) their plain torch versions (differentiated by torch's own
+    VJPs; they ignore the wrappers' mirrored-plane cache)."""
     sk, fc, bk = stencil_kernels, fused_cg, bell_kernels
     if plain:
         return types.SimpleNamespace(
-            apply_scalar_sum=sk.apply_scalar_sum_plain,
-            apply_vector=sk.apply_vector_plain,
-            apply_coupling=sk.apply_coupling_plain,
+            apply_scalar_sum=lambda o, terms, b, cache=None: sk.apply_scalar_sum_plain(
+                o, terms, b),
+            apply_vector=lambda o, W, u, cache=None: sk.apply_vector_plain(o, W, u),
+            apply_coupling=lambda o, C, c, cache=None: sk.apply_coupling_plain(o, C, c),
             cg_scalar=fc.cg_scalar_plain, cg_vector=fc.cg_vector_plain,
             bmv=bk.batched_matvec_plain,
         )
@@ -79,6 +86,14 @@ def _kernel_ops(plain: bool):
         cg_scalar=fc.cg_scalar, cg_vector=fc.cg_vector,
         bmv=bk.batched_matvec,
     )
+
+
+def _new_solver_info():
+    """CG iteration counts by solve: the forward's rd (one a Newton
+    iteration) and elasticity (one a step) solves, and the backward's
+    adjoint solves (one of each a step)."""
+    return {"rd_cg_iters": [], "el_cg_iters": [], "rd_adj_cg_iters": [],
+            "el_adj_cg_iters": []}
 
 
 def _coarse_k(dim_c):
@@ -115,7 +130,8 @@ class Simulation(ABC):
         self._aux_cache = None
         self._bc_cache = None
         # per-solve CG iteration counts (0-d tensors) of the last simulate
-        self.solver_info = {"rd_cg_iters": [], "el_cg_iters": []}
+        # and of its backward
+        self.solver_info = _new_solver_info()
         # solver tolerances scale with the working precision, as in the
         # reference (f32 cannot reach the f64 defaults)
         profile = config.resolve_profile()
@@ -259,20 +275,17 @@ class Simulation(ABC):
         k = self._k
 
         def rd_cg(theta, c, rhs):
+            # J_cc is symmetric: the adjoint solve is the same solve
             W = theta["_Wrd_const"] + ops.build_rd_wc(
                 c, theta["rho"], theta["dt"], conc_max=1.0
             )
             Wm = fused_cg.fold_mask_scalar(ops.offsets, W, mask_c)
-            dc, info = k.cg_scalar(ops.offsets, Wm, theta["_invdM"], rhs,
-                                   cfg.cg_rtol, cfg.cg_atol, cfg.cg_maxiter)
-            self.solver_info["rd_cg_iters"].append(info["iters"])
-            return dc, info
+            return k.cg_scalar(ops.offsets, Wm, theta["_invdM"], rhs,
+                               cfg.cg_rtol, cfg.cg_atol, cfg.cg_maxiter)
 
         def el_cg(theta, rhs):
-            du, info = k.cg_vector(ops.offsets, theta["_WelM"], theta["_BinvM"],
-                                   rhs, cfg.cg_rtol, cfg.cg_atol, cfg.cg_maxiter)
-            self.solver_info["el_cg_iters"].append(info["iters"])
-            return du, info
+            return k.cg_vector(ops.offsets, theta["_WelM"], theta["_BinvM"],
+                               rhs, cfg.cg_rtol, cfg.cg_atol, cfg.cg_maxiter)
 
         return rd_cg, el_cg
 
@@ -281,17 +294,21 @@ class Simulation(ABC):
         base.py:1440-1503, lattice branch).  Keys: ``_Wel``/``_Binv``
         elasticity planes and block inverse, ``_WelM``/``_BinvM``/``_invdM``
         their mask-folded forms for the PCG kernels, ``_Wrd_const``/``_Mst``
-        the constant rd planes, ``_Cuc`` the coupling planes, and the
-        constant loads ``_rd_load``/``_el_load``."""
+        the constant rd planes, ``_Cuc`` the coupling planes, the constant
+        loads ``_rd_load``/``_el_load``, and ``_mirrors``, the cache of the
+        transposed planes the backward applies.  The solver state is built
+        without a graph: it feeds solvers only, so its cotangent is zero by
+        design, as in the reference."""
         ops = self._stencil_ops
         mask_u, mask_c, _, _ = self._bc_masks_and_values()
         n = self.mesh.n_nodes
         Wel = ops.build_elasticity(theta["mu"], theta["lam"])
         theta["_Wel"] = Wel
-        theta["_Binv"] = ops.block_jacobi_inverse(Wel)
-        theta["_WelM"] = fused_cg.fold_mask_vector(ops.offsets, Wel, mask_u)
-        theta["_BinvM"] = fused_cg.fold_mask_binv(theta["_Binv"], mask_u)
-        theta["_invdM"] = fused_cg.fold_mask_invdiag(self.rd_diag(theta), mask_c)
+        with torch.no_grad():
+            theta["_Binv"] = ops.block_jacobi_inverse(Wel)
+            theta["_WelM"] = fused_cg.fold_mask_vector(ops.offsets, Wel, mask_u)
+            theta["_BinvM"] = fused_cg.fold_mask_binv(theta["_Binv"], mask_u)
+            theta["_invdM"] = fused_cg.fold_mask_invdiag(self.rd_diag(theta), mask_c)
         theta["_Wrd_const"] = ops.build_rd_jacobian_const(
             theta["D"], theta["rho"], theta["dt"]
         )
@@ -306,6 +323,8 @@ class Simulation(ABC):
             theta["mu"], theta["lam"], theta["coupling"]
         )
         theta["_el_load"] = self._body_load(theta)
+        theta["_mirrors"] = stencil_kernels.MirrorCache(
+            [theta[k] for k in ("_Mst", "_Cuc", "_Wel", "_Wrd_const")])
         return theta
 
     def _body_load(self, theta):
@@ -398,7 +417,8 @@ class Simulation(ABC):
         ``_BellWel`` (nb, s, d, Kh, d), ``_BellCuc`` (nb, s, d, Kh),
         ``_BellWrdC`` and ``_BellMrd`` (nb, s, Kh), the constant loads
         ``_Bell_el_load`` and ``_Bell_rd_load``, and the supernode inverses
-        ``_BinvSN``/``_McSN`` when the aux did not carry them."""
+        ``_BinvSN``/``_McSN`` (without a graph) when the aux did not carry
+        them."""
         bplan = self._get_bell_plan()
         arrays = self._mesh_arrays()
         m0 = self.kernels._m0
@@ -421,13 +441,14 @@ class Simulation(ABC):
             zeros, zeros, theta["D"], theta["rho"], theta["dt"],
             source=theta["source"],
         )  # r(0) = -dt s v
-        if "_BinvSN" not in theta:
-            theta["_BinvSN"] = bell.supernode_jacobi_inverse(
-                bplan, bell.extract_self_blocks_vector(bplan, theta["_BellWel"]),
-                mask=mask_u)
-        if "_McSN" not in theta:
-            theta["_McSN"] = bell.supernode_jacobi_inverse(
-                bplan, bell.extract_self_blocks_scalar(bplan, Wrd), mask=mask_c)
+        with torch.no_grad():
+            if "_BinvSN" not in theta:
+                theta["_BinvSN"] = bell.supernode_jacobi_inverse(
+                    bplan, bell.extract_self_blocks_vector(bplan, theta["_BellWel"]),
+                    mask=mask_u)
+            if "_McSN" not in theta:
+                theta["_McSN"] = bell.supernode_jacobi_inverse(
+                    bplan, bell.extract_self_blocks_scalar(bplan, Wrd), mask=mask_c)
         return theta
 
     def _bell_builders(self):
@@ -486,6 +507,13 @@ class Simulation(ABC):
         bplan, Mrd, bmv = self._get_bell_plan(), theta["_BellMrd"], self._k.bmv
         return lambda v: bell.apply_bell_scalar(bplan, Mrd, v, bmv)
 
+    # mass actions per subspace (the objective's L2 norms, optimize/)
+    def concentration_mass_action(self, c):
+        return self.kernels.mass_residual(c)
+
+    def displacement_mass_action(self, u):
+        return self.kernels.mass_vector_residual(u)
+
     # -- step and time loop ----------------------------------------------------
 
     def _augment_theta_with_operators(self, theta):
@@ -498,19 +526,19 @@ class Simulation(ABC):
 
     def _build_step(self):
         mask_u, mask_c, gu, gc = self._bc_masks_and_values()
-        common = dict(
-            rd_residual=self.rd_residual, el_residual=self.el_residual,
-            mask_c=mask_c, mask_u=mask_u, bc_values_c=gc, bc_values_u=gu,
-            config=self.step_config,
-        )
-        if self.lattice:
-            rd_cg, el_cg = self._stencil_operators()
-            return make_step(rd_cg=rd_cg, el_cg=el_cg, **common)
 
         def record(kind, info):
             self.solver_info[f"{kind}_cg_iters"].append(info["iters"])
 
-        return make_step(record=record, **self._bell_builders(), **common)
+        common = dict(
+            rd_residual=self.rd_residual, el_residual=self.el_residual,
+            mask_c=mask_c, mask_u=mask_u, bc_values_c=gc, bc_values_u=gu,
+            config=self.step_config, record=record,
+        )
+        if self.lattice:
+            rd_cg, el_cg = self._stencil_operators()
+            return make_step(rd_cg=rd_cg, el_cg=el_cg, **common)
+        return make_step(**self._bell_builders(), **common)
 
     def build_simulate_fn(self, n_steps: int, dt: float):
         """``simulate(theta, u0, c0, aux=None) -> (u_traj, c_traj, ok,
@@ -525,7 +553,10 @@ class Simulation(ABC):
         extrapolation 2 x_k - x_{k-1} of the last two states, and, without
         concentration Dirichlet conditions, carries the Newton anchor
         ||r_c(c_prev)|| algebraically as ||M (c_k - c_{k-1})|| (reference
-        base.py:1746-1886)."""
+        base.py:1746-1886).  The anchor only scales tolerances: it is
+        detached (the reference's ``stop_gradient``), so a frozen step's
+        zero norm puts no NaN in a gradient.  The trajectory is stacked
+        from the steps' outputs and keeps their graph."""
         step = self._build_step()
         warm = not self.lattice
         # the algebraic anchor is exact only when the concentration clamp
@@ -537,7 +568,7 @@ class Simulation(ABC):
         _, mask_c, _, gc = self._bc_masks_and_values()
 
         def simulate(theta, u0, c0, aux=None):
-            self.solver_info = {"rd_cg_iters": [], "el_cg_iters": []}
+            self.solver_info = _new_solver_info()
             theta = {**theta, **(self.runtime_aux() if aux is None else aux)}
             theta = self._augment_theta_with_operators(theta)
             mass_fn = (self._streamed_mass_action(theta)
@@ -546,13 +577,8 @@ class Simulation(ABC):
             if mass_fn is not None:
                 c0a = torch.where(mask_c, gc(dt), c0)
                 r0a = torch.where(mask_c, 0.0, self.rd_residual(c0a, c0a, theta, dt))
-                anchor = torch.linalg.vector_norm(r0a)
-            u_traj = torch.empty((n_steps,) + tuple(u0.shape), dtype=u0.dtype,
-                                 device=u0.device)
-            c_traj = torch.empty((n_steps,) + tuple(c0.shape), dtype=c0.dtype,
-                                 device=c0.device)
-            ok_traj = torch.empty(n_steps, dtype=torch.bool, device=c0.device)
-            newton = []
+                anchor = torch.linalg.vector_norm(r0a).detach()
+            u_traj, c_traj, ok_traj, newton = [], [], [], []
             u_prev, c_prev, u_pp, c_pp = u0, c0, u0, c0
             ok = torch.ones((), dtype=torch.bool, device=c0.device)
             for i in range(n_steps):
@@ -570,13 +596,15 @@ class Simulation(ABC):
                     # next step's ||r_c(c_out)|| = ||r_final - M dc||, with
                     # ||r_final|| <= ftol; a frozen step keeps its anchor
                     mdc = torch.where(mask_c, 0.0, mass_fn(c_out - c_prev))
-                    anchor = torch.where(ok, torch.linalg.vector_norm(mdc), anchor)
+                    anchor = torch.where(ok, torch.linalg.vector_norm(mdc),
+                                         anchor).detach()
                 u_pp, c_pp, u_prev, c_prev = u_prev, c_prev, u_out, c_out
-                u_traj[i] = u_out
-                c_traj[i] = c_out
-                ok_traj[i] = ok
+                u_traj.append(u_out)
+                c_traj.append(c_out)
+                ok_traj.append(ok)
                 newton.append(n_newton)
-            return u_traj, c_traj, ok_traj, torch.tensor(newton, dtype=torch.int32)
+            return (torch.stack(u_traj), torch.stack(c_traj), torch.stack(ok_traj),
+                    torch.tensor(newton, dtype=torch.int32))
 
         return simulate
 

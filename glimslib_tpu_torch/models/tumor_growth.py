@@ -37,7 +37,10 @@ class TumorGrowth(Simulation):
         )
 
     def _per_cell(self, value):
-        """Scalar stays scalar; TissueCoefficient/dict becomes per-cell."""
+        """Scalar stays scalar; TissueCoefficient/dict becomes per-cell; a
+        tensor passes through with its graph."""
+        if torch.is_tensor(value):
+            return value.to(dtype=self.dtype, device=self.device)
         if isinstance(value, TissueCoefficient):
             return self._tensor(value.per_cell())
         if isinstance(value, dict):
@@ -92,7 +95,7 @@ class TumorGrowth(Simulation):
         return k.apply_scalar_sum(
             ops.offsets,
             ((theta["_Wrd_const"], c, 1.0), (wc, c, 0.5), (theta["_Mst"], c_prev, -1.0)),
-            theta["_rd_load"],
+            theta["_rd_load"], cache=theta.get("_mirrors"),
         )
 
     def el_residual(self, u, c, theta, t):
@@ -107,9 +110,10 @@ class TumorGrowth(Simulation):
                 - theta["_Bell_el_load"]
             )
         ops = self._stencil_ops
+        mir = theta.get("_mirrors")
         return (
-            k.apply_vector(ops.offsets, theta["_Wel"], u)
-            + k.apply_coupling(ops.offsets, theta["_Cuc"], c)
+            k.apply_vector(ops.offsets, theta["_Wel"], u, cache=mir)
+            + k.apply_coupling(ops.offsets, theta["_Cuc"], c, cache=mir)
             - theta["_el_load"]
         )
 

@@ -36,7 +36,8 @@ class TumorGrowthBrain(TumorGrowth):
         self.optional_params = ["body_force", "rd_source_term"]
 
     def _tissue_lookup(self, by_name: Dict[str, object], fill=0.0):
-        """{tissue_name: value} -> lookup tensor indexed by label id."""
+        """{tissue_name: value} -> lookup tensor indexed by label id.  Values
+        may be tensors (a parameter that requires grad keeps its graph)."""
         id_name = self.subdomains.tissue_id_name_map
         max_id = max(
             [int(self.subdomains.cell_labels.max())] + list(id_name.keys())
@@ -45,14 +46,11 @@ class TumorGrowthBrain(TumorGrowth):
         for tid in range(max_id + 1):
             name = id_name.get(tid)
             vals.append(by_name.get(name, fill) if name is not None else fill)
-        return self._tensor(vals)
+        return torch.stack([self._tensor(v) for v in vals])
 
     def make_theta(self, params: Dict):
         p = params
         self._check_static(p.get("rd_source_term", 0.0), p.get("body_force"))
-        labels = torch.as_tensor(
-            self.subdomains.cell_labels, dtype=torch.int64, device=self.device
-        )
         E_lut = self._tissue_lookup(
             {"CSF": p["E_CSF"], "GM": p["E_GM"], "WM": p["E_WM"],
              "Ventricles": p["E_VENT"], "outside": E_OUT},
@@ -68,11 +66,20 @@ class TumorGrowthBrain(TumorGrowth):
         rho_lut = self._tissue_lookup(
             {"GM": p["rho_GM"], "WM": p["rho_WM"]}, fill=0.0
         )
-        E = E_lut[labels]
-        nu = nu_lut[labels]
+        # per-cell values as the cells' one-hot label rows times each table:
+        # equal to lut[labels] (a row sums one 1 x value and exact zeros),
+        # and the VJP is one matrix-vector product, where indexing's
+        # backward piles every cell's atomic add onto a handful of tissues
+        labels = torch.as_tensor(
+            self.subdomains.cell_labels, dtype=torch.int64, device=self.device
+        )
+        tissues = torch.arange(E_lut.shape[0], device=self.device)
+        onehot = (labels[:, None] == tissues).to(self.dtype)
+        E = onehot @ E_lut
+        nu = onehot @ nu_lut
         return {
-            "D": D_lut[labels],
-            "rho": rho_lut[labels],
+            "D": onehot @ D_lut,
+            "rho": onehot @ rho_lut,
             "coupling": self._tensor(p["coupling"]),
             "mu": forms.compute_mu(E, nu),
             "lam": forms.compute_lambda(E, nu),

@@ -20,6 +20,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from glimslib_tpu_torch.core.elements import p1_mass_matrix
 
@@ -29,17 +30,22 @@ class ScatterPlan(NamedTuple):
 
     pull_table (n_segments, K) entry index per incident slot, where
                                n_entries is the zero-pad slot
+    push_table (n_entries, m)  its inverse, the segments that pull each
+                               entry, where n_segments is the zero-pad slot
+                               (the pull's VJP gathers through it)
     n_entries  int             number of real entries
     n_segments int             number of segments (nodes, pairs, slots)
     """
 
     pull_table: np.ndarray
+    push_table: np.ndarray
     n_entries: int
     n_segments: int
 
 
 def make_scatter_plan(index_map: np.ndarray, n_segments: int) -> ScatterPlan:
-    """Numpy copy of ``glimslib_tpu/ops/assembly.py make_scatter_plan``."""
+    """Numpy copy of ``glimslib_tpu/ops/assembly.py make_scatter_plan``;
+    each entry is pulled by its one segment ``index_map[e]``."""
     flat = np.asarray(index_map, dtype=np.int64).ravel()
     n_entries = len(flat)
     order = np.argsort(flat, kind="stable")
@@ -53,18 +59,75 @@ def make_scatter_plan(index_map: np.ndarray, n_segments: int) -> ScatterPlan:
     within = np.arange(n_entries) - starts[sorted_ids]
     table[sorted_ids, within] = order
     return ScatterPlan(
-        pull_table=table, n_entries=n_entries, n_segments=int(n_segments)
+        pull_table=table, push_table=flat[:, None], n_entries=n_entries,
+        n_segments=int(n_segments),
     )
 
 
-def pull_accumulate(pull_table, n_segments: int, contrib):
-    """Accumulate entries into segments: pad ``contrib`` (n_entries, ...)
-    with one zero row (the sentinel target), gather the (n_segments, K)
-    int64 ``pull_table``'s entries and sum over K."""
-    pad = contrib.new_zeros((1,) + tuple(contrib.shape[1:]))
-    padded = torch.cat([contrib, pad])
-    pulled = padded.index_select(0, pull_table.reshape(-1))
-    return pulled.reshape((n_segments, -1) + tuple(contrib.shape[1:])).sum(dim=1)
+def scatter_plan_from_pull(pull_table: np.ndarray, n_entries: int) -> ScatterPlan:
+    """The plan of a pull table built otherwise (entries pulled by any
+    number of segments, or by none): its push table padded to the largest
+    count."""
+    pull_table = np.asarray(pull_table, dtype=np.int64)
+    n_segments, K = pull_table.shape
+    ent = pull_table.ravel()
+    seg = np.repeat(np.arange(n_segments, dtype=np.int64), K)
+    real = ent < n_entries
+    order = np.argsort(ent[real], kind="stable")
+    ent, seg = ent[real][order], seg[real][order]
+    counts = np.bincount(ent, minlength=n_entries)
+    m = max(int(counts.max()) if len(ent) else 0, 1)
+    within = np.arange(len(ent)) - (np.cumsum(counts) - counts)[ent]
+    push = np.full((n_entries, m), n_segments, dtype=np.int64)
+    push[ent, within] = seg
+    return ScatterPlan(pull_table=pull_table, push_table=push, n_entries=int(n_entries),
+                       n_segments=int(n_segments))
+
+
+class PullIndex(NamedTuple):
+    """A :class:`ScatterPlan`'s tables on the device (int64)."""
+
+    pull: torch.Tensor  # (n_segments, K)
+    push: torch.Tensor  # (n_entries, m)
+
+
+def pull_index(plan: ScatterPlan, device) -> PullIndex:
+    idx = lambda a: torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)  # noqa: E731
+    return PullIndex(idx(plan.pull_table), idx(plan.push_table))
+
+
+def _gather_sum(table, x):
+    """sum_k x_padded[table[:, k]] for a (rows, K) table into x (n, ...)
+    padded with one zero row (the sentinel n)."""
+    rows, K = table.shape
+    tail = tuple(x.shape[1:])
+    padded = torch.cat([x, x.new_zeros((1,) + tail)])
+    got = padded.index_select(0, table.reshape(-1))
+    return got if K == 1 else got.reshape((rows, K) + tail).sum(dim=1)
+
+
+class _Pull(torch.autograd.Function):
+    """:func:`pull_accumulate`, whose VJP is the gather-sum through the
+    push table (the default VJP of a gather, an ``index_add_``, piles every
+    padded slot's atomic add onto the one sentinel row)."""
+
+    @staticmethod
+    def forward(ctx, pull, push, contrib):
+        ctx.save_for_backward(push)
+        return _gather_sum(pull, contrib)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        (push,) = ctx.saved_tensors
+        return None, None, _gather_sum(push, g)
+
+
+def pull_accumulate(index: PullIndex, contrib):
+    """Accumulate entries (n_entries, ...) into segments (n_segments, ...):
+    gather ``index.pull``'s entries of ``contrib`` padded with one zero row
+    (the sentinel target) and sum over the slots."""
+    return _Pull.apply(index.pull, index.push, contrib)
 
 
 class P1Kernels:
@@ -145,16 +208,16 @@ class P1Kernels:
 
     @property
     def _quad_pull_cells(self):
-        """(n, K) int64 CELL index per incident slot of the node pull plan
-        (sentinel nc): entries are npe-major, so cell = entry % nc."""
+        """:class:`PullIndex` of the node pull by CELL (sentinel nc):
+        entries are npe-major, so cell = entry % nc."""
         if not hasattr(self, "_quad_pull_cells_cache"):
             cells_T = self.cells_T.cpu().numpy()
             plan = make_scatter_plan(cells_T, self.n_nodes)
             pt = plan.pull_table.astype(np.int64)
             nc = self.n_cells
-            self._quad_pull_cells_cache = torch.as_tensor(
-                np.where(pt == plan.n_entries, nc, pt % nc), device=self.device
-            )
+            cell_pt = np.where(pt == plan.n_entries, nc, pt % nc)
+            self._quad_pull_cells_cache = pull_index(
+                scatter_plan_from_pull(cell_pt, nc), self.device)
         return self._quad_pull_cells_cache
 
     def rd_quad_residual(self, c, rho, dt, conc_max=1.0):
@@ -168,7 +231,7 @@ class P1Kernels:
         Q = (ce * ce).sum(dim=0)
         rv = (rho * self.vol).expand(self.n_cells)
         pack = torch.stack([rv * (S * S + Q), rv * S, rv], dim=-1)  # (nc, 3)
-        agg = pull_accumulate(self._quad_pull_cells, self.n_nodes, pack)
+        agg = pull_accumulate(self._quad_pull_cells, pack)
         return (dt / conc_max) * self._t0 * (
             agg[:, 0] + 2.0 * c * (agg[:, 1] + c * agg[:, 2])
         )

@@ -34,14 +34,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from glimslib_tpu_torch.ops.assembly import make_scatter_plan, pull_accumulate
+from glimslib_tpu_torch.ops.assembly import (
+    make_scatter_plan, pull_accumulate, pull_index, scatter_plan_from_pull,
+)
 from glimslib_tpu_torch.ops.bell_kernels import batched_matvec
 
 
 class BellPlan:
     """Host-precomputed supernode halo structure of one P1 mesh; the
     numpy arrays are those of the reference's plan, and their int64
-    tensor copies (``*_idx``) live on ``device``."""
+    tensor copies (``*_idx``, the pulls' :class:`PullIndex`) live on
+    ``device``."""
 
     def __init__(self, mesh, s: int = 32, device="cpu"):
         cells = np.asarray(mesh.cells, dtype=np.int64)
@@ -114,14 +117,17 @@ class BellPlan:
         place[dense_slot[~isdiag_u]] = off_rank[off_u]
         place[dense_slot[isdiag_u]] = self.n_off + ur[isdiag_u]
         self.place = place.astype(np.int32)
+        # the placement as a pull of one entry a slot
+        self.place_plan = scatter_plan_from_pull(place[:, None], self.n_off + n)
 
         self.device = torch.device(device)
         idx = lambda a: torch.as_tensor(  # noqa: E731
             np.asarray(a, dtype=np.int64), device=self.device)
         self.ext_idx = idx(self.ext_ids)
-        self.diag_idx = idx(self.diag_plan.pull_table)
-        self.off_idx = idx(self.off_plan.pull_table)
-        self.place_idx = idx(self.place)
+        self.diag_idx = pull_index(self.diag_plan, self.device)
+        self.off_idx = pull_index(self.off_plan, self.device)
+        self.place_pull = pull_index(self.place_plan, self.device)
+        self.place_idx = self.place_pull.pull[:, 0]
         self.off_entry_t = idx(self.off_entry_idx)
 
     def assemble(self, entry_values):
@@ -133,10 +139,9 @@ class BellPlan:
         diag_flat = flat.reshape((npe, npe) + tuple(flat.shape[1:]))[k, k]
         diag_flat = diag_flat.reshape((-1,) + tail)
         off_flat = flat.index_select(0, self.off_entry_t).reshape((-1,) + tail)
-        diag_vals = pull_accumulate(self.diag_idx, self.n, diag_flat)
-        off_vals = pull_accumulate(self.off_idx, self.n_off, off_flat)
-        both = torch.cat([off_vals, diag_vals, off_vals.new_zeros((1,) + tail)])
-        vals = both.index_select(0, self.place_idx)
+        diag_vals = pull_accumulate(self.diag_idx, diag_flat)
+        off_vals = pull_accumulate(self.off_idx, off_flat)
+        vals = pull_accumulate(self.place_pull, torch.cat([off_vals, diag_vals]))
         return vals.reshape((self.nb, self.s, self.Kh) + tail)
 
 
@@ -247,7 +252,7 @@ def build_bell_rd_wc_lumped(plan: BellPlan, mesh_arrays, cells_flat, c, rho,
     ce = _cell_values(cells_flat, c, npe)
     S = ce.sum(dim=0)
     contrib = (2.0 * dt / conc_max) * rho * (vol * t0) * (npe + 2.0) * (S + ce)
-    return pull_accumulate(plan.diag_idx, plan.n, contrib.reshape(-1))
+    return pull_accumulate(plan.diag_idx, contrib.reshape(-1))
 
 
 def _halo_vector(plan: BellPlan, x):

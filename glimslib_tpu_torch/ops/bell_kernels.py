@@ -13,12 +13,16 @@ its lanes; the port keeps the canonical layout and one kernel.
 :func:`batched_matvec` given CPU tensors runs the plain version; given
 CUDA tensors it launches ``bell_bmv`` (``csrc/bell.cu``) or raises.  It
 counts its kernel launches in its ``launches`` attribute, and by the
-shape of A in ``launches_by_shape``.
+shape of A in ``launches_by_shape``.  Where grad is enabled and an input
+requires it, the call goes through a ``torch.autograd.Function`` whose
+VJP is the reference's XLA one (``bell_pallas.py:103-114``), in plain
+torch: ``dA = y_bar x^T`` and ``dx = sum_m A y_bar``.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from glimslib_tpu_torch import _build
 from glimslib_tpu_torch.ops.stencil_kernels import _check_cuda
@@ -44,8 +48,7 @@ def batched_matvec_cuda(A, x):
     return y
 
 
-def batched_matvec(A, x):
-    """y[b] = A[b] @ x[b]; A (B, M, K), x (B, K)."""
+def _bmv_raw(A, x):
     if A.device.type == "cpu" and x.device.type == "cpu":
         return batched_matvec_plain(A, x)
     if A.device.type != "cuda":
@@ -56,6 +59,31 @@ def batched_matvec(A, x):
     batched_matvec.launches_by_shape[shape] = (
         batched_matvec.launches_by_shape.get(shape, 0) + 1)
     return y
+
+
+class _BatchedMatvec(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, A, x):
+        ctx.save_for_backward(A, x)
+        return _bmv_raw(A, x)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gy):
+        A, x = ctx.saved_tensors
+        dA = dx = None
+        if ctx.needs_input_grad[0]:
+            dA = gy[:, :, None] * x[:, None, :]
+        if ctx.needs_input_grad[1]:
+            dx = (A * gy[:, :, None]).sum(1)
+        return dA, dx
+
+
+def batched_matvec(A, x):
+    """y[b] = A[b] @ x[b]; A (B, M, K), x (B, K)."""
+    if torch.is_grad_enabled() and (A.requires_grad or x.requires_grad):
+        return _BatchedMatvec.apply(A, x)
+    return _bmv_raw(A, x)
 
 
 batched_matvec.launches = 0

@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from glimslib_tpu_torch.ops.assembly import make_scatter_plan, pull_accumulate
+from glimslib_tpu_torch.ops.assembly import make_scatter_plan, pull_accumulate, pull_index
 from glimslib_tpu_torch.ops.bell import elasticity_entries, rd_const_entries
 
 
@@ -49,14 +49,13 @@ class EllPlan:
         self.value_plan = make_scatter_plan(rflat * K + slot, n * K)
         dev = torch.device(device)
         self.adj_idx = torch.as_tensor(adj.astype(np.int64), device=dev)
-        self.value_idx = torch.as_tensor(
-            self.value_plan.pull_table.astype(np.int64), device=dev)
+        self.value_idx = pull_index(self.value_plan, dev)
 
     def assemble(self, entry_values):
         """(npe, npe, nc, ...) per-entry values -> (n, K, ...)."""
         tail = tuple(entry_values.shape[3:])
         flat = entry_values.reshape((-1,) + tail)
-        vals = pull_accumulate(self.value_idx, self.n_nodes * self.K, flat)
+        vals = pull_accumulate(self.value_idx, flat)
         return vals.reshape((self.n_nodes, self.K) + tail)
 
 

@@ -18,11 +18,32 @@ raises.  The launch path is lean: the offsets are packed once per
 (offsets, n) (``_build.pack_offsets``), the C entry points are bound once,
 and the wrappers reach them without views.  Each wrapper counts its
 kernel launches in its ``launches`` attribute.
+
+Differentiation.  Where grad is enabled and an input requires it, a
+wrapper goes through a ``torch.autograd.Function`` (otherwise it launches
+directly, with no autograd overhead).  Its VJP is the reference's XLA
+transpose of the same stencil:
+
+- dv = A^T y, ``(A^T y)[j, b] = sum_o sum_a W[o, a, b, j - off_o] y[j - off_o, a]``,
+  is the same kernel launched on mirrored planes (:func:`mirror_planes`:
+  offset -off_o, the plane shifted by off_o, the a/b axes swapped), so the
+  offset set must be symmetric; the coupling's transpose (3 -> 1) is one
+  three-term launch of :func:`apply_scalar_sum`.  These launches count on
+  the wrapper of the form they launch (``apply_scalar``, ``apply_vector``,
+  ``apply_scalar_sum``).
+- dW[o, a, b, i] = y[i, a] v[i + off_o, b], in plain torch.
+
+The same Functions run on both devices: on CPU tensors the forward and
+the transposed applies are the plain versions.  A :class:`MirrorCache`
+keeps the mirrored planes of planes that stay fixed over a simulate.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.autograd.function import once_differentiable
 
 from glimslib_tpu_torch import _build
 
@@ -96,8 +117,7 @@ def apply_scalar_plain(offsets, W, v):
     return stencil_apply_plain(offsets, W[:, None, None, :], v[:, None])[:, 0]
 
 
-def apply_scalar(offsets, W, v):
-    """(A v)[i] = sum_o W[o, i] v[i + off_o]; W (n_off, n), v (n,)."""
+def _scalar_raw(offsets, W, v):
     if _plain_here(W, v):
         return apply_scalar_plain(offsets, W, v)
     n = W.shape[-1]
@@ -108,12 +128,19 @@ def apply_scalar(offsets, W, v):
     return y
 
 
+def apply_scalar(offsets, W, v, cache=None):
+    """(A v)[i] = sum_o W[o, i] v[i + off_o]; W (n_off, n), v (n,).
+    ``cache``: a :class:`MirrorCache` for the backward's transposed planes."""
+    if _needs_grad(W, v):
+        return _Apply.apply("scalar", offsets, cache, W, v)
+    return _scalar_raw(offsets, W, v)
+
+
 def apply_vector_plain(offsets, W, u):
     return stencil_apply_plain(offsets, W, u)
 
 
-def apply_vector(offsets, W, u):
-    """(A u)[i, a] = sum_o sum_b W[o, a, b, i] u[i + off_o, b]."""
+def _vector_raw(offsets, W, u):
     if _plain_here(W, u):
         return apply_vector_plain(offsets, W, u)
     n = W.shape[-1]
@@ -124,12 +151,18 @@ def apply_vector(offsets, W, u):
     return y
 
 
+def apply_vector(offsets, W, u, cache=None):
+    """(A u)[i, a] = sum_o sum_b W[o, a, b, i] u[i + off_o, b]."""
+    if _needs_grad(W, u):
+        return _Apply.apply("vector", offsets, cache, W, u)
+    return _vector_raw(offsets, W, u)
+
+
 def apply_coupling_plain(offsets, C, c):
     return stencil_apply_plain(offsets, C[:, :, None, :], c[:, None])
 
 
-def apply_coupling(offsets, C, c):
-    """(C c)[i, a] = sum_o C[o, a, i] c[i + off_o]; returns (n, d)."""
+def _coupling_raw(offsets, C, c):
     if _plain_here(C, c):
         return apply_coupling_plain(offsets, C, c)
     n = C.shape[-1]
@@ -138,6 +171,13 @@ def apply_coupling(offsets, C, c):
     y = _launch(offsets, 3, 1, C, c, c.new_empty((n, 3)))
     apply_coupling.launches += 1
     return y
+
+
+def apply_coupling(offsets, C, c, cache=None):
+    """(C c)[i, a] = sum_o C[o, a, i] c[i + off_o]; returns (n, d)."""
+    if _needs_grad(C, c):
+        return _Apply.apply("coupling", offsets, cache, C, c)
+    return _coupling_raw(offsets, C, c)
 
 
 def apply_scalar_sum_plain(offsets, terms, b):
@@ -151,10 +191,7 @@ def apply_scalar_sum_plain(offsets, terms, b):
     return acc - b
 
 
-def apply_scalar_sum(offsets, terms, b):
-    """y = s_1 W_1 v_1 + ... + s_k W_k v_k - b for k = 2 or 3 terms
-    ``(W_k (n_off, n), v_k (n,), s_k float)`` on one offset set, in one
-    launch."""
+def _sum_raw(offsets, terms, b):
     if not b.is_cuda and _plain_here(b, *(t for W, v, _ in terms for t in (W, v))):
         return apply_scalar_sum_plain(offsets, terms, b)
     if len(terms) not in (2, 3):
@@ -176,6 +213,181 @@ def apply_scalar_sum(offsets, terms, b):
         _build.check(err, "stencil_apply_sum launch")
     apply_scalar_sum.launches += 1
     return y
+
+
+def apply_scalar_sum(offsets, terms, b, cache=None):
+    """y = s_1 W_1 v_1 + ... + s_k W_k v_k - b for k = 2 or 3 terms
+    ``(W_k (n_off, n), v_k (n,), s_k float)`` on one offset set, in one
+    launch."""
+    flat = [t for W, v, _ in terms for t in (W, v)]
+    if _needs_grad(b, *flat):
+        return _ApplySum.apply(offsets, tuple(float(s) for _, _, s in terms),
+                               cache, b, *flat)
+    return _sum_raw(offsets, terms, b)
+
+
+# -- differentiation ----------------------------------------------------------
+
+
+def _needs_grad(*tensors):
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+@functools.lru_cache(maxsize=64)
+def _shift_table(offsets, n, device):
+    off = torch.as_tensor(offsets, dtype=torch.int64, device=device)
+    return torch.remainder(off[:, None] + torch.arange(n, device=device)[None, :], n)
+
+
+def _shift_index(offsets, n, device):
+    """(n_off, n) int64 ``idx[o, i] = (i + off_o) mod n``, built once per
+    (offsets, n, device); read-only."""
+    return _shift_table(tuple(int(o) for o in offsets), n, torch.device(device))
+
+
+@functools.lru_cache(maxsize=64)
+def _mirror_perm(offsets):
+    slot = {off: o for o, off in enumerate(offsets)}
+    missing = [off for off in offsets if -off not in slot]
+    if missing:
+        raise ValueError("the transposed stencil needs a symmetric offset set; no "
+                         f"mirror for offsets {missing}")
+    return tuple(slot[-off] for off in offsets)
+
+
+def mirror_perm(offsets):
+    """``perm[o]`` = the slot of -off_o; raises ValueError unless the offset
+    set is symmetric (the transposed stencil then stays inside it)."""
+    return list(_mirror_perm(tuple(int(o) for o in offsets)))
+
+
+def mirror_planes(offsets, W4):
+    """Planes of A^T from those of A: W4 (n_off, d_out, d_in, n) ->
+    WT (n_off, d_in, d_out, n), ``WT[o', b, a, j] = W4[o, a, b, j - off_o]``
+    with off_o' = -off_o, so that ``stencil_apply(offsets, WT, y) = A^T y``."""
+    perm = mirror_perm(offsets)
+    idx = _shift_index(offsets, W4.shape[-1], W4.device)
+    Wp = W4[perm].transpose(1, 2)
+    return torch.gather(Wp, 3, idx[:, None, None, :].expand(Wp.shape)).contiguous()
+
+
+def _transposed(offsets, W, form):
+    """Mirrored planes of ``W`` in the layout the transposed launch takes:
+    scalar (n_off, n), vector (n_off, 3, 3, n), coupling (3, n_off, n)
+    (one scalar plane set per displacement component)."""
+    if form == "scalar":
+        return mirror_planes(offsets, W[:, None, None, :])[:, 0, 0]
+    if form == "vector":
+        return mirror_planes(offsets, W)
+    return mirror_planes(offsets, W[:, :, None, :])[:, 0].transpose(0, 1).contiguous()
+
+
+def _key(W):
+    return (W.data_ptr(), tuple(W.shape), W.dtype, W.device)
+
+
+class MirrorCache:
+    """The mirrored planes of fixed planes (one simulate's theta-only
+    planes), built on first use and kept.  Planes are matched by storage
+    and shape, so detached copies of them hit too; other planes are
+    mirrored afresh at every call."""
+
+    def __init__(self, planes):
+        # holding each plane keeps its storage, and so its key, unique
+        self._planes = {_key(W): W for W in planes}
+        self._built = {}
+
+    def transposed(self, offsets, W, form):
+        key = _key(W)
+        if key not in self._planes:
+            return _transposed(offsets, W, form)
+        hit = self._built.get((key, form))
+        if hit is None:
+            hit = self._built[(key, form)] = _transposed(offsets, W.detach(), form)
+        return hit
+
+
+def _mirror(offsets, W, form, cache):
+    if cache is None:
+        return _transposed(offsets, W, form)
+    return cache.transposed(offsets, W, form)
+
+
+def plane_grad(offsets, y, v):
+    """dW of ``y = A v``: ``dW[o, a, b, i] = y[i, a] v[i + off_o, b]``,
+    (n_off, d_out, d_in, n), for y (n,) or (n, d_out), v (n,) or (n, d_in)."""
+    n = y.shape[0]
+    y2, v2 = y.reshape(n, -1), v.reshape(n, -1)
+    vs = v2[_shift_index(offsets, n, v.device)]  # (n_off, n, d_in)
+    return y2.T[None, :, None, :] * vs.permute(0, 2, 1)[:, None, :, :]
+
+
+def _transposed_apply(form, offsets, WT, y):
+    """A^T y through one launch of the kernel (its plain version on the
+    CPU)."""
+    if form == "scalar":
+        return _scalar_raw(offsets, WT, y)
+    if form == "vector":
+        return _vector_raw(offsets, WT, y)
+    terms = [(WT[a], y[:, a].contiguous(), 1.0) for a in range(WT.shape[0])]
+    return _sum_raw(offsets, terms, y.new_zeros(y.shape[0]))
+
+
+_FORWARD = {"scalar": _scalar_raw, "vector": _vector_raw, "coupling": _coupling_raw}
+
+
+class _Apply(torch.autograd.Function):
+    """One stencil form, ``y = A v``, with its VJP (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, form, offsets, cache, W, v):
+        ctx.form, ctx.offsets, ctx.cache = form, offsets, cache
+        ctx.save_for_backward(W, v)
+        return _FORWARD[form](offsets, W, v)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gy):
+        W, v = ctx.saved_tensors
+        gy = gy.contiguous()
+        dW = dv = None
+        if ctx.needs_input_grad[3]:
+            dW = plane_grad(ctx.offsets, gy, v).reshape(W.shape)
+        if ctx.needs_input_grad[4]:
+            WT = _mirror(ctx.offsets, W, ctx.form, ctx.cache)
+            dv = _transposed_apply(ctx.form, ctx.offsets, WT, gy)
+        return None, None, None, dW, dv
+
+
+class _ApplySum(torch.autograd.Function):
+    """``y = sum_k s_k W_k v_k - b`` with its VJP: db = -y, and per term
+    dW_k = s_k (y outer shifted v_k), dv_k = s_k W_k^T y."""
+
+    @staticmethod
+    def forward(ctx, offsets, scales, cache, b, *flat):
+        ctx.offsets, ctx.scales, ctx.cache = offsets, scales, cache
+        ctx.save_for_backward(*flat)
+        terms = [(flat[2 * k], flat[2 * k + 1], s) for k, s in enumerate(scales)]
+        return _sum_raw(offsets, terms, b)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gy):
+        flat = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        gy = gy.contiguous()
+        grads = []
+        for k, s in enumerate(ctx.scales):
+            W, v = flat[2 * k], flat[2 * k + 1]
+            dW = dv = None
+            if need[4 + 2 * k]:
+                dW = s * plane_grad(ctx.offsets, gy, v).reshape(W.shape)
+            if need[5 + 2 * k]:
+                WT = _mirror(ctx.offsets, W, "scalar", ctx.cache)
+                dv = _scalar_raw(ctx.offsets, WT, gy)
+                dv = dv if s == 1.0 else s * dv
+            grads += (dW, dv)
+        return (None, None, None, -gy if need[3] else None, *grads)
 
 
 apply_scalar.launches = 0

@@ -1,5 +1,5 @@
-"""The coupled implicit-Euler step, forward only (counterpart of
-``glimslib_tpu/solvers/coupled.py``).
+"""The coupled implicit-Euler step and its implicit-function-theorem
+adjoint (counterpart of ``glimslib_tpu/solvers/coupled.py``).
 
 The monolithic Jacobian of the coupled system is block-triangular (R_c
 does not depend on u), so one Newton solve of it is exactly: Newton-CG on
@@ -20,8 +20,25 @@ Two branches of the reference are ported:
 
 The Newton and CG loops read their residual norms on the host once per
 iteration (the whole-solve kernels keep theirs on the device).  No
-mixed-precision refinement, no Chebyshev preconditioning; the
-implicit-function-theorem adjoint waits for the adjoint slice.
+mixed-precision refinement, no Chebyshev preconditioning.
+
+Gradients (the reference's ``custom_vjp`` ``step_bwd``): where grad is
+enabled and the state or a theta tensor requires it, the step runs as one
+``torch.autograd.Function`` whose forward is the solve above under
+``no_grad`` and whose backward, given (u_bar, c_bar) at the converged
+(u, c), solves the two adjoint systems with the forward's own solvers
+(the whole-solve kernels, or ``pcg`` with the EXACT rd Jacobian, never
+the chord operator) and takes the residual VJPs with
+``torch.autograd.grad``:
+
+    A_uu^T lam_u = u_bar
+    J_cc^T lam_c = c_bar - (dR_u/dc)^T lam_u
+    theta_bar = -(dR_u/dtheta^T lam_u + dR_c/dtheta^T lam_c)
+    c_prev_bar = -(dR_c/dc_prev)^T lam_c,  u_prev_bar = 0
+
+The warm-start guess and the anchored tolerance do not change the
+converged state: they get no gradient.  Theta tensors that only feed
+preconditioners get none either (nothing of the residuals reads them).
 """
 
 from __future__ import annotations
@@ -30,6 +47,7 @@ import math
 from typing import Callable, NamedTuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from glimslib_tpu_torch.solvers.cg import pcg
 
@@ -74,7 +92,7 @@ def make_step(
     rd_precond: Callable = None,  # (theta) -> callable(r) ~ J_cc^-1 r
     el_precond: Callable = None,  # (theta) -> callable(r) ~ A_uu^-1 r
     rd_jacobian_chord: Callable = None,  # cheaper frozen-Jacobian source
-    record: Callable = None,  # (kind "rd" | "el", pcg info) per pcg solve
+    record: Callable = None,  # (kind "rd" | "el" | "rd_adj" | "el_adj", info) a solve
 ):
     """Build ``step(theta, u_prev, c_prev, t, guess=None, anchor_c=None)
     -> (u, c, converged, n_newton)``.
@@ -83,7 +101,9 @@ def make_step(
     branch (ignored by the whole-solve branch); ``anchor_c`` the
     caller's ||r_c(c_prev)||, which then replaces its evaluation.
     ``converged`` is a 0-d bool tensor on the state's device;
-    ``n_newton`` is a Python int."""
+    ``n_newton`` is a Python int.  Differentiable in the state and in
+    theta's floating tensors (module docstring).  Every linear solve,
+    forward or adjoint, on either branch, is reported to ``record``."""
     cfg = config
     whole_solve = rd_cg is not None and el_cg is not None
     assembled = None not in (rd_jacobian, el_operator, rd_precond, el_precond)
@@ -100,13 +120,16 @@ def make_step(
     freeze_jac = cfg.rd_modified_newton and not whole_solve
     chord_src = rd_jacobian_chord or rd_jacobian
 
-    def _pcg(kind, A, b, M, rtol, atol):
-        x, info = pcg(A, b, M=M, rtol=rtol, atol=atol, maxiter=cfg.cg_maxiter)
+    def _recorded(kind, x_info):
         if record is not None:
-            record(kind, info)
-        return x, info
+            record(kind, x_info[1])
+        return x_info
 
-    def step(theta, u_prev, c_prev, t, guess=None, anchor_c=None):
+    def _pcg(kind, A, b, M, rtol, atol):
+        return _recorded(kind, pcg(A, b, M=M, rtol=rtol, atol=atol,
+                                   maxiter=cfg.cg_maxiter))
+
+    def solve(theta, u_prev, c_prev, t, guess=None, anchor_c=None):
         gc = bc_values_c(t)
         gu = bc_values_u(t)
         warm = guess is not None and not whole_solve
@@ -135,7 +158,7 @@ def make_step(
         while k < cfg.newton_maxiter and fnorm > ftol and not bad:
             rhs = torch.where(mask_c, torch.zeros_like(r), -r)
             if whole_solve:
-                dc, _ = rd_cg(theta, c, rhs)
+                dc, _ = _recorded("rd", rd_cg(theta, c, rhs))
             else:
                 A = (A_frozen if freeze_jac
                      else _masked_op(rd_jacobian(theta, c), mask_c))
@@ -163,7 +186,7 @@ def make_step(
             ru = resid_u(u0)
         rhs_u = torch.where(mask_u, torch.zeros_like(ru), -ru)
         if whole_solve:
-            du, info_u = el_cg(theta, rhs_u)
+            du, info_u = _recorded("el", el_cg(theta, rhs_u))
         else:
             Au = _masked_op(el_operator(theta), mask_u)
             Mu = _masked_op(el_precond(theta), mask_u)
@@ -181,4 +204,105 @@ def make_step(
         conv_u = torch.isfinite(resnorm) & (resnorm <= tol_u)
         return u, c, conv_u & conv_c, k
 
+    def adjoint(theta, c_prev, t, u, c, u_bar, c_bar, keys, need_c_prev):
+        """step_bwd: (theta_bar {key: tensor or None}, c_prev_bar or None)
+        for the converged (u, c) of ``solve(theta, u_prev, c_prev, t)``;
+        ``keys`` the theta tensors whose cotangent is wanted."""
+        gc = bc_values_c(t)
+        gu = bc_values_u(t)
+        # A_uu^T lam_u = u_bar (A_uu symmetric)
+        rhs_u = torch.where(mask_u, torch.zeros_like(u_bar), u_bar)
+        if whole_solve:
+            lam_u, _ = _recorded("el_adj", el_cg(theta, rhs_u))
+        else:
+            lam_u, _ = _pcg("el_adj", _masked_op(el_operator(theta), mask_u), rhs_u,
+                            _masked_op(el_precond(theta), mask_u), cfg.cg_rtol,
+                            cfg.cg_atol)
+        # c_bar - (dR_u/dc)^T lam_u, and dR_u/dtheta^T lam_u
+        with torch.enable_grad():
+            th = {k: v.detach().requires_grad_(k in keys) if torch.is_tensor(v) else v
+                  for k, v in theta.items()}
+            c_g = c.detach().requires_grad_()
+            r_u = torch.where(mask_u, u - gu, el_residual(u, c_g, th, t))
+            g_u = torch.autograd.grad(r_u, [c_g] + [th[k] for k in keys], lam_u,
+                                      allow_unused=True)
+        rhs_c = c_bar if g_u[0] is None else c_bar - g_u[0]
+        # J_cc^T lam_c = rhs_c with the exact Jacobian at the converged c
+        rhs_c = torch.where(mask_c, torch.zeros_like(rhs_c), rhs_c)
+        if whole_solve:
+            lam_c, _ = _recorded("rd_adj", rd_cg(theta, c, rhs_c))
+        else:
+            lam_c, _ = _pcg("rd_adj", _masked_op(rd_jacobian(theta, c), mask_c),
+                            rhs_c, _masked_op(rd_precond(theta), mask_c),
+                            cfg.cg_rtol, cfg.cg_atol)
+        # dR_c/dc_prev^T lam_c and dR_c/dtheta^T lam_c
+        wrt = ([c_prev] if need_c_prev else []) + [th[k] for k in keys]
+        g_c = [None] * len(wrt)
+        if wrt:
+            with torch.enable_grad():
+                cp = c_prev.detach().requires_grad_(need_c_prev)
+                if need_c_prev:
+                    wrt[0] = cp
+                r_c = torch.where(mask_c, c - gc, rd_residual(c, cp, th, t))
+                if r_c.requires_grad:
+                    g_c = list(torch.autograd.grad(r_c, wrt, lam_c,
+                                                   allow_unused=True))
+        c_prev_bar = None
+        if need_c_prev:
+            g = g_c.pop(0)
+            c_prev_bar = torch.zeros_like(c_prev) if g is None else -g
+        theta_bar = {}
+        for k, a, b in zip(keys, g_u[1:], g_c):
+            if a is None and b is None:
+                theta_bar[k] = None
+            else:
+                theta_bar[k] = -(b if a is None else a if b is None else a + b)
+        return theta_bar, c_prev_bar
+
+    def step(theta, u_prev, c_prev, t, guess=None, anchor_c=None):
+        if torch.is_grad_enabled():
+            keys = sorted(k for k, v in theta.items()
+                          if torch.is_tensor(v) and v.is_floating_point())
+            vals = [theta[k] for k in keys]
+            if any(x.requires_grad for x in (u_prev, c_prev, *vals)):
+                static = {k: v for k, v in theta.items() if k not in set(keys)}
+                if guess is not None:
+                    guess = tuple(g.detach() for g in guess)
+                if torch.is_tensor(anchor_c):
+                    anchor_c = anchor_c.detach()
+                return _ImplicitStep.apply(solve, adjoint, tuple(keys), static, t,
+                                           guess, anchor_c, u_prev, c_prev, *vals)
+        return solve(theta, u_prev, c_prev, t, guess, anchor_c)
+
     return step
+
+
+class _ImplicitStep(torch.autograd.Function):
+    """One implicit step, ``(u_prev, c_prev, *theta tensors) -> (u, c,
+    converged, n_newton)``, differentiated by the implicit-function
+    theorem (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, solve, adjoint, keys, static, t, guess, anchor_c, u_prev, c_prev,
+                *vals):
+        theta = {**static, **dict(zip(keys, vals))}
+        u, c, conv, k = solve(theta, u_prev, c_prev, t, guess, anchor_c)
+        ctx.mark_non_differentiable(conv)
+        ctx.adjoint, ctx.keys, ctx.static, ctx.t = adjoint, keys, static, t
+        ctx.save_for_backward(u_prev, c_prev, u, c, *vals)
+        return u, c, conv, k
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, u_bar, c_bar, _conv_bar, _k_bar):
+        # saved outputs come back attached to this node: detached, so the
+        # residual VJPs below differentiate nothing they do not need
+        u_prev, c_prev, u, c, *vals = (x.detach() for x in ctx.saved_tensors)
+        need = ctx.needs_input_grad
+        theta = {**ctx.static, **dict(zip(ctx.keys, vals))}
+        keys = [k for k, nd in zip(ctx.keys, need[9:]) if nd]
+        theta_bar, c_prev_bar = ctx.adjoint(
+            theta, c_prev, ctx.t, u, c, u_bar, c_bar, keys, need[8])
+        u_prev_bar = torch.zeros_like(u_prev) if need[7] else None
+        return (None,) * 7 + (u_prev_bar, c_prev_bar,
+                              *(theta_bar.get(k) for k in ctx.keys))

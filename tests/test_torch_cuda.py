@@ -7,7 +7,8 @@ file imports no JAX, so it also runs where JAX is absent:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerances: stencil applies (and the rd residual's one-launch sum) and
-batched matvecs max rel 1e-5 (f32 summation order); whole solves, in every mode of ``stencil_pcg``,
+batched matvecs max rel 1e-5 (f32 summation order), forward and backward
+(against torch's autograd of the plain versions); whole solves, in every mode of ``stencil_pcg``,
 |Δiters| <= 3 and max rel 1e-4 (reductions re-associate near the
 stopping tolerance); the unstructured
 slice against its plain path rel-L2 1e-4 (f32 operators, Newton and CG
@@ -273,3 +274,120 @@ def test_unstructured_slice_runs_through_the_kernel(unstructured):
     assert bool(ok_p.all()) and bk.batched_matvec.launches == launches
     for got, want in ((u_k[-1], u_p[-1]), (c_k[-1], c_p[-1])):
         assert float((got - want).norm() / want.norm()) <= 1e-4
+
+
+# -- the backward of each wrapper, and the adjoint step ------------------------
+
+
+def _grads(fn, inputs, gy):
+    ins = [x.detach().clone().requires_grad_() for x in inputs]
+    y = fn(*ins)
+    return torch.autograd.grad(y, ins, gy)
+
+
+@pytest.mark.parametrize("form", ["scalar", "vector", "coupling", "sum", "bmv"])
+def test_backward_on_the_card_matches_plain_autograd(form):
+    """dv and dW of each wrapper's autograd Function on the card (the
+    transposed apply a launch of the kernel on mirrored planes) against
+    torch's own autograd of the plain version, max rel 1e-5, at an odd
+    n = 1001 with 15 symmetric offsets, some past n."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(13)
+    n = 1001
+    half = [int(o) for o in rng.choice(np.arange(1, 3 * n), 7, replace=False)]
+    offs = sorted([0] + half + [-o for o in half])
+    f32 = lambda *s: torch.as_tensor(rng.standard_normal(s), dtype=torch.float32,  # noqa: E731
+                                     device="cuda")
+    if form == "bmv":
+        ins = (f32(64, 96, 160), f32(64, 160))
+        kern, plain, gy = bk.batched_matvec, bk.batched_matvec_plain, f32(64, 96)
+    elif form == "sum":
+        ins = (f32(15, n), f32(15, n), f32(15, n), f32(n), f32(n), f32(n))
+
+        def kern(W1, W2, W3, v, v2, b, f=sk.apply_scalar_sum):
+            return f(offs, ((W1, v, 1.0), (W2, v, 0.5), (W3, v2, -1.0)), b)
+
+        def plain(*a):
+            return kern(*a, f=sk.apply_scalar_sum_plain)
+        gy = f32(n)
+    else:
+        fn, pl, ins, gy = {
+            "scalar": (sk.apply_scalar, sk.apply_scalar_plain, (f32(15, n), f32(n)),
+                       f32(n)),
+            "vector": (sk.apply_vector, sk.apply_vector_plain,
+                       (f32(15, 3, 3, n), f32(n, 3)), f32(n, 3)),
+            "coupling": (sk.apply_coupling, sk.apply_coupling_plain,
+                         (f32(15, 3, n), f32(n)), f32(n, 3)),
+        }[form]
+        kern = lambda W, x, fn=fn: fn(offs, W, x)  # noqa: E731
+        plain = lambda W, x, pl=pl: pl(offs, W, x)  # noqa: E731
+    counted = (sk.apply_scalar, sk.apply_vector, sk.apply_coupling,
+               sk.apply_scalar_sum, bk.batched_matvec)
+    before = [w.launches for w in counted]
+    got = _grads(kern, ins, gy)
+    torch.cuda.synchronize()
+    # the forward's launch and the backward's transposed launches (bmv's
+    # VJP is plain torch), by wrapper in the order of ``counted``
+    assert [w.launches - b for w, b in zip(counted, before)] == {
+        "scalar": [2, 0, 0, 0, 0], "vector": [0, 2, 0, 0, 0],
+        "coupling": [0, 0, 1, 1, 0], "sum": [3, 0, 0, 1, 0],
+        "bmv": [0, 0, 0, 0, 1]}[form]
+    want = _grads(plain, ins, gy)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and g.shape == w.shape
+        assert _rel_max(g, w) <= 1e-5
+
+
+def test_transposed_apply_raises_on_asymmetric_offsets():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    n = 101
+    offs = list(range(-7, 8))
+    offs[-1] = 9  # no -9
+    W = torch.ones((15, n), device="cuda")
+    v = torch.ones(n, device="cuda", requires_grad=True)
+    y = sk.apply_scalar(offs, W, v)
+    with pytest.raises(ValueError, match="symmetric"):
+        y.sum().backward()
+
+
+def test_adjoint_step_on_the_card_keeps_its_gradients_there():
+    """value_and_grad through the IFT step on the card (n=8 brain, f32, both
+    lanes): every cotangent lands on the card, the backward launches the
+    lane's kernels, and J and the gradient agree with the plain path's at
+    f64: J to rel 1e-4 on the lattice and 5e-4 on the unstructured lane
+    (whose f32 operating point leaves c at ~6e-5, carried into J by the
+    threshold's slope), the gradient to rel-L2 1e-3 on the lattice and 1e-2
+    on the unstructured lane, the limits of the smoke run's adjoint phase."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from glimslib_tpu_torch.examples import adjoint_problem
+
+    for unstructured in (False, True):
+        ip, v0 = adjoint_problem(n=8, unstructured=unstructured,
+                                 dtype=torch.float32, device="cuda")
+        sim = ip.sim
+        vt = torch.tensor(v0, dtype=torch.float32, device="cuda", requires_grad=True)
+        p = dict(sim.params.as_dict())
+        p.update(ip.update_fn(vt))
+        theta = sim.make_theta(p)
+        u0, c0 = sim.initial_state()
+        c0 = c0.clone().requires_grad_()
+        wrappers = (bk.batched_matvec,) if unstructured else (
+            sk.apply_scalar, fc.cg_scalar, fc.cg_vector)
+        _, c_tr, ok, _ = sim.build_simulate_fn(2, 1.0)(theta, u0, c0)
+        before = [w.launches for w in wrappers]
+        g_v, g_c0 = torch.autograd.grad(c_tr[-1].sum(), (vt, c0))
+        torch.cuda.synchronize()
+        assert bool(ok.all())
+        assert g_v.device.type == "cuda" and g_c0.device.type == "cuda"
+        assert all(w.launches > b for w, b in zip(wrappers, before))
+        J, g = ip.value_and_grad(v0)
+        ref = brain_sim(n=8, dtype=torch.float64, device="cuda", plain=True,
+                        unstructured=unstructured)
+        ip64 = type(ip)(ref, ip.param_names, ip.targets, update_fn=ip.update_fn,
+                        n_steps=ip.n_steps, dt=1.0)
+        J64, g64 = ip64.value_and_grad(v0)
+        assert abs(J - J64) <= (5e-4 if unstructured else 1e-4) * abs(J64)
+        assert np.linalg.norm(g - g64) <= (1e-2 if unstructured else 1e-3) * np.linalg.norm(g64)

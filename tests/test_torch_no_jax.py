@@ -1,4 +1,5 @@
-"""The port runs without JAX, imports nothing of it (a static scan of
+"""The port runs without JAX (a forward run and one value_and_grad of the
+inverse problem on each lane), imports nothing of it (a static scan of
 every source), runs on the card by default, and never moves a CUDA
 request to the CPU."""
 
@@ -16,7 +17,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SCRIPT = """
 import sys
 import torch
-from glimslib_tpu_torch.examples import brain_sim
+from glimslib_tpu_torch.examples import adjoint_problem, brain_sim
 
 for unstructured in (False, True):
     sim = brain_sim(n=4, dtype=torch.float64, device="cpu",
@@ -26,6 +27,11 @@ for unstructured in (False, True):
     theta = sim.make_theta(sim.params.as_dict())
     u, c, ok, newton = sim.build_simulate_fn(1, 1.0)(theta, u0, c0)
     assert bool(ok.all()) and bool(torch.isfinite(c).all())
+    # one gradient of the inverse problem on each lane
+    ip, v0 = adjoint_problem(n=4, unstructured=unstructured,
+                             dtype=torch.float64, device="cpu")
+    J, g = ip.value_and_grad(v0)
+    assert J > 0 and g.shape == (2,) and all(abs(x) < float("inf") for x in g), g
 jax_mods = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
             or m.startswith("jaxlib") or m.startswith("glimslib_tpu.")
             or m == "glimslib_tpu"]
