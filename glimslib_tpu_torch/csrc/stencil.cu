@@ -7,8 +7,9 @@
 //
 // stencil_apply<DOUT, DIN, TERMS> replaces the Pallas matvecs
 //   glimslib_tpu/ops/stencil_pallas.py:_scalar_kernel            (DOUT=DIN=1)
-//   glimslib_tpu/ops/stencil_pallas.py:_vector_kernel_streamed   (DOUT=DIN=3,
-//     and DOUT=3, DIN=1 for the growth-strain coupling planes).
+//   glimslib_tpu/ops/stencil_pallas.py:_vector_kernel_streamed   (DOUT=DIN=d,
+//     and DOUT=d, DIN=1 for the growth-strain coupling planes; d = 2 on a
+//     rectangle lattice, 3 on a box).
 // It computes y = sum_k s_k A_k v_k (- b), TERMS operators on one offset
 // set: TERMS=1 (s=1, no b) is the plain matvec; TERMS=3 at d=1 is the
 // lattice rd residual W_const c + wc c / 2 - M c_prev - load in one launch.
@@ -20,23 +21,24 @@
 // consecutive nodes, so every plane read is coalesced.  The offset loop
 // is unrolled to the lattice's 15 offsets (loads predicated on off.n):
 // a thread issues all its plane and neighbour loads before the first sum,
-// so a launch waits for about one round trip, not 15.  (3,3) issues them
-// in two chunks (offsets 0-7, 8-14) and is held to 128 registers, so four
-// blocks fit an SM and the N=32 grid (281 blocks) runs in one wave; with
-// all 180 loads at once it took 217 registers and two waves, and was
-// slower at N=32 on the H100.  Each neighbour's DIN components are loaded
-// once and used for every output row.  DOUT=3 outputs go through shared
-// memory, so a warp stores 32*DOUT contiguous floats in DOUT coalesced
-// stores.  Products and sums are rounded one by one (no FMA contraction),
-// o outer and b inner, as the plain torch version does them, so on the
-// same inputs the two agree to the bit.  The TPU kernel's (R, 128) tiling
+// so a launch waits for about one round trip, not 15.  (3,3) and (2,2)
+// issue them in two chunks (offsets 0-7, 8-14; the 2D lattice's 7 offsets
+// all fall in the first) and are held to 128 registers, so four blocks
+// fit an SM and the N=32 grid (281 blocks) runs in one wave; with all 180
+// loads at once (3,3) took 217 registers and two waves, and was slower at
+// N=32 on the H100.  Each neighbour's DIN components are loaded once and
+// used for every output row.  DOUT > 1 outputs go through shared memory,
+// so a warp stores 32*DOUT contiguous floats in DOUT coalesced stores.
+// Products and sums are rounded one by one (no FMA contraction), o outer
+// and b inner, as the plain torch version does them, so on the same
+// inputs the two agree to the bit.  The TPU kernel's (R, 128) tiling
 // and in-register lane rolls are not carried over: a CUDA thread indexes
 // its neighbour directly.
 //
 // stencil_pcg<D> replaces the whole-solve Pallas CG kernels
 //   glimslib_tpu/ops/pallas_cg.py:_cg_scalar_kernel           (D=1, Jacobi)
-//   glimslib_tpu/ops/pallas_cg.py:_cg_vector_kernel           (D=3, VMEM-resident)
-//   glimslib_tpu/ops/pallas_cg.py:_cg_vector_streamed_kernel  (D=3, streamed)
+//   glimslib_tpu/ops/pallas_cg.py:_cg_vector_kernel           (D=2, 3, VMEM-resident)
+//   glimslib_tpu/ops/pallas_cg.py:_cg_vector_streamed_kernel  (D=2, 3, streamed)
 // with the update order and stopping rule of solvers/cg.py:pcg (x0 = 0;
 // stop when rr <= max(rtol^2 bb, atol^2) or at maxiter), in one
 // cooperative launch per solve and no host sync inside it.
@@ -77,8 +79,8 @@
 // passes both; the kernel traps if its layout would not fit):
 //   RESIDENT (the VMEM-resident kernels' analogue): the owned range's
 //     planes and preconditioner are copied into shared memory once per
-//     solve (N=32 d=3: 197 KB a block; U=3 for d=3, 4 for d=1), so an
-//     iteration reads no plane from L2 or HBM.  What bounds it: latency,
+//     solve (N=32 d=3: 197 KB a block; U=3 for d=3, 4 for d=1 and d=2),
+//     so an iteration reads no plane from L2 or HBM.  What bounds it: latency,
 //     not bytes: the three grid barriers with the two reads of the 132
 //     partials after them (about 1 us each), and one L1-miss round trip
 //     to L2 a chunk in sweep A (tools/pcg_phase_times.py).
@@ -112,10 +114,12 @@ namespace cg = cooperative_groups;
 // the 3D Kuhn lattice's 15 offsets; _build.py's Offsets mirrors the struct
 #define GLIMS_MAX_OFF 15
 #define GLIMS_APPLY_BLOCK 128
-// (3,3): offsets a chunk of loads, and blocks an SM (at most 128 registers
-// a thread), so that the N=32 grid fits the card in one wave
-#define GLIMS_APPLY_CHUNK33 8
-#define GLIMS_APPLY_MIN_BLOCKS33 4
+// (3,3) and (2,2): offsets a chunk of loads, and blocks an SM (at most 128
+// registers a thread), so that the N=32 grid fits the card in one wave
+#define GLIMS_APPLY_CHUNK_SQ 8
+#define GLIMS_APPLY_MIN_BLOCKS_SQ 4
+// the forms that load in chunks: a d x d block per offset, d = 2 or 3
+#define GLIMS_APPLY_CHUNKED(DOUT, DIN) ((DOUT) * (DIN) >= 4)
 #define GLIMS_APPLY_MAX_TERMS 3
 
 // whole-solve PCG geometry; ops/fused_cg.py mirrors these numbers
@@ -127,7 +131,8 @@ namespace cg = cooperative_groups;
 #define GLIMS_PCG_OFF_PER_G (GLIMS_PCG_MAX_OFF / GLIMS_PCG_G)
 #define GLIMS_PCG_MAX_STAGES 4
 // nodes a thread sums per chunk: 1 streamed, GLIMS_PCG_U_RESIDENT(D) resident
-#define GLIMS_PCG_U_RESIDENT(D) ((D) == 1 ? 4 : 3)
+// (a thread holds U * 5 * D gathered floats: 20, 40, 45 for D = 1, 2, 3)
+#define GLIMS_PCG_U_RESIDENT(D) ((D) == 3 ? 3 : 4)
 #define GLIMS_PCG_UB 4  // nodes a thread updates per step of sweeps B and C
 #define GLIMS_PCG_RESIDENT 0
 #define GLIMS_PCG_STREAMED 1
@@ -156,7 +161,7 @@ __device__ __forceinline__ void stencil_node(const float* __restrict__ W,
                                              const float* __restrict__ v,
                                              int n, const Offsets& off, int i,
                                              float (&t)[DOUT]) {
-  constexpr int CH = DOUT * DIN == 9 ? GLIMS_APPLY_CHUNK33 : GLIMS_MAX_OFF;
+  constexpr int CH = GLIMS_APPLY_CHUNKED(DOUT, DIN) ? GLIMS_APPLY_CHUNK_SQ : GLIMS_MAX_OFF;
   const size_t plane = (size_t)n;
 #pragma unroll
   for (int a = 0; a < DOUT; ++a) t[a] = 0.0f;
@@ -194,7 +199,7 @@ __device__ __forceinline__ void stencil_node(const float* __restrict__ W,
 // summed left to right; one thread a node.
 template <int DOUT, int DIN, int TERMS>
 __global__ void __launch_bounds__(GLIMS_APPLY_BLOCK,
-                                  DOUT * DIN == 9 ? GLIMS_APPLY_MIN_BLOCKS33 : 1)
+                                  GLIMS_APPLY_CHUNKED(DOUT, DIN) ? GLIMS_APPLY_MIN_BLOCKS_SQ : 1)
     stencil_apply_kernel(const ApplyArgs args) {
   const int n = args.n;
   const int i = blockIdx.x * GLIMS_APPLY_BLOCK + threadIdx.x;
@@ -763,7 +768,8 @@ static int launch_pcg(PcgArgs& args, int blocks, size_t smem,
 
 extern "C" {
 
-// y (n, dout) = stencil(W (n_off, dout, din, n), v (n, din)).
+// y (n, dout) = stencil(W (n_off, dout, din, n), v (n, din)), (dout, din) one
+// of (1,1), (2,2), (2,1), (3,3), (3,1).
 int glims_stencil_apply(int dout, int din, const float* W, const float* v,
                         float* y, int n, const Offsets* off, void* stream) {
   const int err = check_offsets(off, n);
@@ -777,6 +783,8 @@ int glims_stencil_apply(int dout, int din, const float* W, const float* v,
   args.off = *off;
   cudaStream_t s = (cudaStream_t)stream;
   if (dout == 1 && din == 1) return launch_apply<1, 1, 1>(args, s);
+  if (dout == 2 && din == 2) return launch_apply<2, 2, 1>(args, s);
+  if (dout == 2 && din == 1) return launch_apply<2, 1, 1>(args, s);
   if (dout == 3 && din == 3) return launch_apply<3, 3, 1>(args, s);
   if (dout == 3 && din == 1) return launch_apply<3, 1, 1>(args, s);
   return (int)cudaErrorInvalidValue;
@@ -863,6 +871,12 @@ int glims_stencil_pcg(int d, const float* W, const float* Minv,
       return launch_pcg<1, GLIMS_PCG_STREAMED>(args, blocks, smem, s);
     case 4 + GLIMS_PCG_STREAMED_GLOBAL:
       return launch_pcg<1, GLIMS_PCG_STREAMED_GLOBAL>(args, blocks, smem, s);
+    case 8 + GLIMS_PCG_RESIDENT:
+      return launch_pcg<2, GLIMS_PCG_RESIDENT>(args, blocks, smem, s);
+    case 8 + GLIMS_PCG_STREAMED:
+      return launch_pcg<2, GLIMS_PCG_STREAMED>(args, blocks, smem, s);
+    case 8 + GLIMS_PCG_STREAMED_GLOBAL:
+      return launch_pcg<2, GLIMS_PCG_STREAMED_GLOBAL>(args, blocks, smem, s);
     case 12 + GLIMS_PCG_RESIDENT:
       return launch_pcg<3, GLIMS_PCG_RESIDENT>(args, blocks, smem, s);
     case 12 + GLIMS_PCG_STREAMED:

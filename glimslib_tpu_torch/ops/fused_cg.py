@@ -12,14 +12,15 @@ zero-offset diagonal of masked dofs, so the kernel applies no masks.
 
 - :func:`cg_scalar`  Jacobi PCG on W'' (n_off, n), invd (n,), b (n,)      [K3a]
 - :func:`cg_vector`  block-Jacobi PCG on W'' (n_off, d, d, n),
-  Binv'' (d, d, n), b (n, d)                                          [K3b, K3c]
+  Binv'' (d, d, n), b (n, d), d = 2 (rectangle lattices) or 3 (box
+  lattices)                                                           [K3b, K3c]
 
 Both start from x0 = 0 and follow ``solvers/cg.py:pcg`` (same update order,
 same stopping rule) and return ``(x, {"iters", "resnorm"})`` with the info
 as 0-d tensors on the input's device.  Given CPU tensors they run the plain
-version; given CUDA tensors they launch ``stencil_pcg<d>`` (one cooperative
-launch per solve, ``csrc/stencil.cu``) or raise.  :func:`launch_plan`
-chooses the kernel's mode from the bytes per SM: ``resident`` (the owned
+version; given CUDA tensors they launch ``stencil_pcg<d>`` (d = 1, 2 or
+3; one cooperative launch per solve, ``csrc/stencil.cu``) or raise.
+:func:`launch_plan` chooses the kernel's mode from the bytes per SM: ``resident`` (the owned
 planes in shared memory; the TPU's VMEM-resident kernels K3a/K3b),
 ``streamed`` (planes streamed through a ring of shared-memory stages; the
 TPU's streamed kernel K3c), or ``streamed_global`` (the same with x, r and
@@ -45,7 +46,9 @@ from glimslib_tpu_torch.solvers.cg import pcg
 # is short of what it lays out
 PCG_ROW = 128            # T: nodes a thread row, nodes of a streamed chunk
 PCG_GROUPS = 3           # G: threads a node (offset groups)
-PCG_RESIDENT_U = {1: 4, 3: 3}  # nodes a thread per resident chunk, by d
+# nodes a thread per resident chunk, by d (GLIMS_PCG_U_RESIDENT): the
+# kernels stencil_pcg has; a thread holds U * 5 * d gathered floats
+PCG_RESIDENT_U = {1: 4, 2: 4, 3: 3}
 PCG_MAX_OFF = 15
 PCG_MAX_STAGES = 4
 # dynamic shared memory a block may take: the card's 232,448-byte opt-in
@@ -81,6 +84,8 @@ def launch_plan(n, d, n_off, blocks, mode=None):
     a block's shared memory; else streamed with as many ring stages (2..4)
     as fit beside x, r and Ap; else streamed_global, those three in global
     memory.  ``mode`` forces one; raises if it does not fit."""
+    if d not in PCG_RESIDENT_U:
+        raise NotImplementedError(f"stencil_pcg has no kernel for d={d}")
     if n_off > PCG_MAX_OFF:
         raise NotImplementedError(f"stencil_pcg takes at most {PCG_MAX_OFF} offsets")
     if mode is not None and mode not in MODES:
@@ -190,8 +195,6 @@ def _pcg_cuda(d, offsets, W4, Minv, b, rtol, atol, maxiter, mode=None,
     chooses the mode, and the grid is one block an SM).  Returns x, the
     info and the plan."""
     n_off, n = W4.shape[0], W4.shape[-1]
-    if d not in (1, 3):
-        raise NotImplementedError(f"stencil_pcg has no kernel for d={d}")
     if len(offsets) != n_off:
         raise ValueError(f"{len(offsets)} offsets for {n_off} planes")
     dev = W4.device

@@ -9,14 +9,16 @@ Four wrappers, one per form the lattice step applies:
 - :func:`apply_scalar_sum` 2 or 3 terms (W_k (n_off, n), v_k (n,), s_k) and
   b (n,) -> sum_k s_k W_k v_k - b                            [K1, one launch]
 
-all built on ``y[i, a] = sum_o sum_b W[o, a, b, i] v[(i + off_o) mod n, b]``.
+all built on ``y[i, a] = sum_o sum_b W[o, a, b, i] v[(i + off_o) mod n, b]``,
+with d = 2 (rectangle lattices) or 3 (box lattices) in the vector forms.
 :func:`apply_scalar_sum` is the lattice rd residual
 ``W_const c + wc c / 2 - M c_prev - load`` in one launch of the same kernel.
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches ``stencil_apply<d_out, d_in, terms>`` (``csrc/stencil.cu``) or
-raises.  The launch path is lean: the offsets are packed once per
-(offsets, n) (``_build.pack_offsets``), the C entry points are bound once,
-and the wrappers reach them without views.  Each wrapper counts its
+raises, also for a d the kernel has no form for.  The launch path is
+lean: the offsets are packed once per (offsets, n)
+(``_build.pack_offsets``), the C entry points are bound once, and the
+wrappers reach them without views.  Each wrapper counts its
 kernel launches in its ``launches`` attribute.
 
 Differentiation.  Where grad is enabled and an input requires it, a
@@ -27,8 +29,8 @@ transpose of the same stencil:
 - dv = A^T y, ``(A^T y)[j, b] = sum_o sum_a W[o, a, b, j - off_o] y[j - off_o, a]``,
   is the same kernel launched on mirrored planes (:func:`mirror_planes`:
   offset -off_o, the plane shifted by off_o, the a/b axes swapped), so the
-  offset set must be symmetric; the coupling's transpose (3 -> 1) is one
-  three-term launch of :func:`apply_scalar_sum`.  These launches count on
+  offset set must be symmetric; the coupling's transpose (d -> 1) is one
+  d-term launch of :func:`apply_scalar_sum`.  These launches count on
   the wrapper of the form they launch (``apply_scalar``, ``apply_vector``,
   ``apply_scalar_sum``).
 - dW[o, a, b, i] = y[i, a] v[i + off_o, b], in plain torch.
@@ -140,13 +142,27 @@ def apply_vector_plain(offsets, W, u):
     return stencil_apply_plain(offsets, W, u)
 
 
+# the d of the vector forms the kernel has (stencil_apply<d, d>, <d, 1>)
+VECTOR_DIMS = (2, 3)
+
+
+def _vector_dim(name, W):
+    """d of vector planes W (n_off, d, ...) on the card; raises unless the
+    kernel has a form for it."""
+    d = W.shape[1] if W.dim() > 2 else 0
+    if d not in VECTOR_DIMS:
+        raise ValueError(f"{name} has shape {tuple(W.shape)}: stencil_apply has "
+                         f"vector forms for d in {VECTOR_DIMS} only")
+    return d
+
+
 def _vector_raw(offsets, W, u):
     if _plain_here(W, u):
         return apply_vector_plain(offsets, W, u)
-    n = W.shape[-1]
-    _check("W", W, (len(offsets), 3, 3, n), W.device)
-    _check("u", u, (n, 3), W.device)
-    y = _launch(offsets, 3, 3, W, u, torch.empty_like(u))
+    n, d = W.shape[-1], _vector_dim("W", W)
+    _check("W", W, (len(offsets), d, d, n), W.device)
+    _check("u", u, (n, d), W.device)
+    y = _launch(offsets, d, d, W, u, torch.empty_like(u))
     apply_vector.launches += 1
     return y
 
@@ -165,10 +181,10 @@ def apply_coupling_plain(offsets, C, c):
 def _coupling_raw(offsets, C, c):
     if _plain_here(C, c):
         return apply_coupling_plain(offsets, C, c)
-    n = C.shape[-1]
-    _check("C", C, (len(offsets), 3, n), C.device)
+    n, d = C.shape[-1], _vector_dim("C", C)
+    _check("C", C, (len(offsets), d, n), C.device)
     _check("c", c, (n,), C.device)
-    y = _launch(offsets, 3, 1, C, c, c.new_empty((n, 3)))
+    y = _launch(offsets, d, 1, C, c, c.new_empty((n, d)))
     apply_coupling.launches += 1
     return y
 
@@ -273,7 +289,7 @@ def mirror_planes(offsets, W4):
 
 def _transposed(offsets, W, form):
     """Mirrored planes of ``W`` in the layout the transposed launch takes:
-    scalar (n_off, n), vector (n_off, 3, 3, n), coupling (3, n_off, n)
+    scalar (n_off, n), vector (n_off, d, d, n), coupling (d, n_off, n)
     (one scalar plane set per displacement component)."""
     if form == "scalar":
         return mirror_planes(offsets, W[:, None, None, :])[:, 0, 0]

@@ -6,12 +6,14 @@ file imports no JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Tolerances: stencil applies (and the rd residual's one-launch sum) and
-batched matvecs max rel 1e-5 (f32 summation order), forward and backward
-(against torch's autograd of the plain versions); whole solves, in every mode of ``stencil_pcg``,
-|Δiters| <= 3 and max rel 1e-4 (reductions re-associate near the
-stopping tolerance); the unstructured
-slice against its plain path rel-L2 1e-4 (f32 operators, Newton and CG
+The vector forms run at d=3 (the brain box) and d=2 (the 50 x 50
+rectangle lattice of ``examples.rect_sim``; the reduced 2D atlas on the
+unstructured lane).  Tolerances: stencil applies (and the rd residual's
+one-launch sum) and batched matvecs max rel 1e-5 (f32 summation order),
+forward and backward (against torch's autograd of the plain versions);
+whole solves, in every mode of ``stencil_pcg``, |Δiters| <= 3 and max rel
+1e-4 (reductions re-associate near the stopping tolerance); the slices
+against their plain paths rel-L2 1e-4 (f32 operators, Newton and CG
 stopped at 1e-4 and 1e-7).
 """
 
@@ -20,7 +22,7 @@ import pytest
 import torch
 
 from glimslib_tpu_torch.examples import (
-    BENCH_STEP_CONFIG, UNSTRUCT_STEP_CONFIG, brain_sim,
+    BENCH_STEP_CONFIG, UNSTRUCT_STEP_CONFIG, brain_sim, rect_sim,
 )
 from glimslib_tpu_torch.ops import bell_kernels as bk
 from glimslib_tpu_torch.ops import fused_cg as fc
@@ -83,10 +85,13 @@ def test_stencil_apply_sum_kernel_matches_plain_applies(lattice, n_terms):
     assert _rel_max(got, want - theta["_rd_load"]) <= 1e-5
 
 
-@pytest.mark.parametrize("shape", ["scalar", "vector", "coupling", "sum"])
+@pytest.mark.parametrize("shape", ["scalar", "vector", "coupling", "sum",
+                                   "vector2", "coupling2"])
 def test_stencil_apply_kernel_at_odd_n(shape):
     """Random planes at n = 1001 (odd, not a multiple of the 128-node
-    block) and 15 offsets drawn at random, negative and past n included."""
+    block) and 15 offsets drawn at random, negative and past n included;
+    the vector forms at d=3 and (``vector2``, ``coupling2``) d=2, each
+    launching its kernel once."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     rng = np.random.default_rng(9)
@@ -109,17 +114,29 @@ def test_stencil_apply_kernel_at_odd_n(shape):
                        f32(rng.standard_normal((n, 3)))),
             "coupling": (sk.apply_coupling, sk.apply_coupling_plain,
                          f32(rng.standard_normal((15, 3, n))), v),
+            "vector2": (sk.apply_vector, sk.apply_vector_plain,
+                        f32(rng.standard_normal((15, 2, 2, n))),
+                        f32(rng.standard_normal((n, 2)))),
+            "coupling2": (sk.apply_coupling, sk.apply_coupling_plain,
+                          f32(rng.standard_normal((15, 2, n))), v),
         }[shape]
+        before = kern.launches
         got = kern(offs, W, x)
+        assert kern.launches == before + 1
         want = plain(offs, W, x)
     torch.cuda.synchronize()
     assert got.shape == want.shape
     assert _rel_max(got, want) <= 1e-5
 
 
-@pytest.mark.parametrize("d", [1, 3])
-def test_stencil_pcg_kernel_matches_plain(lattice, d):
-    sim, theta, v, u = lattice
+def _system_fixture(request, d):
+    """The 3D brain lattice for d = 1 and 3, the 2D rectangle for d = 2."""
+    return request.getfixturevalue("rect" if d == 2 else "lattice")
+
+
+@pytest.mark.parametrize("d", [1, 2, 3])
+def test_stencil_pcg_kernel_matches_plain(request, d):
+    sim, theta, v, u = _system_fixture(request, d)
     offs = sim._stencil_ops.offsets
     mask_u, mask_c, _, _ = sim._bc_masks_and_values()
     if d == 1:
@@ -150,12 +167,13 @@ def _pcg_system(sim, theta, v, u, d):
 @pytest.mark.parametrize("mode,blocks", [
     ("resident", None), ("streamed", None), ("streamed_global", None),
     ("resident", 16), ("streamed", 4), ("streamed_global", 4)])
-@pytest.mark.parametrize("d", [1, 3])
-def test_stencil_pcg_modes_match_plain(lattice, d, mode, blocks):
+@pytest.mark.parametrize("d", [1, 2, 3])
+def test_stencil_pcg_modes_match_plain(request, d, mode, blocks):
     """Every kernel mode, forced through the C entry point's mode argument,
     on one block an SM and on fewer blocks (several chunks a block; on 4
-    blocks the streamed ring cycles through all its stages)."""
-    sim, theta, v, u = lattice
+    blocks the streamed ring cycles through all its stages); d = 2 on the
+    50 x 50 rectangle's elasticity system."""
+    sim, theta, v, u = _system_fixture(request, d)
     plain, W4, args = _pcg_system(sim, theta, v, u, d)
     offs, _, M, b = args
     x_k, info_k, plan = fc._pcg_cuda(d, offs, W4, M, b, 1e-7, 0.0, 800,
@@ -285,12 +303,14 @@ def _grads(fn, inputs, gy):
     return torch.autograd.grad(y, ins, gy)
 
 
-@pytest.mark.parametrize("form", ["scalar", "vector", "coupling", "sum", "bmv"])
+@pytest.mark.parametrize("form", ["scalar", "vector", "coupling", "sum", "bmv",
+                                  "vector2", "coupling2"])
 def test_backward_on_the_card_matches_plain_autograd(form):
     """dv and dW of each wrapper's autograd Function on the card (the
     transposed apply a launch of the kernel on mirrored planes) against
     torch's own autograd of the plain version, max rel 1e-5, at an odd
-    n = 1001 with 15 symmetric offsets, some past n."""
+    n = 1001 with 15 symmetric offsets, some past n; the vector forms at
+    d=3 and d=2 (whose coupling transpose is a two-term sum)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     rng = np.random.default_rng(13)
@@ -319,6 +339,10 @@ def test_backward_on_the_card_matches_plain_autograd(form):
                        (f32(15, 3, 3, n), f32(n, 3)), f32(n, 3)),
             "coupling": (sk.apply_coupling, sk.apply_coupling_plain,
                          (f32(15, 3, n), f32(n)), f32(n, 3)),
+            "vector2": (sk.apply_vector, sk.apply_vector_plain,
+                        (f32(15, 2, 2, n), f32(n, 2)), f32(n, 2)),
+            "coupling2": (sk.apply_coupling, sk.apply_coupling_plain,
+                          (f32(15, 2, n), f32(n)), f32(n, 2)),
         }[form]
         kern = lambda W, x, fn=fn: fn(offs, W, x)  # noqa: E731
         plain = lambda W, x, pl=pl: pl(offs, W, x)  # noqa: E731
@@ -332,7 +356,8 @@ def test_backward_on_the_card_matches_plain_autograd(form):
     assert [w.launches - b for w, b in zip(counted, before)] == {
         "scalar": [2, 0, 0, 0, 0], "vector": [0, 2, 0, 0, 0],
         "coupling": [0, 0, 1, 1, 0], "sum": [3, 0, 0, 1, 0],
-        "bmv": [0, 0, 0, 0, 1]}[form]
+        "bmv": [0, 0, 0, 0, 1], "vector2": [0, 2, 0, 0, 0],
+        "coupling2": [0, 0, 1, 1, 0]}[form]
     want = _grads(plain, ins, gy)
     for g, w in zip(got, want):
         assert g.device.type == "cuda" and g.shape == w.shape
@@ -391,3 +416,99 @@ def test_adjoint_step_on_the_card_keeps_its_gradients_there():
         J64, g64 = ip64.value_and_grad(v0)
         assert abs(J - J64) <= (5e-4 if unstructured else 1e-4) * abs(J64)
         assert np.linalg.norm(g - g64) <= (1e-2 if unstructured else 1e-3) * np.linalg.norm(g64)
+
+
+# -- d=2: the rectangle lattice and the reduced 2D atlas -------------------------
+
+
+@pytest.fixture(scope="module")
+def rect():
+    """rect_sim(50) on the card, f32: 2,601 nodes, 7 offsets."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    sim = rect_sim(n=50, dtype=torch.float32, device=dev)
+    sim._build_step()
+    theta = sim._augment_theta_with_operators(sim.make_theta(sim.params.as_dict()))
+    rng = np.random.default_rng(21)
+    n = sim.mesh.n_nodes
+    v = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32, device=dev)
+    u = torch.as_tensor(rng.standard_normal((n, 2)), dtype=torch.float32, device=dev)
+    return sim, theta, v, u
+
+
+def test_rect_slice_runs_through_the_kernels(rect):
+    """The 2D lattice path (5 steps) launches every kernel of the lane,
+    stencil_pcg<2> resident, and agrees with its plain path at f32 to
+    rel-L2 1e-4."""
+    sim, _, _, _ = rect
+    wrappers = (sk.apply_scalar_sum, sk.apply_vector, sk.apply_coupling,
+                fc.cg_scalar, fc.cg_vector)
+    for w in wrappers:
+        w.launches = 0
+    u_tr, c_tr, ok, _ = sim.run()
+    torch.cuda.synchronize()
+    assert bool(ok.all()) and all(w.launches > 0 for w in wrappers)
+    assert fc.cg_vector.last_plan.mode == "resident"
+    ref = rect_sim(n=50, dtype=torch.float32, device=sim.device, plain=True)
+    u_p, c_p, ok_p, _ = ref.run()
+    assert bool(ok_p.all())
+    for got, want in ((u_tr[-1], u_p[-1]), (c_tr[-1], c_p[-1])):
+        assert float((got - want).norm() / want.norm()) <= 1e-4
+
+
+def test_wrappers_raise_for_a_d_without_a_kernel():
+    """d=4 planes on the card: stencil_apply has no (4, 4) or (4, 1) form
+    and stencil_pcg no d=4 kernel; each wrapper raises and launches
+    nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    n, offs = 101, [-1, 0, 1]
+    f32 = lambda *s: torch.ones(s, dtype=torch.float32, device="cuda")  # noqa: E731
+    before = (sk.apply_vector.launches, sk.apply_coupling.launches)
+    with pytest.raises(ValueError, match="d in"):
+        sk.apply_vector(offs, f32(3, 4, 4, n), f32(n, 4))
+    with pytest.raises(ValueError, match="d in"):
+        sk.apply_coupling(offs, f32(3, 4, n), f32(n))
+    assert (sk.apply_vector.launches, sk.apply_coupling.launches) == before
+    with pytest.raises(NotImplementedError, match="d=4"):
+        fc._pcg_cuda(4, offs, f32(3, 4, 4, n), f32(4, 4, n), f32(n, 4), 1e-7, 0.0, 10)
+
+
+def test_2d_adjoint_on_the_card():
+    """value_and_grad on the card, f32, of the 2D lattice problem
+    (rect_adjoint_problem at n=12, 3 parameters) and of the reduced 2D
+    atlas (atlas2d_problem on a 24 x 24 x 8 labelmap, the unstructured
+    lane): the backward launches every kernel of its lane, and J and the
+    gradient agree with the plain path at f64, J to rel 1e-4 (lattice) and
+    5e-4 (unstructured), the gradient to rel-L2 1e-3 and 1e-2."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from glimslib_tpu_torch.examples import (
+        atlas2d_problem, atlas2d_sim, rect_adjoint_problem, rect_adjoint_sim,
+    )
+
+    cases = (
+        ("lattice", lambda **k: rect_adjoint_sim(n=12, **k),
+         lambda sim: rect_adjoint_problem(sim=sim),
+         (sk.apply_scalar, sk.apply_scalar_sum, sk.apply_vector, sk.apply_coupling,
+          fc.cg_scalar, fc.cg_vector), 1e-4, 1e-3),
+        ("unstructured", lambda **k: atlas2d_sim(24, 24, 8, 4, **k),
+         lambda sim: atlas2d_problem(sim=sim), (bk.batched_matvec,), 5e-4, 1e-2),
+    )
+    for lane, make, problem, wrappers, j_tol, g_tol in cases:
+        ip, v0 = problem(make(dtype=torch.float32, device="cuda"))
+        vt = ip._param(v0, True)
+        with torch.enable_grad():
+            J_t = ip._objective(vt)
+        before = [w.launches for w in wrappers]
+        (g_t,) = torch.autograd.grad(J_t, vt)
+        torch.cuda.synchronize()
+        assert g_t.device.type == "cuda", lane
+        assert all(w.launches > b for w, b in zip(wrappers, before)), lane
+        J, g = ip.value_and_grad(v0)
+        ref = make(dtype=torch.float64, device="cuda", plain=True)
+        ip64 = type(ip)(ref, ip.param_names, ip.targets, update_fn=ip.update_fn)
+        J64, g64 = ip64.value_and_grad(v0)
+        assert abs(J - J64) <= j_tol * abs(J64), (lane, J, J64)
+        assert np.linalg.norm(g - g64) <= g_tol * np.linalg.norm(g64), (lane, g, g64)

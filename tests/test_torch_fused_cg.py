@@ -14,6 +14,9 @@
 - The CUDA kernel's launch plan (Python, so testable here): the mode for
   each lattice size up to N=128 and on 132 or 114 SMs, the owned node
   ranges, the shared-memory bytes of every mode that fits.
+- The same at d=2, on rectangle lattices (7 offsets): the plain vector
+  solve against both Pallas kernels in interpret mode, and the launch plan
+  from the 50 x 50 rectangle to 1024 x 1024.
 """
 
 import numpy as np
@@ -22,10 +25,11 @@ import jax.numpy as jnp
 import torch
 
 from glimslib_tpu.core.mesh import box_mesh as jax_box_mesh
+from glimslib_tpu.core.mesh import rectangle_mesh as jax_rectangle_mesh
 from glimslib_tpu.ops import pallas_cg as jpc
 from glimslib_tpu.ops.stencil import StencilOperators as JaxStencilOperators
 from glimslib_tpu.solvers.cg import pcg as jax_pcg
-from glimslib_tpu_torch.core.mesh import box_mesh
+from glimslib_tpu_torch.core.mesh import box_mesh, rectangle_mesh
 from glimslib_tpu_torch.ops import fused_cg as fc
 from glimslib_tpu_torch.ops.stencil import StencilOperators
 
@@ -38,19 +42,24 @@ def _rel(a, b):
     return np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-300)
 
 
-def _problem(seed, jdtype, tdtype):
+def _problem(seed, jdtype, tdtype, rect=None):
     """The masked scalar (rd Jacobian) and vector (elasticity) systems of a
-    small lattice, built by both packages from the same numpy inputs."""
-    mesh_j = jax_box_mesh((0, 0, 0), (1, 1, 1), N, N, N)
-    mesh_t = box_mesh((0, 0, 0), (1, 1, 1), N, N, N)
-    n, nc = mesh_t.n_nodes, mesh_t.n_cells
+    small lattice, built by both packages from the same numpy inputs: the
+    N^3 box, or with ``rect`` the rect x rect rectangle (d=2)."""
+    if rect is None:
+        mesh_j = jax_box_mesh((0, 0, 0), (1, 1, 1), N, N, N)
+        mesh_t = box_mesh((0, 0, 0), (1, 1, 1), N, N, N)
+    else:
+        mesh_j = jax_rectangle_mesh((0, 0), (1, 1.5), rect, rect)
+        mesh_t = rectangle_mesh((0, 0), (1, 1.5), rect, rect)
+    n, nc, d = mesh_t.n_nodes, mesh_t.n_cells, mesh_t.dim
     rng = np.random.default_rng(seed)
     mu = 1.0 + rng.random(nc)
     c = rng.random(n)
-    mask_u = np.zeros((n, 3), bool)
+    mask_u = np.zeros((n, d), bool)
     mask_u[mesh_t.boundary_nodes] = True
     mask_c = np.isin(np.arange(n), mesh_t.boundary_nodes[::3])
-    b_u = np.where(mask_u, 0.0, rng.standard_normal((n, 3)))
+    b_u = np.where(mask_u, 0.0, rng.standard_normal((n, d)))
     b_c = np.where(mask_c, 0.0, rng.standard_normal(n))
     out = {}
     for name, ops, xp, dt in (
@@ -216,6 +225,104 @@ def test_launch_plan_rejects_what_the_kernel_does_not_take():
         fc.launch_plan(100, 1, 15, SMS, mode="fast")
     with pytest.raises(NotImplementedError):
         fc.launch_plan(100, 1, 27, SMS)
+
+
+# -- d=2: rectangle lattices ----------------------------------------------------
+
+
+def _pallas_vector_solve(j, streamed):
+    offs = j["ops"].offsets
+    n = j["b_u"].shape[0]
+    Wt = jpc.tile_vector_planes(jpc.fold_mask_vector(offs, j["Wel"], j["mask_u"]), n)
+    Bt = jpc.tile_binv(jpc.fold_mask_binv(j["Binv"], j["mask_u"]), n)
+    if not streamed:
+        return jpc.cg_vector(offs, Wt, Bt, j["b_u"], 1e-6, 0.0, 400, n)
+    cfg = jpc.streamed_cfg(offs, n, 2, rv_candidates=(8,))
+    assert cfg is not None and cfg[2] // cfg[0] >= 2  # several chunks
+    return jpc.cg_vector_streamed(offs, Wt, Bt, j["b_u"], 1e-6, 0.0, 400, n, cfg=cfg)
+
+
+@pytest.mark.parametrize("streamed", [False, True], ids=["resident", "streamed"])
+def test_plain_vector_solve_2d_matches_pallas_interpret_f32(streamed, monkeypatch):
+    """The plain d=2 block-Jacobi solve on a 48 x 48 rectangle (2,401 nodes,
+    7 offsets) at f32 against the resident (K3b) and the streamed (K3c)
+    Pallas kernel in interpret mode, the latter in several chunks:
+    |Δiters| <= 2 and rel 1e-4."""
+    monkeypatch.setenv("GLIMS_PALLAS_INTERPRET", "1")
+    P = _problem(4, jnp.float32, torch.float32, rect=48)
+    j, t = P["jax"], P["torch"]
+    assert len(t["ops"].offsets) == 7 and tuple(t["b_u"].shape) == (49 ** 2, 2)
+    x_j, info_j = _pallas_vector_solve(j, streamed)
+    x_t, info_t = _torch_solve(t, "vector", 1e-6, 400)
+    assert x_t.dtype == torch.float32
+    assert abs(int(info_t["iters"]) - int(info_j["iters"])) <= 2
+    assert _rel(x_t, x_j) <= 1e-4
+
+
+@pytest.mark.parametrize("kind", ["scalar", "vector"])
+def test_plain_fused_solve_2d_matches_jax_pcg_f64(kind):
+    """The plain solves on a 12 x 12 rectangle at f64 against JAX ``pcg``
+    on the where-masked operator: equal iterations and rel 1e-10."""
+    P = _problem(5, jnp.float64, torch.float64, rect=12)
+    j, t = P["jax"], P["torch"]
+    ops = j["ops"]
+    if kind == "scalar":
+        m = j["mask_c"]
+        diag = jnp.where(m, 1.0, j["Wrd"][ops.offsets.index(0)])
+        x_j, info_j = jax_pcg(
+            lambda v: jnp.where(m, v, ops.apply_scalar(j["Wrd"], jnp.where(m, 0.0, v))),
+            j["b_c"], M=lambda r: r / diag, rtol=1e-10, atol=0.0, maxiter=500)
+    else:
+        m = j["mask_u"]
+        x_j, info_j = jax_pcg(
+            lambda v: jnp.where(m, v, ops.apply_vector(j["Wel"], jnp.where(m, 0.0, v))),
+            j["b_u"], M=lambda r: jnp.where(
+                m, r, ops.apply_block_jacobi(j["Binv"], jnp.where(m, 0.0, r))),
+            rtol=1e-10, atol=0.0, maxiter=500)
+    x_t, info_t = _torch_solve(t, kind, 1e-10, 500)
+    assert int(info_t["iters"]) == int(info_j["iters"])
+    assert _rel(x_t, x_j) <= 1e-10
+
+
+MODE_FITS_2D = {  # (N, blocks) of an N x N rectangle: whether each forced mode fits
+    "resident": {(50, SMS), (50, 114), (50, 4), (300, SMS), (422, SMS)},
+    "streamed": {(50, SMS), (50, 114), (50, 4), (300, SMS), (422, SMS), (423, SMS),
+                 (512, SMS), (512, 114), (1024, SMS)},
+}
+
+
+@pytest.mark.parametrize("N,blocks,mode", [
+    (50, SMS, "resident"), (50, 114, "resident"), (50, 4, "resident"),
+    (300, SMS, "resident"), (422, SMS, "resident"), (423, SMS, "streamed"),
+    (512, SMS, "streamed"), (512, 114, "streamed"), (1024, SMS, "streamed"),
+    (1024, 114, "streamed_global"),
+])
+def test_launch_plan_2d_mode_ranges_and_shared_memory(N, blocks, mode):
+    """d=2, 7 offsets: resident up to 179,520 nodes on 132 SMs (a 423 x 423
+    lattice, 178,929 nodes; 1,360 a block), streamed past it (the 512 x 512
+    rectangle with 4 ring stages), streamed_global where x, r and Ap do not
+    fit beside two stages; ranges cover [0, n) and shared memory stays
+    within 232,448 bytes in every mode that fits."""
+    n = (N + 1) ** 2
+    plan = fc.launch_plan(n, 2, 7, blocks)
+    assert plan.mode == mode and plan.blocks == blocks
+    ranges = plan.ranges(n)
+    assert ranges[0][0] == 0 and ranges[-1][1] == n
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert sum(r1 - r0 for r0, r1 in ranges) == n
+    if (N, blocks) == (512, SMS):
+        assert plan.stages == 4
+    for forced in fc.MODES:
+        if forced != "streamed_global" and (N, blocks) not in MODE_FITS_2D[forced]:
+            with pytest.raises(ValueError, match=forced):
+                fc.launch_plan(n, 2, 7, blocks, mode=forced)
+            continue
+        p = fc.launch_plan(n, 2, 7, blocks, mode=forced)
+        assert p.smem_bytes <= 232_448
+        if forced != "resident":
+            assert 2 <= p.stages <= fc.PCG_MAX_STAGES
+    with pytest.raises(NotImplementedError, match="d=4"):
+        fc.launch_plan(n, 4, 7, blocks)
 
 
 def test_cuda_wrappers_take_the_plain_path_on_cpu():

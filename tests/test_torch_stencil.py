@@ -7,7 +7,9 @@ are compared at f64 (rel 1e-12: the same sums, accumulated in another
 order).  The plain stencil applies are compared at f32 with the Pallas
 matvec kernels run in interpret mode (rel 1e-6: f32 summation order).
 The lattice rd residual as one multi-operand apply is compared with the
-JAX package's at f64 (rel 1e-12).
+JAX package's at f64 (rel 1e-12).  The same holds at d=2 on rectangle
+lattices (7 offsets): planes at f64, and the plain (2, 2) and (2, 1)
+applies at f32.
 """
 
 import os
@@ -22,10 +24,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from __graft_entry__ import _brain_sim as jax_brain_sim  # noqa: E402
 from glimslib_tpu.core.mesh import box_mesh as jax_box_mesh  # noqa: E402
+from glimslib_tpu.core.mesh import rectangle_mesh as jax_rectangle_mesh  # noqa: E402
 from glimslib_tpu.ops import stencil_pallas as sp  # noqa: E402
 from glimslib_tpu.ops.stencil import StencilOperators as JaxStencilOperators  # noqa: E402
 from glimslib_tpu_torch import _build as kernel_build  # noqa: E402
-from glimslib_tpu_torch.core.mesh import box_mesh  # noqa: E402
+from glimslib_tpu_torch.core.mesh import box_mesh, rectangle_mesh  # noqa: E402
 from glimslib_tpu_torch.examples import brain_sim  # noqa: E402
 from glimslib_tpu_torch.ops import stencil_kernels as sk  # noqa: E402
 from glimslib_tpu_torch.ops.stencil import StencilOperators  # noqa: E402
@@ -128,6 +131,56 @@ def test_plain_stencil_apply_matches_jax_f32(shape, lattice_f32, monkeypatch):
         want = ops_j.apply_coupling(Cj, jf(c))
         got = sk.apply_coupling(ops_t.offsets, tf(np.array(Cj)), tf(c))
     assert got.dtype == torch.float32
+    assert _rel(got, want) <= 1e-6
+
+
+@pytest.mark.parametrize("n", [4, 7])
+@pytest.mark.parametrize(
+    "kind", ["elasticity", "rd_jacobian", "rd_const", "rd_wc", "mass",
+             "coupling", "block_jacobi"],
+)
+def test_planes_2d_match_jax_f64(kind, n):
+    """Every plane construction on an n x (n + 1) rectangle lattice (d=2,
+    7 offsets) against the JAX package's, rel 1e-12."""
+    mesh_j = jax_rectangle_mesh((0, 0), (1, 1.5), n, n + 1)
+    mesh_t = rectangle_mesh((0, 0), (1, 1.5), n, n + 1)
+    p = _coeffs(mesh_t, seed=10 + n)
+    ops_j = JaxStencilOperators(mesh_j, dtype=jnp.float64)
+    ops_t = StencilOperators(mesh_t, dtype=torch.float64)
+    assert ops_t.offsets == ops_j.offsets and len(ops_t.offsets) == 7
+    want = _build(ops_j, kind, p,
+                  lambda a, dt=jnp.float64: jnp.asarray(a, dtype=dt))
+    got = _build(ops_t, kind, p,
+                 lambda a, dt=torch.float64: torch.as_tensor(a, dtype=dt))
+    assert tuple(got.shape) == tuple(want.shape)
+    assert _rel(got, want) <= 1e-12
+
+
+@pytest.mark.parametrize("shape", ["vector", "coupling"])
+def test_plain_stencil_apply_2d_matches_jax_f32(shape, monkeypatch):
+    """The plain (2, 2) apply against the Pallas vector kernel at d=2
+    (interpret mode) and the plain (2, 1) apply against the XLA coupling
+    apply, on a 20 x 23 rectangle lattice at f32, rel 1e-6."""
+    monkeypatch.setenv("GLIMS_PALLAS_INTERPRET", "1")
+    mesh_j = jax_rectangle_mesh((0, 0), (1, 1), 20, 23)
+    mesh_t = rectangle_mesh((0, 0), (1, 1), 20, 23)
+    p = _coeffs(mesh_t, seed=8)
+    ops_j = JaxStencilOperators(mesh_j, dtype=jnp.float32)
+    rng = np.random.default_rng(12)
+    u = rng.standard_normal((mesh_t.n_nodes, 2)).astype(np.float32)
+    c = rng.standard_normal(mesh_t.n_nodes).astype(np.float32)
+    jf = lambda a: jnp.asarray(a, jnp.float32)  # noqa: E731
+    tf = lambda a: torch.as_tensor(np.array(a), dtype=torch.float32)  # noqa: E731
+    offs = StencilOperators(mesh_t, dtype=torch.float32).offsets
+    if shape == "vector":
+        Wj = ops_j.build_elasticity(jf(p["mu"]), jf(p["lam"]))
+        want = sp.apply_vector_pallas(ops_j.offsets, Wj, jf(u))
+        got = sk.apply_vector(offs, tf(Wj), tf(u))
+    else:
+        Cj = ops_j.build_coupling_uc(jf(p["mu"]), jf(p["lam"]), p["coupling"])
+        want = ops_j.apply_coupling(Cj, jf(c))
+        got = sk.apply_coupling(offs, tf(Cj), tf(c))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (mesh_t.n_nodes, 2)
     assert _rel(got, want) <= 1e-6
 
 
