@@ -104,9 +104,33 @@ Phases, each printed on lines of their own:
    (the reduced atlas slice on the unstructured lane, the unstructured
    limits), as in [7]; bell_bmv is held against its plain version and
    timed at the atlas's five shapes first, as in [5], and its launches in
-   the value_and_grad weight them as in [6].
+   the value_and_grad weight them as in [6].  The 50 x 50 paths and both
+   2D inverse problems take the models' f32 default step, which refines
+   in f64: their forwards measure f64 gather residuals, so stencil_apply
+   launches in the value_and_grad's backward (the 50 x 50 rows' launches
+   come from there) and the forwards launch the two solves.
+9. The reference's defaults on the flagship path, on [3]'s and [6]'s
+   models.  [9a] REFINED_STEP_CONFIG (f32 solves, f64 residuals, one
+   correction solve of the elasticity block a step) on the N=32 lattice
+   and the n=32 unstructured box, 5 steps: every step converges with one
+   correction solve, the solves' kernels launch, steps/s, device busy and
+   idle share; final c and u below the lane's unrefined error in [3] /
+   [6] and within rel-L2 1e-5 of the f64 plain path (the unstructured
+   lane: in a second run at newton_atol 1e-7, REFINED_NEWTON_ATOL says
+   why); then one
+   value_and_grad a lane of [7]'s problem with refine_f64 on, J within
+   1e-4 of the f64 J on both lanes and the gradient within [7]'s limits.
+   [9b] the factored planes (the default: per-class channel stacks
+   reduced per simulate) against the dense assembly (the same aux without
+   the stacks), max rel 1e-5, with the assembly's device time and steps/s
+   both ways.  [9c] the default bf16 coarse factors against f32 ones
+   built from the same coarse matrices: CG iterations, the coarse
+   products' device time in a profiled run (its aten::mm / aten::mv calls
+   on the factors' shapes) and its matrix-product kernels, steps/s and
+   idle share, final state within [6]'s limit.
 
-Then one JSON line with [7]'s and [8]'s value_and_grad numbers, one with
+Then one JSON line with [9]'s numbers, one with [7]'s and [8]'s
+value_and_grad numbers, one with
 every kernel's numbers (each with its launches in the path and in one
 value_and_grad by forward and backward: [7]'s for the 3D rows, [8]'s for
 the 50 x 50 rows), the card's line, and as the last line {"ok": true,
@@ -547,6 +571,14 @@ def phase_device(torch):
                             text=True, check=True).stdout.strip().splitlines()
     print(f"[1] torch {torch.__version__}, torch.version.cuda {torch.version.cuda}, "
           f"nvcc: {nvcc_v[-1]}")
+    a = torch.ones((4, 3), dtype=torch.bfloat16, device="cuda")
+    try:
+        y = torch.mm(a, a.T, out_dtype=torch.float32)
+        has = f"yes ({y.dtype}, {float(y[0, 0])})"
+    except (TypeError, RuntimeError, NotImplementedError) as e:
+        has = f"no ({type(e).__name__}: {e})"
+    print(f"[1] torch.mm with out_dtype=float32 on bf16 CUDA operands (the bf16 "
+          f"coarse factors' products): {has}")
     t0 = time.perf_counter()
     for name in _build.SOURCES:
         _build.load(name)
@@ -696,7 +728,8 @@ def _print_breakdown(torch, run, run_ms, tag, detail=None):
     busy share: of the profiled run's wall time (the profiler adds host
     overhead) and of ``run_ms``, the unprofiled run's mean wall time.
     Kernels whose name matches ``detail`` are printed too, with their time
-    a launch; returns {name: ms a launch} for them."""
+    a launch; returns ({name: ms a launch} for them, the device busy ms,
+    the idle share of the unprofiled run)."""
     from torch.autograd import DeviceType
 
     t0 = time.perf_counter()
@@ -709,7 +742,7 @@ def _print_breakdown(torch, run, run_ms, tag, detail=None):
     if busy_ms <= 0:
         print(f"{tag} device time breakdown: none (the profiler recorded "
               "no device time)")
-        return {}
+        return {}, None, None
     print(f"{tag} profiled run: device busy {busy_ms:.3f} ms = "
           f"{100 * busy_ms / wall_ms:.1f}% of its wall {wall_ms:.2f} ms; "
           f"{100 * busy_ms / run_ms:.1f}% of the unprofiled run's "
@@ -725,15 +758,17 @@ def _print_breakdown(torch, run, run_ms, tag, detail=None):
                   + (f"  ({us / max(e.count, 1):.2f} us a launch)" if hit else ""))
         if hit:
             per_launch[e.key] = us / max(e.count, 1) / 1e3
-    return per_launch
+    return per_launch, busy_ms, max(0.0, 1 - busy_ms / run_ms)
 
 
-def _drive(torch, sim, simulate, args, groups, tag, n_steps):
+def _drive(torch, sim, simulate, args, groups, tag, n_steps, shown=()):
     """One run of the path with every count set to 0 just before it:
     returns the trajectory, the launches by wrapper and the seconds.
     ``groups`` holds one tuple of wrappers a kernel (the wrappers that
-    launch it); each kernel must launch at least once."""
-    wrappers = [w for g in groups for w in g]
+    launch it); each kernel must launch at least once.  ``shown``:
+    wrappers whose launches are counted and printed too, without that
+    demand."""
+    wrappers = list(dict.fromkeys([w for g in groups for w in g] + list(shown)))
     for w in wrappers:
         w.launches = 0
     torch.cuda.synchronize()
@@ -744,11 +779,14 @@ def _drive(torch, sim, simulate, args, groups, tag, n_steps):
     launches = {w: w.launches for w in wrappers}
     rd_iters = [int(i) for i in sim.solver_info["rd_cg_iters"]]
     el_iters = [int(i) for i in sim.solver_info["el_cg_iters"]]
+    fix_iters = [int(i) for i in sim.solver_info["el_refine_cg_iters"]]
     print(f"{tag} {sim.mesh.n_nodes} nodes, {sim.mesh.n_cells} cells; first run "
           f"{first_s:.3f} s")
     print(f"{tag} converged per step {ok.tolist()}; Newton iterations per step "
           f"{newton.tolist()}; rd CG iterations per Newton solve {rd_iters}; "
-          f"elasticity CG iterations per step {el_iters}")
+          f"elasticity CG iterations per step {el_iters}"
+          + (f"; refinement correction solves (CG iterations) {fix_iters}"
+             if fix_iters else ""))
     print(f"{tag} launches in that run: " + ", ".join(
         f"{w.__name__}={n}" for w, n in launches.items()))
     if not bool(ok.all()):
@@ -766,7 +804,8 @@ def _drive(torch, sim, simulate, args, groups, tag, n_steps):
 
 def _time_runs(torch, simulate, args, dev, tag, n_steps, detail=None):
     """Steps/s over 3 runs, peak memory, and the breakdown of one profiled
-    run (returns its ms a launch of the kernels matching ``detail``)."""
+    run; returns its ms a launch of the kernels matching ``detail``, and
+    {steps_per_s, device_busy_ms, idle_share}."""
     torch.cuda.reset_peak_memory_stats(dev)
     times = []
     for _ in range(3):
@@ -781,8 +820,9 @@ def _time_runs(torch, simulate, args, dev, tag, n_steps, detail=None):
     print(f"{tag} steps/s {sps:.4f} (3 runs of {n_steps} steps: "
           f"{', '.join(f'{t:.4f}' for t in times)} s); peak memory "
           f"{peak / 2**20:.1f} MiB")
-    return _print_breakdown(torch, lambda: simulate(*args),
-                            1e3 * sum(times) / len(times), tag, detail)
+    per_launch, busy, idle = _print_breakdown(
+        torch, lambda: simulate(*args), 1e3 * sum(times) / len(times), tag, detail)
+    return per_launch, dict(steps_per_s=sps, device_busy_ms=busy, idle_share=idle)
 
 
 def _set_launches(rows, launches, run=""):
@@ -797,22 +837,38 @@ def _set_launches(rows, launches, run=""):
                 w.__name__: launches[w] for w in k["wrappers"]}
 
 
+def _forward_groups(sim, groups):
+    """The kernels a lattice forward launches: all of ``groups``, or under
+    refine_f64 those of the solves alone (Newton and the elasticity
+    solve measure the f64 gather residuals, so the working residuals'
+    stencil_apply runs only in a backward)."""
+    from glimslib_tpu_torch.ops import stencil_kernels as sk
+
+    if not sim.step_config.refine_f64:
+        return groups
+    applies = {sk.apply_scalar, sk.apply_scalar_sum, sk.apply_vector, sk.apply_coupling}
+    return [g for g in groups if not set(g) <= applies]
+
+
 def phase_slice(torch, sim, ref, dev, kernels, tag, n_steps, run=""):
-    """A lattice path (``sim``, f32) through the kernels of ``kernels``:
-    one run with the counts at 0, 3 timed runs and a profiled one, then the
-    final c and u against ``ref``, the same model on the plain path at f64
-    with tight tolerances; returns ``ref`` at its default tolerances."""
+    """A lattice path (``sim``, f32) through the kernels of ``kernels``
+    (those a refined forward runs, where the model refines): one run with
+    the counts at 0, 3 timed runs and a profiled one, then the final c and
+    u against ``ref``, the same model on the plain path at f64 with tight
+    tolerances; returns ``ref`` at its default tolerances, its final
+    (u, c) and the f32 path's rel-L2 errors (c, u)."""
     from glimslib_tpu_torch.solvers.coupled import StepConfig
 
     theta = sim.make_theta(sim.params.as_dict())
     u0, c0 = sim.initial_state()
     simulate = sim.build_simulate_fn(n_steps, 1.0)
+    groups = [k["wrappers"] for k in kernels]
     (u_tr, c_tr), launches, _ = _drive(
-        torch, sim, simulate, (theta, u0, c0), [k["wrappers"] for k in kernels],
-        tag, n_steps)
+        torch, sim, simulate, (theta, u0, c0), _forward_groups(sim, groups),
+        tag, n_steps, shown=[w for g in groups for w in g])
     _set_launches(kernels, launches, run)
-    in_path = _time_runs(torch, simulate, (theta, u0, c0), dev, tag, n_steps,
-                         r"stencil_apply_kernel")
+    in_path, _ = _time_runs(torch, simulate, (theta, u0, c0), dev, tag, n_steps,
+                            r"stencil_apply_kernel")
     for k in kernels:
         if "pattern" in k:
             k["in_path_ms" + run] = next((ms for key, ms in in_path.items()
@@ -835,7 +891,7 @@ def phase_slice(torch, sim, ref, dev, kernels, tag, n_steps, run=""):
         raise AssertionError(f"{tag} slice vs f64 reference: c {rel_c:.3e}, u {rel_u:.3e}")
     # [7] takes the gradient of the same model at the f64 defaults
     ref.step_config = f64_defaults
-    return ref
+    return ref, (u_r[-1], c_r[-1]), (rel_c, rel_u)
 
 
 def phase_lattice_big(torch, dev, sim, tag, suffix, n_steps):
@@ -1018,7 +1074,8 @@ def phase_unstructured(torch, dev):
     by_shape = dict(bk.batched_matvec.launches_by_shape)
     kern["launches_by_shape"] = {"x".join(map(str, s)): c for s, c in by_shape.items()}
     kern["weighted_bound_share"] = _bmv_split(kern, by_shape)
-    _time_runs(torch, simulate, (theta, u0, c0), dev, "[6]", N_STEPS)
+    iters = {k: [int(i) for i in sim.solver_info[k]] for k in ("rd_cg_iters", "el_cg_iters")}
+    _, run = _time_runs(torch, simulate, (theta, u0, c0), dev, "[6]", N_STEPS)
 
     ref = brain_sim(n=N, dtype=torch.float64, device=dev, plain=True,
                     unstructured=True)
@@ -1044,7 +1101,9 @@ def phase_unstructured(torch, dev):
         raise AssertionError(
             f"unstructured slice vs f64 reference: c {rel_c:.3e}, u {rel_u:.3e}")
     ref.step_config = f64_defaults
-    return kern, sim, ref
+    # what [9] holds its unstructured runs against
+    base = dict(ref_traj=(u_r, c_r), rel=(rel_c, rel_u), iters=iters, run=run)
+    return kern, sim, ref, base
 
 
 def _call_device_ms(torch, fn, reps=3):
@@ -1112,12 +1171,17 @@ def _vjp_passes(torch, sim, c, lattice, tag):
     return {k: ms for k, (ms, _) in out.items()}
 
 
-def _adjoint_lane(torch, sim, ref, lane, groups, tag, problem, fd_dir=None):
+def _adjoint_lane(torch, sim, ref, lane, groups, tag, problem, fd_dir=None,
+                  j_rtol=None, vjp_passes=True):
     """value_and_grad on one lane (module docstring, [7]) of the inverse
     problem ``problem(sim)`` gives; ``ref`` is the lane's plain f64 model
     at its default tolerances; ``fd_dir`` a direction for a central
-    difference of the f64 objective.  Returns the launches of the
-    instrumented call by wrapper and direction, and the lane's numbers."""
+    difference of the f64 objective; ``j_rtol`` J's limit where it is not
+    the lane's; ``vjp_passes`` whether to time the plain VJP passes.
+    Every kernel must launch in the backward, and in the forward those a
+    forward of the problem's step runs (:func:`_forward_groups`).
+    Returns the launches of the instrumented call by wrapper and
+    direction, and the lane's numbers."""
     import numpy as np
 
     from glimslib_tpu_torch.ops import bell_kernels as bk
@@ -1171,8 +1235,10 @@ def _adjoint_lane(torch, sim, ref, lane, groups, tag, problem, fd_dir=None):
         print(f"{tag} {lane}: bell_bmv launches in that call by (B, M, K): "
               + ", ".join(f"{s_}: {c_}" for s_, c_ in sorted(
                   by_shape.items(), key=lambda x: -x[1])))
+    fwd_groups = _forward_groups(ip.sim, groups) if lattice else groups
     missing = [[w.__name__ for w in grp] for grp in groups
-               if sum(bwd[w] for w in grp) < 1 or sum(fwd[w] for w in grp) < 1]
+               if sum(bwd[w] for w in grp) < 1
+               or (grp in fwd_groups and sum(fwd[w] for w in grp) < 1)]
     if missing:
         raise AssertionError(f"{tag} {lane}: kernels not launched in both the "
                              f"forward and the backward: {missing}")
@@ -1192,10 +1258,11 @@ def _adjoint_lane(torch, sim, ref, lane, groups, tag, problem, fd_dir=None):
           f"{', '.join(f'{t:.4f}' for t in times)} s); peak memory "
           f"{peak / 2**20:.1f} MiB")
     t_prof = time.perf_counter()
-    _print_breakdown(torch, lambda: ip.value_and_grad(v0),
-                     1e3 * sum(times) / len(times), f"{tag} {lane}:")
+    _, busy, idle = _print_breakdown(torch, lambda: ip.value_and_grad(v0),
+                                     1e3 * sum(times) / len(times), f"{tag} {lane}:")
     t_vjp = time.perf_counter()
-    passes = _vjp_passes(torch, sim, ip._c0, lattice, f"{tag} {lane}:")
+    passes = (_vjp_passes(torch, sim, ip._c0, lattice, f"{tag} {lane}:")
+              if vjp_passes else None)
 
     # the plain f64 path on the card ([3]'s or [6]'s model), the same targets
     t0 = time.perf_counter()
@@ -1204,8 +1271,9 @@ def _adjoint_lane(torch, sim, ref, lane, groups, tag, problem, fd_dir=None):
     J64, g64 = ip64.value_and_grad(v0)
     rel_J = abs(J - J64) / abs(J64)
     rel_g = float(np.linalg.norm(g - g64) / np.linalg.norm(g64))
+    j_lim = ADJ_J_RTOL[limit] if j_rtol is None else j_rtol
     line = (f"{tag} {lane}: f64 plain reference on the card: J {J64:.6e}, gradient "
-            f"{g64.tolist()}; rel err J {rel_J:.3e} (<= {ADJ_J_RTOL[limit]}), rel-L2 "
+            f"{g64.tolist()}; rel err J {rel_J:.3e} (<= {j_lim}), rel-L2 "
             f"gradient {rel_g:.3e} (<= {ADJ_G_RTOL[limit]})")
     rel_fd = None
     if fd_dir is not None:
@@ -1222,13 +1290,15 @@ def _adjoint_lane(torch, sim, ref, lane, groups, tag, problem, fd_dir=None):
     print(f"{tag} {lane}: seconds by stage: problem and calls {t_prof - t_lane:.1f}, "
           f"profiled call {t_vjp - t_prof:.1f}, VJP passes {t0 - t_vjp:.1f}, "
           f"f64 reference {t_end - t0:.1f}")
-    if rel_J > ADJ_J_RTOL[limit] or rel_g > ADJ_G_RTOL[limit] or (
+    if rel_J > j_lim or rel_g > ADJ_G_RTOL[limit] or (
             rel_fd is not None and rel_fd > ADJ_FD_RTOL):
         raise AssertionError(f"{tag} {lane}: against the f64 reference J {rel_J:.3e}, "
                              f"gradient {rel_g:.3e}, central difference {rel_fd}")
     return {"forward": fwd, "backward": bwd}, dict(
         value_and_grad_per_s=vgs, first_s=first_s, forward_ms=fwd_ms,
-        backward_ms=bwd_ms, peak_mib=peak / 2**20, adjoint_cg_iters={
+        backward_ms=bwd_ms, peak_mib=peak / 2**20, device_busy_ms=busy, idle_share=idle,
+        refine_f64=ip.sim.step_config.refine_f64,
+        adjoint_cg_iters={
             "rd": info["rd_adj_cg_iters"], "el": info["el_adj_cg_iters"]},
         rel_J=rel_J, rel_grad=rel_g, rel_fd=rel_fd, vjp_passes_ms=passes,
         bell_bmv_launches_by_shape={"x".join(map(str, s_)): c_
@@ -1321,6 +1391,12 @@ def phase_2d(torch, dev):
         if k["name"].endswith(size):
             k["adjoint_launches"] = {
                 way: sum(lat[way][w] for w in k["wrappers"]) for way in lat}
+            if not k["launches"]:
+                # the 50 x 50 paths refine (the f32 default): their forward
+                # measures f64 gather residuals, and stencil_apply runs in
+                # the value_and_grad's backward
+                k["launches"] = sum(k["adjoint_launches"].values())
+                k["launches_in"] = "value_and_grad of rect_adjoint_problem(50)"
     t0 = time.perf_counter()
     asim = atlas2d_sim(dtype=f32, device=dev)
     aref = atlas2d_sim(dtype=f64, device=dev, plain=True)
@@ -1343,6 +1419,256 @@ def phase_2d(torch, dev):
                                              what="value_and_grad")
     print(f"[8] 2D phase {time.perf_counter() - t_phase:.1f} s")
     return rows, {"lattice_2d": lat_nums, "atlas_2d": uns_nums}, bmv
+
+
+# [9]: the reference's defaults on the flagship path.  Refined runs hold
+# their final state to REFINED_RTOL of the f64 path (and below the same
+# lane's unrefined error) and J to REFINED_J_RTOL on both lanes; the
+# factored planes equal the dense ones to FACTORED_RTOL at f32.
+REFINED_RTOL = 1e-5
+REFINED_J_RTOL = 1e-4
+# On the unstructured lane REFINED_STEP_CONFIG's newton_atol (1e-5, an
+# absolute residual norm) stops the warm-started Newton one iteration
+# after its guess: at n=32 the refined state lands 3.0e-5 from the f64
+# one, and 4.5e-7 at this newton_atol (an NVIDIA H100): the tolerance,
+# not the residual's precision, sets that floor.  That run is held below
+# the unrefined error; a second at this newton_atol is held to
+# REFINED_RTOL.
+REFINED_NEWTON_ATOL = 1e-7
+FACTORED_RTOL = 1e-5
+
+
+def _kernel_totals(torch, run, pattern):
+    """{kernel name: (launches, device ms)} of the kernels whose name
+    matches ``pattern`` in one profiled run()."""
+    from torch.autograd import DeviceType
+
+    prof = _profile(torch, run, cpu=False)
+    return {e.key: (e.count, _self_device_us(e) / 1e3) for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA
+            and re.search(pattern, e.key)}
+
+
+def _refined_problem(sim):
+    """[7]'s inverse problem (adjoint_problem, the lane's benchmark step)
+    with refine_f64 on, on the same targets."""
+    from glimslib_tpu_torch.examples import adjoint_problem
+
+    ip0, v0 = adjoint_problem(sim=sim)
+    sim.step_config = sim.step_config._replace(refine_f64=True)
+    return type(ip0)(sim, ip0.param_names, ip0.targets, update_fn=ip0.update_fn,
+                     n_steps=ip0.n_steps, dt=ip0.dt), v0
+
+
+def phase_refined(torch, dev, lanes):
+    """[9a]: REFINED_STEP_CONFIG on both lanes, then value_and_grad with
+    refine_f64 on.  ``lanes``: (name, model, its f64 plain model, the f64
+    final (u, c), the unrefined rel-L2 (c, u), kernel groups).  The
+    unstructured lane runs REFINED_STEP_CONFIG a second time with
+    newton_atol REFINED_NEWTON_ATOL (REFINED_RTOL's check, module
+    constants say why)."""
+    from glimslib_tpu_torch.examples import REFINED_STEP_CONFIG
+    from glimslib_tpu_torch.ops import fused_cg as fc
+
+    out = {}
+    for lane, sim, ref, (u_r, c_r), (rc0, ru0), groups in lanes:
+        runs = [("", REFINED_STEP_CONFIG)]
+        if lane == "unstructured":
+            runs.append((f", newton_atol {REFINED_NEWTON_ATOL}",
+                         REFINED_STEP_CONFIG._replace(newton_atol=REFINED_NEWTON_ATOL)))
+        for i, (label, cfg) in enumerate(runs):
+            tag = f"[9a] {lane} refined{label}:"
+            sim.step_config = cfg
+            theta = sim.make_theta(sim.params.as_dict())
+            u0, c0 = sim.initial_state()
+            simulate = sim.build_simulate_fn(N_STEPS, 1.0)
+            shown = [w for g in groups for w in g]
+            (u_tr, c_tr), launches, _ = _drive(torch, sim, simulate, (theta, u0, c0),
+                                               _forward_groups(sim, groups), tag,
+                                               N_STEPS, shown=shown)
+            fix = len(sim.solver_info["el_refine_cg_iters"])
+            if fix != N_STEPS:
+                raise AssertionError(f"{tag} {fix} correction solves in {N_STEPS} steps")
+            if fc.cg_vector in launches:
+                print(f"{tag} stencil_pcg<3> launches {launches[fc.cg_vector]}: "
+                      f"{launches[fc.cg_vector] - fix} elasticity solves and {fix} "
+                      "correction solves at refine_cg_rtol "
+                      f"{sim.step_config.refine_cg_rtol}")
+            run = {}
+            if i == 0:
+                _, run = _time_runs(torch, simulate, (theta, u0, c0), dev, tag, N_STEPS)
+            rel_c, rel_u = _rel_l2(c_tr[-1], c_r), _rel_l2(u_tr[-1], u_r)
+            if lane == "unstructured" and i == 0:
+                lim_c, lim_u, why = rc0, ru0, "the unrefined errors"
+            else:
+                lim_c, lim_u = min(REFINED_RTOL, rc0), min(REFINED_RTOL, ru0)
+                why = f"{REFINED_RTOL} and the unrefined errors"
+            print(f"{tag} against the f64 plain path: rel-L2 c {rel_c:.3e} (<= "
+                  f"{lim_c:.3e}), u {rel_u:.3e} (<= {lim_u:.3e}): {why} "
+                  f"{rc0:.3e}, {ru0:.3e}")
+            if rel_c > lim_c or rel_u > lim_u:
+                raise AssertionError(f"{tag} c {rel_c:.3e}, u {rel_u:.3e}")
+            out[lane + label.replace(", ", "_").replace(" ", "_")] = dict(
+                run, launches={w.__name__: n for w, n in launches.items()},
+                correction_solves=fix, rel_c=rel_c, rel_u=rel_u, unrefined_rel=(rc0, ru0))
+    for lane, sim, ref, _, _, groups in lanes:
+        _, nums = _adjoint_lane(torch, sim, ref, f"{lane} refined", groups, "[9a]",
+                                _refined_problem, j_rtol=REFINED_J_RTOL,
+                                vjp_passes=False)
+        out[lane]["value_and_grad"] = nums
+    return out
+
+
+def phase_factored(torch, dev, usim):
+    """[9b]: the factored planes of the n=32 box against the dense ones (the
+    same aux without the channel stacks, which assembles the planes from
+    the cells), the per-simulate assembly's device time and steps/s both
+    ways."""
+    from glimslib_tpu_torch.examples import UNSTRUCT_STEP_CONFIG
+
+    usim.step_config = UNSTRUCT_STEP_CONFIG
+    aux = usim.runtime_aux()
+    dense_aux = {k: v for k, v in aux.items() if not k.startswith("_F")}
+    theta = usim.make_theta(usim.params.as_dict())
+    u0, c0 = usim.initial_state()
+    stack_mb = sum(v.numel() * v.element_size() for k, v in aux.items()
+                   if k.startswith("_F") and v.is_floating_point()) / 2**20
+    print(f"[9b] factored channel stacks: {', '.join(f'{k} {tuple(v.shape)}' for k, v in aux.items() if k.startswith('_FW') or k == '_FCuc')}; "
+          f"{stack_mb:.1f} MiB, built in {usim.setup_seconds.get('factored', 0.0):.2f} s")
+    out = {}
+    planes = {}
+    for way, a in (("factored", aux), ("dense", dense_aux)):
+        aug = usim._augment_theta_with_operators({**theta, **a})
+        planes[way] = {k: aug[k] for k in ("_BellWel", "_BellCuc", "_BellWrdC", "_BellMrd")}
+        del aug
+        ms, src = _call_device_ms(
+            torch, lambda a=a: usim._augment_theta_with_operators({**theta, **a}))
+        call = _host_ms(torch, lambda a=a: usim._augment_theta_with_operators({**theta, **a}))
+        simulate = usim.build_simulate_fn(N_STEPS, 1.0)
+        out[way] = dict(assembly_device_ms=ms, assembly_call_ms=call)
+        print(f"[9b] {way}: per-simulate assembly device {ms:.3f} ms ({src}), call "
+              f"{call:.3f} ms (host clock)")
+        _, run = _time_runs(torch, simulate, (theta, u0, c0, a), dev, f"[9b] {way}:", N_STEPS)
+        out[way].update(run)
+    for k in planes["dense"]:
+        err, rel = _rel_max(planes["factored"][k], planes["dense"][k])
+        print(f"[9b] {k}: factored vs dense max abs {err:.3e}, max rel {rel:.3e} "
+              f"(<= {FACTORED_RTOL})")
+        out[k] = rel
+        if rel > FACTORED_RTOL:
+            raise AssertionError(f"[9b] {k} factored vs dense {rel:.3e}")
+    return out
+
+
+def _coarse_in_path(torch, run, aux):
+    """{product: (calls, device ms)} of the coarse term's two matrix
+    products in one profiled run(): the aten::mm (bf16) or aten::mv (f32)
+    calls whose matrix has a coarse factor's shape or its transpose's,
+    with the device time of their kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    shapes = {}
+    for key in ("_TLCfac", "_TLCfacS"):
+        m, k = aux[key].shape
+        shapes[(m, k)] = f"{key} w = B z"
+        shapes[(k, m)] = f"{key} z = Bt rc"
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        run()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.key in ("aten::mm", "aten::mv") and e.input_shapes:
+            name = shapes.get(tuple(e.input_shapes[0]))
+            if name is not None:
+                c, ms = out.get(name, (0, 0.0))
+                out[name] = (c + e.count, ms + e.device_time_total / 1e3)
+    return out
+
+
+def phase_bf16(torch, dev, usim, base6):
+    """[9c]: the n=32 box's default bf16 coarse factors against f32 ones
+    (the two-level arrays built again in the working dtype, without the
+    model's bf16 cast)."""
+    from glimslib_tpu_torch.examples import UNSTRUCT_STEP_CONFIG
+    from glimslib_tpu_torch.ops import bell_kernels as bk
+
+    usim.step_config = UNSTRUCT_STEP_CONFIG
+    aux_b = usim.runtime_aux()
+    theta = usim.make_theta(usim.params.as_dict())
+    t0 = time.perf_counter()
+    aux_f = {**aux_b, **usim._twolevel_aux(theta, {})}
+    set_s = time.perf_counter() - t0
+    print(f"[9c] factors {aux_b['_TLCfac'].dtype} {tuple(aux_b['_TLCfac'].shape)} / "
+          f"{tuple(aux_b['_TLCfacS'].shape)} against {aux_f['_TLCfac'].dtype} (built "
+          f"again in the working dtype in {set_s:.1f} s)")
+    if aux_b["_TLCfac"].dtype != torch.bfloat16 or aux_f["_TLCfac"].dtype != torch.float32:
+        raise AssertionError("[9c] the model's factors are not bf16")
+    u0, c0 = usim.initial_state()
+    u_r, c_r = (x[-1] for x in base6["ref_traj"])
+    simulate = usim.build_simulate_fn(N_STEPS, 1.0)
+    out = {}
+    for way, a in (("bf16", aux_b), ("f32", aux_f)):
+        tag = f"[9c] {way}:"
+        (u_tr, c_tr), _, _ = _drive(torch, usim, simulate, (theta, u0, c0, a),
+                                    [(bk.batched_matvec,)], tag, N_STEPS)
+        it = {k: [int(i) for i in usim.solver_info[k]] for k in ("rd_cg_iters", "el_cg_iters")}
+        applies = {"_TLCfac": sum(x + 1 for x in it["el_cg_iters"]),
+                   "_TLCfacS": sum(x + 1 for x in it["rd_cg_iters"])}
+        prods = _coarse_in_path(torch, lambda a=a: simulate(theta, u0, c0, a), a)
+        coarse = sum(ms for _, ms in prods.values())
+        gemv = _kernel_totals(torch, lambda a=a: simulate(theta, u0, c0, a),
+                              r"gemv|gemm|nvjet|xmma|cutlass")
+        _, run = _time_runs(torch, simulate, (theta, u0, c0, a), dev, tag, N_STEPS)
+        rel_c, rel_u = _rel_l2(c_tr[-1], c_r), _rel_l2(u_tr[-1], u_r)
+        print(f"{tag} CG iterations rd {sum(it['rd_cg_iters'])} (a Newton solve "
+              f"{it['rd_cg_iters']}), elasticity {sum(it['el_cg_iters'])} (a step "
+              f"{it['el_cg_iters']}); preconditioner applies {applies['_TLCfac']} "
+              f"(vector) / {applies['_TLCfacS']} (scalar)")
+        print(f"{tag} the coarse products in a profiled run, device ms: {coarse:.3f} ("
+              + "; ".join(f"{k} x{c} {ms:.3f} ({1e3 * ms / max(c, 1):.1f} us a call)"
+                          for k, (c, ms) in sorted(prods.items()))
+              + "); its matrix-product kernels: " + "; ".join(
+                  f"{k[:70]} x{c} {ms:.3f}" for k, (c, ms) in gemv.items()))
+        print(f"{tag} against the f64 plain path: rel-L2 c {rel_c:.3e}, u {rel_u:.3e} "
+              f"(<= {UNSTRUCT_RTOL})")
+        if rel_c > UNSTRUCT_RTOL or rel_u > UNSTRUCT_RTOL:
+            raise AssertionError(f"{tag} c {rel_c:.3e}, u {rel_u:.3e}")
+        out[way] = dict(run, cg_iters=it, coarse_products={k: list(v) for k, v in prods.items()},
+                        coarse_ms_a_run=coarse,
+                        matrix_product_kernels={k: list(v) for k, v in gemv.items()},
+                        rel_c=rel_c, rel_u=rel_u)
+    del aux_f
+    return out
+
+
+def phase_defaults(torch, dev, lat, uns):
+    """[9]: the reference's defaults on the flagship path (module
+    docstring).  ``lat`` = ([3]'s model, its f64 plain model, its f64
+    final (u, c), its rel-L2 (c, u)); ``uns`` = ([6]'s model, its f64
+    plain model, [6]'s baseline)."""
+    from glimslib_tpu_torch.ops import bell_kernels as bk
+
+    t_phase = time.perf_counter()
+    sim, ref, lat_state, lat_rel = lat
+    usim, uref, base6 = uns
+    u_r, c_r = base6["ref_traj"]
+    out = {}
+    t0 = time.perf_counter()
+    out["refined"] = phase_refined(torch, dev, [
+        ("lattice", sim, ref, lat_state, lat_rel, _lattice_groups()),
+        ("unstructured", usim, uref, (u_r[-1], c_r[-1]), base6["rel"],
+         [(bk.batched_matvec,)]),
+    ])
+    print(f"[9a] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["factored"] = phase_factored(torch, dev, usim)
+    print(f"[9b] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["bf16"] = phase_bf16(torch, dev, usim, base6)
+    print(f"[9c] {time.perf_counter() - t0:.1f} s")
+    print(f"[9] defaults phase {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def main():
@@ -1368,8 +1694,9 @@ def main():
     print(f"[2] N={N} model set-up {time.perf_counter() - t0:.1f} s")
     kernels = phase_kernels(torch, sim, theta, dev)
     del theta
-    ref = phase_slice(torch, sim, brain_sim(n=N, dtype=torch.float64, device=dev, plain=True),
-                      dev, kernels, f"[3] N={N}:", N_STEPS)
+    ref, lat_state, lat_rel = phase_slice(
+        torch, sim, brain_sim(n=N, dtype=torch.float64, device=dev, plain=True), dev,
+        kernels, f"[3] N={N}:", N_STEPS)
 
     t0 = time.perf_counter()
     big = brain_sim(n=N64, dtype=torch.float32, device=dev)
@@ -1380,19 +1707,23 @@ def main():
     del big
     torch.cuda.empty_cache()
 
-    kern, usim, uref = phase_unstructured(torch, dev)
+    kern, usim, uref, base6 = phase_unstructured(torch, dev)
     kernels.append(kern)
 
     adjoint = phase_adjoint(torch, sim, usim, (ref, uref), kernels)
-    del sim, usim, ref, uref
-    torch.cuda.empty_cache()
 
     rows2d, adjoint2d, bmv2d = phase_2d(torch, dev)
     kernels += rows2d
     adjoint.update(adjoint2d)
     kern["atlas_2d_adjoint_launches"] = bmv2d
 
+    defaults = phase_defaults(torch, dev, (sim, ref, lat_state, lat_rel),
+                              (usim, uref, base6))
+    del sim, usim, ref, uref, base6
+    torch.cuda.empty_cache()
+
     drop = ("wrappers", "pattern", "iters")
+    print(json.dumps({"defaults": defaults}, default=str))
     print(json.dumps({"adjoint": adjoint}))
     print(json.dumps({"kernels": [
         {k: v for k, v in kern.items() if k not in drop} for kern in kernels

@@ -10,8 +10,10 @@ Counterpart of ``glimslib_tpu/config.py``.  What differs:
   the card (``cuda``) unless the caller asks for the CPU;
   :func:`resolve_device` raises when CUDA is absent instead of moving the
   work to the CPU.
-- Mixed-precision refinement (``refine_f64``) is not ported yet, so
-  :func:`resolve_refine_f64` resolves "auto" to False for every dtype.
+- Mixed-precision refinement (``refine_f64``): "auto" resolves to True
+  for an f32 working dtype and to False for f64.  The reference's "auto"
+  also asks for f64 kernels (``jax_enable_x64``); torch always has them,
+  so the port resolves as the reference does under x64.
 """
 
 import os
@@ -52,13 +54,12 @@ refine_f64 = os.environ.get("GLIMS_REFINE_F64", "auto")
 def resolve_refine_f64(dtype=None):
     """Resolve the refine_f64 tri-state for a working dtype.
 
-    Explicit GLIMS_REFINE_F64=0/1 wins ("1" then raises NotImplementedError
-    when a step is built: refinement is not ported).  "auto" is False for
-    every dtype, so the f32 default runs without refinement; that is a
-    deliberate gap until refinement is ported."""
+    Explicit GLIMS_REFINE_F64=0/1 wins; "auto" refines exactly an f32
+    working dtype (f64 residuals around f32 solves), never f64; with no
+    dtype given it is True, as the reference's is under x64."""
     if refine_f64 in ("0", "1"):
         return refine_f64 == "1"
-    return False
+    return dtype is None or dtype == torch.float32
 
 
 # -- device and dtype --------------------------------------------------------

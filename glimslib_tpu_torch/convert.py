@@ -37,10 +37,21 @@ def state_from_numpy(u0, c0, *, device="cpu", dtype=torch.float64):
 
 
 # the reference's runtime_aux keys the port reads, and their layouts
-_AUX_FLOAT = ("_BinvSN", "_McSN", "_TLCfac", "_TLCfacS")
+_AUX_FLOAT = ("_BinvSN", "_McSN", "_TLCfac", "_TLCfacS",
+              # the factored channel stacks (ops/bell_factored.py), raw
+              # BellPlan.assemble layouts on both sides
+              "_FWel", "_FCuc", "_FWrd", "_FMrd")
+_AUX_INDEX = ("_FReps", "_FWrdRhoReps", "_FWrdDReps")  # representative cells
 _AUX_NODE_LAST = {"_TLMt": (2, 0, 1), "_TLMtS": (1, 0)}  # -> node axis first
 # plan tables: the port's BellPlan holds its own, equal copies
 _AUX_PLAN_TABLES = ("_BellDiagPull", "_BellOffPull", "_BellPlace", "_BellHalo")
+
+
+def _bf16_tensor(a, device):
+    """A bfloat16 numpy array (``ml_dtypes``) -> a torch.bfloat16 tensor
+    with the same bits."""
+    bits = np.ascontiguousarray(a).view(np.int16)
+    return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
 
 
 def aux_from_numpy(aux_np, *, device="cpu", dtype=torch.float64):
@@ -48,28 +59,34 @@ def aux_from_numpy(aux_np, *, device="cpu", dtype=torch.float64):
     ``simulate(..., aux=...)`` dict, so both packages precondition with
     identical frozen arrays.
 
-    Supernode inverses and coarse factors keep their layout; the mode
-    matrices arrive node-axis-last (``_TLMt`` (d, q, n_pad), ``_TLMtS``
-    (qs, n_pad)) and are transposed back to (n_pad, d, q) and (n_pad, qs);
-    plan tables are dropped.  Anything else (the factored channel stacks
-    ``_F*``, the block-lanes kernel layouts ``*T``) has no counterpart in
-    the port and raises."""
+    Supernode inverses, coarse factors and the factored channel stacks
+    ``_F*`` keep their layout (a bf16 coarse factor stays bf16, the
+    representative-cell indices become int64); the mode matrices arrive
+    node-axis-last (``_TLMt`` (d, q, n_pad), ``_TLMtS`` (qs, n_pad)) and
+    are transposed back to (n_pad, d, q) and (n_pad, qs); plan tables are
+    dropped.  Anything else (the TPU's block-lanes kernel layouts ``*T``,
+    the P2 plans and stacks) has no counterpart in the port and raises."""
     out = {}
     unknown = []
     for k, v in aux_np.items():
         if k in _AUX_PLAN_TABLES:
             continue
         a = np.asarray(v)
+        if k in _AUX_INDEX:
+            out[k] = torch.as_tensor(a.astype(np.int64), device=device)
+            continue
         if k in _AUX_NODE_LAST:
             a = np.ascontiguousarray(np.transpose(a, _AUX_NODE_LAST[k]))
         elif k not in _AUX_FLOAT:
             unknown.append(k)
             continue
-        out[k] = torch.as_tensor(a.astype(np.float64), dtype=dtype, device=device)
+        if a.dtype.name == "bfloat16":
+            out[k] = _bf16_tensor(a, device)
+        else:
+            out[k] = torch.as_tensor(a.astype(np.float64), dtype=dtype, device=device)
     if unknown:
         raise ValueError(
             f"aux keys without a counterpart in the port: {sorted(unknown)} "
-            "(build the reference's aux with GLIMS_FACTORED=0 on a "
-            "canonical-layout path)"
+            "(build the reference's aux on a canonical-layout path)"
         )
     return out

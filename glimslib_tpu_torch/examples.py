@@ -8,6 +8,8 @@ off-centre in white matter; sim_time 5, dt 1.  ``unstructured=True``
 strips the lattice structure and reorders the nodes along a Morton curve
 (``bench.py run_unstructured``): the same tets through the unstructured
 lane, which the benchmark times with :data:`UNSTRUCT_STEP_CONFIG`.
+:data:`REFINED_STEP_CONFIG` is the benchmark's accuracy mode, the f32
+step refined in f64.
 
 ``adjoint_problem`` is the benchmark's adjoint cell (``bench.py
 run_adjoint``): the 2-parameter inverse problem on that box.
@@ -49,6 +51,13 @@ BENCH_STEP_CONFIG = StepConfig(
 UNSTRUCT_STEP_CONFIG = StepConfig(
     newton_rtol=1e-4, newton_atol=1e-5, cg_rtol=1e-7, cg_maxiter=800,
     rd_cg_rtol=1e-3,
+)
+# the f32 accuracy mode (bench.py run_refined, its refined_steps_per_sec
+# cell): the benchmark's operating point with f64 residuals around the f32
+# solves, as Simulation's own f32 default does
+REFINED_STEP_CONFIG = StepConfig(
+    newton_rtol=1e-4, newton_atol=1e-5, cg_rtol=1e-7, cg_maxiter=800,
+    refine_f64=True,
 )
 
 

@@ -21,10 +21,21 @@ Two operator lanes, chosen by the mesh:
   (``ops/bell.py``) assembled once per simulate, every matvec and
   supernode block-Jacobi apply through the CUDA batched-matvec kernel;
   ``pcg`` preconditioned by supernode block-Jacobi plus the two-level
-  coarse level (``solvers/twolevel.py``), the chord method, extrapolated
-  warm starts with anchored tolerances and the algebraic rd anchor.  The
-  frozen preconditioner state (supernode inverses, coarse factors) is
-  built once per model at the set-up parameters (:meth:`runtime_aux`).
+  coarse level (``solvers/twolevel.py``, its factors in bf16 on f32
+  runs), the chord method, linearly extrapolated warm starts with
+  anchored tolerances and the algebraic rd anchor.  The frozen state
+  (supernode inverses, coarse factors, and where the model's
+  coefficients are class-wise constant the factored channel stacks of
+  ``ops/bell_factored.py``) is built once per model at the set-up
+  parameters (:meth:`runtime_aux`).
+
+The lane's settings are the reference's defaults, fixed: supernodes of
+32 nodes, aggregates of 64, the coarse factors truncated to max(2048,
+3/5 of the coarse dimension) columns, the factored assembly wherever the
+model gives class labels.  ``GLIMS_TWOLEVEL_MIN_NODES`` (default 4000)
+sets the mesh size from which the two-level level is on.  On f32 models
+the default step refines in f64 (``config.resolve_refine_f64``;
+``solvers/coupled.py``).
 
 Both lanes are differentiable: ``simulate`` keeps the autograd graph
 through the time loop (each step is the implicit-function-theorem adjoint
@@ -35,9 +46,8 @@ Solver non-convergence freezes the carried state and flags the remaining
 steps, as in the reference.  ``plain=True`` routes every kernel call
 through its plain torch version on any device: a reference run for
 checking the kernels on the card.  Outside the port so far (P2
-concentration, sharding, refinement, Chebyshev preconditioning, von
-Neumann BCs, time-dependent sources) the model raises
-``NotImplementedError``.
+concentration, sharding, Chebyshev preconditioning, von Neumann BCs,
+time-dependent sources) the model raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -57,7 +67,9 @@ from glimslib_tpu_torch.core.bcs import BoundaryConditions
 from glimslib_tpu_torch.core.functionspace import FunctionSpace
 from glimslib_tpu_torch.core.params import Parameters
 from glimslib_tpu_torch.core.subdomains import SubDomains
-from glimslib_tpu_torch.ops import bell, bell_kernels, ell, fused_cg, stencil_kernels
+from glimslib_tpu_torch.ops import (
+    bell, bell_factored, bell_kernels, ell, fused_cg, stencil_kernels,
+)
 from glimslib_tpu_torch.ops.assembly import P1Kernels
 from glimslib_tpu_torch.ops.stencil import StencilOperators
 from glimslib_tpu_torch.solvers import twolevel
@@ -90,10 +102,11 @@ def _kernel_ops(plain: bool):
 
 def _new_solver_info():
     """CG iteration counts by solve: the forward's rd (one a Newton
-    iteration) and elasticity (one a step) solves, and the backward's
-    adjoint solves (one of each a step)."""
-    return {"rd_cg_iters": [], "el_cg_iters": [], "rd_adj_cg_iters": [],
-            "el_adj_cg_iters": []}
+    iteration), elasticity (one a step) and refinement correction (one a
+    step under refine_f64) solves, and the backward's adjoint solves (one
+    of each a step)."""
+    return {"rd_cg_iters": [], "el_cg_iters": [], "el_refine_cg_iters": [],
+            "rd_adj_cg_iters": [], "el_adj_cg_iters": []}
 
 
 def _coarse_k(dim_c):
@@ -192,6 +205,22 @@ class Simulation(ABC):
     def el_diag(self, theta):
         ...
 
+    def hi_residual_fns(self):
+        """(rd_hi, el_hi): f64 residuals for mixed-precision refinement,
+        or None (the model cannot refine)."""
+        return None
+
+    def theta_class_labels(self):
+        """Per-cell class labels under which every per-cell coefficient
+        of theta is constant within each class (the factored assembly's
+        contract, ``ops/bell_factored.py``), or None."""
+        return None
+
+    def theta_class_support(self):
+        """{coefficient name: set of class labels} where that coefficient
+        can be nonzero; a name it lacks keeps every class."""
+        return {}
+
     # -- global setup ---------------------------------------------------------
 
     def setup_global_parameters(self, label_function=None, subdomains=None,
@@ -224,6 +253,11 @@ class Simulation(ABC):
         self._aux_cache = None
 
     # -- masks ------------------------------------------------------------------
+
+    def _sync(self):
+        """Wait for the card's queue (set-up seconds are wall time)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def _tensor(self, x, dtype=None):
         return torch.as_tensor(x, dtype=dtype or self.dtype, device=self.device)
@@ -283,9 +317,11 @@ class Simulation(ABC):
             return k.cg_scalar(ops.offsets, Wm, theta["_invdM"], rhs,
                                cfg.cg_rtol, cfg.cg_atol, cfg.cg_maxiter)
 
-        def el_cg(theta, rhs):
-            return k.cg_vector(ops.offsets, theta["_WelM"], theta["_BinvM"],
-                               rhs, cfg.cg_rtol, cfg.cg_atol, cfg.cg_maxiter)
+        def el_cg(theta, rhs, rtol=None):
+            # rtol: the refinement's correction solve
+            return k.cg_vector(ops.offsets, theta["_WelM"], theta["_BinvM"], rhs,
+                               cfg.cg_rtol if rtol is None else rtol, cfg.cg_atol,
+                               cfg.cg_maxiter)
 
         return rd_cg, el_cg
 
@@ -354,16 +390,16 @@ class Simulation(ABC):
         return self._agg_plan
 
     def runtime_aux(self):
-        """Frozen preconditioner state of the unstructured lane, built once
-        per model from the set-up parameters and cached (reference
-        base.py:755-846, 902-970): the supernode block-Jacobi inverses
-        ``_BinvSN`` (nb, s d, s d) and ``_McSN`` (nb, s, s), and, when the
-        two-level level is on, the coarse Gram factors ``_TLCfac`` /
-        ``_TLCfacS`` and masked mode matrices ``_TLMt`` (n_pad, d, q) /
-        ``_TLMtS`` (n_pad, qs).  A preconditioner shapes iteration counts
-        only, so freezing it across parameter updates never changes a
-        solution.  ``setup_seconds`` records what the build took.  {} on
-        lattice meshes."""
+        """Frozen state of the unstructured lane, built once per model from
+        the set-up parameters and cached (reference base.py:755-970): the
+        supernode block-Jacobi inverses ``_BinvSN`` (nb, s d, s d) and
+        ``_McSN`` (nb, s, s), the factored channel stacks
+        (:meth:`_factored_aux`), and, when the two-level level is on, its
+        arrays (:meth:`_twolevel_aux`), the coarse factors in bf16 on f32
+        models.  A preconditioner shapes iteration counts only, so
+        freezing it across parameter updates never changes a solution.
+        ``setup_seconds`` records what the build took.  {} on lattice
+        meshes."""
         if self.lattice:
             return {}
         if self._aux_cache is not None:
@@ -385,37 +421,80 @@ class Simulation(ABC):
                 bplan, bell.extract_self_blocks_scalar(bplan, Wrd), mask=mask_c),
         }
         del Wel, Wrd
+        self._sync()
         times["supernode_jacobi"] = time.perf_counter() - t0
-        agg = self._twolevel_aggplan()
-        if agg is not None:
-            t0 = time.perf_counter()
-            eplan = ell.EllPlan(self.mesh, device=self.device)
-            B = ell.build_ell_elasticity(eplan, arrays, theta0["mu"], theta0["lam"])
-            Ac = twolevel.build_coarse(agg, eplan.adj_idx, B, mask_u)
-            W = ell.build_ell_rd_const(eplan, arrays, theta0["D"], theta0["rho"],
-                                       theta0["dt"], m0)
-            Acs = twolevel.build_coarse_scalar(agg, eplan.adj_idx, W, mask_c)
-            del B, W
-            times["coarse_build"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            aux["_TLCfac"] = twolevel.coarse_inverse(Ac, k=_coarse_k(Ac.shape[0]))
-            aux["_TLCfacS"] = twolevel.coarse_inverse(Acs, k=_coarse_k(Acs.shape[0]))
-            times["coarse_inverse"] = time.perf_counter() - t0
-            f_u = 1.0 - mask_u.cpu().numpy().astype(np.float64)
-            f_c = 1.0 - mask_c.cpu().numpy().astype(np.float64)
-            aux["_TLMt"] = self._tensor(agg.mode_matrix(f_u))
-            aux["_TLMtS"] = self._tensor(agg.mode_matrix_scalar(f_c))
+        t0 = time.perf_counter()
+        fac = self._factored_aux()
+        if fac:
+            aux.update(fac)
+            self._sync()
+            times["factored"] = time.perf_counter() - t0
+        tl = self._twolevel_aux(theta0, times)
+        if tl and self.dtype == torch.float32:
+            # half the factors' memory traffic, the coarse apply's cost; the
+            # Gram form stays PSD in any storage precision
+            for k in ("_TLCfac", "_TLCfacS"):
+                tl[k] = tl[k].to(torch.bfloat16)
+        aux.update(tl)
         self.setup_seconds = times
         self.logger.info("runtime aux built: %s", {k: f"{v:.2f} s"
                                                    for k, v in times.items()})
         self._aux_cache = aux
         return aux
 
+    def _twolevel_aux(self, theta0, times):
+        """The two-level level's frozen arrays at the parameters of
+        ``theta0``, {} where the level is off: the coarse Gram factors
+        ``_TLCfac`` / ``_TLCfacS`` in the working dtype and the masked mode
+        matrices ``_TLMt`` (n_pad, d, q) / ``_TLMtS`` (n_pad, qs); the
+        build's seconds go into ``times``."""
+        agg = self._twolevel_aggplan()
+        if agg is None:
+            return {}
+        mask_u, mask_c, _, _ = self._bc_masks_and_values()
+        arrays = self._mesh_arrays()
+        m0 = self.kernels._m0
+        aux = {}
+        t0 = time.perf_counter()
+        eplan = ell.EllPlan(self.mesh, device=self.device)
+        B = ell.build_ell_elasticity(eplan, arrays, theta0["mu"], theta0["lam"])
+        Ac = twolevel.build_coarse(agg, eplan.adj_idx, B, mask_u)
+        W = ell.build_ell_rd_const(eplan, arrays, theta0["D"], theta0["rho"],
+                                   theta0["dt"], m0)
+        Acs = twolevel.build_coarse_scalar(agg, eplan.adj_idx, W, mask_c)
+        del B, W
+        self._sync()
+        times["coarse_build"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        aux["_TLCfac"] = twolevel.coarse_inverse(Ac, k=_coarse_k(Ac.shape[0]))
+        aux["_TLCfacS"] = twolevel.coarse_inverse(Acs, k=_coarse_k(Acs.shape[0]))
+        self._sync()
+        times["coarse_inverse"] = time.perf_counter() - t0
+        f_u = 1.0 - mask_u.cpu().numpy().astype(np.float64)
+        f_c = 1.0 - mask_c.cpu().numpy().astype(np.float64)
+        aux["_TLMt"] = self._tensor(agg.mode_matrix(f_u))
+        aux["_TLMtS"] = self._tensor(agg.mode_matrix_scalar(f_c))
+        return aux
+
+    def _factored_aux(self):
+        """The frozen per-class channel stacks of the theta planes
+        (``ops/bell_factored.py build_cache``) where the model guarantees
+        class-wise constant coefficients (:meth:`theta_class_labels`), {}
+        otherwise."""
+        labels = self.theta_class_labels()
+        if labels is None:
+            return {}
+        return bell_factored.build_cache(
+            self._get_bell_plan(), self._mesh_arrays(), labels, self.kernels._m0,
+            want_cuc=True, want_rd=True, want_mrd=True,
+            support=self.theta_class_support())
+
     def _augment_bell(self, theta):
-        """Theta-only supernode halo-ELL planes through one fused assembly
-        (reference base.py:1223-1362, bell branch, canonical layout):
-        ``_BellWel`` (nb, s, d, Kh, d), ``_BellCuc`` (nb, s, d, Kh),
-        ``_BellWrdC`` and ``_BellMrd`` (nb, s, Kh), the constant loads
+        """Theta-only supernode halo-ELL planes (reference base.py:1223-1362,
+        bell branch, canonical layout): ``_BellWel`` (nb, s, d, Kh, d),
+        ``_BellCuc`` (nb, s, d, Kh), ``_BellWrdC`` and ``_BellMrd`` (nb, s,
+        Kh), reduced from the factored channel stacks when theta carries
+        them, else through one fused assembly; the constant loads
         ``_Bell_el_load`` and ``_Bell_rd_load``, and the supernode inverses
         ``_BinvSN``/``_McSN`` (without a graph) when the aux did not carry
         them."""
@@ -423,14 +502,18 @@ class Simulation(ABC):
         arrays = self._mesh_arrays()
         m0 = self.kernels._m0
         mask_u, mask_c, _, _ = self._bc_masks_and_values()
-        Wel, Wc, Wrd, Mrd = bell.assemble_fused(bplan, [
-            bell.elasticity_entries(arrays, theta["mu"], theta["lam"]),
-            bell.coupling_uc_entries(arrays, theta["mu"], theta["lam"],
-                                     theta["coupling"]),
-            bell.rd_const_entries(arrays, theta["D"], theta["rho"], theta["dt"],
-                                  m0),
-            bell.mass_entries(arrays, m0),
-        ])
+        planes = bell_factored.planes_from_theta(theta, self.mesh.dim, want_cuc=True,
+                                                 want_rd=True, want_mrd=True)
+        if planes is None:
+            planes = bell.assemble_fused(bplan, [
+                bell.elasticity_entries(arrays, theta["mu"], theta["lam"]),
+                bell.coupling_uc_entries(arrays, theta["mu"], theta["lam"],
+                                         theta["coupling"]),
+                bell.rd_const_entries(arrays, theta["D"], theta["rho"], theta["dt"],
+                                      m0),
+                bell.mass_entries(arrays, m0),
+            ])
+        Wel, Wc, Wrd, Mrd = planes
         theta["_BellWel"] = Wel.permute(0, 1, 3, 2, 4).contiguous()
         theta["_BellCuc"] = Wc.permute(0, 1, 3, 2).contiguous()
         theta["_BellWrdC"] = Wrd
@@ -485,7 +568,7 @@ class Simulation(ABC):
             if agg is None or "_TLCfac" not in theta:
                 return base
             return twolevel.make_twolevel_precond(
-                agg, theta["_TLCfac"], theta["_TLMt"], base)
+                agg, theta["_TLCfac"], theta["_TLMt"], base, theta.get("_TLCfacT"))
 
         def rd_precond(theta):
             Minv = theta["_McSN"]
@@ -493,7 +576,7 @@ class Simulation(ABC):
             if agg is None or "_TLCfacS" not in theta:
                 return base
             return twolevel.make_twolevel_precond_scalar(
-                agg, theta["_TLCfacS"], theta["_TLMtS"], base)
+                agg, theta["_TLCfacS"], theta["_TLMtS"], base, theta.get("_TLCfacST"))
 
         return dict(rd_jacobian=rd_jacobian, el_operator=el_operator,
                     rd_precond=rd_precond, el_precond=el_precond,
@@ -522,6 +605,11 @@ class Simulation(ABC):
         theta = dict(theta)
         if self.lattice:
             return self._augment_lattice(theta)
+        for key in ("_TLCfac", "_TLCfacS"):
+            if key in theta and theta[key].dtype == torch.bfloat16:
+                # row-major copies of the bf16 factors' transposes, for
+                # the coarse term's first product (solvers/twolevel.py)
+                theta[key + "T"] = theta[key].T.contiguous()
         return self._augment_bell(theta)
 
     def _build_step(self):
@@ -530,10 +618,12 @@ class Simulation(ABC):
         def record(kind, info):
             self.solver_info[f"{kind}_cg_iters"].append(info["iters"])
 
+        hi = self.hi_residual_fns() if self.step_config.refine_f64 else None
         common = dict(
             rd_residual=self.rd_residual, el_residual=self.el_residual,
             mask_c=mask_c, mask_u=mask_u, bc_values_c=gc, bc_values_u=gu,
             config=self.step_config, record=record,
+            rd_residual_hi=hi[0] if hi else None, el_residual_hi=hi[1] if hi else None,
         )
         if self.lattice:
             rd_cg, el_cg = self._stencil_operators()

@@ -11,6 +11,8 @@ Weak forms (reference simulation_tumor_growth.py:110-122):
 Both residuals are evaluated in their fully-streaming form: stencil
 planes through the CUDA stencil kernel on a lattice, assembled halo-ELL
 planes through the CUDA batched-matvec kernel on an unstructured mesh.
+Mixed-precision refinement takes its f64 residuals from the per-cell
+gather path of ``ops/assembly.py P1Kernels`` (:meth:`hi_residual_fns`).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 from glimslib_tpu_torch.core.params import TissueCoefficient
 from glimslib_tpu_torch.models.base import Simulation
 from glimslib_tpu_torch.ops import bell, forms
+from glimslib_tpu_torch.ops.assembly import P1Kernels
 
 
 class TumorGrowth(Simulation):
@@ -58,6 +61,26 @@ class TumorGrowth(Simulation):
     def _body_force(self, bf):
         return self._tensor(np.zeros(self.mesh.dim) if bf is None else bf)
 
+    def theta_class_labels(self):
+        """The subdomain cell labels when every plane coefficient is a
+        scalar or per-tissue (a dict, or a TissueCoefficient over the same
+        labels): the factored assembly's contract
+        (``ops/bell_factored.py``).  A raw per-cell array, a tensor or a
+        callable returns None (dense assembly)."""
+        import numbers
+
+        sub_labels = np.asarray(self.subdomains.cell_labels)
+        p = self.params.as_dict()
+        for key in ("diffusion", "proliferation", "coupling", "E", "poisson"):
+            v = p.get(key)
+            if isinstance(v, (numbers.Number, dict)):
+                continue
+            if isinstance(v, TissueCoefficient) and np.array_equal(
+                    np.asarray(v.cell_labels), sub_labels):
+                continue
+            return None
+        return sub_labels
+
     def make_theta(self, params: Dict):
         src = params.get("source_term", 0.0)
         bf = params.get("body_force")
@@ -82,7 +105,7 @@ class TumorGrowth(Simulation):
         Unstructured: R = W_const c + dt rho / c_max ∫c²φ - M c_prev - load,
         two halo-ELL matvecs and the per-cell quadratic pull."""
         k = self._k
-        if "_Bell_rd_load" in theta:
+        if not self.lattice:
             bplan = self._get_bell_plan()
             lin = (bell.apply_bell_scalar(bplan, theta["_BellWrdC"], c, k.bmv)
                    - bell.apply_bell_scalar(bplan, theta["_BellMrd"], c_prev, k.bmv))
@@ -102,7 +125,7 @@ class TumorGrowth(Simulation):
         """R = W_el u + C_uc c - load (stencil planes on a lattice,
         halo-ELL matvecs on an unstructured mesh)."""
         k = self._k
-        if "_Bell_el_load" in theta:
+        if not self.lattice:
             bplan = self._get_bell_plan()
             return (
                 bell.apply_bell_vector(bplan, theta["_BellWel"], u, k.bmv)
@@ -122,3 +145,31 @@ class TumorGrowth(Simulation):
 
     def el_diag(self, theta):
         return self.kernels.elasticity_diag(theta["mu"], theta["lam"])
+
+    # -- f64 residuals for mixed-precision refinement ------------------------
+
+    def _get_kernels_hi(self):
+        """An f64 :class:`P1Kernels` of the mesh on the model's device,
+        built once."""
+        if getattr(self, "_kernels_hi", None) is None:
+            self._kernels_hi = P1Kernels(self.mesh, dtype=torch.float64,
+                                         device=self.device)
+        return self._kernels_hi
+
+    def hi_residual_fns(self):
+        """(rd_hi, el_hi): the same physics on the per-cell gather path
+        with f64 geometry, the defect side of mixed-precision refinement
+        (``StepConfig.refine_f64``).  The working-dtype path steers the
+        solves; these define what converged means."""
+        k64 = self._get_kernels_hi()
+
+        def rd_hi(c, c_prev, theta, t):
+            return k64.rd_residual(c, c_prev, theta["D"], theta["rho"], theta["dt"],
+                                   source=theta["source"], conc_max=1.0)
+
+        def el_hi(u, c, theta, t):
+            return k64.elasticity_residual(u, c, theta["mu"], theta["lam"],
+                                           theta["coupling"],
+                                           body_force=theta["body_force"])
+
+        return rd_hi, el_hi

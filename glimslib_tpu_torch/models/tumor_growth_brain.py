@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
 
 from glimslib_tpu_torch.models.tumor_growth import TumorGrowth
@@ -47,6 +48,18 @@ class TumorGrowthBrain(TumorGrowth):
             name = id_name.get(tid)
             vals.append(by_name.get(name, fill) if name is not None else fill)
         return torch.stack([self._tensor(v) for v in vals])
+
+    def theta_class_labels(self):
+        """Every coefficient is a per-tissue lookup over the cell labels
+        (:meth:`make_theta`), so the factored assembly is always exact."""
+        return np.asarray(self.subdomains.cell_labels)
+
+    def theta_class_support(self):
+        """D and rho are 0 outside GM and WM for any parameter values
+        (:meth:`make_theta`): their factored channels exist only there."""
+        name_id = {v: k for k, v in self.subdomains.tissue_id_name_map.items()}
+        supp = {int(name_id[n]) for n in ("GM", "WM") if n in name_id}
+        return {"D": supp, "rho": supp}
 
     def make_theta(self, params: Dict):
         p = params

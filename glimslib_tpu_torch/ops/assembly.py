@@ -256,6 +256,41 @@ class P1Kernels:
         ga2 = g * g
         return self._scatter_vector(v * (mu * (g2[:, None, :] + ga2) + lam * ga2))
 
+    # -- vector elasticity block (the gather path: refinement's f64 defect
+    # residuals) ---------------------------------------------------------
+
+    def elasticity_residual(self, u, c, mu, lam, coupling, body_force=None):
+        """Residual of the growth-coupled linear elasticity equation,
+        R_{i,a} = ∫ σ(u):ε(φ_i e_a) - σ(φ_i e_a):(k c I) - b·(φ_i e_a) dx,
+        with σ(v):(k c I) = k c (2μ + d λ) div v.  ``u`` (n, d), ``c``
+        (n,); returns (n, d)."""
+        ue = u[self.cells_T].permute(2, 0, 1)  # (d, npe, nc)
+        c_int = self._gather_T(c).mean(dim=0) * self.vol  # exact ∫c per cell
+        return self._elasticity_from_ue(ue, c_int, mu, lam, coupling, body_force)
+
+    def _elasticity_from_ue(self, ue, c_int, mu, lam, coupling, body_force=None):
+        d = self.dim
+        g = self.grads_T  # (npe, d, nc)
+        v = self.vol
+        mu = self._cellco(mu)
+        lam = self._cellco(lam)
+        coupling = self._cellco(coupling)
+        # grad_u[a, b] = sum_j ue[a, j] g[j, b]
+        grad_u = (ue[:, None, :, :] * g.permute(1, 0, 2)[None]).sum(dim=2)
+        eps = 0.5 * (grad_u + grad_u.transpose(0, 1))  # (d, d, nc)
+        tr_eps = eps.diagonal(dim1=0, dim2=1).sum(dim=-1)  # (nc,)
+        eye = torch.eye(d, dtype=eps.dtype, device=eps.device)[:, :, None]
+        sigma = 2.0 * mu * eps + (lam * tr_eps) * eye  # (d, d, nc)
+        # term_stress[i, a] = v sum_b sigma[a, b] g[i, b]
+        term_stress = v * (g[:, None, :, :] * sigma[None]).sum(dim=2)  # (npe, d, nc)
+        kfac = coupling * (2.0 * mu + d * lam) * c_int  # (nc,)
+        contrib = term_stress - kfac * g
+        if body_force is not None:
+            bf = self._cellco(body_force)
+            bf_T = bf[:, None] if bf.dim() == 1 else bf.T  # (d, 1) or (d, nc)
+            contrib = contrib - (v / (d + 1)) * bf_T[None]
+        return self._scatter_vector(contrib)
+
     def mass_residual(self, c):
         """Consistent mass action ∫ c v dx, (n,) -> (n,)."""
         return self._scatter_scalar(self.vol * self._mass_apply(self._gather_T(c)))

@@ -20,7 +20,17 @@ Two branches of the reference are ported:
 
 The Newton and CG loops read their residual norms on the host once per
 iteration (the whole-solve kernels keep theirs on the device).  No
-mixed-precision refinement, no Chebyshev preconditioning.
+Chebyshev preconditioning.
+
+Mixed-precision refinement (``refine_f64``, on an f32 state): the solves
+stay in the working dtype, but Newton measures and corrects against the
+f64 residuals ``rd_residual_hi`` / ``el_residual_hi`` (downcast), the rd
+Jacobian is exact every iteration (no chord method), the elasticity
+right side comes from the f64 residual, and one correction solve of the
+f64 defect at ``refine_cg_rtol`` follows the elasticity solve (the
+reference's ``coupled.py:203-233, 278-284, 353-362, 408-428``).  The f64
+residuals read theta's physical coefficients only (keys without a
+leading underscore), which are cast to f64 once a step.
 
 Gradients (the reference's ``custom_vjp`` ``step_bwd``): where grad is
 enabled and the state or a theta tensor requires it, the step runs as one
@@ -61,11 +71,16 @@ class StepConfig(NamedTuple):
     cg_maxiter: int = 2000
     # Chebyshev degree on top of (block-)Jacobi; the port runs <= 1 only
     precond_degree: int = 0
-    # mixed-precision refinement: not ported, True raises
+    # mixed-precision refinement: f64 residuals around the working-dtype
+    # solves, plus one elasticity correction solve (module docstring);
+    # no effect on an f64 state
     refine_f64: bool = False
+    # relative tolerance of that correction solve (0.0 uses cg_rtol): the
+    # defect is already ~cg_rtol of the load, and 1e-2 reaches the
+    # refinement's fixed point in the one pass
+    refine_cg_rtol: float = 1e-2
     # inexact-Newton forcing for the c-block CG of the pcg branch: 0.0
-    # uses cg_rtol (the reference's refine_cg_rtol is not a field: it is
-    # read by refinement only)
+    # uses cg_rtol
     rd_cg_rtol: float = 0.0
     # chord method on the pcg branch: the rd Jacobian frozen at the
     # step's start; Newton still converges on the exact residual
@@ -92,7 +107,9 @@ def make_step(
     rd_precond: Callable = None,  # (theta) -> callable(r) ~ J_cc^-1 r
     el_precond: Callable = None,  # (theta) -> callable(r) ~ A_uu^-1 r
     rd_jacobian_chord: Callable = None,  # cheaper frozen-Jacobian source
-    record: Callable = None,  # (kind "rd" | "el" | "rd_adj" | "el_adj", info) a solve
+    record: Callable = None,  # (kind "rd" | "el" | "el_refine" | "rd_adj" | "el_adj", info)
+    rd_residual_hi: Callable = None,  # f64 residuals for refine_f64
+    el_residual_hi: Callable = None,
 ):
     """Build ``step(theta, u_prev, c_prev, t, guess=None, anchor_c=None)
     -> (u, c, converged, n_newton)``.
@@ -100,6 +117,8 @@ def make_step(
     ``guess`` = (u_guess, c_guess): extrapolated warm starts for the pcg
     branch (ignored by the whole-solve branch); ``anchor_c`` the
     caller's ||r_c(c_prev)||, which then replaces its evaluation.
+    ``el_cg`` takes an ``rtol`` keyword for the refinement's correction
+    solve.
     ``converged`` is a 0-d bool tensor on the state's device;
     ``n_newton`` is a Python int.  Differentiable in the state and in
     theta's floating tensors (module docstring).  Every linear solve,
@@ -113,12 +132,12 @@ def make_step(
             "assembled-operator pcg branch (rd_jacobian, el_operator, "
             "rd_precond, el_precond)"
         )
-    if cfg.refine_f64:
-        raise NotImplementedError("refine_f64 (mixed-precision refinement) is not ported")
+    if cfg.refine_f64 and None in (rd_residual_hi, el_residual_hi):
+        raise ValueError("refine_f64 needs rd_residual_hi and el_residual_hi")
     if cfg.precond_degree > 1:
         raise NotImplementedError("Chebyshev preconditioning (precond_degree > 1) is not ported")
-    freeze_jac = cfg.rd_modified_newton and not whole_solve
     chord_src = rd_jacobian_chord or rd_jacobian
+    refine_rtol = cfg.refine_cg_rtol or cfg.cg_rtol
 
     def _recorded(kind, x_info):
         if record is not None:
@@ -133,10 +152,27 @@ def make_step(
         gc = bc_values_c(t)
         gu = bc_values_u(t)
         warm = guess is not None and not whole_solve
+        refine = cfg.refine_f64 and c_prev.dtype != torch.float64
+        # the accuracy mode keeps the exact Jacobian every Newton iteration:
+        # the chord method lands just under ftol, which costs its margin
+        freeze_jac = cfg.rd_modified_newton and not whole_solve and not refine
 
         # ---- c-block: Newton-CG ------------------------------------------
-        def resid_c(c):
-            return torch.where(mask_c, c - gc, rd_residual(c, c_prev, theta, t))
+        # what Newton measures and corrects against: the working residual,
+        # or (refine) the f64 one, downcast
+        if refine:
+            f64 = torch.float64
+            theta_hi = {k: v.to(f64) if (torch.is_tensor(v) and v.is_floating_point()
+                                         and not k.startswith("_")) else v
+                        for k, v in theta.items()}
+            c_prev_hi = c_prev.to(f64)
+
+            def resid_c(c):
+                r = rd_residual_hi(c.to(f64), c_prev_hi, theta_hi, t)
+                return torch.where(mask_c, (c - gc).to(f64), r).to(c.dtype)
+        else:
+            def resid_c(c):
+                return torch.where(mask_c, c - gc, rd_residual(c, c_prev, theta, t))
 
         if not whole_solve:
             Mc = _masked_op(rd_precond(theta), mask_c)
@@ -174,8 +210,15 @@ def make_step(
         conv_c = fnorm <= max(ftol, cfg.newton_atol) and not bad
 
         # ---- u-block: one linear solve -----------------------------------
-        def resid_u(u):
-            return torch.where(mask_u, u - gu, el_residual(u, c, theta, t))
+        if refine:
+            c_hi = c.to(f64)
+
+            def resid_u(u):
+                r = el_residual_hi(u.to(f64), c_hi, theta_hi, t)
+                return torch.where(mask_u, (u - gu).to(f64), r).to(u.dtype)
+        else:
+            def resid_u(u):
+                return torch.where(mask_u, u - gu, el_residual(u, c, theta, t))
 
         u0 = torch.where(mask_u, gu, u_prev)
         ru = resid_u(u0)
@@ -202,6 +245,18 @@ def make_step(
         tol_u = torch.clamp(cfg.cg_rtol * rhs_norm, min=cfg.cg_atol)
         resnorm = info_u["resnorm"].to(tol_u.dtype)
         conv_u = torch.isfinite(resnorm) & (resnorm <= tol_u)
+        if refine:
+            # one correction solve of the f64 defect (classic iterative
+            # refinement: the working-dtype operator solves the defect
+            # equation, to refine_cg_rtol)
+            ru2 = resid_u(u)
+            rhs_u2 = torch.where(mask_u, torch.zeros_like(ru2), -ru2)
+            if whole_solve:
+                du2, _ = _recorded("el_refine", el_cg(theta, rhs_u2, rtol=refine_rtol))
+            else:
+                du2, _ = _pcg("el_refine", Au, rhs_u2, Mu, refine_rtol, cfg.cg_atol)
+            u = u + du2
+            conv_u = conv_u & torch.isfinite(du2.sum())
         return u, c, conv_u & conv_c, k
 
     def adjoint(theta, c_prev, t, u, c, u_bar, c_bar, keys, need_c_prev):

@@ -16,9 +16,16 @@ the reference does.  The preconditioner is the additive
 
 whose coarse term is positive semidefinite in any float precision.
 
-Deviation from the reference: the reference stores the factor in bf16 on
-f32 runs (its ``GLIMS_TWOLEVEL_BF16`` default, halving the factor's
-memory traffic); the port stores it in the working dtype.  The
+On f32 runs the factor is stored in bf16, as in the reference's
+default (the factor's stream is the coarse apply's cost, and the Gram
+form stays positive semidefinite under rounding).  Its two products then take bf16 operands and accumulate and
+return float32 (:func:`_gemv_f32`): on the card ``torch.mm`` with
+``out_dtype=torch.float32`` (cuBLAS; the reference's ``jnp.dot`` with
+``preferred_element_type``, outside any Pallas kernel), on the CPU the
+bf16 factor upcast to float32, which gives the same products.  Bᵀ rc
+reads a row-major copy of Bᵀ where the caller keeps one (``Bt``): cuBLAS
+runs the bf16 product over a transposed view at about half the rate of
+a row-major one (an NVIDIA H100, ``PERF.md``).  The
 node-axis-last (TPU lane) layouts of the mode matrices are not ported.
 """
 
@@ -185,23 +192,49 @@ def coarse_inverse(Ac, droptol: float = 1e-7, k: int | None = None):
     return torch.as_tensor(B, dtype=Ac.dtype, device=Ac.device)
 
 
-def make_twolevel_precond(plan: AggPlan, B, Mt, base_apply):
-    """M(r) = base_apply(r) + P~ B Bᵀ P~ᵀ r; Mt (n_pad, d, q)."""
+def _gemv_f32(A, x):
+    """A @ x for a bf16 matrix A and bf16 vector x, accumulated in and
+    returned as float32 (never a bf16 result)."""
+    if A.is_cuda:
+        return torch.mm(A, x[:, None], out_dtype=torch.float32)[:, 0]
+    return A.float() @ x.float()
+
+
+def _coarse_apply(B, rc, Bt=None):
+    """B Bᵀ rc: in the working dtype, or, for a bf16 factor, z = Bᵀ rc
+    and w = B z each from bf16 operands in float32 (z rounded to bf16
+    between them); returns w as float32 in the bf16 case.  ``Bt``: a
+    row-major copy of Bᵀ, or None (the transposed view)."""
+    if B.dtype != torch.bfloat16:
+        return B @ (B.T @ rc)
+    z = _gemv_f32(B.T if Bt is None else Bt, rc.to(torch.bfloat16))
+    return _gemv_f32(B, z.to(torch.bfloat16))
+
+
+def make_twolevel_precond(plan: AggPlan, B, Mt, base_apply, Bt=None):
+    """M(r) = base_apply(r) + P~ B Bᵀ P~ᵀ r; Mt (n_pad, d, q) in the
+    working dtype.  A bf16 ``B`` is restricted against in the working
+    dtype and prolonged in float32; ``Bt`` as :func:`_coarse_apply`."""
+    bf16 = B.dtype == torch.bfloat16
 
     def M(r):
-        rc = plan.restrict(Mt, r.to(B.dtype))
-        w = B @ (B.T @ rc)
-        return base_apply(r) + plan.prolong(Mt, w).to(r.dtype)
+        rc = plan.restrict(Mt, r if bf16 else r.to(B.dtype))
+        w = _coarse_apply(B, rc, Bt)
+        coarse = plan.prolong(Mt.float() if bf16 else Mt, w)
+        return base_apply(r) + coarse.to(r.dtype)
 
     return M
 
 
-def make_twolevel_precond_scalar(plan: AggPlan, B, Ms, base_apply):
-    """M(r) = base_apply(r) + Ps~ B Bᵀ Ps~ᵀ r; Ms (n_pad, qs)."""
+def make_twolevel_precond_scalar(plan: AggPlan, B, Ms, base_apply, Bt=None):
+    """M(r) = base_apply(r) + Ps~ B Bᵀ Ps~ᵀ r; Ms (n_pad, qs), as
+    :func:`make_twolevel_precond`."""
+    bf16 = B.dtype == torch.bfloat16
 
     def M(r):
-        rc = plan.restrict_scalar(Ms, r.to(B.dtype))
-        w = B @ (B.T @ rc)
-        return base_apply(r) + plan.prolong_scalar(Ms, w).to(r.dtype)
+        rc = plan.restrict_scalar(Ms, r if bf16 else r.to(B.dtype))
+        w = _coarse_apply(B, rc, Bt)
+        coarse = plan.prolong_scalar(Ms.float() if bf16 else Ms, w)
+        return base_apply(r) + coarse.to(r.dtype)
 
     return M

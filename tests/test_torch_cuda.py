@@ -438,17 +438,22 @@ def rect():
 
 
 def test_rect_slice_runs_through_the_kernels(rect):
-    """The 2D lattice path (5 steps) launches every kernel of the lane,
-    stencil_pcg<2> resident, and agrees with its plain path at f32 to
-    rel-L2 1e-4."""
+    """The 2D lattice path (5 steps, the f32 default step, which refines)
+    launches both solves of the lane, stencil_pcg<2> resident, and agrees
+    with its plain path at f32 to rel-L2 1e-4.  Its forward measures the
+    f64 gather residuals, so stencil_apply stays idle there (the adjoint
+    test below runs it)."""
     sim, _, _, _ = rect
-    wrappers = (sk.apply_scalar_sum, sk.apply_vector, sk.apply_coupling,
-                fc.cg_scalar, fc.cg_vector)
-    for w in wrappers:
+    assert sim.step_config.refine_f64
+    wrappers = (fc.cg_scalar, fc.cg_vector)
+    applies = (sk.apply_scalar_sum, sk.apply_vector, sk.apply_coupling)
+    for w in wrappers + applies:
         w.launches = 0
     u_tr, c_tr, ok, _ = sim.run()
     torch.cuda.synchronize()
     assert bool(ok.all()) and all(w.launches > 0 for w in wrappers)
+    assert all(w.launches == 0 for w in applies)
+    assert len(sim.solver_info["el_refine_cg_iters"]) == 5
     assert fc.cg_vector.last_plan.mode == "resident"
     ref = rect_sim(n=50, dtype=torch.float32, device=sim.device, plain=True)
     u_p, c_p, ok_p, _ = ref.run()
@@ -512,3 +517,53 @@ def test_2d_adjoint_on_the_card():
         J64, g64 = ip64.value_and_grad(v0)
         assert abs(J - J64) <= j_tol * abs(J64), (lane, J, J64)
         assert np.linalg.norm(g - g64) <= g_tol * np.linalg.norm(g64), (lane, g, g64)
+
+
+# -- the reference's defaults: refinement, bf16 coarse factors ----------------
+
+
+def test_bf16_coarse_apply_on_the_card_matches_cpu_upcast():
+    """The bf16 coarse term B Bᵀ rc on the card (torch.mm with out_dtype
+    float32) against its CPU version (the bf16 factor upcast to f32), at
+    the n=32 vector factor's shape: float32 out, rel 1e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from glimslib_tpu_torch.solvers import twolevel as tl
+
+    rng = np.random.default_rng(17)
+    B = torch.as_tensor(rng.standard_normal((6744, 4046)), dtype=torch.float32)
+    B = B.to(torch.bfloat16)
+    rc = torch.as_tensor(rng.standard_normal(6744), dtype=torch.float32)
+    got = tl._coarse_apply(B.cuda(), rc.cuda())
+    want = tl._coarse_apply(B, rc)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.float32 and got.is_cuda
+    assert _rel_max(got.cpu(), want) <= 1e-5
+
+
+@pytest.mark.parametrize("unstructured", [False, True], ids=["lattice", "unstructured"])
+def test_refined_steps_on_the_card(unstructured, monkeypatch):
+    """REFINED_STEP_CONFIG at n=8 on the card, 2 steps: every step
+    converges with one correction solve, and the state is within rel-L2
+    1e-5 of the plain f64 path with tight tolerances."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from glimslib_tpu_torch.examples import REFINED_STEP_CONFIG
+    from glimslib_tpu_torch.solvers.coupled import StepConfig
+
+    monkeypatch.setenv("GLIMS_TWOLEVEL_MIN_NODES", "100")
+    sim = brain_sim(n=8, dtype=torch.float32, device="cuda", unstructured=unstructured)
+    sim.step_config = REFINED_STEP_CONFIG
+    u, c, ok, _ = sim.build_simulate_fn(2, 1.0)(sim.make_theta(sim.params.as_dict()),
+                                                *sim.initial_state())
+    torch.cuda.synchronize()
+    assert bool(ok.all()) and len(sim.solver_info["el_refine_cg_iters"]) == 2
+    ref = brain_sim(n=8, dtype=torch.float64, device="cuda", unstructured=unstructured,
+                    plain=True)
+    ref.step_config = StepConfig(newton_rtol=1e-10, newton_atol=1e-14, cg_rtol=1e-12,
+                                 cg_maxiter=4000)
+    u_r, c_r, ok_r, _ = ref.build_simulate_fn(2, 1.0)(ref.make_theta(ref.params.as_dict()),
+                                                      *ref.initial_state())
+    assert bool(ok_r.all())
+    for got, want in ((u[-1], u_r[-1]), (c[-1], c_r[-1])):
+        assert float((got.double() - want).norm() / want.norm()) <= 1e-5

@@ -199,15 +199,13 @@ def test_plain_2d_lattice_runs():
 
 
 @pytest.mark.parametrize("case", [
-    "unstructured", "von_neumann", "time_dependent_source", "refine_f64",
-    "chebyshev", "sharding",
+    "unstructured", "von_neumann", "time_dependent_source", "chebyshev", "sharding",
 ])
 def test_outside_slice_raises(case):
     run = {
         "unstructured": _unstructured,
         "von_neumann": _von_neumann,
         "time_dependent_source": _time_dependent_source,
-        "refine_f64": lambda: _step_config(refine_f64=True),
         "chebyshev": lambda: _step_config(precond_degree=3),
         "sharding": lambda: _tumor_growth_2d().use_sharding(None),
     }[case]

@@ -7,11 +7,11 @@ Both packages take their default path on such a mesh: supernode
 halo-ELL operators, pcg preconditioned by supernode block-Jacobi plus the
 two-level coarse level (``GLIMS_TWOLEVEL_MIN_NODES=100`` switches it on
 at this size), the chord method, extrapolated warm starts with anchored
-tolerances and the algebraic rd anchor.  The reference's frozen
-preconditioner arrays are carried across (``convert.aux_from_numpy``,
-with its factored assembly off: ``GLIMS_FACTORED=0``), so both iterate
-with identical preconditioners: Newton counts are equal and the states
-agree to rel-L2 1e-8.
+tolerances, the algebraic rd anchor and the factored frozen assembly.
+The reference's frozen arrays are carried across
+(``convert.aux_from_numpy``, its factored channel stacks included), so
+both iterate with identical preconditioners: Newton counts are equal and
+the states agree to rel-L2 1e-8.
 """
 
 import os
@@ -57,7 +57,6 @@ class Boundary:
 @pytest.fixture
 def twolevel_env(monkeypatch):
     monkeypatch.setenv("GLIMS_TWOLEVEL_MIN_NODES", "100")
-    monkeypatch.setenv("GLIMS_FACTORED", "0")
 
 
 @pytest.mark.parametrize("chord", [True, False], ids=["chord", "exact_jacobian"])
@@ -93,17 +92,20 @@ def test_forward_matches_jax_f64(twolevel_env, chord):
 
 
 def test_runtime_aux_equals_jax(twolevel_env):
-    """The port's own frozen preconditioner state equals the reference's:
-    supernode inverses and mode matrices to 1e-10, coarse factors as
-    B Bᵀ."""
+    """The port's own frozen state equals the reference's: supernode
+    inverses, mode matrices and factored channel stacks to 1e-10, their
+    representative cells exactly, coarse factors as B Bᵀ."""
     sim_j = jax_brain_sim(n=6, dims=3, dtype=jnp.float64, mesh_transform=_morton_jax)
     aux_j = convert.aux_from_numpy(
         {k: np.asarray(v) for k, v in sim_j.runtime_aux().items()})
     sim_t = brain_sim(n=6, dtype=torch.float64, device="cpu", unstructured=True)
     aux_t = sim_t.runtime_aux()
     assert sorted(aux_t) == sorted(aux_j)
-    for k in ("_BinvSN", "_McSN", "_TLMt", "_TLMtS"):
+    for k in ("_BinvSN", "_McSN", "_TLMt", "_TLMtS", "_FWel", "_FCuc", "_FWrd",
+              "_FMrd"):
         assert _rel(aux_t[k], aux_j[k]) <= 1e-10, k
+    for k in ("_FReps", "_FWrdRhoReps", "_FWrdDReps"):
+        assert torch.equal(aux_t[k], aux_j[k]), k
     for k in ("_TLCfac", "_TLCfacS"):
         assert _rel(aux_t[k] @ aux_t[k].T, aux_j[k] @ aux_j[k].T) <= 1e-10, k
     assert sim_t.runtime_aux() is aux_t  # built once per model

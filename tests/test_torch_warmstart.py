@@ -1,0 +1,105 @@
+"""Extrapolated warm starts change iteration counts, never converged
+states (anchored tolerances, ``solvers/coupled.py``): the port's linear
+guesses against a cold start and against the JAX package, mirroring the
+JAX package's ``tests/test_warmstart.py`` at f64 on the CPU.
+
+A 14 x 14 rectangle with its lattice structure stripped (the
+unstructured lane, which owns warm starts), 4 steps, the f64 default
+tolerances: warm and cold agree to 5e-9; the algebraic rd anchor and
+the exact one to 5e-12; the port and the JAX package to 1e-8.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from glimslib_tpu.core.mesh import Mesh as JaxMesh
+from glimslib_tpu.core.mesh import rectangle_mesh as jax_rectangle_mesh
+from glimslib_tpu.models.tumor_growth import TumorGrowth as JaxTumorGrowth
+from glimslib_tpu_torch.core.mesh import Mesh, rectangle_mesh
+from glimslib_tpu_torch.models.tumor_growth import TumorGrowth
+
+N_STEPS = 4
+
+
+class _All:
+    def inside(self, x, on_boundary):
+        return on_boundary
+
+
+def _setup(sim):
+    sim.setup_global_parameters(
+        boundaries={"all": _All()},
+        dirichlet_bcs={"clamped": {"bc_value": np.zeros(2), "named_boundary": "all",
+                                   "subspace_id": 0}},
+    )
+    sim.setup_model_parameters(
+        iv_expression={0: np.zeros(2), 1: lambda x: np.exp(-(x ** 2).sum(axis=1))},
+        diffusion=0.1, coupling=0.15, proliferation=0.12, E=0.001, poisson=0.45,
+        sim_time=N_STEPS, sim_time_step=1,
+    )
+    return sim
+
+
+def _sim():
+    m = rectangle_mesh((-5, -5), (5, 5), 14, 14)
+    sim = _setup(TumorGrowth(Mesh.from_arrays(m.points, m.cells), dtype=torch.float64,
+                             device="cpu"))
+    assert not sim.lattice
+    return sim
+
+
+def _final(sim):
+    u_tr, c_tr, ok, _ = sim.run()
+    assert bool(ok.all())
+    return u_tr[-1].numpy(), c_tr[-1].numpy()
+
+
+def _cold(sim):
+    """The same steps with no history: one-step simulates chained, each
+    of which starts from its own initial state (the extrapolation of one
+    state is that state)."""
+    theta = sim.make_theta(sim.params.as_dict())
+    u, c = sim.initial_state()
+    step = sim.build_simulate_fn(1, 1.0)
+    for _ in range(N_STEPS):
+        u_tr, c_tr, ok, _ = step(theta, u, c)
+        assert bool(ok.all())
+        u, c = u_tr[-1], c_tr[-1]
+    return u.numpy(), c.numpy()
+
+
+def test_warm_start_matches_cold():
+    u_w, c_w = _final(_sim())
+    u_c, c_c = _cold(_sim())
+    tol = 5e-9
+    assert np.abs(u_w - u_c).max() < tol and np.abs(c_w - c_c).max() < tol
+
+
+def test_algebraic_anchor_matches_exact(monkeypatch):
+    """The anchor carried as ||M dc|| reproduces the trajectory of the
+    exact anchor ||r_c(c_prev)||, which the step evaluates where no mass
+    action is given (as with concentration Dirichlet conditions)."""
+    ua, ca = _final(_sim())
+    monkeypatch.setattr(TumorGrowth, "_streamed_mass_action", lambda self, theta: None)
+    ue, ce = _final(_sim())
+    assert np.abs(ua - ue).max() < 5e-12
+    assert np.abs(ca - ce).max() < 5e-12
+
+
+def test_warm_start_matches_jax():
+    """The port's final state equals the JAX package's (linear warm
+    starts on both sides) to 1e-8 (max abs; states are O(1))."""
+    u_t, c_t = _final(_sim())
+    m = jax_rectangle_mesh((-5, -5), (5, 5), 14, 14)
+    sim = _setup(JaxTumorGrowth(JaxMesh.from_arrays(m.points, m.cells)))
+    theta = sim.make_theta(sim.params.as_dict())
+    iv = sim.params.create_initial_value_function()
+    aux = sim.runtime_aux()
+    args = (theta, jnp.asarray(iv[0], sim.dtype), jnp.asarray(iv[1], sim.dtype))
+    u_j, c_j, ok, _ = jax.jit(sim.build_simulate_fn(N_STEPS, 1.0))(
+        *(args + (aux,) if aux else args))
+    assert bool(np.asarray(ok).all()) and sim._warm_start_ok
+    assert np.abs(u_t - np.asarray(u_j[-1])).max() < 1e-8
+    assert np.abs(c_t - np.asarray(c_j[-1])).max() < 1e-8
