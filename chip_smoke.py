@@ -129,11 +129,35 @@ Phases, each printed on lines of their own:
    on the factors' shapes) and its matrix-product kernels, steps/s and
    idle share, final state within [6]'s limit.
 
-Then one JSON line with [9]'s numbers, one with [7]'s and [8]'s
-value_and_grad numbers, one with
+10. The quad (P2-concentration) brain model on the n=32 Morton box, the
+   benchmark's quad flagship (274,625 P2 dofs on a P2 supernode plan of
+   nb=4,352, s=64, flat halo).  Set-up seconds by part (the P2 dof
+   layout, the P2 plan, the factored P2 cache, ``_McSNP2``, the P1 plan,
+   the coarse level) and the peak memory of the frozen state.  [10a]
+   bell_bmv against its plain version at the P2 shapes, the rd constant
+   plane (4352, 64, Kh) and the supernode Jacobi (4352, 64, 64), max rel
+   1e-5, timed as in [5] plus the device time L2-cold.  [10b] the
+   forward, f32, the benchmark's unstructured StepConfig, 5 steps, as in
+   [6]: every step converges, bell_bmv launches at the P2 shapes (its
+   launches by shape and the share of the bound weighted by them),
+   steps/s, the profiler breakdown and idle share; the final c and u
+   within rel-L2 1e-4 of the plain f64 path on the card (where the
+   operating point leaves more, the same run at newton_atol 1e-7 is held
+   to it, as [9a] does).  [10c] the f32 default step (refine_f64) on the
+   same model, 5 steps: one correction solve a step, steps/s and idle
+   share; its final state below [10b]'s error, or, where newton_atol
+   1e-5 stops Newton first, the same run at newton_atol 1e-7 below it
+   and within 1e-5.  [10d] one value_and_grad of ``adjoint_problem`` on
+   the quad model as in [7] (J within 5e-4 and the gradient within 1e-2
+   of the plain f64 path), bell_bmv launching at the P2 shapes in the
+   backward.
+
+Then one JSON line with [10]'s numbers, one with [9]'s, one with [7]'s
+and [8]'s value_and_grad numbers, one with
 every kernel's numbers (each with its launches in the path and in one
 value_and_grad by forward and backward: [7]'s for the 3D rows, [8]'s for
-the 50 x 50 rows), the card's line, and as the last line {"ok": true,
+the 50 x 50 rows; bell_bmv's also at the P2 shapes with its launches in
+[10b] and [10d]), the card's line, and as the last line {"ok": true,
 "device": {...}}.  Any failure raises (exit code != 0).  Needs CUDA:
 without it the script exits non-zero and prints no result.
 """
@@ -798,7 +822,7 @@ def _drive(torch, sim, simulate, args, groups, tag, n_steps, shown=()):
     if not (bool(torch.isfinite(u_tr).all()) and bool(torch.isfinite(c_tr).all())):
         raise AssertionError(f"{tag} non-finite state")
     assert tuple(u_tr.shape) == (n_steps, sim.mesh.n_nodes, sim.mesh.dim)
-    assert tuple(c_tr.shape) == (n_steps, sim.mesh.n_nodes)
+    assert tuple(c_tr.shape) == (n_steps,) + tuple(args[2].shape)
     return (u_tr, c_tr), launches, first_s
 
 
@@ -954,19 +978,27 @@ def phase_lattice_big(torch, dev, sim, tag, suffix, n_steps):
 def _bmv_shapes(torch, usim, theta, dev, tag):
     """bell_bmv vs its plain version at the five shapes an unstructured
     model's tables give it, each timed; returns one record a shape."""
-    import numpy as np
-
-    from glimslib_tpu_torch.ops import bell_kernels as bk
-
     plan = usim._get_bell_plan()
     nb, s, Kh, d = plan.nb, plan.s, plan.Kh, usim.mesh.dim
-    roles = [
+    return _bmv_check(torch, [
         ("elasticity operator _BellWel", theta["_BellWel"].reshape(nb, s * d, Kh * d)),
         ("coupling _BellCuc", theta["_BellCuc"].reshape(nb, s * d, Kh)),
         ("elasticity supernode Jacobi _BinvSN", theta["_BinvSN"]),
         ("rd constant planes _BellWrdC", theta["_BellWrdC"]),
         ("rd supernode Jacobi _McSN", theta["_McSN"]),
-    ]
+    ], dev, tag)
+
+
+def _bmv_check(torch, roles, dev, tag, cold=False):
+    """bell_bmv vs its plain version at each (role, A) of ``roles``, each
+    timed; ``cold``: the device time L2-cold too (the profiler's kernel
+    time after a flush, as [2] times stencil_apply), which then weights
+    the bound in :func:`_bmv_split`.  Returns one record a shape."""
+    import numpy as np
+
+    from glimslib_tpu_torch.ops import bell_kernels as bk
+
+    prep = _cold_l2(torch, dev) if cold else None
     rng = np.random.default_rng(1)
     shapes = []
     for role, A in roles:
@@ -982,20 +1014,31 @@ def _bmv_shapes(torch, usim, theta, dev, tag):
         ms = _time_ms(torch, lambda: bk.batched_matvec(A, x), 50)
         dev_ms, dev_src = _device_ms(torch, lambda: bk.batched_matvec(A, x), 20,
                                    r"bell_bmv_kernel")
+        warm_ms = dev_ms
+        if cold:
+            cold_ms, why = _cold_device_ms(torch, lambda: bk.batched_matvec(A, x), 10,
+                                           prep)
+            if cold_ms is not None:
+                dev_ms, dev_src = cold_ms, "profiler, L2-cold"
+            else:
+                print(f"{tag} bell_bmv {role}: no L2-cold time ({why}); the warm one "
+                      "stands for it")
         plain_ms = _time_ms(torch, lambda: bk.batched_matvec_plain(A, x), 20)
         lib_ms = _time_ms(torch, lambda: torch.bmm(A, x[:, :, None]), 50)
         bound_ms, bound_by = _bound(4 * (B * M * K + B * K + B * M), 2 * B * M * K)
         share = bound_ms / dev_ms
         print(f"{tag} bell_bmv {role} (B, M, K) = {(B, M, K)}: max abs err "
               f"{err:.3e}, max rel err {rel:.3e} (<= {BMV_RTOL}); wrapper call "
-              f"{ms:.4f} ms, kernel on device {dev_ms:.4f} ms ({dev_src}), plain "
+              f"{ms:.4f} ms, kernel on device {dev_ms:.4f} ms ({dev_src}"
+              + (f"; warm {warm_ms:.4f} ms" if cold else "") + "), plain "
               f"{plain_ms:.4f} ms, torch.bmm {lib_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}, {4 * B * M * K / 1e6:.1f} MB of "
               "table)"
               + f", {100 * share:.1f}% of the bound)")
         shapes.append(dict(role=role, shape=[B, M, K], max_abs_err=err, ms=ms,
                            device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                           bound_ms=bound_ms, bound_by=bound_by))
+                           bound_ms=bound_ms, bound_by=bound_by)
+                      | (dict(warm_device_ms=warm_ms) if cold else {}))
     return shapes
 
 
@@ -1213,12 +1256,15 @@ def _adjoint_lane(torch, sim, ref, lane, groups, tag, problem, fd_dir=None,
     ev[1].record()
     h1 = time.perf_counter()
     fwd = {w: w.launches for w in wrappers}
+    fwd_by_shape = dict(bk.batched_matvec.launches_by_shape)
     (g_t,) = torch.autograd.grad(J_t, vt)
     ev[2].record()
     torch.cuda.synchronize()
     h2 = time.perf_counter()
     bwd = {w: w.launches - fwd[w] for w in wrappers}
     by_shape = dict(bk.batched_matvec.launches_by_shape)
+    bwd_by_shape = {s_: c_ - fwd_by_shape.get(s_, 0) for s_, c_ in by_shape.items()
+                    if c_ > fwd_by_shape.get(s_, 0)}
     fwd_ms, bwd_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
     info = {k: [int(i) for i in v] for k, v in sim.solver_info.items()}
     print(f"{tag} {lane}: first value_and_grad {first_s:.3f} s; J {J:.6e}, "
@@ -1232,9 +1278,10 @@ def _adjoint_lane(torch, sim, ref, lane, groups, tag, problem, fd_dir=None,
     print(f"{tag} {lane}: launches in that call, forward / backward: " + ", ".join(
         f"{w.__name__}={fwd[w]}/{bwd[w]}" for w in wrappers))
     if not lattice:
-        print(f"{tag} {lane}: bell_bmv launches in that call by (B, M, K): "
-              + ", ".join(f"{s_}: {c_}" for s_, c_ in sorted(
-                  by_shape.items(), key=lambda x: -x[1])))
+        print(f"{tag} {lane}: bell_bmv launches in that call by (B, M, K), forward / "
+              "backward: " + ", ".join(
+                  f"{s_}: {fwd_by_shape.get(s_, 0)}/{bwd_by_shape.get(s_, 0)}"
+                  for s_, _ in sorted(by_shape.items(), key=lambda x: -x[1])))
     fwd_groups = _forward_groups(ip.sim, groups) if lattice else groups
     missing = [[w.__name__ for w in grp] for grp in groups
                if sum(bwd[w] for w in grp) < 1
@@ -1302,7 +1349,9 @@ def _adjoint_lane(torch, sim, ref, lane, groups, tag, problem, fd_dir=None,
             "rd": info["rd_adj_cg_iters"], "el": info["el_adj_cg_iters"]},
         rel_J=rel_J, rel_grad=rel_g, rel_fd=rel_fd, vjp_passes_ms=passes,
         bell_bmv_launches_by_shape={"x".join(map(str, s_)): c_
-                                    for s_, c_ in by_shape.items()})
+                                    for s_, c_ in by_shape.items()},
+        bell_bmv_launches_by_shape_backward={"x".join(map(str, s_)): c_
+                                             for s_, c_ in bwd_by_shape.items()})
 
 
 def _lattice_groups():
@@ -1671,6 +1720,199 @@ def phase_defaults(torch, dev, lat, uns):
     return out
 
 
+# [10]: the quad (P2-concentration) brain model on the n=32 Morton box,
+# the benchmark's quad flagship (bench.py run_unstructured(quad=True)).
+# Its final state is held to the unstructured limit against the plain f64
+# path; where the operating point (rd forcing 1e-3, newton_atol 1e-5)
+# leaves more, the run is repeated at QUAD_NEWTON_ATOL and that run is
+# held to the limit (as [9a] does).
+QUAD_RTOL = UNSTRUCT_RTOL
+QUAD_NEWTON_ATOL = 1e-7
+
+
+def _quad_vs_ref(torch, sim, final, args, ref_traj, tag):
+    """rel-L2 (c, u) of a quad run's final state ``final`` (u, c) against
+    the f64 plain path's; when above QUAD_RTOL, the same run at
+    QUAD_NEWTON_ATOL too."""
+    from glimslib_tpu_torch.solvers.coupled import StepConfig
+
+    rel = (_rel_l2(final[1], ref_traj[1]), _rel_l2(final[0], ref_traj[0]))
+    print(f"{tag} vs the f64 plain path: rel-L2 c {rel[0]:.3e}, u {rel[1]:.3e} "
+          f"(<= {QUAD_RTOL})")
+    if max(rel) <= QUAD_RTOL:
+        return rel, None
+    cfg = sim.step_config
+    sim.step_config = StepConfig(**{**cfg._asdict(), "newton_atol": QUAD_NEWTON_ATOL})
+    u_t, c_t, ok_t, newton = sim.build_simulate_fn(N_STEPS, 1.0)(*args)
+    sim.step_config = cfg
+    tight = (_rel_l2(c_t[-1], ref_traj[1]), _rel_l2(u_t[-1], ref_traj[0]))
+    print(f"{tag} above the limit: at newton_atol {QUAD_NEWTON_ATOL} (Newton "
+          f"{newton.tolist()}) rel-L2 c {tight[0]:.3e}, u {tight[1]:.3e} (<= {QUAD_RTOL})")
+    if not bool(ok_t.all()) or max(tight) > QUAD_RTOL:
+        raise AssertionError(f"{tag} vs the f64 plain path: {rel}, at newton_atol "
+                             f"{QUAD_NEWTON_ATOL} {tight}")
+    return rel, tight
+
+
+def phase_quad(torch, dev, kern):
+    """[10]: set-up by part, bell_bmv at the P2 shapes ([10a]), the
+    forward at the benchmark's unstructured StepConfig ([10b]), the f32
+    default refined step ([10c]) and one value_and_grad ([10d]); ``kern``
+    (the bell_bmv row) gains the P2 shapes and their launches."""
+    from glimslib_tpu_torch.core.mesh import Mesh
+    from glimslib_tpu_torch.examples import UNSTRUCT_STEP_CONFIG, adjoint_problem, brain_sim
+    from glimslib_tpu_torch.models.base import default_step_config
+    from glimslib_tpu_torch.ops import bell_kernels as bk
+    from glimslib_tpu_torch.ops.p2 import p2_dof_layout
+    from glimslib_tpu_torch.solvers.coupled import StepConfig
+
+    t_phase = time.perf_counter()
+    tag = f"[10] quad n={N}:"
+    t0 = time.perf_counter()
+    sim = brain_sim(n=N, dtype=torch.float32, device=dev, unstructured=True, quad=True)
+    model_s = time.perf_counter() - t0
+    assert sim.step_config == UNSTRUCT_STEP_CONFIG
+    t0 = time.perf_counter()
+    p2_dof_layout(Mesh.from_arrays(sim.mesh.points, sim.mesh.cells))
+    layout_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    aux = sim.runtime_aux()
+    torch.cuda.synchronize()
+    aux_s = time.perf_counter() - t0
+    aux_peak = torch.cuda.max_memory_allocated(dev)
+    t0 = time.perf_counter()
+    u0, c0 = sim.initial_state()
+    torch.cuda.synchronize()
+    iv_s = time.perf_counter() - t0
+    p2, pp, bp = sim.p2, sim._get_p2_plan(), sim._get_bell_plan()
+    st = sim.setup_seconds
+    slots = pp.nb * pp.s * pp.Kh
+    print(f"{tag} {p2.n_dofs} P2 dofs ({sim.mesh.n_nodes} nodes + {p2.n_edges} "
+          f"edges), {sim.mesh.n_cells} tets; P2 plan nb={pp.nb}, s={pp.s}, Kh={pp.Kh} "
+          f"(Khe={pp.Khe}, flat halo): {slots} slots, {4 * slots / 1e6:.1f} MB a f32 "
+          f"plane, placement index {8 * slots / 1e6:.1f} MB; P1 plan nb={bp.nb}, "
+          f"s={bp.s}, Kh={bp.Kh}")
+    print(f"{tag} set-up seconds: model {model_s:.2f} (of it the P2 dof layout "
+          f"{layout_s:.2f}), P2 plan {st['p2_plan']:.2f}, factored P2 cache "
+          f"{st['factored_p2']:.2f}, _McSNP2 {st['p2_supernode_jacobi']:.2f}, P1 plan "
+          f"{st['bell_plan']:.2f}, P1 supernode Jacobi {st['supernode_jacobi']:.2f}, "
+          f"factored P1 {st['factored']:.2f}, coarse level "
+          f"{st.get('coarse_build', 0.0) + st.get('coarse_inverse', 0.0):.2f}; frozen "
+          f"state {aux_s:.2f} s in all, peak memory {aux_peak / 2**20:.1f} MiB; IV "
+          f"projection {iv_s:.2f} s; _FP2Wrd {tuple(aux['_FP2Wrd'].shape)}")
+    if (p2.n_dofs, pp.nb, pp.s) != (274625, 4352, 64):
+        raise AssertionError(f"{tag} flagship sizes {(p2.n_dofs, pp.nb, pp.s)}")
+
+    # [10a] bell_bmv at the P2 shapes
+    theta = sim.make_theta(sim.params.as_dict())
+    sim._build_step()
+    aug = sim._augment_theta_with_operators({**theta, **aux})
+    shapes = _bmv_check(torch, [
+        ("P2 rd constant plane _P2BWrdC", aug["_P2BWrdC"]),
+        ("P2 supernode Jacobi _McSNP2", aug["_McSNP2"]),
+    ], dev, "[10a]", cold=True)
+    del aug
+    kern["p2_shapes"] = shapes
+    p2_keys = [(pp.nb, pp.s, pp.Kh), (pp.nb, pp.s, pp.s)]
+
+    # [10b] the forward at the benchmark's operating point
+    simulate = sim.build_simulate_fn(N_STEPS, 1.0)
+    args = (theta, u0, c0)
+    bk.batched_matvec.launches_by_shape = {}
+    (u_tr, c_tr), launches, first_s = _drive(torch, sim, simulate, args,
+                                             [(bk.batched_matvec,)], "[10b]", N_STEPS)
+    by_shape = dict(bk.batched_matvec.launches_by_shape)
+    if any(by_shape.get(k, 0) < 1 for k in p2_keys):
+        raise AssertionError(f"[10b] bell_bmv did not launch at the P2 shapes: {by_shape}")
+    kern["quad_launches"] = launches[bk.batched_matvec]
+    kern["quad_launches_by_shape"] = {"x".join(map(str, k)): c for k, c in by_shape.items()}
+    share = _bmv_split({"shapes": kern["shapes"] + shapes}, by_shape, "[10b]")
+    iters = {k: [int(i) for i in sim.solver_info[k]] for k in ("rd_cg_iters", "el_cg_iters")}
+    _, run = _time_runs(torch, simulate, args, dev, "[10b]", N_STEPS)
+
+    t0 = time.perf_counter()
+    ref = brain_sim(n=N, dtype=torch.float64, device=dev, plain=True, unstructured=True,
+                    quad=True)
+    # the plans are the mesh's; the frozen coarse factors carry over (a
+    # preconditioner changes iteration counts only), the supernode
+    # inverses and the P2 planes are built in f64
+    ref._bell_plan, ref._p2_plan = bp, pp
+    ref._aux_cache = {k: v.double() for k, v in aux.items() if k.startswith("_TL")}
+    f64_defaults = ref.step_config
+    ref.step_config = StepConfig(newton_rtol=1e-10, newton_atol=1e-14, cg_rtol=1e-12,
+                                 cg_maxiter=4000)
+    u_r, c_r, ok_r, newton_r = ref.build_simulate_fn(N_STEPS, 1.0)(
+        ref.make_theta(ref.params.as_dict()), *ref.initial_state())
+    torch.cuda.synchronize()
+    if not bool(ok_r.all()):
+        raise AssertionError("[10b] quad f64 plain reference did not converge")
+    print(f"[10b] f64 plain reference on the card ({time.perf_counter() - t0:.1f} s, "
+          f"Newton {newton_r.tolist()}, rd CG {[int(i) for i in ref.solver_info['rd_cg_iters']]}, "
+          f"elasticity CG {[int(i) for i in ref.solver_info['el_cg_iters']]})")
+    ref_traj = (u_r[-1], c_r[-1])
+    rel, rel_tight = _quad_vs_ref(torch, sim, (u_tr[-1], c_tr[-1]), args, ref_traj,
+                                  "[10b]")
+    ref.step_config = f64_defaults
+
+    # [10c] the f32 default: refined in f64
+    sim.step_config = default_step_config(torch.float32)
+    assert sim.step_config.refine_f64
+    simulate_r = sim.build_simulate_fn(N_STEPS, 1.0)
+    (u_f, c_f), launches_r, _ = _drive(torch, sim, simulate_r, args,
+                                       [(bk.batched_matvec,)], "[10c]", N_STEPS)
+    n_fix = len(sim.solver_info["el_refine_cg_iters"])
+    _, run_r = _time_runs(torch, simulate_r, args, dev, "[10c]", N_STEPS)
+    rel_r = (_rel_l2(c_f[-1], c_r[-1]), _rel_l2(u_f[-1], u_r[-1]))
+    below = rel_r[0] < rel[0] and rel_r[1] < rel[1]
+    print(f"[10c] refined vs the f64 plain path: rel-L2 c {rel_r[0]:.3e}, u "
+          f"{rel_r[1]:.3e} ([10b]: {rel[0]:.3e}, {rel[1]:.3e}; below it: {below}); "
+          f"correction solves {n_fix} (one a step)")
+    if n_fix != N_STEPS:
+        raise AssertionError(f"[10c] refined: {n_fix} correction solves")
+    rel_rt = None
+    if not below:
+        # the default's newton_atol (1e-5, absolute) stops Newton before the
+        # f64 residual's precision shows; the same run at QUAD_NEWTON_ATOL
+        # is held below [10b]'s error and to REFINED_RTOL
+        sim.step_config = StepConfig(**{**sim.step_config._asdict(),
+                                        "newton_atol": QUAD_NEWTON_ATOL})
+        u_t, c_t, ok_t, newton_t = sim.build_simulate_fn(N_STEPS, 1.0)(*args)
+        rel_rt = (_rel_l2(c_t[-1], c_r[-1]), _rel_l2(u_t[-1], u_r[-1]))
+        print(f"[10c] refined at newton_atol {QUAD_NEWTON_ATOL} (Newton "
+              f"{newton_t.tolist()}): rel-L2 c {rel_rt[0]:.3e}, u {rel_rt[1]:.3e} "
+              f"(below [10b]'s and <= {REFINED_RTOL})")
+        if not (bool(ok_t.all()) and rel_rt[0] < rel[0] and rel_rt[1] < rel[1]
+                and max(rel_rt) <= REFINED_RTOL):
+            raise AssertionError(f"[10c] refined at newton_atol {QUAD_NEWTON_ATOL}: "
+                                 f"{rel_rt} against [10b]'s {rel}")
+        del u_t, c_t
+    sim.step_config = UNSTRUCT_STEP_CONFIG
+    del u_tr, c_tr, u_f, c_f
+
+    # [10d] one value_and_grad of the benchmark's adjoint cell on the quad model
+    counts, nums = _adjoint_lane(torch, sim, ref, "quad unstructured",
+                                 [(bk.batched_matvec,)], "[10d]",
+                                 lambda s_: adjoint_problem(sim=s_), vjp_passes=False)
+    bwd_p2 = {k: nums["bell_bmv_launches_by_shape_backward"].get("x".join(map(str, k)), 0)
+              for k in p2_keys}
+    if min(bwd_p2.values()) < 1:
+        raise AssertionError(f"[10d] bell_bmv did not launch at the P2 shapes in the "
+                             f"backward: {bwd_p2}")
+    kern["quad_adjoint_launches"] = {way: c[bk.batched_matvec] for way, c in counts.items()}
+    kern["quad_adjoint_launches_by_shape"] = {
+        "total": nums["bell_bmv_launches_by_shape"],
+        "backward": nums["bell_bmv_launches_by_shape_backward"]}
+    print(f"[10] quad phase {time.perf_counter() - t_phase:.1f} s")
+    return dict(
+        p2_dofs=p2.n_dofs, plan=dict(nb=pp.nb, s=pp.s, Kh=pp.Kh, slots=slots),
+        setup_s=dict(model=model_s, p2_layout=layout_s, iv_projection=iv_s, **st),
+        forward=dict(first_s=first_s, rel_c=rel[0], rel_u=rel[1],
+                     rel_tight=rel_tight, weighted_bound_share=share, **iters, **run),
+        refined=dict(rel_c=rel_r[0], rel_u=rel_r[1], rel_tight=rel_rt, **run_r),
+        adjoint=nums)
+
+
 def main():
     import torch
 
@@ -1722,7 +1964,11 @@ def main():
     del sim, usim, ref, uref, base6
     torch.cuda.empty_cache()
 
+    quad = phase_quad(torch, dev, kern)
+    torch.cuda.empty_cache()
+
     drop = ("wrappers", "pattern", "iters")
+    print(json.dumps({"quad": quad}, default=str))
     print(json.dumps({"defaults": defaults}, default=str))
     print(json.dumps({"adjoint": adjoint}))
     print(json.dumps({"kernels": [

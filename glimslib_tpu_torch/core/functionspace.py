@@ -1,12 +1,16 @@
-"""P1 function spaces and initial values (counterpart of
-``glimslib_tpu/core/functionspace.py``, P1 subspaces only).
+"""P1 and P2 function spaces and initial values (counterpart of
+``glimslib_tpu/core/functionspace.py``).
 
-A mixed P1-vector x P1-scalar space is a pair of nodal arrays,
-displacement (n_nodes, d) and concentration (n_nodes,).  Initial values
-are projected as in the reference: an L2 projection with the quadrature
-right-hand side in numpy and a mass-matrix CG solve in torch, float64 on
-the CPU (set-up, run once per model).  P2 subspaces raise
-``NotImplementedError``.
+A mixed space is one array per subspace: a P1 subspace holds one value a
+mesh node (displacement (n_nodes, d), concentration (n_nodes,)), a P2
+subspace one a node and one an edge, in the shared interleaved order of
+``ops/p2.py p2_dof_layout`` (the quad models' concentration).  Initial
+values are projected as in the reference: an L2 projection with the
+quadrature right-hand side in numpy and a mass-matrix CG solve in torch,
+float64 (set-up, run once per call).  P1 solves run on the CPU; P2 solves
+(degree-6 quadrature, the exact mass diagonal as Jacobi preconditioner,
+reference ``functionspace.py:196-258``) on the space's ``device``, the
+model's.
 """
 
 from __future__ import annotations
@@ -56,25 +60,28 @@ class SubSpaces:
 
 
 class FunctionSpace:
-    """Mixed P1 function space over a Mesh; ``element_spec`` lists
-    ``(rank, degree)`` per subspace."""
+    """Mixed P1/P2 function space over a Mesh; ``element_spec`` lists
+    ``(rank, degree)`` per subspace.  P2 projections run on ``device``."""
 
-    def __init__(self, mesh):
+    def __init__(self, mesh, device="cpu"):
         self.mesh = mesh
+        self.device = torch.device(device)
         self.subspaces: Optional[SubSpaces] = None
         self._kernels_cache = None
+        self._p2_kernels_cache = None
 
     def init_function_space(self, element_spec, subspace_names):
         self.subspaces = SubSpaces(len(element_spec))
         for sid, (rank, degree) in enumerate(element_spec):
-            if degree != 1:
-                raise NotImplementedError(
-                    "only P1 subspaces are ported (degree 2 waits for the "
-                    "quad family)"
-                )
+            if degree == 1:
+                n_dofs = self.mesh.n_nodes
+            elif degree == 2:
+                n_dofs = self.mesh.n_nodes + len(self.mesh.edges()[0])
+            else:
+                raise ValueError(f"unsupported degree {degree}")
             self.subspaces.set_subspace(sid, SubSpace(
                 name=subspace_names.get(sid, f"subspace_{sid}"), rank=rank,
-                degree=degree, n_dofs=self.mesh.n_nodes, dim=self.mesh.dim,
+                degree=degree, n_dofs=n_dofs, dim=self.mesh.dim,
             ))
 
     @property
@@ -82,7 +89,12 @@ class FunctionSpace:
         return self.subspaces is not None and self.subspaces.n > 1
 
     def dof_coordinates(self, subspace_id: int) -> np.ndarray:
-        return self.mesh.points
+        """Coordinates of a subspace's scalar dofs, in its dof order."""
+        if self.subspaces.get_subspace(subspace_id).degree == 1:
+            return self.mesh.points
+        from glimslib_tpu_torch.ops.p2 import p2_dof_coordinates
+
+        return p2_dof_coordinates(self.mesh)
 
     def _eval_expression(self, expr, coords, value_size, time=None):
         """Evaluate a constant / array / callable expression at coords."""
@@ -108,12 +120,52 @@ class FunctionSpace:
             self._kernels_cache = P1Kernels(self.mesh, dtype=torch.float64)
         return self._kernels_cache
 
+    def _p2_kernels(self):
+        if self._p2_kernels_cache is None:
+            from glimslib_tpu_torch.ops.p2 import P2Kernels
+
+            self._p2_kernels_cache = P2Kernels(self.mesh, dtype=torch.float64,
+                                               device=self.device)
+        return self._p2_kernels_cache
+
+    def _project_p2(self, expr, ss, subspace_id, time, rtol, maxiter):
+        """L2 projection onto a P2 subspace: b_i = ∫ expr φ_i dx by
+        degree-6 quadrature, then a mass CG with the exact mass diagonal as
+        Jacobi preconditioner; a vector subspace solves one scalar system
+        a component."""
+        from glimslib_tpu_torch.solvers.cg import pcg
+
+        p2 = self._p2_kernels()
+        vs = ss.value_size
+        diag = p2.mass_diag()
+
+        def solve(b):
+            x, _ = pcg(p2.mass_residual, b, M=lambda r: r / diag, rtol=rtol,
+                       maxiter=maxiter)
+            return x.cpu().numpy()
+
+        if callable(expr):
+            def comp(a):
+                return lambda x: np.asarray(
+                    self._eval_expression(expr, x, vs, time)).reshape(len(x), vs)[:, a]
+            bs = [p2.project_rhs(comp(a)) for a in range(vs)]
+        else:
+            vals = self._eval_expression(
+                expr, self.dof_coordinates(subspace_id), vs, time
+            ).reshape(ss.n_dofs, vs)
+            bs = [p2.mass_residual(torch.as_tensor(vals[:, a], device=p2.device))
+                  for a in range(vs)]
+        xs = [solve(b) for b in bs]
+        return xs[0] if vs == 1 else np.stack(xs, axis=1)
+
     def project(self, expr, subspace_id: int, time=None, rtol=1e-12, maxiter=2000):
-        """L2 projection onto a P1 subspace: solve M x = b with
-        b_i = ∫ expr φ_i dx by degree-4 quadrature (numpy float64)."""
+        """L2 projection onto a subspace: solve M x = b with
+        b_i = ∫ expr φ_i dx by quadrature (degree 4 for P1, 6 for P2)."""
         from glimslib_tpu_torch.solvers.cg import pcg
 
         ss = self.subspaces.get_subspace(subspace_id)
+        if ss.degree == 2:
+            return self._project_p2(expr, ss, subspace_id, time, rtol, maxiter)
         mesh = self.mesh
         qp, qw = simplex_quadrature(mesh.dim, 4)
         vals, _ = P1Element(mesh.dim).tabulate(qp)  # (nq, npe)

@@ -9,10 +9,15 @@ strips the lattice structure and reorders the nodes along a Morton curve
 (``bench.py run_unstructured``): the same tets through the unstructured
 lane, which the benchmark times with :data:`UNSTRUCT_STEP_CONFIG`.
 :data:`REFINED_STEP_CONFIG` is the benchmark's accuracy mode, the f32
-step refined in f64.
+step refined in f64.  ``quad=True`` builds the quad model (P2
+concentration, ``models/tumor_growth_brain_quad.py``), the family the
+reference's workflow drives: with ``unstructured=True`` at n=32 it is the
+benchmark's quad flagship (274,625 P2 dofs), which at f32 takes
+:data:`UNSTRUCT_STEP_CONFIG` as the benchmark times it.
 
 ``adjoint_problem`` is the benchmark's adjoint cell (``bench.py
-run_adjoint``): the 2-parameter inverse problem on that box.
+run_adjoint``): the 2-parameter inverse problem on that box (on the quad
+model with ``quad=True``).
 
 The 2D problems, each with the settings of the reference example it is
 named after (``examples/``):
@@ -39,6 +44,7 @@ import torch
 
 from glimslib_tpu_torch.core.mesh import Mesh, box_mesh, rectangle_mesh
 from glimslib_tpu_torch.models.tumor_growth import TumorGrowth
+from glimslib_tpu_torch.models import tumor_growth_brain_quad
 from glimslib_tpu_torch.models.tumor_growth_brain import TumorGrowthBrain
 from glimslib_tpu_torch.solvers.coupled import StepConfig
 
@@ -66,9 +72,12 @@ class _Boundary:
         return on_boundary
 
 
-def brain_sim(n=10, dtype=None, device=None, plain=False, unstructured=False):
+def brain_sim(n=10, dtype=None, device=None, plain=False, unstructured=False,
+              quad=False):
     """TumorGrowthBrain on the synthetic brain box, set up as the reference
-    benchmark sets it up; on the card unless ``device`` says otherwise."""
+    benchmark sets it up; on the card unless ``device`` says otherwise.
+    ``quad``: the quad model (needs ``unstructured``: the port runs it on
+    the unstructured lane only), at f32 with :data:`UNSTRUCT_STEP_CONFIG`."""
     mesh = box_mesh((0, 0, 0), (10, 10, 10), n, n, n)
     if unstructured:
         mesh = Mesh.from_arrays(mesh.points, mesh.cells).reordered_morton()
@@ -79,7 +88,8 @@ def brain_sim(n=10, dtype=None, device=None, plain=False, unstructured=False):
     labels[r < 0.62] = 3
     labels[r < 0.20] = 4
 
-    sim = TumorGrowthBrain(mesh, dtype=dtype, device=device, plain=plain)
+    model = tumor_growth_brain_quad.TumorGrowthBrain if quad else TumorGrowthBrain
+    sim = model(mesh, dtype=dtype, device=device, plain=plain)
     sim.setup_global_parameters(
         label_function=labels,
         domain_names={0: "outside", 1: "CSF", 2: "GM", 3: "WM", 4: "Ventricles"},
@@ -104,6 +114,8 @@ def brain_sim(n=10, dtype=None, device=None, plain=False, unstructured=False):
         D_GM=0.02, D_WM=0.1, rho_GM=0.02, rho_WM=0.1, coupling=0.15,
         sim_time=5, sim_time_step=1,
     )
+    if quad and sim.dtype == torch.float32:
+        sim.step_config = UNSTRUCT_STEP_CONFIG
     return sim
 
 
@@ -111,17 +123,20 @@ def brain_sim(n=10, dtype=None, device=None, plain=False, unstructured=False):
 ADJ_STEPS = 5
 
 
-def adjoint_problem(n=16, unstructured=False, dtype=None, device=None, sim=None):
+def adjoint_problem(n=16, unstructured=False, dtype=None, device=None, sim=None,
+                    quad=False):
     """``(InverseProblem, v0)`` of the benchmark's adjoint cell, as
     ``bench.py run_adjoint`` sets it up: the brain box (``sim``, or a new
-    :func:`brain_sim`), at f32 the benchmark's StepConfig of its lane,
+    :func:`brain_sim`, the quad model with ``quad``), at f32 the
+    benchmark's StepConfig of its lane,
     targets ``conc_T2 = thresh(c_T, 0.12)`` and ``disp = u_T`` from a
     forward run at the set-up parameters, parameter map type 2 (D_WM,
     rho_WM), 5 steps of dt = 1, and ``v0 = [0.05, 0.05]``."""
     from glimslib_tpu_torch.optimize.adjoint import InverseProblem, param_map_for_type
 
     if sim is None:
-        sim = brain_sim(n=n, dtype=dtype, device=device, unstructured=unstructured)
+        sim = brain_sim(n=n, dtype=dtype, device=device, unstructured=unstructured,
+                        quad=quad)
     if sim.dtype == torch.float32:
         sim.step_config = (UNSTRUCT_STEP_CONFIG if sim.mesh.lattice_strides is None
                            else BENCH_STEP_CONFIG)

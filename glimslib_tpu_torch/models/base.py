@@ -28,6 +28,15 @@ Two operator lanes, chosen by the mesh:
   coefficients are class-wise constant the factored channel stacks of
   ``ops/bell_factored.py``) is built once per model at the set-up
   parameters (:meth:`runtime_aux`).
+- **Quad models on unstructured meshes** (P2 concentration,
+  ``CONCENTRATION_DEGREE = 2``): the same lane, with the concentration
+  block on a second supernode plan over the P2 dofs (``ops/p2_ell.py``,
+  s = 64): the assembled P2 rd Jacobian (constant planes plus the exact
+  logistic correction, or its lumped row sums for the chord method), its
+  supernode block-Jacobi ``_McSNP2`` without a coarse level, and the
+  factored P2 channels; the residuals are the quadrature kernels of
+  ``ops/p2.py``.  The elasticity block and its preconditioners are the P1
+  lane's.
 
 The lane's settings are the reference's defaults, fixed: supernodes of
 32 nodes, aggregates of 64, the coarse factors truncated to max(2048,
@@ -45,9 +54,10 @@ the trajectory gives the reference's exact gradient (``optimize/``).
 Solver non-convergence freezes the carried state and flags the remaining
 steps, as in the reference.  ``plain=True`` routes every kernel call
 through its plain torch version on any device: a reference run for
-checking the kernels on the card.  Outside the port so far (P2
-concentration, sharding, Chebyshev preconditioning, von Neumann BCs,
-time-dependent sources) the model raises ``NotImplementedError``.
+checking the kernels on the card.  Outside the port so far (the quad
+models on lattice meshes, sharding, Chebyshev preconditioning, von
+Neumann BCs, time-dependent sources) the model raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -68,7 +78,7 @@ from glimslib_tpu_torch.core.functionspace import FunctionSpace
 from glimslib_tpu_torch.core.params import Parameters
 from glimslib_tpu_torch.core.subdomains import SubDomains
 from glimslib_tpu_torch.ops import (
-    bell, bell_factored, bell_kernels, ell, fused_cg, stencil_kernels,
+    bell, bell_factored, bell_kernels, ell, fused_cg, p2_ell, stencil_kernels,
 )
 from glimslib_tpu_torch.ops.assembly import P1Kernels
 from glimslib_tpu_torch.ops.stencil import StencilOperators
@@ -116,6 +126,30 @@ def _coarse_k(dim_c):
     return k if k < dim_c else None
 
 
+def default_step_config(dtype):
+    """A model's default StepConfig for its working dtype: solver
+    tolerances scale with the working precision, as in the reference (f32
+    cannot reach the f64 defaults), under the solver profile
+    (``config.resolve_profile``); on f32 the step refines in f64 unless
+    ``GLIMS_REFINE_F64`` says otherwise."""
+    profile = config.resolve_profile()
+    if dtype == torch.float64:
+        if profile == "reference":
+            return StepConfig(newton_rtol=1e-8, cg_rtol=1e-5, rd_cg_rtol=1e-3,
+                              precond_degree=config.precond_degree)
+        return StepConfig(precond_degree=config.precond_degree)
+    if profile == "reference":
+        return StepConfig(
+            newton_rtol=1e-4, newton_atol=1e-5, cg_rtol=1e-5, cg_maxiter=1000,
+            rd_cg_rtol=1e-3, precond_degree=config.precond_degree, refine_f64=False,
+        )
+    return StepConfig(
+        newton_rtol=1e-4, newton_atol=1e-5, cg_rtol=1e-7, cg_maxiter=1000,
+        precond_degree=config.precond_degree,
+        refine_f64=config.resolve_refine_f64(dtype),
+    )
+
+
 class Simulation(ABC):
     """Abstract time-dependent simulation (reference FenicsSimulation)."""
 
@@ -125,49 +159,34 @@ class Simulation(ABC):
 
     def __init__(self, mesh, time_dependent=True, dtype=None, device=None,
                  plain=False):
-        if self.CONCENTRATION_DEGREE != 1:
-            raise NotImplementedError("P2 concentration is not ported yet")
+        self.lattice = mesh.lattice_strides is not None
+        self.quad = self.CONCENTRATION_DEGREE == 2
+        if self.quad and self.lattice:
+            # the reference runs quad models on lattice meshes on its
+            # matrix-free jvp lane (no stencil builders for degree 2)
+            raise NotImplementedError(
+                "a quad (P2-concentration) model on a lattice-carrying mesh "
+                "takes the matrix-free jvp lane, which is not ported: pass a "
+                "mesh without lattice structure (Mesh.from_arrays)")
         self.logger = logging.getLogger(type(self).__name__)
         self.mesh = mesh
-        self.lattice = mesh.lattice_strides is not None
         self.time_dependent = time_dependent
         self.dtype = config.resolve_dtype(dtype)
         self.device = config.resolve_device(device)
         self._k = _kernel_ops(plain)
-        self.functionspace = FunctionSpace(mesh)
+        self.functionspace = FunctionSpace(mesh, device=self.device)
         self._define_model_params()
         self.kernels = P1Kernels(mesh, dtype=self.dtype, device=self.device)
         self._stencil_ops = None
         self._bell_plan = None
+        self._p2_plan = None
         self._agg_plan = None
         self._aux_cache = None
         self._bc_cache = None
         # per-solve CG iteration counts (0-d tensors) of the last simulate
         # and of its backward
         self.solver_info = _new_solver_info()
-        # solver tolerances scale with the working precision, as in the
-        # reference (f32 cannot reach the f64 defaults)
-        profile = config.resolve_profile()
-        if self.dtype == torch.float64:
-            if profile == "reference":
-                self.step_config = StepConfig(
-                    newton_rtol=1e-8, cg_rtol=1e-5, rd_cg_rtol=1e-3,
-                    precond_degree=config.precond_degree,
-                )
-            else:
-                self.step_config = StepConfig(precond_degree=config.precond_degree)
-        elif profile == "reference":
-            self.step_config = StepConfig(
-                newton_rtol=1e-4, newton_atol=1e-5, cg_rtol=1e-5,
-                cg_maxiter=1000, rd_cg_rtol=1e-3,
-                precond_degree=config.precond_degree, refine_f64=False,
-            )
-        else:
-            self.step_config = StepConfig(
-                newton_rtol=1e-4, newton_atol=1e-5, cg_rtol=1e-7,
-                cg_maxiter=1000, precond_degree=config.precond_degree,
-                refine_f64=config.resolve_refine_f64(self.dtype),
-            )
+        self.step_config = default_step_config(self.dtype)
 
     def use_sharding(self, *args, **kwargs):
         raise NotImplementedError("sharded execution is not ported yet")
@@ -276,7 +295,8 @@ class Simulation(ABC):
             mask_c, vc = self.bcs.dirichlet_mask_and_values(sc)
             unused = self._unused_node_mask()
             mask_u = mask_u | unused[:, None]
-            mask_c = mask_c | unused
+            if not self.quad:
+                mask_c = mask_c | unused
             tdep = self.bcs.has_time_dependent_dirichlet
             vu0, vc0 = self._tensor(vu), self._tensor(vc)
 
@@ -375,6 +395,13 @@ class Simulation(ABC):
             self._bell_plan = bell.BellPlan(self.mesh, s=32, device=self.device)
         return self._bell_plan
 
+    def _get_p2_plan(self):
+        """The supernode plan over the P2 dofs of a quad model (s = 64,
+        the reference's default, base.py:492-509)."""
+        if self._p2_plan is None:
+            self._p2_plan = p2_ell.make_p2_plan(self.p2, s=64)
+        return self._p2_plan
+
     def _mesh_arrays(self):
         return self.kernels.grads_T, self.kernels.vol
 
@@ -393,48 +420,60 @@ class Simulation(ABC):
         """Frozen state of the unstructured lane, built once per model from
         the set-up parameters and cached (reference base.py:755-970): the
         supernode block-Jacobi inverses ``_BinvSN`` (nb, s d, s d) and
-        ``_McSN`` (nb, s, s), the factored channel stacks
-        (:meth:`_factored_aux`), and, when the two-level level is on, its
-        arrays (:meth:`_twolevel_aux`), the coarse factors in bf16 on f32
-        models.  A preconditioner shapes iteration counts only, so
-        freezing it across parameter updates never changes a solution.
-        ``setup_seconds`` records what the build took.  {} on lattice
-        meshes."""
+        ``_McSN`` (nb, s, s) (a quad model: ``_McSNP2`` (nb2, s2, s2) on
+        the P2 plan), the factored channel stacks (:meth:`_factored_aux`),
+        and, when the two-level level is on, its arrays
+        (:meth:`_twolevel_aux`), the coarse factors in bf16 on f32 models.
+        A preconditioner shapes iteration counts only, so freezing it
+        across parameter updates never changes a solution.
+        ``setup_seconds`` records what the build took, by part.  {} on
+        lattice meshes."""
         if self.lattice:
             return {}
         if self._aux_cache is not None:
             return self._aux_cache
         theta0 = self.make_theta(self.params.as_dict())
         mask_u, mask_c, _, _ = self._bc_masks_and_values()
-        bplan = self._get_bell_plan()
-        arrays = self._mesh_arrays()
-        m0 = self.kernels._m0
         times = {}
         t0 = time.perf_counter()
+        bplan = self._get_bell_plan()
+        times["bell_plan"] = time.perf_counter() - t0
+        if self.quad:
+            t0 = time.perf_counter()
+            p2plan = self._get_p2_plan()
+            times["p2_plan"] = time.perf_counter() - t0
+        arrays = self._mesh_arrays()
+        m0 = self.kernels._m0
+        t0 = time.perf_counter()
         Wel = bell.build_bell_elasticity(bplan, arrays, theta0["mu"], theta0["lam"])
-        Wrd = bell.build_bell_rd_const(bplan, arrays, theta0["D"], theta0["rho"],
-                                       theta0["dt"], m0)
-        aux = {
-            "_BinvSN": bell.supernode_jacobi_inverse(
-                bplan, bell.extract_self_blocks_vector(bplan, Wel), mask=mask_u),
-            "_McSN": bell.supernode_jacobi_inverse(
-                bplan, bell.extract_self_blocks_scalar(bplan, Wrd), mask=mask_c),
-        }
-        del Wel, Wrd
+        aux = {"_BinvSN": bell.supernode_jacobi_inverse(
+            bplan, bell.extract_self_blocks_vector(bplan, Wel), mask=mask_u)}
+        del Wel
+        if not self.quad:
+            Wrd = bell.build_bell_rd_const(bplan, arrays, theta0["D"], theta0["rho"],
+                                           theta0["dt"], m0)
+            aux["_McSN"] = bell.supernode_jacobi_inverse(
+                bplan, bell.extract_self_blocks_scalar(bplan, Wrd), mask=mask_c)
+            del Wrd
         self._sync()
         times["supernode_jacobi"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        fac = self._factored_aux()
-        if fac:
-            aux.update(fac)
+        if self.quad:
+            t0 = time.perf_counter()
+            Wrd2 = p2_ell.build_p2_rd_const(p2plan, self.p2, theta0["D"],
+                                            theta0["rho"], theta0["dt"])
+            aux["_McSNP2"] = bell.supernode_jacobi_inverse(
+                p2plan, bell.extract_self_blocks_scalar(p2plan, Wrd2), mask=mask_c)
+            del Wrd2
             self._sync()
-            times["factored"] = time.perf_counter() - t0
+            times["p2_supernode_jacobi"] = time.perf_counter() - t0
+        aux.update(self._factored_aux(times))
         tl = self._twolevel_aux(theta0, times)
         if tl and self.dtype == torch.float32:
             # half the factors' memory traffic, the coarse apply's cost; the
             # Gram form stays PSD in any storage precision
             for k in ("_TLCfac", "_TLCfacS"):
-                tl[k] = tl[k].to(torch.bfloat16)
+                if k in tl:
+                    tl[k] = tl[k].to(torch.bfloat16)
         aux.update(tl)
         self.setup_seconds = times
         self.logger.info("runtime aux built: %s", {k: f"{v:.2f} s"
@@ -459,35 +498,56 @@ class Simulation(ABC):
         eplan = ell.EllPlan(self.mesh, device=self.device)
         B = ell.build_ell_elasticity(eplan, arrays, theta0["mu"], theta0["lam"])
         Ac = twolevel.build_coarse(agg, eplan.adj_idx, B, mask_u)
-        W = ell.build_ell_rd_const(eplan, arrays, theta0["D"], theta0["rho"],
-                                   theta0["dt"], m0)
-        Acs = twolevel.build_coarse_scalar(agg, eplan.adj_idx, W, mask_c)
-        del B, W
+        del B
+        Acs = None
+        if not self.quad:
+            # the scalar level of the P1 rd solves (a quad model's P2
+            # solves take supernode block-Jacobi alone, as in the reference)
+            W = ell.build_ell_rd_const(eplan, arrays, theta0["D"], theta0["rho"],
+                                       theta0["dt"], m0)
+            Acs = twolevel.build_coarse_scalar(agg, eplan.adj_idx, W, mask_c)
+            del W
         self._sync()
         times["coarse_build"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         aux["_TLCfac"] = twolevel.coarse_inverse(Ac, k=_coarse_k(Ac.shape[0]))
-        aux["_TLCfacS"] = twolevel.coarse_inverse(Acs, k=_coarse_k(Acs.shape[0]))
+        if Acs is not None:
+            aux["_TLCfacS"] = twolevel.coarse_inverse(Acs, k=_coarse_k(Acs.shape[0]))
         self._sync()
         times["coarse_inverse"] = time.perf_counter() - t0
         f_u = 1.0 - mask_u.cpu().numpy().astype(np.float64)
-        f_c = 1.0 - mask_c.cpu().numpy().astype(np.float64)
         aux["_TLMt"] = self._tensor(agg.mode_matrix(f_u))
-        aux["_TLMtS"] = self._tensor(agg.mode_matrix_scalar(f_c))
+        if Acs is not None:
+            f_c = 1.0 - mask_c.cpu().numpy().astype(np.float64)
+            aux["_TLMtS"] = self._tensor(agg.mode_matrix_scalar(f_c))
         return aux
 
-    def _factored_aux(self):
+    def _factored_aux(self, times=None):
         """The frozen per-class channel stacks of the theta planes
-        (``ops/bell_factored.py build_cache``) where the model guarantees
-        class-wise constant coefficients (:meth:`theta_class_labels`), {}
-        otherwise."""
+        (``ops/bell_factored.py build_cache``; a quad model: the
+        elasticity channels and the P2 rd channels of ``build_p2_cache``)
+        where the model guarantees class-wise constant coefficients
+        (:meth:`theta_class_labels`), {} otherwise.  Their build seconds
+        go into ``times``."""
         labels = self.theta_class_labels()
         if labels is None:
             return {}
-        return bell_factored.build_cache(
+        times = {} if times is None else times
+        support = self.theta_class_support()
+        t0 = time.perf_counter()
+        p1 = not self.quad
+        out = bell_factored.build_cache(
             self._get_bell_plan(), self._mesh_arrays(), labels, self.kernels._m0,
-            want_cuc=True, want_rd=True, want_mrd=True,
-            support=self.theta_class_support())
+            want_cuc=p1, want_rd=p1, want_mrd=p1, support=support)
+        self._sync()
+        times["factored"] = time.perf_counter() - t0
+        if self.quad:
+            t0 = time.perf_counter()
+            out.update(bell_factored.build_p2_cache(self._get_p2_plan(), self.p2,
+                                                    labels, support=support))
+            self._sync()
+            times["factored_p2"] = time.perf_counter() - t0
+        return out
 
     def _augment_bell(self, theta):
         """Theta-only supernode halo-ELL planes (reference base.py:1223-1362,
@@ -497,7 +557,11 @@ class Simulation(ABC):
         them, else through one fused assembly; the constant loads
         ``_Bell_el_load`` and ``_Bell_rd_load``, and the supernode inverses
         ``_BinvSN``/``_McSN`` (without a graph) when the aux did not carry
-        them."""
+        them.  A quad model's residuals are the quadrature kernels, so it
+        takes ``_BellWel`` and ``_BinvSN`` only, and the P2 planes of
+        :meth:`_augment_p2`."""
+        if self.quad:
+            return self._augment_p2(theta)
         bplan = self._get_bell_plan()
         arrays = self._mesh_arrays()
         m0 = self.kernels._m0
@@ -534,18 +598,65 @@ class Simulation(ABC):
                     bplan, bell.extract_self_blocks_scalar(bplan, Wrd), mask=mask_c)
         return theta
 
-    def _bell_builders(self):
-        """Operator and preconditioner builders of the pcg branch
-        (reference base.py:522-616 bell branch, :1580-1692)."""
+    def _augment_p2(self, theta):
+        """A quad model's theta-only planes (reference base.py:1363-1421):
+        ``_BellWel`` and ``_BinvSN`` as on the P1 lane, the P2 rd constant
+        plane ``_P2BWrdC`` (nb2, s2, Kh2), reduced from the factored P2
+        channels when theta carries them, else assembled, and ``_McSNP2``
+        (without a graph) when the aux did not carry it."""
+        bplan, p2plan = self._get_bell_plan(), self._get_p2_plan()
+        mask_u, mask_c, _, _ = self._bc_masks_and_values()
+        planes = bell_factored.planes_from_theta(theta, self.mesh.dim, want_cuc=False,
+                                                 want_rd=False, want_mrd=False)
+        if planes is None:
+            planes = bell.assemble_fused(bplan, [bell.elasticity_entries(
+                self._mesh_arrays(), theta["mu"], theta["lam"])])
+        theta["_BellWel"] = planes[0].permute(0, 1, 3, 2, 4).contiguous()
+        Wrd2 = bell_factored.p2_planes_from_theta(theta)
+        if Wrd2 is None:
+            Wrd2 = p2_ell.build_p2_rd_const(p2plan, self.p2, theta["D"], theta["rho"],
+                                            theta["dt"])
+        theta["_P2BWrdC"] = Wrd2
+        with torch.no_grad():
+            if "_BinvSN" not in theta:
+                theta["_BinvSN"] = bell.supernode_jacobi_inverse(
+                    bplan, bell.extract_self_blocks_vector(bplan, theta["_BellWel"]),
+                    mask=mask_u)
+            if "_McSNP2" not in theta:
+                theta["_McSNP2"] = bell.supernode_jacobi_inverse(
+                    p2plan, bell.extract_self_blocks_scalar(p2plan, Wrd2), mask=mask_c)
+        return theta
+
+    def _rd_builders(self):
+        """(rd_jacobian, rd_jacobian_chord, rd_precond) of the pcg branch's
+        concentration block: the P1 halo-ELL operators with their
+        supernode block-Jacobi and the scalar coarse level, or (a quad
+        model) the assembled P2 operators on the P2 plan with supernode
+        block-Jacobi alone (reference base.py:617-659, :1671-1680)."""
+        bmv = self._k.bmv
+        if self.quad:
+            p2plan, p2k = self._get_p2_plan(), self.p2
+
+            def rd_jacobian(theta, c):
+                W = theta["_P2BWrdC"] + p2_ell.build_p2_rd_wc(
+                    p2plan, p2k, c, theta["rho"], theta["dt"], 1.0)
+                return lambda v: bell.apply_bell_scalar(p2plan, W, v, bmv)
+
+            def rd_jacobian_chord(theta, c):
+                W = theta["_P2BWrdC"]
+                dl = p2_ell.build_p2_rd_wc_lumped(p2k, c, theta["rho"], theta["dt"], 1.0)
+                return lambda v: bell.apply_bell_scalar(p2plan, W, v, bmv) + dl * v
+
+            def rd_precond(theta):
+                Minv = theta["_McSNP2"]
+                return lambda r: bell.apply_supernode_jacobi(p2plan, Minv, r, bmv)
+
+            return rd_jacobian, rd_jacobian_chord, rd_precond
+
         bplan = self._get_bell_plan()
         arrays = self._mesh_arrays()
         kern = self.kernels
-        bmv = self._k.bmv
         agg = self._twolevel_aggplan()
-
-        def el_operator(theta):
-            W = theta["_BellWel"]
-            return lambda u: bell.apply_bell_vector(bplan, W, u, bmv)
 
         def rd_jacobian(theta, c):
             W = theta["_BellWrdC"] + bell.build_bell_rd_wc(
@@ -562,14 +673,6 @@ class Simulation(ABC):
                 kern._t0, 1.0)
             return lambda v: bell.apply_bell_scalar(bplan, W, v, bmv) + dl * v
 
-        def el_precond(theta):
-            Binv = theta["_BinvSN"]
-            base = lambda r: bell.apply_supernode_jacobi(bplan, Binv, r, bmv)  # noqa: E731
-            if agg is None or "_TLCfac" not in theta:
-                return base
-            return twolevel.make_twolevel_precond(
-                agg, theta["_TLCfac"], theta["_TLMt"], base, theta.get("_TLCfacT"))
-
         def rd_precond(theta):
             Minv = theta["_McSN"]
             base = lambda r: bell.apply_supernode_jacobi(bplan, Minv, r, bmv)  # noqa: E731
@@ -578,13 +681,38 @@ class Simulation(ABC):
             return twolevel.make_twolevel_precond_scalar(
                 agg, theta["_TLCfacS"], theta["_TLMtS"], base, theta.get("_TLCfacST"))
 
+        return rd_jacobian, rd_jacobian_chord, rd_precond
+
+    def _bell_builders(self):
+        """Operator and preconditioner builders of the pcg branch
+        (reference base.py:522-616 bell branch, :1580-1692)."""
+        bplan = self._get_bell_plan()
+        bmv = self._k.bmv
+        agg = self._twolevel_aggplan()
+
+        def el_operator(theta):
+            W = theta["_BellWel"]
+            return lambda u: bell.apply_bell_vector(bplan, W, u, bmv)
+
+        def el_precond(theta):
+            Binv = theta["_BinvSN"]
+            base = lambda r: bell.apply_supernode_jacobi(bplan, Binv, r, bmv)  # noqa: E731
+            if agg is None or "_TLCfac" not in theta:
+                return base
+            return twolevel.make_twolevel_precond(
+                agg, theta["_TLCfac"], theta["_TLMt"], base, theta.get("_TLCfacT"))
+
+        rd_jacobian, rd_jacobian_chord, rd_precond = self._rd_builders()
         return dict(rd_jacobian=rd_jacobian, el_operator=el_operator,
                     rd_precond=rd_precond, el_precond=el_precond,
                     rd_jacobian_chord=rd_jacobian_chord)
 
     def _streamed_mass_action(self, theta):
         """v -> M v through the assembled mass plane (feeds the algebraic
-        rd anchor), or None on the lattice lane."""
+        rd anchor; a quad model's is its P2 mass action), or None on the
+        lattice lane."""
+        if self.quad:
+            return self.concentration_mass_action
         if "_BellMrd" not in theta:
             return None
         bplan, Mrd, bmv = self._get_bell_plan(), theta["_BellMrd"], self._k.bmv

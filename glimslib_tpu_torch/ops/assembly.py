@@ -109,18 +109,28 @@ def _gather_sum(table, x):
 class _Pull(torch.autograd.Function):
     """:func:`pull_accumulate`, whose VJP is the gather-sum through the
     push table (the default VJP of a gather, an ``index_add_``, piles every
-    padded slot's atomic add onto the one sentinel row)."""
+    padded slot's atomic add onto the one sentinel row).  Being linear,
+    its JVP is the same pull of the tangent (``torch.func.jvp``)."""
 
     @staticmethod
-    def forward(ctx, pull, push, contrib):
-        ctx.save_for_backward(push)
+    def forward(pull, push, contrib):
         return _gather_sum(pull, contrib)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pull, push, _ = inputs
+        ctx.save_for_backward(push)
+        ctx.pull = pull
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         (push,) = ctx.saved_tensors
         return None, None, _gather_sum(push, g)
+
+    @staticmethod
+    def jvp(ctx, _pull_t, _push_t, contrib_t):
+        return _gather_sum(ctx.pull, contrib_t)
 
 
 def pull_accumulate(index: PullIndex, contrib):
@@ -264,11 +274,15 @@ class P1Kernels:
         R_{i,a} = ∫ σ(u):ε(φ_i e_a) - σ(φ_i e_a):(k c I) - b·(φ_i e_a) dx,
         with σ(v):(k c I) = k c (2μ + d λ) div v.  ``u`` (n, d), ``c``
         (n,); returns (n, d)."""
-        ue = u[self.cells_T].permute(2, 0, 1)  # (d, npe, nc)
         c_int = self._gather_T(c).mean(dim=0) * self.vol  # exact ∫c per cell
-        return self._elasticity_from_ue(ue, c_int, mu, lam, coupling, body_force)
+        return self.elasticity_residual_cint(u, c_int, mu, lam, coupling, body_force)
 
-    def _elasticity_from_ue(self, ue, c_int, mu, lam, coupling, body_force=None):
+    def elasticity_residual_cint(self, u, c_int, mu, lam, coupling, body_force=None):
+        """:meth:`elasticity_residual` with the concentration given by its
+        per-cell integral ``c_int`` (nc,): the growth strain couples
+        through ∫_e c dx only, which is how a P2 concentration enters
+        (``models/tumor_growth_quad.py``)."""
+        ue = u[self.cells_T].permute(2, 0, 1)  # (d, npe, nc)
         d = self.dim
         g = self.grads_T  # (npe, d, nc)
         v = self.vol

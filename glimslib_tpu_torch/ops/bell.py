@@ -21,12 +21,16 @@ spreads [off-pairs | diag | 0] into the dense halo layout.
 Also the matching supernode block-Jacobi: the (s d x s d) self-block of
 each supernode, inverted once.
 
-What the TPU build needed and the port leaves out: the aux-threaded
-table dicts (``tables()``), chunk-aligned halos (``halo_chunk``, P2),
-block sharding (``shard_ctx``), the block-lanes kernel layouts
-(``*_T``, ``transpose_tables_T``) and the memory-bounded chunked scalar
-assembly (P2).  The plan's index tables live on its device as int64
-tensors; every sentinel points at a zero row appended at gather time.
+The plan serves any dof space (P1 nodes, or the P2 dofs of
+``ops/p2_ell.py``).  What the TPU build needed and the port leaves out:
+the aux-threaded table dicts (``tables()``), chunk-aligned halos
+(``halo_chunk``: aligned G-dof gather rows for the TPU's row-rate-bound
+gathers; on the card they only add zero slots, 1.85x the table bytes of
+the P2 flagship plan), block sharding (``shard_ctx``), the block-lanes
+kernel layouts (``*_T``, ``transpose_tables_T``) and the memory-bounded
+chunked scalar assembly (a TPU compile-memory bound).  The plan's index
+tables live on its device as int64 tensors; every sentinel points at a
+zero row appended at gather time.
 """
 
 from __future__ import annotations
@@ -41,14 +45,24 @@ from glimslib_tpu_torch.ops.bell_kernels import batched_matvec
 
 
 class BellPlan:
-    """Host-precomputed supernode halo structure of one P1 mesh; the
-    numpy arrays are those of the reference's plan, and their int64
-    tensor copies (``*_idx``, the pulls' :class:`PullIndex`) live on
-    ``device``."""
+    """Host-precomputed supernode halo structure over one dof space; the
+    numpy arrays are those of the reference's plan (at ``halo_chunk`` 1),
+    and their int64 tensor copies (``*_idx``, the pulls'
+    :class:`PullIndex`) live on ``device``.
 
-    def __init__(self, mesh, s: int = 32, device="cpu"):
-        cells = np.asarray(mesh.cells, dtype=np.int64)
-        n = mesh.n_nodes
+    Pass a ``mesh`` (P1: the dofs are the mesh nodes) or an explicit dof
+    connectivity ``conn`` (nc, npe) over ``n`` dofs (the P2 space of
+    ``ops/p2_ell.py``, npe = 10 in 3D and 6 in 2D).  ``prefix`` names the
+    plan's tables in the reference's aux dicts (``_Bell``, ``_P2B``)."""
+
+    def __init__(self, mesh=None, s: int = 32, device="cpu", conn=None, n=None,
+                 prefix: str = "_Bell"):
+        if mesh is not None:
+            cells = np.asarray(mesh.cells, dtype=np.int64)
+            n = mesh.n_nodes
+        else:
+            cells = np.asarray(conn, dtype=np.int64)
+        self.prefix = prefix
         nc, npe = cells.shape
         self.n = n
         self.npe = npe

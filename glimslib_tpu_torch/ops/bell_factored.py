@@ -30,8 +30,10 @@ parameter gradients as the dense assembly.  The reduction is one
 stay full float32: ``config.py`` pins TF32 off), which autograd
 differentiates in the scalars.
 
-The P2 (quad) channels of the reference (``build_p2_cache``,
-``p2_planes_from_theta``) come with the quad models.
+The quad models' P2 rd constant plane has channels of its own over the
+P2 plan (:func:`build_p2_cache`, :func:`p2_planes_from_theta`): [M_full,
+M_t (supp rho), K_t (supp D)], assembled one channel at a time (each is
+one P2 plane, 393 MB at f32 on the n=32 brain box).
 """
 
 from __future__ import annotations
@@ -156,3 +158,51 @@ def planes_from_theta(theta, dim, want_cuc, want_rd, want_mrd):
     if want_mrd:
         planes.append(theta["_FMrd"])
     return planes
+
+
+# -- P2 (quad) concentration plane (ops/p2_ell.py) ---------------------------
+
+
+def build_p2_cache(p2plan, p2k, labels, support=None):
+    """Frozen per-class channels of the assembled P2 rd constant plane:
+    ``_FP2Wrd`` (1 + |supp rho| + |supp D|, nb, s, Kh), channels [M_full,
+    M_t for t in supp rho, K_t for t in supp D], with ``_FP2RhoReps`` /
+    ``_FP2DReps`` their representative cells.  One placement gather a
+    channel, without a graph."""
+    from glimslib_tpu_torch.ops import p2_ell
+
+    labels = np.asarray(labels)
+    classes, reps = class_reps(labels)
+    dev, dt = p2k.device, p2k.dtype
+    idx = lambda a: torch.as_tensor(np.asarray(a, dtype=np.int64), device=dev)  # noqa: E731
+    rho_i = _support_idx(classes, support, "rho")
+    d_i = _support_idx(classes, support, "D")
+    with torch.no_grad():
+        M0 = torch.as_tensor(p2_ell.p2_ref_tensors(p2k.dim)[0], dtype=dt, device=dev)
+        Kg = p2_ell.stiffness_geom(p2k)
+        det = p2k.detJ
+
+        def ind(i):
+            return torch.as_tensor(labels == classes[i], dtype=dt, device=dev)
+
+        ents = [lambda: M0[:, :, None] * det]
+        ents += [lambda i=i: M0[:, :, None] * (det * ind(i)) for i in rho_i]
+        ents += [lambda i=i: (det * ind(i)) * Kg for i in d_i]
+        planes = torch.empty((len(ents), p2plan.nb, p2plan.s, p2plan.Kh),
+                             dtype=dt, device=dev)
+        for k, ent in enumerate(ents):
+            planes[k] = p2plan.assemble(ent())
+    return {"_FP2Wrd": planes, "_FP2RhoReps": idx(reps[rho_i]),
+            "_FP2DReps": idx(reps[d_i])}
+
+
+def p2_planes_from_theta(theta):
+    """The P2 rd constant plane M − dt Σ rho_t M_t + dt Σ D_t K_t reduced
+    from the frozen channels, or None when theta does not carry them."""
+    if "_FP2Wrd" not in theta:
+        return None
+    G = theta["_FP2Wrd"]
+    dt = torch.as_tensor(theta["dt"], dtype=G.dtype, device=G.device).reshape(1)
+    rho_t = _at_reps(theta["rho"], theta["_FP2RhoReps"], G)
+    D_t = _at_reps(theta["D"], theta["_FP2DReps"], G)
+    return _reduce(G, torch.cat([torch.ones_like(dt), -dt * rho_t, dt * D_t]))

@@ -20,7 +20,9 @@ Parameter-tying variants mirror ``map_optimization_type``
 heuristics (simulation_tumor_growth_brain_quad.py:151-210), e.g. the
 2-param estimation ties D_GM = 0.2*D_WM and rho_GM = rho_WM.
 
-Not ported: ``export_computation_graph`` (a jaxpr dump).
+``InverseProblem.export_computation_graph`` writes the autograd graph of
+one objective evaluation as text, the counterpart of the reference's
+jaxpr dump.
 """
 
 from __future__ import annotations
@@ -184,6 +186,41 @@ class InverseProblem:
         if self.reg_alpha > 0.0:
             J = J + self.reg_alpha * (l2sq(u_T) + l2sq(c_T))
         return J
+
+    def export_computation_graph(self, path, v=None):
+        """Write the autograd graph of one objective evaluation at ``v``
+        (default zeros, as the reference's jaxpr dump) to ``path`` as
+        text, the counterpart of the reference's
+        ``sim.tape.visualise()`` (image_based_optimization.py:764-765):
+        node counts by name, then every node by a depth-first walk of
+        ``grad_fn`` from J, one line each, indented by depth and named
+        with its id, with the ids of nodes already listed in brackets.
+        Each implicit step is one ``_ImplicitStepBackward`` node.  Returns
+        ``path``."""
+        v = np.zeros(len(self.param_names)) if v is None else np.asarray(v)
+        with torch.enable_grad():
+            J = self._objective(self._param(v, True))
+        ids, lines, counts = {}, [], {}
+        stack = [(J.grad_fn, 0)]
+        while stack:
+            fn, depth = stack.pop()
+            if fn is None:
+                continue
+            name = type(fn).__name__
+            if fn in ids:
+                lines.append(f"{'  ' * depth}[{ids[fn]}] {name}")
+                continue
+            ids[fn] = len(ids)
+            counts[name] = counts.get(name, 0) + 1
+            lines.append(f"{'  ' * depth}{ids[fn]} {name}")
+            stack.extend((nxt, depth + 1) for nxt, _ in reversed(fn.next_functions))
+        with open(path, "w") as f:
+            f.write(f"# autograd graph of J = {float(J.detach()):.17g} at v = "
+                    f"{v.tolist()}: {len(ids)} nodes\n")
+            for name, k in sorted(counts.items(), key=lambda x: (-x[1], x[0])):
+                f.write(f"# {k} {name}\n")
+            f.write("\n".join(lines) + "\n")
+        return path
 
     def _param(self, v, requires_grad):
         return torch.tensor(np.asarray(v, dtype=np.float64), dtype=self.sim.dtype,

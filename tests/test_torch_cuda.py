@@ -567,3 +567,67 @@ def test_refined_steps_on_the_card(unstructured, monkeypatch):
     assert bool(ok_r.all())
     for got, want in ((u[-1], u_r[-1]), (c[-1], c_r[-1])):
         assert float((got.double() - want).norm() / want.norm()) <= 1e-5
+
+
+# -- the quad (P2-concentration) model ----------------------------------------
+
+
+@pytest.fixture
+def quad(monkeypatch):
+    """The quad brain model on the n=8 Morton box on the card, f32, the
+    benchmark's unstructured StepConfig, two-level level on."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    monkeypatch.setenv("GLIMS_TWOLEVEL_MIN_NODES", "100")
+    sim = brain_sim(n=8, dtype=torch.float32, device="cuda", unstructured=True,
+                    quad=True)
+    assert sim.step_config == UNSTRUCT_STEP_CONFIG
+    sim._build_step()
+    aux = sim.runtime_aux()
+    theta = sim._augment_theta_with_operators(
+        {**sim.make_theta(sim.params.as_dict()), **aux})
+    return sim, aux, theta
+
+
+@pytest.mark.parametrize("role", ["_P2BWrdC", "_McSNP2"])
+def test_bell_bmv_at_p2_plan_shapes(quad, role):
+    """bell_bmv at the P2 plan's shapes (the rd constant plane (nb, 64,
+    Kh) and its supernode block-Jacobi (nb, 64, 64)) against its plain
+    version, max rel 1e-5, counted by shape."""
+    sim, _, theta = quad
+    A = theta[role]
+    plan = sim._get_p2_plan()
+    assert A.shape[:2] == (plan.nb, 64)
+    x = torch.as_tensor(np.random.default_rng(7).standard_normal(
+        (A.shape[0], A.shape[2])), dtype=torch.float32, device=A.device)
+    by_shape = bk.batched_matvec.launches_by_shape.get(tuple(A.shape), 0)
+    got = bk.batched_matvec(A, x)
+    torch.cuda.synchronize()
+    assert bk.batched_matvec.launches_by_shape[tuple(A.shape)] == by_shape + 1
+    assert _rel_max(got, bk.batched_matvec_plain(A, x)) <= 1e-5
+
+
+def test_quad_forward_on_the_card_matches_plain_f64(quad):
+    """3 steps of the quad model through bell_bmv (launched at the P2
+    shapes) against the plain f64 path on the card with tight
+    tolerances: rel-L2 of c and u <= 1e-4."""
+    from glimslib_tpu_torch.solvers.coupled import StepConfig
+
+    sim, aux, _ = quad
+    plan = sim._get_p2_plan()
+    bk.batched_matvec.launches_by_shape = {}
+    u, c, ok, _ = sim.build_simulate_fn(3, 1.0)(sim.make_theta(sim.params.as_dict()),
+                                                *sim.initial_state())
+    torch.cuda.synchronize()
+    assert bool(ok.all())
+    assert bk.batched_matvec.launches_by_shape.get((plan.nb, plan.s, plan.Kh), 0) > 0
+    assert bk.batched_matvec.launches_by_shape.get((plan.nb, plan.s, plan.s), 0) > 0
+    ref = brain_sim(n=8, dtype=torch.float64, device="cuda", unstructured=True,
+                    quad=True, plain=True)
+    ref.step_config = StepConfig(newton_rtol=1e-10, newton_atol=1e-14, cg_rtol=1e-12,
+                                 cg_maxiter=4000)
+    u_r, c_r, ok_r, _ = ref.build_simulate_fn(3, 1.0)(
+        ref.make_theta(ref.params.as_dict()), *ref.initial_state())
+    assert bool(ok_r.all())
+    for got, want in ((u[-1], u_r[-1]), (c[-1], c_r[-1])):
+        assert float((got.double() - want).norm() / want.norm()) <= 1e-4
