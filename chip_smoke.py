@@ -56,9 +56,12 @@ Phases, each printed on lines of their own:
    are held against the plain pcg (|Δiters| <= 3, max rel <= 1e-4) and
    timed as in [2].
 5. bell_bmv against its plain version at the five shapes the unstructured
-   flagship gives it (max rel <= 1e-5), each with the wrapper call time,
-   the device time, the plain time, torch.bmm's time (a yardstick only,
-   never called by the port), the bound and the share of the bound.
+   flagship gives it (max rel <= 1e-5), each with its device time
+   L2-cold (the JSON's ``ms``; flushed as in [2]) and warm, torch.bmm's
+   device time the same two ways (a yardstick only, never called by the
+   port; ``library_ms`` the cold one), the wrapper call time, the plain
+   time, the bound, the share of the bound on the cold time and the
+   launch plan (rows a span, staging mode, stages, lanes a row, blocks).
 6. The unstructured path: TumorGrowthBrain on the same n=32 box with its
    lattice structure stripped and its nodes in Morton order, f32, the
    benchmark's unstructured StepConfig, 5 steps: set-up seconds (plans,
@@ -136,7 +139,7 @@ Phases, each printed on lines of their own:
    the coarse level) and the peak memory of the frozen state.  [10a]
    bell_bmv against its plain version at the P2 shapes, the rd constant
    plane (4352, 64, Kh) and the supernode Jacobi (4352, 64, 64), max rel
-   1e-5, timed as in [5] plus the device time L2-cold.  [10b] the
+   1e-5, timed as in [5].  [10b] the
    forward, f32, the benchmark's unstructured StepConfig, 5 steps, as in
    [6]: every step converges, bell_bmv launches at the P2 shapes (its
    launches by shape and the share of the bound weighted by them),
@@ -217,6 +220,9 @@ N2D_BIG = 512
 N2D_BIG_STEPS = 2
 N2D_BIG_CG_MAXITER = 6000
 ADJ_FD_DIR_2D = (0.48, 0.6, 0.64)
+# torch.cuda._sleep's kernel, which opens a profiled window: not a kernel
+# of the call timed in it
+SLEEP_KERNEL = r"sleep|spin_kernel"
 STENCIL_SRC = "glimslib_tpu_torch/csrc/stencil.cu"
 BELL_SRC = "glimslib_tpu_torch/csrc/bell.cu"
 # published H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s and
@@ -354,26 +360,38 @@ def _device_records(torch, run):
                   key=lambda e: e.time_range.start)
 
 
-def _cold_device_ms(torch, fn, reps, prep):
+def _cold_device_ms(torch, fn, reps, prep, tries=3):
     """(mean device time in ms of one call of fn() after prep(), or None;
     why not), from the profiler: the kernels fn() launches and how often
     (a profile of ``reps`` calls alone), each kernel's mean duration over
     ``reps`` calls after prep(), summed.  Means of each kernel's records
-    do not care for a dropped record."""
+    do not care for a dropped record; a window that lost every record of a
+    kernel it needs (the flush's, the call's) is profiled again, up to
+    ``tries`` times."""
     from collections import Counter
 
-    prep_names = {r.name for r in _device_records(torch, lambda: [prep() for _ in range(3)])}
+    def window(run, ok):
+        for _ in range(tries):
+            recs = _device_records(torch, run)
+            if ok(recs):
+                break
+        return recs
+
+    prep_names = {r.name for r in window(lambda: [prep() for _ in range(3)], bool)}
     if not prep_names:
         return None, "no records of the flush"
-    calls = Counter(r.name for r in _device_records(
-        torch, lambda: [fn() for _ in range(reps)]))
-    # kernels of fn(), not the flush's or the window's opening sleep
-    mix = {name: round(c / reps) for name, c in calls.items()
-           if name not in prep_names and round(c / reps) > 0}
+
+    def kernels(recs):  # of fn(), not the flush's or the window's opening sleep
+        calls = Counter(r.name for r in recs)
+        return {name: round(c / reps) for name, c in calls.items()
+                if name not in prep_names and round(c / reps) > 0}
+    mix = kernels(window(lambda: [fn() for _ in range(reps)], kernels))
     if not mix:
-        return None, f"no kernels of the call in {sum(calls.values())} records"
+        return None, "no kernels of the call"
+    recs = window(lambda: [(prep(), fn()) for _ in range(reps)],
+                  lambda recs: set(mix) <= {r.name for r in recs})
     durations = {}
-    for r in _device_records(torch, lambda: [(prep(), fn()) for _ in range(reps)]):
+    for r in recs:
         if r.name in mix:
             durations.setdefault(r.name, []).append(r.time_range.elapsed_us())
     if set(durations) != set(mix):
@@ -415,10 +433,9 @@ def _cold_ms(torch, fn, prep):
     right around single calls): the profiler's records
     (``_cold_device_ms``), else the events, which count the launch too."""
     events = _launch_ms(torch, fn, 30, prep)
-    for _ in range(2):
-        ms, why = _cold_device_ms(torch, fn, 20, prep)
-        if ms is not None:
-            return ms, "profiler", events
+    ms, why = _cold_device_ms(torch, fn, 20, prep)
+    if ms is not None:
+        return ms, "profiler", events
     return events, f"CUDA events; the profiler's records: {why}", events
 
 
@@ -989,16 +1006,20 @@ def _bmv_shapes(torch, usim, theta, dev, tag):
     ], dev, tag)
 
 
-def _bmv_check(torch, roles, dev, tag, cold=False):
+def _bmv_check(torch, roles, dev, tag):
     """bell_bmv vs its plain version at each (role, A) of ``roles``, each
-    timed; ``cold``: the device time L2-cold too (the profiler's kernel
-    time after a flush, as [2] times stencil_apply), which then weights
-    the bound in :func:`_bmv_split`.  Returns one record a shape."""
+    timed as torch.bmm is timed beside it: device time L2-cold
+    (``_cold_device_ms``, as [2] times stencil_apply; on the paths a table
+    is read after others have evicted it) and warm (``_call_device_ms``),
+    each time's source in the record's ``timing``; also prints the wrapper
+    call, the plain version, the bound, the share and the launch plan
+    (``plan_for``).  The cold time weights the bound in :func:`_bmv_split`.
+    Returns one record a shape."""
     import numpy as np
 
     from glimslib_tpu_torch.ops import bell_kernels as bk
 
-    prep = _cold_l2(torch, dev) if cold else None
+    prep = _cold_l2(torch, dev)
     rng = np.random.default_rng(1)
     shapes = []
     for role, A in roles:
@@ -1011,34 +1032,42 @@ def _bmv_check(torch, roles, dev, tag, cold=False):
         err, rel = _rel_max(got, want)
         if not bool(torch.isfinite(got).all()) or rel > BMV_RTOL:
             raise AssertionError(f"bell_bmv {role}: rel err {rel:.3e} > {BMV_RTOL}")
-        ms = _time_ms(torch, lambda: bk.batched_matvec(A, x), 50)
-        dev_ms, dev_src = _device_ms(torch, lambda: bk.batched_matvec(A, x), 20,
-                                   r"bell_bmv_kernel")
-        warm_ms = dev_ms
-        if cold:
-            cold_ms, why = _cold_device_ms(torch, lambda: bk.batched_matvec(A, x), 10,
-                                           prep)
-            if cold_ms is not None:
-                dev_ms, dev_src = cold_ms, "profiler, L2-cold"
-            else:
-                print(f"{tag} bell_bmv {role}: no L2-cold time ({why}); the warm one "
-                      "stands for it")
+        kern = lambda: bk.batched_matvec(A, x)  # noqa: E731
+        bmm = lambda: torch.bmm(A, x[:, :, None])  # noqa: E731
+        ms = _time_ms(torch, kern, 50)
+        t, src = {}, {}
+        for who, fn in (("kernel", kern), ("torch.bmm", bmm)):
+            cold, why = _cold_device_ms(torch, fn, 10, prep)
+            if cold is None:
+                cold = _launch_ms(torch, fn, 10, prep)
+                why = f"CUDA events around single calls, launch included ({why})"
+            warm, warm_src = _call_device_ms(torch, fn, 20)
+            t[who] = cold, warm
+            src[who] = dict(cold=why or "profiler", warm=warm_src)
+        (dev_ms, warm_ms), (lib_ms, lib_warm) = t["kernel"], t["torch.bmm"]
+        odd = {w: s for w, s in src.items() if s != dict(cold="profiler", warm="profiler")}
+        if odd:
+            print(f"{tag} bell_bmv {role}: not every time is the profiler's: {odd}")
         plain_ms = _time_ms(torch, lambda: bk.batched_matvec_plain(A, x), 20)
-        lib_ms = _time_ms(torch, lambda: torch.bmm(A, x[:, :, None]), 50)
         bound_ms, bound_by = _bound(4 * (B * M * K + B * K + B * M), 2 * B * M * K)
         share = bound_ms / dev_ms
+        plan = bk.plan_for(A)
         print(f"{tag} bell_bmv {role} (B, M, K) = {(B, M, K)}: max abs err "
-              f"{err:.3e}, max rel err {rel:.3e} (<= {BMV_RTOL}); wrapper call "
-              f"{ms:.4f} ms, kernel on device {dev_ms:.4f} ms ({dev_src}"
-              + (f"; warm {warm_ms:.4f} ms" if cold else "") + "), plain "
-              f"{plain_ms:.4f} ms, torch.bmm {lib_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}, {4 * B * M * K / 1e6:.1f} MB of "
-              "table)"
-              + f", {100 * share:.1f}% of the bound)")
+              f"{err:.3e}, max rel err {rel:.3e} (<= {BMV_RTOL}); device L2-cold "
+              f"{dev_ms:.5f} ms, warm {warm_ms:.5f} ms; torch.bmm L2-cold "
+              f"{lib_ms:.5f} ms, warm {lib_warm:.5f} ms ({lib_ms / dev_ms:.2f}x the "
+              f"kernel's cold time); wrapper call {ms:.4f} ms, plain {plain_ms:.4f} ms; "
+              f"bound {bound_ms:.5f} ms ({bound_by}, {4 * B * M * K / 1e6:.1f} MB of "
+              f"table) = {100 * share:.1f}% of the cold time; plan R "
+              f"{plan.rows_per_span}, {plan.mode}, S {plan.stages}, G {plan.group}, "
+              f"blocks {plan.blocks}")
         shapes.append(dict(role=role, shape=[B, M, K], max_abs_err=err, ms=ms,
-                           device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                           bound_ms=bound_ms, bound_by=bound_by)
-                      | (dict(warm_device_ms=warm_ms) if cold else {}))
+                           device_ms=dev_ms, warm_device_ms=warm_ms, plain_ms=plain_ms,
+                           library_ms=lib_ms, library_warm_ms=lib_warm,
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           timing=src,
+                           plan=dict(R=plan.rows_per_span, mode=plan.mode,
+                                     S=plan.stages, G=plan.group, blocks=plan.blocks)))
     return shapes
 
 
@@ -1051,9 +1080,9 @@ def phase_bmv(torch, usim, theta, dev):
     return dict(name="bell_bmv", route="cuda", source=BELL_SRC,
                 replaces="glimslib_tpu/ops/bell_pallas.py:56", wrappers=(bk.batched_matvec,),
                 max_abs_err=max(r["max_abs_err"] for r in shapes),
-                ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+                ms=top["device_ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
                 bound_by=top["bound_by"], library_ms=top["library_ms"],
-                device_ms=top["device_ms"],
+                call_ms=top["ms"],
                 also_replaces=["glimslib_tpu/ops/bell_pallas.py:199",
                                "glimslib_tpu/ops/bell_pallas.py:229"],
                 shapes=shapes)
@@ -1149,16 +1178,26 @@ def phase_unstructured(torch, dev):
     return kern, sim, ref, base
 
 
-def _call_device_ms(torch, fn, reps=3):
-    """(device ms of one call of fn(), its source): all its kernels' time
-    from the profiler over ``reps`` calls (after one warm-up; the window
-    opened by a sleep kernel, which is not counted) divided by ``reps``,
-    else CUDA events around single calls."""
+def _call_device_ms(torch, fn, reps=3, tries=3):
+    """(device ms of one call of fn(), its source): from the profiler over
+    ``reps`` calls (after one warm-up; the window opened by a sleep kernel,
+    which is not counted), each kernel's mean duration times how often a
+    call launches it, summed, so a record the profiler drops (it does, in
+    a long process) costs a sample, not the number; a window with fewer
+    records than calls is profiled again, up to ``tries`` times.  Else
+    CUDA events around single calls."""
     fn()
-    recs = [r for r in _device_records(torch, lambda: [fn() for _ in range(reps)])
-            if "sleep" not in r.name]
+    for _ in range(tries):
+        recs = [r for r in _device_records(torch, lambda: [fn() for _ in range(reps)])
+                if not re.search(SLEEP_KERNEL, r.name)]
+        if len(recs) >= reps:
+            break
     if recs:
-        return sum(r.time_range.elapsed_us() for r in recs) / reps / 1e3, "profiler"
+        us = {}
+        for r in recs:
+            us.setdefault(r.name, []).append(r.time_range.elapsed_us())
+        return sum(max(1, round(len(d) / reps)) * sum(d) / len(d)
+                   for d in us.values()) / 1e3, "profiler"
     return _launch_ms(torch, fn, reps), "CUDA events"
 
 
@@ -1811,7 +1850,7 @@ def phase_quad(torch, dev, kern):
     shapes = _bmv_check(torch, [
         ("P2 rd constant plane _P2BWrdC", aug["_P2BWrdC"]),
         ("P2 supernode Jacobi _McSNP2", aug["_McSNP2"]),
-    ], dev, "[10a]", cold=True)
+    ], dev, "[10a]")
     del aug
     kern["p2_shapes"] = shapes
     p2_keys = [(pp.nb, pp.s, pp.Kh), (pp.nb, pp.s, pp.s)]

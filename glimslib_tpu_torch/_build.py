@@ -53,7 +53,10 @@ def _signatures():
             ],
         },
         "bell": {
-            "glims_bell_bmv": [vp, vp, vp, i32, i32, i32, vp],
+            "glims_bell_bmv": [
+                vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32,
+                i32, vp,
+            ],
         },
     }
 

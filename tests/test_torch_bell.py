@@ -173,7 +173,8 @@ def test_applies_equal_jax(setup, which):
     assert _rel(got, want) <= 1e-12
 
 
-@pytest.mark.parametrize("shape", [(16, 96, 474), (8, 32, 158), (24, 48, 48)])
+@pytest.mark.parametrize("shape", [(16, 96, 474), (8, 32, 158), (24, 48, 48),
+                                   (4352, 64, 64), (64, 64, 353)])
 def test_batched_matvec_plain_equals_pallas_interpret(monkeypatch, shape):
     from glimslib_tpu.ops import bell_pallas
 

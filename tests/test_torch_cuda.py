@@ -274,6 +274,69 @@ def test_bell_bmv_rejects_what_the_kernel_does_not_take(unstructured):
         bk.batched_matvec(A, x[:, :-1])
 
 
+BMV_SHAPES = [
+    (1152, 96, 474), (1152, 96, 158), (1152, 96, 96), (1152, 32, 158),
+    (1152, 32, 32), (4352, 64, 353), (4352, 64, 64), (88, 64, 200),
+    (88, 64, 64), (88, 32, 100), (88, 32, 32), (88, 64, 100),
+    (1, 1, 1), (3, 5, 7), (7, 13, 1001), (2, 3, 16384), (5, 3, 6),
+]
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("start", ["aligned", "off 16 bytes"])
+@pytest.mark.parametrize("shape", BMV_SHAPES)
+def test_bell_bmv_plan_modes_match_plain(card, shape, start):
+    """bell_bmv in each staging mode of its launch plan against the plain
+    version (max rel 1e-5), bit-equal across two launches (the persistent
+    blocks' schedule is static): a table on 16 bytes is staged by TMA
+    where B M K is a multiple of 4 floats, a view that starts off 16 bytes
+    by the ragged mode.  Each call of ``batched_matvec`` counts one
+    launch, by shape."""
+    rng = np.random.default_rng(17)
+    n = int(np.prod(shape))
+    flat = torch.as_tensor(rng.standard_normal(n + 1), dtype=torch.float32, device=card)
+    A = (flat[:n] if start == "aligned" else flat[1:]).view(shape)
+    x = torch.as_tensor(rng.standard_normal(shape[::2]), dtype=torch.float32,
+                        device=card)
+    bulk = start == "aligned" and n % 4 == 0
+    assert bk.plan_for(A).mode == ("bulk" if bulk else "ragged")
+    want = bk.batched_matvec_plain(A, x)
+    before = bk.batched_matvec.launches
+    by_shape = bk.batched_matvec.launches_by_shape.get(shape, 0)
+    y1 = bk.batched_matvec(A, x)
+    y2 = bk.batched_matvec(A, x)
+    torch.cuda.synchronize()
+    assert bk.batched_matvec.launches == before + 2
+    assert bk.batched_matvec.launches_by_shape[shape] == by_shape + 2
+    assert torch.equal(y1, y2)
+    assert _rel_max(y1, want) <= 1e-5
+
+
+def test_bell_bmv_off_16_bytes_and_refused_shapes(card):
+    """A table that starts off a 16-byte boundary is staged by the ragged
+    mode; a row the plan cannot stage raises before any launch."""
+    rng = np.random.default_rng(19)
+    flat = torch.as_tensor(rng.standard_normal(96 * 64 * 64 + 1), dtype=torch.float32,
+                           device=card)
+    A = flat[1:].view(96, 64, 64)
+    x = torch.as_tensor(rng.standard_normal((96, 64)), dtype=torch.float32, device=card)
+    assert A.data_ptr() % 16 and A.is_contiguous()
+    y = bk.batched_matvec(A, x)
+    torch.cuda.synchronize()
+    assert _rel_max(y, bk.batched_matvec_plain(A, x)) <= 1e-5
+    before = bk.batched_matvec.launches
+    with pytest.raises(ValueError):
+        bk.batched_matvec(torch.zeros((8, 1, 29041), device=card),
+                          torch.zeros((8, 29041), device=card))
+    assert bk.batched_matvec.launches == before
+
+
 def test_unstructured_slice_runs_through_the_kernel(unstructured):
     """5 steps through bell_bmv against the same model's plain path with
     the same frozen preconditioners."""
