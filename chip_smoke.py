@@ -155,7 +155,32 @@ Phases, each printed on lines of their own:
    of the plain f64 path), bell_bmv launching at the P2 shapes in the
    backward.
 
-Then one JSON line with [10]'s numbers, one with [9]'s, one with [7]'s
+11. The workflow (``glimslib_tpu_torch.workflow``) in a temporary
+   directory, removed at the end.  [11a] the atlas pipeline on the 256 x
+   256 slice 16 of ``brain_labelmap_3d(256, 256, 32)`` (65,536 pixels,
+   ``stencil_pcg<2>`` resident): the domain, the forward (10 steps, VTU
+   output), the targets, L-BFGS-B from D_WM = rho_WM = 0.05 (type 2,
+   maxiter 10, under the profiler: device busy ms and idle share), the
+   optimized re-run, the comparison, post_process, the summary and a
+   fresh workflow's reload; then every 2D lattice kernel held and timed
+   at the slice's shapes as in [8].  [11b] the same on a 64^3 labelmap's
+   full lattice (274,625 nodes, ``stencil_pcg<3>`` streamed), 2 steps,
+   maxiter 2.  [11c] the patient pipeline on 128 x 128 slices (a
+   segmentation's T2 and T1 targets), up to the inverse, maxiter 3.
+   Each prints seconds, kernel launches and host seconds of file output
+   by stage, value_and_grad calls and calls/s, L-BFGS-B's nit, message
+   and J at its start and end, and the recovered parameters; every step
+   of a recorded run converges (the solves capped at WF_CG_MAXITER
+   iterations: WF_CG_MAXITER says why), stencil kernels launch in the
+   forward, inverse and optimized stages, the final c and u of [11a]'s
+   and [11b]'s forwards are within rel-L2 5e-5 of the plain f64 path,
+   [11c]'s J and gradient at v0 within 1e-4 and 1e-3 of it, J falls,
+   the recovered (D_WM, rho_WM) lies nearer the truth (0.1, 0.1) than
+   v0 (in [11a] each within WF_PARAM_RTOL of it), the T2 volumes of the
+   forward and optimized runs are finite and positive, and the reloaded
+   series equals the recorded one exactly.
+
+Then one JSON line with [11]'s numbers, one with [10]'s, one with [9]'s, one with [7]'s
 and [8]'s value_and_grad numbers, one with
 every kernel's numbers (each with its launches in the path and in one
 value_and_grad by forward and backward: [7]'s for the 3D rows, [8]'s for
@@ -220,6 +245,39 @@ N2D_BIG = 512
 N2D_BIG_STEPS = 2
 N2D_BIG_CG_MAXITER = 6000
 ADJ_FD_DIR_2D = (0.48, 0.6, 0.64)
+# [11]: the workflow.  The 2D atlas is a 256 x 256 slice of a 256 x 256
+# x 32 labelmap (65,536 pixels, about one 1 mm MR slice: stencil_pcg<2>
+# stays resident); the 3D atlas a 64^3 labelmap's full lattice (274,625
+# nodes, stencil_pcg<3> streamed), cut in depth from the ~200^3 of a real
+# atlas and to 2 steps and 2 L-BFGS-B iterations to keep the phase near
+# two minutes; the patient pipeline 128 x 128 slices, run up to the
+# inverse.  Parameters: examples/example_config.py:33-39; the inverse from
+# D_WM = rho_WM = WF_V0 (type 2).
+WF_2D = (256, 256, 32, 16)
+WF_3D = (64, 64, 64)
+WF_PATIENT = (128, 128, 32, 16)
+WF_SIM = {"2d": dict(sim_time=10, sim_time_step=1, seed_width=5.0),
+          "3d": dict(sim_time=2, sim_time_step=1, seed_width=5.0),
+          "patient": dict(sim_time=2, sim_time_step=1, seed_width=5.0)}
+WF_MAXITER = {"2d": 10, "3d": 2, "patient": 3}
+WF_OPT = {"tol": 1e-8, "gtol": 1e-8}
+# the models' f32 default caps a CG solve at 1,000 iterations (the
+# reference's, glimslib_tpu/models/base.py:101); the 256 x 256 slice's
+# elasticity solve takes 1,712-1,759 (f32 plain path on the CPU), so the
+# first step fails and the forward freezes.  The workflow's simulations
+# and their f64 references get this cap, as [8]'s 512 x 512 does
+WF_CG_MAXITER = 6000
+WF_V0 = 0.05
+WF_TRUTH = 0.1
+# L-BFGS-B's reach: the relative error of each recovered parameter of
+# [11a] at most this.  The same pipeline on a 64 x 64 slice of
+# brain_labelmap_3d(64, 64, 8), f32 refined, on the CPU: 8 iterations, 13
+# value_and_grad calls, 'CONVERGENCE: RELATIVE REDUCTION OF F', J 81.94 ->
+# 5.1e-3, rel errors 2.8e-3 (D_WM) and 6.8e-4 (rho_WM); the limit leaves
+# 3.5x for the card's f32 summation order and the larger slice
+WF_PARAM_RTOL = 1e-2
+WF_PARAM_RTOL_WHY = ("a CPU run of the same pipeline at 64 x 64 reached 2.8e-3 "
+                     "and 6.8e-4 in 8 iterations")
 # torch.cuda._sleep's kernel, which opens a profiled window: not a kernel
 # of the call timed in it
 SLEEP_KERNEL = r"sleep|spin_kernel"
@@ -648,11 +706,11 @@ def _pcg_stream_bytes(n_off, d, n):
     return 4 * (n_off * d * d * n + d * d * n + 4 * n * d)
 
 
-def phase_kernels(torch, sim, theta, dev, tag="[2]", suffix="", grids=()):
+def phase_kernels(torch, sim, theta, dev, tag="[2]", suffix="", grids=(), forced=True):
     """Each lattice kernel vs its plain version at the model's shapes (the
     path's planes, random vectors from a seed); the elasticity solve also
-    in every other mode that fits, and on the plan's mode with ``grids``
-    blocks (printed only)."""
+    in every other mode that fits (``forced``), and on the plan's mode
+    with ``grids`` blocks (printed only)."""
     import numpy as np
 
     from glimslib_tpu_torch.ops import fused_cg as fc
@@ -687,7 +745,7 @@ def phase_kernels(torch, sim, theta, dev, tag="[2]", suffix="", grids=()):
     name, kern, plain, Wm, Minv, b, replaces = solves[1]
     chosen = results[-1]["mode"]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for mode in fc.MODES:
+    for mode in fc.MODES if forced else ():
         try:
             fc.launch_plan(n, d, len(offs), sms, mode)
         except ValueError:
@@ -919,7 +977,7 @@ def phase_slice(torch, sim, ref, dev, kernels, tag, n_steps, run=""):
     ref.step_config = StepConfig(newton_rtol=1e-10, newton_atol=1e-14,
                                  cg_rtol=1e-12, cg_maxiter=4000)
     t0 = time.perf_counter()
-    u_r, c_r, ok_r, newton_r = ref.run()
+    u_r, c_r, ok_r, newton_r = ref.run(save_method=None)
     torch.cuda.synchronize()
     if not bool(ok_r.all()):
         raise AssertionError("f64 plain reference did not converge")
@@ -1952,6 +2010,423 @@ def phase_quad(torch, dev, kern):
         adjoint=nums)
 
 
+def _wf_wrappers():
+    """Every kernel wrapper a workflow stage may launch."""
+    from glimslib_tpu_torch.ops import bell_kernels as bk
+    from glimslib_tpu_torch.ops import fused_cg as fc
+    from glimslib_tpu_torch.ops import stencil_kernels as sk
+
+    return [sk.apply_scalar, sk.apply_scalar_sum, sk.apply_vector, sk.apply_coupling,
+            fc.cg_scalar, fc.cg_vector, bk.batched_matvec]
+
+
+def _wf_stage(torch, run, name, fn):
+    """One workflow stage with every launch count at 0 just before it:
+    its seconds, launches by wrapper and host seconds of file output go
+    into ``run``."""
+    wrappers = _wf_wrappers()
+    for w in wrappers:
+        w.launches = 0
+    files0 = WF_FILE_S[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    run["seconds"][name] = time.perf_counter() - t0
+    run["launches"][name] = {w.__name__: w.launches for w in wrappers}
+    run.setdefault("file_output_s", {})[name] = WF_FILE_S[0] - files0
+    return out
+
+
+# host seconds in Results' file output (per-step VTU or XDMF, the PVD
+# series, the series store), summed while phase_workflow runs
+WF_FILE_S = [0.0]
+
+
+def _wf_timed_file_output():
+    """Wrap Results' writers to sum their seconds into WF_FILE_S; returns
+    the originals, to put back."""
+    from glimslib_tpu_torch.core.results import Results
+
+    originals = {}
+    for name in ("save_solution", "save_solution_end", "save_solution_hdf5"):
+        fn = originals[name] = getattr(Results, name)
+
+        def timed(self, *args, _fn=fn, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return _fn(self, *args, **kwargs)
+            finally:
+                WF_FILE_S[0] += time.perf_counter() - t0
+
+        setattr(Results, name, timed)
+    return originals
+
+
+def _wf_cap(sim):
+    """WF_CG_MAXITER on a workflow simulation's step; returns it."""
+    sim.step_config = sim.step_config._replace(cg_maxiter=WF_CG_MAXITER)
+    return sim
+
+
+def _wf_converged(tag, sim):
+    """Every step of a recorded run converged (run() stops recording at
+    the first that did not)."""
+    n = int(round(float(sim.params.sim_time) / float(sim.params.sim_time_step)))
+    if len(sim.results.get_recording_steps()) != n + 1:
+        raise AssertionError(f"{tag} a step did not converge: recorded "
+                             f"{sim.results.get_recording_steps()} of {n} steps")
+
+
+def _wf_seed(mesh, labels):
+    """The WM node (label 3) nearest the domain's centre."""
+    import numpy as np
+
+    wm = np.flatnonzero(np.asarray(labels) == 3)
+    centre = 0.5 * (mesh.points.min(axis=0) + mesh.points.max(axis=0))
+    return [float(x) for x in mesh.points[wm[np.argmin(
+        np.linalg.norm(mesh.points[wm] - centre, axis=1))]]]
+
+
+def _wf_ref(torch, wf, sim, dev):
+    """The plain f64 model of ``sim`` (a workflow simulation) on the card,
+    at the f64 default tolerances: what the f32 path is held against."""
+    import numpy as np
+
+    from glimslib_tpu_torch.models.tumor_growth_brain import TumorGrowthBrain
+    from glimslib_tpu_torch.workflow.image_based_optimization import (
+        TISSUE_MAP, BoundaryAll,
+    )
+
+    ref = TumorGrowthBrain(wf.mesh, dtype=torch.float64, device=dev, plain=True)
+    ref.setup_global_parameters(
+        label_function=wf.labelfunction, domain_names=TISSUE_MAP,
+        boundaries={"boundary_all": BoundaryAll()},
+        dirichlet_bcs={"clamped_boundary": {"bc_value": np.zeros(wf.mesh.dim),
+                                            "named_boundary": "boundary_all",
+                                            "subspace_id": 0}})
+    ref.setup_model_parameters(iv_expression=sim.params._iv_expressions,
+                               **sim.params.as_dict())
+    return _wf_cap(ref)
+
+
+def _wf_check_forward(torch, wf, dev, tag, out):
+    """The forward's final c and u against the plain f64 path, rel-L2 <=
+    SLICE_RTOL."""
+    t0 = time.perf_counter()
+    sim = wf.sims["forward"]
+    ref = _wf_ref(torch, wf, sim, dev)
+    u0, c0 = ref.initial_state()
+    n = int(round(float(ref.params.sim_time) / float(ref.params.sim_time_step)))
+    u_r, c_r, ok, _ = ref.build_simulate_fn(n, float(ref.params.sim_time_step))(
+        ref.make_theta(ref.params.as_dict()), u0, c0)
+    if not bool(ok.all()):
+        raise AssertionError(f"{tag} the f64 plain forward did not converge")
+    rel_c = _rel_l2(torch.as_tensor(sim.solution[1]), c_r[-1].cpu())
+    rel_u = _rel_l2(torch.as_tensor(sim.solution[0]), u_r[-1].cpu())
+    print(f"{tag} forward vs the f64 plain path on the card "
+          f"({time.perf_counter() - t0:.1f} s): rel-L2 c {rel_c:.3e}, u {rel_u:.3e} "
+          f"(<= {SLICE_RTOL})")
+    if rel_c > SLICE_RTOL or rel_u > SLICE_RTOL:
+        raise AssertionError(f"{tag} forward vs f64: c {rel_c:.3e}, u {rel_u:.3e}")
+    out.update(forward_rel_c=rel_c, forward_rel_u=rel_u)
+
+
+def _wf_check_gradient(torch, wf, dev, tag, out):
+    """J and the gradient at v0 of the workflow's inverse problem against
+    the same problem on the plain f64 path: rel <= ADJ_J_RTOL and rel-L2 <=
+    ADJ_G_RTOL (the lattice's)."""
+    import numpy as np
+
+    from glimslib_tpu_torch.optimize.adjoint import InverseProblem, param_map_for_type
+
+    v0 = np.full(2, WF_V0)
+    ip = wf.inverse_problem()
+    t0 = time.perf_counter()
+    J, g = ip.value_and_grad(v0)
+    torch.cuda.synchronize()
+    vg_s = time.perf_counter() - t0
+    names, update = param_map_for_type(2)
+    ref = _wf_ref(torch, wf, wf.sims["inverse"], dev)
+    t0 = time.perf_counter()
+    J_r, g_r = InverseProblem(ref, names, wf._load_target_fields(),
+                              update_fn=update).value_and_grad(v0)
+    rel_J = abs(J - J_r) / abs(J_r)
+    rel_g = float(np.linalg.norm(g - g_r) / np.linalg.norm(g_r))
+    print(f"{tag} value_and_grad at v0 = {v0.tolist()}: J {J:.8e} (f64 plain "
+          f"{J_r:.8e}, rel {rel_J:.3e} <= {ADJ_J_RTOL['lattice']}), gradient "
+          f"{g.tolist()} (f64 {g_r.tolist()}, rel-L2 {rel_g:.3e} <= "
+          f"{ADJ_G_RTOL['lattice']}); f32 call {vg_s:.3f} s, the f64 plain one "
+          f"{time.perf_counter() - t0:.1f} s")
+    if rel_J > ADJ_J_RTOL["lattice"] or rel_g > ADJ_G_RTOL["lattice"]:
+        raise AssertionError(f"{tag} J {rel_J:.3e}, gradient {rel_g:.3e} vs f64")
+    out.update(J_v0=J, J_v0_rel=rel_J, grad_v0_rel=rel_g)
+
+
+def _wf_inverse(torch, wf, run, tag, maxiter, truth=True):
+    """The inverse stage under the profiler (device activity only): its
+    seconds and launches, device busy ms and idle share of it, the
+    value_and_grad calls and calls/s, and L-BFGS-B's outcome (with the
+    relative errors against WF_TRUTH where the targets come from it)."""
+    from torch.autograd import DeviceType
+
+    prof = {}
+
+    def inverse():
+        prof["p"] = _profile(torch, lambda: wf.run_inverse_problem(
+            opt_params=dict(WF_OPT, maxiter=maxiter)), cpu=False)
+
+    _wf_stage(torch, run, "inverse", inverse)
+    busy = sum(_self_device_us(e) for e in prof["p"].key_averages()
+               if getattr(e, "device_type", None) == DeviceType.CUDA) / 1e3
+    sec = run["seconds"]["inverse"]
+    res, cols = wf.optimization_result, wf.optimization_progress
+    calls = len(cols["J"])
+    out = dict(device_busy_ms=busy, idle_share=max(0.0, 1 - busy / (1e3 * sec)),
+               value_and_grad_calls=calls, calls_per_s=calls / sec, nit=int(res.nit),
+               message=str(res.message), J_start=float(cols["J"][0]),
+               J_end=float(res.fun), params=dict(wf.model_params_optimized))
+    errors = ""
+    if truth:
+        out["rel_errors"] = {k: abs(v - WF_TRUTH) / WF_TRUTH
+                             for k, v in out["params"].items()}
+        errors = f" (truth {WF_TRUTH}), rel errors " + ", ".join(
+            f"{k} {v:.3e}" for k, v in out["rel_errors"].items())
+    print(f"{tag} inverse (profiled, device activity): {sec:.2f} s, device busy "
+          f"{busy:.1f} ms, idle {100 * out['idle_share']:.1f}%; {calls} value_and_grad "
+          f"calls, {out['calls_per_s']:.3f} /s; L-BFGS-B nit {out['nit']}, "
+          f"'{out['message']}', J {out['J_start']:.6e} -> {out['J_end']:.6e}; "
+          f"recovered {out['params']}{errors}")
+    return out
+
+
+def _wf_print_stages(tag, run):
+    print(f"{tag} seconds by stage: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in run["seconds"].items()))
+    for stage, counts in run["launches"].items():
+        print(f"{tag} launches in {stage}: " + ", ".join(
+            f"{k}={n}" for k, n in counts.items()))
+
+
+def _wf_demand_launches(tag, run, stages):
+    """Stencil kernels launch in each of ``stages``; under refine_f64 a
+    forward runs only the solves (its residuals are the f64 gather ones)."""
+    for stage in stages:
+        n = sum(v for k, v in run["launches"][stage].items() if k != "batched_matvec")
+        if n < 1:
+            raise AssertionError(f"{tag} no stencil kernel launched in {stage}")
+        if run["launches"][stage]["batched_matvec"]:
+            raise AssertionError(f"{tag} bell_bmv launched on a lattice workflow")
+
+
+def _wf_atlas(torch, dev, tmp, tag, key, shape, z=None):
+    """One atlas pipeline (module docstring, [11a] / [11b]); returns its
+    numbers and the forward model (for the kernel rows)."""
+    import numpy as np
+
+    from glimslib_tpu_torch.examples import BRAIN_PARAMS_FIXED, BRAIN_PARAMS_VARYING
+    from glimslib_tpu_torch.ops import fused_cg as fc
+    from glimslib_tpu_torch.utils.image_io import Image, write_mha
+    from glimslib_tpu_torch.utils.synthetic import brain_labelmap_3d
+    from glimslib_tpu_torch.workflow.image_based_optimization_atlas import (
+        ImageBasedOptimizationAtlas,
+    )
+
+    t_all = time.perf_counter()
+    path = os.path.join(tmp, f"{key}_atlas.mha")
+    write_mha(path, Image(brain_labelmap_3d(*shape), origin=(0, 0, 0), spacing=(1, 1, 1)))
+    base = os.path.join(tmp, f"{key}_wf")
+    wf = ImageBasedOptimizationAtlas(base, path_to_labels_atlas=path, image_z_slice=z,
+                                     device=dev)
+    run = {"seconds": {}, "launches": {}}
+    _wf_stage(torch, run, "domain", wf.prepare_domain)
+    mesh = wf.mesh
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    seed = _wf_seed(mesh, wf.labelfunction)
+    sim_params = WF_SIM[key]
+    _wf_stage(torch, run, "forward", lambda: (
+        _wf_cap(wf.init_forward_problem(seed, BRAIN_PARAMS_VARYING, BRAIN_PARAMS_FIXED,
+                                        sim_params)),
+        wf.run_forward_sim(save_method="vtk")))
+    sim = wf.sims["forward"]
+    _wf_converged(tag, sim)
+    n_off = len(sim._stencil_ops.offsets)
+    plan = fc.launch_plan(mesh.n_nodes, mesh.dim, n_off, sms)
+    print(f"{tag} {mesh.n_nodes} nodes ({int(sim._unused_node_mask().sum())} untouched "
+          f"by any cell, masked), {mesh.n_cells} cells, {n_off} offsets, seed {seed}; "
+          f"stencil_pcg<{mesh.dim}> launch plan: {plan.mode} ({plan.blocks} blocks)")
+    out = {"nodes": mesh.n_nodes, "cells": mesh.n_cells, "pcg_mode": plan.mode,
+           "forward_final_max_conc": wf.measures["forward_final_max_conc"]}
+    _wf_stage(torch, run, "targets", wf.create_target_fields)
+    start = dict(BRAIN_PARAMS_VARYING, D_WM=WF_V0, rho_WM=WF_V0)
+    _wf_cap(wf.init_inverse_problem(seed, start, sim_params, optimization_type=2))
+    out.update(_wf_inverse(torch, wf, run, tag, WF_MAXITER[key]))
+    _wf_stage(torch, run, "optimized", lambda: (
+        _wf_cap(wf.init_optimized_problem()), wf.run_optimized_sim(save_method="vtk")))
+    _wf_converged(tag, wf.sims["optimized"])
+    comp = _wf_stage(torch, run, "compare", wf.compare_original_optimized)
+    frames = _wf_stage(torch, run, "post_process", wf.post_process)
+    _wf_stage(torch, run, "summary", wf.write_analysis_summary)
+
+    def reload():
+        wf2 = ImageBasedOptimizationAtlas(base, device=dev)
+        wf2.reload_state()
+        return wf2.reload_forward_sim()
+
+    sim2 = _wf_stage(torch, run, "reload", reload)
+    res, res2 = sim.results, sim2.results
+    if res2.get_recording_steps() != res.get_recording_steps() or not all(
+            np.array_equal(res2.get_result(s)[i], res.get_result(s)[i])
+            for s in res.get_recording_steps() for i in (0, 1)):
+        raise AssertionError(f"{tag} the reloaded series differs from the recorded one")
+
+    out["file_output_s"] = run["file_output_s"]
+    out["post_process_s"] = run["seconds"]["post_process"]
+
+    t2 = frames["volume"]
+    T2 = wf.conc_threshold_levels["T2"]
+    vols = {k: t2[f"{k}_volume_{T2}_all"][-1] for k in ("forward", "optimized")}
+    fe = comp["field_errors"]
+    out.update(
+        T2_volumes=vols, comparison={k: [float(x) for x in v] for k, v in fe.items()},
+        param_relative_errors=wf.measures["param_relative_errors"])
+    print(f"{tag} T2 volume at the last step: forward {vols['forward']:.4f}, optimized "
+          f"{vols['optimized']:.4f}; final errornorms c "
+          f"{wf.measures['final_errornorm_concentration']:.4e}, u "
+          f"{wf.measures['final_errornorm_displacement']:.4e}; host s: file output "
+          f"(VTUs, PVD, series store) in forward {out['file_output_s']['forward']:.3f}, "
+          f"in optimized {out['file_output_s']['optimized']:.3f}; post_process "
+          f"{out['post_process_s']:.3f}; reloaded series equal")
+    if not all(np.isfinite(v) and v > 0 for v in vols.values()):
+        raise AssertionError(f"{tag} T2 volumes {vols}")
+    if not out["J_end"] < out["J_start"]:
+        raise AssertionError(f"{tag} J did not fall: {out['J_start']} -> {out['J_end']}")
+    # (D_WM, rho_WM) as a point: nearer the truth than v0
+    dist = float(np.hypot(*(v - WF_TRUTH for v in out["params"].values())))
+    out["distance_to_truth"] = dist
+    if not dist < np.hypot(WF_V0 - WF_TRUTH, WF_V0 - WF_TRUTH):
+        raise AssertionError(f"{tag} no closer to the truth than v0: {out['params']}")
+    _wf_print_stages(tag, run)
+    _wf_demand_launches(tag, run, ("forward", "inverse", "optimized"))
+    out.update(seconds=run["seconds"], launches=run["launches"],
+               total_s=time.perf_counter() - t_all)
+    return out, wf
+
+
+def _wf_patient(torch, dev, tmp, tag):
+    """[11c]: the patient pipeline up to the inverse."""
+    import numpy as np
+
+    from glimslib_tpu_torch.examples import BRAIN_PARAMS_FIXED, BRAIN_PARAMS_VARYING
+    from glimslib_tpu_torch.utils.image_io import Image, write_mha
+    from glimslib_tpu_torch.utils.synthetic import brain_labelmap_3d, t1_from_labels
+    from glimslib_tpu_torch.workflow.image_based_optimization_patient import (
+        ImageBasedOptimizationPatient,
+    )
+
+    t_all = time.perf_counter()
+    nx, ny, nz, z = WF_PATIENT
+    lab = brain_labelmap_3d(nx, ny, nz)
+    t1 = t1_from_labels(lab)
+    # a tumour segmentation: a T2 box around the slice's centre, a T1 core
+    # (tests/test_workflow_patient.py:17-34, scaled to the image)
+    seg = np.zeros_like(lab)
+    cy, cx, h = ny // 2, nx // 2, nx // 10
+    seg[z - 2:z + 2, cy - h:cy + h, cx - h:cx + h] = 6
+    seg[z - 1:z + 1, cy - h // 3:cy + h // 3, cx - h // 3:cx + h // 3] = 5
+    paths = {}
+    for name, arr in [("atlas_labels", lab), ("atlas_t1", t1), ("patient_t1", t1),
+                      ("patient_seg", seg)]:
+        paths[name] = os.path.join(tmp, f"patient_{name}.mha")
+        write_mha(paths[name], Image(np.ascontiguousarray(arr), origin=(0, 0, 0),
+                                     spacing=(1, 1, 1)))
+    wf = ImageBasedOptimizationPatient(
+        os.path.join(tmp, "patient_wf"), path_to_labels_atlas=paths["atlas_labels"],
+        path_to_image_atlas=paths["atlas_t1"], path_to_image_patient=paths["patient_t1"],
+        path_to_labels_patient=paths["patient_seg"], image_z_slice=z, device=dev)
+    run = {"seconds": {}, "launches": {}}
+    _wf_stage(torch, run, "domain", lambda: wf.prepare_domain(use_registration=True))
+    cT2, cT1 = _wf_stage(torch, run, "targets", wf.create_target_fields)
+    seed = [float(x) for x in wf.mesh.points[int(np.argmax(cT1))]]
+    start = dict(BRAIN_PARAMS_VARYING, D_WM=WF_V0, rho_WM=WF_V0)
+    _wf_cap(wf.init_inverse_problem(seed, start, WF_SIM["patient"],
+                                    model_params_fixed=BRAIN_PARAMS_FIXED,
+                                    optimization_type=2))
+    out = {"nodes": wf.mesh.n_nodes, "T2_target_sum": float(cT2.sum()),
+           "T1_target_sum": float(cT1.sum())}
+    print(f"{tag} {wf.mesh.n_nodes} nodes; targets from the segmentation: sum T2 "
+          f"{cT2.sum():.2f}, T1 {cT1.sum():.2f}; seed {seed}")
+    _wf_check_gradient(torch, wf, dev, tag, out)
+    out.update(_wf_inverse(torch, wf, run, tag, WF_MAXITER["patient"], truth=False))
+    if not out["J_end"] <= out["J_start"]:
+        raise AssertionError(f"{tag} J rose: {out['J_start']} -> {out['J_end']}")
+    _wf_print_stages(tag, run)
+    _wf_demand_launches(tag, run, ("inverse",))
+    out.update(seconds=run["seconds"], launches=run["launches"],
+               total_s=time.perf_counter() - t_all)
+    return out
+
+
+def phase_workflow(torch, dev, kernels):
+    """[11]: the workflow (module docstring).  Adds the 256 x 256 kernel
+    rows to ``kernels`` and every pipeline's launches to the stencil rows;
+    returns the pipelines' numbers."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="glims_workflow_")
+    writers = _wf_timed_file_output()
+    try:
+        out = {}
+        nx, ny, nz, z = WF_2D
+        tag = f"[11a] atlas {nx}x{ny}:"
+        out["atlas_2d"], wf = _wf_atlas(torch, dev, tmp, tag, "2d", (nx, ny, nz), z)
+        _wf_check_forward(torch, wf, dev, tag, out["atlas_2d"])
+        print(f"{tag} L-BFGS-B's reach: each parameter within {WF_PARAM_RTOL} of the "
+              f"truth ({WF_PARAM_RTOL_WHY})")
+        errs = out["atlas_2d"]["rel_errors"]
+        if max(errs.values()) > WF_PARAM_RTOL:
+            raise AssertionError(f"{tag} recovered parameters off by {errs}")
+        # every lattice kernel at the slice's shapes, as [8] does at 50 x 50
+        sim = wf.sims["forward"]
+        theta = sim._augment_theta_with_operators(sim.make_theta(sim.params.as_dict()))
+        rows = phase_kernels(torch, sim, theta, dev, "[11a]", f"@{nx}x{ny}", forced=False)
+        del theta, wf, sim
+        for k in rows:
+            by_stage = {st: sum(c[w.__name__] for w in k["wrappers"])
+                        for st, c in out["atlas_2d"]["launches"].items()}
+            k["launches"] = sum(by_stage[st] for st in ("forward", "inverse", "optimized"))
+            k["launches_in"] = f"[11a] forward + inverse + optimized at {nx}x{ny}"
+            k["launches_by_stage"] = by_stage
+        kernels += rows
+        torch.cuda.empty_cache()
+
+        tag = "[11b] atlas {}^3:".format(WF_3D[0])
+        out["atlas_3d"], wf = _wf_atlas(torch, dev, tmp, tag, "3d", WF_3D)
+        _wf_check_forward(torch, wf, dev, tag, out["atlas_3d"])
+        del wf
+        torch.cuda.empty_cache()
+
+        out["patient_2d"] = _wf_patient(torch, dev, tmp, f"[11c] patient "
+                                        f"{WF_PATIENT[0]}x{WF_PATIENT[1]}:")
+        for k in kernels:
+            if "wrappers" not in k or k.get("route") != "cuda" or "stencil" not in k["name"]:
+                continue
+            k["workflow_launches"] = {
+                pipe: sum(sum(c[w.__name__] for w in k["wrappers"])
+                          for c in o["launches"].values())
+                for pipe, o in out.items()}
+        print(f"[11] workflow phase {time.perf_counter() - t_phase:.1f} s")
+        return out
+    finally:
+        from glimslib_tpu_torch.core.results import Results
+
+        for name, fn in writers.items():
+            setattr(Results, name, fn)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     import torch
 
@@ -2006,7 +2481,11 @@ def main():
     quad = phase_quad(torch, dev, kern)
     torch.cuda.empty_cache()
 
+    workflow = phase_workflow(torch, dev, kernels)
+    torch.cuda.empty_cache()
+
     drop = ("wrappers", "pattern", "iters")
+    print(json.dumps({"workflow": workflow}, default=str))
     print(json.dumps({"quad": quad}, default=str))
     print(json.dumps({"defaults": defaults}, default=str))
     print(json.dumps({"adjoint": adjoint}))

@@ -12,7 +12,11 @@ contractions run in the CUDA kernel of ``csrc/bell.cu``
 preconditioning (``solvers/twolevel.py``).  Both feed the
 block-triangular Newton-CG step (``solvers/coupled.py``) and the
 implicit-Euler time loop (``models/base.py``), on the card unless the
-caller asks for the CPU.  Everything else raises ``NotImplementedError``.
+caller asks for the CPU.  Above them: the adjoint inverse problem
+(``optimize/``), ``run()``'s recording and file output
+(``core/results.py``), post-processing (``postprocess.py``) and the
+image-based optimization workflow (``workflow/``).  What is not ported
+raises ``NotImplementedError``.
 
 The package imports ``torch`` and never ``jax``.
 """

@@ -24,6 +24,19 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
+# -- paths (glimslib_tpu/config.py:15-21) ------------------------------------
+base_dir = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+output_dir = os.environ.get("GLIMS_OUTPUT_DIR", os.path.join(base_dir, "output"))
+output_dir_simulation_tmp = os.path.join(output_dir, "simulation_tmp")
+output_dir_testing = os.path.join(output_dir, "testing")
+
+# -- external tool locations (glimslib_tpu/config.py:23-28) ------------------
+# Optional binaries: utils/meshing.py and utils/image_registration_utils.py
+# gate on their presence and fall back to first-party implementations.
+path_to_meshtool_bin = os.environ.get("GLIMS_MESHTOOL_BIN", "meshtool")
+path_to_meshtool_xsd = os.environ.get("GLIMS_MESHTOOL_XSD", "")
+path_to_ants_bin = os.environ.get("GLIMS_ANTS_BIN_DIR", "")
+
 # -- numerics ---------------------------------------------------------------
 
 # Solver operating-point profile, read at model build time

@@ -88,6 +88,9 @@ class FunctionSpace:
     def has_subspaces(self) -> bool:
         return self.subspaces is not None and self.subspaces.n > 1
 
+    def get_subspace_names(self):
+        return self.subspaces.names
+
     def dof_coordinates(self, subspace_id: int) -> np.ndarray:
         """Coordinates of a subspace's scalar dofs, in its dof order."""
         if self.subspaces.get_subspace(subspace_id).degree == 1:

@@ -8,7 +8,7 @@ Same orchestration API as the reference:
                                 boundaries=..., dirichlet_bcs=...)
     sim.setup_model_parameters(iv_expression=..., ..., sim_time=...,
                                sim_time_step=...)
-    u_traj, c_traj, ok, newton_iters = sim.run()
+    u_traj, c_traj, ok, newton_iters = sim.run(save_method=None)
 
 Two operator lanes, chosen by the mesh:
 
@@ -183,6 +183,7 @@ class Simulation(ABC):
         self._agg_plan = None
         self._aux_cache = None
         self._bc_cache = None
+        self._unused = None
         # per-solve CG iteration counts (0-d tensors) of the last simulate
         # and of its backward
         self.solver_info = _new_solver_info()
@@ -283,9 +284,11 @@ class Simulation(ABC):
 
     def _unused_node_mask(self):
         """Nodes no cell references: treated as zero-Dirichlet dofs."""
-        used = np.zeros(self.mesh.n_nodes, dtype=bool)
-        used[np.unique(self.mesh.cells.ravel())] = True
-        return ~used
+        if self._unused is None:
+            used = np.zeros(self.mesh.n_nodes, dtype=bool)
+            used[self.mesh.cells.ravel()] = True
+            self._unused = ~used
+        return self._unused
 
     def _bc_masks_and_values(self):
         """(mask_u, mask_c, gu(t), gc(t)) on the model's device."""
@@ -361,7 +364,10 @@ class Simulation(ABC):
         Wel = ops.build_elasticity(theta["mu"], theta["lam"])
         theta["_Wel"] = Wel
         with torch.no_grad():
-            theta["_Binv"] = ops.block_jacobi_inverse(Wel)
+            # nodes no cell touches (an image's full lattice) have a zero
+            # block: identity there, which the mask folding keeps
+            unused = self._tensor(self._unused_node_mask(), torch.bool)
+            theta["_Binv"] = ops.block_jacobi_inverse(Wel, unused[:, None])
             theta["_WelM"] = fused_cg.fold_mask_vector(ops.offsets, Wel, mask_u)
             theta["_BinvM"] = fused_cg.fold_mask_binv(theta["_Binv"], mask_u)
             theta["_invdM"] = fused_cg.fold_mask_invdiag(self.rd_diag(theta), mask_c)
@@ -835,11 +841,35 @@ class Simulation(ABC):
         mask_u, mask_c, gu, gc = self._bc_masks_and_values()
         return torch.where(mask_u, gu(0.0), u0), torch.where(mask_c, gc(0.0), c0)
 
-    def run(self):
-        """Run the configured schedule; returns the trajectory
-        ``(u_traj, c_traj, ok, newton_iters)`` and sets ``self.solution``
-        to the last converged state as numpy arrays.  File output is not
-        ported yet."""
+    def run(self, keep_nth=1, save_method="xdmf", clear_all=False, plot=False,
+            output_dir=None):
+        """Run the configured schedule and record it (reference
+        simulation_base.py:236-317, glimslib_tpu/models/base.py:1892-1974).
+
+        Records t=0 first, then every ``keep_nth`` step up to the first
+        step that did not converge, into ``self.results``
+        (:class:`~glimslib_tpu_torch.core.results.Results` in
+        ``output_dir``, default ``config.output_dir_simulation_tmp``);
+        ``save_method`` None writes no per-step files, ``"vtk"`` a VTU a
+        step and a PVD series, ``"xdmf"`` (needs h5py) XDMF + HDF5.  Then
+        the series store (``solution_timeseries.npz``) and
+        ``self.solution``, the last converged state as numpy arrays.
+
+        Differs from the reference: it returns the trajectory
+        ``(u_traj, c_traj, ok, newton_iters)`` (tensors on the model's
+        device; the reference returns ``self.solution``), and the
+        trajectory comes to the host once, after the whole simulate.
+        ``plot=True`` raises: ``visualisation/`` is not ported."""
+        if plot:
+            raise NotImplementedError(
+                "plot=True needs visualisation/, which is not ported")
+        from glimslib_tpu_torch.core.results import Results
+
+        output_dir = output_dir or config.output_dir_simulation_tmp
+        self.logger.info("-- Computing solutions")
+        self.results = Results(self.functionspace, self.subdomains,
+                               output_dir=output_dir)
+        self.results.save_solution_start(method=save_method, clear_all=clear_all)
         u0, c0 = self.initial_state()
         theta = self.make_theta(self.params.as_dict())
         dt = float(self.params.sim_time_step)
@@ -847,13 +877,59 @@ class Simulation(ABC):
         u_traj, c_traj, ok_traj, newton = self.build_simulate_fn(n_steps, dt)(
             theta, u0, c0
         )
-        n_ok = int(ok_traj.sum())
+        self.logger.info("    - newton iterations per step: %s", newton.tolist())
+        u_host = u_traj.detach().cpu().numpy()
+        c_host = c_traj.detach().cpu().numpy()
+        ok_host = ok_traj.cpu().numpy()
+        u0_host = u0.cpu().numpy()
+        c0_host = c0.cpu().numpy()
+
+        recording_step = 0
+        self.results.add_to_results(0.0, 0, 0, {0: u0_host, 1: c0_host})
+        self.results.save_solution(0, 0.0, method=save_method)
+        n_ok = int(ok_host.sum())
         if n_ok < n_steps:
             self.logger.warning(
                 "Solver did not converge at step %d -- simulation frozen "
                 "from there", n_ok + 1,
             )
-        last_u = u_traj[n_ok - 1] if n_ok else u0
-        last_c = c_traj[n_ok - 1] if n_ok else c0
-        self.solution = {0: last_u.cpu().numpy(), 1: last_c.cpu().numpy()}
+        for k in range(n_steps):
+            time_step = k + 1
+            if not ok_host[k]:
+                break
+            if time_step % keep_nth == 0:
+                recording_step += 1
+                t = (k + 1) * dt
+                self.results.add_to_results(
+                    t, time_step, recording_step, {0: u_host[k], 1: c_host[k]}
+                )
+                self.results.save_solution(recording_step, t, method=save_method)
+        self.results.save_solution_end(method=save_method)
+        self.results.save_solution_hdf5()
+        self.solution = {0: u_host[n_ok - 1] if n_ok else u0_host,
+                         1: c_host[n_ok - 1] if n_ok else c0_host}
         return u_traj, c_traj, ok_traj, newton
+
+    # -- reload (reference simulation_base.py:319-325) ----------------------
+
+    def reload_from_hdf5(self, path_to_hdf5, output_dir=None):
+        """Reload a series store written by :meth:`run` into
+        ``self.results`` (the reference's name; the archive is ``.npz``)."""
+        from glimslib_tpu_torch.core.results import Results
+
+        output_dir = output_dir or config.output_dir_simulation_tmp
+        self.logger.info("-- Reloading from the series store")
+        self.results = Results(
+            self.functionspace, self.subdomains, output_dir=output_dir
+        )
+        self.results.data.load_from_hdf5(path_to_hdf5)
+
+    # -- postprocess hook ----------------------------------------------------
+
+    def init_postprocess(self, output_dir=None):
+        from glimslib_tpu_torch.postprocess import PostProcessTumorGrowth
+
+        self.postprocess = PostProcessTumorGrowth(
+            self.results, self.params, output_dir=output_dir or "."
+        )
+        return self.postprocess

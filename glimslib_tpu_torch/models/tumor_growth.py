@@ -22,6 +22,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from glimslib_tpu_torch import config
 from glimslib_tpu_torch.core.params import TissueCoefficient
 from glimslib_tpu_torch.models.base import Simulation
 from glimslib_tpu_torch.ops import bell, forms
@@ -173,3 +174,21 @@ class TumorGrowth(Simulation):
                                            body_force=theta["body_force"])
 
         return rd_hi, el_hi
+
+    # -- adjoint runners (reference simulation_tumor_growth.py:142-170) ------
+
+    def run_for_adjoint(self, parameters, output_dir=None):
+        """Update (diffusion, proliferation, coupling) then run."""
+        self.params.diffusion, self.params.proliferation, self.params.coupling = (
+            parameters
+        )
+        self.run(keep_nth=1, save_method=None, clear_all=False, plot=False,
+                 output_dir=output_dir or config.output_dir_simulation_tmp)
+        return self.solution
+
+    def run_for_adjoint2(self, parameters, output_dir=None):
+        """2-parameter variant (diffusion, proliferation)."""
+        self.params.diffusion, self.params.proliferation = parameters
+        self.run(keep_nth=1, save_method=None, clear_all=False, plot=False,
+                 output_dir=output_dir or config.output_dir_simulation_tmp)
+        return self.solution

@@ -15,6 +15,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from glimslib_tpu_torch import config
 from glimslib_tpu_torch.models.tumor_growth import TumorGrowth
 from glimslib_tpu_torch.ops import forms
 
@@ -100,3 +101,56 @@ class TumorGrowthBrain(TumorGrowth):
             "body_force": self._body_force(p.get("body_force")),
             "source": self._tensor(p.get("rd_source_term", 0.0)),
         }
+
+    # -- adjoint runners (reference brain_quad.py:131-210) --------------------
+
+    def _set_and_run(self, updates: Dict, output_dir=None):
+        for k, v in updates.items():
+            setattr(self.params, k, v)
+        self.run(keep_nth=1, save_method=None, clear_all=False, plot=False,
+                 output_dir=output_dir or config.output_dir_simulation_tmp)
+        return self.solution
+
+    def run_for_adjoint(self, parameters, output_dir=None):
+        """5 params: D_WM, D_GM, rho_WM, rho_GM, coupling (brain_quad.py:131-149)."""
+        d_wm, d_gm, r_wm, r_gm, k = parameters
+        return self._set_and_run(
+            {"D_WM": d_wm, "D_GM": d_gm, "rho_WM": r_wm, "rho_GM": r_gm,
+             "coupling": k},
+            output_dir,
+        )
+
+    run_for_adjoint_5params = run_for_adjoint
+
+    def run_for_adjoint_4params(self, parameters, output_dir=None):
+        """D_WM, D_GM, rho(=WM=GM), coupling (brain_quad.py:192-210)."""
+        d_wm, d_gm, r, k = parameters
+        return self._set_and_run(
+            {"D_WM": d_wm, "D_GM": d_gm, "rho_WM": r, "rho_GM": r, "coupling": k},
+            output_dir,
+        )
+
+    def run_for_adjoint_3params(self, parameters, output_dir=None):
+        """D_WM (D_GM=0.2*D_WM), rho, coupling (brain_quad.py:151-169)."""
+        d_wm, r, k = parameters
+        return self._set_and_run(
+            {"D_WM": d_wm, "D_GM": 0.2 * d_wm, "rho_WM": r, "rho_GM": r,
+             "coupling": k},
+            output_dir,
+        )
+
+    def run_for_adjoint_2params(self, parameters, output_dir=None):
+        """D_WM (D_GM=0.2*D_WM), rho; coupling unchanged (brain_quad.py:171-189)."""
+        d_wm, r = parameters
+        return self._set_and_run(
+            {"D_WM": d_wm, "D_GM": 0.2 * d_wm, "rho_WM": r, "rho_GM": r},
+            output_dir,
+        )
+
+    def init_postprocess(self, output_dir=None):
+        from glimslib_tpu_torch.postprocess import PostProcessTumorGrowthBrain
+
+        self.postprocess = PostProcessTumorGrowthBrain(
+            self.results, self.params, output_dir=output_dir or "."
+        )
+        return self.postprocess

@@ -322,3 +322,18 @@ class P1Kernels:
         """Row-sum lumped mass vector (n,)."""
         contrib = (self.vol / (self.dim + 1)).expand(self.npe, self.n_cells)
         return self._scatter_scalar(contrib)
+
+    def cell_average(self, c):
+        """Per-cell average of P1 fields, (..., n) -> (..., nc)."""
+        return c[..., self.cells_T].mean(dim=-2)
+
+    def cell_integral(self, c):
+        """∫_e c dx per cell, (..., n) -> (..., nc): exact for P1 c.  Masked
+        sums of it are the reference's subdomain ``dx(i)`` measures."""
+        return self.vol * self.cell_average(c)
+
+    def cell_vector_gradient(self, u):
+        """Per-cell displacement gradient ∇u[a,b] = ∂u_a/∂x_b, (n, d) ->
+        (nc, d, d)."""
+        ue = u[self.cells_T]  # (npe, nc, d)
+        return torch.einsum("knb,kdn->nbd", ue, self.grads_T)

@@ -3,10 +3,12 @@
 Rebuild of the reference's optimizer plumbing: the custom scipy minimizer
 (image_based_optimization.py:646-658), the eval/derivative callbacks
 recording ``(J, params...)`` / ``(J, dJ...)`` with wall-clock timestamps
-(l.614-625), and ``create_opt_progress_df`` merging them into one pandas
-DataFrame exported to xls/pkl (l.627-644, 748-762).
+(l.614-625), and ``create_opt_progress_df`` merging them into one table
+exported to pkl and csv (l.627-644, 748-762).
 
-A copy of ``glimslib_tpu/optimize/lbfgsb.py``: numpy and scipy only.
+A copy of ``glimslib_tpu/optimize/lbfgsb.py``, numpy and scipy only, but
+for the table: a dict of numpy columns under the reference's names, not a
+pandas DataFrame (the port's workflow path does not import pandas).
 """
 
 from __future__ import annotations
@@ -41,37 +43,34 @@ class OptimizationProgress:
         seq = max(len(self.eval_records) - 1, 0)
         self.grad_records.append((seq, float(j), *np.asarray(dj, float)))
 
-    def to_dataframe(self):
-        """reference create_opt_progress_df (l.627-644)."""
-        import pandas as pd
-
-        params_df = pd.DataFrame(
-            self.eval_records, columns=["eval", "J", *self.param_names]
-        )
-        datetime_df = pd.DataFrame(
-            self.datetime_records, columns=["eval", "J", "datetime"]
-        ).drop(columns=["J"])
-        df = pd.merge(params_df, datetime_df, on="eval", how="outer")
+    def to_columns(self):
+        """The reference's create_opt_progress_df (l.627-644) as a dict of
+        numpy columns: ``eval``, ``J``, the parameters, ``datetime`` and
+        ``dJd<name>`` (NaN where an evaluation has no gradient)."""
+        ev = np.asarray([r[0] for r in self.eval_records], dtype=np.int64)
+        cols = {"eval": ev,
+                "J": np.asarray([r[1] for r in self.eval_records], dtype=np.float64)}
+        for i, name in enumerate(self.param_names):
+            cols[name] = np.asarray([r[2 + i] for r in self.eval_records],
+                                    dtype=np.float64)
+        cols["datetime"] = np.asarray([r[2] for r in self.datetime_records],
+                                      dtype="datetime64[us]")
         if self.grad_records:
-            dj_df = pd.DataFrame(
-                self.grad_records,
-                columns=["eval", "J", *[f"dJd{p}" for p in self.param_names]],
-            ).drop(columns=["J"])
-            df = pd.merge(df, dj_df, on="eval", how="outer")
-        return df
+            by_eval = {r[0]: r[2:] for r in self.grad_records}
+            for i, name in enumerate(self.param_names):
+                cols[f"dJd{name}"] = np.asarray(
+                    [by_eval[e][i] if e in by_eval else np.nan for e in ev],
+                    dtype=np.float64)
+        return cols
 
     def save(self, path_pkl=None, path_xls=None):
-        df = self.to_dataframe()
-        if path_pkl:
-            df.to_pickle(path_pkl)
-        if path_xls:
-            try:
-                df.to_excel(path_xls)
-            except Exception as e:  # no excel writer installed
-                csv = str(path_xls).rsplit(".", 1)[0] + ".csv"
-                logger.warning("to_excel failed (%s); writing %s", e, csv)
-                df.to_csv(csv)
-        return df
+        """Pickle the columns to ``path_pkl`` and write them as CSV beside
+        ``path_xls`` (its extension swapped to .csv, the reference's
+        fallback when no excel writer is installed); returns them."""
+        from glimslib_tpu_torch.utils.data_io import save_columns
+
+        csv = str(path_xls).rsplit(".", 1)[0] + ".csv" if path_xls else None
+        return save_columns(self.to_columns(), path_pkl=path_pkl, path_csv=csv)
 
     @property
     def total_time_seconds(self):

@@ -1,2 +1,3 @@
-"""Image and mesh utilities of the 2D atlas problems, copied from
-``glimslib_tpu/utils/`` (numpy only)."""
+"""Image, mesh and file utilities (numpy only), copied from
+``glimslib_tpu/utils/``; ``data_io``'s mesh and function store is the
+port's own (``.npz``)."""

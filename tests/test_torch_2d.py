@@ -31,13 +31,29 @@ from glimslib_tpu.models.tumor_growth import TumorGrowth as JaxTumorGrowth  # no
 from glimslib_tpu.models.tumor_growth_brain import TumorGrowthBrain as JaxBrain  # noqa: E402
 from glimslib_tpu.optimize import adjoint as jax_adjoint  # noqa: E402
 from glimslib_tpu.solvers.coupled import StepConfig as JaxStepConfig  # noqa: E402
+from glimslib_tpu.core import results as jax_results  # noqa: E402
+from glimslib_tpu.models import tumor_growth as jax_tg  # noqa: E402
+from glimslib_tpu.models import tumor_growth_brain as jax_tgb  # noqa: E402
+from glimslib_tpu.optimize import lbfgsb as jax_lbfgsb  # noqa: E402
 from glimslib_tpu.utils import data_io as jax_dio  # noqa: E402
+from glimslib_tpu.utils import file_utils as jax_file_utils  # noqa: E402
 from glimslib_tpu.utils import image_io as jax_image_io  # noqa: E402
+from glimslib_tpu.utils import image_registration_utils as jax_reg  # noqa: E402
+from glimslib_tpu.utils import interpolation as jax_interp  # noqa: E402
+from glimslib_tpu.utils import meshing as jax_meshing  # noqa: E402
 from glimslib_tpu.utils import synthetic as jax_synthetic  # noqa: E402
 from glimslib_tpu.utils import vtk_utils as jax_vtk  # noqa: E402
+from glimslib_tpu.workflow import path_io as jax_path_io  # noqa: E402
 from glimslib_tpu_torch import examples  # noqa: E402
+from glimslib_tpu_torch.core import results  # noqa: E402
+from glimslib_tpu_torch.models import tumor_growth, tumor_growth_brain  # noqa: E402
+from glimslib_tpu_torch.optimize import lbfgsb  # noqa: E402
 from glimslib_tpu_torch.solvers.coupled import StepConfig  # noqa: E402
-from glimslib_tpu_torch.utils import data_io, image_io, synthetic, vtk_utils  # noqa: E402
+from glimslib_tpu_torch.utils import (  # noqa: E402
+    data_io, file_utils, image_io, image_registration_utils, interpolation, meshing,
+    synthetic, vtk_utils,
+)
+from glimslib_tpu_torch.workflow import path_io  # noqa: E402
 
 from reference_fem import ReferenceFEM  # noqa: E402
 
@@ -120,7 +136,7 @@ def test_rect_uniform_matches_reference_fem():
     nodes, 5 steps), f64 at the model's default tolerances, against the
     scipy FEM: rel-L2 1e-6 on c and u."""
     sim = examples.rect_sim(n=50, dtype=F64, device="cpu")
-    _, _, ok, _ = sim.run()
+    _, _, ok, _ = sim.run(save_method=None)
     assert bool(ok.all())
     mesh = sim.mesh
     ref = ReferenceFEM(mesh)
@@ -191,17 +207,50 @@ def _code_lines(obj):
             if not ln.strip().startswith(("import ", "from "))]
 
 
+def _member(module, dotted):
+    obj = module
+    for part in dotted.split("."):
+        obj = getattr(obj, part)
+    return obj.fget if isinstance(obj, property) else obj
+
+
 @pytest.mark.parametrize("copy,ref,names", [
     (image_io, jax_image_io, None),
     (synthetic, jax_synthetic, None),
-    (vtk_utils, jax_vtk, ["threshold_cells", "cell_to_point_data"]),
-    (data_io, jax_dio, ["image2fct2D", "get_labelfunction_from_image",
+    (vtk_utils, jax_vtk, None),
+    (file_utils, jax_file_utils, None),
+    (interpolation, jax_interp, None),
+    (meshing, jax_meshing, None),
+    (image_registration_utils, jax_reg, None),
+    (path_io, jax_path_io, None),
+    (data_io, jax_dio, ["image2fct2D", "fct2image2D", "compute_spacing",
+                        "get_measures_from_structured_mesh", "get_measures_from_image",
+                        "create_image_from_fenics_function",
+                        "create_fenics_function_from_image", "get_labelfunction_from_image",
                         "identify_orphaned_vertices", "remove_orphaned_vertices",
-                        "remove_mesh_subdomain"]),
-], ids=["image_io", "synthetic", "vtk_utils", "data_io"])
+                        "read_vtk_convert_to_fenics", "convert_fenics_mesh_to_meshio",
+                        "convert_meshio_to_fenics_mesh", "remove_mesh_subdomain",
+                        "create_file_name", "merge_vtus_timestep", "merge_VTUs"]),
+    (results, jax_results, [
+        "TimeSeriesDataTimePoint", "TimeSeriesData",
+        "TimeSeriesMultiData.register_time_series", "TimeSeriesMultiData.add_observation",
+        "TimeSeriesMultiData.get_solution_function", "Results.add_to_results",
+        "Results.mesh", "Results.save_solution_start", "Results.save_solution",
+        "Results.save_solution_end", "Results.save_label_function"]),
+    (lbfgsb, jax_lbfgsb, ["minimize_lbfgsb", "OptimizationProgress.record_eval",
+                          "OptimizationProgress.record_grad",
+                          "OptimizationProgress.total_time_seconds"]),
+    (tumor_growth, jax_tg, ["TumorGrowth.run_for_adjoint", "TumorGrowth.run_for_adjoint2"]),
+    (tumor_growth_brain, jax_tgb, [
+        "TumorGrowthBrain._set_and_run", "TumorGrowthBrain.run_for_adjoint",
+        "TumorGrowthBrain.run_for_adjoint_4params", "TumorGrowthBrain.run_for_adjoint_3params",
+        "TumorGrowthBrain.run_for_adjoint_2params", "TumorGrowthBrain.init_postprocess"]),
+], ids=["image_io", "synthetic", "vtk_utils", "file_utils", "interpolation", "meshing",
+        "image_registration_utils", "path_io", "data_io", "results", "lbfgsb",
+        "tumor_growth", "tumor_growth_brain"])
 def test_utils_copies_are_the_reference_code(copy, ref, names):
-    """Each copied module (whole, past its copy header) or function is
-    the JAX package's code byte for byte, import lines apart."""
+    """Each copied module (whole, past its copy header) or member is the
+    JAX package's code byte for byte, import lines apart."""
     if names is None:
         src = inspect.getsource(copy)
         body = src[src.index('"""'):]
@@ -211,7 +260,7 @@ def test_utils_copies_are_the_reference_code(copy, ref, names):
                 if not ln.strip().startswith(("import ", "from "))] == want
         return
     for name in names:
-        assert _code_lines(getattr(copy, name)) == _code_lines(getattr(ref, name)), name
+        assert _code_lines(_member(copy, name)) == _code_lines(_member(ref, name)), name
 
 
 # -- the reduced-domain 2D atlas inverse problem --------------------------------

@@ -223,7 +223,7 @@ def test_slice_runs_through_the_kernels(lattice):
                 fc.cg_scalar, fc.cg_vector)
     for w in wrappers:
         w.launches = 0
-    u_tr, c_tr, ok, _ = sim.run()
+    u_tr, c_tr, ok, _ = sim.run(save_method=None)
     torch.cuda.synchronize()
     assert bool(ok.all())
     assert bool(torch.isfinite(c_tr).all()) and bool(torch.isfinite(u_tr).all())
@@ -512,14 +512,14 @@ def test_rect_slice_runs_through_the_kernels(rect):
     applies = (sk.apply_scalar_sum, sk.apply_vector, sk.apply_coupling)
     for w in wrappers + applies:
         w.launches = 0
-    u_tr, c_tr, ok, _ = sim.run()
+    u_tr, c_tr, ok, _ = sim.run(save_method=None)
     torch.cuda.synchronize()
     assert bool(ok.all()) and all(w.launches > 0 for w in wrappers)
     assert all(w.launches == 0 for w in applies)
     assert len(sim.solver_info["el_refine_cg_iters"]) == 5
     assert fc.cg_vector.last_plan.mode == "resident"
     ref = rect_sim(n=50, dtype=torch.float32, device=sim.device, plain=True)
-    u_p, c_p, ok_p, _ = ref.run()
+    u_p, c_p, ok_p, _ = ref.run(save_method=None)
     assert bool(ok_p.all())
     for got, want in ((u_tr[-1], u_p[-1]), (c_tr[-1], c_p[-1])):
         assert float((got - want).norm() / want.norm()) <= 1e-4
@@ -694,3 +694,101 @@ def test_quad_forward_on_the_card_matches_plain_f64(quad):
     assert bool(ok_r.all())
     for got, want in ((u[-1], u_r[-1]), (c[-1], c_r[-1])):
         assert float((got.double() - want).norm() / want.norm()) <= 1e-4
+
+
+# -- the workflow on the card -------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def workflow_64(tmp_path_factory):
+    """The 2D atlas pipeline on the card at f32 (the workflow's default) on
+    a 64 x 64 slice of brain_labelmap_3d(64, 64, 8), 3 steps, up to the
+    inverse problem; and the plain f64 model of its forward and inverse
+    simulations on the card (the f64 default tolerances)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from glimslib_tpu_torch.examples import (
+        BRAIN_PARAMS_FIXED, BRAIN_PARAMS_VARYING, TISSUE_MAP,
+    )
+    from glimslib_tpu_torch.models.tumor_growth_brain import TumorGrowthBrain
+    from glimslib_tpu_torch.utils.image_io import Image, write_mha
+    from glimslib_tpu_torch.utils.synthetic import brain_labelmap_3d
+    from glimslib_tpu_torch.workflow.image_based_optimization import BoundaryAll
+    from glimslib_tpu_torch.workflow.image_based_optimization_atlas import (
+        ImageBasedOptimizationAtlas,
+    )
+
+    d = tmp_path_factory.mktemp("workflow_64")
+    path = str(d / "atlas.mha")
+    write_mha(path, Image(brain_labelmap_3d(64, 64, 8), origin=(0, 0, 0),
+                          spacing=(1, 1, 1)))
+    wf = ImageBasedOptimizationAtlas(str(d / "wf"), path_to_labels_atlas=path,
+                                     image_z_slice=4)
+    assert wf.device.type == "cuda" and wf.dtype == torch.float32
+    wf.prepare_domain()
+    sim_params = dict(sim_time=3, sim_time_step=1, seed_width=3.0)
+    seed = [32.0, 32.0]
+    wf.init_forward_problem(seed, BRAIN_PARAMS_VARYING, BRAIN_PARAMS_FIXED, sim_params)
+    wf.run_forward_sim(save_method="vtk")
+    wf.create_target_fields()
+    wf.init_inverse_problem(seed, dict(BRAIN_PARAMS_VARYING, D_WM=0.05, rho_WM=0.05),
+                            sim_params, optimization_type=2)
+
+    def plain(sim):
+        ref = TumorGrowthBrain(wf.mesh, dtype=torch.float64, device="cuda", plain=True)
+        ref.setup_global_parameters(
+            label_function=wf.labelfunction, domain_names=TISSUE_MAP,
+            boundaries={"boundary_all": BoundaryAll()},
+            dirichlet_bcs={"clamped_boundary": {"bc_value": np.zeros(2),
+                                                "named_boundary": "boundary_all",
+                                                "subspace_id": 0}})
+        ref.setup_model_parameters(iv_expression=sim.params._iv_expressions,
+                                   **sim.params.as_dict())
+        return ref
+
+    return wf, plain
+
+
+def test_workflow_2d_on_the_card_matches_plain_f64(workflow_64):
+    """The forward's final c and u within rel-L2 5e-5 of the plain f64
+    path, and J at v0 within 1e-4 of the plain f64 inverse problem's, the
+    stencil kernels launching in both."""
+    from glimslib_tpu_torch.optimize.adjoint import InverseProblem, param_map_for_type
+
+    wf, plain = workflow_64
+    sim = wf.sims["forward"]
+    ref = plain(sim)
+    u_r, c_r, ok, _ = ref.build_simulate_fn(3, 1.0)(
+        ref.make_theta(ref.params.as_dict()), *ref.initial_state())
+    assert bool(ok.all())
+    for got, want in ((sim.solution[1], c_r[-1]), (sim.solution[0], u_r[-1])):
+        want = want.cpu().numpy()
+        assert np.linalg.norm(got - want) / np.linalg.norm(want) <= 5e-5
+    fc.cg_vector.launches = sk.apply_vector.launches = 0
+    J, g = wf.inverse_problem().value_and_grad(np.array([0.05, 0.05]))
+    assert fc.cg_vector.launches > 0 and sk.apply_vector.launches > 0
+    names, update = param_map_for_type(2)
+    J_r, g_r = InverseProblem(plain(wf.sims["inverse"]), names, wf._load_target_fields(),
+                              update_fn=update).value_and_grad(np.array([0.05, 0.05]))
+    assert abs(J - J_r) <= 1e-4 * abs(J_r)
+    assert np.linalg.norm(g - g_r) <= 1e-3 * np.linalg.norm(g_r)
+
+
+def test_workflow_state_from_the_card_reloads_on_the_cpu(workflow_64):
+    """The state and series written by the card's pipeline reload in a
+    fresh workflow on the CPU: the domain and every recorded step equal."""
+    from glimslib_tpu_torch.workflow.image_based_optimization_atlas import (
+        ImageBasedOptimizationAtlas,
+    )
+
+    wf, _ = workflow_64
+    wf2 = ImageBasedOptimizationAtlas(wf.base_dir, device="cpu")
+    wf2.reload_state()
+    np.testing.assert_array_equal(wf2.mesh.points, wf.mesh.points)
+    sim = wf2.reload_forward_sim()
+    assert sim.device.type == "cpu"
+    res = wf.sims["forward"].results
+    assert sim.results.get_recording_steps() == res.get_recording_steps() == [0, 1, 2, 3]
+    for s in res.get_recording_steps():
+        for i in (0, 1):
+            np.testing.assert_array_equal(sim.results.get_result(s)[i], res.get_result(s)[i])

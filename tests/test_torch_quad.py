@@ -250,7 +250,7 @@ def test_forward_matches_reference_fem_p2(case):
     else:
         mesh, conc = _morton("rect", 9)[0], True
     sim = _setup_quad(TumorGrowth(mesh, dtype=torch.float64, device="cpu"), conc)
-    _, _, ok, _ = sim.run()
+    _, _, ok, _ = sim.run(save_method=None)
     assert bool(ok.all())
 
     ref = ReferenceFEMP2(mesh)

@@ -124,7 +124,7 @@ def test_forward_matches_reference_fem():
         D_GM=0.02, D_WM=0.1, rho_GM=0.02, rho_WM=0.1, coupling=0.15,
         sim_time=2, sim_time_step=1,
     )
-    _, _, ok, _ = sim.run()
+    _, _, ok, _ = sim.run(save_method=None)
     assert ok.all()
 
     theta = sim.make_theta(sim.params.as_dict())
@@ -188,13 +188,13 @@ def _time_dependent_source():
 def _step_config(**kw):
     sim = _tumor_growth_2d()
     sim.step_config = StepConfig(**kw)
-    sim.run()
+    sim.run(save_method=None)
 
 
 def test_plain_2d_lattice_runs():
     """A 2D rectangle lattice runs through the same plain path on the CPU."""
     sim = _tumor_growth_2d()
-    _, c, ok, _ = sim.run()
+    _, c, ok, _ = sim.run(save_method=None)
     assert ok.all() and torch.isfinite(c).all()
 
 

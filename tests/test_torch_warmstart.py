@@ -51,7 +51,7 @@ def _sim():
 
 
 def _final(sim):
-    u_tr, c_tr, ok, _ = sim.run()
+    u_tr, c_tr, ok, _ = sim.run(save_method=None)
     assert bool(ok.all())
     return u_tr[-1].numpy(), c_tr[-1].numpy()
 
