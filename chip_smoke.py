@@ -178,7 +178,23 @@ Phases, each printed on lines of their own:
    the recovered (D_WM, rho_WM) lies nearer the truth (0.1, 0.1) than
    v0 (in [11a] each within WF_PARAM_RTOL of it), the T2 volumes of the
    forward and optimized runs are finite and positive, and the reloaded
-   series equals the recorded one exactly.
+   series equals the recorded one exactly.  [11d] the atlas pipeline of
+   [11a] with ``model="quad"``: the quad model on the slice's mesh with
+   its lattice stripped (the unstructured lane; 261,121 P2 dofs),
+   through bell_bmv and no stencil kernel; it prints the seconds by
+   stage, each sim's set-up by part (the P1 plan, the P2 plan, the
+   coarse level's eigh), the forward's Newton and CG iterations, bell_bmv's
+   launches by stage and shape, and at each of the slice's four table
+   shapes bell_bmv against its plain version and timed as in [5], with the
+   share of the bound weighted by the launches; it holds the forward's c
+   and u to QUAD_RTOL of the plain f64 path, J at v0 and the gradient to
+   the unstructured limits, J falling and the recovered parameters nearer
+   the truth than v0 (reporting whether within WF_PARAM_RTOL), bell_bmv
+   launching at every shape.  [11e] the quad model on a 32^3 labelmap's
+   full lattice (cell-free P2 vertex dofs on the card): a 2-step forward,
+   finite, with c and u exactly 0 at the cell-free nodes and within
+   QUAD_RTOL of the plain f64 path, and one value_and_grad held to the
+   unstructured limits.
 
 Then one JSON line with [11]'s numbers, one with [10]'s, one with [9]'s, one with [7]'s
 and [8]'s value_and_grad numbers, one with
@@ -258,8 +274,15 @@ WF_3D = (64, 64, 64)
 WF_PATIENT = (128, 128, 32, 16)
 WF_SIM = {"2d": dict(sim_time=10, sim_time_step=1, seed_width=5.0),
           "3d": dict(sim_time=2, sim_time_step=1, seed_width=5.0),
-          "patient": dict(sim_time=2, sim_time_step=1, seed_width=5.0)}
-WF_MAXITER = {"2d": 10, "3d": 2, "patient": 3}
+          "patient": dict(sim_time=2, sim_time_step=1, seed_width=5.0),
+          # [11d]: [11a]'s slice with the quad model, cut from [11a]'s 10
+          # steps and maxiter 10 (to 5 steps and the reference quad test's
+          # maxiter 3), where one f32 value_and_grad took 9.5 s and the
+          # profiled inverse 225 s (14 calls; an H100 at 700 W)
+          "quad": dict(sim_time=5, sim_time_step=1, seed_width=5.0)}
+WF_MAXITER = {"2d": 10, "3d": 2, "patient": 3, "quad": 3}
+# [11e]: the quad model on this labelmap's full lattice (33^3 corners)
+WF_QUAD_3D = (32, 32, 32)
 WF_OPT = {"tol": 1e-8, "gtol": 1e-8}
 # the models' f32 default caps a CG solve at 1,000 iterations (the
 # reference's, glimslib_tpu/models/base.py:101); the 256 x 256 slice's
@@ -977,7 +1000,8 @@ def phase_slice(torch, sim, ref, dev, kernels, tag, n_steps, run=""):
     ref.step_config = StepConfig(newton_rtol=1e-10, newton_atol=1e-14,
                                  cg_rtol=1e-12, cg_maxiter=4000)
     t0 = time.perf_counter()
-    u_r, c_r, ok_r, newton_r = ref.run(save_method=None)
+    u_r, c_r, ok_r, newton_r = ref.build_simulate_fn(n_steps, 1.0)(
+        ref.make_theta(ref.params.as_dict()), *ref.initial_state())
     torch.cuda.synchronize()
     if not bool(ok_r.all()):
         raise AssertionError("f64 plain reference did not converge")
@@ -2022,11 +2046,14 @@ def _wf_wrappers():
 
 def _wf_stage(torch, run, name, fn):
     """One workflow stage with every launch count at 0 just before it:
-    its seconds, launches by wrapper and host seconds of file output go
-    into ``run``."""
+    its seconds, launches by wrapper (bell_bmv's also by shape) and host
+    seconds of file output go into ``run``."""
+    from glimslib_tpu_torch.ops import bell_kernels as bk
+
     wrappers = _wf_wrappers()
     for w in wrappers:
         w.launches = 0
+    bk.batched_matvec.launches_by_shape = {}
     files0 = WF_FILE_S[0]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2034,6 +2061,7 @@ def _wf_stage(torch, run, name, fn):
     torch.cuda.synchronize()
     run["seconds"][name] = time.perf_counter() - t0
     run["launches"][name] = {w.__name__: w.launches for w in wrappers}
+    run.setdefault("bmv_by_shape", {})[name] = dict(bk.batched_matvec.launches_by_shape)
     run.setdefault("file_output_s", {})[name] = WF_FILE_S[0] - files0
     return out
 
@@ -2090,15 +2118,22 @@ def _wf_seed(mesh, labels):
 
 def _wf_ref(torch, wf, sim, dev):
     """The plain f64 model of ``sim`` (a workflow simulation) on the card,
-    at the f64 default tolerances: what the f32 path is held against."""
+    at the f64 default tolerances: what the f32 path is held against.  A
+    quad model's shares its plans (cached on the mesh), takes its frozen
+    coarse factors (a preconditioner changes iteration counts only) and
+    builds its supernode inverses in f64, as [10b]'s does."""
     import numpy as np
 
     from glimslib_tpu_torch.models.tumor_growth_brain import TumorGrowthBrain
+    from glimslib_tpu_torch.models.tumor_growth_brain_quad import (
+        TumorGrowthBrain as BrainQuad,
+    )
     from glimslib_tpu_torch.workflow.image_based_optimization import (
         TISSUE_MAP, BoundaryAll,
     )
 
-    ref = TumorGrowthBrain(wf.mesh, dtype=torch.float64, device=dev, plain=True)
+    model = BrainQuad if sim.quad else TumorGrowthBrain
+    ref = model(sim.mesh, dtype=torch.float64, device=dev, plain=True)
     ref.setup_global_parameters(
         label_function=wf.labelfunction, domain_names=TISSUE_MAP,
         boundaries={"boundary_all": BoundaryAll()},
@@ -2107,14 +2142,18 @@ def _wf_ref(torch, wf, sim, dev):
                                             "subspace_id": 0}})
     ref.setup_model_parameters(iv_expression=sim.params._iv_expressions,
                                **sim.params.as_dict())
+    if sim.quad:
+        ref._aux_cache = {k: v.double() for k, v in sim.runtime_aux().items()
+                          if k.startswith("_TL")}
     return _wf_cap(ref)
 
 
 def _wf_check_forward(torch, wf, dev, tag, out):
     """The forward's final c and u against the plain f64 path, rel-L2 <=
-    SLICE_RTOL."""
+    SLICE_RTOL (a quad model: QUAD_RTOL)."""
     t0 = time.perf_counter()
     sim = wf.sims["forward"]
+    rtol = QUAD_RTOL if sim.quad else SLICE_RTOL
     ref = _wf_ref(torch, wf, sim, dev)
     u0, c0 = ref.initial_state()
     n = int(round(float(ref.params.sim_time) / float(ref.params.sim_time_step)))
@@ -2126,8 +2165,8 @@ def _wf_check_forward(torch, wf, dev, tag, out):
     rel_u = _rel_l2(torch.as_tensor(sim.solution[0]), u_r[-1].cpu())
     print(f"{tag} forward vs the f64 plain path on the card "
           f"({time.perf_counter() - t0:.1f} s): rel-L2 c {rel_c:.3e}, u {rel_u:.3e} "
-          f"(<= {SLICE_RTOL})")
-    if rel_c > SLICE_RTOL or rel_u > SLICE_RTOL:
+          f"(<= {rtol})")
+    if rel_c > rtol or rel_u > rtol:
         raise AssertionError(f"{tag} forward vs f64: c {rel_c:.3e}, u {rel_u:.3e}")
     out.update(forward_rel_c=rel_c, forward_rel_u=rel_u)
 
@@ -2135,12 +2174,13 @@ def _wf_check_forward(torch, wf, dev, tag, out):
 def _wf_check_gradient(torch, wf, dev, tag, out):
     """J and the gradient at v0 of the workflow's inverse problem against
     the same problem on the plain f64 path: rel <= ADJ_J_RTOL and rel-L2 <=
-    ADJ_G_RTOL (the lattice's)."""
+    ADJ_G_RTOL (the lattice's; a quad model's: the unstructured ones)."""
     import numpy as np
 
     from glimslib_tpu_torch.optimize.adjoint import InverseProblem, param_map_for_type
 
     v0 = np.full(2, WF_V0)
+    lane = "unstructured" if wf.sims["inverse"].quad else "lattice"
     ip = wf.inverse_problem()
     t0 = time.perf_counter()
     J, g = ip.value_and_grad(v0)
@@ -2154,11 +2194,11 @@ def _wf_check_gradient(torch, wf, dev, tag, out):
     rel_J = abs(J - J_r) / abs(J_r)
     rel_g = float(np.linalg.norm(g - g_r) / np.linalg.norm(g_r))
     print(f"{tag} value_and_grad at v0 = {v0.tolist()}: J {J:.8e} (f64 plain "
-          f"{J_r:.8e}, rel {rel_J:.3e} <= {ADJ_J_RTOL['lattice']}), gradient "
+          f"{J_r:.8e}, rel {rel_J:.3e} <= {ADJ_J_RTOL[lane]}), gradient "
           f"{g.tolist()} (f64 {g_r.tolist()}, rel-L2 {rel_g:.3e} <= "
-          f"{ADJ_G_RTOL['lattice']}); f32 call {vg_s:.3f} s, the f64 plain one "
+          f"{ADJ_G_RTOL[lane]}); f32 call {vg_s:.3f} s, the f64 plain one "
           f"{time.perf_counter() - t0:.1f} s")
-    if rel_J > ADJ_J_RTOL["lattice"] or rel_g > ADJ_G_RTOL["lattice"]:
+    if rel_J > ADJ_J_RTOL[lane] or rel_g > ADJ_G_RTOL[lane]:
         raise AssertionError(f"{tag} J {rel_J:.3e}, gradient {rel_g:.3e} vs f64")
     out.update(J_v0=J, J_v0_rel=rel_J, grad_v0_rel=rel_g)
 
@@ -2167,7 +2207,10 @@ def _wf_inverse(torch, wf, run, tag, maxiter, truth=True):
     """The inverse stage under the profiler (device activity only): its
     seconds and launches, device busy ms and idle share of it, the
     value_and_grad calls and calls/s, and L-BFGS-B's outcome (with the
-    relative errors against WF_TRUTH where the targets come from it)."""
+    relative errors against WF_TRUTH where the targets come from it).
+    Busy is the sum of the raw device events' durations: parsing the
+    events of a window of millions of launches into ``key_averages`` took
+    minutes (the quad inverse, 3.7 million)."""
     from torch.autograd import DeviceType
 
     prof = {}
@@ -2177,8 +2220,8 @@ def _wf_inverse(torch, wf, run, tag, maxiter, truth=True):
             opt_params=dict(WF_OPT, maxiter=maxiter)), cpu=False)
 
     _wf_stage(torch, run, "inverse", inverse)
-    busy = sum(_self_device_us(e) for e in prof["p"].key_averages()
-               if getattr(e, "device_type", None) == DeviceType.CUDA) / 1e3
+    busy = sum(e.duration_ns() for e in prof["p"].profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA) / 1e6
     sec = run["seconds"]["inverse"]
     res, cols = wf.optimization_result, wf.optimization_progress
     calls = len(cols["J"])
@@ -2206,22 +2249,32 @@ def _wf_print_stages(tag, run):
     for stage, counts in run["launches"].items():
         print(f"{tag} launches in {stage}: " + ", ".join(
             f"{k}={n}" for k, n in counts.items()))
+    for stage, by_shape in run.get("bmv_by_shape", {}).items():
+        if by_shape:
+            print(f"{tag} bell_bmv launches in {stage} by (B, M, K): " + ", ".join(
+                f"{k}: {n}" for k, n in sorted(by_shape.items(), key=lambda x: -x[1])))
 
 
-def _wf_demand_launches(tag, run, stages):
-    """Stencil kernels launch in each of ``stages``; under refine_f64 a
-    forward runs only the solves (its residuals are the f64 gather ones)."""
+def _wf_demand_launches(tag, run, stages, quad=False):
+    """Stencil kernels launch in each of ``stages`` and bell_bmv does not;
+    under refine_f64 a forward runs only the solves (its residuals are the
+    f64 gather ones).  ``quad``: bell_bmv launches in each and no stencil
+    kernel does (the quad model runs the unstructured lane)."""
     for stage in stages:
         n = sum(v for k, v in run["launches"][stage].items() if k != "batched_matvec")
-        if n < 1:
+        bmv = run["launches"][stage]["batched_matvec"]
+        if quad and (bmv < 1 or n):
+            raise AssertionError(f"{tag} {stage}: bell_bmv {bmv} launches, stencil "
+                                 f"kernels {n} on a quad workflow")
+        if not quad and n < 1:
             raise AssertionError(f"{tag} no stencil kernel launched in {stage}")
-        if run["launches"][stage]["batched_matvec"]:
+        if not quad and bmv:
             raise AssertionError(f"{tag} bell_bmv launched on a lattice workflow")
 
 
-def _wf_atlas(torch, dev, tmp, tag, key, shape, z=None):
-    """One atlas pipeline (module docstring, [11a] / [11b]); returns its
-    numbers and the forward model (for the kernel rows)."""
+def _wf_atlas(torch, dev, tmp, tag, key, shape, z=None, model="linear"):
+    """One atlas pipeline (module docstring, [11a] / [11b]; ``model="quad"``
+    [11d]); returns its numbers and the workflow."""
     import numpy as np
 
     from glimslib_tpu_torch.examples import BRAIN_PARAMS_FIXED, BRAIN_PARAMS_VARYING
@@ -2237,7 +2290,7 @@ def _wf_atlas(torch, dev, tmp, tag, key, shape, z=None):
     write_mha(path, Image(brain_labelmap_3d(*shape), origin=(0, 0, 0), spacing=(1, 1, 1)))
     base = os.path.join(tmp, f"{key}_wf")
     wf = ImageBasedOptimizationAtlas(base, path_to_labels_atlas=path, image_z_slice=z,
-                                     device=dev)
+                                     model=model, device=dev)
     run = {"seconds": {}, "launches": {}}
     _wf_stage(torch, run, "domain", wf.prepare_domain)
     mesh = wf.mesh
@@ -2250,13 +2303,19 @@ def _wf_atlas(torch, dev, tmp, tag, key, shape, z=None):
         wf.run_forward_sim(save_method="vtk")))
     sim = wf.sims["forward"]
     _wf_converged(tag, sim)
-    n_off = len(sim._stencil_ops.offsets)
-    plan = fc.launch_plan(mesh.n_nodes, mesh.dim, n_off, sms)
-    print(f"{tag} {mesh.n_nodes} nodes ({int(sim._unused_node_mask().sum())} untouched "
-          f"by any cell, masked), {mesh.n_cells} cells, {n_off} offsets, seed {seed}; "
-          f"stencil_pcg<{mesh.dim}> launch plan: {plan.mode} ({plan.blocks} blocks)")
-    out = {"nodes": mesh.n_nodes, "cells": mesh.n_cells, "pcg_mode": plan.mode,
+    out = {"nodes": mesh.n_nodes, "cells": mesh.n_cells,
            "forward_final_max_conc": wf.measures["forward_final_max_conc"]}
+    masked = int(sim._unused_node_mask().sum())
+    if model == "quad":
+        out.update(_wf_quad_forward(tag, sim, seed))
+        out["bmv_shapes"] = _wf_quad_shapes(torch, sim, dev, "[11d]")
+    else:
+        n_off = len(sim._stencil_ops.offsets)
+        plan = fc.launch_plan(mesh.n_nodes, mesh.dim, n_off, sms)
+        print(f"{tag} {mesh.n_nodes} nodes ({masked} untouched by any cell, masked), "
+              f"{mesh.n_cells} cells, {n_off} offsets, seed {seed}; "
+              f"stencil_pcg<{mesh.dim}> launch plan: {plan.mode} ({plan.blocks} blocks)")
+        out["pcg_mode"] = plan.mode
     _wf_stage(torch, run, "targets", wf.create_target_fields)
     start = dict(BRAIN_PARAMS_VARYING, D_WM=WF_V0, rho_WM=WF_V0)
     _wf_cap(wf.init_inverse_problem(seed, start, sim_params, optimization_type=2))
@@ -2274,6 +2333,8 @@ def _wf_atlas(torch, dev, tmp, tag, key, shape, z=None):
         return wf2.reload_forward_sim()
 
     sim2 = _wf_stage(torch, run, "reload", reload)
+    if sim2.quad != sim.quad:
+        raise AssertionError(f"{tag} the reloaded state rebuilt another model")
     res, res2 = sim.results, sim2.results
     if res2.get_recording_steps() != res.get_recording_steps() or not all(
             np.array_equal(res2.get_result(s)[i], res.get_result(s)[i])
@@ -2307,10 +2368,167 @@ def _wf_atlas(torch, dev, tmp, tag, key, shape, z=None):
     if not dist < np.hypot(WF_V0 - WF_TRUTH, WF_V0 - WF_TRUTH):
         raise AssertionError(f"{tag} no closer to the truth than v0: {out['params']}")
     _wf_print_stages(tag, run)
-    _wf_demand_launches(tag, run, ("forward", "inverse", "optimized"))
+    _wf_demand_launches(tag, run, ("forward", "inverse", "optimized"), model == "quad")
+    out.update(seconds=run["seconds"], launches=run["launches"],
+               bmv_by_shape=run["bmv_by_shape"], total_s=time.perf_counter() - t_all)
+    return out, wf
+
+
+def _wf_quad_forward(tag, sim, seed):
+    """[11d], [11e]: a quad forward's plans, its set-up by part and its CG
+    iterations (the model has run)."""
+    bp, pp = sim._get_bell_plan(), sim._get_p2_plan()
+    info = sim.solver_info
+    iters = {k: [int(i) for i in info[k]]
+             for k in ("el_cg_iters", "rd_cg_iters", "el_refine_cg_iters")}
+    print(f"{tag} {sim.mesh.n_nodes} nodes ({int(sim._unused_node_mask().sum())} "
+          f"untouched by any cell, masked with their P2 vertex dofs), "
+          f"{sim.mesh.n_cells} cells, {sim.p2.n_dofs} P2 dofs, seed {seed}; P1 plan "
+          f"nb={bp.nb}, s={bp.s}, Kh={bp.Kh}; P2 plan nb={pp.nb}, s={pp.s}, Kh={pp.Kh}")
+    print(f"{tag} forward: Newton {sim.solver_info['newton_iters'].tolist()}, "
+          f"elasticity CG a step {iters['el_cg_iters']}, rd CG a Newton solve "
+          f"{iters['rd_cg_iters']}, correction solves {iters['el_refine_cg_iters']}")
+    return dict(p2_dofs=sim.p2.n_dofs, p1_plan=[bp.nb, bp.s, bp.Kh],
+                p2_plan=[pp.nb, pp.s, pp.Kh], forward_cg_iters=iters)
+
+
+def _wf_quad_shapes(torch, sim, dev, tag):
+    """[11d], [11e]: bell_bmv against its plain version and timed as in
+    [5] at the four tables of the quad model's path (checked before an
+    inverse, whose profile of millions of launches leaves the profiler
+    dropping the records of later windows)."""
+    bp = sim._get_bell_plan()
+    theta = sim.make_theta(sim.params.as_dict())
+    aug = sim._augment_theta_with_operators({**theta, **sim.runtime_aux()})
+    d = sim.mesh.dim
+    return _bmv_check(torch, [
+        ("elasticity operator _BellWel", aug["_BellWel"].reshape(bp.nb, bp.s * d,
+                                                                 bp.Kh * d)),
+        ("elasticity supernode Jacobi _BinvSN", aug["_BinvSN"]),
+        ("P2 rd constant plane _P2BWrdC", aug["_P2BWrdC"]),
+        ("P2 supernode Jacobi _McSNP2", aug["_McSNP2"]),
+    ], dev, tag)
+
+
+def _wf_bmv_launches(tag, run, shapes, stages):
+    """bell_bmv's launches in ``stages`` of a quad pipeline by (B, M, K);
+    each shape of ``shapes`` (the checked tables) launched at least once."""
+    by_shape = {}
+    for stage in stages:
+        for k, n in run["bmv_by_shape"][stage].items():
+            by_shape[k] = by_shape.get(k, 0) + n
+    if any(by_shape.get(tuple(r["shape"]), 0) < 1 for r in shapes):
+        raise AssertionError(f"{tag} bell_bmv did not launch at every checked shape: "
+                             f"{by_shape}")
+    return by_shape
+
+
+def _wf_setup_parts(tag, wf):
+    """Set-up seconds by part of each quad sim's frozen state."""
+    parts = {}
+    for name, sim in wf.sims.items():
+        st = getattr(sim, "setup_seconds", None)
+        if not st:
+            continue
+        parts[name] = dict(st)
+        print(f"{tag} set-up of the {name} sim: P1 plan {st['bell_plan']:.2f} s, P2 "
+              f"plan {st['p2_plan']:.2f} s, coarse build {st.get('coarse_build', 0):.2f} "
+              f"s, coarse eigh {st.get('coarse_inverse', 0):.2f} s; "
+              + ", ".join(f"{k} {v:.2f} s" for k, v in st.items() if k not in (
+                  "bell_plan", "p2_plan", "coarse_build", "coarse_inverse")))
+    return parts
+
+
+def _wf_atlas_quad(torch, dev, tmp, kern):
+    """[11d]: the atlas pipeline with model="quad" on [11a]'s slice; the
+    bell_bmv row ``kern`` gains the slice's shapes and their launches."""
+    nx, ny, nz, z = WF_2D
+    tag = f"[11d] quad atlas {nx}x{ny}:"
+    out, wf = _wf_atlas(torch, dev, tmp, tag, "quad", (nx, ny, nz), z, model="quad")
+    _wf_check_forward(torch, wf, dev, tag, out)
+    # after the pipeline, as the forward's check: the inverse stage's time
+    # then holds the inverse sim's set-up, as [11a]'s does
+    _wf_check_gradient(torch, wf, dev, tag, out)
+    errs = out["rel_errors"]
+    out["within_param_rtol"] = max(errs.values()) <= WF_PARAM_RTOL
+    print(f"{tag} recovered parameters within {WF_PARAM_RTOL} of the truth: "
+          f"{out['within_param_rtol']} ({errs})")
+    out["setup_s"] = _wf_setup_parts(tag, wf)
+    shapes = out.pop("bmv_shapes")
+    by_shape = _wf_bmv_launches(tag, out, shapes, ("forward", "inverse", "optimized"))
+    out["weighted_bound_share"] = _bmv_split(
+        {"shapes": shapes}, by_shape, "[11d]", what="forward + inverse + optimized")
+    kern["workflow_quad_shapes"] = shapes
+    kern["workflow_quad_launches"] = sum(by_shape.values())
+    kern["workflow_quad_launches_by_shape"] = {"x".join(map(str, k)): n
+                                               for k, n in by_shape.items()}
+    out["bmv_by_shape"] = {st: {"x".join(map(str, k)): n for k, n in c.items()}
+                           for st, c in out["bmv_by_shape"].items()}
+    return out
+
+
+def _wf_quad_lattice(torch, dev, tmp, kern):
+    """[11e]: the quad model on a labelmap's full lattice (cell-free P2
+    vertex dofs on the card): a forward and one value_and_grad; the
+    bell_bmv row ``kern`` gains the lattice's shapes and their launches."""
+    import numpy as np
+
+    from glimslib_tpu_torch.examples import BRAIN_PARAMS_FIXED, BRAIN_PARAMS_VARYING
+    from glimslib_tpu_torch.utils.image_io import Image, write_mha
+    from glimslib_tpu_torch.utils.synthetic import brain_labelmap_3d
+    from glimslib_tpu_torch.workflow.image_based_optimization_atlas import (
+        ImageBasedOptimizationAtlas,
+    )
+
+    t_all = time.perf_counter()
+    tag = f"[11e] quad {WF_QUAD_3D[0]}^3 full lattice:"
+    path = os.path.join(tmp, "quad3d_atlas.mha")
+    write_mha(path, Image(brain_labelmap_3d(*WF_QUAD_3D), origin=(0, 0, 0),
+                          spacing=(1, 1, 1)))
+    wf = ImageBasedOptimizationAtlas(os.path.join(tmp, "quad3d_wf"),
+                                     path_to_labels_atlas=path, model="quad", device=dev)
+    run = {"seconds": {}, "launches": {}}
+    _wf_stage(torch, run, "domain", wf.prepare_domain)
+    seed = _wf_seed(wf.mesh, wf.labelfunction)
+    _wf_stage(torch, run, "forward", lambda: (
+        _wf_cap(wf.init_forward_problem(seed, BRAIN_PARAMS_VARYING, BRAIN_PARAMS_FIXED,
+                                        WF_SIM["3d"])),
+        wf.run_forward_sim(save_method=None)))
+    sim = wf.sims["forward"]
+    _wf_converged(tag, sim)
+    out = _wf_quad_forward(tag, sim, seed)
+    unused = sim._unused_node_mask()
+    c, u = np.asarray(sim.solution[1]), np.asarray(sim.solution[0])
+    free = c[sim.p2.vertex_dof_ids(np.flatnonzero(unused))]
+    out.update(nodes=sim.mesh.n_nodes, masked_nodes=int(unused.sum()),
+               max_abs_c_cell_free=float(np.abs(free).max()),
+               max_abs_u_cell_free=float(np.abs(u[unused]).max()))
+    print(f"{tag} final c finite {bool(np.isfinite(c).all())}, u finite "
+          f"{bool(np.isfinite(u).all())}, max c {c.max():.6f}; at the {int(unused.sum())} "
+          f"cell-free nodes max |c| {out['max_abs_c_cell_free']}, max |u| "
+          f"{out['max_abs_u_cell_free']} (exactly 0 demanded)")
+    if not (np.isfinite(c).all() and np.isfinite(u).all()) or free.any() or u[unused].any():
+        raise AssertionError(f"{tag} non-finite state or cell-free dofs off 0")
+    _wf_check_forward(torch, wf, dev, tag, out)
+    shapes = _wf_quad_shapes(torch, sim, dev, "[11e]")
+    _wf_stage(torch, run, "targets", wf.create_target_fields)
+    start = dict(BRAIN_PARAMS_VARYING, D_WM=WF_V0, rho_WM=WF_V0)
+    _wf_cap(wf.init_inverse_problem(seed, start, WF_SIM["3d"], optimization_type=2))
+    _wf_stage(torch, run, "value_and_grad",
+              lambda: _wf_check_gradient(torch, wf, dev, tag, out))
+    out["setup_s"] = _wf_setup_parts(tag, wf)
+    _wf_print_stages(tag, run)
+    _wf_demand_launches(tag, run, ("forward", "value_and_grad"), quad=True)
+    by_shape = _wf_bmv_launches(tag, run, shapes, ("forward", "value_and_grad"))
+    out["weighted_bound_share"] = _bmv_split(
+        {"shapes": shapes}, by_shape, "[11e]", what="forward + value_and_grad")
+    kern["workflow_quad_lattice_shapes"] = shapes
+    kern["workflow_quad_lattice_launches"] = sum(by_shape.values())
+    kern["workflow_quad_lattice_launches_by_shape"] = {"x".join(map(str, k)): n
+                                                       for k, n in by_shape.items()}
     out.update(seconds=run["seconds"], launches=run["launches"],
                total_s=time.perf_counter() - t_all)
-    return out, wf
+    return out
 
 
 def _wf_patient(torch, dev, tmp, tag):
@@ -2410,6 +2628,13 @@ def phase_workflow(torch, dev, kernels):
 
         out["patient_2d"] = _wf_patient(torch, dev, tmp, f"[11c] patient "
                                         f"{WF_PATIENT[0]}x{WF_PATIENT[1]}:")
+        torch.cuda.empty_cache()
+
+        bmv = next(k for k in kernels if k["name"] == "bell_bmv")
+        out["atlas_quad_2d"] = _wf_atlas_quad(torch, dev, tmp, bmv)
+        torch.cuda.empty_cache()
+        out["quad_lattice_3d"] = _wf_quad_lattice(torch, dev, tmp, bmv)
+        torch.cuda.empty_cache()
         for k in kernels:
             if "wrappers" not in k or k.get("route") != "cuda" or "stencil" not in k["name"]:
                 continue

@@ -134,13 +134,16 @@ class FunctionSpace:
     def _project_p2(self, expr, ss, subspace_id, time, rtol, maxiter):
         """L2 projection onto a P2 subspace: b_i = ∫ expr φ_i dx by
         degree-6 quadrature, then a mass CG with the exact mass diagonal as
-        Jacobi preconditioner; a vector subspace solves one scalar system
-        a component."""
+        Jacobi preconditioner (1 on zero rows); a vector subspace solves
+        one scalar system a component."""
         from glimslib_tpu_torch.solvers.cg import pcg
 
         p2 = self._p2_kernels()
         vs = ss.value_size
         diag = p2.mass_diag()
+        # the vertex dofs of nodes no cell touches (an image's full
+        # lattice) have zero mass rows: their b is 0, so x stays 0 there
+        diag = torch.where(diag > 0, diag, torch.ones_like(diag))
 
         def solve(b):
             x, _ = pcg(p2.mass_residual, b, M=lambda r: r / diag, rtol=rtol,

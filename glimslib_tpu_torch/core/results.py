@@ -4,7 +4,9 @@
 ``TimeSeriesDataTimePoint``, ``TimeSeriesData`` and ``Results``' per-step
 output (``save_method`` None, ``"vtk"``: a VTU a step and a PVD series,
 ``"xdmf"``: XDMF + HDF5, which needs h5py) are the reference's code, byte
-for byte apart from imports.  Fields are numpy arrays on the host.
+for byte apart from imports and one check: ``save_solution_start``
+refuses ``"xdmf"`` when h5py does not import, before a simulation runs.
+Fields are numpy arrays on the host.
 
 The whole-series store is a numpy ``.npz`` archive, not HDF5 (the card's
 host has no h5py; see ``utils/data_io.py``): the reference's layout as
@@ -28,6 +30,21 @@ import numpy as np
 from glimslib_tpu_torch.utils import data_io
 
 logger = logging.getLogger(__name__)
+
+
+def _refuse_unwritable(method):
+    """Raise when the per-step output ``method`` cannot be written here
+    (``"xdmf"`` needs h5py): at the start of a run, before any step, not
+    at its first write."""
+    if method != "xdmf":
+        return
+    try:
+        import h5py  # noqa: F401
+    except ImportError as e:
+        raise ImportError(
+            'save_method="xdmf" writes XDMF + HDF5 and needs h5py, which does not '
+            'import here: pass save_method="vtk" (a VTU a step and a PVD series) '
+            'or None (no per-step files)') from e
 
 _STEP_KEY = re.compile(r"series/(.+)/step_(\d+)/subspace_(\d+)$")
 _ORBAX = ("the Orbax checkpoint is a JAX library and is not ported: use the "
@@ -209,6 +226,7 @@ class Results:
     # -- per-step persistence (helper_classes.py:1360-1409) -----------------
 
     def save_solution_start(self, method="xdmf", clear_all=False):
+        _refuse_unwritable(method)
         if clear_all and os.path.isdir(self.output_dir):
             import shutil
 

@@ -8,7 +8,10 @@ Same orchestration API as the reference:
                                 boundaries=..., dirichlet_bcs=...)
     sim.setup_model_parameters(iv_expression=..., ..., sim_time=...,
                                sim_time_step=...)
-    u_traj, c_traj, ok, newton_iters = sim.run(save_method=None)
+    solution = sim.run(save_method=None)     # {0: u, 1: c}; sim.results
+    simulate = sim.build_simulate_fn(n_steps, dt)   # the trajectory as tensors
+    u_traj, c_traj, ok, newton_iters = simulate(
+        sim.make_theta(sim.params.as_dict()), *sim.initial_state())
 
 Two operator lanes, chosen by the mesh:
 
@@ -181,6 +184,7 @@ class Simulation(ABC):
         self._bell_plan = None
         self._p2_plan = None
         self._agg_plan = None
+        self._plan_seconds = {}  # host seconds of each plan's build
         self._aux_cache = None
         self._bc_cache = None
         self._unused = None
@@ -283,7 +287,8 @@ class Simulation(ABC):
         return torch.as_tensor(x, dtype=dtype or self.dtype, device=self.device)
 
     def _unused_node_mask(self):
-        """Nodes no cell references: treated as zero-Dirichlet dofs."""
+        """Nodes no cell references: treated as zero-Dirichlet dofs (a quad
+        model's P2 vertex dofs there too)."""
         if self._unused is None:
             used = np.zeros(self.mesh.n_nodes, dtype=bool)
             used[self.mesh.cells.ravel()] = True
@@ -298,7 +303,13 @@ class Simulation(ABC):
             mask_c, vc = self.bcs.dirichlet_mask_and_values(sc)
             unused = self._unused_node_mask()
             mask_u = mask_u | unused[:, None]
-            if not self.quad:
+            if self.quad:
+                # an unused node's P2 vertex dof has a zero row; every edge
+                # dof lies on a cell.  The JAX package leaves these unmasked
+                # and gives NaN on such meshes
+                mask_c = mask_c.copy()
+                mask_c[self.p2.vertex_dof_ids(np.flatnonzero(unused))] = True
+            else:
                 mask_c = mask_c | unused
             tdep = self.bcs.has_time_dependent_dirichlet
             vu0, vc0 = self._tensor(vu), self._tensor(vc)
@@ -396,16 +407,34 @@ class Simulation(ABC):
 
     # -- unstructured lane: supernode halo-ELL and two-level PCG ------------------
 
+    def _mesh_plan(self, name, build):
+        """The plan ``name`` of this mesh on this device, built by
+        ``build()`` once and cached on the (immutable) mesh object, as
+        ``p2_dof_layout`` is: the sims of one mesh share it.  Its build
+        seconds go into ``_plan_seconds`` of the sim that built it."""
+        cache = getattr(self.mesh, "_plan_cache", None)
+        if cache is None:
+            cache = {}
+            object.__setattr__(self.mesh, "_plan_cache", cache)
+        key = (name, str(self.device))
+        if key not in cache:
+            t0 = time.perf_counter()
+            cache[key] = build()
+            self._plan_seconds[name] = time.perf_counter() - t0
+        return cache[key]
+
     def _get_bell_plan(self):
         if self._bell_plan is None:
-            self._bell_plan = bell.BellPlan(self.mesh, s=32, device=self.device)
+            self._bell_plan = self._mesh_plan(
+                "bell_plan", lambda: bell.BellPlan(self.mesh, s=32, device=self.device))
         return self._bell_plan
 
     def _get_p2_plan(self):
         """The supernode plan over the P2 dofs of a quad model (s = 64,
         the reference's default, base.py:492-509)."""
         if self._p2_plan is None:
-            self._p2_plan = p2_ell.make_p2_plan(self.p2, s=64)
+            self._p2_plan = self._mesh_plan(
+                "p2_plan", lambda: p2_ell.make_p2_plan(self.p2, s=64))
         return self._p2_plan
 
     def _mesh_arrays(self):
@@ -432,22 +461,20 @@ class Simulation(ABC):
         (:meth:`_twolevel_aux`), the coarse factors in bf16 on f32 models.
         A preconditioner shapes iteration counts only, so freezing it
         across parameter updates never changes a solution.
-        ``setup_seconds`` records what the build took, by part.  {} on
-        lattice meshes."""
+        ``setup_seconds`` records what the build took, by part, with the
+        plans' build seconds (0 for a plan built before, by another sim of
+        the mesh, or handed to the model).  {} on lattice meshes."""
         if self.lattice:
             return {}
         if self._aux_cache is not None:
             return self._aux_cache
         theta0 = self.make_theta(self.params.as_dict())
         mask_u, mask_c, _, _ = self._bc_masks_and_values()
-        times = {}
-        t0 = time.perf_counter()
         bplan = self._get_bell_plan()
-        times["bell_plan"] = time.perf_counter() - t0
+        times = {"bell_plan": self._plan_seconds.get("bell_plan", 0.0)}
         if self.quad:
-            t0 = time.perf_counter()
             p2plan = self._get_p2_plan()
-            times["p2_plan"] = time.perf_counter() - t0
+            times["p2_plan"] = self._plan_seconds.get("p2_plan", 0.0)
         arrays = self._mesh_arrays()
         m0 = self.kernels._m0
         t0 = time.perf_counter()
@@ -853,13 +880,15 @@ class Simulation(ABC):
         ``save_method`` None writes no per-step files, ``"vtk"`` a VTU a
         step and a PVD series, ``"xdmf"`` (needs h5py) XDMF + HDF5.  Then
         the series store (``solution_timeseries.npz``) and
-        ``self.solution``, the last converged state as numpy arrays.
+        ``self.solution``, the last converged state as numpy arrays, which
+        it returns; ``self.solver_info["newton_iters"]`` holds the Newton
+        iterations a step beside the CG counts.  ``"xdmf"`` without h5py
+        raises before any step runs.
 
-        Differs from the reference: it returns the trajectory
-        ``(u_traj, c_traj, ok, newton_iters)`` (tensors on the model's
-        device; the reference returns ``self.solution``), and the
-        trajectory comes to the host once, after the whole simulate.
-        ``plot=True`` raises: ``visualisation/`` is not ported."""
+        Differs from the reference: the trajectory comes to the host once,
+        after the whole simulate (the trajectory's tensors come from
+        :meth:`build_simulate_fn`).  ``plot=True`` raises:
+        ``visualisation/`` is not ported."""
         if plot:
             raise NotImplementedError(
                 "plot=True needs visualisation/, which is not ported")
@@ -877,6 +906,7 @@ class Simulation(ABC):
         u_traj, c_traj, ok_traj, newton = self.build_simulate_fn(n_steps, dt)(
             theta, u0, c0
         )
+        self.solver_info["newton_iters"] = newton.numpy()
         self.logger.info("    - newton iterations per step: %s", newton.tolist())
         u_host = u_traj.detach().cpu().numpy()
         c_host = c_traj.detach().cpu().numpy()
@@ -908,7 +938,7 @@ class Simulation(ABC):
         self.results.save_solution_hdf5()
         self.solution = {0: u_host[n_ok - 1] if n_ok else u0_host,
                          1: c_host[n_ok - 1] if n_ok else c0_host}
-        return u_traj, c_traj, ok_traj, newton
+        return self.solution
 
     # -- reload (reference simulation_base.py:319-325) ----------------------
 

@@ -235,9 +235,11 @@ class P2Kernels:
         return self.scatter_T(self._mass_diag_T())
 
     def cell_integral(self, c):
-        """∫_e c dx per cell (nc,), the growth-strain coupling's input."""
-        cq = self.at_quad_T(self.gather_T(c))
-        return (self._wdet() * cq).sum(dim=0)
+        """∫_e c dx per cell, (..., n_dofs) -> (..., nc): each cell's basis
+        integrals against its gathered dofs (the growth-strain coupling's
+        input; a batch: the analysis of many recorded steps in one pass)."""
+        w = self._test_T(self._wdet())  # (npe, nc) ∫_e φ_i dx
+        return (c[..., self.cell_dofs_T] * w).sum(dim=-2)
 
     def integrate(self, c):
         return self.cell_integral(c).sum()

@@ -53,7 +53,8 @@ class StencilPlan:
         if mesh.lattice_strides is None:
             raise NotImplementedError(
                 "offset-stencil operators need a lattice mesh "
-                "(lattice_strides); the unstructured lane is not ported yet"
+                "(lattice_strides); a mesh without one takes the unstructured "
+                "lane, the supernode halo-ELL operators of ops/bell.py"
             )
         self.mesh = mesh
         self.dim = mesh.dim

@@ -11,7 +11,9 @@ fields, and the cross-simulation Comparison (counterpart of
   deformed configuration, ``save_all``;
 - ``PostProcessTumorGrowthBrain`` (l.1943-1972): per-tissue parameters;
 - ``Comparison`` (l.1975-2036): errornorms between two simulations at
-  their shared recording steps.
+  their shared recording steps (a quad model's P2 concentration with the
+  P2 mass matrix, as fenics.errornorm takes it; the JAX package applies
+  the P1 mass to it and raises).
 
 Every field is computed in torch at float64 on the results' device (the
 function space's: the card unless the model was built on the CPU), as
@@ -310,6 +312,7 @@ class Comparison:
         self.mesh = self.a.mesh
         self.device = self.a._functionspace.device
         self.kernels = P1Kernels(self.mesh, dtype=F64, device=self.device)
+        self._p2 = None
 
     def _shared_steps(self):
         sa = set(self.a.get_recording_steps())
@@ -318,10 +321,17 @@ class Comparison:
 
     def errornorm(self, fa, fb):
         """L2 norm of the difference, sqrt((a-b)^T M (a-b)), as
-        fenics.errornorm for fields of one space."""
+        fenics.errornorm for fields of one space (P1, or a scalar field
+        longer than the nodes: P2)."""
         d = torch.as_tensor(np.asarray(fa, np.float64) - np.asarray(fb, np.float64),
                             device=self.device)
-        if d.dim() == 1:
+        if d.dim() == 1 and d.shape[0] > self.mesh.n_nodes:
+            if self._p2 is None:
+                from glimslib_tpu_torch.ops.p2 import P2Kernels
+
+                self._p2 = P2Kernels(self.mesh, dtype=F64, device=self.device)
+            md = self._p2.mass_residual(d)
+        elif d.dim() == 1:
             md = self.kernels.mass_residual(d)
         else:
             md = self.kernels.mass_vector_residual(d)

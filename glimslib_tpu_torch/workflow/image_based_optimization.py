@@ -12,15 +12,24 @@ tissue map {0: outside, 1: CSF, 2: GM, 3: WM, 4: Ventricles},
 clamped-everywhere Dirichlet condition, tanh-thresholded targets at
 T2=0.12 / T1=0.80 and per-step, per-tissue volume and centre-of-mass
 analysis.  Images are meshed as lattices (a 2D slice's pixel centres, a 3D
-labelmap's full voxel-corner lattice), so every simulation runs the
-lattice lane's CUDA kernels.
+labelmap's full voxel-corner lattice), so every simulation of the P1
+model (``model="linear"``) runs the lattice lane's CUDA kernels.  The quad
+model (``model="quad"``, P2 concentration: the model the reference
+workflow drives) runs on the same mesh with its lattice structure
+stripped (``Mesh.from_arrays`` of the same points and cells, built once a
+domain): the unstructured lane, every matvec and supernode block-Jacobi
+apply through the batched-matvec kernel.  Its nodes keep the lattice
+order, so every P1 nodal field (u, the label function, the store, VTUs,
+images) needs no mapping, and its P2 dofs are numbered as the JAX
+package numbers them.
 
 What differs from the JAX package:
 
 - ``device`` and ``dtype`` (default: the card and float32, as for every
   model of the port) go to every simulation the workflow builds; the
   analysis integrates at float64 on the same device with its own
-  ``P1Kernels``, never a float32 model's.
+  ``P1Kernels`` (``P2Kernels`` of the quad mesh for a P2 field), never a
+  float32 model's.
 - The pickled state holds Python and numpy values only (no tensor, no
   simulation, no device), so a state written on the card reloads on a
   host without CUDA.
@@ -31,9 +40,14 @@ What differs from the JAX package:
 - ``compute_from_conc_for_each_time_step`` and ``post_process`` move a
   simulation's recorded concentrations to the device once and integrate
   every step and every tissue in one batched pass.
-- ``model="quad"`` builds the quad brain model, which raises on the
-  workflow's lattice meshes (its matrix-free lane is not ported);
-  ``plot=True`` raises in ``Simulation.run`` (``visualisation/`` is not
+- ``model="quad"`` runs on the lattice-stripped mesh, where the JAX
+  package runs its matrix-free lane on the lattice mesh (the same
+  solution); on a full lattice the vertex dofs of nodes no cell touches
+  are zero-Dirichlet, where the JAX package gives NaN.
+- ``run_forward_sim`` and ``run_optimized_sim`` raise when a step did
+  not converge (the JAX package records the steps before it and goes
+  on); the error names ``step_config.cg_maxiter``.
+- ``plot=True`` raises in ``Simulation.run`` (``visualisation/`` is not
   ported).
 """
 
@@ -49,8 +63,10 @@ import numpy as np
 import torch
 
 from glimslib_tpu_torch import config
+from glimslib_tpu_torch.core.mesh import Mesh
 from glimslib_tpu_torch.models.tumor_growth_brain import TumorGrowthBrain
 from glimslib_tpu_torch.ops.assembly import P1Kernels
+from glimslib_tpu_torch.ops.p2 import P2Kernels
 from glimslib_tpu_torch.optimize.adjoint import (
     CONC_THRESHOLD_LEVELS,
     InverseProblem,
@@ -106,7 +122,7 @@ class ImageBasedOptimizationBase:
         self.plot = plot
         self.dim = 2 if image_z_slice is not None else 3
         self.sims: Dict[str, TumorGrowthBrain] = {}
-        self._kernels64 = None
+        self._reset_domain_caches()
         self._traj = {}
         if path_to_labels_atlas:
             self._save_state()
@@ -149,6 +165,13 @@ class ImageBasedOptimizationBase:
         }
         with open(self.path_to_state, "wb") as f:
             pickle.dump(state, f, protocol=pickle.HIGHEST_PROTOCOL)
+
+    def _reset_domain_caches(self):
+        """Drop what is built from the mesh: the f64 analysis kernels and
+        the quad model's lattice-stripped mesh."""
+        self._kernels64 = None
+        self._p2_kernels64 = None
+        self._mesh_quad = None
 
     def _load_state(self):
         with open(self.path_to_state, "rb") as f:
@@ -201,7 +224,7 @@ class ImageBasedOptimizationBase:
             self._extract_2d_domain()
         else:
             self._mesh_3d_domain()
-        self._kernels64 = None
+        self._reset_domain_caches()
         self._save_state()
 
     def _extract_2d_domain(self):
@@ -258,23 +281,32 @@ class ImageBasedOptimizationBase:
     def _load_domain(self):
         mesh, _, _ = dio.read_mesh_hdf5(self.path_mesh_hdf5)
         self.mesh = mesh
-        self._kernels64 = None
+        self._reset_domain_caches()
         lab, _, _, _ = dio.load_function_mesh(self.path_labelfunction)
         self.labelfunction = lab
 
     # -- problem init (reference l.377-422) ----------------------------------
 
+    def _quad_mesh(self):
+        """The domain's mesh without its lattice structure, for the quad
+        model (same points, cells and node order), built once a domain:
+        ``Mesh.from_arrays`` of a 3D lattice's tets takes seconds."""
+        if self._mesh_quad is None:
+            self._mesh_quad = Mesh.from_arrays(self.mesh.points, self.mesh.cells)
+        return self._mesh_quad
+
     def _init_problem(self, name, seed_position, sim_params: Dict,
                       model_params_varying: Dict, model_params_fixed: Dict,
                       output_dir=None):
         """A TumorGrowthBrain on the prepared domain with a Gaussian seed
-        (reference l.377-422), on the workflow's device and dtype."""
+        (reference l.377-422), on the workflow's device and dtype; the quad
+        model on :meth:`_quad_mesh`."""
         if self.model == "quad":
             from glimslib_tpu_torch.models.tumor_growth_brain_quad import (
                 TumorGrowthBrain as BrainQuad,
             )
 
-            sim = BrainQuad(self.mesh, dtype=self.dtype, device=self.device)
+            sim = BrainQuad(self._quad_mesh(), dtype=self.dtype, device=self.device)
         else:
             sim = TumorGrowthBrain(self.mesh, dtype=self.dtype, device=self.device)
         sim.setup_global_parameters(
@@ -322,6 +354,21 @@ class ImageBasedOptimizationBase:
             model_params_fixed,
         )
 
+    @staticmethod
+    def _demand_every_step(name, sim):
+        """Raise when ``sim.run`` recorded fewer steps than its schedule: a
+        step did not converge and the state froze there."""
+        n_steps = int(round(float(sim.params.sim_time)
+                            / float(sim.params.sim_time_step) + 1e-9))
+        n_ok = len(sim.results.get_recording_steps()) - 1
+        if n_ok < n_steps:
+            raise RuntimeError(
+                f"the {name} simulation did not converge at step {n_ok + 1} of "
+                f"{n_steps} and froze there; a linear solve may have stopped at "
+                f"step_config.cg_maxiter = {sim.step_config.cg_maxiter} iterations: "
+                f"raise it after init_{name}_problem (sim.step_config = "
+                f"sim.step_config._replace(cg_maxiter=...))")
+
     def run_forward_sim(self, plot=None, save_method=None):
         sim = self.sims["forward"]
         sim.run(
@@ -329,6 +376,7 @@ class ImageBasedOptimizationBase:
             plot=self.plot if plot is None else plot,
             output_dir=self.path_forward_sim,
         )
+        self._demand_every_step("forward", sim)
         self.measures["forward_final_max_conc"] = float(
             np.max(sim.solution[1])
         )
@@ -537,15 +585,19 @@ class ImageBasedOptimizationBase:
             plot=self.plot if plot is None else plot,
             output_dir=self.path_optimized_sim,
         )
-        # the final concentration and displacement, as the reference
-        # saves them (l.584-596); compute_com_all reads them
+        self._demand_every_step("optimized", sim)
+        # the final concentration (a P2 one's vertex part) and displacement,
+        # as the reference saves them (l.584-596); compute_com_all reads them
         path_conc = self.data.create_fenics_path(
             processing=self.steps_sub_path_map["optimized_sim"],
             datasource="simulation", content="conc", frame="reference",
             extension="h5", domain="full",
         )
+        conc = np.asarray(sim.solution[1])
+        if sim.quad:
+            conc = conc[sim.p2.dof_rank[: self.mesh.n_nodes]]
         self.path_optimized_conc = dio.save_function_mesh(
-            np.asarray(sim.solution[1]), path_conc, mesh=self.mesh)
+            conc, path_conc, mesh=self.mesh)
         self.path_optimized_disp = dio.save_function_mesh(
             np.asarray(sim.solution[0]), path_conc.replace("conc", "disp"),
             mesh=self.mesh)
@@ -561,18 +613,37 @@ class ImageBasedOptimizationBase:
         dio.save_columns(cols, path_pkl=path_base + ".pkl",
                          path_csv=path_base + ".csv")
 
-    def _kernels(self):
-        """f64 P1 kernels of the workflow's mesh on its device (the
-        integrals never use a float32 model's kernels)."""
+    def _kernels(self, n=None):
+        """f64 kernels on the workflow's device for fields of ``n`` dofs:
+        the quad model's ``P2Kernels`` of :meth:`_quad_mesh` when ``n`` is
+        its P2 dof count, else ``P1Kernels`` of the mesh (the reference's
+        ``_conc_kernels``, l.545-551; the integrals never use a float32
+        model's kernels)."""
+        if self.model == "quad" and n is not None and n != self.mesh.n_nodes:
+            if self._p2_kernels64 is None:
+                self._p2_kernels64 = P2Kernels(self._quad_mesh(), dtype=F64,
+                                               device=self.device)
+            if n == self._p2_kernels64.n_dofs:
+                return self._p2_kernels64
         if self._kernels64 is None:
             self._kernels64 = P1Kernels(self.mesh, dtype=F64, device=self.device)
         return self._kernels64
 
+    def _cell_integral(self, f):
+        """Per-cell integrals ∫_e f dx of fields (..., n) -> (..., n_cells)
+        of a tensor on the device, by the kernels of their dof count."""
+        return self._kernels(f.shape[-1]).cell_integral(f)
+
     def _cell_integrals(self, sim, field):
-        """Per-cell integrals ∫_e f dx of nodal fields, (..., n) -> (...,
-        n_cells), on the device at f64."""
-        f = torch.as_tensor(np.asarray(field, np.float64), device=self.device)
-        return self._kernels().cell_integral(f)
+        """Per-cell integrals ∫_e f dx of nodal (or P2) fields, (..., n) ->
+        (..., n_cells), on the device at f64."""
+        return self._cell_integral(
+            torch.as_tensor(np.asarray(field, np.float64), device=self.device))
+
+    def _dof_coordinates(self, n):
+        """(n, d) coordinates of a field's dofs: the P2 dof coordinates for
+        a quad model's P2 field, else the mesh's nodes (reference l.573)."""
+        return getattr(self._kernels(n), "dof_coords", self.mesh.points)
 
     def compute_volume(self, sim, field, cell_mask=None):
         """∫ f dx over the full domain or a subdomain cell mask (reference
@@ -586,7 +657,8 @@ class ImageBasedOptimizationBase:
         """Centre of mass [∫ x_a f dx / ∫ f dx]; NaN components when the
         masked volume vanishes (reference compute_com, l.1415-1430)."""
         f = np.asarray(field, np.float64)
-        fx = np.concatenate([f[None], (f[:, None] * sim.mesh.points).T], axis=0)
+        fx = np.concatenate([f[None], (f[:, None] * self._dof_coordinates(len(f))).T],
+                            axis=0)
         ci = self._cell_integrals(sim, fx)  # (1 + d, n_cells)
         if cell_mask is not None:
             ci = ci[:, torch.as_tensor(cell_mask, device=self.device)]
@@ -596,8 +668,8 @@ class ImageBasedOptimizationBase:
 
     def _recorded_conc(self, problem_type, sim):
         """(steps, C): the recording steps and their concentrations as one
-        (n_steps, n) f64 tensor on the device, moved there once a recorded
-        series."""
+        (n_steps, n) f64 tensor on the device (n: the P2 dof count for a
+        quad model), moved there once a recorded series."""
         cached = self._traj.get(problem_type)
         if cached is None or cached[0] is not sim.results:
             steps = sim.results.get_recording_steps()
@@ -648,14 +720,15 @@ class ImageBasedOptimizationBase:
         # hard indicator at the dofs; the reference projects
         # fenics.conditional(ge(conc, threshold)) (l.1358-1360)
         q = (C >= threshold).to(F64)
-        vol = (self._kernels().cell_integral(q) @ M.T).cpu().numpy()  # (S, m)
+        vol = (self._cell_integral(q) @ M.T).cpu().numpy()  # (S, m)
         cols = {"sim_time_step": np.asarray(steps, dtype=np.int64)}
         if computation == "volume":
             for j, name in enumerate(names):
                 cols[name] = vol[:, j]
         else:
-            X = torch.as_tensor(self.mesh.points.T, dtype=F64, device=self.device)
-            num = (self._kernels().cell_integral(q[:, None, :] * X) @ M.T)
+            X = torch.as_tensor(self._dof_coordinates(q.shape[-1]).T, dtype=F64,
+                                device=self.device)
+            num = (self._cell_integral(q[:, None, :] * X) @ M.T)
             num = num.cpu().numpy()  # (S, d, m)
             with np.errstate(divide="ignore", invalid="ignore"):
                 com = np.where(vol[:, None, :] > 0, num / vol[:, None, :], np.nan)

@@ -9,7 +9,10 @@ fields come from the tumour segmentation (T1 and T2 label values, default
 5 and 6) in the reference frame (patient.py:94-195).  Registration runs
 through the ANTs drivers with the first-party fallbacks of
 ``utils/image_registration_utils.py``.  The class is the JAX package's,
-apart from ``device`` and ``dtype`` and the ``.npz`` store.
+apart from ``device`` and ``dtype``, the ``.npz`` store, and the refusal
+of ``model="quad"`` at the inverse problem: the segmentation's targets
+are P1 nodal fields and the quad model's concentration is P2, so the
+misfit is undefined (the JAX package fails there on the shapes).
 """
 
 from __future__ import annotations
@@ -84,6 +87,15 @@ class ImageBasedOptimizationPatient(ImageBasedOptimizationBase):
             registered = self.register_atlas_to_patient()
             self.path_to_labels_atlas_orig = registered
         self.mesh_domain()
+
+    def init_inverse_problem(self, *args, **kwargs):
+        if self.model == "quad":
+            raise NotImplementedError(
+                "the patient pipeline's targets are P1 nodal fields from the "
+                "segmentation, and model='quad' has a P2 concentration: their "
+                "misfit is not defined; run the patient pipeline with "
+                "model='linear'")
+        return super().init_inverse_problem(*args, **kwargs)
 
     # -- patient-derived targets (reference patient.py:94-195) ---------------
 

@@ -136,8 +136,8 @@ def test_rect_uniform_matches_reference_fem():
     nodes, 5 steps), f64 at the model's default tolerances, against the
     scipy FEM: rel-L2 1e-6 on c and u."""
     sim = examples.rect_sim(n=50, dtype=F64, device="cpu")
-    _, _, ok, _ = sim.run(save_method=None)
-    assert bool(ok.all())
+    sim.run(save_method=None)
+    assert sim.results.get_recording_steps() == list(range(6))  # every step converged
     mesh = sim.mesh
     ref = ReferenceFEM(mesh)
     c = sim.params.create_initial_value_function()[1]  # the L2 projection
@@ -207,6 +207,11 @@ def _code_lines(obj):
             if not ln.strip().startswith(("import ", "from "))]
 
 
+# lines of a copied member that the port adds to the reference's code:
+# Results.save_solution_start refuses "xdmf" without h5py before a run
+PORT_LINES = {"Results.save_solution_start": {"        _refuse_unwritable(method)"}}
+
+
 def _member(module, dotted):
     obj = module
     for part in dotted.split("."):
@@ -250,7 +255,8 @@ def _member(module, dotted):
         "tumor_growth", "tumor_growth_brain"])
 def test_utils_copies_are_the_reference_code(copy, ref, names):
     """Each copied module (whole, past its copy header) or member is the
-    JAX package's code byte for byte, import lines apart."""
+    JAX package's code byte for byte, import lines and the PORT_LINES of a
+    member apart."""
     if names is None:
         src = inspect.getsource(copy)
         body = src[src.index('"""'):]
@@ -260,7 +266,9 @@ def test_utils_copies_are_the_reference_code(copy, ref, names):
                 if not ln.strip().startswith(("import ", "from "))] == want
         return
     for name in names:
-        assert _code_lines(_member(copy, name)) == _code_lines(_member(ref, name)), name
+        got = [ln for ln in _code_lines(_member(copy, name))
+               if ln not in PORT_LINES.get(name, ())]
+        assert got == _code_lines(_member(ref, name)), name
 
 
 # -- the reduced-domain 2D atlas inverse problem --------------------------------

@@ -217,13 +217,22 @@ def test_wrappers_reject_what_the_kernels_do_not_take(lattice):
         sk.apply_vector(offs[:-1], theta["_Wel"], u)
 
 
+def _trajectory(sim):
+    """(u_traj, c_traj, ok, newton_iters) of the model's configured
+    schedule, through build_simulate_fn (``run`` returns the final state)."""
+    dt = float(sim.params.sim_time_step)
+    n = int(round(float(sim.params.sim_time) / dt))
+    return sim.build_simulate_fn(n, dt)(sim.make_theta(sim.params.as_dict()),
+                                        *sim.initial_state())
+
+
 def test_slice_runs_through_the_kernels(lattice):
     sim, _, _, _ = lattice
     wrappers = (sk.apply_scalar_sum, sk.apply_vector, sk.apply_coupling,
                 fc.cg_scalar, fc.cg_vector)
     for w in wrappers:
         w.launches = 0
-    u_tr, c_tr, ok, _ = sim.run(save_method=None)
+    u_tr, c_tr, ok, _ = _trajectory(sim)
     torch.cuda.synchronize()
     assert bool(ok.all())
     assert bool(torch.isfinite(c_tr).all()) and bool(torch.isfinite(u_tr).all())
@@ -278,6 +287,13 @@ BMV_SHAPES = [
     (1152, 96, 474), (1152, 96, 158), (1152, 96, 96), (1152, 32, 158),
     (1152, 32, 32), (4352, 64, 353), (4352, 64, 64), (88, 64, 200),
     (88, 64, 64), (88, 32, 100), (88, 32, 32), (88, 64, 100),
+    # the quad model in the workflow on a 256 x 256 slice: the P1 plan's
+    # elasticity table and supernode Jacobi, the P2 plan's rd plane and
+    # supernode Jacobi
+    (2048, 64, 200), (2048, 64, 64), (4096, 64, 159), (4096, 64, 64),
+    # the quad model on a 32^3 labelmap's full lattice: the P1 plan's
+    # elasticity table, the P2 plan's rd plane (their Jacobis are above)
+    (1152, 96, 624), (2048, 64, 352),
     (1, 1, 1), (3, 5, 7), (7, 13, 1001), (2, 3, 16384), (5, 3, 6),
 ]
 
@@ -512,14 +528,14 @@ def test_rect_slice_runs_through_the_kernels(rect):
     applies = (sk.apply_scalar_sum, sk.apply_vector, sk.apply_coupling)
     for w in wrappers + applies:
         w.launches = 0
-    u_tr, c_tr, ok, _ = sim.run(save_method=None)
+    u_tr, c_tr, ok, _ = _trajectory(sim)
     torch.cuda.synchronize()
     assert bool(ok.all()) and all(w.launches > 0 for w in wrappers)
     assert all(w.launches == 0 for w in applies)
     assert len(sim.solver_info["el_refine_cg_iters"]) == 5
     assert fc.cg_vector.last_plan.mode == "resident"
     ref = rect_sim(n=50, dtype=torch.float32, device=sim.device, plain=True)
-    u_p, c_p, ok_p, _ = ref.run(save_method=None)
+    u_p, c_p, ok_p, _ = _trajectory(ref)
     assert bool(ok_p.all())
     for got, want in ((u_tr[-1], u_p[-1]), (c_tr[-1], c_p[-1])):
         assert float((got - want).norm() / want.norm()) <= 1e-4

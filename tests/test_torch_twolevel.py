@@ -197,7 +197,8 @@ def _f32_brain(monkeypatch, bf16):
         theta0 = sim.make_theta(sim.params.as_dict())
         sim._aux_cache = aux = {**aux, **sim._twolevel_aux(theta0, {})}
         assert aux["_TLCfac"].dtype == aux["_TLCfacS"].dtype == torch.float32
-    u, c, ok, _ = sim.run(save_method=None)
+    u, c, ok, _ = sim.build_simulate_fn(5, 1.0)(sim.make_theta(sim.params.as_dict()),
+                                               *sim.initial_state())
     assert bool(ok.all())
     iters = {k: sum(int(i) for i in sim.solver_info[k])
              for k in ("rd_cg_iters", "el_cg_iters")}

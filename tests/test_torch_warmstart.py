@@ -51,7 +51,8 @@ def _sim():
 
 
 def _final(sim):
-    u_tr, c_tr, ok, _ = sim.run(save_method=None)
+    u_tr, c_tr, ok, _ = sim.build_simulate_fn(N_STEPS, 1.0)(
+        sim.make_theta(sim.params.as_dict()), *sim.initial_state())
     assert bool(ok.all())
     return u_tr[-1].numpy(), c_tr[-1].numpy()
 
