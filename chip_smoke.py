@@ -196,7 +196,34 @@ Phases, each printed on lines of their own:
    QUAD_RTOL of the plain f64 path, and one value_and_grad held to the
    unstructured limits.
 
-Then one JSON line with [11]'s numbers, one with [10]'s, one with [9]'s, one with [7]'s
+12. The example scripts (``glimslib_tpu_torch.example_scripts``, the
+   port's counterparts of ``examples/*.py``), each ``main()`` in the order
+   and with the argument sets of its runner (``RUNS``), on the card at f32
+   with plot=False (the line says whether matplotlib imports here), in a
+   temporary directory, removed at the end.  Every launch count is set to
+   0 just before each script and read just after; each prints its seconds,
+   its seconds by stage from the port's ``Tracer``, its launches by kernel
+   wrapper (bell_bmv's also by shape), device busy ms and the idle share
+   (the profiler's device events).  The lattice scripts must launch both
+   stencil_pcg forms (and stencil_apply where they take a gradient), the
+   two on meshes without a lattice (the reduced 2D atlas, the 3D atlas's
+   tet mesh) bell_bmv.  ``tumor_growth_2D_uniform`` runs inside
+   ``utils/profiling.device_trace``, whose Chrome trace must hold
+   stencil_pcg kernel events.  The forward and comparison scripts' final
+   fields are held to rel-L2 EX_RTOL of the same script on the plain path
+   at f64 on the card; the adjoint scripts print J at x0 and at the end
+   and the recovered parameters beside their truth, J must fall and,
+   with noise-free targets, each parameter must lie within the script's
+   limit (EX_RECOVERY_RTOL where the reference script has none).  At
+   each lattice the scripts run (26^2, 16^2, 13^2, 51^2 and the 64^2,
+   40^2 and 24^2 image slices), the first script there hands its model
+   to phase_kernels: every stencil_apply form and both stencil_pcg
+   solves against their plain versions at that lattice's shapes, each
+   row with the launches of the scripts there.  bell_bmv must have been
+   held at every (B, M, K) the two unstructured scripts launch it at
+   (the 3D atlas's tables here, the reduced 2D atlas's in [8]).
+
+Then one JSON line with [12]'s numbers and its kernel rows by lattice, one with [11]'s, one with [10]'s, one with [9]'s, one with [7]'s
 and [8]'s value_and_grad numbers, one with
 every kernel's numbers (each with its launches in the path and in one
 value_and_grad by forward and backward: [7]'s for the 3D rows, [8]'s for
@@ -2652,6 +2679,280 @@ def phase_workflow(torch, dev, kernels):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# [12]: the example scripts (glimslib_tpu_torch/example_scripts), every
+# one at its reference defaults and argument sets, on the card at f32 with
+# plot=False: the card's host has no matplotlib (plotting is held on the
+# CPU by tests/test_torch_visualisation.py).  The forward and comparison
+# scripts' final fields are held to EX_RTOL of the same script on the plain
+# path at f64 on the card (the f32 field limit of [9] and [10]); the
+# noise-free adjoint scripts' recovered parameters to EX_RECOVERY_RTOL of
+# their truth (the reference scripts' limit), J falling; the noisy ones by
+# the script's own limit where the reference script has one.  Every
+# lattice kernel is held against its plain version at each lattice the
+# scripts run (phase_kernels on the script's model, as [11a] does), and
+# bell_bmv at every table shape of the unstructured scripts.  The workflow
+# scripts keep their reference maxiter (50, 15).
+EX_RTOL = 1e-4
+EX_RECOVERY_RTOL = 1e-2
+EX_FORWARD = ("tumor_growth_2D_uniform", "tumor_growth_2D_subdomains",
+              "tumor_growth_2D_uniform_reload", "comparison_2D_atlas",
+              "comparison_3D_atlas")
+EX_TRACED = "tumor_growth_2D_uniform"
+
+
+def _ex_fields(out):
+    """The final fields a forward or comparison script returns."""
+    keys = [k for k in ("u", "c", "u_uniform", "c_uniform") if k in out]
+    return {k: out[k] for k in keys}
+
+
+def _ex_trace_kernels(path):
+    """The port's kernels in a Chrome trace by name (count, ms), and the
+    device's busy ms (kernels, copies and fills, as the profiler's device
+    events of the other scripts)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    out = {}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        for name in ("stencil_pcg_kernel", "stencil_apply_kernel", "bell_bmv_kernel"):
+            if name in e.get("name", ""):
+                n, ms = out.get(name, (0, 0.0))
+                out[name] = (n + 1, ms + float(e.get("dur", 0.0)) / 1e3)
+    busy = sum(float(e.get("dur", 0.0)) for e in events
+               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")) / 1e3
+    return out, busy
+
+
+def _ex_run(torch, module, argv, dev, out_dir, traced, log_dir):
+    """One script's main() on the card at f32 with every launch count at 0
+    just before it: (its result, seconds, launches by wrapper, bell_bmv's
+    by shape, device busy ms, the traced kernels or None)."""
+    from torch.autograd import DeviceType
+
+    from glimslib_tpu_torch.ops import bell_kernels as bk
+    from glimslib_tpu_torch.utils.profiling import device_trace
+
+    wrappers = _wf_wrappers()
+    for w in wrappers:
+        w.launches = 0
+    bk.batched_matvec.launches_by_shape = {}
+    box = {}
+
+    def run():
+        box["out"] = module.main(argv, device=dev, dtype=torch.float32, plot=False,
+                                 out_dir=out_dir)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    traced_kernels = None
+    if traced:
+        with device_trace(log_dir, device=dev) as prof:
+            run()
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        traced_kernels, busy = _ex_trace_kernels(prof.trace_path)
+    else:
+        prof = _profile(torch, run, cpu=False)
+        seconds = time.perf_counter() - t0
+        busy = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA) / 1e6
+    launches = {w.__name__: w.launches for w in wrappers}
+    return (box["out"], seconds, launches, dict(bk.batched_matvec.launches_by_shape),
+            busy, traced_kernels)
+
+
+# the scripts whose meshes have no lattice (the reduced 2D atlas; the 3D
+# atlas's tet mesh from utils/meshing.mesh_image_labels): the unstructured
+# lane, bell_bmv
+EX_UNSTRUCTURED = ("brain_2D_atlas_reduced_domain_adjoint", "comparison_3D_atlas")
+
+
+def _ex_demand(tag, name, launches, out):
+    """The kernels a script's path must launch: both lattice solves in a
+    lattice script (and stencil_apply where it takes a gradient: the
+    backward's residual re-evaluations), bell_bmv on an unstructured
+    mesh; convert and example_config run no model."""
+    if name in ("example_config", "convert_vtu_mesh_to_hdf5"):
+        need = ()
+    elif name in EX_UNSTRUCTURED:
+        need = ("batched_matvec",)
+    else:
+        need = ("cg_scalar", "cg_vector")
+        if "J0" in out:
+            need += ("apply_scalar_sum", "apply_vector")
+    missing = [w for w in need if launches[w] < 1]
+    if missing:
+        raise AssertionError(f"{tag} {missing} did not launch: {launches}")
+
+
+def _ex_bmv(torch, dev, bmv, results, tables):
+    """bell_bmv on [12]'s unstructured meshes: held against its plain
+    version and timed as [5] at the 3D atlas's five tables (the brain model
+    that comparison_3D_atlas ran), and for both scripts the share of the
+    bound weighted by the script's launches (the reduced 2D atlas is [8]'s
+    mesh, so [8]'s times)."""
+    brain, by_shape = tables["comparison_3D_atlas"]
+    brain._build_step()
+    aug = brain._augment_theta_with_operators(
+        {**brain.make_theta(brain.params.as_dict()), **brain.runtime_aux()})
+    bmv["examples_3d_shapes"] = _bmv_shapes(torch, brain, aug, dev,
+                                            "[12] comparison_3D_atlas:")
+    del aug
+    for name, recs in (("comparison_3D_atlas", bmv["examples_3d_shapes"]),
+                       ("brain_2D_atlas_reduced_domain_adjoint",
+                        bmv["atlas_2d_adjoint_launches"]["shapes"])):
+        unchecked = set(tables[name][1]) - {tuple(r["shape"]) for r in recs}
+        if unchecked:
+            raise AssertionError(f"[12] {name}: bell_bmv ran at {sorted(unchecked)}, "
+                                 "which no phase held against its plain version")
+        share = _bmv_split({"shapes": recs}, tables[name][1], f"[12] {name}:",
+                           what="script")
+        results[next(k for k in results if k.split()[0] == name)][
+            "bmv_weighted_bound_share"] = share
+
+
+def _ex_lattice_check(torch, dev, sim, shape, checks):
+    """Every lattice kernel against its plain version at ``sim``'s
+    lattice, the first time [12] meets that lattice (``checks`` holds the
+    rows by lattice)."""
+    if shape in checks:
+        return
+    theta = sim._augment_theta_with_operators(sim.make_theta(sim.params.as_dict()))
+    checks[shape] = phase_kernels(torch, sim, theta, dev, "[12]", f"@{shape}", forced=False)
+    del theta
+    torch.cuda.empty_cache()
+
+
+def phase_examples(torch, dev, kernels):
+    """[12]: every example script on the card (module docstring).  Adds
+    each script's launches to the kernel rows; returns the scripts'
+    numbers and the lattice kernels' rows at the scripts' lattices."""
+    import importlib
+    import importlib.util
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from glimslib_tpu_torch.example_scripts import RUNS
+    from glimslib_tpu_torch.example_scripts.__main__ import convert_argv
+
+    t_phase = time.perf_counter()
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    print(f"[12] matplotlib {'imports' if has_mpl else 'is absent'} on this host: the "
+          "scripts run with plot=False (plotting is held on the CPU by "
+          "tests/test_torch_visualisation.py)")
+    tmp = tempfile.mkdtemp(prefix="glims_examples_")
+    results, tables, checks, at_lattice = {}, {}, {}, {}
+    try:
+        for name, argv in RUNS:
+            argv = convert_argv(tmp) if argv is None else argv
+            tag = f"[12] {name} {' '.join(argv) if name != 'convert_vtu_mesh_to_hdf5' else ''}".rstrip() + ":"
+            key = " ".join([name] + (argv if name != "convert_vtu_mesh_to_hdf5" else []))
+            module = importlib.import_module(f"glimslib_tpu_torch.example_scripts.{name}")
+            traced = name == EX_TRACED
+            out, sec, launches, by_shape, busy, tk = _ex_run(
+                torch, module, argv, dev, tmp, traced, os.path.join(tmp, "trace"))
+            idle = max(0.0, 1 - busy / (1e3 * sec))
+            row = dict(seconds=sec, launches=launches, device_busy_ms=busy, idle_share=idle,
+                       stages={k: v["total_s"] for k, v in out.get("stages", {}).items()})
+            print(f"{tag} {sec:.2f} s, device busy {busy:.1f} ms, idle "
+                  f"{100 * idle:.1f}%; seconds by stage (Tracer): " + ", ".join(
+                      f"{k} {v:.3f}" for k, v in row["stages"].items()))
+            if by_shape:
+                row["bmv_by_shape"] = {"x".join(map(str, k)): n for k, n in by_shape.items()}
+            if name == "comparison_3D_atlas":
+                tables["comparison_3D_atlas"] = (out["brain"], by_shape)
+            if name == "brain_2D_atlas_reduced_domain_adjoint":
+                tables[name] = (None, by_shape)
+            print(f"{tag} launches: " + ", ".join(f"{k}={n}" for k, n in launches.items())
+                  + ("; bell_bmv by (B, M, K): " + ", ".join(
+                      f"{k}: {n}" for k, n in sorted(by_shape.items(), key=lambda x: -x[1]))
+                     if by_shape else ""))
+            _ex_demand(tag, name, launches, out)
+            if tk is not None:
+                print(f"{tag} device_trace kernels (Chrome trace): " + ", ".join(
+                    f"{k} {n} launches {ms:.3f} ms" for k, (n, ms) in tk.items()))
+                if tk.get("stencil_pcg_kernel", (0, 0))[0] < 1:
+                    raise AssertionError(f"{tag} the trace holds no stencil_pcg kernel: {tk}")
+                row["trace_kernels"] = {k: dict(launches=n, ms=ms) for k, (n, ms) in tk.items()}
+            if name in EX_FORWARD:
+                t0 = time.perf_counter()
+                ref = module.main(argv, device=dev, dtype=torch.float64, plot=False,
+                                  out_dir=os.path.join(tmp, "plain"), plain=True)
+                rel = {k: _rel_l2(torch.as_tensor(np.asarray(v)),
+                                  torch.as_tensor(np.asarray(ref[k])))
+                       for k, v in _ex_fields(out).items()}
+                print(f"{tag} final fields vs the same script on the plain path at f64 "
+                      f"on the card ({time.perf_counter() - t0:.1f} s): " + ", ".join(
+                          f"{k} {v:.3e}" for k, v in rel.items()) + f" (<= {EX_RTOL})")
+                if max(rel.values()) > EX_RTOL:
+                    raise AssertionError(f"{tag} f32 vs f64 plain: {rel}")
+                row["rel_l2_vs_f64_plain"] = rel
+                if "columns" in out:
+                    cols = out["columns"]
+                    row["relative_errornorm"] = {
+                        k: cols[k].tolist() for k in cols if k.startswith("relative_")}
+                    print(f"{tag} brain vs uniform model, errornorm relative to the field "
+                          f"(limit {out['rtol']}): " + ", ".join(
+                              f"{k} {max(v):.3e}" for k, v in row["relative_errornorm"].items()))
+            if "J0" in out:
+                rel = np.asarray(out["rel_errors"])
+                row.update(J0=out["J0"], J=out["J"], calls=out["calls"],
+                           truth=np.asarray(out["v_true"]).tolist(),
+                           recovered=np.asarray(out["x_opt"]).tolist(),
+                           rel_errors=rel.tolist())
+                noisy = out.get("noise", 0.0) > 0 or "noise" in name
+                limit = out.get("rtol", EX_RECOVERY_RTOL)
+                print(f"{tag} J {out['J0']:.6e} -> {out['J']:.6e} in {out['calls']} calls; "
+                      f"recovered {dict(zip(out['names'], row['recovered']))}, truth "
+                      f"{row['truth']}, rel errors {rel.tolist()} "
+                      + (f"(noisy targets: the script's limit {out.get('rtol')})" if noisy
+                         else f"(<= {limit})"))
+                if not out["J"] < out["J0"]:
+                    raise AssertionError(f"{tag} J did not fall")
+                if not noisy and max(rel) > limit:
+                    raise AssertionError(f"{tag} recovered parameters off by {rel}")
+            if "params" in out:
+                row["params"] = out["params"]
+                print(f"{tag} L-BFGS-B nit {out['nit']}, recovered {out['params']}"
+                      + (f", rel errors {out['rel_errors']}" if "rel_errors" in out else ""))
+            results[key] = row
+            sim = out.get("sim", out.get("brain"))
+            if sim is not None and sim.lattice:
+                shape = "x".join(map(str, sim.mesh.lattice_shape))
+                row["lattice"] = shape
+                at_lattice.setdefault(shape, []).append(key)
+                _ex_lattice_check(torch, dev, sim, shape, checks)
+            del out, sim
+        # each row's launches: those of the scripts at its lattice
+        for shape, rows in checks.items():
+            for k in rows:
+                k["launches"] = sum(results[key]["launches"][w.__name__]
+                                    for key in at_lattice[shape] for w in k["wrappers"])
+                k["launches_in"] = at_lattice[shape]
+            print(f"[12] @{shape} (" + ", ".join(at_lattice[shape]) + "): launches "
+                  + ", ".join(f"{k['name']} {k['launches']}" for k in rows))
+        bmv = next((k for k in kernels if k.get("name") == "bell_bmv"), None)
+        if bmv is not None:
+            _ex_bmv(torch, dev, bmv, results, tables)
+        for k in kernels:
+            if "wrappers" in k:
+                k["examples_launches"] = {
+                    key: sum(r["launches"][w.__name__] for w in k["wrappers"])
+                    for key, r in results.items()}
+        total = sum(r["seconds"] for r in results.values())
+        busy = sum(r["device_busy_ms"] for r in results.values())
+        print(f"[12] scripts {total:.1f} s, device busy {busy:.1f} ms, idle "
+              f"{100 * max(0.0, 1 - busy / (1e3 * total)):.1f}%; examples phase "
+              f"{time.perf_counter() - t_phase:.1f} s")
+        return results, checks
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     import torch
 
@@ -2709,7 +3010,14 @@ def main():
     workflow = phase_workflow(torch, dev, kernels)
     torch.cuda.empty_cache()
 
+    examples, example_checks = phase_examples(torch, dev, kernels)
+    torch.cuda.empty_cache()
+
     drop = ("wrappers", "pattern", "iters")
+    example_checks = {shape: [{k: v for k, v in row.items() if k not in drop}
+                              for row in rows] for shape, rows in example_checks.items()}
+    print(json.dumps({"examples": examples, "examples_kernel_checks": example_checks},
+                     default=str))
     print(json.dumps({"workflow": workflow}, default=str))
     print(json.dumps({"quad": quad}, default=str))
     print(json.dumps({"defaults": defaults}, default=str))

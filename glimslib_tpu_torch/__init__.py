@@ -14,9 +14,14 @@ block-triangular Newton-CG step (``solvers/coupled.py``) and the
 implicit-Euler time loop (``models/base.py``), on the card unless the
 caller asks for the CPU.  Above them: the adjoint inverse problem
 (``optimize/``), ``run()``'s recording and file output
-(``core/results.py``), post-processing (``postprocess.py``) and the
-image-based optimization workflow (``workflow/``).  What is not ported
-raises ``NotImplementedError``.
+(``core/results.py``), post-processing (``postprocess.py``), the
+image-based optimization workflow (``workflow/``), plotting
+(``visualisation/``: matplotlib imported only when a plot is drawn),
+tracing and profiling (``utils/profiling.py``: ``Tracer``, ``run_stats``,
+``device_trace`` on ``torch.profiler``), the reference's module names
+(``simulation/``, ``simulation_helpers/``) and its example scripts
+(``example_scripts/``, ``python -m glimslib_tpu_torch.example_scripts``).
+What is not ported raises ``NotImplementedError``.
 
 The package imports ``torch`` and never ``jax``.
 """

@@ -37,6 +37,11 @@ path_to_meshtool_bin = os.environ.get("GLIMS_MESHTOOL_BIN", "meshtool")
 path_to_meshtool_xsd = os.environ.get("GLIMS_MESHTOOL_XSD", "")
 path_to_ants_bin = os.environ.get("GLIMS_ANTS_BIN_DIR", "")
 
+# -- adjoint compatibility flag (glimslib_tpu/config.py:30-33) ---------------
+# The reference selects plain FEniCS or FEniCS + dolfin-adjoint at import;
+# here every model is differentiable, so the flag exists for the API only.
+USE_ADJOINT = False
+
 # -- numerics ---------------------------------------------------------------
 
 # Solver operating-point profile, read at model build time

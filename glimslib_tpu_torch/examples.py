@@ -294,12 +294,13 @@ def atlas2d_mesh(nx=64, ny=64, nz=24, z_slice=12):
 
 
 def atlas2d_sim(nx=64, ny=64, nz=24, z_slice=12, dtype=None, device=None,
-                plain=False):
-    """TumorGrowthBrain on :func:`atlas2d_mesh`, as the reference example
-    sets it up: the tissue map, clamped boundary, a Gaussian seed (width
-    2) 4 right of the domain's mean point, the example's fixed and varying
-    parameters, 3 steps of dt 1."""
-    mesh, labels, _, _ = atlas2d_mesh(nx, ny, nz, z_slice)
+                plain=False, domain=None):
+    """TumorGrowthBrain on :func:`atlas2d_mesh` (or ``domain``, its result
+    where the caller has it), as the reference example sets it up: the
+    tissue map, clamped boundary, a Gaussian seed (width 2) 4 right of the
+    domain's mean point, the example's fixed and varying parameters, 3
+    steps of dt 1."""
+    mesh, labels, _, _ = atlas2d_mesh(nx, ny, nz, z_slice) if domain is None else domain
     sim = TumorGrowthBrain(mesh, dtype=dtype, device=device, plain=plain)
     sim.setup_global_parameters(label_function=labels, domain_names=TISSUE_MAP,
                                 boundaries={"boundary_all": _Boundary()},

@@ -883,22 +883,36 @@ class Simulation(ABC):
         ``self.solution``, the last converged state as numpy arrays, which
         it returns; ``self.solver_info["newton_iters"]`` holds the Newton
         iterations a step beside the CG counts.  ``"xdmf"`` without h5py
-        raises before any step runs.
+        raises before any step runs.  ``plot=True`` on a 2D mesh writes a
+        PNG a subspace a recorded step into ``<output_dir>/plots``
+        (``<subspace>_<step:04d>.png``, the reference's
+        ``Plotting.plot_all``); a 3D run plots nothing, as the reference's;
+        without matplotlib it raises ``ImportError`` before any step runs
+        or any file is written.
 
         Differs from the reference: the trajectory comes to the host once,
         after the whole simulate (the trajectory's tensors come from
-        :meth:`build_simulate_fn`).  ``plot=True`` raises:
-        ``visualisation/`` is not ported."""
-        if plot:
-            raise NotImplementedError(
-                "plot=True needs visualisation/, which is not ported")
+        :meth:`build_simulate_fn`), and the recorded steps are plotted
+        after it."""
         from glimslib_tpu_torch.core.results import Results
 
         output_dir = output_dir or config.output_dir_simulation_tmp
+        if self.mesh.dim == 3:
+            plot = False
+        if plot:
+            from glimslib_tpu_torch.visualisation.config import require_matplotlib
+
+            require_matplotlib()
         self.logger.info("-- Computing solutions")
         self.results = Results(self.functionspace, self.subdomains,
                                output_dir=output_dir)
         self.results.save_solution_start(method=save_method, clear_all=clear_all)
+        if plot:
+            from glimslib_tpu_torch.visualisation.plotting import Plotting
+
+            self.plotting = Plotting(
+                self.results, output_dir=os.path.join(output_dir, "plots")
+            )
         u0, c0 = self.initial_state()
         theta = self.make_theta(self.params.as_dict())
         dt = float(self.params.sim_time_step)
@@ -917,6 +931,8 @@ class Simulation(ABC):
         recording_step = 0
         self.results.add_to_results(0.0, 0, 0, {0: u0_host, 1: c0_host})
         self.results.save_solution(0, 0.0, method=save_method)
+        if plot:
+            self.plotting.plot_all(0)
         n_ok = int(ok_host.sum())
         if n_ok < n_steps:
             self.logger.warning(
@@ -934,6 +950,8 @@ class Simulation(ABC):
                     t, time_step, recording_step, {0: u_host[k], 1: c_host[k]}
                 )
                 self.results.save_solution(recording_step, t, method=save_method)
+                if plot:
+                    self.plotting.plot_all(recording_step)
         self.results.save_solution_end(method=save_method)
         self.results.save_solution_hdf5()
         self.solution = {0: u_host[n_ok - 1] if n_ok else u0_host,

@@ -48,6 +48,10 @@ def compute_pressure_from_stress_tensor(stress):
     return torch.diagonal(stress, dim1=-2, dim2=-1).sum(-1) / 3.0
 
 
+def u_norm(u):
+    return torch.sqrt(torch.sum(u * u, dim=-1))
+
+
 def compute_total_jacobian(grad_u):
     return torch.linalg.det(_eye(grad_u.shape[-1], grad_u) + grad_u)
 

@@ -21,8 +21,8 @@ the reference computes at f64, whatever the model's working dtype; each
 post-processor builds its own f64 ``P1Kernels``.  Results come back as
 numpy arrays.  ``Comparison.compare`` returns a dict of numpy columns
 under the reference's column names, not a DataFrame: the port's workflow
-path does not import pandas.  ``plot_all`` and ``plot_for_pub`` raise:
-``visualisation/`` is not ported.
+path does not import pandas.  ``plot_all`` and ``plot_for_pub`` draw with
+``visualisation/`` (matplotlib, imported when they draw).
 """
 
 from __future__ import annotations
@@ -40,7 +40,6 @@ from glimslib_tpu_torch.ops.assembly import P1Kernels
 logger = logging.getLogger(__name__)
 
 F64 = torch.float64
-_NO_PLOTS = "plotting needs visualisation/, which is not ported"
 
 
 def _np(x):
@@ -243,10 +242,54 @@ class PostProcessTumorGrowth(PostProcess):
     # -- output (reference l.1827-1940) --------------------------------------
 
     def plot_all(self, deformed=False, selection=None, output_dir=None):
-        raise NotImplementedError(_NO_PLOTS)
+        from glimslib_tpu_torch.visualisation import plotting as plott
+
+        outdir = output_dir or self.output_dir
+        os.makedirs(outdir, exist_ok=True)
+        steps = selection or self.get_recording_steps()
+        for rs in steps:
+            mesh = self.deformed_mesh(rs) if deformed else self.mesh
+            tag = "deformed" if deformed else "reference"
+            c = self.get_concentration(rs)
+            u = self.get_displacement(rs)
+            plott.plot_scalar_field(
+                mesh, c, path=os.path.join(outdir, f"conc_{tag}_{rs:04d}.png"),
+                title=f"concentration step {rs}",
+            )
+            plott.plot_vector_field(
+                mesh, u, path=os.path.join(outdir, f"disp_{tag}_{rs:04d}.png"),
+                title=f"displacement step {rs}",
+            )
+        return outdir
 
     def plot_for_pub(self, deformed=True, selection=None, output_dir=None):
-        raise NotImplementedError(_NO_PLOTS)
+        """Publication-style overlay figures: concentration contours on the
+        (optionally deformed) domain with displacement quivers
+        (reference plot_for_pub, helper_classes.py:1857-1920)."""
+        import matplotlib.pyplot as plt
+
+        from glimslib_tpu_torch.visualisation import helpers, plotting as plott
+
+        outdir = output_dir or os.path.join(self.output_dir, "pub")
+        os.makedirs(outdir, exist_ok=True)
+        steps = selection or self.get_recording_steps()
+        for rs in steps:
+            mesh = self.deformed_mesh(rs) if deformed else self.mesh
+            if mesh.dim != 2:
+                continue
+            fig, ax = plt.subplots(figsize=(6, 6))
+            plott.plot_scalar_field(
+                mesh, self.get_concentration(rs), ax=ax, cmap="inferno",
+                colorbar=True, alpha=0.9,
+            )
+            plott.plot_vector_field(
+                mesh, self.get_displacement(rs), ax=ax, color="w", alpha=0.6,
+            )
+            ax.set_axis_off()
+            helpers.show_plot(
+                os.path.join(outdir, f"pub_{rs:04d}.png"), fig
+            )
+        return outdir
 
     def save_all(self, save_method="vtk", output_dir=None, selection=None):
         """Re-export all recorded steps with derived fields as a VTU a step

@@ -1,0 +1,4 @@
+"""Reference-compatible module path for ``glimslib/simulation/
+simulation_tumor_growth_brain_quad.py`` (P2 concentration)."""
+
+from glimslib_tpu_torch.models.tumor_growth_brain_quad import TumorGrowthBrain  # noqa: F401

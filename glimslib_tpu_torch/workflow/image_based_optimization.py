@@ -47,8 +47,6 @@ What differs from the JAX package:
 - ``run_forward_sim`` and ``run_optimized_sim`` raise when a step did
   not converge (the JAX package records the steps before it and goes
   on); the error names ``step_config.cg_maxiter``.
-- ``plot=True`` raises in ``Simulation.run`` (``visualisation/`` is not
-  ported).
 """
 
 from __future__ import annotations

@@ -43,6 +43,10 @@ from glimslib_tpu.utils import interpolation as jax_interp  # noqa: E402
 from glimslib_tpu.utils import meshing as jax_meshing  # noqa: E402
 from glimslib_tpu.utils import synthetic as jax_synthetic  # noqa: E402
 from glimslib_tpu.utils import vtk_utils as jax_vtk  # noqa: E402
+from glimslib_tpu.utils import profiling as jax_profiling  # noqa: E402
+from glimslib_tpu.visualisation import helpers as jax_helpers  # noqa: E402
+from glimslib_tpu.visualisation import plotting as jax_plotting  # noqa: E402
+from glimslib_tpu import postprocess as jax_postprocess  # noqa: E402
 from glimslib_tpu.workflow import path_io as jax_path_io  # noqa: E402
 from glimslib_tpu_torch import examples  # noqa: E402
 from glimslib_tpu_torch.core import results  # noqa: E402
@@ -54,6 +58,9 @@ from glimslib_tpu_torch.utils import (  # noqa: E402
     synthetic, vtk_utils,
 )
 from glimslib_tpu_torch.workflow import path_io  # noqa: E402
+from glimslib_tpu_torch import postprocess  # noqa: E402
+from glimslib_tpu_torch.utils import profiling  # noqa: E402
+from glimslib_tpu_torch.visualisation import helpers, plotting  # noqa: E402
 
 from reference_fem import ReferenceFEM  # noqa: E402
 
@@ -208,8 +215,10 @@ def _code_lines(obj):
 
 
 # lines of a copied member that the port adds to the reference's code:
-# Results.save_solution_start refuses "xdmf" without h5py before a run
-PORT_LINES = {"Results.save_solution_start": {"        _refuse_unwritable(method)"}}
+# Results.save_solution_start refuses "xdmf" without h5py before a run;
+# show_plot imports matplotlib when it draws (the reference at import)
+PORT_LINES = {"Results.save_solution_start": {"        _refuse_unwritable(method)"},
+              "show_plot": {"    matplotlib = config.require_matplotlib()"}}
 
 
 def _member(module, dotted):
@@ -250,9 +259,16 @@ def _member(module, dotted):
         "TumorGrowthBrain._set_and_run", "TumorGrowthBrain.run_for_adjoint",
         "TumorGrowthBrain.run_for_adjoint_4params", "TumorGrowthBrain.run_for_adjoint_3params",
         "TumorGrowthBrain.run_for_adjoint_2params", "TumorGrowthBrain.init_postprocess"]),
+    (plotting, jax_plotting, None),
+    (helpers, jax_helpers, ["show_plot", "mesh_to_triangulation", "interpolate_to_grid",
+                            "get_value_range"]),
+    (profiling, jax_profiling, ["Tracer", "run_stats"]),
+    (postprocess, jax_postprocess, ["PostProcessTumorGrowth.plot_all",
+                                    "PostProcessTumorGrowth.plot_for_pub"]),
 ], ids=["image_io", "synthetic", "vtk_utils", "file_utils", "interpolation", "meshing",
         "image_registration_utils", "path_io", "data_io", "results", "lbfgsb",
-        "tumor_growth", "tumor_growth_brain"])
+        "tumor_growth", "tumor_growth_brain", "plotting", "visualisation_helpers",
+        "profiling", "postprocess_plots"])
 def test_utils_copies_are_the_reference_code(copy, ref, names):
     """Each copied module (whole, past its copy header) or member is the
     JAX package's code byte for byte, import lines and the PORT_LINES of a

@@ -154,7 +154,8 @@ def test_brain_postprocess_fields_equal_jax(brain, name):
 def test_brain_save_all_and_comparison(brain, tmp_path):
     """save_all writes a VTU a step and the PVD series (the von Mises field
     equal to the JAX package's projection); Comparison's errornorms equal
-    the JAX package's at 1e-10; plotting raises."""
+    the JAX package's at 1e-10; plot_all and run(plot=True) write a PNG a
+    field a step under the reference's names."""
     sim, pp, pp_j, res_j = brain
     out = pp.save_all(output_dir=str(tmp_path))
     steps = sim.results.get_recording_steps()
@@ -173,7 +174,16 @@ def test_brain_save_all_and_comparison(brain, tmp_path):
     assert list(cols) == list(df.columns)
     for k in cols:
         _close(cols[k], df[k].to_numpy())
-    with pytest.raises(NotImplementedError, match="visualisation"):
-        pp.plot_all()
-    with pytest.raises(NotImplementedError, match="visualisation"):
-        sim.run(plot=True)
+    plots = pp.plot_all(output_dir=str(tmp_path / "plots"))
+    assert sorted(os.listdir(plots)) == sorted(
+        f"{k}_reference_{rs:04d}.png" for k in ("conc", "disp") for rs in steps)
+    assert all(os.path.getsize(os.path.join(plots, f)) > 0 for f in os.listdir(plots))
+    saved = sim.results, sim.solution, sim.solver_info
+    try:
+        sim.run(save_method=None, plot=True, output_dir=str(tmp_path / "run"))
+    finally:
+        sim.results, sim.solution, sim.solver_info = saved
+    plots = tmp_path / "run" / "plots"
+    assert sorted(os.listdir(plots)) == sorted(
+        f"{nm}_{rs:04d}.png" for nm in ("concentration", "displacement") for rs in steps)
+    assert all(os.path.getsize(plots / f) > 0 for f in os.listdir(plots))
