@@ -223,12 +223,41 @@ Phases, each printed on lines of their own:
    held at every (B, M, K) the two unstructured scripts launch it at
    (the 3D atlas's tables here, the reduced 2D atlas's in [8]).
 
-Then one JSON line with [12]'s numbers and its kernel rows by lattice, one with [11]'s, one with [10]'s, one with [9]'s, one with [7]'s
+13. Block sharding (``Simulation.use_sharding(mode="bell")`` on
+   torch.distributed), at f32 refined.  The card's host has one card, so
+   a group is one rank over NCCL or ranks sharing the card over gloo, and
+   no speed-up over cards is measured.  [13a] world 1 over NCCL in this
+   process: [6]'s box under use_sharding() (mode 'bell', one slab of
+   every block), 5 steps at [9a]'s config with the unsharded model's
+   frozen state, against the unsharded model run the same way (bit for
+   bit, or the max difference), [9a]'s own run and the f64 plain path
+   (rel-L2 <= 1e-4).  use_sharding turns on deterministic algorithms for
+   the process (the ranks must compute their replicated work bit for bit
+   alike); [13a] turns them off again after it.  [13b] two ranks sharing
+   the card over gloo (``parallel.run_ranks``): per rank the n=32 box, 5
+   steps, and one value_and_grad of [9a]'s refined problem on its
+   targets, then the quad flagship, SHARD_QUAD_STEPS steps (cut from 5);
+   per rank the slab's blocks, set-up seconds, the table bytes held
+   against the unsharded model's, bell_bmv's launches by slab shape
+   (every shape launched must be held against the plain contraction on
+   that rank, in the bulk mode where B M K is a multiple of 4; rank 0
+   times them as [5] does, the other rank waiting), device busy ms and
+   idle share of a profiled run (one rank at a time); c and u within
+   rel-L2 1e-4 of the f64 plain path ([9a]'s; [10]'s at step 2), J within
+   5e-4 and the gradient within 1e-2 of [9a]'s f64 ones, each also against
+   the unsharded f32 run; whether the two ranks' fields, J and gradient
+   are bit-equal.  [13c] ``tumor_growth_3D_atlas_sharded`` at two gloo
+   ranks on the card: mode 'bell' and bell_bmv on every rank, its final
+   max concentration, its fields within EX_RTOL of the same model
+   unsharded on the plain path at f64.  [12] leaves that script to [13c].
+
+Then one JSON line with [13]'s numbers, one with [12]'s numbers and its kernel rows by lattice, one with [11]'s, one with [10]'s, one with [9]'s, one with [7]'s
 and [8]'s value_and_grad numbers, one with
 every kernel's numbers (each with its launches in the path and in one
 value_and_grad by forward and backward: [7]'s for the 3D rows, [8]'s for
 the 50 x 50 rows; bell_bmv's also at the P2 shapes with its launches in
-[10b] and [10d]), the card's line, and as the last line {"ok": true,
+[10b] and [10d], and at [13b]'s slab shapes with their launches there),
+the card's line, and as the last line {"ok": true,
 "device": {...}}.  Any failure raises (exit code != 0).  Needs CUDA:
 without it the script exits non-zero and prints no result.
 """
@@ -1363,12 +1392,14 @@ def _vjp_passes(torch, sim, c, lattice, tag):
 
 
 def _adjoint_lane(torch, sim, ref, lane, groups, tag, problem, fd_dir=None,
-                  j_rtol=None, vjp_passes=True):
+                  j_rtol=None, vjp_passes=True, keep=None):
     """value_and_grad on one lane (module docstring, [7]) of the inverse
     problem ``problem(sim)`` gives; ``ref`` is the lane's plain f64 model
     at its default tolerances; ``fd_dir`` a direction for a central
     difference of the f64 objective; ``j_rtol`` J's limit where it is not
-    the lane's; ``vjp_passes`` whether to time the plain VJP passes.
+    the lane's; ``vjp_passes`` whether to time the plain VJP passes;
+    ``keep`` (a dict) gains the problem's targets, v0, step config, J and
+    gradient and the f64 ones ([13b] holds its sharded call to them).
     Every kernel must launch in the backward, and in the forward those a
     forward of the problem's step runs (:func:`_forward_groups`).
     Returns the launches of the instrumented call by wrapper and
@@ -1482,6 +1513,9 @@ def _adjoint_lane(torch, sim, ref, lane, groups, tag, problem, fd_dir=None,
     torch.cuda.synchronize()
     t_end = time.perf_counter()
     print(line + f" ({t_end - t0:.1f} s)")
+    if keep is not None:
+        keep.update(targets={k: v.cpu().numpy() for k, v in ip.targets.items()}, v0=v0,
+                    vg_config=ip.sim.step_config, J=J, g=g, J64=J64, g64=g64)
     print(f"{tag} {lane}: seconds by stage: problem and calls {t_prof - t_lane:.1f}, "
           f"profiled call {t_vjp - t_prof:.1f}, VJP passes {t0 - t_vjp:.1f}, "
           f"f64 reference {t_end - t0:.1f}")
@@ -1657,13 +1691,16 @@ def _refined_problem(sim):
                      n_steps=ip0.n_steps, dt=ip0.dt), v0
 
 
-def phase_refined(torch, dev, lanes):
+def phase_refined(torch, dev, lanes, keep=None):
     """[9a]: REFINED_STEP_CONFIG on both lanes, then value_and_grad with
     refine_f64 on.  ``lanes``: (name, model, its f64 plain model, the f64
     final (u, c), the unrefined rel-L2 (c, u), kernel groups).  The
     unstructured lane runs REFINED_STEP_CONFIG a second time with
     newton_atol REFINED_NEWTON_ATOL (REFINED_RTOL's check, module
-    constants say why)."""
+    constants say why).  ``keep`` (a dict) gains, under "p1", the
+    unstructured lane's REFINED_STEP_CONFIG run (its config, final state
+    and the f64 one) and its value_and_grad (:func:`_adjoint_lane`), which
+    [13] holds the sharded model to."""
     from glimslib_tpu_torch.examples import REFINED_STEP_CONFIG
     from glimslib_tpu_torch.ops import fused_cg as fc
 
@@ -1695,6 +1732,8 @@ def phase_refined(torch, dev, lanes):
             if i == 0:
                 _, run = _time_runs(torch, simulate, (theta, u0, c0), dev, tag, N_STEPS)
             rel_c, rel_u = _rel_l2(c_tr[-1], c_r), _rel_l2(u_tr[-1], u_r)
+            if keep is not None and lane == "unstructured" and i == 0:
+                keep["p1"] = dict(config=cfg, final=(u_tr[-1], c_tr[-1]), ref=(u_r, c_r))
             if lane == "unstructured" and i == 0:
                 lim_c, lim_u, why = rc0, ru0, "the unrefined errors"
             else:
@@ -1711,7 +1750,8 @@ def phase_refined(torch, dev, lanes):
     for lane, sim, ref, _, _, groups in lanes:
         _, nums = _adjoint_lane(torch, sim, ref, f"{lane} refined", groups, "[9a]",
                                 _refined_problem, j_rtol=REFINED_J_RTOL,
-                                vjp_passes=False)
+                                vjp_passes=False,
+                                keep=keep["p1"] if keep and lane == "unstructured" else None)
         out[lane]["value_and_grad"] = nums
     return out
 
@@ -1839,11 +1879,11 @@ def phase_bf16(torch, dev, usim, base6):
     return out
 
 
-def phase_defaults(torch, dev, lat, uns):
+def phase_defaults(torch, dev, lat, uns, keep=None):
     """[9]: the reference's defaults on the flagship path (module
     docstring).  ``lat`` = ([3]'s model, its f64 plain model, its f64
     final (u, c), its rel-L2 (c, u)); ``uns`` = ([6]'s model, its f64
-    plain model, [6]'s baseline)."""
+    plain model, [6]'s baseline); ``keep`` as :func:`phase_refined`."""
     from glimslib_tpu_torch.ops import bell_kernels as bk
 
     t_phase = time.perf_counter()
@@ -1856,7 +1896,7 @@ def phase_defaults(torch, dev, lat, uns):
         ("lattice", sim, ref, lat_state, lat_rel, _lattice_groups()),
         ("unstructured", usim, uref, (u_r[-1], c_r[-1]), base6["rel"],
          [(bk.batched_matvec,)]),
-    ])
+    ], keep)
     print(f"[9a] {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     out["factored"] = phase_factored(torch, dev, usim)
@@ -1902,11 +1942,13 @@ def _quad_vs_ref(torch, sim, final, args, ref_traj, tag):
     return rel, tight
 
 
-def phase_quad(torch, dev, kern):
+def phase_quad(torch, dev, kern, keep=None):
     """[10]: set-up by part, bell_bmv at the P2 shapes ([10a]), the
     forward at the benchmark's unstructured StepConfig ([10b]), the f32
     default refined step ([10c]) and one value_and_grad ([10d]); ``kern``
-    (the bell_bmv row) gains the P2 shapes and their launches."""
+    (the bell_bmv row) gains the P2 shapes and their launches; ``keep`` (a
+    dict) gains, under "quad", [10c]'s config, its state and the f64
+    one after SHARD_QUAD_STEPS steps and the tables' bytes ([13b])."""
     from glimslib_tpu_torch.core.mesh import Mesh
     from glimslib_tpu_torch.examples import UNSTRUCT_STEP_CONFIG, adjoint_problem, brain_sim
     from glimslib_tpu_torch.models.base import default_step_config
@@ -1960,6 +2002,8 @@ def phase_quad(torch, dev, kern):
         ("P2 rd constant plane _P2BWrdC", aug["_P2BWrdC"]),
         ("P2 supernode Jacobi _McSNP2", aug["_McSNP2"]),
     ], dev, "[10a]")
+    if keep is not None:
+        keep["quad"] = dict(table_bytes=_table_bytes(aug))
     del aug
     kern["p2_shapes"] = shapes
     p2_keys = [(pp.nb, pp.s, pp.Kh), (pp.nb, pp.s, pp.s)]
@@ -2035,6 +2079,10 @@ def phase_quad(torch, dev, kern):
             raise AssertionError(f"[10c] refined at newton_atol {QUAD_NEWTON_ATOL}: "
                                  f"{rel_rt} against [10b]'s {rel}")
         del u_t, c_t
+    if keep is not None:
+        k = SHARD_QUAD_STEPS - 1
+        keep["quad"].update(config=default_step_config(torch.float32),
+                            final=(u_f[k], c_f[k]), ref=(u_r[k], c_r[k]))
     sim.step_config = UNSTRUCT_STEP_CONFIG
     del u_tr, c_tr, u_f, c_f
 
@@ -2698,6 +2746,9 @@ EX_FORWARD = ("tumor_growth_2D_uniform", "tumor_growth_2D_subdomains",
               "tumor_growth_2D_uniform_reload", "comparison_2D_atlas",
               "comparison_3D_atlas")
 EX_TRACED = "tumor_growth_2D_uniform"
+# [13c] runs it: its ranks are processes of their own, whose launches the
+# counts of this process do not see
+EX_SHARDED = "tumor_growth_3D_atlas_sharded"
 
 
 def _ex_fields(out):
@@ -2848,6 +2899,9 @@ def phase_examples(torch, dev, kernels):
     results, tables, checks, at_lattice = {}, {}, {}, {}
     try:
         for name, argv in RUNS:
+            if name == EX_SHARDED:
+                print(f"[12] {name}: runs in [13c], on ranks of its own")
+                continue
             argv = convert_argv(tmp) if argv is None else argv
             tag = f"[12] {name} {' '.join(argv) if name != 'convert_vtu_mesh_to_hdf5' else ''}".rstrip() + ":"
             key = " ".join([name] + (argv if name != "convert_vtu_mesh_to_hdf5" else []))
@@ -2953,6 +3007,423 @@ def phase_examples(torch, dev, kernels):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# [13]: block sharding (Simulation.use_sharding(mode="bell")) on
+# torch.distributed.  [13b]'s quad run takes SHARD_QUAD_STEPS steps, cut
+# from [10]'s 5 to keep [13] short; a collective that waits longer than
+# SHARD_TIMEOUT_S raises in its rank.
+SHARD_QUAD_STEPS = 2
+SHARD_TIMEOUT_S = 600
+# the tables use_sharding holds as a rank's slab (supernode blocks) or
+# rows (the two-level level's aggregates), by key
+SHARD_TABLES = ("_BellWel", "_BellCuc", "_BellWrdC", "_BellMrd", "_BinvSN", "_McSN",
+                "_FWel", "_FCuc", "_FWrd", "_FMrd", "_P2BWrdC", "_McSNP2", "_FP2Wrd",
+                "_TLCfac", "_TLCfacS", "_TLCfacT", "_TLCfacST", "_TLMt", "_TLMtS")
+
+
+def _table_bytes(aug):
+    """(bytes of every table of ``aug`` that sharding slabs, each storage
+    once; {key: (shape, bytes)} of each)."""
+    seen, total, per = set(), 0, {}
+    for k in SHARD_TABLES:
+        if k not in aug:
+            continue
+        t = aug[k]
+        st = t.untyped_storage()
+        per[k] = (tuple(t.shape), t.numel() * t.element_size())
+        if st.data_ptr() not in seen:
+            seen.add(st.data_ptr())
+            total += st.nbytes()
+    return total, per
+
+
+def _bmv_roles(sim, aug):
+    """(role, A) of every table a model's path contracts, shaped as
+    bell_bmv takes it (the slab's blocks under sharding)."""
+    plan = sim._get_bell_plan()
+    nb, s, Kh, d = plan.nb, plan.s, plan.Kh, sim.mesh.dim
+    roles = [("elasticity operator _BellWel", aug["_BellWel"].reshape(nb, s * d, Kh * d)),
+             ("elasticity supernode Jacobi _BinvSN", aug["_BinvSN"])]
+    if sim.quad:
+        return roles + [("P2 rd constant plane _P2BWrdC", aug["_P2BWrdC"]),
+                        ("P2 supernode Jacobi _McSNP2", aug["_McSNP2"])]
+    return roles + [("coupling _BellCuc", aug["_BellCuc"].reshape(nb, s * d, Kh)),
+                    ("rd constant planes _BellWrdC", aug["_BellWrdC"]),
+                    ("rd supernode Jacobi _McSN", aug["_McSN"])]
+
+
+def _bmv_slab_errors(torch, roles, dev):
+    """bell_bmv against its plain version at each (role, A), untimed: max
+    abs and rel error and the launch plan's mode by shape."""
+    import numpy as np
+
+    from glimslib_tpu_torch.ops import bell_kernels as bk
+
+    rng = np.random.default_rng(1)
+    out = {}
+    for role, A in roles:
+        B, M, K = A.shape
+        x = torch.as_tensor(rng.standard_normal((B, K)), dtype=torch.float32, device=dev)
+        err, rel = _rel_max(bk.batched_matvec(A, x), bk.batched_matvec_plain(A, x))
+        if rel > BMV_RTOL:
+            raise AssertionError(f"bell_bmv {role} {(B, M, K)}: rel err {rel:.3e}")
+        out[(B, M, K)] = dict(role=role, max_abs_err=err, rel=rel,
+                              mode=bk.plan_for(A).mode)
+    return out
+
+
+def _rank_busy(torch, mesh, run, profiled=None):
+    """(wall ms, device busy ms) of one profiled run() on this rank, or
+    (None, None) where this rank is not among ``profiled`` (default:
+    every rank).  Every rank runs run() once a turn (its collectives need
+    them all), and one rank a turn runs it under the profiler, so no two
+    profile at once."""
+    from torch.autograd import DeviceType
+
+    wall = busy = None
+    for r in range(mesh.world) if profiled is None else profiled:
+        if r != mesh.rank:
+            run()
+            continue
+        t0 = time.perf_counter()
+        prof = _profile(torch, run, cpu=False)
+        wall = (time.perf_counter() - t0) * 1e3
+        busy = sum(_self_device_us(e) for e in prof.key_averages()
+                   if getattr(e, "device_type", None) == DeviceType.CUDA) / 1e3
+    return wall, busy
+
+
+def _rank_model(torch, mesh, tag, quad, config, n_steps, box=None, vg=None, timed=None):
+    """One rank of [13b]: the sharded model (P1 box or quad flagship, on
+    the mesh ``box`` where given: the models share its plans) at
+    ``config``, ``n_steps`` steps with the counts at 0 just before, a
+    profiled run a rank, the table bytes, and bell_bmv at every slab shape
+    against its plain version (rank 0 times those whose role ``timed``
+    names, the others waiting; then each rank checks its own slab); with
+    ``vg`` (targets, v0, config) one value_and_grad with the counts at 0,
+    and one more that rank 0 profiles.  Returns the numbers and the mesh."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from glimslib_tpu_torch.examples import brain_sim
+    from glimslib_tpu_torch.ops import bell_kernels as bk
+    from glimslib_tpu_torch.optimize.adjoint import InverseProblem, param_map_for_type
+
+    dev = mesh.device
+    t0 = time.perf_counter()
+    sim = brain_sim(n=N, dtype=torch.float32, device=dev, unstructured=True, quad=quad,
+                    mesh=box)
+    sim.step_config = config
+    sim.use_sharding(mesh)
+    aux = sim.runtime_aux()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    theta = sim.make_theta(sim.params.as_dict())
+    args = (theta,) + tuple(sim.initial_state())
+    simulate = sim.build_simulate_fn(n_steps, 1.0)
+    bk.batched_matvec.launches = 0
+    bk.batched_matvec.launches_by_shape = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u_tr, c_tr, ok, newton = simulate(*args)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    by_shape = dict(bk.batched_matvec.launches_by_shape)
+    if not bool(ok.all()):
+        raise AssertionError(f"{tag} rank {mesh.rank}: a step did not converge")
+    wall, busy = _rank_busy(torch, mesh, lambda: simulate(*args))
+    out = dict(setup_s=setup_s, first_s=first_s, newton=newton.tolist(),
+               el_cg=[int(i) for i in sim.solver_info["el_cg_iters"]],
+               u=u_tr[-1].cpu().numpy(), c=c_tr[-1].cpu().numpy(),
+               launches=sum(by_shape.values()), by_shape=by_shape,
+               wall_ms=wall, busy_ms=busy, blocks=[
+                   (p.nb, p.nb_total) for p in ([sim._get_bell_plan()] + (
+                       [sim._get_p2_plan()] if quad else []))])
+    aug = sim._augment_theta_with_operators({**theta, **aux})
+    out["table_bytes"], out["tables"] = _table_bytes(aug)
+    roles = _bmv_roles(sim, aug)
+    for r in range(mesh.world):
+        if r == mesh.rank == 0:
+            out["timed"] = _bmv_check(torch, [(role, A) for role, A in roles
+                                              if timed is None or role in timed],
+                                      dev, f"{tag} rank 0 slab:")
+        dist.barrier()
+    out["checked"] = _bmv_slab_errors(torch, roles, dev)
+    del aug
+    if vg is not None:
+        targets, v0, vg_config = vg
+        sim.step_config = vg_config
+        names, update = param_map_for_type(2)
+        ip = InverseProblem(sim, names, targets, update_fn=update, n_steps=n_steps,
+                            dt=1.0)
+        bk.batched_matvec.launches_by_shape = {}
+        t0 = time.perf_counter()
+        J, g = ip.value_and_grad(v0)
+        torch.cuda.synchronize()
+        out["vg_s"] = time.perf_counter() - t0
+        out["vg_by_shape"] = dict(bk.batched_matvec.launches_by_shape)
+        out["vg_wall_ms"], out["vg_busy_ms"] = _rank_busy(
+            torch, mesh, lambda: ip.value_and_grad(v0), profiled=(0,))
+        Jg = torch.tensor([J, *g.tolist()], dtype=torch.float64)
+        got = mesh.broadcast(Jg.clone(), 0)
+        out.update(J=J, g=np.asarray(g), Jg_same_as_rank0=bool(torch.equal(got, Jg)))
+    box = sim.mesh
+    del sim, aux, theta, args, u_tr, c_tr
+    torch.cuda.empty_cache()
+    return out, box
+
+
+def _rank13b(mesh, p1, quad):
+    """[13b]'s work on one rank: the P1 box (``p1`` = forward config,
+    (targets, v0, value_and_grad config)), then the quad flagship
+    (``quad`` = its config) on the same mesh; bell_bmv is timed at the P1
+    model's slab shapes and the P2 ones."""
+    import torch
+
+    p1_out, box = _rank_model(torch, mesh, "[13b] P1", False, p1[0], N_STEPS, vg=p1[1])
+    quad_out, _ = _rank_model(torch, mesh, "[13b] quad", True, quad, SHARD_QUAD_STEPS,
+                              box=box, timed=("P2 rd constant plane _P2BWrdC",
+                                              "P2 supernode Jacobi _McSNP2"))
+    return dict(p1=p1_out, quad=quad_out)
+
+
+def _shard_world1(torch, dev, usim, keep):
+    """[13a]: world 1 over NCCL in this process: [6]'s box under
+    use_sharding() (its slab of every table is the whole), 5 steps at
+    [9a]'s refined config, against the unsharded model run the same way
+    (its frozen state, the deterministic algorithms use_sharding turns
+    on), bit for bit or the max difference; against [9a]'s own run of the
+    unsharded model (before deterministic algorithms) and the f64 plain
+    path."""
+    import tempfile
+    import warnings
+
+    import torch.distributed as dist
+
+    from glimslib_tpu_torch.examples import brain_sim
+    from glimslib_tpu_torch.ops import bell_kernels as bk
+    from glimslib_tpu_torch.parallel import make_device_mesh
+
+    # cuBLAS warns under deterministic algorithms where its workspace was
+    # not set before its first call (this process's was)
+    warnings.filterwarnings("ignore", message=".*CUBLAS_WORKSPACE_CONFIG.*")
+    p1 = keep["p1"]
+    u9, c9 = p1["final"]
+    u_r, c_r = p1["ref"]
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0,
+                                world_size=1)
+        try:
+            mesh = make_device_mesh(device=dev)
+            t0 = time.perf_counter()
+            sim = brain_sim(n=N, dtype=torch.float32, device=dev, mesh=usim.mesh)
+            sim.step_config = usim.step_config = p1["config"]
+            sim.use_sharding(mesh)
+            if sim.sharding_mode != "bell":
+                raise AssertionError(f"[13a] sharding mode {sim.sharding_mode}")
+            plan = sim._get_bell_plan()
+            aux = usim.runtime_aux()
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+            runs = {}
+            for who, s_ in (("sharded", sim), ("unsharded", usim)):
+                args = (s_.make_theta(s_.params.as_dict()),) + tuple(s_.initial_state())
+                bk.batched_matvec.launches_by_shape = {}
+                runs[who] = _drive(torch, s_, s_.build_simulate_fn(N_STEPS, 1.0),
+                                   args + (aux,), [(bk.batched_matvec,)],
+                                   f"[13a] {who}, world 1:", N_STEPS)
+                runs[who] += (dict(bk.batched_matvec.launches_by_shape),)
+            (u_s, c_s), launches, first_s, by_shape = runs["sharded"]
+            (u_u, c_u) = runs["unsharded"][0]
+            same = bool(torch.equal(c_s, c_u) and torch.equal(u_s, u_u))
+            diff = (float((c_s - c_u).abs().max()), float((u_s - u_u).abs().max()))
+            diff9 = (float((c_s[-1] - c9).abs().max()), float((u_s[-1] - u9).abs().max()))
+            rel = (_rel_l2(c_s[-1], c_r), _rel_l2(u_s[-1], u_r))
+            print(f"[13a] world 1 (nccl): mode {sim.sharding_mode}, slab blocks "
+                  f"[{plan.b0}, {plan.b1}) of {plan.nb_total}; set-up {setup_s:.1f} s; "
+                  f"bell_bmv by (B, M, K): {by_shape}")
+            print(f"[13a] c and u bit-equal to the unsharded model's run {same} (max abs "
+                  f"diff c {diff[0]:.3e}, u {diff[1]:.3e}); vs [9a]'s run of it, before "
+                  f"deterministic algorithms, max abs diff c {diff9[0]:.3e}, u "
+                  f"{diff9[1]:.3e} (the card's atomics in index_add_ add in no fixed "
+                  f"order); vs the f64 plain path rel-L2 c {rel[0]:.3e}, u {rel[1]:.3e} "
+                  f"(<= {UNSTRUCT_RTOL})")
+            if max(rel) > UNSTRUCT_RTOL:
+                raise AssertionError(f"[13a] vs f64 plain: {rel}")
+            out = dict(setup_s=setup_s, first_s=first_s, launches=launches[bk.batched_matvec],
+                       by_shape={"x".join(map(str, k)): v for k, v in by_shape.items()},
+                       bit_equal=same, max_abs_diff=diff, max_abs_diff_vs_9a=diff9,
+                       rel_vs_f64=rel)
+            del sim, aux, runs, u_s, c_s, u_u, c_u
+        finally:
+            dist.destroy_process_group()
+            # use_sharding turned deterministic algorithms on for this
+            # process: the phases after [13] run as before it
+            torch.use_deterministic_algorithms(False)
+            torch.utils.deterministic.fill_uninitialized_memory = True
+    torch.cuda.empty_cache()
+    return out
+
+
+def _shard_two_ranks(torch, dev, keep):
+    """[13b]: two ranks sharing the card over gloo (module docstring);
+    returns its numbers and bell_bmv's slab rows for the kernels line."""
+    import numpy as np
+
+    from glimslib_tpu_torch.parallel import run_ranks
+
+    p1, quad = keep["p1"], keep["quad"]
+    t0 = time.perf_counter()
+    ranks = run_ranks(_rank13b, 2, "gloo", dev,
+                      args=((p1["config"], (p1["targets"], p1["v0"], p1["vg_config"])),
+                            quad["config"]), timeout=SHARD_TIMEOUT_S)
+    wall_s = time.perf_counter() - t0
+    out, slab_rows = {}, {}
+    for name, ref, f32, steps in (("p1", p1["ref"], p1["final"], N_STEPS),
+                                  ("quad", quad["ref"], quad["final"], SHARD_QUAD_STEPS)):
+        tag = f"[13b] {'P1 box' if name == 'p1' else 'quad flagship'}:"
+        whole_bytes, whole = keep[name]["table_bytes"]
+        rows = []
+        for r, per in enumerate(ranks):
+            o = per[name]
+            rel = (_rel_l2(torch.as_tensor(o["c"]), ref[1].cpu()),
+                   _rel_l2(torch.as_tensor(o["u"]), ref[0].cpu()))
+            rel32 = (_rel_l2(torch.as_tensor(o["c"]), f32[1].cpu()),
+                     _rel_l2(torch.as_tensor(o["u"]), f32[0].cpu()))
+            shown = ("_BellWel", "_P2BWrdC", max(whole, key=lambda k: whole[k][1]))
+            idle = max(0.0, 1 - o["busy_ms"] / o["wall_ms"]) if o["busy_ms"] else None
+            print(f"{tag} rank {r}: slab blocks " + ", ".join(
+                f"{a} of {b}" for a, b in o["blocks"]) + "; "
+                  f"set-up {o['setup_s']:.1f} s, {steps} steps in {o['first_s']:.2f} s "
+                  f"(Newton {o['newton']}, elasticity CG {o['el_cg']}); table bytes held "
+                  f"{o['table_bytes'] / 1e6:.1f} MB against {whole_bytes / 1e6:.1f} MB "
+                  f"unsharded ({o['table_bytes'] / whole_bytes:.3f}); " + ", ".join(
+                      f"{k} {o['tables'][k][0]} {o['tables'][k][1] / 1e6:.1f} MB against "
+                      f"{whole[k][0]} {whole[k][1] / 1e6:.1f} MB"
+                      for k in dict.fromkeys(shown) if k in whole)
+                  + "; profiled run: device "
+                  f"busy {o['busy_ms']:.1f} ms of {o['wall_ms']:.1f} ms, idle "
+                  + (f"{100 * idle:.1f}%" if idle is not None else "not measured"))
+            print(f"{tag} rank {r}: bell_bmv launches by slab (B, M, K): " + ", ".join(
+                f"{k}: {v}" for k, v in sorted(o["by_shape"].items(), key=lambda x: -x[1]))
+                + "; each slab shape against the plain contraction: " + ", ".join(
+                    f"{k} max rel {v['rel']:.2e} ({v['mode']})"
+                    for k, v in o["checked"].items()))
+            print(f"{tag} rank {r}: final c, u vs the f64 plain path rel-L2 {rel[0]:.3e}, "
+                  f"{rel[1]:.3e} (<= {UNSTRUCT_RTOL}); vs the unsharded f32 run "
+                  f"{rel32[0]:.3e}, {rel32[1]:.3e}")
+            if max(rel) > UNSTRUCT_RTOL:
+                raise AssertionError(f"{tag} rank {r} vs f64 plain: {rel}")
+            unchecked = set(o["by_shape"]) - set(o["checked"])
+            if unchecked or not o["by_shape"]:
+                raise AssertionError(f"{tag} rank {r}: bell_bmv launched at {unchecked} "
+                                     "unchecked, or not at all")
+            if any(a * 2 != b for a, b in o["blocks"]):
+                raise AssertionError(f"{tag} rank {r}: slabs of {o['blocks']}")
+            bulk = {k: v["mode"] for k, v in o["checked"].items()
+                    if np.prod(k) % 4 == 0 and v["mode"] != "bulk"}
+            if bulk:
+                raise AssertionError(f"{tag} rank {r}: not bulk at {bulk}")
+            row = dict(rank=r, rel_vs_f64=rel, rel_vs_unsharded_f32=rel32,
+                       table_bytes=o["table_bytes"], unsharded_table_bytes=whole_bytes,
+                       setup_s=o["setup_s"], run_s=o["first_s"], device_busy_ms=o["busy_ms"],
+                       idle_share=idle, launches_by_shape={
+                           "x".join(map(str, k)): v for k, v in o["by_shape"].items()})
+            if "J" in o:
+                rJ = abs(o["J"] - p1["J64"]) / abs(p1["J64"])
+                rg = float(np.linalg.norm(o["g"] - p1["g64"]) / np.linalg.norm(p1["g64"]))
+                dJ = abs(o["J"] - p1["J"]) / abs(p1["J"])
+                dg = float(np.linalg.norm(o["g"] - p1["g"]) / np.linalg.norm(p1["g"]))
+                vidle = (max(0.0, 1 - o["vg_busy_ms"] / o["vg_wall_ms"])
+                         if o["vg_busy_ms"] else None)
+                print(f"{tag} rank {r}: value_and_grad J {o['J']:.6e}, gradient "
+                      f"{o['g'].tolist()} ({o['vg_s']:.2f} s"
+                      + (f"; profiled on rank 0: busy {o['vg_busy_ms']:.1f} ms of "
+                         f"{o['vg_wall_ms']:.1f}, idle {100 * vidle:.1f}%" if r == 0 else "")
+                      + f"); vs the f64 plain "
+                      f"path rel J {rJ:.3e} (<= {ADJ_J_RTOL['unstructured']}), gradient "
+                      f"{rg:.3e} (<= {ADJ_G_RTOL['unstructured']}); vs the unsharded f32 "
+                      f"call rel J {dJ:.3e}, gradient {dg:.3e}; J and gradient bit-equal "
+                      f"to rank 0's {o['Jg_same_as_rank0']}; bell_bmv launches in the call "
+                      f"by slab shape {o['vg_by_shape']}")
+                if rJ > ADJ_J_RTOL["unstructured"] or rg > ADJ_G_RTOL["unstructured"]:
+                    raise AssertionError(f"{tag} rank {r}: J {rJ:.3e}, gradient {rg:.3e}")
+                row.update(J=o["J"], grad=o["g"].tolist(), rel_J=rJ, rel_grad=rg,
+                           rel_J_vs_unsharded=dJ, rel_grad_vs_unsharded=dg,
+                           value_and_grad_s=o["vg_s"], value_and_grad_idle_share=vidle,
+                           J_grad_bit_equal_across_ranks=o["Jg_same_as_rank0"])
+            rows.append(row)
+        same = all(np.array_equal(ranks[0][name][k], ranks[1][name][k]) for k in ("u", "c"))
+        print(f"{tag} the two ranks' final c and u bit-equal: {same}")
+        out[name] = dict(ranks=rows, ranks_bit_equal=same)
+        for rec in ranks[0][name]["timed"]:
+            slab_rows[tuple(rec["shape"])] = rec
+    # a slab shape's launches: both models' forward runs on both ranks
+    for key, rec in slab_rows.items():
+        rec["launches"] = sum(per[m]["by_shape"].get(key, 0)
+                              for per in ranks for m in ("p1", "quad"))
+    print(f"[13b] two ranks (gloo, sharing the card): {wall_s:.1f} s with the spawn")
+    out["seconds"] = wall_s
+    return out, list(slab_rows.values())
+
+
+def _shard_example(torch, dev, tmp):
+    """[13c]: tumor_growth_3D_atlas_sharded at two gloo ranks on the card
+    (f32), its fields against the same model unsharded on the plain path
+    at f64."""
+    from glimslib_tpu_torch.example_scripts import tumor_growth_3D_atlas_sharded as ex
+    from glimslib_tpu_torch.solvers.coupled import StepConfig
+
+    t0 = time.perf_counter()
+    out = ex.main(["--ranks", "2", "--backend", "gloo", "--save-method", "vtk"],
+                  device=dev, dtype=torch.float32, out_dir=tmp)
+    sec = time.perf_counter() - t0
+    ref = ex.build_model(out["store"], torch.float64, dev, plain=True)
+    ref.step_config = StepConfig(newton_rtol=1e-10, newton_atol=1e-14, cg_rtol=1e-12,
+                                 cg_maxiter=4000)
+    sol = ref.run(save_method=None, plot=False, output_dir=os.path.join(tmp, "plain"))
+    rel = (_rel_l2(torch.as_tensor(out["c"]), torch.as_tensor(sol[1])),
+           _rel_l2(torch.as_tensor(out["u"]), torch.as_tensor(sol[0])))
+    for r in out["ranks"]:
+        print(f"[13c] rank {r['rank']}: mode {r['sharding_mode']}, slab blocks "
+              f"{r['blocks'][0]} of {r['blocks'][1]}, seconds {r['seconds']}, Newton "
+              f"{r['newton_iters'].tolist()}, bell_bmv by slab (B, M, K) "
+              f"{r['bell_bmv_launches']}")
+        if r["sharding_mode"] != "bell" or not r["bell_bmv_launches"]:
+            raise AssertionError(f"[13c] rank {r['rank']}: {r['sharding_mode']}, "
+                                 f"{r['bell_bmv_launches']}")
+    print(f"[13c] tumor_growth_3D_atlas_sharded at 2 ranks: {out['n_nodes']} nodes, "
+          f"{out['n_cells']} tets, {sec:.1f} s; final max concentration "
+          f"{out['final_max_c']:.6f} (the reference's ~0.83); vs the plain f64 path "
+          f"rel-L2 c {rel[0]:.3e}, u {rel[1]:.3e} (<= {EX_RTOL})")
+    if max(rel) > EX_RTOL:
+        raise AssertionError(f"[13c] vs f64 plain: {rel}")
+    return dict(seconds=sec, final_max_c=out["final_max_c"], rel_vs_f64=rel,
+                n_nodes=out["n_nodes"], launches_by_rank=[
+                    {"x".join(map(str, k)): v for k, v in r["bell_bmv_launches"].items()}
+                    for r in out["ranks"]])
+
+
+def phase_shard(torch, dev, kern, usim, keep):
+    """[13]: block sharding (module docstring).  ``kern`` (the bell_bmv
+    row) gains the slab shapes; ``keep`` holds [9a]'s and [10]'s runs."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    out = {"world1": _shard_world1(torch, dev, usim, keep)}
+    two, slab_rows = _shard_two_ranks(torch, dev, keep)
+    out["two_ranks"] = two
+    kern["slab_shapes"] = slab_rows
+    tmp = tempfile.mkdtemp(prefix="glims_shard_")
+    try:
+        out["example"] = _shard_example(torch, dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[13] sharding phase {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     import torch
 
@@ -2999,12 +3470,20 @@ def main():
     adjoint.update(adjoint2d)
     kern["atlas_2d_adjoint_launches"] = bmv2d
 
+    keep = {}
     defaults = phase_defaults(torch, dev, (sim, ref, lat_state, lat_rel),
-                              (usim, uref, base6))
-    del sim, usim, ref, uref, base6
+                              (usim, uref, base6), keep)
+    aux6 = usim.runtime_aux()
+    keep["p1"]["table_bytes"] = _table_bytes(usim._augment_theta_with_operators(
+        {**usim.make_theta(usim.params.as_dict()), **aux6}))
+    del sim, ref, uref, base6, aux6
     torch.cuda.empty_cache()
 
-    quad = phase_quad(torch, dev, kern)
+    quad = phase_quad(torch, dev, kern, keep)
+    torch.cuda.empty_cache()
+
+    shard = phase_shard(torch, dev, kern, usim, keep)
+    del usim, keep
     torch.cuda.empty_cache()
 
     workflow = phase_workflow(torch, dev, kernels)
@@ -3016,6 +3495,7 @@ def main():
     drop = ("wrappers", "pattern", "iters")
     example_checks = {shape: [{k: v for k, v in row.items() if k not in drop}
                               for row in rows] for shape, rows in example_checks.items()}
+    print(json.dumps({"sharding": shard}, default=str))
     print(json.dumps({"examples": examples, "examples_kernel_checks": example_checks},
                      default=str))
     print(json.dumps({"workflow": workflow}, default=str))

@@ -9,11 +9,14 @@ source builds anew and a built one is reused.  Libraries are loaded with
 
 Nothing here runs at import: ``load(name)`` is called by the kernel
 wrappers when they are first given a CUDA tensor.  A failed build raises.
+Processes that build at once (the ranks of a sharded run) take turns on
+a lock file in the build directory, so each library is built once.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -81,11 +84,20 @@ def library_path(name: str) -> Path:
 
 def build_all() -> None:
     """Compile every source whose library is missing, one ``nvcc`` each,
-    all started together; raise if any of them fails."""
+    all started together, under an exclusive lock on
+    ``build/kernels/.lock``; raise if any of them fails."""
+    if all(library_path(name).exists() for name in SOURCES):
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        _build_missing()
+
+
+def _build_missing() -> None:
     todo = [name for name in SOURCES if not library_path(name).exists()]
     if not todo:
         return
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     jobs = []
     for name in todo:

@@ -7,8 +7,10 @@ out_dir=None)``, which returns what the script checks, so that tests and
 ``chip_smoke.py`` call it in-process; it runs on the card (float32)
 unless ``device`` (``--device``) says otherwise.
 ``python -m glimslib_tpu_torch.example_scripts`` runs them all in order
-(the counterpart of ``examples/run_all_examples.sh``).
-``tumor_growth_3D_atlas_sharded`` is not ported: it needs sharding.
+(the counterpart of ``examples/run_all_examples.sh``);
+``tumor_growth_3D_atlas_sharded`` runs there at two gloo ranks (on the
+card, two processes sharing it) and writes VTUs (the reference's XDMF
+needs h5py).
 """
 
 # (module, argv) in the order of examples/run_all_examples.sh, with its
@@ -27,6 +29,8 @@ RUNS = [
     ("tumor_growth_2D_subdomains", []),
     ("comparison_2D_atlas", []),
     ("comparison_3D_atlas", []),
+    ("tumor_growth_3D_atlas_sharded", ["--ranks", "2", "--backend", "gloo",
+                                       "--save-method", "vtk"]),
     ("brain_2D_atlas_reduced_domain_adjoint", []),
     ("atlas_optimization_workflow", []),
     ("patient_optimization_workflow", []),

@@ -73,14 +73,17 @@ class _Boundary:
 
 
 def brain_sim(n=10, dtype=None, device=None, plain=False, unstructured=False,
-              quad=False):
+              quad=False, mesh=None):
     """TumorGrowthBrain on the synthetic brain box, set up as the reference
     benchmark sets it up; on the card unless ``device`` says otherwise.
     ``quad``: the quad model (needs ``unstructured``: the port runs it on
-    the unstructured lane only), at f32 with :data:`UNSTRUCT_STEP_CONFIG`."""
-    mesh = box_mesh((0, 0, 0), (10, 10, 10), n, n, n)
-    if unstructured:
-        mesh = Mesh.from_arrays(mesh.points, mesh.cells).reordered_morton()
+    the unstructured lane only), at f32 with :data:`UNSTRUCT_STEP_CONFIG`.
+    ``mesh``: the box mesh of another model (``n`` and ``unstructured``
+    are then its), whose cached plans the two models share."""
+    if mesh is None:
+        mesh = box_mesh((0, 0, 0), (10, 10, 10), n, n, n)
+        if unstructured:
+            mesh = Mesh.from_arrays(mesh.points, mesh.cells).reordered_morton()
     r = np.linalg.norm((mesh.points - 5.0) / 5.0, axis=1)
     labels = np.zeros(mesh.n_nodes)
     labels[r < 0.95] = 1

@@ -58,9 +58,14 @@ Solver non-convergence freezes the carried state and flags the remaining
 steps, as in the reference.  ``plain=True`` routes every kernel call
 through its plain torch version on any device: a reference run for
 checking the kernels on the card.  Outside the port so far (the quad
-models on lattice meshes, sharding, Chebyshev preconditioning, von
-Neumann BCs, time-dependent sources) the model raises
-``NotImplementedError``.
+models on lattice meshes, the ``nodes`` and ``cells`` sharding modes,
+Chebyshev preconditioning, von Neumann BCs, time-dependent sources) the
+model raises ``NotImplementedError``.
+
+Sharding (:meth:`Simulation.use_sharding`, mode ``bell``): the model's
+supernode tables live as this rank's slab of blocks, and its two-level
+factors and mode matrices as its aggregates' rows, on every rank of a
+``torch.distributed`` group; node vectors stay replicated.
 """
 
 from __future__ import annotations
@@ -85,6 +90,7 @@ from glimslib_tpu_torch.ops import (
 )
 from glimslib_tpu_torch.ops.assembly import P1Kernels
 from glimslib_tpu_torch.ops.stencil import StencilOperators
+from glimslib_tpu_torch.parallel import shard
 from glimslib_tpu_torch.solvers import twolevel
 from glimslib_tpu_torch.solvers.coupled import StepConfig, make_step
 
@@ -159,6 +165,13 @@ class Simulation(ABC):
     SUBSPACE_DISPLACEMENT = 0
     SUBSPACE_CONCENTRATION = 1
     CONCENTRATION_DEGREE = 1
+    # set by use_sharding: the mode and the mesh of ranks; under 'bell'
+    # the model's own slab plans (never the plans its mesh caches)
+    sharding_mode = None
+    device_mesh = None
+    _bell_slab = None
+    _p2_slab = None
+    _p2_sharded = False
 
     def __init__(self, mesh, time_dependent=True, dtype=None, device=None,
                  plain=False):
@@ -193,8 +206,108 @@ class Simulation(ABC):
         self.solver_info = _new_solver_info()
         self.step_config = default_step_config(self.dtype)
 
-    def use_sharding(self, *args, **kwargs):
-        raise NotImplementedError("sharded execution is not ported yet")
+    def use_sharding(self, device_mesh=None, n_devices=None, mode="auto"):
+        """Distribute the simulation over the ranks of a process group (the
+        reference's ``use_sharding``, base.py:116-262, the analogue of
+        running under ``mpirun``): every rank calls it, on the same model.
+
+        ``device_mesh`` defaults to :func:`make_device_mesh` on the
+        model's device, which needs an initialised group (``torchrun``, or
+        ``parallel.run_ranks``).  ``mode="auto"`` decides as the reference
+        does: ``'nodes'`` on a lattice mesh whose node count the world
+        divides, ``'bell'`` where the supernode halo-ELL path runs and the
+        world divides its block count, else ``'cells'``.
+
+        ``'bell'``: every supernode table (operator planes, factored
+        channel stacks, supernode inverses; the quad models' P2 tables
+        too, unless the world does not divide their block count: then
+        they stay replicated, with the reference's warning) is held as
+        this rank's slab of nb / world blocks, and the two-level factors
+        and mode matrices as its aggregates' rows; node vectors stay
+        replicated, and each contraction gathers its slabs' rows.  The
+        frozen state is rebuilt as slabs.  On the card it turns on
+        ``torch.use_deterministic_algorithms`` (warn-only, uninitialised
+        memory not filled) for the process: the ranks must compute their
+        replicated work bit for bit alike to take the same solver paths.
+        ``'nodes'`` and ``'cells'`` raise ``NotImplementedError``: the
+        port has no distributed PCG for the lattice and no matrix-free
+        jvp lane.  Returns the mesh."""
+        if device_mesh is None:
+            device_mesh = shard.make_device_mesh(n_devices, device=self.device)
+        if device_mesh.device != shard.canonical_device(self.device):
+            raise ValueError(f"the mesh of ranks is on {device_mesh.device}, the "
+                             f"model on {self.device}")
+        n_dev = device_mesh.world
+        bell_ok = not self.lattice
+        why = None
+        if mode == "auto":
+            if self.lattice and not self.quad and self.mesh.n_nodes % n_dev == 0:
+                mode = "nodes"
+            elif bell_ok and self._get_bell_plan().nb % n_dev == 0:
+                mode = "bell"
+            else:
+                mode = "cells"
+                if self.lattice:
+                    why = (f"lattice mesh with n_nodes={self.mesh.n_nodes} not "
+                           f"divisible by {n_dev} devices (pad with "
+                           "core.mesh.pad_mesh_nodes)")
+                else:
+                    why = (f"supernode block count {self._get_bell_plan().nb} not "
+                           f"divisible by {n_dev} devices (use a power-of-two "
+                           "device count)")
+        if mode == "bell":
+            if not bell_ok:
+                raise ValueError("mode='bell' needs the supernode halo-ELL path "
+                                 "(unstructured mesh, GLIMS_BELL != 0, P1 kernels)")
+            bplan = self._get_bell_plan()
+            if bplan.nb % n_dev:
+                raise ValueError(
+                    f"supernode block count {bplan.nb} not divisible by {n_dev} "
+                    "devices (BellPlan pads nb to a multiple of 8; use a "
+                    "power-of-two device count)")
+            if self.device.type == "cuda":
+                # every rank must compute the replicated work bit for bit
+                # alike, or the ranks' solvers stop at different iterations
+                # and their collectives part; on the card index_add_ and the
+                # backward of index_select add by atomics in no fixed order
+                torch.use_deterministic_algorithms(True, warn_only=True)
+                torch.utils.deterministic.fill_uninitialized_memory = False
+            self._bell_slab = bell.SlabPlan(bplan, device_mesh)
+            if self.quad:
+                p2plan = self._get_p2_plan()
+                self._p2_sharded = p2plan.nb % n_dev == 0
+                if self._p2_sharded:
+                    self._p2_slab = bell.SlabPlan(p2plan, device_mesh)
+                else:
+                    self.logger.warning(
+                        "P2 supernode block count %d not divisible by %d devices "
+                        "— quad concentration tables stay replicated", p2plan.nb,
+                        n_dev)
+            # the frozen state is rebuilt as this rank's slabs
+            self._aux_cache = None
+        elif mode == "nodes":
+            raise NotImplementedError(
+                "use_sharding: the reference takes mode='nodes' here (GSPMD node "
+                "sharding of the lattice: node vectors sharded, the offset-stencil "
+                "path kept); the port's lattice nodes mode is not ported: it needs "
+                "stencil_apply on halo-padded slabs and a distributed PCG in place "
+                "of the whole-solve stencil_pcg kernel" if self.lattice else
+                "use_sharding: mode='nodes' on an unstructured mesh is the "
+                "reference's owned/ghost node sharding (parallel/nodeshard.py), "
+                "which swaps the element kernels and solves on the matrix-free jvp "
+                "lane; that lane is not ported")
+        elif mode == "cells":
+            raise NotImplementedError(
+                "use_sharding: the reference takes mode='cells' here (shard-mapped "
+                "element kernels, parallel/shard.py ShardedP1Kernels)"
+                + (f", because {why}" if why else "")
+                + "; it swaps the element kernels and solves on the matrix-free jvp "
+                "lane, which is not ported")
+        else:
+            raise ValueError(f"unknown sharding mode {mode!r}")
+        self.device_mesh = device_mesh
+        self.sharding_mode = mode
+        return device_mesh
 
     # -- abstract model surface ----------------------------------------------
 
@@ -424,6 +537,10 @@ class Simulation(ABC):
         return cache[key]
 
     def _get_bell_plan(self):
+        """The mesh's supernode plan, or under block sharding this rank's
+        slab of it (:class:`~glimslib_tpu_torch.ops.bell.SlabPlan`)."""
+        if self._bell_slab is not None:
+            return self._bell_slab
         if self._bell_plan is None:
             self._bell_plan = self._mesh_plan(
                 "bell_plan", lambda: bell.BellPlan(self.mesh, s=32, device=self.device))
@@ -431,11 +548,30 @@ class Simulation(ABC):
 
     def _get_p2_plan(self):
         """The supernode plan over the P2 dofs of a quad model (s = 64,
-        the reference's default, base.py:492-509)."""
+        the reference's default, base.py:492-509), or this rank's slab of
+        it."""
+        if self._p2_slab is not None:
+            return self._p2_slab
         if self._p2_plan is None:
             self._p2_plan = self._mesh_plan(
                 "p2_plan", lambda: p2_ell.make_p2_plan(self.p2, s=64))
         return self._p2_plan
+
+    def _coarse_slab(self):
+        """This rank's aggregates of the two-level level, or None unsharded."""
+        if self.sharding_mode != "bell":
+            return None
+        return twolevel.coarse_slab(self._twolevel_aggplan(), self.device_mesh)
+
+    def _slab_input(self, theta):
+        """theta's coefficients as inputs of this rank's slab tables
+        (``parallel/shard.py enter``: their cotangent from the slab is
+        summed over the ranks), or theta itself unsharded."""
+        if self.sharding_mode != "bell":
+            return theta
+        mesh = self.device_mesh
+        return {k: shard.enter(mesh, v) if torch.is_tensor(v) and not k.startswith("_")
+                else v for k, v in theta.items()}
 
     def _mesh_arrays(self):
         return self.kernels.grads_T, self.kernels.vol
@@ -553,6 +689,15 @@ class Simulation(ABC):
         if Acs is not None:
             f_c = 1.0 - mask_c.cpu().numpy().astype(np.float64)
             aux["_TLMtS"] = self._tensor(agg.mode_matrix_scalar(f_c))
+        slab = self._coarse_slab()
+        if slab is not None:
+            # every rank builds the same factors from the same replicated
+            # inputs and keeps its aggregates' rows of them
+            _, a0, a1 = slab
+            q, qs = twolevel.n_affine_modes(agg.d), twolevel.n_scalar_modes(agg.d)
+            rows = {"_TLCfac": (a0 * q, a1 * q), "_TLCfacS": (a0 * qs, a1 * qs),
+                    "_TLMt": (a0 * agg.m, a1 * agg.m), "_TLMtS": (a0 * agg.m, a1 * agg.m)}
+            aux = {k: v[slice(*rows[k])].clone() for k, v in aux.items()}
         return aux
 
     def _factored_aux(self, times=None):
@@ -599,15 +744,14 @@ class Simulation(ABC):
         arrays = self._mesh_arrays()
         m0 = self.kernels._m0
         mask_u, mask_c, _, _ = self._bc_masks_and_values()
-        planes = bell_factored.planes_from_theta(theta, self.mesh.dim, want_cuc=True,
+        th = self._slab_input(theta)
+        planes = bell_factored.planes_from_theta(th, self.mesh.dim, want_cuc=True,
                                                  want_rd=True, want_mrd=True)
         if planes is None:
             planes = bell.assemble_fused(bplan, [
-                bell.elasticity_entries(arrays, theta["mu"], theta["lam"]),
-                bell.coupling_uc_entries(arrays, theta["mu"], theta["lam"],
-                                         theta["coupling"]),
-                bell.rd_const_entries(arrays, theta["D"], theta["rho"], theta["dt"],
-                                      m0),
+                bell.elasticity_entries(arrays, th["mu"], th["lam"]),
+                bell.coupling_uc_entries(arrays, th["mu"], th["lam"], th["coupling"]),
+                bell.rd_const_entries(arrays, th["D"], th["rho"], th["dt"], m0),
                 bell.mass_entries(arrays, m0),
             ])
         Wel, Wc, Wrd, Mrd = planes
@@ -639,16 +783,20 @@ class Simulation(ABC):
         (without a graph) when the aux did not carry it."""
         bplan, p2plan = self._get_bell_plan(), self._get_p2_plan()
         mask_u, mask_c, _, _ = self._bc_masks_and_values()
-        planes = bell_factored.planes_from_theta(theta, self.mesh.dim, want_cuc=False,
+        th = self._slab_input(theta)
+        planes = bell_factored.planes_from_theta(th, self.mesh.dim, want_cuc=False,
                                                  want_rd=False, want_mrd=False)
         if planes is None:
             planes = bell.assemble_fused(bplan, [bell.elasticity_entries(
-                self._mesh_arrays(), theta["mu"], theta["lam"])])
+                self._mesh_arrays(), th["mu"], th["lam"])])
         theta["_BellWel"] = planes[0].permute(0, 1, 3, 2, 4).contiguous()
-        Wrd2 = bell_factored.p2_planes_from_theta(theta)
+        # replicated P2 tables (a world that does not divide their blocks)
+        # take theta's own coefficients
+        th2 = th if self._p2_sharded else theta
+        Wrd2 = bell_factored.p2_planes_from_theta(th2)
         if Wrd2 is None:
-            Wrd2 = p2_ell.build_p2_rd_const(p2plan, self.p2, theta["D"], theta["rho"],
-                                            theta["dt"])
+            Wrd2 = p2_ell.build_p2_rd_const(p2plan, self.p2, th2["D"], th2["rho"],
+                                            th2["dt"])
         theta["_P2BWrdC"] = Wrd2
         with torch.no_grad():
             if "_BinvSN" not in theta:
@@ -712,7 +860,8 @@ class Simulation(ABC):
             if agg is None or "_TLCfacS" not in theta:
                 return base
             return twolevel.make_twolevel_precond_scalar(
-                agg, theta["_TLCfacS"], theta["_TLMtS"], base, theta.get("_TLCfacST"))
+                agg, theta["_TLCfacS"], theta["_TLMtS"], base, theta.get("_TLCfacST"),
+                self._coarse_slab())
 
         return rd_jacobian, rd_jacobian_chord, rd_precond
 
@@ -733,7 +882,8 @@ class Simulation(ABC):
             if agg is None or "_TLCfac" not in theta:
                 return base
             return twolevel.make_twolevel_precond(
-                agg, theta["_TLCfac"], theta["_TLMt"], base, theta.get("_TLCfacT"))
+                agg, theta["_TLCfac"], theta["_TLMt"], base, theta.get("_TLCfacT"),
+                self._coarse_slab())
 
         rd_jacobian, rd_jacobian_chord, rd_precond = self._rd_builders()
         return dict(rd_jacobian=rd_jacobian, el_operator=el_operator,
@@ -888,13 +1038,14 @@ class Simulation(ABC):
         (``<subspace>_<step:04d>.png``, the reference's
         ``Plotting.plot_all``); a 3D run plots nothing, as the reference's;
         without matplotlib it raises ``ImportError`` before any step runs
-        or any file is written.
+        or any file is written.  Under sharding every rank runs and
+        records, and rank 0 alone writes files and plots.
 
         Differs from the reference: the trajectory comes to the host once,
         after the whole simulate (the trajectory's tensors come from
         :meth:`build_simulate_fn`), and the recorded steps are plotted
         after it."""
-        from glimslib_tpu_torch.core.results import Results
+        from glimslib_tpu_torch.core.results import Results, _refuse_unwritable
 
         output_dir = output_dir or config.output_dir_simulation_tmp
         if self.mesh.dim == 3:
@@ -903,6 +1054,11 @@ class Simulation(ABC):
             from glimslib_tpu_torch.visualisation.config import require_matplotlib
 
             require_matplotlib()
+        # every rank refuses what rank 0 would, before any collective
+        _refuse_unwritable(save_method)
+        writer = self.device_mesh is None or self.device_mesh.rank == 0
+        if not writer:
+            save_method, clear_all, plot = None, False, False
         self.logger.info("-- Computing solutions")
         self.results = Results(self.functionspace, self.subdomains,
                                output_dir=output_dir)
@@ -953,7 +1109,8 @@ class Simulation(ABC):
                 if plot:
                     self.plotting.plot_all(recording_step)
         self.results.save_solution_end(method=save_method)
-        self.results.save_solution_hdf5()
+        if writer:
+            self.results.save_solution_hdf5()
         self.solution = {0: u_host[n_ok - 1] if n_ok else u0_host,
                          1: c_host[n_ok - 1] if n_ok else c0_host}
         return self.solution

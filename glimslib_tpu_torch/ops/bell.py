@@ -26,14 +26,29 @@ The plan serves any dof space (P1 nodes, or the P2 dofs of
 the aux-threaded table dicts (``tables()``), chunk-aligned halos
 (``halo_chunk``: aligned G-dof gather rows for the TPU's row-rate-bound
 gathers; on the card they only add zero slots, 1.85x the table bytes of
-the P2 flagship plan), block sharding (``shard_ctx``), the block-lanes
-kernel layouts (``*_T``, ``transpose_tables_T``) and the memory-bounded
-chunked scalar assembly (a TPU compile-memory bound).  The plan's index
-tables live on its device as int64 tensors; every sentinel points at a
-zero row appended at gather time.
+the P2 flagship plan), the block-lanes kernel layouts (``*_T``,
+``transpose_tables_T``) and the memory-bounded chunked scalar assembly (a
+TPU compile-memory bound).  The plan's index tables live on its device
+as int64 tensors; every sentinel points at a zero row appended at gather
+time.
+
+Block sharding (``Simulation.use_sharding(mode="bell")``, the
+reference's ``shard_ctx`` and ``_bmv`` under ``shard_map``): a
+:class:`SlabPlan` is rank r's view of a plan, blocks [b0, b1) with
+b0 = r nb / world.  Tables assembled through it hold those blocks only
+(its own part of the block-major placement), the halo operand is
+gathered for them only, and every contraction below runs the ``bmv``
+hook on the slab and gathers the slabs' rows into the replicated result
+(``parallel/shard.py gather_rows``).  The per-entry values and node
+vectors stay replicated; a replicated vector that enters a slab's
+contraction sums its cotangent over the ranks (``parallel/shard.py
+enter``).  On a whole :class:`BellPlan` the same functions run as
+before: b0 = 0, no crossing.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -42,6 +57,7 @@ from glimslib_tpu_torch.ops.assembly import (
     make_scatter_plan, pull_accumulate, pull_index, scatter_plan_from_pull,
 )
 from glimslib_tpu_torch.ops.bell_kernels import batched_matvec
+from glimslib_tpu_torch.parallel import shard
 
 
 class BellPlan:
@@ -53,7 +69,12 @@ class BellPlan:
     Pass a ``mesh`` (P1: the dofs are the mesh nodes) or an explicit dof
     connectivity ``conn`` (nc, npe) over ``n`` dofs (the P2 space of
     ``ops/p2_ell.py``, npe = 10 in 3D and 6 in 2D).  ``prefix`` names the
-    plan's tables in the reference's aux dicts (``_Bell``, ``_P2B``)."""
+    plan's tables in the reference's aux dicts (``_Bell``, ``_P2B``).
+
+    The whole plan is the slab of one rank: blocks [b0, b1) = [0, nb)."""
+
+    b0 = 0
+    mesh = None
 
     def __init__(self, mesh=None, s: int = 32, device="cpu", conn=None, n=None,
                  prefix: str = "_Bell"):
@@ -131,8 +152,6 @@ class BellPlan:
         place[dense_slot[~isdiag_u]] = off_rank[off_u]
         place[dense_slot[isdiag_u]] = self.n_off + ur[isdiag_u]
         self.place = place.astype(np.int32)
-        # the placement as a pull of one entry a slot
-        self.place_plan = scatter_plan_from_pull(place[:, None], self.n_off + n)
 
         self.device = torch.device(device)
         idx = lambda a: torch.as_tensor(  # noqa: E731
@@ -140,9 +159,30 @@ class BellPlan:
         self.ext_idx = idx(self.ext_ids)
         self.diag_idx = pull_index(self.diag_plan, self.device)
         self.off_idx = pull_index(self.off_plan, self.device)
-        self.place_pull = pull_index(self.place_plan, self.device)
-        self.place_idx = self.place_pull.pull[:, 0]
         self.off_entry_t = idx(self.off_entry_idx)
+        self.nb_total = self.b1 = nb
+
+    @functools.cached_property
+    def place_pull(self):
+        """The placement as a pull of one entry a slot (its slots, int64
+        on the device: the plan's largest index), built at first use: a
+        model that shards the plan pulls through its slab's."""
+        return pull_index(scatter_plan_from_pull(
+            self.place.astype(np.int64)[:, None], self.n_off + self.n), self.device)
+
+    @property
+    def place_idx(self):
+        return self.place_pull.pull[:, 0]
+
+    def enter(self, x):
+        """A replicated vector as the input of this plan's contractions."""
+        return shard.enter(self.mesh, x)
+
+    def gather(self, y):
+        """(nb_total, M) replicated rows from this plan's (nb, M) rows."""
+        if self.mesh is None:
+            return y
+        return shard.gather_rows(self.mesh, y, self.b0, self.nb_total)
 
     def assemble(self, entry_values):
         """(npe, npe, nc, ...) per-entry values -> (nb, s, Kh, ...)."""
@@ -157,6 +197,33 @@ class BellPlan:
         off_vals = pull_accumulate(self.off_idx, off_flat)
         vals = pull_accumulate(self.place_pull, torch.cat([off_vals, diag_vals]))
         return vals.reshape((self.nb, self.s, self.Kh) + tail)
+
+
+class SlabPlan(BellPlan):
+    """Rank ``mesh.rank``'s slab of ``plan``: blocks [b0, b1) of its nb,
+    nb / world of them (the reference raises where world does not divide
+    nb, as here).  ``nb`` is the slab's block count, ``nb_total`` the
+    plan's; the halo rows and the placement (its pull built at first use,
+    as the plan's) are the slab's part, the per-entry pulls (O(n)) the
+    plan's.  Belongs to the model that shards,
+    never to the plan (which the models of a mesh share)."""
+
+    def __init__(self, plan: BellPlan, mesh):
+        if plan.nb % mesh.world:
+            raise ValueError(f"supernode block count {plan.nb} not divisible by "
+                             f"{mesh.world} ranks")
+        nbl = plan.nb // mesh.world
+        self.base, self.mesh = plan, mesh
+        self.b0, self.b1 = mesh.rank * nbl, (mesh.rank + 1) * nbl
+        self.nb, self.nb_total = nbl, plan.nb
+        for k in ("prefix", "n", "npe", "s", "n_pad", "Khe", "Kh", "n_off", "device",
+                  "diag_plan", "off_plan", "off_entry_idx", "diag_idx", "off_idx",
+                  "off_entry_t"):
+            setattr(self, k, getattr(plan, k))
+        self.ext_ids = plan.ext_ids[self.b0:self.b1]
+        self.ext_idx = plan.ext_idx[self.b0:self.b1].clone()
+        slots = self.s * self.Kh
+        self.place = plan.place[self.b0 * slots:self.b1 * slots]
 
 
 def _t(x, like):
@@ -269,11 +336,22 @@ def build_bell_rd_wc_lumped(plan: BellPlan, mesh_arrays, cells_flat, c, rho,
     return pull_accumulate(plan.diag_idx, contrib.reshape(-1))
 
 
+def _own_rows(plan: BellPlan, flat, width):
+    """(nb, width) rows [b0, b1) of the flat vector zero-padded to
+    nb_total * width."""
+    lo, hi = plan.b0 * width, plan.b1 * width
+    own = flat[lo:min(hi, flat.shape[0])]
+    if own.shape[0] < hi - lo:
+        own = torch.cat([own, own.new_zeros(hi - lo - own.shape[0])])
+    return own.reshape(plan.nb, width)
+
+
 def _halo_vector(plan: BellPlan, x):
     """(nb, Kh*d) halo operand of x (n, d): own slots by reshape, external
     slots by one gather (sentinel n -> the appended zero row)."""
     n, d = x.shape
-    xo = torch.cat([x, x.new_zeros((plan.n_pad - n, d))]).reshape(plan.nb, -1)
+    x = plan.enter(x)
+    xo = _own_rows(plan, x.reshape(-1), plan.s * d)
     xp = torch.cat([x, x.new_zeros((1, d))])
     xe = xp.index_select(0, plan.ext_idx.reshape(-1)).reshape(plan.nb, -1)
     return torch.cat([xo, xe], dim=1)
@@ -281,8 +359,8 @@ def _halo_vector(plan: BellPlan, x):
 
 def _halo_scalar(plan: BellPlan, x):
     """(nb, Kh) halo operand of x (n,)."""
-    n = x.shape[0]
-    xo = torch.cat([x, x.new_zeros(plan.n_pad - n)]).reshape(plan.nb, plan.s)
+    x = plan.enter(x)
+    xo = _own_rows(plan, x, plan.s)
     xp = torch.cat([x, x.new_zeros(1)])
     xe = xp.index_select(0, plan.ext_idx.reshape(-1)).reshape(plan.nb, plan.Khe)
     return torch.cat([xo, xe], dim=1)
@@ -292,23 +370,23 @@ def apply_bell_vector(plan: BellPlan, W, x, bmv=batched_matvec):
     """(A x)[i, a]; W (nb, s, d, Kh, d) contiguous, x (n, d)."""
     n, d = x.shape
     nb, s, Kh = plan.nb, plan.s, plan.Kh
-    y = bmv(W.reshape(nb, s * d, Kh * d), _halo_vector(plan, x))
-    return y.reshape(nb * s, d)[:n]
+    y = plan.gather(bmv(W.reshape(nb, s * d, Kh * d), _halo_vector(plan, x)))
+    return y.reshape(-1, d)[:n]
 
 
 def apply_bell_scalar(plan: BellPlan, W, x, bmv=batched_matvec):
     """Scalar halo-ELL matvec; W (nb, s, Kh), x (n,)."""
     n = x.shape[0]
-    y = bmv(W, _halo_scalar(plan, x))
-    return y.reshape(plan.nb * plan.s)[:n]
+    y = plan.gather(bmv(W, _halo_scalar(plan, x)))
+    return y.reshape(-1)[:n]
 
 
 def apply_bell_coupling(plan: BellPlan, Wc, c, bmv=batched_matvec):
     """(n,) concentration -> (n, d) coupling force; Wc (nb, s, d, Kh)."""
     n = c.shape[0]
     nb, s, d, Kh = Wc.shape
-    y = bmv(Wc.reshape(nb, s * d, Kh), _halo_scalar(plan, c))
-    return y.reshape(nb * s, d)[:n]
+    y = plan.gather(bmv(Wc.reshape(nb, s * d, Kh), _halo_scalar(plan, c)))
+    return y.reshape(-1, d)[:n]
 
 
 # -- supernode block-Jacobi --------------------------------------------------
@@ -328,13 +406,14 @@ def extract_self_blocks_scalar(plan: BellPlan, W):
 
 
 def supernode_jacobi_inverse(plan: BellPlan, B, mask=None):
-    """Invert the per-supernode self-blocks ``B`` (nb, m, m); masked dofs
-    (``mask`` (n, d) or (n,) bool) and padded tail dofs get identity."""
+    """Invert the per-supernode self-blocks ``B`` (nb, m, m) of the plan's
+    blocks; masked dofs (``mask`` (n, d) or (n,) bool) and padded tail
+    dofs get identity."""
     nb, m = B.shape[0], B.shape[1]
     n_dof = plan.n * (m // plan.s)
-    fm = torch.ones(nb * m, dtype=torch.bool, device=B.device)
+    fm = torch.ones(plan.nb_total * m, dtype=torch.bool, device=B.device)
     fm[:n_dof] = False if mask is None else mask.reshape(-1)
-    fm = fm.reshape(nb, m).to(B.dtype)
+    fm = fm[plan.b0 * m:plan.b1 * m].reshape(nb, m).to(B.dtype)
     keep = 1.0 - fm
     B = B * keep[:, :, None] * keep[:, None, :]
     B = B + torch.eye(m, dtype=B.dtype, device=B.device)[None] * fm[:, :, None]
@@ -345,8 +424,7 @@ def supernode_jacobi_inverse(plan: BellPlan, B, mask=None):
 
 def apply_supernode_jacobi(plan: BellPlan, Binv, r, bmv=batched_matvec):
     """r (n, d) or (n,) -> per-supernode dense solve with Binv (nb, m, m)."""
-    nb, m = Binv.shape[0], Binv.shape[1]
-    flat = r.reshape(-1)
-    rp = torch.cat([flat, flat.new_zeros(nb * m - flat.shape[0])])
-    z = bmv(Binv, rp.reshape(nb, m))
+    m = Binv.shape[1]
+    flat = plan.enter(r).reshape(-1)
+    z = plan.gather(bmv(Binv, _own_rows(plan, flat, m)))
     return z.reshape(-1)[: flat.shape[0]].reshape(r.shape)

@@ -9,8 +9,8 @@ and the scalar one c = a + b·r (qs = 1 + d); Dirichlet dofs zero their
 mode rows.  The Galerkin coarse matrix A_c = P~ᵀ A P~ is assembled from
 node block-ELL values (``ops/ell.py``) into a dense matrix once per
 model, and its inverse is kept as a Gram factor B with B Bᵀ ≈ A_c⁻¹,
-computed on the host in f64 from an eigendecomposition (``numpy``), as
-the reference does.  The preconditioner is the additive
+computed in f64 from an eigendecomposition, as the reference does (on
+the model's device: the reference's runs on the host).  The preconditioner is the additive
 
     M(r) = base(r) + P~ B Bᵀ P~ᵀ r
 
@@ -27,9 +27,19 @@ reads a row-major copy of Bᵀ where the caller keeps one (``Bt``): cuBLAS
 runs the bf16 product over a transposed view at about half the rate of
 a row-major one (an NVIDIA H100, ``PERF.md``).  The
 node-axis-last (TPU lane) layouts of the mode matrices are not ported.
+
+Under block sharding (``Simulation.use_sharding(mode="bell")``) rank r
+holds the aggregates [a0, a1) of :func:`coarse_slab`: the factor's rows
+of their modes and the mode matrices' rows of their nodes.  Its
+restriction is then exactly its own coarse rows, Bᵀ rc is a sum of the
+ranks' partial products (one ``all_reduce`` of k values), B z gives its
+own rows again, and the prolongation its own nodes, gathered into the
+replicated result (one more collective).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -98,29 +108,57 @@ class AggPlan:
         fp[:n] = np.asarray(f, dtype=np.float64)
         return M * fp[:, None]
 
-    # -- transfers (reshape only) --------------------------------------------
+    # -- transfers (reshape only), over the aggregates [a0, a1) (default:
+    # all; under block sharding a rank's, Mt then their nodes' rows) -------
 
-    def restrict(self, Mt, r):
-        """P~ᵀ r: fine (n, d) -> coarse (nagg q,); Mt (n_pad, d, q)."""
-        rp = torch.cat([r, r.new_zeros((self.n_pad - self.n, self.d))])
-        per = (Mt * rp[:, :, None]).sum(dim=1)  # (n_pad, q)
-        return per.reshape(self.nagg, self.m, -1).sum(dim=1).reshape(-1)
+    def _own_nodes(self, r, a0, a1):
+        """Rows [a0 m, a1 m) of r (n, ...) zero-padded to n_pad rows."""
+        lo, hi = a0 * self.m, a1 * self.m
+        own = r[lo:min(hi, self.n)]
+        if own.shape[0] < hi - lo:
+            own = torch.cat([own, own.new_zeros((hi - lo - own.shape[0],)
+                                                + tuple(r.shape[1:]))])
+        return own
 
-    def prolong(self, Mt, w):
-        """P~ w: coarse (nagg q,) -> fine (n, d)."""
-        wq = w.reshape(self.nagg, -1).repeat_interleave(self.m, dim=0)
-        return (Mt * wq[:, None, :]).sum(dim=2)[: self.n]
+    def restrict(self, Mt, r, a0=0, a1=None):
+        """P~ᵀ r: fine (n, d) -> coarse ((a1 - a0) q,); Mt (m (a1 - a0), d, q)."""
+        a1 = self.nagg if a1 is None else a1
+        per = (Mt * self._own_nodes(r, a0, a1)[:, :, None]).sum(dim=1)
+        return per.reshape(a1 - a0, self.m, -1).sum(dim=1).reshape(-1)
 
-    def restrict_scalar(self, Ms, r):
-        """Ps~ᵀ r: fine (n,) -> coarse (nagg qs,); Ms (n_pad, qs)."""
-        rp = torch.cat([r, r.new_zeros(self.n_pad - self.n)])
-        per = Ms * rp[:, None]
-        return per.reshape(self.nagg, self.m, -1).sum(dim=1).reshape(-1)
+    def prolong(self, Mt, w, a0=0, a1=None):
+        """P~ w: coarse ((a1 - a0) q,) -> fine (m (a1 - a0), d) at the
+        aggregates' nodes (padded rows included)."""
+        a1 = self.nagg if a1 is None else a1
+        wq = w.reshape(a1 - a0, -1).repeat_interleave(self.m, dim=0)
+        return (Mt * wq[:, None, :]).sum(dim=2)
 
-    def prolong_scalar(self, Ms, w):
-        """Ps~ w: coarse (nagg qs,) -> fine (n,)."""
-        wq = w.reshape(self.nagg, -1).repeat_interleave(self.m, dim=0)
-        return (Ms * wq).sum(dim=1)[: self.n]
+    def restrict_scalar(self, Ms, r, a0=0, a1=None):
+        """Ps~ᵀ r: fine (n,) -> coarse ((a1 - a0) qs,); Ms (m (a1 - a0), qs)."""
+        a1 = self.nagg if a1 is None else a1
+        per = Ms * self._own_nodes(r, a0, a1)[:, None]
+        return per.reshape(a1 - a0, self.m, -1).sum(dim=1).reshape(-1)
+
+    def prolong_scalar(self, Ms, w, a0=0, a1=None):
+        """Ps~ w: coarse ((a1 - a0) qs,) -> fine (m (a1 - a0),)."""
+        a1 = self.nagg if a1 is None else a1
+        wq = w.reshape(a1 - a0, -1).repeat_interleave(self.m, dim=0)
+        return (Ms * wq).sum(dim=1)
+
+
+class CoarseSlab(NamedTuple):
+    """Rank ``mesh.rank``'s aggregates [a0, a1) of an :class:`AggPlan`."""
+
+    mesh: object
+    a0: int
+    a1: int
+
+
+def coarse_slab(plan: AggPlan, mesh) -> CoarseSlab:
+    """The aggregates of ``mesh.rank``: an even split of the nagg
+    contiguous aggregates (off by one where world does not divide it)."""
+    r, w = mesh.rank, mesh.world
+    return CoarseSlab(mesh, r * plan.nagg // w, (r + 1) * plan.nagg // w)
 
 
 def _galerkin(plan: AggPlan, adj, ent, q, dtype, device, reg):
@@ -177,19 +215,21 @@ def build_coarse_scalar(plan: AggPlan, adj, W, mask_c, reg: float = 1e-8):
 
 def coarse_inverse(Ac, droptol: float = 1e-7, k: int | None = None):
     """Gram factor B (dim_c, k) with B Bᵀ ≈ A_c⁻¹, from the f64
-    eigendecomposition on the host; eigenvalues below droptol·λmax
-    contribute nothing, and ``k`` keeps the k largest-weight columns (the
-    smallest surviving eigenvalues).  Returned in Ac's dtype and device."""
-    A = Ac.detach().cpu().double().numpy()
-    lam, V = np.linalg.eigh(0.5 * (A + A.T))
+    eigendecomposition on Ac's device (the reference takes numpy's on the
+    host; PERF.md has both times on the card); eigenvalues
+    below droptol·λmax contribute nothing, and ``k`` keeps the k
+    largest-weight columns (the smallest surviving eigenvalues).  Returned
+    in Ac's dtype and device."""
+    A = Ac.detach().double()
+    lam, V = torch.linalg.eigh(0.5 * (A + A.T))
     lmax = float(lam.max()) if len(lam) else 1.0
-    inv_sqrt = np.where(lam > droptol * lmax,
-                        1.0 / np.sqrt(np.maximum(lam, 1e-300)), 0.0)
+    inv_sqrt = torch.where(lam > droptol * lmax,
+                           1.0 / torch.sqrt(torch.clamp(lam, min=1e-300)), 0.0)
     B = V * inv_sqrt[None, :]
     if k is not None and 0 < k < B.shape[1]:
-        idx = np.argsort(-inv_sqrt, kind="stable")[:k]
-        B = np.ascontiguousarray(B[:, idx])
-    return torch.as_tensor(B, dtype=Ac.dtype, device=Ac.device)
+        idx = torch.argsort(-inv_sqrt, stable=True)[:k]
+        B = B[:, idx].contiguous()
+    return B.to(Ac.dtype)
 
 
 def _gemv_f32(A, x):
@@ -200,41 +240,52 @@ def _gemv_f32(A, x):
     return A.float() @ x.float()
 
 
-def _coarse_apply(B, rc, Bt=None):
+def _coarse_apply(B, rc, Bt=None, reduce=None):
     """B Bᵀ rc: in the working dtype, or, for a bf16 factor, z = Bᵀ rc
     and w = B z each from bf16 operands in float32 (z rounded to bf16
     between them); returns w as float32 in the bf16 case.  ``Bt``: a
-    row-major copy of Bᵀ, or None (the transposed view)."""
+    row-major copy of Bᵀ, or None (the transposed view).  ``reduce``
+    sums the ranks' partial z where B holds a rank's rows."""
     if B.dtype != torch.bfloat16:
-        return B @ (B.T @ rc)
+        z = B.T @ rc
+        return B @ (z if reduce is None else reduce(z))
     z = _gemv_f32(B.T if Bt is None else Bt, rc.to(torch.bfloat16))
+    if reduce is not None:
+        z = reduce(z)
     return _gemv_f32(B, z.to(torch.bfloat16))
 
 
-def make_twolevel_precond(plan: AggPlan, B, Mt, base_apply, Bt=None):
+def _twolevel(plan: AggPlan, B, Mt, base_apply, Bt, slab, restrict, prolong):
+    """M(r) = base_apply(r) + P B Bᵀ Pᵀ r with the transfers ``restrict``
+    and ``prolong`` of ``plan`` (vector or scalar): on a rank's
+    aggregates under ``slab``, which then sums the partial Bᵀ rc and
+    gathers the prolonged nodes."""
+    bf16 = B.dtype == torch.bfloat16
+    a0, a1 = (0, plan.nagg) if slab is None else slab[1:]
+    reduce = None if slab is None else slab.mesh.all_reduce
+
+    def M(r):
+        rc = restrict(Mt, r if bf16 else r.to(B.dtype), a0, a1)
+        fine = prolong(Mt.float() if bf16 else Mt, _coarse_apply(B, rc, Bt, reduce),
+                       a0, a1)
+        if slab is not None:
+            fine = slab.mesh.gather_rows(fine, a0 * plan.m, plan.n_pad)
+        return base_apply(r) + fine[: plan.n].to(r.dtype)
+
+    return M
+
+
+def make_twolevel_precond(plan: AggPlan, B, Mt, base_apply, Bt=None, slab=None):
     """M(r) = base_apply(r) + P~ B Bᵀ P~ᵀ r; Mt (n_pad, d, q) in the
     working dtype.  A bf16 ``B`` is restricted against in the working
-    dtype and prolonged in float32; ``Bt`` as :func:`_coarse_apply`."""
-    bf16 = B.dtype == torch.bfloat16
-
-    def M(r):
-        rc = plan.restrict(Mt, r if bf16 else r.to(B.dtype))
-        w = _coarse_apply(B, rc, Bt)
-        coarse = plan.prolong(Mt.float() if bf16 else Mt, w)
-        return base_apply(r) + coarse.to(r.dtype)
-
-    return M
+    dtype and prolonged in float32; ``Bt`` as :func:`_coarse_apply`.
+    ``slab`` (:class:`CoarseSlab`): B and Mt hold the rank's aggregates'
+    rows (module docstring)."""
+    return _twolevel(plan, B, Mt, base_apply, Bt, slab, plan.restrict, plan.prolong)
 
 
-def make_twolevel_precond_scalar(plan: AggPlan, B, Ms, base_apply, Bt=None):
+def make_twolevel_precond_scalar(plan: AggPlan, B, Ms, base_apply, Bt=None, slab=None):
     """M(r) = base_apply(r) + Ps~ B Bᵀ Ps~ᵀ r; Ms (n_pad, qs), as
     :func:`make_twolevel_precond`."""
-    bf16 = B.dtype == torch.bfloat16
-
-    def M(r):
-        rc = plan.restrict_scalar(Ms, r if bf16 else r.to(B.dtype))
-        w = _coarse_apply(B, rc, Bt)
-        coarse = plan.prolong_scalar(Ms.float() if bf16 else Ms, w)
-        return base_apply(r) + coarse.to(r.dtype)
-
-    return M
+    return _twolevel(plan, B, Ms, base_apply, Bt, slab, plan.restrict_scalar,
+                     plan.prolong_scalar)

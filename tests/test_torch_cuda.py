@@ -808,3 +808,26 @@ def test_workflow_state_from_the_card_reloads_on_the_cpu(workflow_64):
     for s in res.get_recording_steps():
         for i in (0, 1):
             np.testing.assert_array_equal(sim.results.get_result(s)[i], res.get_result(s)[i])
+
+
+@pytest.mark.parametrize("world, backend", [(1, "nccl"), (2, "gloo")],
+                         ids=["nccl_world1", "gloo_world2"])
+def test_sharded_bmv_matches_the_plain_contraction(world, backend):
+    """The sharded bmv (``use_sharding(mode="bell")``'s contraction: each
+    rank's slab through bell_bmv, the slabs' rows gathered) at the P1 and
+    P2 flagship tables' shapes, against the plain contraction of the
+    whole: max rel 1e-5 on every rank, one launch a rank at the slab's
+    shape, the bulk (TMA) mode where the slab's B M K is a multiple of 4.
+    World 1 over NCCL; two ranks sharing the card over gloo."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch_shard_cases as cases
+    from glimslib_tpu_torch.parallel import run_ranks
+
+    shapes = [(1152, 96, 474), (1152, 96, 96), (4352, 64, 353), (4352, 64, 64)]
+    ranks = run_ranks(cases.bmv_rank, world, backend, "cuda", args=(shapes, 7))
+    for per_shape in ranks:
+        for (B, M, K), got in zip(shapes, per_shape):
+            assert got["slab"] == (B // world, M, K)
+            assert got["launches"] == 1 and got["rel"] <= 1e-5, got
+            assert got["mode"] == ("bulk" if (B // world) * M * K % 4 == 0 else "ragged")

@@ -170,6 +170,33 @@ def _check_convert(out, tmp_path):
     np.testing.assert_array_equal(subdomains, cell_data["subdomains"])
 
 
+def _check_sharded(out, tmp_path):
+    """Two gloo ranks: both shard in mode 'bell' and hold the same
+    replicated fields, equal to the same model run unsharded in this
+    process to atol 1e-11; rank 0 alone wrote the per-step VTUs, the
+    series store and the postprocessed VTUs; each rank held half the
+    blocks."""
+    from glimslib_tpu_torch.example_scripts import tumor_growth_3D_atlas_sharded as m
+
+    r0, r1 = out["ranks"]
+    assert (r0["world"], r0["sharding_mode"], r1["sharding_mode"]) == (2, "bell", "bell")
+    assert np.array_equal(r0["c"], r1["c"]) and np.array_equal(r0["u"], r1["u"])
+    sim = m.build_model(out["store"], F64, "cpu")
+    sol = sim.run(save_method=None, plot=False, output_dir=str(tmp_path / "whole"))
+    np.testing.assert_allclose(out["c"], sol[1], rtol=0, atol=1e-11)
+    np.testing.assert_allclose(out["u"], sol[0], rtol=0, atol=1e-11)
+    assert 0.1 < out["final_max_c"] <= 1.0
+    d = os.path.dirname(out["store"])
+    files = os.listdir(d)
+    assert "solution.pvd" in files and "solution_timeseries.npz" in files
+    assert sum(f.startswith("solution_") and f.endswith(".vtu") for f in files) == 6
+    assert len([f for f in os.listdir(os.path.join(d, "postprocess"))
+                if f.endswith(".vtu")]) == 6
+    nb = sim._get_bell_plan().nb
+    assert r0["blocks"] == r1["blocks"] == (nb // 2, nb)
+    assert r0["bell_bmv_launches"] == {}  # CPU tensors: the plain contraction
+
+
 def _convert_argv(tmp_path):
     atlas = synthetic_atlas_path(str(tmp_path), 20, 18, 6)
     src = labelled_slice_vtu(str(tmp_path / "slice.vtu"), atlas, 3)
@@ -189,6 +216,9 @@ CASES = {
     "tumor_growth_2D_uniform_adjoint_custom_minimizer": (["--n", "8"], _check_recovered),
     "comparison_2D_atlas": (SMALL_ATLAS, _check_comparison),
     "comparison_3D_atlas": (["--atlas", "8", "8", "6"], _check_comparison),
+    "tumor_growth_3D_atlas_sharded": (["--atlas", "10", "10", "6", "--ranks", "2",
+                                       "--backend", "gloo", "--save-method", "vtk"],
+                                      _check_sharded),
     "brain_2D_atlas_reduced_domain_adjoint": (SMALL_ATLAS, _check_reduced),
     "atlas_optimization_workflow": (["--atlas", "20", "20", "8", "--z", "4",
                                      "--maxiter", "8"], _check_atlas_workflow),
@@ -209,8 +239,8 @@ def test_example_script(name, tmp_path):
 
 @pytest.mark.parametrize("name", [
     "tumor_growth_2D_uniform", "tumor_growth_2D_uniform_adjoint", "comparison_3D_atlas",
-    "brain_2D_atlas_reduced_domain_adjoint", "atlas_optimization_workflow",
-    "patient_optimization_workflow"])
+    "tumor_growth_3D_atlas_sharded", "brain_2D_atlas_reduced_domain_adjoint",
+    "atlas_optimization_workflow", "patient_optimization_workflow"])
 def test_example_script_runs_on_the_card_by_default(name, tmp_path, monkeypatch):
     """No device given: the card, which raises without CUDA (no silent
     move to the CPU); --device on the command line is the same request."""
@@ -223,11 +253,11 @@ def test_example_script_runs_on_the_card_by_default(name, tmp_path, monkeypatch)
 
 
 def test_every_reference_example_has_a_port_script():
-    """One port script per examples/*.py but the sharded one (which needs
-    sharding), each run by the runner and tested above."""
+    """One port script per examples/*.py, each run by the runner and
+    tested above."""
     ref = {f[:-3] for f in os.listdir(os.path.join(ROOT, "examples")) if f.endswith(".py")}
     port = {f[:-3] for f in os.listdir(os.path.join(
         ROOT, "glimslib_tpu_torch", "example_scripts"))
         if f.endswith(".py") and not f.startswith("_")}
-    assert port == ref - {"tumor_growth_3D_atlas_sharded"}
+    assert port == ref
     assert {name for name, _ in RUNS} == port == set(CASES)

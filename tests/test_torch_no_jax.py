@@ -108,14 +108,18 @@ def test_port_sources_import_nothing_of_jax():
     """Static scan: no import of jax, jaxlib or glimslib_tpu anywhere in
     the port or chip_smoke.py, lazy imports inside functions included."""
     banned = {"jax", "jaxlib", "glimslib_tpu"}
-    hits, n_files = [], 0
+    hits, n_files, scanned = [], 0, set()
     for path in _port_sources():
         n_files += 1
+        scanned.add(os.path.relpath(path, ROOT))
         with open(path) as fh:
             tree = ast.parse(fh.read(), filename=path)
         hits += [f"{os.path.relpath(path, ROOT)}:{line} imports {root}"
                  for line, root in _import_roots(tree) if root in banned]
     assert n_files > 20
+    # the sharding modules and the sharded example script among them
+    assert {"glimslib_tpu_torch/parallel/__init__.py", "glimslib_tpu_torch/parallel/shard.py",
+            "glimslib_tpu_torch/example_scripts/tumor_growth_3D_atlas_sharded.py"} <= scanned
     assert not hits, hits
 
 

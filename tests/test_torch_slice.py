@@ -26,6 +26,7 @@ from glimslib_tpu_torch.core.mesh import box_mesh, rectangle_mesh  # noqa: E402
 from glimslib_tpu_torch.examples import brain_sim  # noqa: E402
 from glimslib_tpu_torch.models.tumor_growth import TumorGrowth  # noqa: E402
 from glimslib_tpu_torch.models.tumor_growth_brain import TumorGrowthBrain  # noqa: E402
+from glimslib_tpu_torch.parallel import DeviceMesh  # noqa: E402
 from glimslib_tpu_torch.solvers.coupled import StepConfig  # noqa: E402
 
 from reference_fem import ReferenceFEM  # noqa: E402
@@ -208,7 +209,10 @@ def test_outside_slice_raises(case):
         "von_neumann": _von_neumann,
         "time_dependent_source": _time_dependent_source,
         "chebyshev": lambda: _step_config(precond_degree=3),
-        "sharding": lambda: _tumor_growth_2d().use_sharding(None),
+        # a lattice model: the reference's 'nodes' mode, not ported (a world
+        # of one rank, which the mode decision reads only)
+        "sharding": lambda: _tumor_growth_2d().use_sharding(DeviceMesh(
+            None, 0, 1, torch.device("cpu"), "mesh_x", "gloo")),
     }[case]
     with pytest.raises(NotImplementedError):
         run()
