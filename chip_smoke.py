@@ -251,12 +251,41 @@ Phases, each printed on lines of their own:
    max concentration, its fields within EX_RTOL of the same model
    unsharded on the plain path at f64.  [12] leaves that script to [13c].
 
-Then one JSON line with [13]'s numbers, one with [12]'s numbers and its kernel rows by lattice, one with [11]'s, one with [10]'s, one with [9]'s, one with [7]'s
+14. Node sharding of the lattice (``Simulation.use_sharding(mode="nodes")``,
+   ``parallel/gspmd.py``): each rank owns a slab of node rows, every
+   stencil apply exchanges a halo and launches the halo form of
+   stencil_apply, and the solves take the pcg branch with every dot
+   product reduced over the ranks.  [14a] world 1 over NCCL in this
+   process on the N=32 box (35,937 nodes, halo 1,123) under
+   use_sharding() (auto: 'nodes'), 5 steps at [3]'s bench StepConfig and
+   at [9a]'s refined one: every step converges, every halo form the run
+   launches is counted (the wrappers' counts at 0 just before) while
+   neither stencil_pcg launches nor the plain stencil version runs, c and
+   u within rel-L2 5e-5 of [3]'s f64 plain path, Newton and CG counts
+   beside the unsharded model's, the collectives (count, host ms); steps/s,
+   the profiler breakdown and idle share of the bench run; every halo form (<1,1>, <3,3>, <3,1>,
+   <1,1,3>) held against its plain version at the slab's shapes and
+   timed as in [2] (the kernels line's "halo@N=32 slab" rows).  [14b]
+   NODES_WORLD ranks sharing the card over gloo (``parallel.run_ranks``)
+   on the box padded to 37,026 nodes (18,513 rows and a halo of 1,123 a
+   side a rank), 5 steps at [9a]'s refined config: per rank the rows,
+   the plane bytes against the unsharded padded model's (exactly
+   1 / NODES_WORLD), the halo forms' launches, the collectives (count and
+   host ms each, a timer around torch.distributed.all_reduce), device busy
+   ms and idle share of a profiled run of NODES_PROFILE_STEPS steps (one
+   rank at a time; cut from 5 to keep [14] short), each halo
+   form against its plain version at the slab's shapes; Newton and CG
+   counts equal on every rank, fields on the real nodes within 5e-5 of
+   the f64 plain path, padding dofs exactly 0.
+
+Then one JSON line with [14]'s numbers, one with [13]'s numbers, one with [12]'s numbers and its kernel rows by lattice, one with [11]'s, one with [10]'s, one with [9]'s, one with [7]'s
 and [8]'s value_and_grad numbers, one with
 every kernel's numbers (each with its launches in the path and in one
 value_and_grad by forward and backward: [7]'s for the 3D rows, [8]'s for
 the 50 x 50 rows; bell_bmv's also at the P2 shapes with its launches in
-[10b] and [10d], and at [13b]'s slab shapes with their launches there),
+[10b] and [10d], and at [13b]'s slab shapes with their launches there;
+stencil_apply's halo form at [14a]'s slab with its launches in [14a]'s
+bench run, its refined run and [14b]),
 the card's line, and as the last line {"ok": true,
 "device": {...}}.  Any failure raises (exit code != 0).  Needs CUDA:
 without it the script exits non-zero and prints no result.
@@ -536,17 +565,18 @@ def _cold_device_ms(torch, fn, reps, prep, tries=3):
     return sum(mix[k] * sum(d) / len(d) for k, d in durations.items()) / 1e3, ""
 
 
-def _csr(torch, offsets, terms, n, d_out, d_in, n_cols):
+def _csr(torch, offsets, terms, n, d_out, d_in, n_cols, halo=0):
     """The operator sum_k s_k A_k of stencil planes as one torch sparse CSR
     matrix (int32 indices, exact zeros dropped): term (W, s, col0) with W
     (n_off, d_out, d_in, n) puts s W[o, a, b, i] at row i d_out + a, column
-    col0 + ((i + off_o) mod n) d_in + b.  A yardstick only: the port never
-    calls it."""
+    col0 + ((i + off_o) mod n) d_in + b, or in the halo form (``halo`` > 0,
+    input rows n + 2 halo) col0 + (i + halo + off_o) d_in + b.  A
+    yardstick only: the port never calls it."""
     rows, cols, vals = [], [], []
     i = torch.arange(n, device=terms[0][0].device)
     for W, s, col0 in terms:
         for o, off in enumerate(offsets):
-            j = (i + off) % n
+            j = i + halo + off if halo else (i + off) % n
             for a in range(d_out):
                 for b in range(d_in):
                     w = W[o, a, b]
@@ -635,7 +665,7 @@ def _wrapper_host_us(torch, offs, W, v, reps=400, rounds=5):
         "torch.empty_like": lambda: torch.empty_like(v),
         "pack_offsets": lambda: _build.pack_offsets(offs, n),
         "raw stream": lambda: torch._C._cuda_getCurrentRawStream(dev.index),
-        "C entry (launch)": lambda: entry(1, 1, *ptrs, n, pack, stream),
+        "C entry (launch)": lambda: entry(1, 1, *ptrs, n, 0, pack, stream),
         "launch path without the grad check": lambda: sk._scalar_raw(offs, W, v),
         "whole wrapper": lambda: sk.apply_scalar(offs, W, v),
     }
@@ -654,21 +684,31 @@ def _wrapper_host_us(torch, offs, W, v, reps=400, rounds=5):
     return us
 
 
-def phase_applies(torch, offs, theta, wc, dev, tag, suffix=""):
+def phase_applies(torch, offs, theta, wc, dev, tag, suffix="", halo=0):
     """Every stencil_apply form at one lattice's shapes (the path's planes,
     random vectors from a seed): K1 and K2 against their plain versions
     and the CSR matvec, then the rd residual in one launch against the
-    three launches it replaces, both timed as the path calls them."""
+    three launches it replaces, both timed as the path calls them.  With
+    ``halo`` > 0 the halo form on a node slab's planes (vectors of n + 2
+    halo rows), without the host-cost split and the A/B."""
+    import functools
+
     import numpy as np
 
     from glimslib_tpu_torch.ops import stencil_kernels as sk
 
     n, d = theta["_Wel"].shape[-1], theta["_Wel"].shape[1]
+    nv = n + 2 * halo
     rng = np.random.default_rng(0)
     f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
-    v = f32(rng.standard_normal(n))
-    v2 = f32(rng.standard_normal(n))
-    u = f32(rng.standard_normal((n, d)))
+    v = f32(rng.standard_normal(nv))
+    v2 = f32(rng.standard_normal(nv))
+    u = f32(rng.standard_normal((nv, d)))
+    h = functools.partial  # the halo form: the wrappers with halo bound
+    kerns = {f: h(f, halo=halo) if halo else f for f in (
+        sk.apply_scalar, sk.apply_vector, sk.apply_coupling, sk.apply_scalar_sum,
+        sk.apply_scalar_plain, sk.apply_vector_plain, sk.apply_coupling_plain,
+        sk.apply_scalar_sum_plain)}
     cold = _cold_l2(torch, dev)
     k1 = "glimslib_tpu/ops/stencil_pallas.py:108"
     k2 = "glimslib_tpu/ops/stencil_pallas.py:151"
@@ -682,15 +722,28 @@ def phase_applies(torch, offs, theta, wc, dev, tag, suffix=""):
          theta["_Cuc"], v, d, 1, k2, (sk.apply_coupling,)),
     ):
         W4 = W.reshape(len(offs), d_out, d_in, n)
-        A = _csr(torch, offs, [(W4, 1.0, 0)], n, d_out, d_in, n * d_in)
+        A = _csr(torch, offs, [(W4, 1.0, 0)], n, d_out, d_in, nv * d_in, halo)
         xf = x.reshape(-1)
         rows.append(_apply_row(
-            torch, name + suffix, kern, plain, (offs, W, x),
+            torch, name + suffix, kerns[kern], kerns[plain], (offs, W, x),
             lambda A=A, xf=xf: torch.mv(A, xf), (n, d_out) if d_out > 1 else (n,),
             wrappers, rf"stencil_apply_kernel<{d_out}, ?{d_in}, ?1>",
             4 * (W.numel() + x.numel() + n * d_out), 2 * W.numel(), replaces,
             tag, cold))
         del A
+    if halo:
+        Wc, M, load = theta["_Wrd_const"], theta["_Mst"], theta["_rd_load"]
+        A = _csr(torch, offs, [(Wc[:, None, None], 1.0, 0), (wc[:, None, None], 0.5, 0),
+                               (M[:, None, None], -1.0, nv)], n, 1, 1, 2 * nv, halo)
+        x2 = torch.cat([v, v2])
+        rows.append(_apply_row(
+            torch, "stencil_apply<1,1,3>" + suffix, kerns[sk.apply_scalar_sum],
+            kerns[sk.apply_scalar_sum_plain],
+            (offs, ((Wc, v, 1.0), (wc, v, 0.5), (M, v2, -1.0)), load),
+            lambda: torch.addmv(load, A, x2, beta=-1.0), (n,), (sk.apply_scalar_sum,),
+            r"stencil_apply_kernel<1, ?1, ?3>", 4 * (3 * Wc.numel() + 2 * nv + 2 * n),
+            6 * Wc.numel() + 4 * n, k1, tag, cold))
+        return rows
     host = _wrapper_host_us(torch, offs, theta["_Wrd_const"], v)
     print(f"{tag} apply_scalar host cost a call, us (perf_counter, the least "
           "of 5 rounds of 400 calls): "
@@ -3424,6 +3477,355 @@ def phase_shard(torch, dev, kern, usim, keep):
     return out
 
 
+# [14]: node sharding of the lattice (Simulation.use_sharding(mode="nodes"),
+# parallel/gspmd.py) on torch.distributed.  [14b] pads the N=32 box for
+# NODES_WORLD ranks; a collective that waits longer than SHARD_TIMEOUT_S
+# raises in its rank.
+NODES_WORLD = 2
+# the planes and loads a 'nodes' model holds as its rows, and an unsharded
+# lattice model holds whole ([14b] compares their bytes)
+NODES_PLANES = ("_Wel", "_Binv", "_Wrd_const", "_Mst", "_Cuc", "_rd_load", "_el_load")
+# [14b]'s profiled runs (one a rank, in turns) take NODES_PROFILE_STEPS
+# steps of the same model, cut from N_STEPS to keep [14] short
+NODES_PROFILE_STEPS = 1
+
+
+def _halo_wrappers():
+    from glimslib_tpu_torch.ops import stencil_kernels as sk
+
+    return (sk.apply_scalar, sk.apply_scalar_sum, sk.apply_vector, sk.apply_coupling)
+
+
+def _nodes_groups(refined):
+    """The halo forms a 'nodes' forward launches (one tuple a kernel):
+    under refine_f64 the residuals are the f64 gather path's, so the
+    solves' operators alone (the rd Jacobian <1,1> and the elasticity
+    operator <3,3>)."""
+    from glimslib_tpu_torch.ops import stencil_kernels as sk
+
+    groups = [(sk.apply_scalar,), (sk.apply_vector,)]
+    return groups if refined else groups + [(sk.apply_scalar_sum,), (sk.apply_coupling,)]
+
+
+class _PlainCalls:
+    """Counts the calls of the stencil kernels' plain version while
+    active (the 'nodes' path on the card must make none)."""
+
+    def __enter__(self):
+        from glimslib_tpu_torch.ops import stencil_kernels as sk
+
+        self.sk, self.orig, self.calls = sk, sk.stencil_apply_plain, 0
+
+        def counted(*a, **k):
+            self.calls += 1
+            return self.orig(*a, **k)
+        sk.stencil_apply_plain = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.sk.stencil_apply_plain = self.orig
+
+
+class _Collectives:
+    """Counts the calls of torch.distributed.all_reduce while active and
+    sums their host time (the call returns once the reduction is done)."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.dist, self.orig, self.count, self.ms = dist, dist.all_reduce, 0, 0.0
+
+        def timed(*a, **k):
+            t = time.perf_counter()
+            r = self.orig(*a, **k)
+            self.count += 1
+            self.ms += (time.perf_counter() - t) * 1e3
+            return r
+        dist.all_reduce = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.dist.all_reduce = self.orig
+
+
+def _nodes_halo_check(torch, sim, dev, tag):
+    """Every halo form against its plain version at this rank's slab
+    shapes (the path's planes, random vectors from a seed), untimed: max
+    rel by form."""
+    import numpy as np
+
+    from glimslib_tpu_torch.ops import stencil_kernels as sk
+
+    aug = sim._augment_theta_with_operators(sim.make_theta(sim.params.as_dict()))
+    offs, h = sim._stencil_ops.offsets, sim._halo_rows
+    n, d = aug["_Wel"].shape[-1], aug["_Wel"].shape[1]
+    rng = np.random.default_rng(2)
+    f32 = lambda *s: torch.as_tensor(rng.standard_normal(s), dtype=torch.float32,  # noqa: E731
+                                     device=dev)
+    v, v2, u = f32(n + 2 * h), f32(n + 2 * h), f32(n + 2 * h, d)
+    terms = ((aug["_Wrd_const"], v, 1.0), (aug["_Mst"], v, 0.5), (aug["_Mst"], v2, -1.0))
+    out = {}
+    for name, kern, plain, args in (
+        ("<1,1>", sk.apply_scalar, sk.apply_scalar_plain, (offs, aug["_Wrd_const"], v)),
+        (f"<{d},{d}>", sk.apply_vector, sk.apply_vector_plain, (offs, aug["_Wel"], u)),
+        (f"<{d},1>", sk.apply_coupling, sk.apply_coupling_plain, (offs, aug["_Cuc"], v)),
+        ("<1,1,3>", sk.apply_scalar_sum, sk.apply_scalar_sum_plain,
+         (offs, terms, aug["_rd_load"])),
+    ):
+        _, rel = _rel_max(kern(*args, halo=h), plain(*args, halo=h))
+        if rel > APPLY_RTOL:
+            raise AssertionError(f"{tag} halo form {name}: rel err {rel:.3e}")
+        out[name] = rel
+    return out, {k: (tuple(aug[k].shape), aug[k].numel() * aug[k].element_size())
+                 for k in NODES_PLANES + ("_rd_diag",)}
+
+
+def _nodes_world1(torch, dev, lat_ref, kernels):
+    """[14a]: world 1 over NCCL in this process on the N=32 box under
+    use_sharding() (auto: 'nodes'; one model, set up once), 5 steps at the
+    bench config and at [9a]'s refined config, each against the f64 plain path and beside the
+    unsharded model's Newton and CG counts; every halo form launched on
+    the bench run is held and timed at the slab's shapes (as [2]).
+    Returns its numbers; ``kernels`` gains the halo-form rows."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from glimslib_tpu_torch.examples import BENCH_STEP_CONFIG, REFINED_STEP_CONFIG
+    from glimslib_tpu_torch.examples import brain_sim
+    from glimslib_tpu_torch.ops import fused_cg as fc
+    from glimslib_tpu_torch.parallel import make_device_mesh
+
+    u_r, c_r = lat_ref
+    out, rows = {}, None
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0,
+                                world_size=1)
+        try:
+            mesh = make_device_mesh(device=dev)
+            whole = brain_sim(n=N, dtype=torch.float32, device=dev)
+            t0 = time.perf_counter()
+            sim = brain_sim(n=N, dtype=torch.float32, device=dev)
+            sim.use_sharding(mesh)
+            if sim.sharding_mode != "nodes":
+                raise AssertionError(f"[14a] sharding mode {sim.sharding_mode}")
+            setup_s = time.perf_counter() - t0
+            for label, cfg in (("bench", BENCH_STEP_CONFIG),
+                               ("refined", REFINED_STEP_CONFIG)):
+                tag = f"[14a] {label}, world 1:"
+                whole.step_config = cfg
+                _, _, ok_w, newton_w = whole.build_simulate_fn(N_STEPS, 1.0)(
+                    whole.make_theta(whole.params.as_dict()), *whole.initial_state())
+                counts_w = dict(newton=newton_w.tolist(), newton_total=int(newton_w.sum()),
+                                rd_cg=[int(i) for i in whole.solver_info["rd_cg_iters"]],
+                                el_cg=[int(i) for i in whole.solver_info["el_cg_iters"]])
+                sim.step_config = cfg
+                simulate = sim.build_simulate_fn(N_STEPS, 1.0)
+                theta = sim.make_theta(sim.params.as_dict())
+                args = (theta,) + tuple(sim.initial_state())
+                with _PlainCalls() as plain, _Collectives() as coll:
+                    (u_tr, c_tr), launches, first_s = _drive(
+                        torch, sim, simulate, args, _nodes_groups(cfg.refine_f64), tag,
+                        N_STEPS, shown=_halo_wrappers() + (fc.cg_scalar, fc.cg_vector))
+                if launches[fc.cg_scalar] or launches[fc.cg_vector] or plain.calls:
+                    raise AssertionError(f"{tag} stencil_pcg launches or plain calls: "
+                                         f"{launches}, {plain.calls}")
+                # one rd solve a Newton iteration: their count is Newton's
+                rd_cg = [int(i) for i in sim.solver_info["rd_cg_iters"]]
+                counts = dict(newton_total=len(rd_cg), rd_cg=rd_cg,
+                              el_cg=[int(i) for i in sim.solver_info["el_cg_iters"]])
+                if label == "bench":
+                    _, run = _time_runs(torch, simulate, args, dev, tag, N_STEPS)
+                else:  # the first run's rate (3 timed runs for the bench config only)
+                    run = dict(first_run_steps_per_s=N_STEPS / first_s)
+                run.update(collectives=coll.count, collective_ms=coll.ms)
+                rel = (_rel_l2(c_tr[-1], c_r), _rel_l2(u_tr[-1], u_r))
+                slab = sim._node_slab
+                print(f"{tag} mode nodes, {slab.n_own} rows owned of {slab.n_total}, halo "
+                      f"{slab.halo}; set-up {setup_s:.1f} s; first run {N_STEPS / first_s:.3f} "
+                      f"steps/s with {coll.count} collectives (NCCL, {coll.ms:.1f} ms of "
+                      f"host time in all, {coll.ms / max(coll.count, 1):.3f} ms each); "
+                      f"stencil_pcg launches 0, plain "
+                      f"stencil calls {plain.calls}; vs the f64 plain path rel-L2 c "
+                      f"{rel[0]:.3e}, u {rel[1]:.3e} (<= {SLICE_RTOL}); the unsharded "
+                      f"model (whole-solve stencil_pcg, no warm starts): Newton "
+                      f"{counts_w['newton']}, rd CG {counts_w['rd_cg']}, elasticity CG "
+                      f"{counts_w['el_cg']}")
+                if max(rel) > SLICE_RTOL or not bool(ok_w.all()):
+                    raise AssertionError(f"{tag} vs f64 plain: {rel}")
+                out[label] = dict(run, setup_s=setup_s, first_s=first_s, rel_vs_f64=rel,
+                                  launches={w.__name__: n for w, n in launches.items()},
+                                  cg=counts, unsharded_cg=counts_w, n_own=slab.n_own,
+                                  halo=slab.halo)
+                if label == "bench":
+                    aug = sim._augment_theta_with_operators(theta)
+                    wc = sim._stencil_ops.build_rd_wc(sim._halo(args[2])[0], aug["rho"],
+                                                      aug["dt"])
+                    rows = phase_applies(torch, sim._stencil_ops.offsets, aug, wc, dev,
+                                         "[14a]", f" halo@N={N} slab", halo=slab.halo)
+                    for row in rows:
+                        row["launches"] = sum(launches[w] for w in row["wrappers"])
+                        row["launches_by_wrapper"] = {w.__name__: launches[w]
+                                                      for w in row["wrappers"]}
+                    del aug, wc
+                else:
+                    for row in rows:
+                        row["launches_refined"] = sum(launches[w] for w in row["wrappers"])
+                del simulate, theta, args, u_tr, c_tr
+            del whole, sim
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    kernels += rows
+    return out, rows
+
+
+def _rank14b(mesh, cfg):
+    """[14b]'s work on one rank: the N=32 box padded for the world, under
+    use_sharding() at ``cfg``, N_STEPS steps with the counts at 0 just
+    before (the halo forms' launches; the collectives, by a timer around
+    torch.distributed.all_reduce), a profiled run of NODES_PROFILE_STEPS
+    steps a rank, the halo forms against their plain versions at the
+    slab's shapes, the plane bytes (rank 0: also the unsharded padded
+    model's, for the same keys)."""
+    import torch
+
+    from glimslib_tpu_torch.core.mesh import box_mesh, pad_mesh_nodes
+    from glimslib_tpu_torch.examples import brain_sim
+    from glimslib_tpu_torch.ops import fused_cg as fc
+    from glimslib_tpu_torch.parallel import gather_nodes
+
+    dev = mesh.device
+    box = pad_mesh_nodes(box_mesh((0, 0, 0), (10, 10, 10), N, N, N), mesh.world)
+    whole_bytes = None
+    if mesh.rank == 0:
+        whole = brain_sim(dtype=torch.float32, device=dev, mesh=box)
+        whole._build_step()
+        aug_w = whole._augment_theta_with_operators(whole.make_theta(whole.params.as_dict()))
+        whole_bytes = sum(aug_w[k].numel() * aug_w[k].element_size() for k in NODES_PLANES)
+        del whole, aug_w
+    t0 = time.perf_counter()
+    sim = brain_sim(dtype=torch.float32, device=dev, mesh=box)
+    sim.step_config = cfg
+    sim.use_sharding(mesh)
+    simulate = sim.build_simulate_fn(N_STEPS, 1.0)
+    theta = sim.make_theta(sim.params.as_dict())
+    args = (theta,) + tuple(sim.initial_state())
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    wrappers = _halo_wrappers() + (fc.cg_scalar, fc.cg_vector)
+    for w in wrappers:
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _PlainCalls() as plain, _Collectives() as coll:
+        u_tr, c_tr, ok, newton = simulate(*args)
+        torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in wrappers}
+    info = dict(sim.solver_info)
+    short = sim.build_simulate_fn(NODES_PROFILE_STEPS, 1.0)
+    wall, busy = _rank_busy(torch, mesh, lambda: short(*args))
+    checked, planes = _nodes_halo_check(torch, sim, dev, f"[14b] rank {mesh.rank}")
+    slab = sim._node_slab
+    return dict(
+        n_own=slab.n_own, n_total=slab.n_total, halo=slab.halo, setup_s=setup_s,
+        run_s=run_s, ok=bool(ok.all()), newton=newton.tolist(),
+        rd_cg=[int(i) for i in info["rd_cg_iters"]],
+        el_cg=[int(i) for i in info["el_cg_iters"]],
+        fix_cg=[int(i) for i in info["el_refine_cg_iters"]],
+        launches=launches, plain_calls=plain.calls, collectives=coll.count,
+        collective_ms=coll.ms, wall_ms=wall, busy_ms=busy, checked=checked,
+        planes=planes, plane_bytes=sum(planes[k][1] for k in NODES_PLANES),
+        whole_bytes=whole_bytes,
+        u=gather_nodes(mesh, slab, u_tr[-1]).cpu().numpy(),
+        c=gather_nodes(mesh, slab, c_tr[-1]).cpu().numpy())
+
+
+def _nodes_two_ranks(torch, dev, lat_ref):
+    """[14b]: NODES_WORLD ranks sharing the card over gloo, [9a]'s refined
+    config, N_STEPS steps (module docstring); returns its numbers and the
+    halo forms' launches summed over the ranks."""
+    import numpy as np
+
+    from glimslib_tpu_torch.examples import REFINED_STEP_CONFIG
+    from glimslib_tpu_torch.parallel import run_ranks
+
+    u_r, c_r = (x.cpu().numpy() for x in lat_ref)
+    n_real = N_NODES = (N + 1) ** 3
+    t0 = time.perf_counter()
+    ranks = run_ranks(_rank14b, NODES_WORLD, "gloo", dev, args=(REFINED_STEP_CONFIG,),
+                      timeout=SHARD_TIMEOUT_S)
+    wall_s = time.perf_counter() - t0
+    whole_bytes = ranks[0]["whole_bytes"]
+    rows = []
+    for r, o in enumerate(ranks):
+        tag = f"[14b] rank {r}:"
+        rel = (float(np.linalg.norm(o["c"][:n_real] - c_r) / np.linalg.norm(c_r)),
+               float(np.linalg.norm(o["u"][:n_real] - u_r) / np.linalg.norm(u_r)))
+        pad = max(float(np.abs(o["c"][n_real:]).max()), float(np.abs(o["u"][n_real:]).max()))
+        idle = max(0.0, 1 - o["busy_ms"] / o["wall_ms"]) if o["busy_ms"] else None
+        per = o["collective_ms"] / max(o["collectives"], 1)
+        print(f"{tag} rows [{r * o['n_own']}, {(r + 1) * o['n_own']}) of {o['n_total']} "
+              f"({N_NODES} real), halo {o['halo']} rows a side; plane bytes "
+              f"{o['plane_bytes'] / 1e6:.3f} MB against the unsharded padded model's "
+              f"{whole_bytes / 1e6:.3f} MB ({o['plane_bytes'] / whole_bytes:.4f}; "
+              + ", ".join(f"{k} {o['planes'][k][0]}" for k in ("_Wel", "_Wrd_const"))
+              + f"); set-up {o['setup_s']:.1f} s")
+        print(f"{tag} {N_STEPS} steps in {o['run_s']:.2f} s: Newton {o['newton']}, rd CG "
+              f"{o['rd_cg']}, elasticity CG {o['el_cg']}, correction CG {o['fix_cg']}; "
+              f"halo-form launches {o['launches']} (plain stencil calls "
+              f"{o['plain_calls']}); collectives {o['collectives']}, "
+              f"{o['collective_ms']:.1f} ms in all, {per:.3f} ms each (host clock around "
+              f"torch.distributed.all_reduce, gloo); a profiled "
+              f"{NODES_PROFILE_STEPS}-step run: device busy "
+              f"{o['busy_ms']:.1f} ms of {o['wall_ms']:.1f} ms, idle "
+              + (f"{100 * idle:.1f}%" if idle is not None else "not measured"))
+        print(f"{tag} halo forms vs plain at the slab's shapes, max rel "
+              + ", ".join(f"{k} {v:.2e}" for k, v in o["checked"].items())
+              + f"; final c, u on the real nodes vs the f64 plain path rel-L2 "
+              f"{rel[0]:.3e}, {rel[1]:.3e} (<= {SLICE_RTOL}); padding dofs max |x| {pad}")
+        if not o["ok"] or max(rel) > SLICE_RTOL or pad != 0.0:
+            raise AssertionError(f"{tag} ok {o['ok']}, rel {rel}, padding {pad}")
+        if o["plain_calls"] or o["launches"]["cg_scalar"] or o["launches"]["cg_vector"]:
+            raise AssertionError(f"{tag} plain calls or stencil_pcg launches: {o}")
+        missing = [g[0].__name__ for g in _nodes_groups(True)
+                   if o["launches"][g[0].__name__] < 1]
+        if missing or o["plane_bytes"] * NODES_WORLD != whole_bytes:
+            raise AssertionError(f"{tag} not launched {missing}, bytes "
+                                 f"{o['plane_bytes']} vs {whole_bytes}")
+        rows.append(dict({k: v for k, v in o.items() if k not in ("u", "c", "planes")},
+                         rel_vs_f64=rel, idle_share=idle, ms_per_collective=per))
+    same = all(ranks[0][k] == o[k] for o in ranks for k in ("newton", "rd_cg", "el_cg",
+                                                             "fix_cg"))
+    print(f"[14b] Newton and CG counts equal on every rank: {same}; {NODES_WORLD} ranks "
+          f"(gloo, sharing the card) {wall_s:.1f} s with the spawn")
+    if not same:
+        raise AssertionError("[14b] the ranks took different solver paths")
+    launches = {}
+    for o in ranks:
+        for k, v in o["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return dict(ranks=rows, seconds=wall_s, counts_equal=same), launches
+
+
+def phase_nodes(torch, dev, kernels, lat_ref):
+    """[14]: node sharding of the lattice (module docstring).  ``lat_ref``
+    = [3]'s f64 plain final (u, c); ``kernels`` gains the halo-form rows
+    with their launches in [14a] and [14b]."""
+    t_phase = time.perf_counter()
+    out = {}
+    out["world1"], rows = _nodes_world1(torch, dev, lat_ref, kernels)
+    out["world1_s"] = time.perf_counter() - t_phase
+    print(f"[14a] {out['world1_s']:.1f} s")
+    out["two_ranks"], launches = _nodes_two_ranks(torch, dev, lat_ref)
+    for row in rows:
+        row["launches_14b"] = sum(launches[w.__name__] for w in row["wrappers"])
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[14] node sharding phase {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     import torch
 
@@ -3492,9 +3894,13 @@ def main():
     examples, example_checks = phase_examples(torch, dev, kernels)
     torch.cuda.empty_cache()
 
+    nodes = phase_nodes(torch, dev, kernels, lat_state)
+    torch.cuda.empty_cache()
+
     drop = ("wrappers", "pattern", "iters")
     example_checks = {shape: [{k: v for k, v in row.items() if k not in drop}
                               for row in rows] for shape, rows in example_checks.items()}
+    print(json.dumps({"nodes": nodes}, default=str))
     print(json.dumps({"sharding": shard}, default=str))
     print(json.dumps({"examples": examples, "examples_kernel_checks": example_checks},
                      default=str))

@@ -46,9 +46,9 @@ def _signatures():
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     return {
         "stencil": {
-            "glims_stencil_apply": [i32, i32, vp, vp, vp, i32, vp, vp],
+            "glims_stencil_apply": [i32, i32, vp, vp, vp, i32, i32, vp, vp],
             "glims_stencil_apply_sum": [
-                i32, vp, vp, f32, vp, vp, f32, vp, vp, f32, vp, vp, i32, vp, vp,
+                i32, vp, vp, f32, vp, vp, f32, vp, vp, f32, vp, vp, i32, i32, vp, vp,
             ],
             "glims_stencil_pcg": [
                 i32, vp, vp, vp, vp, vp, vp, vp, i32, vp, f32, f32, i32,
@@ -150,17 +150,22 @@ class Offsets(ctypes.Structure):
 
 
 @functools.lru_cache(maxsize=64)
-def _pack(offsets: tuple, n: int):
+def _pack(offsets: tuple, n: int, halo: int):
     if not 1 <= len(offsets) <= MAX_OFF:
         raise ValueError(f"{len(offsets)} stencil offsets; the kernels take "
                          f"1 to {MAX_OFF}")
-    pack = Offsets(len(offsets),
-                   (ctypes.c_int * MAX_OFF)(*[int(o) % n for o in offsets]))
+    if halo and max(abs(int(o)) for o in offsets) > halo:
+        raise ValueError(f"stencil offsets {list(offsets)} reach past a halo of "
+                         f"{halo} rows")
+    vals = [int(o) + halo if halo else int(o) % n for o in offsets]
+    pack = Offsets(len(offsets), (ctypes.c_int * MAX_OFF)(*vals))
     return pack, ctypes.addressof(pack)
 
 
-def pack_offsets(offsets, n: int):
+def pack_offsets(offsets, n: int, halo: int = 0):
     """``(Offsets, its address)`` for the C entry points: the offsets taken
-    mod ``n``, packed once per (offsets, n) and cached by their values, so
-    a changed sequence gets a pack of its own."""
-    return _pack(tuple(offsets), n)
+    mod ``n``, or (``halo`` > 0, stencil_apply's halo form) as ``halo +
+    off``, which raises where an offset reaches past the halo; packed once
+    per (offsets, n, halo) and cached by their values, so a changed
+    sequence gets a pack of its own."""
+    return _pack(tuple(offsets), n, int(halo))

@@ -5,6 +5,14 @@
 // neighbour is read at (i + off) mod n; planes are zero wherever a node
 // has no neighbour, so wrapped reads contribute exactly 0.
 //
+// Halo form of stencil_apply (halo = h > 0; the node-sharded lattice,
+// parallel/gspmd.py): W, b and y hold a rank's n owned rows and v holds
+// them with h rows of its neighbours on either side (n + 2h rows), so
+// node i reads v[i + h + off] with no wrap.  The offsets come packed as
+// h + off, which must lie in [0, 2h]; the one index term that differs is
+// the wrap, taken mod nv = n + 2h, which no read reaches.  h = 0 is the
+// form above: nv = n and the offsets mod n.
+//
 // stencil_apply<DOUT, DIN, TERMS> replaces the Pallas matvecs
 //   glimslib_tpu/ops/stencil_pallas.py:_scalar_kernel            (DOUT=DIN=1)
 //   glimslib_tpu/ops/stencil_pallas.py:_vector_kernel_streamed   (DOUT=DIN=d,
@@ -145,22 +153,24 @@ struct Offsets {
 
 struct ApplyArgs {
   const float* W[GLIMS_APPLY_MAX_TERMS];  // (n_off, DOUT, DIN, n) each
-  const float* v[GLIMS_APPLY_MAX_TERMS];  // (n, DIN) each
+  const float* v[GLIMS_APPLY_MAX_TERMS];  // (nv, DIN) each
   float s[GLIMS_APPLY_MAX_TERMS];
   const float* b;  // (n, DOUT), subtracted; null for none
   float* y;        // (n, DOUT)
   int n;
+  int nv;  // rows of v: n, or n + 2 halo in the halo form
   Offsets off;
 };
 
-// t[a] = sum_o sum_b W[o, a, b, i] * v[(i + off_o) mod n, b] for every a:
-// all loads first (offsets past off.n load nothing and add exact zeros),
-// then the sums in the plain version's order and rounding.
+// t[a] = sum_o sum_b W[o, a, b, i] * v[(i + off_o) mod nv, b] for every a
+// (off_o packed mod n, or as halo + off_o in the halo form): all loads
+// first (offsets past off.n load nothing and add exact zeros), then the
+// sums in the plain version's order and rounding.
 template <int DOUT, int DIN>
 __device__ __forceinline__ void stencil_node(const float* __restrict__ W,
                                              const float* __restrict__ v,
-                                             int n, const Offsets& off, int i,
-                                             float (&t)[DOUT]) {
+                                             int n, int nv, const Offsets& off,
+                                             int i, float (&t)[DOUT]) {
   constexpr int CH = GLIMS_APPLY_CHUNKED(DOUT, DIN) ? GLIMS_APPLY_CHUNK_SQ : GLIMS_MAX_OFF;
   const size_t plane = (size_t)n;
 #pragma unroll
@@ -174,7 +184,7 @@ __device__ __forceinline__ void stencil_node(const float* __restrict__ W,
       const int o = o0 + q;
       const bool on = o < off.n && o < GLIMS_MAX_OFF;
       int j = i + off.v[on ? o : 0];
-      if (j >= n) j -= n;
+      if (j >= nv) j -= nv;
 #pragma unroll
       for (int b = 0; b < DIN; ++b)
         vj[q][b] = on ? __ldg(v + (size_t)j * DIN + b) : 0.0f;
@@ -210,7 +220,7 @@ __global__ void __launch_bounds__(GLIMS_APPLY_BLOCK,
 #pragma unroll
     for (int k = 0; k < TERMS; ++k) {
       float t[DOUT];
-      stencil_node<DOUT, DIN>(args.W[k], args.v[k], n, args.off, i, t);
+      stencil_node<DOUT, DIN>(args.W[k], args.v[k], n, args.nv, args.off, i, t);
 #pragma unroll
       for (int a = 0; a < DOUT; ++a) {
         const float st = __fmul_rn(args.s[k], t[a]);
@@ -724,12 +734,14 @@ __global__ void __launch_bounds__(GLIMS_PCG_THREADS, 1)
 // -- host side ---------------------------------------------------------------
 
 // The offsets come packed by the caller (_build.py pack_offsets), already
-// taken mod n; a pack that does not fit n is refused.
-static int check_offsets(const Offsets* off, int n) {
-  if (off == nullptr || n < 1 || off->n < 1 || off->n > GLIMS_MAX_OFF)
+// taken mod n, or with halo > 0 as halo + off; a pack that does not fit n
+// (in [0, n)) or the halo (in [0, 2 halo]) is refused.
+static int check_offsets(const Offsets* off, int n, int halo = 0) {
+  if (off == nullptr || n < 1 || halo < 0 || off->n < 1 || off->n > GLIMS_MAX_OFF)
     return (int)cudaErrorInvalidValue;
+  const int hi = halo > 0 ? 2 * halo : n - 1;
   for (int o = 0; o < off->n; ++o)
-    if (off->v[o] < 0 || off->v[o] >= n) return (int)cudaErrorInvalidValue;
+    if (off->v[o] < 0 || off->v[o] > hi) return (int)cudaErrorInvalidValue;
   return 0;
 }
 
@@ -768,11 +780,12 @@ static int launch_pcg(PcgArgs& args, int blocks, size_t smem,
 
 extern "C" {
 
-// y (n, dout) = stencil(W (n_off, dout, din, n), v (n, din)), (dout, din) one
-// of (1,1), (2,2), (2,1), (3,3), (3,1).
+// y (n, dout) = stencil(W (n_off, dout, din, n), v (n + 2 halo, din)),
+// (dout, din) one of (1,1), (2,2), (2,1), (3,3), (3,1).
 int glims_stencil_apply(int dout, int din, const float* W, const float* v,
-                        float* y, int n, const Offsets* off, void* stream) {
-  const int err = check_offsets(off, n);
+                        float* y, int n, int halo, const Offsets* off,
+                        void* stream) {
+  const int err = check_offsets(off, n, halo);
   if (err) return err;
   ApplyArgs args = {};
   args.W[0] = W;
@@ -780,6 +793,7 @@ int glims_stencil_apply(int dout, int din, const float* W, const float* v,
   args.s[0] = 1.0f;
   args.y = y;
   args.n = n;
+  args.nv = n + 2 * halo;
   args.off = *off;
   cudaStream_t s = (cudaStream_t)stream;
   if (dout == 1 && din == 1) return launch_apply<1, 1, 1>(args, s);
@@ -791,16 +805,18 @@ int glims_stencil_apply(int dout, int din, const float* W, const float* v,
 }
 
 // y (n,) = s0 W0 v0 + s1 W1 v1 + s2 W2 v2 - b, scalar planes (n_off, n)
-// on one offset set; the first ``terms`` (2 or 3) terms are read.
+// on one offset set, v_k (n + 2 halo,); the first ``terms`` (2 or 3) terms
+// are read.
 int glims_stencil_apply_sum(int terms, const float* W0, const float* v0,
                             float s0, const float* W1, const float* v1,
                             float s1, const float* W2, const float* v2,
                             float s2, const float* b, float* y, int n,
-                            const Offsets* off, void* stream) {
-  const int err = check_offsets(off, n);
+                            int halo, const Offsets* off, void* stream) {
+  const int err = check_offsets(off, n, halo);
   if (err) return err;
   if (b == nullptr) return (int)cudaErrorInvalidValue;
-  ApplyArgs args = {{W0, W1, W2}, {v0, v1, v2}, {s0, s1, s2}, b, y, n, *off};
+  ApplyArgs args = {{W0, W1, W2}, {v0, v1, v2}, {s0, s1, s2}, b, y, n,
+                    n + 2 * halo, *off};
   cudaStream_t s = (cudaStream_t)stream;
   if (terms == 2) return launch_apply<1, 1, 2>(args, s);
   if (terms == 3) return launch_apply<1, 1, 3>(args, s);

@@ -177,13 +177,16 @@ def _clamped(d):
                                  "subspace_id": 0}}
 
 
-def rect_sim(n=50, subdomains=False, dtype=None, device=None, plain=False):
+def rect_sim(n=50, subdomains=False, dtype=None, device=None, plain=False,
+             mesh=None):
     """TumorGrowth on the n x n rectangle lattice of [-5, 5]^2, clamped, as
     ``tumor_growth_2D_uniform.py`` sets it up (seed exp(-r^2), 5 steps), or
     with ``subdomains`` as ``tumor_growth_2D_subdomains.py`` does (an
     inclusion r < 2 in a background tissue, per-tissue parameters, seed
-    exp(-r^2 / 2), 10 steps); dt 1."""
-    mesh = rectangle_mesh((-5, -5), (5, 5), n, n)
+    exp(-r^2 / 2), 10 steps); dt 1.  ``mesh``: that rectangle's mesh made
+    otherwise (padded by ``core.mesh.pad_mesh_nodes``, say)."""
+    if mesh is None:
+        mesh = rectangle_mesh((-5, -5), (5, 5), n, n)
     sim = TumorGrowth(mesh, dtype=dtype, device=device, plain=plain)
     if not subdomains:
         sim.setup_global_parameters(boundaries={"boundary_all": _Boundary()},

@@ -58,14 +58,19 @@ Solver non-convergence freezes the carried state and flags the remaining
 steps, as in the reference.  ``plain=True`` routes every kernel call
 through its plain torch version on any device: a reference run for
 checking the kernels on the card.  Outside the port so far (the quad
-models on lattice meshes, the ``nodes`` and ``cells`` sharding modes,
-Chebyshev preconditioning, von Neumann BCs, time-dependent sources) the
-model raises ``NotImplementedError``.
+models on lattice meshes, the ``cells`` sharding mode and ``nodes`` on an
+unstructured mesh, Chebyshev preconditioning, von Neumann BCs,
+time-dependent sources) the model raises ``NotImplementedError``.
 
-Sharding (:meth:`Simulation.use_sharding`, mode ``bell``): the model's
-supernode tables live as this rank's slab of blocks, and its two-level
-factors and mode matrices as its aggregates' rows, on every rank of a
-``torch.distributed`` group; node vectors stay replicated.
+Sharding (:meth:`Simulation.use_sharding`) on every rank of a
+``torch.distributed`` group.  Mode ``bell``: the model's supernode tables
+live as this rank's slab of blocks, and its two-level factors and mode
+matrices as its aggregates' rows; node vectors stay replicated.  Mode
+``nodes`` (lattice meshes): the rank owns a slab of node rows
+(``parallel/gspmd.py``); its planes, state and solver vectors hold those
+rows, each stencil apply reads them halo-padded through the halo form of
+``stencil_apply``, and the solves take the reference's pcg branch with
+every dot product reduced over the ranks.
 """
 
 from __future__ import annotations
@@ -104,16 +109,20 @@ def _kernel_ops(plain: bool):
     sk, fc, bk = stencil_kernels, fused_cg, bell_kernels
     if plain:
         return types.SimpleNamespace(
-            apply_scalar_sum=lambda o, terms, b, cache=None: sk.apply_scalar_sum_plain(
-                o, terms, b),
-            apply_vector=lambda o, W, u, cache=None: sk.apply_vector_plain(o, W, u),
-            apply_coupling=lambda o, C, c, cache=None: sk.apply_coupling_plain(o, C, c),
+            apply_scalar_sum=lambda o, terms, b, cache=None, halo=0: (
+                sk.apply_scalar_sum_plain(o, terms, b, halo)),
+            apply_scalar=lambda o, W, v, cache=None, halo=0: sk.apply_scalar_plain(
+                o, W, v, halo),
+            apply_vector=lambda o, W, u, cache=None, halo=0: sk.apply_vector_plain(
+                o, W, u, halo),
+            apply_coupling=lambda o, C, c, cache=None, halo=0: sk.apply_coupling_plain(
+                o, C, c, halo),
             cg_scalar=fc.cg_scalar_plain, cg_vector=fc.cg_vector_plain,
             bmv=bk.batched_matvec_plain,
         )
     return types.SimpleNamespace(
-        apply_scalar_sum=sk.apply_scalar_sum, apply_vector=sk.apply_vector,
-        apply_coupling=sk.apply_coupling,
+        apply_scalar_sum=sk.apply_scalar_sum, apply_scalar=sk.apply_scalar,
+        apply_vector=sk.apply_vector, apply_coupling=sk.apply_coupling,
         cg_scalar=fc.cg_scalar, cg_vector=fc.cg_vector,
         bmv=bk.batched_matvec,
     )
@@ -172,6 +181,8 @@ class Simulation(ABC):
     _bell_slab = None
     _p2_slab = None
     _p2_sharded = False
+    # set by use_sharding(mode='nodes'): this rank's node slab
+    _node_slab = None
 
     def __init__(self, mesh, time_dependent=True, dtype=None, device=None,
                  plain=False):
@@ -229,9 +240,25 @@ class Simulation(ABC):
         ``torch.use_deterministic_algorithms`` (warn-only, uninitialised
         memory not filled) for the process: the ranks must compute their
         replicated work bit for bit alike to take the same solver paths.
-        ``'nodes'`` and ``'cells'`` raise ``NotImplementedError``: the
-        port has no distributed PCG for the lattice and no matrix-free
-        jvp lane.  Returns the mesh."""
+
+        ``'nodes'`` (lattice meshes; ``n_nodes`` must divide by the world:
+        pad with :func:`~glimslib_tpu_torch.core.mesh.pad_mesh_nodes`
+        first): the rank owns n / world node rows
+        (:class:`~glimslib_tpu_torch.parallel.gspmd.NodeSlab`).  Its
+        stencil planes, masks, state and trajectory hold those rows; each
+        stencil apply exchanges a halo of max |offset| rows and launches
+        the halo form of ``stencil_apply``; the solves take the
+        reference's pcg branch (the whole-solve kernel is off in this
+        mode there too: Jacobi on the rd block, block-Jacobi on the
+        elasticity block, extrapolated warm starts, the chord Jacobian
+        where refine_f64 is off) with every norm and dot product reduced
+        over the ranks.  ``build_simulate_fn``'s simulate takes and
+        returns the rank's rows; ``run()`` gathers the fields.  Forward
+        only: a gradient through it raises.
+
+        ``'cells'``, and ``'nodes'`` on an unstructured mesh, raise
+        ``NotImplementedError``: they run on the matrix-free jvp lane,
+        which the port does not have.  Returns the mesh."""
         if device_mesh is None:
             device_mesh = shard.make_device_mesh(n_devices, device=self.device)
         if device_mesh.device != shard.canonical_device(self.device):
@@ -286,16 +313,22 @@ class Simulation(ABC):
             # the frozen state is rebuilt as this rank's slabs
             self._aux_cache = None
         elif mode == "nodes":
-            raise NotImplementedError(
-                "use_sharding: the reference takes mode='nodes' here (GSPMD node "
-                "sharding of the lattice: node vectors sharded, the offset-stencil "
-                "path kept); the port's lattice nodes mode is not ported: it needs "
-                "stencil_apply on halo-padded slabs and a distributed PCG in place "
-                "of the whole-solve stencil_pcg kernel" if self.lattice else
-                "use_sharding: mode='nodes' on an unstructured mesh is the "
-                "reference's owned/ghost node sharding (parallel/nodeshard.py), "
-                "which swaps the element kernels and solves on the matrix-free jvp "
-                "lane; that lane is not ported")
+            if not self.lattice:
+                raise NotImplementedError(
+                    "use_sharding: mode='nodes' on an unstructured mesh is the "
+                    "reference's owned/ghost node sharding (parallel/nodeshard.py), "
+                    "which swaps the element kernels and solves on the matrix-free "
+                    "jvp lane; that lane is not ported")
+            from glimslib_tpu_torch.parallel.gspmd import NodeSlab
+
+            # raises the reference's divisibility error (pad_mesh_nodes)
+            slab = NodeSlab(self.mesh, device_mesh.rank, n_dev, device=self.device)
+            self._node_slab = slab
+            self.kernels = P1Kernels(slab.local_mesh, dtype=self.dtype,
+                                     device=self.device, rows=slab.own_rows)
+            self._kernels_hi = None
+            self._bc_cache = None
+            self._stencil_ops = None
         elif mode == "cells":
             raise NotImplementedError(
                 "use_sharding: the reference takes mode='cells' here (shard-mapped "
@@ -408,8 +441,35 @@ class Simulation(ABC):
             self._unused = ~used
         return self._unused
 
+    # -- node sharding: a rank's rows -------------------------------------------
+
+    def _own(self, x):
+        """This rank's rows of a whole node array under node sharding, else
+        ``x``."""
+        return x if self._node_slab is None else self._node_slab.own(x)
+
+    def _halo(self, *xs):
+        """The halo-padded forms of node vectors (this rank's rows) under
+        node sharding, in one exchange, else the vectors themselves."""
+        if self._node_slab is None:
+            return list(xs)
+        from glimslib_tpu_torch.parallel.gspmd import halo_exchange_many
+
+        return halo_exchange_many(self.device_mesh, self._node_slab, *xs)
+
+    @property
+    def _halo_rows(self):
+        """The halo form's ``halo`` argument: H under node sharding, else 0."""
+        return 0 if self._node_slab is None else self._node_slab.halo
+
+    def _reduce(self):
+        """The solvers' ``reduce`` hook under node sharding (a sum over the
+        ranks), else None."""
+        return None if self._node_slab is None else self.device_mesh.all_reduce
+
     def _bc_masks_and_values(self):
-        """(mask_u, mask_c, gu(t), gc(t)) on the model's device."""
+        """(mask_u, mask_c, gu(t), gc(t)) on the model's device (this rank's
+        rows under node sharding)."""
         if self._bc_cache is None:
             sd, sc = self.SUBSPACE_DISPLACEMENT, self.SUBSPACE_CONCENTRATION
             mask_u, vu = self.bcs.dirichlet_mask_and_values(sd)
@@ -425,21 +485,22 @@ class Simulation(ABC):
             else:
                 mask_c = mask_c | unused
             tdep = self.bcs.has_time_dependent_dirichlet
-            vu0, vc0 = self._tensor(vu), self._tensor(vc)
+            own = self._own
+            vu0, vc0 = self._tensor(own(vu)), self._tensor(own(vc))
 
             def gu(t):
                 if not tdep:
                     return vu0
-                return self._tensor(self.bcs.dirichlet_mask_and_values(sd, t)[1])
+                return self._tensor(own(self.bcs.dirichlet_mask_and_values(sd, t)[1]))
 
             def gc(t):
                 if not tdep:
                     return vc0
-                return self._tensor(self.bcs.dirichlet_mask_and_values(sc, t)[1])
+                return self._tensor(own(self.bcs.dirichlet_mask_and_values(sc, t)[1]))
 
             self._bc_cache = (
-                self._tensor(mask_u, torch.bool), self._tensor(mask_c, torch.bool),
-                gu, gc,
+                self._tensor(own(mask_u), torch.bool),
+                self._tensor(own(mask_c), torch.bool), gu, gc,
             )
         return self._bc_cache
 
@@ -472,6 +533,41 @@ class Simulation(ABC):
 
         return rd_cg, el_cg
 
+    def _node_builders(self):
+        """Operator and preconditioner builders of the pcg branch on this
+        rank's node slab (reference base.py:1023-1192 with
+        ``_gspmd_mesh`` set, where the whole-solve kernels are off): the rd
+        Jacobian ``_Wrd_const`` plus ``build_rd_wc`` planes of the
+        halo-padded ``c``, the elasticity planes ``_Wel``, each applied
+        through the halo form of ``stencil_apply`` after one halo
+        exchange; Jacobi from ``rd_diag`` and block-Jacobi from ``_Binv``
+        on the owned rows."""
+        ops = StencilOperators(self.mesh, dtype=self.dtype, device=self.device,
+                               slab=self._node_slab)
+        self._stencil_ops = ops
+        k, h, halo = self._k, self._halo_rows, self._halo
+
+        def rd_jacobian(theta, c):
+            (c_h,) = halo(c)
+            W = theta["_Wrd_const"] + ops.build_rd_wc(c_h, theta["rho"], theta["dt"],
+                                                      conc_max=1.0)
+            return lambda v: k.apply_scalar(ops.offsets, W, halo(v)[0], halo=h)
+
+        def el_operator(theta):
+            W = theta["_Wel"]
+            return lambda u: k.apply_vector(ops.offsets, W, halo(u)[0], halo=h)
+
+        def rd_precond(theta):
+            diag = theta["_rd_diag"]
+            return lambda r: r / diag
+
+        def el_precond(theta):
+            Binv = theta["_Binv"]
+            return lambda r: ops.apply_block_jacobi(Binv, r)
+
+        return dict(rd_jacobian=rd_jacobian, el_operator=el_operator,
+                    rd_precond=rd_precond, el_precond=el_precond)
+
     def _augment_lattice(self, theta):
         """Theta-only stencil planes and mask-folded solver state (reference
         base.py:1440-1503, lattice branch).  Keys: ``_Wel``/``_Binv``
@@ -481,25 +577,33 @@ class Simulation(ABC):
         loads ``_rd_load``/``_el_load``, and ``_mirrors``, the cache of the
         transposed planes the backward applies.  The solver state is built
         without a graph: it feeds solvers only, so its cotangent is zero by
-        design, as in the reference."""
+        design, as in the reference.  Under node sharding every key holds
+        this rank's rows, the mask-folded forms and ``_mirrors`` are left
+        out (they serve the whole-solve kernel and the backward), and
+        ``_rd_diag`` holds the rd Jacobi diagonal."""
         ops = self._stencil_ops
         mask_u, mask_c, _, _ = self._bc_masks_and_values()
-        n = self.mesh.n_nodes
+        nodes = self._node_slab is not None
         Wel = ops.build_elasticity(theta["mu"], theta["lam"])
         theta["_Wel"] = Wel
         with torch.no_grad():
             # nodes no cell touches (an image's full lattice) have a zero
             # block: identity there, which the mask folding keeps
-            unused = self._tensor(self._unused_node_mask(), torch.bool)
+            unused = self._tensor(self._own(self._unused_node_mask()), torch.bool)
             theta["_Binv"] = ops.block_jacobi_inverse(Wel, unused[:, None])
-            theta["_WelM"] = fused_cg.fold_mask_vector(ops.offsets, Wel, mask_u)
-            theta["_BinvM"] = fused_cg.fold_mask_binv(theta["_Binv"], mask_u)
-            theta["_invdM"] = fused_cg.fold_mask_invdiag(self.rd_diag(theta), mask_c)
+            if nodes:
+                theta["_rd_diag"] = self.rd_diag(theta)
+            else:
+                theta["_WelM"] = fused_cg.fold_mask_vector(ops.offsets, Wel, mask_u)
+                theta["_BinvM"] = fused_cg.fold_mask_binv(theta["_Binv"], mask_u)
+                theta["_invdM"] = fused_cg.fold_mask_invdiag(self.rd_diag(theta),
+                                                             mask_c)
         theta["_Wrd_const"] = ops.build_rd_jacobian_const(
             theta["D"], theta["rho"], theta["dt"]
         )
         theta["_Mst"] = ops.build_mass_planes()
-        zeros = torch.zeros(n, dtype=self.dtype, device=self.device)
+        # the kernels' node count: the halo-padded slab's under node sharding
+        zeros = torch.zeros(self.kernels.n_nodes, dtype=self.dtype, device=self.device)
         load = self.kernels.rd_residual(
             zeros, zeros, theta["D"], theta["rho"], theta["dt"],
             source=theta["source"],
@@ -509,8 +613,9 @@ class Simulation(ABC):
             theta["mu"], theta["lam"], theta["coupling"]
         )
         theta["_el_load"] = self._body_load(theta)
-        theta["_mirrors"] = stencil_kernels.MirrorCache(
-            [theta[k] for k in ("_Mst", "_Cuc", "_Wel", "_Wrd_const")])
+        if not nodes:
+            theta["_mirrors"] = stencil_kernels.MirrorCache(
+                [theta[k] for k in ("_Mst", "_Cuc", "_Wel", "_Wrd_const")])
         return theta
 
     def _body_load(self, theta):
@@ -915,6 +1020,13 @@ class Simulation(ABC):
         the time loop."""
         theta = dict(theta)
         if self.lattice:
+            if self._node_slab is not None:
+                # per-cell coefficients: the slab's cells
+                ids = torch.as_tensor(self._node_slab.cell_ids, device=self.device)
+                nc = self.mesh.n_cells
+                theta = {k: v[ids] if torch.is_tensor(v) and v.dim() == 1
+                         and v.shape[0] == nc and not k.startswith("_") else v
+                         for k, v in theta.items()}
             return self._augment_lattice(theta)
         for key in ("_TLCfac", "_TLCfacS"):
             if key in theta and theta[key].dtype == torch.bfloat16:
@@ -936,6 +1048,8 @@ class Simulation(ABC):
             config=self.step_config, record=record,
             rd_residual_hi=hi[0] if hi else None, el_residual_hi=hi[1] if hi else None,
         )
+        if self._node_slab is not None:
+            return make_step(**self._node_builders(), reduce=self._reduce(), **common)
         if self.lattice:
             rd_cg, el_cg = self._stencil_operators()
             return make_step(rd_cg=rd_cg, el_cg=el_cg, **common)
@@ -950,16 +1064,23 @@ class Simulation(ABC):
         converge, the state freezes and every later step is flagged
         (reference base.py:1843-1845).
 
-        On the unstructured lane each step starts from the linear
-        extrapolation 2 x_k - x_{k-1} of the last two states, and, without
-        concentration Dirichlet conditions, carries the Newton anchor
-        ||r_c(c_prev)|| algebraically as ||M (c_k - c_{k-1})|| (reference
-        base.py:1746-1886).  The anchor only scales tolerances: it is
-        detached (the reference's ``stop_gradient``), so a frozen step's
-        zero norm puts no NaN in a gradient.  The trajectory is stacked
-        from the steps' outputs and keeps their graph."""
+        Wherever the step takes the pcg branch (the unstructured lane, and
+        the lattice under node sharding, the reference's
+        ``_warm_start_ok``, base.py:1684-1692) each step starts from the
+        linear extrapolation 2 x_k - x_{k-1} of the last two states.  On
+        the unstructured lane, without concentration Dirichlet conditions,
+        the Newton anchor ||r_c(c_prev)|| is carried algebraically as ||M
+        (c_k - c_{k-1})|| (reference base.py:1746-1886; the lattice has no
+        assembled mass plane for it).  The anchor only scales tolerances:
+        it is detached (the reference's ``stop_gradient``), so a frozen
+        step's zero norm puts no NaN in a gradient.  The trajectory is
+        stacked from the steps' outputs and keeps their graph.
+
+        Under node sharding ``u0``, ``c0`` and the trajectory hold this
+        rank's rows, and a gradient through simulate raises."""
         step = self._build_step()
-        warm = not self.lattice
+        nodes = self._node_slab is not None
+        warm = not self.lattice or nodes
         # the algebraic anchor is exact only when the concentration clamp
         # values are step-invariant: no concentration Dirichlet conditions
         no_c_dirichlet = not any(
@@ -969,6 +1090,13 @@ class Simulation(ABC):
         _, mask_c, _, gc = self._bc_masks_and_values()
 
         def simulate(theta, u0, c0, aux=None):
+            if nodes and torch.is_grad_enabled() and any(
+                    torch.is_tensor(v) and v.requires_grad
+                    for v in (u0, c0, *theta.values())):
+                raise NotImplementedError(
+                    "a gradient through the node-sharded lattice is not ported: "
+                    "the transposed stencil needs its mirrored planes with a plane "
+                    "halo, and the adjoint solves the distributed PCG")
             self.solver_info = _new_solver_info()
             theta = {**theta, **(self.runtime_aux() if aux is None else aux)}
             theta = self._augment_theta_with_operators(theta)
@@ -1011,10 +1139,10 @@ class Simulation(ABC):
 
     def initial_state(self):
         """Projected initial values (u0, c0) as tensors, clamped to the
-        Dirichlet data at t=0."""
+        Dirichlet data at t=0 (this rank's rows under node sharding)."""
         iv = self.params.create_initial_value_function()
-        u0 = self._tensor(iv[self.SUBSPACE_DISPLACEMENT])
-        c0 = self._tensor(iv[self.SUBSPACE_CONCENTRATION])
+        u0 = self._tensor(self._own(iv[self.SUBSPACE_DISPLACEMENT]))
+        c0 = self._tensor(self._own(iv[self.SUBSPACE_CONCENTRATION]))
         mask_u, mask_c, gu, gc = self._bc_masks_and_values()
         return torch.where(mask_u, gu(0.0), u0), torch.where(mask_c, gc(0.0), c0)
 
@@ -1076,6 +1204,14 @@ class Simulation(ABC):
         u_traj, c_traj, ok_traj, newton = self.build_simulate_fn(n_steps, dt)(
             theta, u0, c0
         )
+        if self._node_slab is not None:
+            # the whole fields on every rank, from each rank's rows
+            from glimslib_tpu_torch.parallel.gspmd import gather_nodes
+
+            whole = lambda x: gather_nodes(self.device_mesh, self._node_slab, x)  # noqa: E731
+            u_traj = whole(u_traj.detach().movedim(1, 0)).movedim(0, 1)
+            c_traj = whole(c_traj.detach().movedim(1, 0)).movedim(0, 1)
+            u0, c0 = whole(u0), whole(c0)
         self.solver_info["newton_iters"] = newton.numpy()
         self.logger.info("    - newton iterations per step: %s", newton.tolist())
         u_host = u_traj.detach().cpu().numpy()

@@ -13,6 +13,10 @@ planes through the CUDA stencil kernel on a lattice, assembled halo-ELL
 planes through the CUDA batched-matvec kernel on an unstructured mesh.
 Mixed-precision refinement takes its f64 residuals from the per-cell
 gather path of ``ops/assembly.py P1Kernels`` (:meth:`hi_residual_fns`).
+Under node sharding each residual takes this rank's rows, exchanges the
+halo of the fields it reads in one exchange, and returns the owned rows
+(the halo form of the stencil kernel; the gather path on the slab's
+cells).
 """
 
 from __future__ import annotations
@@ -114,12 +118,14 @@ class TumorGrowth(Simulation):
                                                  conc_max=1.0)
             return lin + quad - theta["_Bell_rd_load"]
         ops = self._stencil_ops
-        wc = ops.build_rd_wc(c, theta["rho"], theta["dt"], conc_max=1.0)
+        c_h, cp_h = self._halo(c, c_prev)
+        wc = ops.build_rd_wc(c_h, theta["rho"], theta["dt"], conc_max=1.0)
         # one launch of stencil_apply on the card
         return k.apply_scalar_sum(
             ops.offsets,
-            ((theta["_Wrd_const"], c, 1.0), (wc, c, 0.5), (theta["_Mst"], c_prev, -1.0)),
-            theta["_rd_load"], cache=theta.get("_mirrors"),
+            ((theta["_Wrd_const"], c_h, 1.0), (wc, c_h, 0.5),
+             (theta["_Mst"], cp_h, -1.0)),
+            theta["_rd_load"], cache=theta.get("_mirrors"), halo=self._halo_rows,
         )
 
     def el_residual(self, u, c, theta, t):
@@ -134,10 +140,11 @@ class TumorGrowth(Simulation):
                 - theta["_Bell_el_load"]
             )
         ops = self._stencil_ops
-        mir = theta.get("_mirrors")
+        mir, h = theta.get("_mirrors"), self._halo_rows
+        u_h, c_h = self._halo(u, c)
         return (
-            k.apply_vector(ops.offsets, theta["_Wel"], u, cache=mir)
-            + k.apply_coupling(ops.offsets, theta["_Cuc"], c, cache=mir)
+            k.apply_vector(ops.offsets, theta["_Wel"], u_h, cache=mir, halo=h)
+            + k.apply_coupling(ops.offsets, theta["_Cuc"], c_h, cache=mir, halo=h)
             - theta["_el_load"]
         )
 
@@ -150,11 +157,13 @@ class TumorGrowth(Simulation):
     # -- f64 residuals for mixed-precision refinement ------------------------
 
     def _get_kernels_hi(self):
-        """An f64 :class:`P1Kernels` of the mesh on the model's device,
-        built once."""
+        """An f64 :class:`P1Kernels` of the mesh (of this rank's node slab
+        under node sharding) on the model's device, built once."""
         if getattr(self, "_kernels_hi", None) is None:
-            self._kernels_hi = P1Kernels(self.mesh, dtype=torch.float64,
-                                         device=self.device)
+            slab = self._node_slab
+            self._kernels_hi = P1Kernels(
+                self.mesh if slab is None else slab.local_mesh, dtype=torch.float64,
+                device=self.device, rows=None if slab is None else slab.own_rows)
         return self._kernels_hi
 
     def hi_residual_fns(self):
@@ -165,10 +174,12 @@ class TumorGrowth(Simulation):
         k64 = self._get_kernels_hi()
 
         def rd_hi(c, c_prev, theta, t):
+            c, c_prev = self._halo(c, c_prev)
             return k64.rd_residual(c, c_prev, theta["D"], theta["rho"], theta["dt"],
                                    source=theta["source"], conc_max=1.0)
 
         def el_hi(u, c, theta, t):
+            u, c = self._halo(u, c)
             return k64.elasticity_residual(u, c, theta["mu"], theta["lam"],
                                            theta["coupling"],
                                            body_force=theta["body_force"])

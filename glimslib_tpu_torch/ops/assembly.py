@@ -144,9 +144,16 @@ class P1Kernels:
     """Per-mesh P1 kernels of the coupled Fisher-KPP + elasticity system.
 
     Coefficients (``D``, ``rho``, ``mu``, ``lam``, ``source``) are scalars
-    (Python numbers or 0-d tensors) or per-cell tensors (nc,)."""
+    (Python numbers or 0-d tensors) or per-cell tensors (nc,).
 
-    def __init__(self, mesh, dtype=torch.float64, device="cpu"):
+    ``rows`` = (lo, hi): the members that accumulate onto the nodes return
+    rows [lo, hi) of the result only: on a rank's node slab
+    (``parallel/gspmd.py NodeSlab``, ``mesh`` its ``local_mesh``, ``rows``
+    its owned rows) they read halo-padded fields and return the owned
+    rows."""
+
+    def __init__(self, mesh, dtype=torch.float64, device="cpu", rows=None):
+        self._rows = None if rows is None else slice(*rows)
         self.dim = mesh.dim
         self.n_nodes = mesh.n_nodes
         self.n_cells = mesh.n_cells
@@ -174,18 +181,21 @@ class P1Kernels:
         """nodal (n,) -> (npe, nc)."""
         return c[self.cells_T]
 
+    def _out_rows(self, out):
+        return out if self._rows is None else out[self._rows]
+
     def _scatter_scalar(self, contrib):
-        """(npe, nc) element contributions -> (n_nodes,)."""
+        """(npe, nc) element contributions -> (n_nodes,) (its ``rows``)."""
         out = torch.zeros(self.n_nodes, dtype=contrib.dtype, device=self.device)
-        return out.index_add_(0, self.cells_flat, contrib.reshape(-1))
+        return self._out_rows(out.index_add_(0, self.cells_flat, contrib.reshape(-1)))
 
     def _scatter_vector(self, contrib):
-        """(npe, d, nc) element contributions -> (n_nodes, d)."""
+        """(npe, d, nc) element contributions -> (n_nodes, d) (its ``rows``)."""
         ent = torch.movedim(contrib, 1, -1).reshape(-1, self.dim)
         out = torch.zeros(
             (self.n_nodes, self.dim), dtype=contrib.dtype, device=self.device
         )
-        return out.index_add_(0, self.cells_flat, ent)
+        return self._out_rows(out.index_add_(0, self.cells_flat, ent))
 
     def _mass_apply(self, xe):
         return self._m0 * (xe.sum(dim=0) + xe)
@@ -316,7 +326,8 @@ class P1Kernels:
             ue.sum(dim=0, keepdim=True) + ue
         )
         out = torch.zeros_like(u)
-        return out.index_add_(0, self.cells_flat, contrib.reshape(-1, self.dim))
+        return self._out_rows(out.index_add_(0, self.cells_flat,
+                                             contrib.reshape(-1, self.dim)))
 
     def lumped_mass(self):
         """Row-sum lumped mass vector (n,)."""

@@ -17,6 +17,11 @@ W[o, i] = 0 exactly.
 The ``apply_*`` methods run the plain torch versions of the CUDA stencil
 kernel (``ops/stencil_kernels.py``); the models call the kernel wrappers.
 
+On a rank's node slab (``parallel/gspmd.py NodeSlab``) the operators are
+built over the cells that touch an owned node, in node ids local to the
+halo-padded slab, with the whole mesh's offsets: the planes hold the
+owned rows only, (n_off, ..., n_own), and take halo-padded nodal fields.
+
 Entry formulas (closed forms on the unit-volume simplex, vol-scaled):
     M_ij      = vol m0 (1 + delta_ij)
     K_ij      = vol g_i.g_j
@@ -41,15 +46,26 @@ def apply_block_jacobi(Binv, r):
     return (Binv.permute(2, 0, 1) * r[:, None, :]).sum(dim=2)
 
 
+def stencil_offsets(cells):
+    """The sorted offset set (node id differences within a cell, 0
+    included) of a lattice mesh's cells (nc, npe)."""
+    cells = np.asarray(cells, dtype=np.int64)
+    return np.unique(cells[:, None, :] - cells[:, :, None]).astype(np.int64)
+
+
 class StencilPlan:
     """Host-precomputed entry -> (node, offset slot) map of a lattice mesh.
 
     Planes are accumulated with one ``index_add_`` over the flat
     (node, slot) ids.  The reference places voxel blocks by static pads
     for GSPMD-sharded construction; that is structure of the TPU build, and
-    the sums are the same."""
+    the sums are the same.
 
-    def __init__(self, mesh, device="cpu"):
+    ``offsets`` and ``rows`` (a node slab): the offset set to use (the
+    whole mesh's) and the node range [lo, hi) whose rows the planes hold;
+    entries of other rows are dropped."""
+
+    def __init__(self, mesh, device="cpu", offsets=None, rows=None):
         if mesh.lattice_strides is None:
             raise NotImplementedError(
                 "offset-stencil operators need a lattice mesh "
@@ -59,40 +75,56 @@ class StencilPlan:
         self.mesh = mesh
         self.dim = mesh.dim
         self.npe = mesh.dim + 1
-        self.n_nodes = mesh.n_nodes
+        lo, hi = (0, mesh.n_nodes) if rows is None else rows
+        self.n_nodes = hi - lo
         cells = mesh.cells.astype(np.int64)  # (nc, npe)
         diffs = cells[:, None, :] - cells[:, :, None]  # (nc, i, j): col - row
-        self.offsets = np.unique(diffs).astype(np.int64)  # sorted, has 0
+        self.offsets = (stencil_offsets(cells) if offsets is None
+                        else np.asarray(offsets, dtype=np.int64))  # sorted, has 0
         self.n_off = len(self.offsets)
         slot = np.searchsorted(self.offsets, diffs)
-        rows = np.broadcast_to(cells[:, :, None], diffs.shape)
-        sid = rows * self.n_off + slot  # (nc, i, j)
+        if offsets is not None and not np.array_equal(
+                self.offsets[np.minimum(slot, self.n_off - 1)], diffs):
+            raise ValueError("a cell's offset is not in the given offset set")
+        rows_ = np.broadcast_to(cells[:, :, None], diffs.shape) - lo
+        self.n_segments = self.n_nodes * self.n_off
+        # entries of rows outside [lo, hi) go to one dropped segment
+        sid = np.where((rows_ >= 0) & (rows_ < self.n_nodes),
+                       rows_ * self.n_off + slot, self.n_segments)  # (nc, i, j)
+        self._dropped = bool((sid == self.n_segments).any())
         # entry order (i, j, nc), the layout of the build_* entry tensors
         self.sid_T = torch.as_tensor(
             np.ascontiguousarray(sid.transpose(1, 2, 0)).reshape(-1),
             device=torch.device(device),
         )
-        self.n_segments = self.n_nodes * self.n_off
 
     def accumulate(self, entries_T):
         """entries (npe_i, npe_j, nc) -> W (n_off, n_nodes)."""
         w = torch.zeros(
-            self.n_segments, dtype=entries_T.dtype, device=entries_T.device
+            self.n_segments + self._dropped, dtype=entries_T.dtype,
+            device=entries_T.device
         )
         w.index_add_(0, self.sid_T, entries_T.reshape(-1))
-        return w.reshape(self.n_nodes, self.n_off).T.contiguous()
+        return w[:self.n_segments].reshape(self.n_nodes, self.n_off).T.contiguous()
 
 
 class StencilOperators:
-    """Builds and applies the stencil-form Jacobians of the coupled system."""
+    """Builds and applies the stencil-form Jacobians of the coupled system;
+    on a rank's ``slab`` (``parallel/gspmd.py NodeSlab``) its owned rows
+    (module docstring)."""
 
-    def __init__(self, mesh, dtype=torch.float64, device="cpu"):
+    def __init__(self, mesh, dtype=torch.float64, device="cpu", slab=None):
         self.dtype = dtype
         self.device = torch.device(device)
-        self.plan = StencilPlan(mesh, device=self.device)
+        if slab is not None:
+            mesh = slab.local_mesh
+            self.plan = StencilPlan(mesh, device=self.device, offsets=slab.offsets,
+                                    rows=slab.own_rows)
+        else:
+            self.plan = StencilPlan(mesh, device=self.device)
         self.dim = mesh.dim
         self.npe = mesh.dim + 1
-        self.n_nodes = mesh.n_nodes
+        self.n_nodes = self.plan.n_nodes
         kw = dict(dtype=dtype, device=self.device)
         self.vol = torch.as_tensor(mesh.cell_volumes, **kw)
         self.cells_T = torch.as_tensor(

@@ -13,6 +13,15 @@ all built on ``y[i, a] = sum_o sum_b W[o, a, b, i] v[(i + off_o) mod n, b]``,
 with d = 2 (rectangle lattices) or 3 (box lattices) in the vector forms.
 :func:`apply_scalar_sum` is the lattice rd residual
 ``W_const c + wc c / 2 - M c_prev - load`` in one launch of the same kernel.
+
+Halo form (``halo=h > 0``, the node-sharded lattice of
+``parallel/gspmd.py``): W, b and the output hold a rank's n owned rows,
+the input vectors those rows with h rows of the neighbours on either side
+(n + 2h rows), and ``y[i] = sum_o W[o, i] v[i + h + off_o]``, with no
+wrap; every offset must lie within the halo.  Its plain version reads
+narrow slices of the padded input.  The halo form has no backward (the
+transposed planes would need rows of the neighbours' planes): under grad
+it raises.
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches ``stencil_apply<d_out, d_in, terms>`` (``csrc/stencil.cu``) or
 raises, also for a d the kernel has no form for.  The launch path is
@@ -50,16 +59,33 @@ from torch.autograd.function import once_differentiable
 from glimslib_tpu_torch import _build
 
 
-def stencil_apply_plain(offsets, W, v):
-    """Plain torch stencil apply: W (n_off, d_out, d_in, n), v (n, d_in) ->
-    (n, d_out).  Sums over offsets, then input components, in order."""
+def stencil_apply_plain(offsets, W, v, halo=0):
+    """Plain torch stencil apply: W (n_off, d_out, d_in, n), v (n + 2 halo,
+    d_in) -> (n, d_out).  Sums over offsets, then input components, in
+    order; ``halo`` > 0 reads the slices ``v[halo + off : halo + off + n]``
+    (the halo form), else rolls ``v``."""
     n_off, d_out, d_in, n = W.shape
     acc = torch.zeros((d_out, n), dtype=v.dtype, device=v.device)
+    if halo:
+        _check_halo(offsets, halo, n, v)
     for o, off in enumerate(offsets):
-        sh = v if off == 0 else torch.roll(v, -int(off), dims=0)
+        if halo:
+            sh = v[halo + int(off):halo + int(off) + n]
+        else:
+            sh = v if off == 0 else torch.roll(v, -int(off), dims=0)
         for b in range(d_in):
             acc = acc + W[o, :, b] * sh[:, b]
     return acc.T.contiguous()
+
+
+def _check_halo(offsets, halo, n, v):
+    """Raise unless every offset lies within ``halo`` and ``v`` holds the
+    n + 2 halo rows of the halo form."""
+    if max(abs(int(o)) for o in offsets) > halo:
+        raise ValueError(f"stencil offsets reach past a halo of {halo} rows")
+    if v.shape[0] != n + 2 * halo:
+        raise ValueError(f"the halo form takes {n} + 2 x {halo} input rows, got "
+                         f"{v.shape[0]}")
 
 
 def _check_cuda(name, t, shape, device):
@@ -103,43 +129,45 @@ def _check(name, t, shape, dev):
         _check_cuda(name, t, shape, dev)
 
 
-def _launch(offsets, d_out, d_in, W, v, y):
+def _launch(offsets, d_out, d_in, W, v, y, halo=0):
     """Launch ``stencil_apply<d_out, d_in>`` on the current stream."""
     n = y.shape[0]
     err = _entry("glims_stencil_apply")(
-        d_out, d_in, W.data_ptr(), v.data_ptr(), y.data_ptr(), n,
-        _build.pack_offsets(offsets, n)[1],
+        d_out, d_in, W.data_ptr(), v.data_ptr(), y.data_ptr(), n, halo,
+        _build.pack_offsets(offsets, n, halo)[1],
         torch._C._cuda_getCurrentRawStream(y.get_device()))
     if err:
         _build.check(err, "stencil_apply launch")
     return y
 
 
-def apply_scalar_plain(offsets, W, v):
-    return stencil_apply_plain(offsets, W[:, None, None, :], v[:, None])[:, 0]
+def apply_scalar_plain(offsets, W, v, halo=0):
+    return stencil_apply_plain(offsets, W[:, None, None, :], v[:, None], halo)[:, 0]
 
 
-def _scalar_raw(offsets, W, v):
+def _scalar_raw(offsets, W, v, halo=0):
     if _plain_here(W, v):
-        return apply_scalar_plain(offsets, W, v)
+        return apply_scalar_plain(offsets, W, v, halo)
     n = W.shape[-1]
     _check("W", W, (len(offsets), n), W.device)
-    _check("v", v, (n,), W.device)
-    y = _launch(offsets, 1, 1, W, v, torch.empty_like(v))
+    _check("v", v, (n + 2 * halo,), W.device)
+    y = _launch(offsets, 1, 1, W, v, W.new_empty(n), halo)
     apply_scalar.launches += 1
     return y
 
 
-def apply_scalar(offsets, W, v, cache=None):
-    """(A v)[i] = sum_o W[o, i] v[i + off_o]; W (n_off, n), v (n,).
-    ``cache``: a :class:`MirrorCache` for the backward's transposed planes."""
+def apply_scalar(offsets, W, v, cache=None, halo=0):
+    """(A v)[i] = sum_o W[o, i] v[i + off_o]; W (n_off, n), v (n,), or in
+    the halo form (n + 2 halo,).  ``cache``: a :class:`MirrorCache` for the
+    backward's transposed planes."""
     if _needs_grad(W, v):
+        _no_halo_grad(halo)
         return _Apply.apply("scalar", offsets, cache, W, v)
-    return _scalar_raw(offsets, W, v)
+    return _scalar_raw(offsets, W, v, halo)
 
 
-def apply_vector_plain(offsets, W, u):
-    return stencil_apply_plain(offsets, W, u)
+def apply_vector_plain(offsets, W, u, halo=0):
+    return stencil_apply_plain(offsets, W, u, halo)
 
 
 # the d of the vector forms the kernel has (stencil_apply<d, d>, <d, 1>)
@@ -156,60 +184,62 @@ def _vector_dim(name, W):
     return d
 
 
-def _vector_raw(offsets, W, u):
+def _vector_raw(offsets, W, u, halo=0):
     if _plain_here(W, u):
-        return apply_vector_plain(offsets, W, u)
+        return apply_vector_plain(offsets, W, u, halo)
     n, d = W.shape[-1], _vector_dim("W", W)
     _check("W", W, (len(offsets), d, d, n), W.device)
-    _check("u", u, (n, d), W.device)
-    y = _launch(offsets, d, d, W, u, torch.empty_like(u))
+    _check("u", u, (n + 2 * halo, d), W.device)
+    y = _launch(offsets, d, d, W, u, u.new_empty((n, d)), halo)
     apply_vector.launches += 1
     return y
 
 
-def apply_vector(offsets, W, u, cache=None):
+def apply_vector(offsets, W, u, cache=None, halo=0):
     """(A u)[i, a] = sum_o sum_b W[o, a, b, i] u[i + off_o, b]."""
     if _needs_grad(W, u):
+        _no_halo_grad(halo)
         return _Apply.apply("vector", offsets, cache, W, u)
-    return _vector_raw(offsets, W, u)
+    return _vector_raw(offsets, W, u, halo)
 
 
-def apply_coupling_plain(offsets, C, c):
-    return stencil_apply_plain(offsets, C[:, :, None, :], c[:, None])
+def apply_coupling_plain(offsets, C, c, halo=0):
+    return stencil_apply_plain(offsets, C[:, :, None, :], c[:, None], halo)
 
 
-def _coupling_raw(offsets, C, c):
+def _coupling_raw(offsets, C, c, halo=0):
     if _plain_here(C, c):
-        return apply_coupling_plain(offsets, C, c)
+        return apply_coupling_plain(offsets, C, c, halo)
     n, d = C.shape[-1], _vector_dim("C", C)
     _check("C", C, (len(offsets), d, n), C.device)
-    _check("c", c, (n,), C.device)
-    y = _launch(offsets, d, 1, C, c, c.new_empty((n, d)))
+    _check("c", c, (n + 2 * halo,), C.device)
+    y = _launch(offsets, d, 1, C, c, c.new_empty((n, d)), halo)
     apply_coupling.launches += 1
     return y
 
 
-def apply_coupling(offsets, C, c, cache=None):
+def apply_coupling(offsets, C, c, cache=None, halo=0):
     """(C c)[i, a] = sum_o C[o, a, i] c[i + off_o]; returns (n, d)."""
     if _needs_grad(C, c):
+        _no_halo_grad(halo)
         return _Apply.apply("coupling", offsets, cache, C, c)
-    return _coupling_raw(offsets, C, c)
+    return _coupling_raw(offsets, C, c, halo)
 
 
-def apply_scalar_sum_plain(offsets, terms, b):
+def apply_scalar_sum_plain(offsets, terms, b, halo=0):
     """sum_k s_k (W_k v_k) - b, summed left to right, each term a plain
     scalar apply.  With s = (1, 0.5, -1) this is exactly the lattice rd
     residual's A1 c + 0.5 A2 c - A3 c_prev - load (1 x and -1 x are exact)."""
     acc = None
     for W, v, s in terms:
-        t = s * apply_scalar_plain(offsets, W, v)
+        t = s * apply_scalar_plain(offsets, W, v, halo)
         acc = t if acc is None else acc + t
     return acc - b
 
 
-def _sum_raw(offsets, terms, b):
+def _sum_raw(offsets, terms, b, halo=0):
     if not b.is_cuda and _plain_here(b, *(t for W, v, _ in terms for t in (W, v))):
-        return apply_scalar_sum_plain(offsets, terms, b)
+        return apply_scalar_sum_plain(offsets, terms, b, halo)
     if len(terms) not in (2, 3):
         raise ValueError(f"apply_scalar_sum takes 2 or 3 terms, got {len(terms)}")
     n, dev = b.shape[0], b.device
@@ -217,13 +247,13 @@ def _sum_raw(offsets, terms, b):
     args = []
     for W, v, s in terms:
         _check("W", W, (len(offsets), n), dev)
-        _check("v", v, (n,), dev)
+        _check("v", v, (n + 2 * halo,), dev)
         args += (W.data_ptr(), v.data_ptr(), float(s))
     args += (None, None, 0.0) * (3 - len(terms))
     y = torch.empty_like(b)
     err = _entry("glims_stencil_apply_sum")(
-        len(terms), *args, b.data_ptr(), y.data_ptr(), n,
-        _build.pack_offsets(offsets, n)[1],
+        len(terms), *args, b.data_ptr(), y.data_ptr(), n, halo,
+        _build.pack_offsets(offsets, n, halo)[1],
         torch._C._cuda_getCurrentRawStream(y.get_device()))
     if err:
         _build.check(err, "stencil_apply_sum launch")
@@ -231,15 +261,16 @@ def _sum_raw(offsets, terms, b):
     return y
 
 
-def apply_scalar_sum(offsets, terms, b, cache=None):
+def apply_scalar_sum(offsets, terms, b, cache=None, halo=0):
     """y = s_1 W_1 v_1 + ... + s_k W_k v_k - b for k = 2 or 3 terms
-    ``(W_k (n_off, n), v_k (n,), s_k float)`` on one offset set, in one
-    launch."""
+    ``(W_k (n_off, n), v_k (n,) or (n + 2 halo,), s_k float)`` on one
+    offset set, in one launch."""
     flat = [t for W, v, _ in terms for t in (W, v)]
     if _needs_grad(b, *flat):
+        _no_halo_grad(halo)
         return _ApplySum.apply(offsets, tuple(float(s) for _, _, s in terms),
                                cache, b, *flat)
-    return _sum_raw(offsets, terms, b)
+    return _sum_raw(offsets, terms, b, halo)
 
 
 # -- differentiation ----------------------------------------------------------
@@ -247,6 +278,13 @@ def apply_scalar_sum(offsets, terms, b, cache=None):
 
 def _needs_grad(*tensors):
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _no_halo_grad(halo):
+    if halo:
+        raise NotImplementedError(
+            "stencil_apply's halo form has no backward: its transposed planes "
+            "need the neighbours' plane rows (a plane halo)")
 
 
 @functools.lru_cache(maxsize=64)

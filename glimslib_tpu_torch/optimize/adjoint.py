@@ -123,6 +123,13 @@ class InverseProblem:
         reg_alpha: float = 0.0,
         target_weights: Optional[Dict[str, float]] = None,
     ):
+        if getattr(sim, "sharding_mode", None) == "nodes":
+            raise NotImplementedError(
+                "InverseProblem on a model under use_sharding(mode='nodes') is not "
+                "ported (ROADMAP queue 1, item 4b-ii): the adjoint's transposed "
+                "stencil needs the mirrored planes with a plane halo, and its "
+                "solves need the distributed PCG; use mode 'bell' on an "
+                "unstructured mesh, or an unsharded model")
         # reg_alpha: Tikhonov weight on the final state, J += α ∫ |u|²+c² dx
         # (test_case_..._2D_uniform_adjoint_noise.py: alpha*inner(u,u)*dx)
         self.reg_alpha = float(reg_alpha)

@@ -25,13 +25,13 @@ contracts it, and one collective re-replicates the result.
   on either backend), and its backward takes the rank's rows of the
   replicated cotangent.
 
+The lattice's node sharding (``mode="nodes"``) is ``parallel/gspmd.py``.
 Not ported: ``ShardedP1Kernels`` (``mode="cells"``), the unstructured
-node sharding (``parallel/nodeshard.py``, ``mode="nodes"``) and the
-partitioner they share (``parallel/partition.py``): both swap the model's
-element kernels and run the solves on the matrix-free jvp lane, which the
-port does not have; and the lattice node sharding (``parallel/gspmd.py``),
-which needs a distributed PCG in place of the whole-solve kernel.
-``use_sharding`` raises for them.
+node sharding (``parallel/nodeshard.py``, ``mode="nodes"`` on a mesh
+without a lattice) and the partitioner they share
+(``parallel/partition.py``): both swap the model's element kernels and
+run the solves on the matrix-free jvp lane, which the port does not
+have.  ``use_sharding`` raises for them.
 """
 
 from __future__ import annotations

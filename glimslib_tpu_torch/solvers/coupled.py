@@ -22,6 +22,11 @@ The Newton and CG loops read their residual norms on the host once per
 iteration (the whole-solve kernels keep theirs on the device).  No
 Chebyshev preconditioning.
 
+Node sharding (``parallel/gspmd.py``): with a ``reduce`` hook the state
+and every vector hold a rank's rows, and every norm, sum and CG dot
+product is this rank's partial sum reduced over the ranks, so every
+convergence decision is the same on all of them.
+
 Mixed-precision refinement (``refine_f64``, on an f32 state): the solves
 stay in the working dtype, but Newton measures and corrects against the
 f64 residuals ``rd_residual_hi`` / ``el_residual_hi`` (downcast), the rd
@@ -110,6 +115,7 @@ def make_step(
     record: Callable = None,  # (kind "rd" | "el" | "el_refine" | "rd_adj" | "el_adj", info)
     rd_residual_hi: Callable = None,  # f64 residuals for refine_f64
     el_residual_hi: Callable = None,
+    reduce: Callable = None,  # (t) -> t summed over the ranks (node sharding)
 ):
     """Build ``step(theta, u_prev, c_prev, t, guess=None, anchor_c=None)
     -> (u, c, converged, n_newton)``.
@@ -139,6 +145,16 @@ def make_step(
     chord_src = rd_jacobian_chord or rd_jacobian
     refine_rtol = cfg.refine_cg_rtol or cfg.cg_rtol
 
+    if reduce is None:
+        norm = torch.linalg.vector_norm
+        total = torch.sum
+    else:
+        def norm(x):
+            return torch.sqrt(reduce(torch.sum(x * x).reshape(1))[0])
+
+        def total(x):
+            return reduce(torch.sum(x).reshape(1))[0]
+
     def _recorded(kind, x_info):
         if record is not None:
             record(kind, x_info[1])
@@ -146,7 +162,7 @@ def make_step(
 
     def _pcg(kind, A, b, M, rtol, atol):
         return _recorded(kind, pcg(A, b, M=M, rtol=rtol, atol=atol,
-                                   maxiter=cfg.cg_maxiter))
+                                   maxiter=cfg.cg_maxiter, reduce=reduce))
 
     def solve(theta, u_prev, c_prev, t, guess=None, anchor_c=None):
         gc = bc_values_c(t)
@@ -181,13 +197,13 @@ def make_step(
             f0 = float(anchor_c)
         else:
             r = resid_c(c)
-            f0 = float(torch.linalg.vector_norm(r))
+            f0 = float(norm(r))
         ftol = max(cfg.newton_rtol * f0, cfg.newton_atol)
         if warm:
             # start at the extrapolated guess; ftol stays anchored at f0
             c = torch.where(mask_c, gc, guess[1])
             r = resid_c(c)
-            f0 = float(torch.linalg.vector_norm(r))
+            f0 = float(norm(r))
         A_frozen = _masked_op(chord_src(theta, c), mask_c) if freeze_jac else None
 
         fnorm, k, bad = f0, 0, False
@@ -202,7 +218,7 @@ def make_step(
                              cfg.cg_atol)
             c_new = c + dc
             r_new = resid_c(c_new)
-            fn_new = float(torch.linalg.vector_norm(r_new))
+            fn_new = float(norm(r_new))
             bad = not math.isfinite(fn_new) or fn_new > 1e10 * (f0 + 1.0)
             if not bad:
                 c, r, fnorm = c_new, r_new, fn_new
@@ -224,7 +240,7 @@ def make_step(
         ru = resid_u(u0)
         if warm:
             # CG tolerance anchored at ||r(u_prev)||; iterate from the guess
-            anchor_u = torch.linalg.vector_norm(torch.where(mask_u, 0.0, ru))
+            anchor_u = norm(torch.where(mask_u, 0.0, ru))
             u0 = torch.where(mask_u, gu, guess[0])
             ru = resid_u(u0)
         rhs_u = torch.where(mask_u, torch.zeros_like(ru), -ru)
@@ -241,7 +257,7 @@ def make_step(
         u = u0 + du
         # a stalled elasticity CG must freeze the trajectory like a failed
         # Newton: mirror pcg's own stopping test, plus finiteness
-        rhs_norm = anchor_u if warm else torch.linalg.vector_norm(rhs_u)
+        rhs_norm = anchor_u if warm else norm(rhs_u)
         tol_u = torch.clamp(cfg.cg_rtol * rhs_norm, min=cfg.cg_atol)
         resnorm = info_u["resnorm"].to(tol_u.dtype)
         conv_u = torch.isfinite(resnorm) & (resnorm <= tol_u)
@@ -256,7 +272,7 @@ def make_step(
             else:
                 du2, _ = _pcg("el_refine", Au, rhs_u2, Mu, refine_rtol, cfg.cg_atol)
             u = u + du2
-            conv_u = conv_u & torch.isfinite(du2.sum())
+            conv_u = conv_u & torch.isfinite(total(du2))
         return u, c, conv_u & conv_c, k
 
     def adjoint(theta, c_prev, t, u, c, u_bar, c_bar, keys, need_c_prev):

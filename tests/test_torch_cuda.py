@@ -831,3 +831,84 @@ def test_sharded_bmv_matches_the_plain_contraction(world, backend):
             assert got["slab"] == (B // world, M, K)
             assert got["launches"] == 1 and got["rel"] <= 1e-5, got
             assert got["mode"] == ("bulk" if (B // world) * M * K % 4 == 0 else "ragged")
+
+
+@pytest.mark.parametrize("form", ["scalar", "vector", "coupling", "vector2", "coupling2",
+                                  "sum2", "sum3"])
+def test_stencil_apply_halo_form_matches_plain(form):
+    """The halo form (the node-sharded lattice's) at n = 1001 owned rows
+    and a halo of 60, 15 offsets drawn in [-60, 60] (both ends included):
+    the kernel against the plain halo form, max rel 1e-5, one launch; and
+    halo 0 (today's form) on the same planes against its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(11)
+    n, h = 1001, 60
+    offs = [0, -h, h] + [int(o) for o in rng.integers(-h, h + 1, 12)]
+    f32 = lambda *s: torch.as_tensor(rng.standard_normal(s), dtype=torch.float32,  # noqa: E731
+                                     device="cuda")
+    if form.startswith("sum"):
+        k = int(form[-1])
+        terms = [(f32(15, n), f32(n + 2 * h), s) for s in (1.0, 0.5, -1.0)[:k]]
+        b = f32(n)
+        before = sk.apply_scalar_sum.launches
+        got = sk.apply_scalar_sum(offs, terms, b, halo=h)
+        assert sk.apply_scalar_sum.launches == before + 1
+        want = sk.apply_scalar_sum_plain(offs, terms, b, halo=h)
+    else:
+        d = 2 if form.endswith("2") else 3
+        kern, plain, W, x = {
+            "scalar": (sk.apply_scalar, sk.apply_scalar_plain, f32(15, n), f32(n + 2 * h)),
+            "vector": (sk.apply_vector, sk.apply_vector_plain, f32(15, d, d, n),
+                       f32(n + 2 * h, d)),
+            "coupling": (sk.apply_coupling, sk.apply_coupling_plain, f32(15, d, n),
+                         f32(n + 2 * h)),
+        }[form.rstrip("2")]
+        before = kern.launches
+        got = kern(offs, W, x, halo=h)
+        assert kern.launches == before + 1
+        want = plain(offs, W, x, halo=h)
+        x0 = x[h:h + n].contiguous()
+        torch.cuda.synchronize()
+        assert _rel_max(kern(offs, W, x0), plain(offs, W, x0)) <= 1e-5
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    assert _rel_max(got, want) <= 1e-5
+    with pytest.raises(ValueError, match="past a halo"):
+        sk.apply_scalar(offs, f32(15, n), f32(n + 2 * h - 2), halo=h - 1)
+
+
+@pytest.mark.parametrize("world, backend", [(1, "nccl"), (2, "gloo")],
+                         ids=["nccl_world1", "gloo_world2"])
+def test_nodes_mode_runs_through_the_halo_forms(world, backend):
+    """use_sharding() on the padded 9^3 box (an 8-element box padded to
+    10 planes) at f32: mode 'nodes', 2 converged steps, every halo form's
+    wrapper launching and neither stencil_pcg, the same Newton and CG
+    counts on every rank, final c and u within rel-L2 1e-4 of the plain
+    f64 path unsharded.  World 1 over NCCL; two ranks sharing the card
+    over gloo."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch_gspmd_cases as cases
+    from glimslib_tpu_torch.core.mesh import box_mesh, pad_mesh_nodes
+    from glimslib_tpu_torch.parallel import run_ranks
+    from glimslib_tpu_torch.solvers.coupled import StepConfig
+
+    ranks = run_ranks(cases.card_rank, world, backend, "cuda", args=(8, 2, 2))
+    ref = brain_sim(dtype=torch.float64, device="cuda", plain=True, mesh=pad_mesh_nodes(
+        box_mesh((0, 0, 0), (10, 10, 10), 8, 8, 8), 2))
+    ref.step_config = StepConfig(newton_rtol=1e-10, newton_atol=1e-14, cg_rtol=1e-12)
+    u_r, c_r, ok, _ = ref.build_simulate_fn(2, 1.0)(
+        ref.make_theta(ref.params.as_dict()), *ref.initial_state())
+    assert bool(ok.all())
+    for out in ranks:
+        assert out["mode"] == "nodes" and out["ok"].all() and out["n_total"] == 810
+        assert np.array_equal(out["newton"], ranks[0]["newton"])
+        assert out["el_cg"] == ranks[0]["el_cg"]
+        got = out["launches"]
+        assert got["cg_scalar"] == got["cg_vector"] == 0, got
+        assert min(got[k] for k in ("apply_scalar", "apply_scalar_sum", "apply_vector",
+                                    "apply_coupling")) > 0, got
+        for x, want in ((out["c"], c_r[-1]), (out["u"], u_r[-1])):
+            want = want.cpu().numpy()
+            assert np.linalg.norm(x - want) / np.linalg.norm(want) <= 1e-4

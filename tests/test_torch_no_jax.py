@@ -119,6 +119,7 @@ def test_port_sources_import_nothing_of_jax():
     assert n_files > 20
     # the sharding modules and the sharded example script among them
     assert {"glimslib_tpu_torch/parallel/__init__.py", "glimslib_tpu_torch/parallel/shard.py",
+            "glimslib_tpu_torch/parallel/gspmd.py",
             "glimslib_tpu_torch/example_scripts/tumor_growth_3D_atlas_sharded.py"} <= scanned
     assert not hits, hits
 

@@ -166,10 +166,11 @@ def test_use_sharding_raises_where_the_port_does_not_shard(one_rank):
 
     mesh = one_rank
     assert mesh.world == 1 and mesh.backend == "gloo"
-    # a lattice mesh: auto takes the reference's 'nodes', which is not ported
+    # a lattice mesh: auto takes the reference's 'nodes' (its own tests:
+    # tests/test_torch_gspmd.py), and 'bell' is refused
     lat = brain_sim(n=4, dtype=torch.float64, device="cpu")
-    with pytest.raises(NotImplementedError, match="mode='nodes'.*distributed PCG"):
-        lat.use_sharding(mesh)
+    nodes = brain_sim(n=4, dtype=torch.float64, device="cpu")
+    assert nodes.use_sharding(mesh) is mesh and nodes.sharding_mode == "nodes"
     with pytest.raises(ValueError, match="needs the supernode halo-ELL path"):
         lat.use_sharding(mesh, mode="bell")
     uns = cases.port_sim()

@@ -209,10 +209,11 @@ def test_outside_slice_raises(case):
         "von_neumann": _von_neumann,
         "time_dependent_source": _time_dependent_source,
         "chebyshev": lambda: _step_config(precond_degree=3),
-        # a lattice model: the reference's 'nodes' mode, not ported (a world
-        # of one rank, which the mode decision reads only)
+        # a lattice model: the reference's 'cells' mode, not ported (a world
+        # of one rank, which the mode decision reads only; 'nodes', the
+        # lattice's default, is held in tests/test_torch_gspmd.py)
         "sharding": lambda: _tumor_growth_2d().use_sharding(DeviceMesh(
-            None, 0, 1, torch.device("cpu"), "mesh_x", "gloo")),
+            None, 0, 1, torch.device("cpu"), "mesh_x", "gloo"), mode="cells"),
     }[case]
     with pytest.raises(NotImplementedError):
         run()
