@@ -74,8 +74,8 @@ Phases, each printed on lines of their own:
 7. The adjoint: ``examples.adjoint_problem`` (the benchmark's adjoint
    cell: D_WM and rho_WM, targets from a forward run, 5 steps) on the
    sims of [3] and [6], one ``InverseProblem.value_and_grad`` after
-   another.  Per lane: the first call, value_and_grad/s (the mean of 3
-   calls), the forward and backward time of one call split by a CUDA
+   another.  Per lane: the first call, value_and_grad/s (ADJ_TIMED_CALLS
+   calls after the instrumented one, cut from 3), the forward and backward time of one call split by a CUDA
    event at the backward's start, the adjoint CG iterations, each
    kernel's launches in that call by forward and backward (every kernel
    of the lane must launch in the backward), peak memory, the profiler's
@@ -163,9 +163,10 @@ Phases, each printed on lines of their own:
    maxiter 10, under the profiler: device busy ms and idle share), the
    optimized re-run, the comparison, post_process, the summary and a
    fresh workflow's reload; then every 2D lattice kernel held and timed
-   at the slice's shapes as in [8].  [11b] the same on a 64^3 labelmap's
-   full lattice (274,625 nodes, ``stencil_pcg<3>`` streamed), 2 steps,
-   maxiter 2.  [11c] the patient pipeline on 128 x 128 slices (a
+   at the slice's shapes as in [8] (without the host-cost split and the
+   rd residual's A/B, which [2] runs).  [11b] the same on a 64^3
+   labelmap's full lattice (274,625 nodes, ``stencil_pcg<3>`` streamed),
+   1 step, maxiter 1 (both cut from 2).  [11c] the patient pipeline on 128 x 128 slices (a
    segmentation's T2 and T1 targets), up to the inverse, maxiter 3.
    Each prints seconds, kernel launches and host seconds of file output
    by stage, value_and_grad calls and calls/s, L-BFGS-B's nit, message
@@ -179,7 +180,8 @@ Phases, each printed on lines of their own:
    v0 (in [11a] each within WF_PARAM_RTOL of it), the T2 volumes of the
    forward and optimized runs are finite and positive, and the reloaded
    series equals the recorded one exactly.  [11d] the atlas pipeline of
-   [11a] with ``model="quad"``: the quad model on the slice's mesh with
+   [11a] with ``model="quad"``, 3 steps, maxiter 1 (cut from 5 and 3): the quad
+   model on the slice's mesh with
    its lattice stripped (the unstructured lane; 261,121 P2 dofs),
    through bell_bmv and no stencil kernel; it prints the seconds by
    stage, each sim's set-up by part (the P1 plan, the P2 plan, the
@@ -191,7 +193,8 @@ Phases, each printed on lines of their own:
    the unstructured limits, J falling and the recovered parameters nearer
    the truth than v0 (reporting whether within WF_PARAM_RTOL), bell_bmv
    launching at every shape.  [11e] the quad model on a 32^3 labelmap's
-   full lattice (cell-free P2 vertex dofs on the card): a 2-step forward,
+   full lattice (cell-free P2 vertex dofs on the card): a 1-step forward
+   (cut from 2 with [11b]'s),
    finite, with c and u exactly 0 at the cell-free nodes and within
    QUAD_RTOL of the plain f64 path, and one value_and_grad held to the
    unstructured limits.
@@ -218,8 +221,9 @@ Phases, each printed on lines of their own:
    each lattice the scripts run (26^2, 16^2, 13^2, 51^2 and the 64^2,
    40^2 and 24^2 image slices), the first script there hands its model
    to phase_kernels: every stencil_apply form and both stencil_pcg
-   solves against their plain versions at that lattice's shapes, each
-   row with the launches of the scripts there.  bell_bmv must have been
+   solves against their plain versions at that lattice's shapes
+   (untimed: cut from timing each, as [8] and [11a] time these forms),
+   each row with the launches of the scripts there.  bell_bmv must have been
    held at every (B, M, K) the two unstructured scripts launch it at
    (the 3D atlas's tables here, the reduced 2D atlas's in [8]).
 
@@ -236,13 +240,14 @@ Phases, each printed on lines of their own:
    alike); [13a] turns them off again after it.  [13b] two ranks sharing
    the card over gloo (``parallel.run_ranks``): per rank the n=32 box, 5
    steps, and one value_and_grad of [9a]'s refined problem on its
-   targets, then the quad flagship, SHARD_QUAD_STEPS steps (cut from 5);
+   targets, then the quad flagship, SHARD_QUAD_STEPS steps (cut from 5, then 2);
    per rank the slab's blocks, set-up seconds, the table bytes held
    against the unsharded model's, bell_bmv's launches by slab shape
    (every shape launched must be held against the plain contraction on
    that rank, in the bulk mode where B M K is a multiple of 4; rank 0
    times them as [5] does, the other rank waiting), device busy ms and
-   idle share of a profiled run (one rank at a time); c and u within
+   idle share of rank 0's profiled run (the other rank running beside
+   it; cut from one a rank in turns); c and u within
    rel-L2 1e-4 of the f64 plain path ([9a]'s; [10]'s at step 2), J within
    5e-4 and the gradient within 1e-2 of [9a]'s f64 ones, each also against
    the unsharded f32 run; whether the two ranks' fields, J and gradient
@@ -272,11 +277,34 @@ Phases, each printed on lines of their own:
    the plane bytes against the unsharded padded model's (exactly
    1 / NODES_WORLD), the halo forms' launches, the collectives (count and
    host ms each, a timer around torch.distributed.all_reduce), device busy
-   ms and idle share of a profiled run of NODES_PROFILE_STEPS steps (one
-   rank at a time; cut from 5 to keep [14] short), each halo
-   form against its plain version at the slab's shapes; Newton and CG
-   counts equal on every rank, fields on the real nodes within 5e-5 of
-   the f64 plain path, padding dofs exactly 0.
+   ms and idle share of rank 0's profiled run of NODES_PROFILE_STEPS steps
+   (cut from 5 steps and from one a rank in turns, to keep [14] short),
+   each halo form against its plain version at the slab's shapes; Newton
+   and CG counts equal on every rank, fields on the real nodes within
+   5e-5 of the f64 plain path, padding dofs exactly 0.
+   [14c] the adjoint at world 1 on [14a]'s model: value_and_grad of
+   [9a]'s lattice problem (the benchmark's adjoint cell, type 2, 5 steps,
+   f32 refined): one call at REFINED_STEP_CONFIG held to the warm-started
+   lanes' J limit (NODES_VG_STEPS says why), then at newton_atol
+   REFINED_NEWTON_ATOL one call with every count at 0, split at the
+   backward's start: launches by wrapper and direction, the backward's
+   transposed halo launches by form (dv of the rd residual's mass term
+   and of the coupling: both must launch), no stencil_pcg and no plain
+   stencil call, the collectives; device busy ms and idle share of one
+   call; J within 1e-4 and the gradient within rel-L2 1e-3 of [9a]'s f64
+   plain ones.  Each transposed launch (the halo form on the mirrored
+   planes extended by H rows, over the cotangent padded by 2H) is held
+   bit-equal to its plain version at the slab's shapes and timed as [2]
+   times a form (its padding's kernels counted in), beside its bound and
+   the torch.sparse CSR matrix of A^T; the <3,3> form's, which the path
+   never asks, is held only.  [14d] in [14b]'s processes: one
+   value_and_grad of NODES_VG_STEPS steps (cut from 5) of the same
+   problem on the padded box (targets zero on the padding) at newton_atol
+   REFINED_NEWTON_ATOL, the counts at 0 just before: J and the gradient
+   bit-equal on every rank, the forward and adjoint CG counts equal, the
+   transposed forms launched, no stencil_pcg, the collectives a call and
+   host ms each; J and the gradient within the lattice limits of the f64
+   plain path unpadded (NODES_VG_STEPS steps, computed here first).
 
 Then one JSON line with [14]'s numbers, one with [13]'s numbers, one with [12]'s numbers and its kernel rows by lattice, one with [11]'s, one with [10]'s, one with [9]'s, one with [7]'s
 and [8]'s value_and_grad numbers, one with
@@ -285,7 +313,8 @@ value_and_grad by forward and backward: [7]'s for the 3D rows, [8]'s for
 the 50 x 50 rows; bell_bmv's also at the P2 shapes with its launches in
 [10b] and [10d], and at [13b]'s slab shapes with their launches there;
 stencil_apply's halo form at [14a]'s slab with its launches in [14a]'s
-bench run, its refined run and [14b]),
+bench run, its refined run and [14b], and its transposed launches with
+their launches in [14c]'s backward and [14d]'s),
 the card's line, and as the last line {"ok": true,
 "device": {...}}.  Any failure raises (exit code != 0).  Needs CUDA:
 without it the script exits non-zero and prints no result.
@@ -336,6 +365,9 @@ ADJ_G_RTOL = {"lattice": 1e-3, "unstructured": 1e-2}
 ADJ_FD_RTOL = 1e-5
 ADJ_FD_EPS = 1e-5
 ADJ_FD_DIR = (0.6, 0.8)
+# value_and_grad/s from this many uninstrumented calls after the first and
+# the instrumented one (cut from 3 to fit [14c] and [14d])
+ADJ_TIMED_CALLS = 1
 # [8]: the 2D models.  The 512 x 512 rectangle is the lattice of a 512^2
 # image slice and the first past stencil_pcg<2>'s resident layout on 132
 # SMs; its elasticity CG takes 2,664 and 2,886 iterations in the first two
@@ -358,14 +390,19 @@ WF_2D = (256, 256, 32, 16)
 WF_3D = (64, 64, 64)
 WF_PATIENT = (128, 128, 32, 16)
 WF_SIM = {"2d": dict(sim_time=10, sim_time_step=1, seed_width=5.0),
-          "3d": dict(sim_time=2, sim_time_step=1, seed_width=5.0),
+          # [11b] and [11e]: 1 step (cut from 2 to fit [14c] and [14d])
+          "3d": dict(sim_time=1, sim_time_step=1, seed_width=5.0),
           "patient": dict(sim_time=2, sim_time_step=1, seed_width=5.0),
           # [11d]: [11a]'s slice with the quad model, cut from [11a]'s 10
           # steps and maxiter 10 (to 5 steps and the reference quad test's
           # maxiter 3), where one f32 value_and_grad took 9.5 s and the
-          # profiled inverse 225 s (14 calls; an H100 at 700 W)
-          "quad": dict(sim_time=5, sim_time_step=1, seed_width=5.0)}
-WF_MAXITER = {"2d": 10, "3d": 2, "patient": 3, "quad": 3}
+          # profiled inverse 225 s (14 calls; an H100 at 700 W); then to 3
+          # steps (and maxiter 1) to fit [14c] and [14d]
+          "quad": dict(sim_time=3, sim_time_step=1, seed_width=5.0)}
+# [11b] and [11d] take one L-BFGS-B iteration (cut from 2 and 3 to keep
+# the script inside its limit with [14c] and [14d]; [11d]'s profiled
+# inverse took 53.0 s at maxiter 3, an H100 at 700 W)
+WF_MAXITER = {"2d": 10, "3d": 1, "patient": 3, "quad": 1}
 # [11e]: the quad model on this labelmap's full lattice (33^3 corners)
 WF_QUAD_3D = (32, 32, 32)
 WF_OPT = {"tol": 1e-8, "gtol": 1e-8}
@@ -610,14 +647,21 @@ def _apply_row(torch, name, kern, plain, args, lib_fn, lib_shape, wrappers,
                pattern, nbytes, flops, replaces, tag, cold):
     """One stencil_apply form against its plain version (max rel <=
     APPLY_RTOL) and its times: L2-cold and warm device time, the wrapper
-    call, the plain version and the CSR matvec (cold and warm)."""
+    call, the plain version and the CSR matvec (cold and warm); without
+    ``lib_fn`` the check alone."""
     got = kern(*args)
     want = plain(*args)
-    lib = lib_fn().reshape(lib_shape)
     torch.cuda.synchronize()
     err, rel = _rel_max(got, want)
     if not bool(torch.isfinite(got).all()) or rel > APPLY_RTOL:
         raise AssertionError(f"{name}: rel err {rel:.3e} > {APPLY_RTOL}")
+    row = dict(name=name, route="cuda", source=STENCIL_SRC, replaces=replaces,
+               wrappers=wrappers, pattern=pattern, max_abs_err=err)
+    if lib_fn is None:
+        print(f"{tag} {name}: max abs err {err:.3e}, max rel err {rel:.3e} (<= "
+              f"{APPLY_RTOL}); untimed")
+        return row
+    lib = lib_fn().reshape(lib_shape)
     _, lib_rel = _rel_max(lib, want)
     if lib_rel > CSR_RTOL:
         raise AssertionError(f"{name}: the CSR yardstick is off by {lib_rel:.3e}")
@@ -636,8 +680,7 @@ def _apply_row(torch, name, kern, plain, args, lib_fn, lib_shape, wrappers,
           f"of the cold time; torch.sparse CSR (int32) {lib_cold:.5f} ms cold "
           f"({lib_src}; events {lib_cold_ev:.5f}), {lib_warm:.5f} ms warm (events) = "
           f"{lib_cold / cold_ms:.2f}x the kernel's cold time")
-    return dict(name=name, route="cuda", source=STENCIL_SRC, replaces=replaces,
-                wrappers=wrappers, pattern=pattern, max_abs_err=err, ms=cold_ms,
+    return dict(row, ms=cold_ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=lib_cold, cold_events_ms=cold_ev, call_ms=call_ms,
                 warm_ms=warm_ms, library_cold_events_ms=lib_cold_ev,
@@ -684,13 +727,16 @@ def _wrapper_host_us(torch, offs, W, v, reps=400, rounds=5):
     return us
 
 
-def phase_applies(torch, offs, theta, wc, dev, tag, suffix="", halo=0):
+def phase_applies(torch, offs, theta, wc, dev, tag, suffix="", halo=0, detail=True,
+                  timed=True):
     """Every stencil_apply form at one lattice's shapes (the path's planes,
     random vectors from a seed): K1 and K2 against their plain versions
     and the CSR matvec, then the rd residual in one launch against the
     three launches it replaces, both timed as the path calls them.  With
     ``halo`` > 0 the halo form on a node slab's planes (vectors of n + 2
-    halo rows), without the host-cost split and the A/B."""
+    halo rows), and without ``detail``, the rd residual held and timed
+    alone: neither has the host-cost split and the A/B.  Without ``timed``
+    every form is held against its plain version and not timed."""
     import functools
 
     import numpy as np
@@ -722,25 +768,28 @@ def phase_applies(torch, offs, theta, wc, dev, tag, suffix="", halo=0):
          theta["_Cuc"], v, d, 1, k2, (sk.apply_coupling,)),
     ):
         W4 = W.reshape(len(offs), d_out, d_in, n)
-        A = _csr(torch, offs, [(W4, 1.0, 0)], n, d_out, d_in, nv * d_in, halo)
+        A = _csr(torch, offs, [(W4, 1.0, 0)], n, d_out, d_in, nv * d_in, halo) if timed else None
         xf = x.reshape(-1)
         rows.append(_apply_row(
             torch, name + suffix, kerns[kern], kerns[plain], (offs, W, x),
-            lambda A=A, xf=xf: torch.mv(A, xf), (n, d_out) if d_out > 1 else (n,),
+            (lambda A=A, xf=xf: torch.mv(A, xf)) if timed else None,
+            (n, d_out) if d_out > 1 else (n,),
             wrappers, rf"stencil_apply_kernel<{d_out}, ?{d_in}, ?1>",
             4 * (W.numel() + x.numel() + n * d_out), 2 * W.numel(), replaces,
             tag, cold))
         del A
-    if halo:
+    if halo or not (detail and timed):
         Wc, M, load = theta["_Wrd_const"], theta["_Mst"], theta["_rd_load"]
         A = _csr(torch, offs, [(Wc[:, None, None], 1.0, 0), (wc[:, None, None], 0.5, 0),
-                               (M[:, None, None], -1.0, nv)], n, 1, 1, 2 * nv, halo)
+                               (M[:, None, None], -1.0, nv)], n, 1, 1, 2 * nv,
+                 halo) if timed else None
         x2 = torch.cat([v, v2])
         rows.append(_apply_row(
             torch, "stencil_apply<1,1,3>" + suffix, kerns[sk.apply_scalar_sum],
             kerns[sk.apply_scalar_sum_plain],
             (offs, ((Wc, v, 1.0), (wc, v, 0.5), (M, v2, -1.0)), load),
-            lambda: torch.addmv(load, A, x2, beta=-1.0), (n,), (sk.apply_scalar_sum,),
+            (lambda: torch.addmv(load, A, x2, beta=-1.0)) if timed else None, (n,),
+            (sk.apply_scalar_sum,),
             r"stencil_apply_kernel<1, ?1, ?3>", 4 * (3 * Wc.numel() + 2 * nv + 2 * n),
             6 * Wc.numel() + 4 * n, k1, tag, cold))
         return rows
@@ -838,11 +887,15 @@ def _pcg_stream_bytes(n_off, d, n):
     return 4 * (n_off * d * d * n + d * d * n + 4 * n * d)
 
 
-def phase_kernels(torch, sim, theta, dev, tag="[2]", suffix="", grids=(), forced=True):
+def phase_kernels(torch, sim, theta, dev, tag="[2]", suffix="", grids=(), forced=True,
+                  detail=True, timed=True):
     """Each lattice kernel vs its plain version at the model's shapes (the
     path's planes, random vectors from a seed); the elasticity solve also
     in every other mode that fits (``forced``), and on the plan's mode
-    with ``grids`` blocks (printed only)."""
+    with ``grids`` blocks (printed only); ``detail``: the apply's host-cost
+    split and the rd residual's A/B (:func:`phase_applies`); ``timed``:
+    the times (without it each kernel is held against its plain version
+    only)."""
     import numpy as np
 
     from glimslib_tpu_torch.ops import fused_cg as fc
@@ -853,7 +906,8 @@ def phase_kernels(torch, sim, theta, dev, tag="[2]", suffix="", grids=(), forced
     mask_u, mask_c, _, _ = sim._bc_masks_and_values()
     c0 = sim.initial_state()[1]
     wc = ops.build_rd_wc(c0, theta["rho"], theta["dt"])
-    results = phase_applies(torch, offs, theta, wc, dev, tag, suffix)
+    results = phase_applies(torch, offs, theta, wc, dev, tag, suffix, detail=detail,
+                            timed=timed)
 
     rng = np.random.default_rng(0)
     f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
@@ -871,7 +925,7 @@ def phase_kernels(torch, sim, theta, dev, tag="[2]", suffix="", grids=(), forced
     ]
     for name, kern, plain, Wm, Minv, b, replaces in solves:
         row = _check_pcg(torch, name, kern, plain, offs, Wm, Minv, b, cfg,
-                         replaces, tag)
+                         replaces, tag, timed=timed)
         row["name"] += suffix
         results.append(row)
     name, kern, plain, Wm, Minv, b, replaces = solves[1]
@@ -892,10 +946,10 @@ def phase_kernels(torch, sim, theta, dev, tag="[2]", suffix="", grids=(), forced
 
 
 def _check_pcg(torch, name, kern, plain, offs, Wm, Minv, b, cfg, replaces, tag,
-               mode=None, blocks=None):
-    """One whole solve of the kernel against the plain pcg, and its times:
-    through the wrapper ``kern`` as the path calls it, or with ``mode``
-    forcing the launch plan's mode or ``blocks`` its grid."""
+               mode=None, blocks=None, timed=True):
+    """One whole solve of the kernel against the plain pcg, and its times
+    (``timed``): through the wrapper ``kern`` as the path calls it, or with
+    ``mode`` forcing the launch plan's mode or ``blocks`` its grid."""
     from glimslib_tpu_torch.ops import fused_cg as fc
 
     args = (offs, Wm, Minv, b, cfg.cg_rtol, cfg.cg_atol, cfg.cg_maxiter)
@@ -922,6 +976,12 @@ def _check_pcg(torch, name, kern, plain, offs, Wm, Minv, b, cfg, replaces, tag,
     if abs(it_k - it_p) > PCG_DITERS:
         _, info64 = plain(*(a.double() if torch.is_tensor(a) else a for a in args))
         f64_iters = f"; the same solve in f64 (plain) takes {int(info64['iters'])}"
+    if not timed:
+        print(f"{tag} {name}: n={b.shape[0]}, mode {plan.mode}, iters kernel {it_k} / "
+              f"plain {it_p} (|Δ| <= {dit_max}{f64_iters}), max abs err {err:.3e}, "
+              f"max rel err {rel:.3e} (<= {PCG_RTOL}); untimed")
+        return dict(name=name, route="cuda", source=STENCIL_SRC, replaces=replaces,
+                    wrappers=(kern,), max_abs_err=err, mode=plan.mode, iters=it_k)
     ms = _time_ms(torch, call, 3)
     dev_ms = _launch_ms(torch, call, 3)
     prof_ms = _kernel_device_ms(torch, call, 2,
@@ -954,18 +1014,22 @@ def _check_pcg(torch, name, kern, plain, offs, Wm, Minv, b, cfg, replaces, tag,
                 us_per_iter=us_it, iters=it_k)
 
 
-def _print_breakdown(torch, run, run_ms, tag, detail=None):
+def _print_breakdown(torch, run, run_ms, tag, detail=None, profiled=None):
     """Device time by kernel over one profiled simulate, and the device's
     busy share: of the profiled run's wall time (the profiler adds host
     overhead) and of ``run_ms``, the unprofiled run's mean wall time.
     Kernels whose name matches ``detail`` are printed too, with their time
     a launch; returns ({name: ms a launch} for them, the device busy ms,
-    the idle share of the unprofiled run)."""
+    the idle share of the unprofiled run).  ``profiled``: (profile, its
+    wall ms) of a run made already, in place of profiling run()."""
     from torch.autograd import DeviceType
 
-    t0 = time.perf_counter()
-    prof = _profile(torch, run, cpu=False)
-    wall_ms = (time.perf_counter() - t0) * 1e3
+    if profiled is None:
+        t0 = time.perf_counter()
+        prof = _profile(torch, run, cpu=False)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    else:
+        prof, wall_ms = profiled
     evts = [e for e in prof.key_averages()
             if getattr(e, "device_type", None) == DeviceType.CUDA]
     evts.sort(key=_self_device_us, reverse=True)
@@ -1033,9 +1097,10 @@ def _drive(torch, sim, simulate, args, groups, tag, n_steps, shown=()):
     return (u_tr, c_tr), launches, first_s
 
 
-def _time_runs(torch, simulate, args, dev, tag, n_steps, detail=None):
+def _time_runs(torch, simulate, args, dev, tag, n_steps, detail=None, profiled=None):
     """Steps/s over 3 runs, peak memory, and the breakdown of one profiled
-    run; returns its ms a launch of the kernels matching ``detail``, and
+    run (``profiled``: of a run profiled already, :func:`_print_breakdown`);
+    returns its ms a launch of the kernels matching ``detail``, and
     {steps_per_s, device_busy_ms, idle_share}."""
     torch.cuda.reset_peak_memory_stats(dev)
     times = []
@@ -1052,7 +1117,8 @@ def _time_runs(torch, simulate, args, dev, tag, n_steps, detail=None):
           f"{', '.join(f'{t:.4f}' for t in times)} s); peak memory "
           f"{peak / 2**20:.1f} MiB")
     per_launch, busy, idle = _print_breakdown(
-        torch, lambda: simulate(*args), 1e3 * sum(times) / len(times), tag, detail)
+        torch, lambda: simulate(*args), 1e3 * sum(times) / len(times), tag, detail,
+        profiled)
     return per_launch, dict(steps_per_s=sps, device_busy_ms=busy, idle_share=idle)
 
 
@@ -1526,14 +1592,14 @@ def _adjoint_lane(torch, sim, ref, lane, groups, tag, problem, fd_dir=None,
 
     torch.cuda.reset_peak_memory_stats(dev)
     times = []
-    for _ in range(3):
+    for _ in range(ADJ_TIMED_CALLS):
         t0 = time.perf_counter()
         ip.value_and_grad(v0)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated(dev)
     vgs = 1.0 / (sum(times) / len(times))
-    print(f"{tag} {lane}: value_and_grad/s {vgs:.4f} (3 calls: "
+    print(f"{tag} {lane}: value_and_grad/s {vgs:.4f} ({ADJ_TIMED_CALLS} call(s): "
           f"{', '.join(f'{t:.4f}' for t in times)} s); peak memory "
           f"{peak / 2**20:.1f} MiB")
     t_prof = time.perf_counter()
@@ -1722,17 +1788,6 @@ REFINED_NEWTON_ATOL = 1e-7
 FACTORED_RTOL = 1e-5
 
 
-def _kernel_totals(torch, run, pattern):
-    """{kernel name: (launches, device ms)} of the kernels whose name
-    matches ``pattern`` in one profiled run()."""
-    from torch.autograd import DeviceType
-
-    prof = _profile(torch, run, cpu=False)
-    return {e.key: (e.count, _self_device_us(e) / 1e3) for e in prof.key_averages()
-            if getattr(e, "device_type", None) == DeviceType.CUDA
-            and re.search(pattern, e.key)}
-
-
 def _refined_problem(sim):
     """[7]'s inverse problem (adjoint_problem, the lane's benchmark step)
     with refine_f64 on, on the same targets."""
@@ -1753,7 +1808,8 @@ def phase_refined(torch, dev, lanes, keep=None):
     constants say why).  ``keep`` (a dict) gains, under "p1", the
     unstructured lane's REFINED_STEP_CONFIG run (its config, final state
     and the f64 one) and its value_and_grad (:func:`_adjoint_lane`), which
-    [13] holds the sharded model to."""
+    [13] holds the sharded model to, and under "lattice" the lattice lane's
+    value_and_grad, which [14c] holds the node-sharded model to."""
     from glimslib_tpu_torch.examples import REFINED_STEP_CONFIG
     from glimslib_tpu_torch.ops import fused_cg as fc
 
@@ -1804,7 +1860,8 @@ def phase_refined(torch, dev, lanes, keep=None):
         _, nums = _adjoint_lane(torch, sim, ref, f"{lane} refined", groups, "[9a]",
                                 _refined_problem, j_rtol=REFINED_J_RTOL,
                                 vjp_passes=False,
-                                keep=keep["p1"] if keep and lane == "unstructured" else None)
+                                keep=(None if keep is None else keep["p1"] if lane == "unstructured"
+                                      else keep.setdefault("lattice", {})))
         out[lane]["value_and_grad"] = nums
     return out
 
@@ -1850,11 +1907,14 @@ def phase_factored(torch, dev, usim):
     return out
 
 
-def _coarse_in_path(torch, run, aux):
-    """{product: (calls, device ms)} of the coarse term's two matrix
+def _coarse_in_path(torch, run, aux, pattern):
+    """({product: (calls, device ms)} of the coarse term's two matrix
     products in one profiled run(): the aten::mm (bf16) or aten::mv (f32)
     calls whose matrix has a coarse factor's shape or its transpose's,
-    with the device time of their kernels."""
+    with the device time of their kernels; {kernel name: (launches,
+    device ms)} of the kernels matching ``pattern`` in the same run; (the
+    profile, its wall ms))."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     shapes = {}
@@ -1862,10 +1922,12 @@ def _coarse_in_path(torch, run, aux):
         m, k = aux[key].shape
         shapes[(m, k)] = f"{key} w = B z"
         shapes[(k, m)] = f"{key} z = Bt rc"
+    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
         run()
         torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
     out = {}
     for e in prof.key_averages(group_by_input_shape=True):
         if e.key in ("aten::mm", "aten::mv") and e.input_shapes:
@@ -1873,7 +1935,10 @@ def _coarse_in_path(torch, run, aux):
             if name is not None:
                 c, ms = out.get(name, (0, 0.0))
                 out[name] = (c + e.count, ms + e.device_time_total / 1e3)
-    return out
+    kernels = {e.key: (e.count, _self_device_us(e) / 1e3) for e in prof.key_averages()
+               if getattr(e, "device_type", None) == DeviceType.CUDA
+               and re.search(pattern, e.key)}
+    return out, kernels, (prof, wall_ms)
 
 
 def phase_bf16(torch, dev, usim, base6):
@@ -1905,11 +1970,13 @@ def phase_bf16(torch, dev, usim, base6):
         it = {k: [int(i) for i in usim.solver_info[k]] for k in ("rd_cg_iters", "el_cg_iters")}
         applies = {"_TLCfac": sum(x + 1 for x in it["el_cg_iters"]),
                    "_TLCfacS": sum(x + 1 for x in it["rd_cg_iters"])}
-        prods = _coarse_in_path(torch, lambda a=a: simulate(theta, u0, c0, a), a)
+        # one profiled run for the products, their kernels and the
+        # breakdown (cut from three)
+        prods, gemv, profiled = _coarse_in_path(
+            torch, lambda a=a: simulate(theta, u0, c0, a), a, r"gemv|gemm|nvjet|xmma|cutlass")
         coarse = sum(ms for _, ms in prods.values())
-        gemv = _kernel_totals(torch, lambda a=a: simulate(theta, u0, c0, a),
-                              r"gemv|gemm|nvjet|xmma|cutlass")
-        _, run = _time_runs(torch, simulate, (theta, u0, c0, a), dev, tag, N_STEPS)
+        _, run = _time_runs(torch, simulate, (theta, u0, c0, a), dev, tag, N_STEPS,
+                            profiled=profiled)
         rel_c, rel_u = _rel_l2(c_tr[-1], c_r), _rel_l2(u_tr[-1], u_r)
         print(f"{tag} CG iterations rd {sum(it['rd_cg_iters'])} (a Newton solve "
               f"{it['rd_cg_iters']}), elasticity {sum(it['el_cg_iters'])} (a step "
@@ -2737,7 +2804,8 @@ def phase_workflow(torch, dev, kernels):
         # every lattice kernel at the slice's shapes, as [8] does at 50 x 50
         sim = wf.sims["forward"]
         theta = sim._augment_theta_with_operators(sim.make_theta(sim.params.as_dict()))
-        rows = phase_kernels(torch, sim, theta, dev, "[11a]", f"@{nx}x{ny}", forced=False)
+        rows = phase_kernels(torch, sim, theta, dev, "[11a]", f"@{nx}x{ny}", forced=False,
+                             detail=False)
         del theta, wf, sim
         for k in rows:
             by_stage = {st: sum(c[w.__name__] for w in k["wrappers"])
@@ -2924,7 +2992,8 @@ def _ex_lattice_check(torch, dev, sim, shape, checks):
     if shape in checks:
         return
     theta = sim._augment_theta_with_operators(sim.make_theta(sim.params.as_dict()))
-    checks[shape] = phase_kernels(torch, sim, theta, dev, "[12]", f"@{shape}", forced=False)
+    checks[shape] = phase_kernels(torch, sim, theta, dev, "[12]", f"@{shape}", forced=False,
+                                  timed=False)
     del theta
     torch.cuda.empty_cache()
 
@@ -3064,7 +3133,7 @@ def phase_examples(torch, dev, kernels):
 # torch.distributed.  [13b]'s quad run takes SHARD_QUAD_STEPS steps, cut
 # from [10]'s 5 to keep [13] short; a collective that waits longer than
 # SHARD_TIMEOUT_S raises in its rank.
-SHARD_QUAD_STEPS = 2
+SHARD_QUAD_STEPS = 1
 SHARD_TIMEOUT_S = 600
 # the tables use_sharding holds as a rank's slab (supernode blocks) or
 # rows (the two-level level's aggregates), by key
@@ -3183,7 +3252,9 @@ def _rank_model(torch, mesh, tag, quad, config, n_steps, box=None, vg=None, time
     by_shape = dict(bk.batched_matvec.launches_by_shape)
     if not bool(ok.all()):
         raise AssertionError(f"{tag} rank {mesh.rank}: a step did not converge")
-    wall, busy = _rank_busy(torch, mesh, lambda: simulate(*args))
+    # rank 0 profiles, the other runs beside it (cut from one profiled run
+    # a rank, in turns: the profiler's ~10 s a turn over gloo)
+    wall, busy = _rank_busy(torch, mesh, lambda: simulate(*args), profiled=(0,))
     out = dict(setup_s=setup_s, first_s=first_s, newton=newton.tolist(),
                el_cg=[int(i) for i in sim.solver_info["el_cg_iters"]],
                u=u_tr[-1].cpu().numpy(), c=c_tr[-1].cpu().numpy(),
@@ -3353,9 +3424,10 @@ def _shard_two_ranks(torch, dev, keep):
                       f"{k} {o['tables'][k][0]} {o['tables'][k][1] / 1e6:.1f} MB against "
                       f"{whole[k][0]} {whole[k][1] / 1e6:.1f} MB"
                       for k in dict.fromkeys(shown) if k in whole)
-                  + "; profiled run: device "
-                  f"busy {o['busy_ms']:.1f} ms of {o['wall_ms']:.1f} ms, idle "
-                  + (f"{100 * idle:.1f}%" if idle is not None else "not measured"))
+                  + ("; profiled run: device "
+                     f"busy {o['busy_ms']:.1f} ms of {o['wall_ms']:.1f} ms, idle "
+                     + (f"{100 * idle:.1f}%" if idle is not None else "not measured")
+                     if o["wall_ms"] is not None else "; profiled on rank 0 only"))
             print(f"{tag} rank {r}: bell_bmv launches by slab (B, M, K): " + ", ".join(
                 f"{k}: {v}" for k, v in sorted(o["by_shape"].items(), key=lambda x: -x[1]))
                 + "; each slab shape against the plain contraction: " + ", ".join(
@@ -3485,9 +3557,19 @@ NODES_WORLD = 2
 # the planes and loads a 'nodes' model holds as its rows, and an unsharded
 # lattice model holds whole ([14b] compares their bytes)
 NODES_PLANES = ("_Wel", "_Binv", "_Wrd_const", "_Mst", "_Cuc", "_rd_load", "_el_load")
-# [14b]'s profiled runs (one a rank, in turns) take NODES_PROFILE_STEPS
-# steps of the same model, cut from N_STEPS to keep [14] short
+# [14b]'s profiled run (rank 0's, the other rank running beside it; cut
+# from one a rank in turns) takes NODES_PROFILE_STEPS steps of the same
+# model, cut from N_STEPS to keep [14] short
 NODES_PROFILE_STEPS = 1
+# [14d]'s value_and_grad at two ranks takes NODES_VG_STEPS steps (cut from
+# N_STEPS for time: a collective costs 1.0-2.3 ms through the host there)
+NODES_VG_STEPS = 2
+# [14c] and [14d] hold J and the gradient to the lattice limits at
+# newton_atol REFINED_NEWTON_ATOL: at REFINED_STEP_CONFIG's 1e-5 the
+# warm-started Newton of the pcg branch stops one iteration after its
+# guess (c 3.0e-5 of f64 in [14a]), and J lands 3.4e-4 off the f64 J (an
+# H100 at 700 W), as on the unstructured lane ([9a]); [14c]'s call at
+# REFINED_STEP_CONFIG is held to that lane's J limit.
 
 
 def _halo_wrappers():
@@ -3548,6 +3630,201 @@ class _Collectives:
         self.dist.all_reduce = self.orig
 
 
+class _Transposed:
+    """Counts the backward's transposed halo launches by form (calls of
+    ``stencil_kernels._transposed_apply`` with a halo) while active."""
+
+    def __enter__(self):
+        from glimslib_tpu_torch.ops import stencil_kernels as sk
+
+        self.sk, self.orig, self.calls = sk, sk._transposed_apply, {}
+
+        def counted(form, offsets, WT, y, halo=0, plain=False):
+            if halo and not plain:
+                self.calls[form] = self.calls.get(form, 0) + 1
+            return self.orig(form, offsets, WT, y, halo, plain)
+        sk._transposed_apply = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.sk._transposed_apply = self.orig
+
+
+# the backward's transposed launches on the 'nodes' path: dv of the rd
+# residual's mass term (c_prev) and of the coupling (c); the vector form's
+# dv is never asked (u is no input of a residual VJP)
+NODES_T_FORMS = ("scalar", "coupling")
+
+
+def _csr_T(torch, A):
+    """The CSR matrix A^T (int32 indices) of a CSR matrix A."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        csr = A.to_sparse_coo().t().coalesce().to_sparse_csr()
+        return torch.sparse_csr_tensor(csr.crow_indices().int(), csr.col_indices().int(),
+                                       csr.values(), csr.shape, check_invariants=False)
+
+
+def _transposed_rows(torch, sim, aug, dev, tag, suffix):
+    """The backward's transposed halo launches at this slab's shapes (the
+    path's planes mirrored and extended by H rows, a cotangent from a
+    seed): each held against its plain version (bit for bit) and timed as
+    [2] times a form (L2-cold and warm), beside its bound and the CSR
+    matrix of A^T; the vector form's held only (not on the path)."""
+    import functools
+
+    import numpy as np
+
+    from glimslib_tpu_torch.ops import stencil_kernels as sk
+
+    offs, h = sim._stencil_ops.offsets, sim._halo_rows
+    n, d = aug["_Wel"].shape[-1], aug["_Wel"].shape[1]
+    m = n + 2 * h
+    rng = np.random.default_rng(5)
+    f32 = lambda *s_: torch.as_tensor(rng.standard_normal(s_), dtype=torch.float32,  # noqa: E731
+                                      device=dev)
+    cold = _cold_l2(torch, dev)
+    kern = functools.partial(sk._transposed_apply, halo=h)
+    plain = functools.partial(sk.transposed_apply_plain, halo=h)
+    rows = []
+    for form, W, d_out, d_in, name, pattern, replaces in (
+        ("scalar", aug["_Mst"], 1, 1, "stencil_apply<1,1>^T", r"stencil_apply_kernel<1, ?1, ?1>",
+         "glimslib_tpu/ops/stencil_pallas.py:108"),
+        ("coupling", aug["_Cuc"], d, 1, f"stencil_apply<{d},1>^T",
+         r"stencil_apply_kernel<1, ?1, ?" + str(d) + ">",
+         "glimslib_tpu/ops/stencil_pallas.py:151"),
+    ):
+        WT = sk._transposed(offs, W, form, h)
+        y = f32(n, d_out) if d_out > 1 else f32(n)
+        W4 = W.reshape(len(offs), d_out, d_in, n)
+        A_T = _csr_T(torch, _csr(torch, offs, [(W4, 1.0, 0)], n, d_out, d_in, m * d_in, h))
+        yf = y.reshape(-1)
+        row = _apply_row(torch, name + suffix, kern, plain, (form, offs, WT, y),
+                         lambda A_T=A_T, yf=yf: torch.mv(A_T, yf), (m, d_in) if d_in > 1
+                         else (m,), (), pattern,
+                         4 * (WT.numel() + y.numel() + m * d_in), 2 * WT.numel(),
+                         replaces, tag, cold)
+        if row["max_abs_err"] != 0.0:
+            raise AssertionError(f"{tag} {name}: not bit-equal to its plain version "
+                                 f"(max abs err {row['max_abs_err']:.3e})")
+        row["form"] = form
+        rows.append(row)
+        del A_T
+    WT = sk._transposed(offs, aug["_Wel"], "vector", h)
+    y = f32(n, d)
+    err, rel = _rel_max(kern("vector", offs, WT, y), plain("vector", offs, WT, y))
+    print(f"{tag} stencil_apply<{d},{d}>^T{suffix} (not on the path): max abs err "
+          f"{err:.3e} against its plain version")
+    if err != 0.0:
+        raise AssertionError(f"{tag} stencil_apply<{d},{d}>^T: max abs err {err:.3e}")
+    return rows
+
+
+def _nodes_adjoint_world1(torch, sim, dev, vg):
+    """[14c]: value_and_grad of [9a]'s lattice problem (``vg``: its
+    targets, v0 and f64 J and gradient) on the 'nodes' model of [14a] at
+    world 1, f32 refined, N_STEPS steps: a first call, one call with the
+    counts at 0 split at the backward's start (launches by wrapper and the
+    transposed launches by form; no stencil_pcg, no plain stencil call),
+    device busy and idle share of one call, J and the gradient against the
+    f64 ones; then the transposed launches held and timed at the slab's
+    shapes.  Returns its numbers and the kernel rows."""
+    import numpy as np
+
+    from glimslib_tpu_torch.examples import REFINED_STEP_CONFIG
+    from glimslib_tpu_torch.ops import fused_cg as fc
+    from glimslib_tpu_torch.optimize.adjoint import InverseProblem, param_map_for_type
+
+    tag = "[14c] world 1:"
+    t_phase = time.perf_counter()
+    names, update = param_map_for_type(2)
+    v0 = vg["v0"]
+
+    def problem(cfg):
+        sim.step_config = cfg
+        return InverseProblem(sim, names, vg["targets"], update_fn=update,
+                              n_steps=N_STEPS, dt=1.0)
+
+    def rel(J, g):
+        return (abs(J - vg["J64"]) / abs(vg["J64"]),
+                float(np.linalg.norm(g - vg["g64"]) / np.linalg.norm(vg["g64"])))
+
+    t0 = time.perf_counter()
+    J0, g0 = problem(REFINED_STEP_CONFIG).value_and_grad(v0)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    rel0 = rel(J0, g0)
+    print(f"{tag} value_and_grad of [9a]'s lattice problem at REFINED_STEP_CONFIG "
+          f"(newton_atol {REFINED_STEP_CONFIG.newton_atol}): first call {first_s:.3f} s; "
+          f"J {J0:.6e}, gradient {g0.tolist()}; rel err J {rel0[0]:.3e} (<= "
+          f"{ADJ_J_RTOL['unstructured']}, the warm-started lanes' limit: NODES_VG_STEPS' "
+          f"note), rel-L2 gradient {rel0[1]:.3e} (<= {ADJ_G_RTOL['lattice']})")
+    if rel0[0] > ADJ_J_RTOL["unstructured"] or rel0[1] > ADJ_G_RTOL["lattice"]:
+        raise AssertionError(f"{tag} at REFINED_STEP_CONFIG against f64: {rel0}")
+    ip = problem(REFINED_STEP_CONFIG._replace(newton_atol=REFINED_NEWTON_ATOL))
+    wrappers = _halo_wrappers() + (fc.cg_scalar, fc.cg_vector)
+    for w in wrappers:
+        w.launches = 0
+    vt = ip._param(v0, True)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    with _PlainCalls() as plain, _Collectives() as coll, _Transposed() as tr:
+        h0 = time.perf_counter()
+        ev[0].record()
+        with torch.enable_grad():
+            J_t = ip._objective(vt)
+        ev[1].record()
+        fwd = {w: w.launches for w in wrappers}
+        coll_fwd, tr_fwd = coll.count, dict(tr.calls)
+        (g_t,) = torch.autograd.grad(J_t, vt)
+        ev[2].record()
+        torch.cuda.synchronize()
+        call_ms = (time.perf_counter() - h0) * 1e3
+    J, g = float(J_t.detach()), g_t.cpu().numpy().astype(np.float64)
+    bwd = {w: w.launches - fwd[w] for w in wrappers}
+    info = {k: [int(i) for i in v] for k, v in sim.solver_info.items()}
+    fwd_ms, bwd_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    _, busy, idle = _print_breakdown(torch, lambda: ip.value_and_grad(v0), call_ms, tag)
+    rel_J, rel_g = rel(J, g)
+    print(f"{tag} value_and_grad of [9a]'s lattice problem (f32 refined, {N_STEPS} steps, "
+          f"newton_atol {REFINED_NEWTON_ATOL}) on the 'nodes' model: J {J:.6e}, gradient "
+          f"{g.tolist()}; against the f64 plain path J {vg['J64']:.6e}, gradient "
+          f"{np.asarray(vg['g64']).tolist()}: rel err J {rel_J:.3e} (<= "
+          f"{ADJ_J_RTOL['lattice']}), rel-L2 gradient {rel_g:.3e} (<= "
+          f"{ADJ_G_RTOL['lattice']})")
+    print(f"{tag} one call {call_ms:.1f} ms (host), forward {fwd_ms:.3f} / backward "
+          f"{bwd_ms:.3f} ms (CUDA events); launches forward / backward: " + ", ".join(
+              f"{w.__name__}={fwd[w]}/{bwd[w]}" for w in wrappers)
+          + f"; of them the backward's transposed halo launches by form "
+          f"{ {k: v - tr_fwd.get(k, 0) for k, v in tr.calls.items()} }; plain stencil "
+          f"calls {plain.calls}; collectives {coll_fwd} / {coll.count - coll_fwd} (NCCL "
+          f"world 1: every reduction, no halo band); adjoint CG iterations rd "
+          f"{info['rd_adj_cg_iters']}, elasticity {info['el_adj_cg_iters']}")
+    t_back = {k: v - tr_fwd.get(k, 0) for k, v in tr.calls.items()}
+    missing = [f for f in NODES_T_FORMS if t_back.get(f, 0) < 1]
+    if (missing or plain.calls or fwd[fc.cg_scalar] + bwd[fc.cg_scalar]
+            + fwd[fc.cg_vector] + bwd[fc.cg_vector]):
+        raise AssertionError(f"{tag} transposed forms not launched {missing}, plain "
+                             f"calls {plain.calls}, or stencil_pcg launched")
+    if rel_J > ADJ_J_RTOL["lattice"] or rel_g > ADJ_G_RTOL["lattice"]:
+        raise AssertionError(f"{tag} against f64: J {rel_J:.3e}, gradient {rel_g:.3e}")
+    aug = sim._augment_theta_with_operators(sim.make_theta(sim.params.as_dict()))
+    rows = _transposed_rows(torch, sim, aug, dev, "[14c]", f" halo@N={N} slab")
+    for row in rows:
+        row["launches"] = t_back[row["form"]]
+    del aug
+    out = dict(first_s=first_s, call_ms=call_ms, forward_ms=fwd_ms, backward_ms=bwd_ms,
+               device_busy_ms=busy, idle_share=idle, J=J, g=g, rel_J=rel_J, rel_grad=rel_g,
+               refined_config_rel=rel0,
+               launches_forward={w.__name__: fwd[w] for w in wrappers},
+               launches_backward={w.__name__: bwd[w] for w in wrappers},
+               transposed_backward=t_back, collectives=(coll_fwd, coll.count - coll_fwd),
+               adjoint_cg={"rd": info["rd_adj_cg_iters"], "el": info["el_adj_cg_iters"]})
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[14c] {out['seconds']:.1f} s")
+    return out, rows
+
+
 def _nodes_halo_check(torch, sim, dev, tag):
     """Every halo form against its plain version at this rank's slab
     shapes (the path's planes, random vectors from a seed), untimed: max
@@ -3580,7 +3857,7 @@ def _nodes_halo_check(torch, sim, dev, tag):
                  for k in NODES_PLANES + ("_rd_diag",)}
 
 
-def _nodes_world1(torch, dev, lat_ref, kernels):
+def _nodes_world1(torch, dev, lat_ref, kernels, vg):
     """[14a]: world 1 over NCCL in this process on the N=32 box under
     use_sharding() (auto: 'nodes'; one model, set up once), 5 steps at the
     bench config and at [9a]'s refined config, each against the f64 plain path and beside the
@@ -3672,22 +3949,28 @@ def _nodes_world1(torch, dev, lat_ref, kernels):
                     for row in rows:
                         row["launches_refined"] = sum(launches[w] for w in row["wrappers"])
                 del simulate, theta, args, u_tr, c_tr
-            del whole, sim
+            del whole
+            out["adjoint"], rows_T = _nodes_adjoint_world1(torch, sim, dev, vg)
+            del sim
         finally:
             dist.destroy_process_group()
     torch.cuda.empty_cache()
-    kernels += rows
-    return out, rows
+    kernels += rows + rows_T
+    return out, rows, rows_T
 
 
-def _rank14b(mesh, cfg):
+def _rank14b(mesh, cfg, vg):
     """[14b]'s work on one rank: the N=32 box padded for the world, under
     use_sharding() at ``cfg``, N_STEPS steps with the counts at 0 just
     before (the halo forms' launches; the collectives, by a timer around
     torch.distributed.all_reduce), a profiled run of NODES_PROFILE_STEPS
     steps a rank, the halo forms against their plain versions at the
     slab's shapes, the plane bytes (rank 0: also the unsharded padded
-    model's, for the same keys)."""
+    model's, for the same keys).  Then [14d] in the same processes: one
+    value_and_grad of NODES_VG_STEPS steps on ``vg`` = (the whole padded
+    targets, v0, its step config) with the counts at 0 just before (launches
+    by wrapper, the transposed launches by form, the collectives), its J,
+    gradient and CG counts."""
     import torch
 
     from glimslib_tpu_torch.core.mesh import box_mesh, pad_mesh_nodes
@@ -3725,10 +4008,11 @@ def _rank14b(mesh, cfg):
     launches = {w.__name__: w.launches for w in wrappers}
     info = dict(sim.solver_info)
     short = sim.build_simulate_fn(NODES_PROFILE_STEPS, 1.0)
-    wall, busy = _rank_busy(torch, mesh, lambda: short(*args))
+    wall, busy = _rank_busy(torch, mesh, lambda: short(*args), profiled=(0,))
     checked, planes = _nodes_halo_check(torch, sim, dev, f"[14b] rank {mesh.rank}")
     slab = sim._node_slab
-    return dict(
+    vg_out = _rank14d(torch, mesh, sim, vg)
+    return dict(vg=vg_out,
         n_own=slab.n_own, n_total=slab.n_total, halo=slab.halo, setup_s=setup_s,
         run_s=run_s, ok=bool(ok.all()), newton=newton.tolist(),
         rd_cg=[int(i) for i in info["rd_cg_iters"]],
@@ -3742,7 +4026,79 @@ def _rank14b(mesh, cfg):
         c=gather_nodes(mesh, slab, c_tr[-1]).cpu().numpy())
 
 
-def _nodes_two_ranks(torch, dev, lat_ref):
+def _rank14d(torch, mesh, sim, vg):
+    """[14d] on one rank (:func:`_rank14b`)."""
+    from glimslib_tpu_torch.ops import fused_cg as fc
+    from glimslib_tpu_torch.optimize.adjoint import InverseProblem, param_map_for_type
+
+    targets, v0, sim.step_config = vg
+    names, update = param_map_for_type(2)
+    ip = InverseProblem(sim, names, targets, update_fn=update, n_steps=NODES_VG_STEPS,
+                        dt=1.0)
+    wrappers = _halo_wrappers() + (fc.cg_scalar, fc.cg_vector)
+    for w in wrappers:
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _PlainCalls() as plain, _Collectives() as coll, _Transposed() as tr:
+        J, g = ip.value_and_grad(v0)
+        torch.cuda.synchronize()
+    info = {k: [int(i) for i in v] for k, v in sim.solver_info.items()}
+    return dict(J=J, g=g, s=time.perf_counter() - t0, plain_calls=plain.calls,
+                launches={w.__name__: w.launches for w in wrappers},
+                transposed=dict(tr.calls), collectives=coll.count, collective_ms=coll.ms,
+                counts=info)
+
+
+def _nodes_vg_report(ranks, ref, tag="[14d]"):
+    """[14d]'s checks on the ranks' value_and_grad (``ref`` = the f64
+    plain path's J and gradient at NODES_VG_STEPS steps): J and the
+    gradient bit-equal on every rank, the same forward and adjoint CG
+    counts, the transposed forms launched, no stencil_pcg and no plain
+    stencil call, J and the gradient within the lattice limits of f64."""
+    import numpy as np
+
+    J64, g64 = ref
+    rows = []
+    for r, o in enumerate(ranks):
+        v = o["vg"]
+        rel_J = abs(v["J"] - J64) / abs(J64)
+        rel_g = float(np.linalg.norm(v["g"] - g64) / np.linalg.norm(g64))
+        per = v["collective_ms"] / max(v["collectives"], 1)
+        print(f"{tag} rank {r}: value_and_grad ({NODES_VG_STEPS} refined steps, newton_atol "
+              f"{REFINED_NEWTON_ATOL}) "
+              f"{v['s']:.2f} s: J {v['J']:.9e}, gradient {v['g'].tolist()}; vs the f64 "
+              f"plain path J {J64:.9e}, gradient {np.asarray(g64).tolist()}: rel err J "
+              f"{rel_J:.3e} (<= {ADJ_J_RTOL['lattice']}), gradient {rel_g:.3e} (<= "
+              f"{ADJ_G_RTOL['lattice']}); CG rd {v['counts']['rd_cg_iters']}, elasticity "
+              f"{v['counts']['el_cg_iters']}, adjoint rd {v['counts']['rd_adj_cg_iters']}, "
+              f"elasticity {v['counts']['el_adj_cg_iters']}; launches {v['launches']}, "
+              f"transposed by form {v['transposed']}, plain stencil calls "
+              f"{v['plain_calls']}; collectives {v['collectives']}, "
+              f"{v['collective_ms']:.1f} ms in all, {per:.3f} ms each (host clock, gloo)")
+        missing = [f for f in NODES_T_FORMS if v["transposed"].get(f, 0) < 1]
+        if (missing or v["plain_calls"] or v["launches"]["cg_scalar"]
+                or v["launches"]["cg_vector"]):
+            raise AssertionError(f"{tag} rank {r}: transposed forms not launched "
+                                 f"{missing}, or plain calls or stencil_pcg: {v}")
+        if rel_J > ADJ_J_RTOL["lattice"] or rel_g > ADJ_G_RTOL["lattice"]:
+            raise AssertionError(f"{tag} rank {r}: J {rel_J:.3e}, gradient {rel_g:.3e}")
+        rows.append(dict({k: v[k] for k in ("J", "s", "launches", "transposed",
+                                              "collectives", "collective_ms")},
+                         g=v["g"].tolist(), rel_J=rel_J, rel_grad=rel_g,
+                         ms_per_collective=per))
+    v0 = ranks[0]["vg"]
+    same = all(o["vg"]["J"] == v0["J"] and np.array_equal(o["vg"]["g"], v0["g"])
+               for o in ranks)
+    counts = all(o["vg"]["counts"] == v0["counts"] for o in ranks)
+    print(f"{tag} J and gradient bit-equal on every rank: {same}; forward and adjoint "
+          f"CG counts equal on every rank: {counts}")
+    if not (same and counts):
+        raise AssertionError(f"{tag} the ranks differ: J/gradient {same}, counts {counts}")
+    return dict(ranks=rows, bit_equal=same, counts_equal=counts)
+
+
+def _nodes_two_ranks(torch, dev, lat_ref, vg):
     """[14b]: NODES_WORLD ranks sharing the card over gloo, [9a]'s refined
     config, N_STEPS steps (module docstring); returns its numbers and the
     halo forms' launches summed over the ranks."""
@@ -3751,11 +4107,28 @@ def _nodes_two_ranks(torch, dev, lat_ref):
     from glimslib_tpu_torch.examples import REFINED_STEP_CONFIG
     from glimslib_tpu_torch.parallel import run_ranks
 
+    from glimslib_tpu_torch.examples import brain_sim
+    from glimslib_tpu_torch.optimize.adjoint import InverseProblem, param_map_for_type
+
     u_r, c_r = (x.cpu().numpy() for x in lat_ref)
     n_real = N_NODES = (N + 1) ** 3
+    # [14d]'s reference: the f64 plain path unpadded on the same targets
     t0 = time.perf_counter()
-    ranks = run_ranks(_rank14b, NODES_WORLD, "gloo", dev, args=(REFINED_STEP_CONFIG,),
-                      timeout=SHARD_TIMEOUT_S)
+    ref = brain_sim(n=N, dtype=torch.float64, device=dev, plain=True)
+    names, update = param_map_for_type(2)
+    J64, g64 = InverseProblem(ref, names, vg["targets"], update_fn=update,
+                              n_steps=NODES_VG_STEPS, dt=1.0).value_and_grad(vg["v0"])
+    del ref
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+    # pad_mesh_nodes pads whole planes of the slowest axis
+    n_pad = -(-(N + 1) // NODES_WORLD) * NODES_WORLD * (N + 1) ** 2
+    targets = {k: np.concatenate([v, np.zeros((n_pad - n_real,) + v.shape[1:], v.dtype)])
+               for k, v in vg["targets"].items()}
+    t0 = time.perf_counter()
+    ranks = run_ranks(_rank14b, NODES_WORLD, "gloo", dev,
+                      args=(REFINED_STEP_CONFIG, (targets, vg["v0"], REFINED_STEP_CONFIG._replace(
+                          newton_atol=REFINED_NEWTON_ATOL))), timeout=SHARD_TIMEOUT_S)
     wall_s = time.perf_counter() - t0
     whole_bytes = ranks[0]["whole_bytes"]
     rows = []
@@ -3777,10 +4150,11 @@ def _nodes_two_ranks(torch, dev, lat_ref):
               f"halo-form launches {o['launches']} (plain stencil calls "
               f"{o['plain_calls']}); collectives {o['collectives']}, "
               f"{o['collective_ms']:.1f} ms in all, {per:.3f} ms each (host clock around "
-              f"torch.distributed.all_reduce, gloo); a profiled "
-              f"{NODES_PROFILE_STEPS}-step run: device busy "
-              f"{o['busy_ms']:.1f} ms of {o['wall_ms']:.1f} ms, idle "
-              + (f"{100 * idle:.1f}%" if idle is not None else "not measured"))
+              f"torch.distributed.all_reduce, gloo)"
+              + (f"; a profiled {NODES_PROFILE_STEPS}-step run: device busy "
+                 f"{o['busy_ms']:.1f} ms of {o['wall_ms']:.1f} ms, idle "
+                 + (f"{100 * idle:.1f}%" if idle is not None else "not measured")
+                 if o["wall_ms"] is not None else "; profiled on rank 0 only"))
         print(f"{tag} halo forms vs plain at the slab's shapes, max rel "
               + ", ".join(f"{k} {v:.2e}" for k, v in o["checked"].items())
               + f"; final c, u on the real nodes vs the f64 plain path rel-L2 "
@@ -3794,7 +4168,7 @@ def _nodes_two_ranks(torch, dev, lat_ref):
         if missing or o["plane_bytes"] * NODES_WORLD != whole_bytes:
             raise AssertionError(f"{tag} not launched {missing}, bytes "
                                  f"{o['plane_bytes']} vs {whole_bytes}")
-        rows.append(dict({k: v for k, v in o.items() if k not in ("u", "c", "planes")},
+        rows.append(dict({k: v for k, v in o.items() if k not in ("u", "c", "planes", "vg")},
                          rel_vs_f64=rel, idle_share=idle, ms_per_collective=per))
     same = all(ranks[0][k] == o[k] for o in ranks for k in ("newton", "rd_cg", "el_cg",
                                                              "fix_cg"))
@@ -3802,25 +4176,37 @@ def _nodes_two_ranks(torch, dev, lat_ref):
           f"(gloo, sharing the card) {wall_s:.1f} s with the spawn")
     if not same:
         raise AssertionError("[14b] the ranks took different solver paths")
-    launches = {}
+    launches, transposed = {}, {}
     for o in ranks:
         for k, v in o["launches"].items():
             launches[k] = launches.get(k, 0) + v
-    return dict(ranks=rows, seconds=wall_s, counts_equal=same), launches
+        for k, v in o["vg"]["transposed"].items():
+            transposed[k] = transposed.get(k, 0) + v
+    t0 = time.perf_counter()
+    vg_out = _nodes_vg_report(ranks, (J64, g64))
+    vg_out.update(f64_reference_s=ref_s)
+    print(f"[14d] f64 plain reference ({NODES_VG_STEPS} steps) {ref_s:.1f} s")
+    return (dict(ranks=rows, seconds=wall_s, counts_equal=same), vg_out, launches,
+            transposed)
 
 
-def phase_nodes(torch, dev, kernels, lat_ref):
+def phase_nodes(torch, dev, kernels, lat_ref, vg):
     """[14]: node sharding of the lattice (module docstring).  ``lat_ref``
-    = [3]'s f64 plain final (u, c); ``kernels`` gains the halo-form rows
-    with their launches in [14a] and [14b]."""
+    = [3]'s f64 plain final (u, c); ``vg`` = [9a]'s lattice value_and_grad
+    (targets, v0, the f64 J and gradient); ``kernels`` gains the halo-form
+    rows with their launches in [14a] and [14b], and the transposed rows
+    with their launches in [14c]'s backward and [14d]'s."""
     t_phase = time.perf_counter()
     out = {}
-    out["world1"], rows = _nodes_world1(torch, dev, lat_ref, kernels)
+    out["world1"], rows, rows_T = _nodes_world1(torch, dev, lat_ref, kernels, vg)
     out["world1_s"] = time.perf_counter() - t_phase
-    print(f"[14a] {out['world1_s']:.1f} s")
-    out["two_ranks"], launches = _nodes_two_ranks(torch, dev, lat_ref)
+    print(f"[14a] and [14c] {out['world1_s']:.1f} s")
+    out["two_ranks"], out["value_and_grad_two_ranks"], launches, transposed = (
+        _nodes_two_ranks(torch, dev, lat_ref, vg))
     for row in rows:
         row["launches_14b"] = sum(launches[w.__name__] for w in row["wrappers"])
+    for row in rows_T:
+        row["launches_14d"] = transposed.get(row["form"], 0)
     out["seconds"] = time.perf_counter() - t_phase
     print(f"[14] node sharding phase {out['seconds']:.1f} s")
     return out
@@ -3885,6 +4271,7 @@ def main():
     torch.cuda.empty_cache()
 
     shard = phase_shard(torch, dev, kern, usim, keep)
+    lat_vg = keep["lattice"]
     del usim, keep
     torch.cuda.empty_cache()
 
@@ -3894,7 +4281,7 @@ def main():
     examples, example_checks = phase_examples(torch, dev, kernels)
     torch.cuda.empty_cache()
 
-    nodes = phase_nodes(torch, dev, kernels, lat_state)
+    nodes = phase_nodes(torch, dev, kernels, lat_state, lat_vg)
     torch.cuda.empty_cache()
 
     drop = ("wrappers", "pattern", "iters")

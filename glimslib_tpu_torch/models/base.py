@@ -70,7 +70,10 @@ matrices as its aggregates' rows; node vectors stay replicated.  Mode
 (``parallel/gspmd.py``); its planes, state and solver vectors hold those
 rows, each stencil apply reads them halo-padded through the halo form of
 ``stencil_apply``, and the solves take the reference's pcg branch with
-every dot product reduced over the ranks.
+every dot product reduced over the ranks; a gradient goes through the
+halo exchange's transpose and the halo form's backward, and theta's
+coefficients enter the slab work through ``parallel.shard.enter`` (their
+cotangent summed over the ranks once).
 """
 
 from __future__ import annotations
@@ -253,8 +256,12 @@ class Simulation(ABC):
         elasticity block, extrapolated warm starts, the chord Jacobian
         where refine_f64 is off) with every norm and dot product reduced
         over the ranks.  ``build_simulate_fn``'s simulate takes and
-        returns the rank's rows; ``run()`` gathers the fields.  Forward
-        only: a gradient through it raises.
+        returns the rank's rows; ``run()`` gathers the fields.  A
+        gradient through simulate is the gradient of the ranks' summed
+        objective, the same on every rank (the halo exchange's
+        transpose, the halo form's backward; theta's coefficients enter
+        the slab through ``shard.enter``); ``optimize.InverseProblem``
+        reduces its objective over the ranks.
 
         ``'cells'``, and ``'nodes'`` on an unstructured mesh, raise
         ``NotImplementedError``: they run on the matrix-free jvp lane,
@@ -578,9 +585,10 @@ class Simulation(ABC):
         transposed planes the backward applies.  The solver state is built
         without a graph: it feeds solvers only, so its cotangent is zero by
         design, as in the reference.  Under node sharding every key holds
-        this rank's rows, the mask-folded forms and ``_mirrors`` are left
-        out (they serve the whole-solve kernel and the backward), and
-        ``_rd_diag`` holds the rd Jacobi diagonal."""
+        this rank's rows, the mask-folded forms are left out (they serve
+        the whole-solve kernel), ``_rd_diag`` holds the rd Jacobi
+        diagonal, and ``_mirrors`` builds the halo form's mirrored
+        (extended) planes."""
         ops = self._stencil_ops
         mask_u, mask_c, _, _ = self._bc_masks_and_values()
         nodes = self._node_slab is not None
@@ -613,9 +621,8 @@ class Simulation(ABC):
             theta["mu"], theta["lam"], theta["coupling"]
         )
         theta["_el_load"] = self._body_load(theta)
-        if not nodes:
-            theta["_mirrors"] = stencil_kernels.MirrorCache(
-                [theta[k] for k in ("_Mst", "_Cuc", "_Wel", "_Wrd_const")])
+        theta["_mirrors"] = stencil_kernels.MirrorCache(
+            [theta[k] for k in ("_Mst", "_Cuc", "_Wel", "_Wrd_const")])
         return theta
 
     def _body_load(self, theta):
@@ -1006,12 +1013,13 @@ class Simulation(ABC):
         bplan, Mrd, bmv = self._get_bell_plan(), theta["_BellMrd"], self._k.bmv
         return lambda v: bell.apply_bell_scalar(bplan, Mrd, v, bmv)
 
-    # mass actions per subspace (the objective's L2 norms, optimize/)
+    # mass actions per subspace (the objective's L2 norms, optimize/);
+    # under node sharding of this rank's rows (the halo exchanged here)
     def concentration_mass_action(self, c):
-        return self.kernels.mass_residual(c)
+        return self.kernels.mass_residual(self._halo(c)[0])
 
     def displacement_mass_action(self, u):
-        return self.kernels.mass_vector_residual(u)
+        return self.kernels.mass_vector_residual(self._halo(u)[0])
 
     # -- step and time loop ----------------------------------------------------
 
@@ -1021,12 +1029,15 @@ class Simulation(ABC):
         theta = dict(theta)
         if self.lattice:
             if self._node_slab is not None:
-                # per-cell coefficients: the slab's cells
+                # the replicated coefficients enter the slab work (their
+                # cotangent, each rank's part, summed over the ranks once),
+                # per-cell ones as the slab's cells
                 ids = torch.as_tensor(self._node_slab.cell_ids, device=self.device)
-                nc = self.mesh.n_cells
-                theta = {k: v[ids] if torch.is_tensor(v) and v.dim() == 1
-                         and v.shape[0] == nc and not k.startswith("_") else v
-                         for k, v in theta.items()}
+                nc, mesh = self.mesh.n_cells, self.device_mesh
+                for k, v in theta.items():
+                    if torch.is_tensor(v) and not k.startswith("_"):
+                        v = shard.enter(mesh, v)
+                        theta[k] = v[ids] if v.dim() == 1 and v.shape[0] == nc else v
             return self._augment_lattice(theta)
         for key in ("_TLCfac", "_TLCfacS"):
             if key in theta and theta[key].dtype == torch.bfloat16:
@@ -1077,7 +1088,8 @@ class Simulation(ABC):
         stacked from the steps' outputs and keeps their graph.
 
         Under node sharding ``u0``, ``c0`` and the trajectory hold this
-        rank's rows, and a gradient through simulate raises."""
+        rank's rows; a gradient through simulate is that of the ranks'
+        summed objective, the same on every rank (:meth:`use_sharding`)."""
         step = self._build_step()
         nodes = self._node_slab is not None
         warm = not self.lattice or nodes
@@ -1090,13 +1102,6 @@ class Simulation(ABC):
         _, mask_c, _, gc = self._bc_masks_and_values()
 
         def simulate(theta, u0, c0, aux=None):
-            if nodes and torch.is_grad_enabled() and any(
-                    torch.is_tensor(v) and v.requires_grad
-                    for v in (u0, c0, *theta.values())):
-                raise NotImplementedError(
-                    "a gradient through the node-sharded lattice is not ported: "
-                    "the transposed stencil needs its mirrored planes with a plane "
-                    "halo, and the adjoint solves the distributed PCG")
             self.solver_info = _new_solver_info()
             theta = {**theta, **(self.runtime_aux() if aux is None else aux)}
             theta = self._augment_theta_with_operators(theta)
@@ -1169,6 +1174,12 @@ class Simulation(ABC):
         or any file is written.  Under sharding every rank runs and
         records, and rank 0 alone writes files and plots.
 
+        Where the parameters are tensors that require grad (the
+        ``run_for_adjoint*`` runners given tensors), ``self.solution``
+        holds the final (u, c) as tensors with their graph, the whole
+        fields gathered differentiably under node sharding: the
+        counterpart of the reference's taped solution.
+
         Differs from the reference: the trajectory comes to the host once,
         after the whole simulate (the trajectory's tensors come from
         :meth:`build_simulate_fn`), and the recorded steps are plotted
@@ -1204,13 +1215,17 @@ class Simulation(ABC):
         u_traj, c_traj, ok_traj, newton = self.build_simulate_fn(n_steps, dt)(
             theta, u0, c0
         )
+        # parameters that require grad (the run_for_adjoint runners given
+        # tensors): the solution keeps its graph
+        keep = u_traj.requires_grad or c_traj.requires_grad
         if self._node_slab is not None:
             # the whole fields on every rank, from each rank's rows
+            # (differentiable: a rank's rows of the replicated cotangent)
             from glimslib_tpu_torch.parallel.gspmd import gather_nodes
 
             whole = lambda x: gather_nodes(self.device_mesh, self._node_slab, x)  # noqa: E731
-            u_traj = whole(u_traj.detach().movedim(1, 0)).movedim(0, 1)
-            c_traj = whole(c_traj.detach().movedim(1, 0)).movedim(0, 1)
+            u_traj = whole(u_traj.movedim(1, 0)).movedim(0, 1)
+            c_traj = whole(c_traj.movedim(1, 0)).movedim(0, 1)
             u0, c0 = whole(u0), whole(c0)
         self.solver_info["newton_iters"] = newton.numpy()
         self.logger.info("    - newton iterations per step: %s", newton.tolist())
@@ -1247,8 +1262,12 @@ class Simulation(ABC):
         self.results.save_solution_end(method=save_method)
         if writer:
             self.results.save_solution_hdf5()
-        self.solution = {0: u_host[n_ok - 1] if n_ok else u0_host,
-                         1: c_host[n_ok - 1] if n_ok else c0_host}
+        if keep:
+            self.solution = {0: u_traj[n_ok - 1] if n_ok else u0,
+                             1: c_traj[n_ok - 1] if n_ok else c0}
+        else:
+            self.solution = {0: u_host[n_ok - 1] if n_ok else u0_host,
+                             1: c_host[n_ok - 1] if n_ok else c0_host}
         return self.solution
 
     # -- reload (reference simulation_base.py:319-325) ----------------------

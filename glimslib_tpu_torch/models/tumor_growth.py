@@ -187,6 +187,8 @@ class TumorGrowth(Simulation):
         return rd_hi, el_hi
 
     # -- adjoint runners (reference simulation_tumor_growth.py:142-170) ------
+    # Given tensors that require grad, the returned solution keeps its
+    # graph (Simulation.run), gathered differentiably under node sharding.
 
     def run_for_adjoint(self, parameters, output_dir=None):
         """Update (diffusion, proliferation, coupling) then run."""

@@ -103,6 +103,8 @@ class TumorGrowthBrain(TumorGrowth):
         }
 
     # -- adjoint runners (reference brain_quad.py:131-210) --------------------
+    # Given tensors that require grad, the returned solution keeps its
+    # graph (Simulation.run), gathered differentiably under node sharding.
 
     def _set_and_run(self, updates: Dict, output_dir=None):
         for k, v in updates.items():

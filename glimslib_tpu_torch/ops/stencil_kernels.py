@@ -19,9 +19,7 @@ Halo form (``halo=h > 0``, the node-sharded lattice of
 the input vectors those rows with h rows of the neighbours on either side
 (n + 2h rows), and ``y[i] = sum_o W[o, i] v[i + h + off_o]``, with no
 wrap; every offset must lie within the halo.  Its plain version reads
-narrow slices of the padded input.  The halo form has no backward (the
-transposed planes would need rows of the neighbours' planes): under grad
-it raises.
+narrow slices of the padded input.
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches ``stencil_apply<d_out, d_in, terms>`` (``csrc/stencil.cu``) or
 raises, also for a d the kernel has no form for.  The launch path is
@@ -43,10 +41,19 @@ transpose of the same stencil:
   the wrapper of the form they launch (``apply_scalar``, ``apply_vector``,
   ``apply_scalar_sum``).
 - dW[o, a, b, i] = y[i, a] v[i + off_o, b], in plain torch.
+- The halo form's dv is the cotangent of the whole padded input, n + 2h
+  rows, built from the rank's own planes alone: the planes zero-extended
+  by h rows on either side are mirrored (the wrap of the shift reads
+  only those zeros), and the halo form launches on them with n + 2h
+  output rows over y zero-padded by 2h rows on either side.  The halo
+  rows of dv belong to the neighbours' rows: the exchange's transpose
+  (``parallel/gspmd.py``) adds them there.  dW reads the padded input's
+  slices, so it holds the own rows only.
 
 The same Functions run on both devices: on CPU tensors the forward and
 the transposed applies are the plain versions.  A :class:`MirrorCache`
-keeps the mirrored planes of planes that stay fixed over a simulate.
+keeps the mirrored planes of planes that stay fixed over a simulate (by
+halo: the halo form's are the extended planes').
 """
 
 from __future__ import annotations
@@ -161,8 +168,7 @@ def apply_scalar(offsets, W, v, cache=None, halo=0):
     the halo form (n + 2 halo,).  ``cache``: a :class:`MirrorCache` for the
     backward's transposed planes."""
     if _needs_grad(W, v):
-        _no_halo_grad(halo)
-        return _Apply.apply("scalar", offsets, cache, W, v)
+        return _Apply.apply("scalar", offsets, cache, halo, W, v)
     return _scalar_raw(offsets, W, v, halo)
 
 
@@ -198,8 +204,7 @@ def _vector_raw(offsets, W, u, halo=0):
 def apply_vector(offsets, W, u, cache=None, halo=0):
     """(A u)[i, a] = sum_o sum_b W[o, a, b, i] u[i + off_o, b]."""
     if _needs_grad(W, u):
-        _no_halo_grad(halo)
-        return _Apply.apply("vector", offsets, cache, W, u)
+        return _Apply.apply("vector", offsets, cache, halo, W, u)
     return _vector_raw(offsets, W, u, halo)
 
 
@@ -221,8 +226,7 @@ def _coupling_raw(offsets, C, c, halo=0):
 def apply_coupling(offsets, C, c, cache=None, halo=0):
     """(C c)[i, a] = sum_o C[o, a, i] c[i + off_o]; returns (n, d)."""
     if _needs_grad(C, c):
-        _no_halo_grad(halo)
-        return _Apply.apply("coupling", offsets, cache, C, c)
+        return _Apply.apply("coupling", offsets, cache, halo, C, c)
     return _coupling_raw(offsets, C, c, halo)
 
 
@@ -267,9 +271,8 @@ def apply_scalar_sum(offsets, terms, b, cache=None, halo=0):
     offset set, in one launch."""
     flat = [t for W, v, _ in terms for t in (W, v)]
     if _needs_grad(b, *flat):
-        _no_halo_grad(halo)
         return _ApplySum.apply(offsets, tuple(float(s) for _, _, s in terms),
-                               cache, b, *flat)
+                               cache, halo, b, *flat)
     return _sum_raw(offsets, terms, b, halo)
 
 
@@ -280,23 +283,19 @@ def _needs_grad(*tensors):
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
-def _no_halo_grad(halo):
-    if halo:
-        raise NotImplementedError(
-            "stencil_apply's halo form has no backward: its transposed planes "
-            "need the neighbours' plane rows (a plane halo)")
-
-
 @functools.lru_cache(maxsize=64)
-def _shift_table(offsets, n, device):
+def _shift_table(offsets, n, device, halo):
     off = torch.as_tensor(offsets, dtype=torch.int64, device=device)
-    return torch.remainder(off[:, None] + torch.arange(n, device=device)[None, :], n)
+    idx = off[:, None] + torch.arange(n, device=device)[None, :]
+    return idx + halo if halo else torch.remainder(idx, n)
 
 
-def _shift_index(offsets, n, device):
-    """(n_off, n) int64 ``idx[o, i] = (i + off_o) mod n``, built once per
-    (offsets, n, device); read-only."""
-    return _shift_table(tuple(int(o) for o in offsets), n, torch.device(device))
+def _shift_index(offsets, n, device, halo=0):
+    """(n_off, n) int64 ``idx[o, i] = (i + off_o) mod n``, or in the halo
+    form ``i + halo + off_o``, built once per (offsets, n, device, halo);
+    read-only."""
+    return _shift_table(tuple(int(o) for o in offsets), n, torch.device(device),
+                        int(halo))
 
 
 @functools.lru_cache(maxsize=64)
@@ -325,10 +324,13 @@ def mirror_planes(offsets, W4):
     return torch.gather(Wp, 3, idx[:, None, None, :].expand(Wp.shape)).contiguous()
 
 
-def _transposed(offsets, W, form):
+def _transposed(offsets, W, form, halo=0):
     """Mirrored planes of ``W`` in the layout the transposed launch takes:
     scalar (n_off, n), vector (n_off, d, d, n), coupling (d, n_off, n)
-    (one scalar plane set per displacement component)."""
+    (one scalar plane set per displacement component); ``halo`` > 0: of
+    ``W`` zero-extended by ``halo`` rows on either side (n + 2 halo)."""
+    if halo:
+        W = torch.nn.functional.pad(W, (halo, halo))
     if form == "scalar":
         return mirror_planes(offsets, W[:, None, None, :])[:, 0, 0]
     if form == "vector":
@@ -351,40 +353,63 @@ class MirrorCache:
         self._planes = {_key(W): W for W in planes}
         self._built = {}
 
-    def transposed(self, offsets, W, form):
+    def transposed(self, offsets, W, form, halo=0):
         key = _key(W)
         if key not in self._planes:
-            return _transposed(offsets, W, form)
-        hit = self._built.get((key, form))
+            return _transposed(offsets, W, form, halo)
+        hit = self._built.get((key, form, halo))
         if hit is None:
-            hit = self._built[(key, form)] = _transposed(offsets, W.detach(), form)
+            hit = self._built[(key, form, halo)] = _transposed(offsets, W.detach(), form,
+                                                               halo)
         return hit
 
 
-def _mirror(offsets, W, form, cache):
+def _mirror(offsets, W, form, cache, halo=0):
     if cache is None:
-        return _transposed(offsets, W, form)
-    return cache.transposed(offsets, W, form)
+        return _transposed(offsets, W, form, halo)
+    return cache.transposed(offsets, W, form, halo)
 
 
-def plane_grad(offsets, y, v):
+def plane_grad(offsets, y, v, halo=0):
     """dW of ``y = A v``: ``dW[o, a, b, i] = y[i, a] v[i + off_o, b]``,
-    (n_off, d_out, d_in, n), for y (n,) or (n, d_out), v (n,) or (n, d_in)."""
+    (n_off, d_out, d_in, n), for y (n,) or (n, d_out), v (n,) or (n, d_in)
+    (the halo form: (n + 2 halo,) or (n + 2 halo, d_in), read at ``i +
+    halo + off_o``)."""
     n = y.shape[0]
-    y2, v2 = y.reshape(n, -1), v.reshape(n, -1)
-    vs = v2[_shift_index(offsets, n, v.device)]  # (n_off, n, d_in)
+    y2, v2 = y.reshape(n, -1), v.reshape(v.shape[0], -1)
+    vs = v2[_shift_index(offsets, n, v.device, halo)]  # (n_off, n, d_in)
     return y2.T[None, :, None, :] * vs.permute(0, 2, 1)[:, None, :, :]
 
 
-def _transposed_apply(form, offsets, WT, y):
+def _transposed_apply(form, offsets, WT, y, halo=0, plain=False):
     """A^T y through one launch of the kernel (its plain version on the
-    CPU)."""
+    CPU, or with ``plain``).  ``halo`` > 0: ``WT`` the mirrored extended
+    planes (n + 2 halo rows), and the halo form's launch on them over y
+    zero-padded by 2 halo rows on either side gives the cotangent of all
+    n + 2 halo rows of the padded input."""
+    scalar, vector, total = ((apply_scalar_plain, apply_vector_plain, apply_scalar_sum_plain)
+                             if plain else (_scalar_raw, _vector_raw, _sum_raw))
+    n, lo = y.shape[0], 2 * halo
+    if form == "coupling":
+        # y's components as rows, each zero-padded by 2 halo rows
+        cols = y.new_zeros((y.shape[1], n + 2 * lo)) if halo else y.T.contiguous()
+        if halo:
+            cols[:, lo:lo + n] = y.T
+        terms = [(WT[a], cols[a], 1.0) for a in range(WT.shape[0])]
+        return total(offsets, terms, y.new_zeros(WT.shape[-1]), halo)
+    if halo:
+        y_pad = y.new_zeros((n + 2 * lo,) + tuple(y.shape[1:]))
+        y_pad[lo:lo + n] = y
+        y = y_pad
     if form == "scalar":
-        return _scalar_raw(offsets, WT, y)
-    if form == "vector":
-        return _vector_raw(offsets, WT, y)
-    terms = [(WT[a], y[:, a].contiguous(), 1.0) for a in range(WT.shape[0])]
-    return _sum_raw(offsets, terms, y.new_zeros(y.shape[0]))
+        return scalar(offsets, WT, y, halo)
+    return vector(offsets, WT, y, halo)
+
+
+def transposed_apply_plain(form, offsets, WT, y, halo=0):
+    """The plain version of the backward's transposed launch (on any
+    device): the plain forms on the same mirrored planes and padded y."""
+    return _transposed_apply(form, offsets, WT, y, halo, plain=True)
 
 
 _FORWARD = {"scalar": _scalar_raw, "vector": _vector_raw, "coupling": _coupling_raw}
@@ -394,10 +419,10 @@ class _Apply(torch.autograd.Function):
     """One stencil form, ``y = A v``, with its VJP (module docstring)."""
 
     @staticmethod
-    def forward(ctx, form, offsets, cache, W, v):
-        ctx.form, ctx.offsets, ctx.cache = form, offsets, cache
+    def forward(ctx, form, offsets, cache, halo, W, v):
+        ctx.form, ctx.offsets, ctx.cache, ctx.halo = form, offsets, cache, halo
         ctx.save_for_backward(W, v)
-        return _FORWARD[form](offsets, W, v)
+        return _FORWARD[form](offsets, W, v, halo)
 
     @staticmethod
     @once_differentiable
@@ -405,12 +430,12 @@ class _Apply(torch.autograd.Function):
         W, v = ctx.saved_tensors
         gy = gy.contiguous()
         dW = dv = None
-        if ctx.needs_input_grad[3]:
-            dW = plane_grad(ctx.offsets, gy, v).reshape(W.shape)
         if ctx.needs_input_grad[4]:
-            WT = _mirror(ctx.offsets, W, ctx.form, ctx.cache)
-            dv = _transposed_apply(ctx.form, ctx.offsets, WT, gy)
-        return None, None, None, dW, dv
+            dW = plane_grad(ctx.offsets, gy, v, ctx.halo).reshape(W.shape)
+        if ctx.needs_input_grad[5]:
+            WT = _mirror(ctx.offsets, W, ctx.form, ctx.cache, ctx.halo)
+            dv = _transposed_apply(ctx.form, ctx.offsets, WT, gy, ctx.halo)
+        return None, None, None, None, dW, dv
 
 
 class _ApplySum(torch.autograd.Function):
@@ -418,11 +443,11 @@ class _ApplySum(torch.autograd.Function):
     dW_k = s_k (y outer shifted v_k), dv_k = s_k W_k^T y."""
 
     @staticmethod
-    def forward(ctx, offsets, scales, cache, b, *flat):
-        ctx.offsets, ctx.scales, ctx.cache = offsets, scales, cache
+    def forward(ctx, offsets, scales, cache, halo, b, *flat):
+        ctx.offsets, ctx.scales, ctx.cache, ctx.halo = offsets, scales, cache, halo
         ctx.save_for_backward(*flat)
         terms = [(flat[2 * k], flat[2 * k + 1], s) for k, s in enumerate(scales)]
-        return _sum_raw(offsets, terms, b)
+        return _sum_raw(offsets, terms, b, halo)
 
     @staticmethod
     @once_differentiable
@@ -434,14 +459,14 @@ class _ApplySum(torch.autograd.Function):
         for k, s in enumerate(ctx.scales):
             W, v = flat[2 * k], flat[2 * k + 1]
             dW = dv = None
-            if need[4 + 2 * k]:
-                dW = s * plane_grad(ctx.offsets, gy, v).reshape(W.shape)
             if need[5 + 2 * k]:
-                WT = _mirror(ctx.offsets, W, "scalar", ctx.cache)
-                dv = _scalar_raw(ctx.offsets, WT, gy)
+                dW = s * plane_grad(ctx.offsets, gy, v, ctx.halo).reshape(W.shape)
+            if need[6 + 2 * k]:
+                WT = _mirror(ctx.offsets, W, "scalar", ctx.cache, ctx.halo)
+                dv = _transposed_apply("scalar", ctx.offsets, WT, gy, ctx.halo)
                 dv = dv if s == 1.0 else s * dv
             grads += (dW, dv)
-        return (None, None, None, -gy if need[3] else None, *grads)
+        return (None, None, None, None, -gy if need[4] else None, *grads)
 
 
 apply_scalar.launches = 0

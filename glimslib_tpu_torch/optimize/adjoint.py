@@ -23,6 +23,14 @@ heuristics (simulation_tumor_growth_brain_quad.py:151-210), e.g. the
 ``InverseProblem.export_computation_graph`` writes the autograd graph of
 one objective evaluation as text, the counterpart of the reference's
 jaxpr dump.
+
+On a model under ``use_sharding(mode="nodes")`` every rank builds the
+problem on the same whole targets and keeps its rows of them; each L2
+term is the rank's owned rows against their halo-padded mass action, and
+the rank's partial J is summed over the ranks once
+(``parallel.shard.reduce_sum``), so J and the gradient are the same on
+every rank, bit for bit, and ``minimize`` takes the same iterates on all
+of them.  Rank 0 alone writes ``export_computation_graph``'s file.
 """
 
 from __future__ import annotations
@@ -31,6 +39,8 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+
+from glimslib_tpu_torch.parallel.shard import reduce_sum
 
 CONC_THRESHOLD_LEVELS = {"T2": 0.12, "T1": 0.80}  # reference l.52-53
 THRESH_SMOOTHNESS = 0.01  # reference l.1404
@@ -123,13 +133,6 @@ class InverseProblem:
         reg_alpha: float = 0.0,
         target_weights: Optional[Dict[str, float]] = None,
     ):
-        if getattr(sim, "sharding_mode", None) == "nodes":
-            raise NotImplementedError(
-                "InverseProblem on a model under use_sharding(mode='nodes') is not "
-                "ported (ROADMAP queue 1, item 4b-ii): the adjoint's transposed "
-                "stencil needs the mirrored planes with a plane halo, and its "
-                "solves need the distributed PCG; use mode 'bell' on an "
-                "unstructured mesh, or an unsharded model")
         # reg_alpha: Tikhonov weight on the final state, J += α ∫ |u|²+c² dx
         # (test_case_..._2D_uniform_adjoint_noise.py: alpha*inner(u,u)*dx)
         self.reg_alpha = float(reg_alpha)
@@ -142,9 +145,12 @@ class InverseProblem:
         self.update_fn = update_fn or (
             lambda v: dict(zip(self.param_names, list(v)))
         )
+        # node sharding: the rank's rows of the whole targets
+        nodes = getattr(sim, "sharding_mode", None) == "nodes"
+        self._mesh = sim.device_mesh if nodes else None
         self.targets = {
-            k: (v.detach() if torch.is_tensor(v) else torch.as_tensor(np.array(v)))
-            .to(dtype=sim.dtype, device=sim.device)
+            k: sim._own((v.detach() if torch.is_tensor(v) else torch.as_tensor(np.array(v)))
+                        .to(dtype=sim.dtype, device=sim.device)).contiguous()
             for k, v in targets.items()
         }
         self.levels = dict(threshold_levels)
@@ -164,7 +170,8 @@ class InverseProblem:
 
     def _l2sq(self, f):
         """∫ f² dx (or ∫|f|² for vectors) with the consistent mass matrix
-        of the owning subspace."""
+        of the owning subspace (under node sharding this rank's part: its
+        owned rows against their mass action)."""
         if f.dim() == 1:
             return torch.sum(f * self.sim.concentration_mass_action(f))
         return torch.sum(f * self.sim.displacement_mass_action(f))
@@ -192,7 +199,7 @@ class InverseProblem:
             J = J + w.get("disp", 1.0) * l2sq(u_T - targets["disp"])
         if self.reg_alpha > 0.0:
             J = J + self.reg_alpha * (l2sq(u_T) + l2sq(c_T))
-        return J
+        return reduce_sum(self._mesh, J)
 
     def export_computation_graph(self, path, v=None):
         """Write the autograd graph of one objective evaluation at ``v``
@@ -202,11 +209,14 @@ class InverseProblem:
         node counts by name, then every node by a depth-first walk of
         ``grad_fn`` from J, one line each, indented by depth and named
         with its id, with the ids of nodes already listed in brackets.
-        Each implicit step is one ``_ImplicitStepBackward`` node.  Returns
-        ``path``."""
+        Each implicit step is one ``_ImplicitStepBackward`` node.  Under
+        node sharding every rank evaluates J and rank 0 alone writes.
+        Returns ``path``."""
         v = np.zeros(len(self.param_names)) if v is None else np.asarray(v)
         with torch.enable_grad():
             J = self._objective(self._param(v, True))
+        if self._mesh is not None and self._mesh.rank != 0:
+            return path
         ids, lines, counts = {}, [], {}
         stack = [(J.grad_fn, 0)]
         while stack:

@@ -9,9 +9,9 @@ from glimslib_tpu_torch.parallel.gspmd import (
     NodeSlab, gather_nodes, halo_exchange, halo_exchange_many, shard_simulate,
 )
 from glimslib_tpu_torch.parallel.shard import (
-    DeviceMesh, enter, gather_rows, make_device_mesh, run_ranks,
+    DeviceMesh, enter, gather_rows, make_device_mesh, reduce_sum, run_ranks,
 )
 
 __all__ = ["DeviceMesh", "NodeSlab", "enter", "gather_nodes", "gather_rows",
-           "halo_exchange", "halo_exchange_many", "make_device_mesh", "run_ranks",
-           "shard_simulate"]
+           "halo_exchange", "halo_exchange_many", "make_device_mesh", "reduce_sum",
+           "run_ranks", "shard_simulate"]

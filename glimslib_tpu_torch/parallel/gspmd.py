@@ -26,13 +26,28 @@ it serves a halo that reaches past the nearest neighbour (a rank of 16
 nodes under a halo of 21).  Point-to-point sends of the halo slices
 alone are later work.
 
+Differentiation.  The exchange is an autograd Function whose VJP is the
+transposed exchange: each rank writes the cotangents of its halo rows
+into the band at their global rows, one all-reduce sums them, and each
+owner adds the band rows it sent into the cotangent of its own rows
+(again one collective, none at world 1).  Every rank runs the same
+autograd graph, so the backward's collectives come in the same order on
+all of them.  :func:`gather_nodes` is differentiable as
+``parallel/shard.py gather_rows`` is (a rank's rows of the replicated
+cotangent).  A replicated coefficient entering a rank's slab work goes
+through ``shard.enter`` (``Simulation._augment_theta_with_operators``),
+which sums its cotangent over the ranks once, and a rank-local partial
+sum leaves it through ``shard.reduce_sum``: so the gradient of a
+functional of the trajectory is the unsharded model's on every rank.
+
 Non-divisible node counts: pad the mesh with
 :func:`glimslib_tpu_torch.core.mesh.pad_mesh_nodes` before building the
 model (its padding nodes are unused, zero-Dirichlet dofs; every rank then
 owns whole planes of the slowest lattice axis).
 
 This module is the functional entry; the object API is
-``sim.use_sharding(device_mesh, mode="nodes")`` followed by ``run()``.
+``sim.use_sharding(device_mesh, mode="nodes")`` followed by ``run()``,
+or by ``optimize.InverseProblem`` for a gradient.
 """
 
 from __future__ import annotations
@@ -41,8 +56,10 @@ import types
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from glimslib_tpu_torch.ops.stencil import stencil_offsets
+from glimslib_tpu_torch.parallel.shard import gather_rows
 
 
 class NodeSlab:
@@ -111,11 +128,7 @@ class NodeSlab:
         return x[self.start:self.end]
 
 
-def halo_exchange(mesh, slab, x_own):
-    """``x_own`` (n_own, ...) with H rows of the neighbouring ranks on
-    either side: (n_own + 2 H, ...), zeros where the rows lie outside the
-    mesh.  One all-reduce over the exchange band (none at world 1).  Every
-    rank calls it at once."""
+def _exchange(mesh, slab, x_own):
     H, tail = slab.halo, tuple(x_own.shape[1:])
     out = x_own.new_zeros((slab.n_pad,) + tail)
     out[H:H + slab.n_own] = x_own
@@ -127,10 +140,50 @@ def halo_exchange(mesh, slab, x_own):
     return out
 
 
+def _exchange_T(mesh, slab, g_pad):
+    """The transposed exchange: (n_own + 2 H, ...) cotangents of the
+    padded rows -> (n_own, ...) cotangents of the owned rows, each halo
+    row's added to its owner's row (one all-reduce over the band)."""
+    H = slab.halo
+    g = g_pad[H:H + slab.n_own].clone()
+    if slab.n_band:
+        band = g_pad.new_zeros((slab.n_band,) + tuple(g_pad.shape[1:]))
+        band[slab.recv_pos] = g_pad[slab.recv_dst]
+        mesh.all_reduce(band)
+        # send_src holds each owned row once: a plain indexed add
+        g[slab.send_src] += band[slab.send_pos]
+    return g
+
+
+class _HaloExchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x_own, mesh, slab):
+        ctx.mesh, ctx.slab = mesh, slab
+        return _exchange(mesh, slab, x_own)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_pad):
+        return _exchange_T(ctx.mesh, ctx.slab, g_pad.contiguous()), None, None
+
+
+def halo_exchange(mesh, slab, x_own):
+    """``x_own`` (n_own, ...) with H rows of the neighbouring ranks on
+    either side: (n_own + 2 H, ...), zeros where the rows lie outside the
+    mesh.  One all-reduce over the exchange band (none at world 1), and
+    under grad one more in the backward (the transposed exchange).  Every
+    rank calls it at once."""
+    if torch.is_grad_enabled() and x_own.requires_grad:
+        return _HaloExchange.apply(x_own, mesh, slab)
+    return _exchange(mesh, slab, x_own)
+
+
 def halo_exchange_many(mesh, slab, *xs):
     """:func:`halo_exchange` of several node vectors of one dtype, (n_own,)
     or (n_own, k), in one exchange: stacked as columns, exchanged, split
-    again (each padded vector contiguous)."""
+    again (each padded vector contiguous).  A padded vector whose input
+    needs no gradient is detached, so no backward asks for its cotangent
+    (a residual VJP in u and c wants c's alone)."""
     if len(xs) == 1:
         return [halo_exchange(mesh, slab, xs[0])]
     cols = [x[:, None] if x.dim() == 1 else x for x in xs]
@@ -139,15 +192,17 @@ def halo_exchange_many(mesh, slab, *xs):
     for x, c in zip(xs, cols):
         k = c.shape[1]
         part = padded[:, j:j + k]
-        out.append((part[:, 0] if x.dim() == 1 else part).contiguous())
+        part = (part[:, 0] if x.dim() == 1 else part).contiguous()
+        out.append(part if x.requires_grad else part.detach())
         j += k
     return out
 
 
 def gather_nodes(mesh, slab, x_own):
     """The whole (n, ...) field on every rank from each rank's owned rows
-    (one all-reduce of a zero buffer, ``DeviceMesh.gather_rows``)."""
-    return mesh.gather_rows(x_own, slab.start, slab.n_total)
+    (one all-reduce of a zero buffer, ``shard.gather_rows``);
+    differentiable: a rank's rows of the replicated cotangent."""
+    return gather_rows(mesh, x_own, slab.start, slab.n_total)
 
 
 def shard_simulate(sim, n_steps, dt, device_mesh):
@@ -155,7 +210,9 @@ def shard_simulate(sim, n_steps, dt, device_mesh):
     ``(simulate_fn, prepare)``, where ``prepare(theta, u0, c0)`` takes the
     whole initial state and returns the arguments of ``simulate_fn``
     (theta, this rank's rows of ``u0`` and ``c0``), and ``simulate_fn``
-    returns this rank's rows of the trajectory.  Requires a lattice mesh
+    returns this rank's rows of the trajectory, differentiable in theta
+    (the gradient of the ranks' summed objective, the same on every
+    rank; module docstring).  Requires a lattice mesh
     and ``n_nodes % world == 0`` (see pad_mesh_nodes)."""
     if sim.mesh.lattice_strides is None:
         raise ValueError("gspmd sharding requires a lattice mesh (stencil mode)")

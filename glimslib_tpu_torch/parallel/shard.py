@@ -15,15 +15,16 @@ contracts it, and one collective re-replicates the result.
   runs side by side never collide), and returns what ``fn`` returned on
   each rank.  The caller names the backend: ``nccl`` with one card per
   rank, or ``gloo``, for the CPU and for ranks that share one card.
-- :func:`enter` and :func:`gather_rows` are the two crossings between
-  replicated and rank-local tensors, each an autograd Function: a
-  replicated tensor entering rank-local work is the identity forward and
-  an ``all_reduce`` (sum) of its cotangent backward, since each rank's
-  gradient is the part of its own slab; gathering the slabs' rows is an
-  ``all_reduce`` of a zero buffer in which each rank fills its own rows
-  (exact: adding zeros is exact; it takes uneven slabs and CUDA tensors
-  on either backend), and its backward takes the rank's rows of the
-  replicated cotangent.
+- :func:`enter`, :func:`gather_rows` and :func:`reduce_sum` are the
+  crossings between replicated and rank-local tensors, each an autograd
+  Function: a replicated tensor entering rank-local work is the identity
+  forward and an ``all_reduce`` (sum) of its cotangent backward, since
+  each rank's gradient is the part of its own slab; gathering the slabs'
+  rows is an ``all_reduce`` of a zero buffer in which each rank fills its
+  own rows (exact: adding zeros is exact; it takes uneven slabs and CUDA
+  tensors on either backend), and its backward takes the rank's rows of
+  the replicated cotangent; a rank-local partial sum made replicated is
+  an ``all_reduce`` forward and the identity backward.
 
 The lattice's node sharding (``mode="nodes"``) is ``parallel/gspmd.py``.
 Not ported: ``ShardedP1Kernels`` (``mode="cells"``), the unstructured
@@ -148,6 +149,27 @@ def gather_rows(mesh, local, start, total):
     if torch.is_grad_enabled() and local.requires_grad:
         return _GatherRows.apply(local, mesh, start, total)
     return mesh.gather_rows(local, start, total)
+
+
+class _ReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return mesh.all_reduce(x.contiguous().clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def reduce_sum(mesh, x):
+    """The sum over the ranks of each rank's partial ``x``, the same on
+    every rank (one ``all_reduce``): differentiable, each partial's
+    cotangent being the replicated result's."""
+    if mesh is None:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _ReduceSum.apply(x, mesh)
+    return mesh.all_reduce(x.contiguous().clone())
 
 
 # -- the launcher --------------------------------------------------------------

@@ -912,3 +912,111 @@ def test_nodes_mode_runs_through_the_halo_forms(world, backend):
         for x, want in ((out["c"], c_r[-1]), (out["u"], u_r[-1])):
             want = want.cpu().numpy()
             assert np.linalg.norm(x - want) / np.linalg.norm(want) <= 1e-4
+
+
+@pytest.mark.parametrize("form", ["scalar", "vector", "coupling", "vector2", "coupling2",
+                                  "sum3"])
+def test_stencil_apply_halo_form_backward_matches_plain(form):
+    """The halo form's backward at n = 1001 owned rows and a halo of 60,
+    15 offsets symmetric in [-60, 60]: dW and dv (all n + 2h padded rows)
+    through the wrappers, whose dv is one transposed launch of the halo
+    form on mirrored extended planes (counted on the wrapper of the form it
+    launches), against torch's autograd of the plain halo form, max rel
+    1e-5; and the transposed launch alone against its plain version on
+    the same planes, max rel 1e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(13)
+    n, h = 1001, 60
+    half = sorted({h} | {int(o) for o in rng.choice(np.arange(1, h), 6, replace=False)})
+    offs = sorted([0] + half + [-o for o in half])
+    assert len(offs) == 15
+    f32 = lambda *s: torch.as_tensor(rng.standard_normal(s), dtype=torch.float32,  # noqa: E731
+                                     device="cuda").requires_grad_()
+    d = 2 if form.endswith("2") else 3
+    if form == "sum3":
+        args = [f32(15, n), f32(n + 2 * h), f32(15, n), f32(n + 2 * h), f32(15, n),
+                f32(n + 2 * h), f32(n)]
+
+        def call(fn, W1, v1, W2, v2, W3, v3, b):
+            return fn(offs, ((W1, v1, 1.0), (W2, v2, 0.5), (W3, v3, -1.0)), b, halo=h)
+        kern, plain, launched = sk.apply_scalar_sum, sk.apply_scalar_sum_plain, sk.apply_scalar
+        n_launch, planes = 3, [("scalar", 0), ("scalar", 2), ("scalar", 4)]
+    else:
+        base = form.rstrip("2")
+        kern, plain, W, x, launched = {
+            "scalar": (sk.apply_scalar, sk.apply_scalar_plain, f32(15, n), f32(n + 2 * h),
+                       sk.apply_scalar),
+            "vector": (sk.apply_vector, sk.apply_vector_plain, f32(15, d, d, n),
+                       f32(n + 2 * h, d), sk.apply_vector),
+            "coupling": (sk.apply_coupling, sk.apply_coupling_plain, f32(15, d, n),
+                         f32(n + 2 * h), sk.apply_scalar_sum),
+        }[base]
+        args = [W, x]
+
+        def call(fn, W, x):
+            return fn(offs, W, x, halo=h)
+        n_launch, planes = 1, [(base, 0)]
+    got = call(kern, *args)
+    gy = torch.as_tensor(rng.standard_normal(tuple(got.shape)), dtype=torch.float32,
+                         device="cuda")
+    before = launched.launches
+    g_kern = torch.autograd.grad(got, args, gy)
+    torch.cuda.synchronize()
+    assert launched.launches - before == n_launch
+    g_plain = torch.autograd.grad(call(plain, *args), args, gy)
+    for a, b in zip(g_kern, g_plain):
+        assert a.shape == b.shape and _rel_max(a, b) <= 1e-5
+    with torch.no_grad():
+        for tform, iw in planes:
+            WT = sk._transposed(offs, args[iw], tform, h)
+            assert WT.shape[-1] == n + 2 * h
+            k_out = sk._transposed_apply(tform, offs, WT, gy.contiguous(), h)
+            p_out = sk.transposed_apply_plain(tform, offs, WT, gy.contiguous(), h)
+            torch.cuda.synchronize()
+            assert k_out.shape[0] == n + 2 * h and _rel_max(k_out, p_out) <= 1e-5
+
+
+@pytest.mark.parametrize("world, backend", [(1, "nccl"), (2, "gloo")],
+                         ids=["nccl_world1", "gloo_world2"])
+def test_nodes_mode_value_and_grad_against_plain_f64(world, backend):
+    """value_and_grad (type 2, 2 steps, conc_T2 and displacement targets
+    from the plain f64 forward) on the padded 9^3 box at f32 refined under
+    use_sharding() ('nodes'), world 1 over NCCL and two ranks sharing the
+    card over gloo: J within 1e-4 and the gradient within rel-L2 1e-3 of
+    the plain f64 path unsharded (the lattice limits); J and the gradient
+    bit-equal on every rank; the halo forms launch in the backward (the
+    transposed launches) and stencil_pcg never."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch_gspmd_cases as cases
+    from glimslib_tpu_torch.core.mesh import box_mesh, pad_mesh_nodes
+    from glimslib_tpu_torch.optimize.adjoint import (
+        InverseProblem, param_map_for_type, thresh,
+    )
+    from glimslib_tpu_torch.parallel import run_ranks
+    from glimslib_tpu_torch.solvers.coupled import StepConfig
+
+    ref = brain_sim(dtype=torch.float64, device="cuda", plain=True, mesh=pad_mesh_nodes(
+        box_mesh((0, 0, 0), (10, 10, 10), 8, 8, 8), 2))
+    ref.step_config = StepConfig(newton_rtol=1e-10, newton_atol=1e-14, cg_rtol=1e-12)
+    u, c, ok, _ = ref.build_simulate_fn(cases.N_STEPS, 1.0)(
+        ref.make_theta(ref.params.as_dict()), *ref.initial_state())
+    assert bool(ok.all())
+    targets = {"conc_T2": thresh(c[-1], 0.12).cpu().numpy(), "disp": u[-1].cpu().numpy()}
+    v0 = np.array([0.05, 0.05])
+    names, update = param_map_for_type(2)
+    J64, g64 = InverseProblem(ref, names, targets, update_fn=update, n_steps=cases.N_STEPS,
+                              dt=1.0).value_and_grad(v0)
+    ranks = run_ranks(cases.card_grad_rank, world, backend, "cuda",
+                      args=(8, 2, targets, v0))
+    for out in ranks:
+        assert out["mode"] == "nodes"
+        assert out["J"] == ranks[0]["J"] and np.array_equal(out["g"], ranks[0]["g"])
+        assert out["adj"] == ranks[0]["adj"]
+        assert abs(out["J"] - J64) / abs(J64) <= 1e-4
+        assert np.linalg.norm(out["g"] - g64) / np.linalg.norm(g64) <= 1e-3
+        bwd = out["backward"]
+        assert bwd["cg_scalar"] == bwd["cg_vector"] == 0, bwd
+        assert min(bwd[k] for k in ("apply_scalar", "apply_vector",
+                                    "apply_scalar_sum")) > 0, bwd

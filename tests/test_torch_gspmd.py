@@ -26,8 +26,10 @@ off under node sharding) with tight tolerances, so they agree to rel-L2
   ranks against the JAX package's 2D model;
 - (f) f32 with refine_f64 at two ranks against the JAX f32 run and the
   port's f64 run, within the lattice limit 5e-5;
-- (g) InverseProblem and a gradient through simulate raise on a 'nodes'
-  model; the divisibility error names pad_mesh_nodes.
+- (g) at world 1, InverseProblem on a 'nodes' model gives the unsharded
+  model's J and gradient (to the solvers' tolerance) and simulate gives
+  a gradient (the adjoint itself: tests/test_torch_gspmd_adjoint.py); the
+  divisibility error names pad_mesh_nodes.
 """
 
 import datetime
@@ -179,8 +181,9 @@ def test_halo_form_plain_equals_the_whole_apply_rows(form):
 
 
 def test_halo_form_refuses_what_it_cannot_read():
-    """An offset past the halo, a vector of the wrong row count, and a
-    gradient (the halo form has no backward) raise."""
+    """An offset past the halo and a vector of the wrong row count raise;
+    a gradient runs the halo form's backward (dW on the owned rows, dv on
+    all n + 2h padded rows)."""
     offs = _lattice_offsets(3)
     h = max(abs(o) for o in offs)
     W, v = torch.ones((len(offs), 10), dtype=torch.float64), torch.ones(10 + 2 * h)
@@ -189,8 +192,11 @@ def test_halo_form_refuses_what_it_cannot_read():
         sk.apply_scalar(offs, W, v.double(), halo=h - 1)
     with pytest.raises(ValueError, match="input rows"):
         sk.apply_scalar(offs, W, v.double()[1:], halo=h)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        sk.apply_scalar(offs, W.requires_grad_(), v.double(), halo=h)
+    Wg, vg = W.clone().requires_grad_(), v.double().requires_grad_()
+    sk.apply_scalar(offs, Wg, vg, halo=h).sum().backward()
+    assert Wg.grad.shape == W.shape and vg.grad.shape == (10 + 2 * h,)
+    # dv of the sum is the column sums of A: each padded row's weight
+    assert float(vg.grad.sum()) == pytest.approx(float(W.sum()))
     from glimslib_tpu_torch import _build
 
     with pytest.raises(ValueError, match="past a halo of"):
@@ -289,7 +295,7 @@ def test_two_ranks_f32_refined_within_the_lattice_limit():
     assert np.array_equal(ranks[0]["newton"], ranks[1]["newton"])
 
 
-# -- (g) what the mode refuses --------------------------------------------------
+# -- (g) world 1: gradients; what the mode refuses ------------------------------
 
 
 @pytest.fixture
@@ -305,23 +311,34 @@ def one_rank():
 
 
 def test_nodes_model_refuses_gradients(one_rank):
-    """(g): InverseProblem on a 'nodes' model raises naming ROADMAP 4b-ii;
-    a gradient through its simulate raises; a world that does not divide
-    the nodes raises the reference's divisibility error."""
+    """(g): at world 1, InverseProblem on a 'nodes' model gives J and the
+    gradient of the unsharded model (rel 1e-8: the two take other solver
+    paths, stopped at TIGHT's tolerances), and a gradient through its
+    simulate equals the unsharded one; a world that does not divide the
+    nodes raises the reference's divisibility error."""
     from glimslib_tpu_torch.optimize.adjoint import InverseProblem, param_map_for_type
     from glimslib_tpu_torch.parallel import shard_simulate
 
     sim = cases.port_model(dict(kind="brain", n=3))
+    whole = cases.port_model(dict(kind="brain", n=3))
     names, update = param_map_for_type(2)
     simulate, prepare = shard_simulate(sim, 1, 1.0, one_rank)
     assert sim.sharding_mode == "nodes"
-    with pytest.raises(NotImplementedError, match="4b-ii.*plane halo.*distributed PCG"):
-        InverseProblem(sim, names, {"disp": np.zeros((64, 3))}, update_fn=update)
-    theta = sim.make_theta(sim.params.as_dict())
-    theta["D"] = theta["D"].clone().requires_grad_()
-    u0, c0 = sim.initial_state()
-    with pytest.raises(NotImplementedError, match="gradient through the node-sharded"):
-        simulate(theta, u0, c0)
+    rng = np.random.default_rng(1)
+    targets = {"conc": rng.uniform(0, 0.5, 64), "disp": np.zeros((64, 3))}
+    v0 = np.array([0.08, 0.05])
+    got = InverseProblem(sim, names, targets, update_fn=update).value_and_grad(v0)
+    want = InverseProblem(whole, names, targets, update_fn=update).value_and_grad(v0)
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-8)
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-8)
+    grads = []
+    for model, fn in ((sim, simulate), (whole, whole.build_simulate_fn(1, 1.0))):
+        theta = model.make_theta(model.params.as_dict())
+        D = theta["D"] = theta["D"].clone().requires_grad_()
+        u, c, ok, _ = fn(theta, *model.initial_state())
+        grads.append(torch.autograd.grad((c ** 2).sum() + (u ** 2).sum(), D)[0])
+    assert grads[0].abs().max() > 0
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-8, atol=1e-14)
     # prepare takes the whole state: the rank's rows of it (all at world 1)
     iv = sim.params.create_initial_value_function()
     _, u0p, c0p = prepare(theta, iv[0], iv[1])
