@@ -42,7 +42,7 @@ Phases, each printed on lines of their own:
    stencil kernel's launch count over that run must be above 0, and the
    final c and u must agree to rel-L2 <= 5e-5 with the port's plain path
    at f64 on the card with tight tolerances.  Prints steps/s (one run
-   that counts launches, then 3 timed runs), Newton and CG iteration
+   that counts launches, then TIMED_RUNS timed runs), Newton and CG iteration
    counts, peak memory, and the device time by kernel of one profiled run
    (each stencil_apply kernel with its time a launch on the path).  K1's
    kernel runs on the path as the rd residual (apply_scalar_sum); its row
@@ -65,7 +65,7 @@ Phases, each printed on lines of their own:
 6. The unstructured path: TumorGrowthBrain on the same n=32 box with its
    lattice structure stripped and its nodes in Morton order, f32, the
    benchmark's unstructured StepConfig, 5 steps: set-up seconds (plans,
-   frozen preconditioners), the first run, then the mean of 3 runs.  Every
+   frozen preconditioners), the first run, then the mean of TIMED_RUNS runs.  Every
    step must converge and bell_bmv must launch; prints its launches by
    shape and the share of the bound weighted by them (with [5]'s times),
    Newton and CG counts, peak memory, the profiler breakdown and the device's idle
@@ -127,10 +127,11 @@ Phases, each printed on lines of their own:
    reduced per simulate) against the dense assembly (the same aux without
    the stacks), max rel 1e-5, with the assembly's device time and steps/s
    both ways.  [9c] the default bf16 coarse factors against f32 ones
-   built from the same coarse matrices: CG iterations, the coarse
-   products' device time in a profiled run (its aten::mm / aten::mv calls
-   on the factors' shapes) and its matrix-product kernels, steps/s and
-   idle share, final state within [6]'s limit.
+   built from the same coarse matrices, BF16_STEPS steps a way: CG
+   iterations, the coarse products' device time in a profiled run (its
+   aten::mm / aten::mv calls on the factors' shapes) and its
+   matrix-product kernels, steps/s and idle share, final state within
+   [6]'s limit of [6]'s f64 plain path after as many steps.
 
 10. The quad (P2-concentration) brain model on the n=32 Morton box, the
    benchmark's quad flagship (274,625 P2 dofs on a P2 supernode plan of
@@ -139,16 +140,17 @@ Phases, each printed on lines of their own:
    the coarse level) and the peak memory of the frozen state.  [10a]
    bell_bmv against its plain version at the P2 shapes, the rd constant
    plane (4352, 64, Kh) and the supernode Jacobi (4352, 64, 64), max rel
-   1e-5, timed as in [5].  [10b] the
-   forward, f32, the benchmark's unstructured StepConfig, 5 steps, as in
-   [6]: every step converges, bell_bmv launches at the P2 shapes (its
-   launches by shape and the share of the bound weighted by them),
-   steps/s, the profiler breakdown and idle share; the final c and u
-   within rel-L2 1e-4 of the plain f64 path on the card (where the
-   operating point leaves more, the same run at newton_atol 1e-7 is held
-   to it, as [9a] does).  [10c] the f32 default step (refine_f64) on the
-   same model, 5 steps: one correction solve a step, steps/s and idle
-   share; its final state below [10b]'s error, or, where newton_atol
+   1e-5, timed as in [5].  [10b] the forward, f32, the benchmark's
+   unstructured StepConfig, QUAD_STEPS steps (cut from 5), as in [6]:
+   every step converges, bell_bmv launches at the P2 shapes (its launches
+   by shape and the share of the bound weighted by them), steps/s, the
+   profiler breakdown and idle share; the final c and u within rel-L2
+   1e-4 of the plain f64 path on the card (where the operating point
+   leaves more, the same run at newton_atol 1e-7 is held to it, as [9a]
+   does).  [10c] the f32 default step (refine_f64) on the same model,
+   QUAD_STEPS steps: one correction solve a step, steps/s (no profiled
+   breakdown: [10b]'s stands, cut to fit [15]); its final state below
+   [10b]'s error, or, where newton_atol
    1e-5 stops Newton first, the same run at newton_atol 1e-7 below it
    and within 1e-5.  [10d] one value_and_grad of ``adjoint_problem`` on
    the quad model as in [7] (J within 5e-4 and the gradient within 1e-2
@@ -173,14 +175,15 @@ Phases, each printed on lines of their own:
    and J at its start and end, and the recovered parameters; every step
    of a recorded run converges (the solves capped at WF_CG_MAXITER
    iterations: WF_CG_MAXITER says why), stencil kernels launch in the
-   forward, inverse and optimized stages, the final c and u of [11a]'s
-   and [11b]'s forwards are within rel-L2 5e-5 of the plain f64 path,
+   forward, inverse and optimized stages, the c and u of [11a]'s and
+   [11b]'s forwards after at most WF_F64_STEPS steps (the recorded step;
+   cut from [11a]'s 10) are within rel-L2 5e-5 of the plain f64 path,
    [11c]'s J and gradient at v0 within 1e-4 and 1e-3 of it, J falls,
    the recovered (D_WM, rho_WM) lies nearer the truth (0.1, 0.1) than
    v0 (in [11a] each within WF_PARAM_RTOL of it), the T2 volumes of the
    forward and optimized runs are finite and positive, and the reloaded
    series equals the recorded one exactly.  [11d] the atlas pipeline of
-   [11a] with ``model="quad"``, 3 steps, maxiter 1 (cut from 5 and 3): the quad
+   [11a] with ``model="quad"``, 1 step, maxiter 1 (cut from 5 and 3): the quad
    model on the slice's mesh with
    its lattice stripped (the unstructured lane; 261,121 P2 dofs),
    through bell_bmv and no stencil kernel; it prints the seconds by
@@ -207,7 +210,8 @@ Phases, each printed on lines of their own:
    0 just before each script and read just after; each prints its seconds,
    its seconds by stage from the port's ``Tracer``, its launches by kernel
    wrapper (bell_bmv's also by shape), device busy ms and the idle share
-   (the profiler's device events).  The lattice scripts must launch both
+   (the profiler's device events; not for the scripts in EX_UNPROFILED,
+   which run without the profiler).  The lattice scripts must launch both
    stencil_pcg forms (and stencil_apply where they take a gradient), the
    two on meshes without a lattice (the reduced 2D atlas, the 3D atlas's
    tet mesh) bell_bmv.  ``tumor_growth_2D_uniform`` runs inside
@@ -238,9 +242,11 @@ Phases, each printed on lines of their own:
    (rel-L2 <= 1e-4).  use_sharding turns on deterministic algorithms for
    the process (the ranks must compute their replicated work bit for bit
    alike); [13a] turns them off again after it.  [13b] two ranks sharing
-   the card over gloo (``parallel.run_ranks``): per rank the n=32 box, 5
-   steps, and one value_and_grad of [9a]'s refined problem on its
-   targets, then the quad flagship, SHARD_QUAD_STEPS steps (cut from 5, then 2);
+   the card over gloo (``parallel.run_ranks``; [14b] and [14d] run in the
+   same spawn after it): per rank the n=32 box, SHARD_P1_STEPS steps (cut
+   from 5), and one value_and_grad of [9a]'s refined problem on its
+   targets at as many steps, then the quad flagship, SHARD_QUAD_STEPS
+   steps (cut from 5, then 2);
    per rank the slab's blocks, set-up seconds, the table bytes held
    against the unsharded model's, bell_bmv's launches by slab shape
    (every shape launched must be held against the plain contraction on
@@ -248,9 +254,10 @@ Phases, each printed on lines of their own:
    times them as [5] does, the other rank waiting), device busy ms and
    idle share of rank 0's profiled run (the other rank running beside
    it; cut from one a rank in turns); c and u within
-   rel-L2 1e-4 of the f64 plain path ([9a]'s; [10]'s at step 2), J within
-   5e-4 and the gradient within 1e-2 of [9a]'s f64 ones, each also against
-   the unsharded f32 run; whether the two ranks' fields, J and gradient
+   rel-L2 1e-4 of the f64 plain path ([6]'s and [10]'s after as many
+   steps), J within 5e-4 and the gradient within 1e-2 of the f64 plain
+   model's at as many steps (computed in [9a]), each also against the
+   unsharded f32 run; whether the two ranks' fields, J and gradient
    are bit-equal.  [13c] ``tumor_growth_3D_atlas_sharded`` at two gloo
    ranks on the card: mode 'bell' and bell_bmv on every rank, its final
    max concentration, its fields within EX_RTOL of the same model
@@ -271,8 +278,9 @@ Phases, each printed on lines of their own:
    the profiler breakdown and idle share of the bench run; every halo form (<1,1>, <3,3>, <3,1>,
    <1,1,3>) held against its plain version at the slab's shapes and
    timed as in [2] (the kernels line's "halo@N=32 slab" rows).  [14b]
-   NODES_WORLD ranks sharing the card over gloo (``parallel.run_ranks``)
-   on the box padded to 37,026 nodes (18,513 rows and a halo of 1,123 a
+   NODES_WORLD ranks sharing the card over gloo (``parallel.run_ranks``,
+   in [13b]'s spawn after [13b]'s work, with deterministic algorithms off
+   again) on the box padded to 37,026 nodes (18,513 rows and a halo of 1,123 a
    side a rank), 5 steps at [9a]'s refined config: per rank the rows,
    the plane bytes against the unsharded padded model's (exactly
    1 / NODES_WORLD), the halo forms' launches, the collectives (count and
@@ -306,7 +314,28 @@ Phases, each printed on lines of their own:
    host ms each; J and the gradient within the lattice limits of the f64
    plain path unpadded (NODES_VG_STEPS steps, computed here first).
 
-Then one JSON line with [14]'s numbers, one with [13]'s numbers, one with [12]'s numbers and its kernel rows by lattice, one with [11]'s, one with [10]'s, one with [9]'s, one with [7]'s
+15. The matrix-free jvp lane and the gather residuals of a von Neumann
+   influx and a time-dependent source.  [15a] the N=32 box with
+   ``operator_mode = "matrix-free"``, f32, MF_STEPS steps at the
+   benchmark's StepConfig and at REFINED_STEP_CONFIG: every kernel
+   wrapper's count 0 over the run, and no stencil_apply, stencil_pcg or
+   bell_bmv kernel in the bench run's profile; Newton and CG counts by
+   block, steps/s, busy ms and idle share (the bench run's profile); c
+   and u within SLICE_RTOL of the auto lane after as many steps ([3]'s
+   and [9a]'s runs); one value_and_grad of [7]'s problem at MF_STEPS
+   steps on both lanes, J within 1e-4 and the gradient within 1e-3 of
+   the assembled lane's.  [15b] the quad model on the N=32 lattice box
+   (the jvp lane, 274,625 P2 dofs), QUAD_MF_STEPS refined step(s): no
+   kernel, set-up s, step s, busy ms and idle share, c within QUAD_RTOL
+   of [10c]'s stripped-mesh run after as many steps (the two meshes'
+   P2 dofs share one order).  [15c] ``examples.influx_sim`` (an influx of
+   c through the boundary, a time-dependent source) f32 refined, MF_STEPS
+   steps, on the N=32 lattice (stencil_pcg<1> and <3> launch; the rd
+   residual takes the gather form, so no stencil_apply) and the n=32
+   unstructured box (bell_bmv): c and u within the lane's limit of the
+   f64 plain path; every kernel row gains its launches there.
+
+Then one JSON line with [15]'s numbers, one with [14]'s numbers, one with [13]'s numbers, one with [12]'s numbers and its kernel rows by lattice, one with [11]'s, one with [10]'s, one with [9]'s, one with [7]'s
 and [8]'s value_and_grad numbers, one with
 every kernel's numbers (each with its launches in the path and in one
 value_and_grad by forward and backward: [7]'s for the 3D rows, [8]'s for
@@ -397,8 +426,9 @@ WF_SIM = {"2d": dict(sim_time=10, sim_time_step=1, seed_width=5.0),
           # steps and maxiter 10 (to 5 steps and the reference quad test's
           # maxiter 3), where one f32 value_and_grad took 9.5 s and the
           # profiled inverse 225 s (14 calls; an H100 at 700 W); then to 3
-          # steps (and maxiter 1) to fit [14c] and [14d]
-          "quad": dict(sim_time=3, sim_time_step=1, seed_width=5.0)}
+          # steps (and maxiter 1) to fit [14c] and [14d], then to 2 to fit
+          # [15], then to 1 to keep the script well inside its limit
+          "quad": dict(sim_time=1, sim_time_step=1, seed_width=5.0)}
 # [11b] and [11d] take one L-BFGS-B iteration (cut from 2 and 3 to keep
 # the script inside its limit with [14c] and [14d]; [11d]'s profiled
 # inverse took 53.0 s at maxiter 3, an H100 at 700 W)
@@ -412,6 +442,10 @@ WF_OPT = {"tol": 1e-8, "gtol": 1e-8}
 # first step fails and the forward freezes.  The workflow's simulations
 # and their f64 references get this cap, as [8]'s 512 x 512 does
 WF_CG_MAXITER = 6000
+# a forward is held to the plain f64 path at its recorded step
+# min(steps, WF_F64_STEPS): [11a]'s at step 5 of 10 (cut from 10: the f64
+# plain path's solves read the host every iteration, 31 s for 10 steps)
+WF_F64_STEPS = 5
 WF_V0 = 0.05
 WF_TRUTH = 0.1
 # L-BFGS-B's reach: the relative error of each recovered parameter of
@@ -466,6 +500,27 @@ def _profile(torch, fn, cpu=True):
 
 def _self_device_us(evt):
     return float(getattr(evt, "self_device_time_total", 0.0) or 0.0)
+
+
+def _device_kernels(prof):
+    """{name: [records, device us]} of a profile's device records (kernels,
+    copies, fills), summed from the raw events: the sums of
+    ``key_averages``, which first parses every event, CPU and device, into
+    a tree and takes some forty times as long as this."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            rec = out.setdefault(e.name(), [0, 0.0])
+            rec[0] += 1
+            rec[1] += e.duration_ns() / 1e3
+    return out
+
+
+def _device_busy_ms(prof):
+    """The device busy ms of a profile: its device records' durations."""
+    return sum(us for _, us in _device_kernels(prof).values()) / 1e3
 
 
 def _kernel_device_ms(torch, fn, reps, pattern):
@@ -1022,18 +1077,14 @@ def _print_breakdown(torch, run, run_ms, tag, detail=None, profiled=None):
     a launch; returns ({name: ms a launch} for them, the device busy ms,
     the idle share of the unprofiled run).  ``profiled``: (profile, its
     wall ms) of a run made already, in place of profiling run()."""
-    from torch.autograd import DeviceType
-
     if profiled is None:
         t0 = time.perf_counter()
         prof = _profile(torch, run, cpu=False)
         wall_ms = (time.perf_counter() - t0) * 1e3
     else:
         prof, wall_ms = profiled
-    evts = [e for e in prof.key_averages()
-            if getattr(e, "device_type", None) == DeviceType.CUDA]
-    evts.sort(key=_self_device_us, reverse=True)
-    busy_ms = sum(_self_device_us(e) for e in evts) / 1e3
+    evts = sorted(_device_kernels(prof).items(), key=lambda kv: kv[1][1], reverse=True)
+    busy_ms = sum(us for _, (_, us) in evts) / 1e3
     if busy_ms <= 0:
         print(f"{tag} device time breakdown: none (the profiler recorded "
               "no device time)")
@@ -1044,15 +1095,14 @@ def _print_breakdown(torch, run, run_ms, tag, detail=None, profiled=None):
           f"{run_ms:.2f} ms, so the device idles "
           f"{100 * max(0.0, 1 - busy_ms / run_ms):.1f}% of it")
     per_launch = {}
-    for k, e in enumerate(evts):
-        us = _self_device_us(e)
-        hit = detail is not None and re.search(detail, e.key)
+    for k, (key, (count, us)) in enumerate(evts):
+        hit = detail is not None and re.search(detail, key)
         if k < 10 or hit:
             print(f"{tag}   {100 * us / 1e3 / busy_ms:5.1f}%  {us / 1e3:8.3f} ms  "
-                  f"x{e.count:<6d} {e.key[:90]}"
-                  + (f"  ({us / max(e.count, 1):.2f} us a launch)" if hit else ""))
+                  f"x{count:<6d} {key[:90]}"
+                  + (f"  ({us / max(count, 1):.2f} us a launch)" if hit else ""))
         if hit:
-            per_launch[e.key] = us / max(e.count, 1) / 1e3
+            per_launch[key] = us / max(count, 1) / 1e3
     return per_launch, busy_ms, max(0.0, 1 - busy_ms / run_ms)
 
 
@@ -1097,14 +1147,21 @@ def _drive(torch, sim, simulate, args, groups, tag, n_steps, shown=()):
     return (u_tr, c_tr), launches, first_s
 
 
-def _time_runs(torch, simulate, args, dev, tag, n_steps, detail=None, profiled=None):
-    """Steps/s over 3 runs, peak memory, and the breakdown of one profiled
-    run (``profiled``: of a run profiled already, :func:`_print_breakdown`);
-    returns its ms a launch of the kernels matching ``detail``, and
-    {steps_per_s, device_busy_ms, idle_share}."""
+# timed runs a path (cut from 3 to fit [15], then from 2 to keep the
+# script well inside its limit)
+TIMED_RUNS = 1
+
+
+def _time_runs(torch, simulate, args, dev, tag, n_steps, detail=None, profiled=None,
+               breakdown=True):
+    """Steps/s over TIMED_RUNS runs, peak memory, and (``breakdown``) the
+    breakdown of one profiled run (``profiled``: of a run profiled
+    already, :func:`_print_breakdown`); returns its ms a launch of the
+    kernels matching ``detail``, and {steps_per_s, device_busy_ms,
+    idle_share}."""
     torch.cuda.reset_peak_memory_stats(dev)
     times = []
-    for _ in range(3):
+    for _ in range(TIMED_RUNS):
         t0 = time.perf_counter()
         out = simulate(*args)
         torch.cuda.synchronize()
@@ -1113,9 +1170,11 @@ def _time_runs(torch, simulate, args, dev, tag, n_steps, detail=None, profiled=N
     sps = n_steps / (sum(times) / len(times))
     if not bool(out[2].all()):
         raise AssertionError(f"{tag} a timed run did not converge")
-    print(f"{tag} steps/s {sps:.4f} (3 runs of {n_steps} steps: "
+    print(f"{tag} steps/s {sps:.4f} ({TIMED_RUNS} runs of {n_steps} steps: "
           f"{', '.join(f'{t:.4f}' for t in times)} s); peak memory "
           f"{peak / 2**20:.1f} MiB")
+    if not breakdown:
+        return {}, dict(steps_per_s=sps, device_busy_ms=None, idle_share=None)
     per_launch, busy, idle = _print_breakdown(
         torch, lambda: simulate(*args), 1e3 * sum(times) / len(times), tag, detail,
         profiled)
@@ -1147,13 +1206,15 @@ def _forward_groups(sim, groups):
     return [g for g in groups if not set(g) <= applies]
 
 
-def phase_slice(torch, sim, ref, dev, kernels, tag, n_steps, run=""):
+def phase_slice(torch, sim, ref, dev, kernels, tag, n_steps, run="", keep=None):
     """A lattice path (``sim``, f32) through the kernels of ``kernels``
     (those a refined forward runs, where the model refines): one run with
-    the counts at 0, 3 timed runs and a profiled one, then the final c and
+    the counts at 0, TIMED_RUNS timed runs and a profiled one, then the final c and
     u against ``ref``, the same model on the plain path at f64 with tight
     tolerances; returns ``ref`` at its default tolerances, its final
-    (u, c) and the f32 path's rel-L2 errors (c, u)."""
+    (u, c) and the f32 path's rel-L2 errors (c, u).  ``keep`` (a dict)
+    gains the state after MF_STEPS steps ([15a] holds the matrix-free lane
+    to it)."""
     from glimslib_tpu_torch.solvers.coupled import StepConfig
 
     theta = sim.make_theta(sim.params.as_dict())
@@ -1164,6 +1225,8 @@ def phase_slice(torch, sim, ref, dev, kernels, tag, n_steps, run=""):
         torch, sim, simulate, (theta, u0, c0), _forward_groups(sim, groups),
         tag, n_steps, shown=[w for g in groups for w in g])
     _set_launches(kernels, launches, run)
+    if keep is not None:
+        keep[f"lattice_bench_{MF_STEPS}"] = (u_tr[MF_STEPS - 1], c_tr[MF_STEPS - 1])
     in_path, _ = _time_runs(torch, simulate, (theta, u0, c0), dev, tag, n_steps,
                             r"stencil_apply_kernel")
     for k in kernels:
@@ -1809,7 +1872,8 @@ def phase_refined(torch, dev, lanes, keep=None):
     unstructured lane's REFINED_STEP_CONFIG run (its config, final state
     and the f64 one) and its value_and_grad (:func:`_adjoint_lane`), which
     [13] holds the sharded model to, and under "lattice" the lattice lane's
-    value_and_grad, which [14c] holds the node-sharded model to."""
+    value_and_grad, which [14c] holds the node-sharded model to, and the
+    lattice lane's state after MF_STEPS steps ([15a])."""
     from glimslib_tpu_torch.examples import REFINED_STEP_CONFIG
     from glimslib_tpu_torch.ops import fused_cg as fc
 
@@ -1842,7 +1906,12 @@ def phase_refined(torch, dev, lanes, keep=None):
                 _, run = _time_runs(torch, simulate, (theta, u0, c0), dev, tag, N_STEPS)
             rel_c, rel_u = _rel_l2(c_tr[-1], c_r), _rel_l2(u_tr[-1], u_r)
             if keep is not None and lane == "unstructured" and i == 0:
-                keep["p1"] = dict(config=cfg, final=(u_tr[-1], c_tr[-1]), ref=(u_r, c_r))
+                k = SHARD_P1_STEPS - 1
+                keep["p1"] = dict(config=cfg, final=(u_tr[-1], c_tr[-1]), ref=(u_r, c_r),
+                                  short=(u_tr[k], c_tr[k]))
+            if keep is not None and lane == "lattice":
+                keep[f"lattice_refined_{MF_STEPS}"] = (u_tr[MF_STEPS - 1],
+                                                       c_tr[MF_STEPS - 1])
             if lane == "unstructured" and i == 0:
                 lim_c, lim_u, why = rc0, ru0, "the unrefined errors"
             else:
@@ -1863,6 +1932,26 @@ def phase_refined(torch, dev, lanes, keep=None):
                                 keep=(None if keep is None else keep["p1"] if lane == "unstructured"
                                       else keep.setdefault("lattice", {})))
         out[lane]["value_and_grad"] = nums
+        if keep is not None and lane == "unstructured":
+            keep["p1"].update(_short_value_and_grad(sim, ref, keep["p1"]))
+    return out
+
+
+def _short_value_and_grad(sim, ref, p1):
+    """[13b]'s references at SHARD_P1_STEPS steps: J and the gradient of
+    [9a]'s unstructured problem (``p1``: its targets, v0 and config) on
+    the unsharded f32 model ``sim`` and on its plain f64 model ``ref``."""
+    from glimslib_tpu_torch.optimize.adjoint import InverseProblem, param_map_for_type
+
+    names, update = param_map_for_type(2)
+    cfg = sim.step_config
+    sim.step_config = p1["vg_config"]
+    out = {}
+    for suffix, s_ in (("", sim), ("64", ref)):
+        J, g = InverseProblem(s_, names, p1["targets"], update_fn=update,
+                              n_steps=SHARD_P1_STEPS, dt=1.0).value_and_grad(p1["v0"])
+        out[f"J{suffix}_short"], out[f"g{suffix}_short"] = J, g
+    sim.step_config = cfg
     return out
 
 
@@ -1914,7 +2003,6 @@ def _coarse_in_path(torch, run, aux, pattern):
     with the device time of their kernels; {kernel name: (launches,
     device ms)} of the kernels matching ``pattern`` in the same run; (the
     profile, its wall ms))."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     shapes = {}
@@ -1935,16 +2023,22 @@ def _coarse_in_path(torch, run, aux, pattern):
             if name is not None:
                 c, ms = out.get(name, (0, 0.0))
                 out[name] = (c + e.count, ms + e.device_time_total / 1e3)
-    kernels = {e.key: (e.count, _self_device_us(e) / 1e3) for e in prof.key_averages()
-               if getattr(e, "device_type", None) == DeviceType.CUDA
-               and re.search(pattern, e.key)}
+    kernels = {key: (count, us / 1e3) for key, (count, us) in _device_kernels(prof).items()
+               if re.search(pattern, key)}
     return out, kernels, (prof, wall_ms)
+
+
+# [9c] runs BF16_STEPS steps a way (cut from N_STEPS to fit [15], then
+# from 2 to keep the script well inside its limit: its profiled runs
+# record CPU events, whose processing takes most of the phase)
+BF16_STEPS = 1
 
 
 def phase_bf16(torch, dev, usim, base6):
     """[9c]: the n=32 box's default bf16 coarse factors against f32 ones
     (the two-level arrays built again in the working dtype, without the
-    model's bf16 cast)."""
+    model's bf16 cast), BF16_STEPS steps a way, the final state against
+    [6]'s f64 plain path after as many steps."""
     from glimslib_tpu_torch.examples import UNSTRUCT_STEP_CONFIG
     from glimslib_tpu_torch.ops import bell_kernels as bk
 
@@ -1960,13 +2054,13 @@ def phase_bf16(torch, dev, usim, base6):
     if aux_b["_TLCfac"].dtype != torch.bfloat16 or aux_f["_TLCfac"].dtype != torch.float32:
         raise AssertionError("[9c] the model's factors are not bf16")
     u0, c0 = usim.initial_state()
-    u_r, c_r = (x[-1] for x in base6["ref_traj"])
-    simulate = usim.build_simulate_fn(N_STEPS, 1.0)
+    u_r, c_r = (x[BF16_STEPS - 1] for x in base6["ref_traj"])
+    simulate = usim.build_simulate_fn(BF16_STEPS, 1.0)
     out = {}
     for way, a in (("bf16", aux_b), ("f32", aux_f)):
         tag = f"[9c] {way}:"
         (u_tr, c_tr), _, _ = _drive(torch, usim, simulate, (theta, u0, c0, a),
-                                    [(bk.batched_matvec,)], tag, N_STEPS)
+                                    [(bk.batched_matvec,)], tag, BF16_STEPS)
         it = {k: [int(i) for i in usim.solver_info[k]] for k in ("rd_cg_iters", "el_cg_iters")}
         applies = {"_TLCfac": sum(x + 1 for x in it["el_cg_iters"]),
                    "_TLCfacS": sum(x + 1 for x in it["rd_cg_iters"])}
@@ -1975,7 +2069,7 @@ def phase_bf16(torch, dev, usim, base6):
         prods, gemv, profiled = _coarse_in_path(
             torch, lambda a=a: simulate(theta, u0, c0, a), a, r"gemv|gemm|nvjet|xmma|cutlass")
         coarse = sum(ms for _, ms in prods.values())
-        _, run = _time_runs(torch, simulate, (theta, u0, c0, a), dev, tag, N_STEPS,
+        _, run = _time_runs(torch, simulate, (theta, u0, c0, a), dev, tag, BF16_STEPS,
                             profiled=profiled)
         rel_c, rel_u = _rel_l2(c_tr[-1], c_r), _rel_l2(u_tr[-1], u_r)
         print(f"{tag} CG iterations rd {sum(it['rd_cg_iters'])} (a Newton solve "
@@ -2017,6 +2111,8 @@ def phase_defaults(torch, dev, lat, uns, keep=None):
         ("unstructured", usim, uref, (u_r[-1], c_r[-1]), base6["rel"],
          [(bk.batched_matvec,)]),
     ], keep)
+    if keep is not None:
+        keep["p1"]["ref_short"] = (u_r[SHARD_P1_STEPS - 1], c_r[SHARD_P1_STEPS - 1])
     print(f"[9a] {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     out["factored"] = phase_factored(torch, dev, usim)
@@ -2036,6 +2132,9 @@ def phase_defaults(torch, dev, lat, uns, keep=None):
 # held to the limit (as [9a] does).
 QUAD_RTOL = UNSTRUCT_RTOL
 QUAD_NEWTON_ATOL = 1e-7
+# [10b] and [10c] take QUAD_STEPS steps (cut from N_STEPS to keep the
+# script well inside its limit); [10d]'s adjoint cell keeps its 5
+QUAD_STEPS = 2
 
 
 def _quad_vs_ref(torch, sim, final, args, ref_traj, tag):
@@ -2129,11 +2228,11 @@ def phase_quad(torch, dev, kern, keep=None):
     p2_keys = [(pp.nb, pp.s, pp.Kh), (pp.nb, pp.s, pp.s)]
 
     # [10b] the forward at the benchmark's operating point
-    simulate = sim.build_simulate_fn(N_STEPS, 1.0)
+    simulate = sim.build_simulate_fn(QUAD_STEPS, 1.0)
     args = (theta, u0, c0)
     bk.batched_matvec.launches_by_shape = {}
     (u_tr, c_tr), launches, first_s = _drive(torch, sim, simulate, args,
-                                             [(bk.batched_matvec,)], "[10b]", N_STEPS)
+                                             [(bk.batched_matvec,)], "[10b]", QUAD_STEPS)
     by_shape = dict(bk.batched_matvec.launches_by_shape)
     if any(by_shape.get(k, 0) < 1 for k in p2_keys):
         raise AssertionError(f"[10b] bell_bmv did not launch at the P2 shapes: {by_shape}")
@@ -2141,7 +2240,7 @@ def phase_quad(torch, dev, kern, keep=None):
     kern["quad_launches_by_shape"] = {"x".join(map(str, k)): c for k, c in by_shape.items()}
     share = _bmv_split({"shapes": kern["shapes"] + shapes}, by_shape, "[10b]")
     iters = {k: [int(i) for i in sim.solver_info[k]] for k in ("rd_cg_iters", "el_cg_iters")}
-    _, run = _time_runs(torch, simulate, args, dev, "[10b]", N_STEPS)
+    _, run = _time_runs(torch, simulate, args, dev, "[10b]", QUAD_STEPS)
 
     t0 = time.perf_counter()
     ref = brain_sim(n=N, dtype=torch.float64, device=dev, plain=True, unstructured=True,
@@ -2154,7 +2253,7 @@ def phase_quad(torch, dev, kern, keep=None):
     f64_defaults = ref.step_config
     ref.step_config = StepConfig(newton_rtol=1e-10, newton_atol=1e-14, cg_rtol=1e-12,
                                  cg_maxiter=4000)
-    u_r, c_r, ok_r, newton_r = ref.build_simulate_fn(N_STEPS, 1.0)(
+    u_r, c_r, ok_r, newton_r = ref.build_simulate_fn(QUAD_STEPS, 1.0)(
         ref.make_theta(ref.params.as_dict()), *ref.initial_state())
     torch.cuda.synchronize()
     if not bool(ok_r.all()):
@@ -2170,17 +2269,18 @@ def phase_quad(torch, dev, kern, keep=None):
     # [10c] the f32 default: refined in f64
     sim.step_config = default_step_config(torch.float32)
     assert sim.step_config.refine_f64
-    simulate_r = sim.build_simulate_fn(N_STEPS, 1.0)
+    simulate_r = sim.build_simulate_fn(QUAD_STEPS, 1.0)
     (u_f, c_f), launches_r, _ = _drive(torch, sim, simulate_r, args,
-                                       [(bk.batched_matvec,)], "[10c]", N_STEPS)
+                                       [(bk.batched_matvec,)], "[10c]", QUAD_STEPS)
     n_fix = len(sim.solver_info["el_refine_cg_iters"])
-    _, run_r = _time_runs(torch, simulate_r, args, dev, "[10c]", N_STEPS)
+    # [10b]'s run stands for the breakdown (cut from one a run, to fit [15])
+    _, run_r = _time_runs(torch, simulate_r, args, dev, "[10c]", QUAD_STEPS, breakdown=False)
     rel_r = (_rel_l2(c_f[-1], c_r[-1]), _rel_l2(u_f[-1], u_r[-1]))
     below = rel_r[0] < rel[0] and rel_r[1] < rel[1]
     print(f"[10c] refined vs the f64 plain path: rel-L2 c {rel_r[0]:.3e}, u "
           f"{rel_r[1]:.3e} ([10b]: {rel[0]:.3e}, {rel[1]:.3e}; below it: {below}); "
           f"correction solves {n_fix} (one a step)")
-    if n_fix != N_STEPS:
+    if n_fix != QUAD_STEPS:
         raise AssertionError(f"[10c] refined: {n_fix} correction solves")
     rel_rt = None
     if not below:
@@ -2189,7 +2289,7 @@ def phase_quad(torch, dev, kern, keep=None):
         # is held below [10b]'s error and to REFINED_RTOL
         sim.step_config = StepConfig(**{**sim.step_config._asdict(),
                                         "newton_atol": QUAD_NEWTON_ATOL})
-        u_t, c_t, ok_t, newton_t = sim.build_simulate_fn(N_STEPS, 1.0)(*args)
+        u_t, c_t, ok_t, newton_t = sim.build_simulate_fn(QUAD_STEPS, 1.0)(*args)
         rel_rt = (_rel_l2(c_t[-1], c_r[-1]), _rel_l2(u_t[-1], u_r[-1]))
         print(f"[10c] refined at newton_atol {QUAD_NEWTON_ATOL} (Newton "
               f"{newton_t.tolist()}): rel-L2 c {rel_rt[0]:.3e}, u {rel_rt[1]:.3e} "
@@ -2344,26 +2444,35 @@ def _wf_ref(torch, wf, sim, dev):
 
 
 def _wf_check_forward(torch, wf, dev, tag, out):
-    """The forward's final c and u against the plain f64 path, rel-L2 <=
-    SLICE_RTOL (a quad model: QUAD_RTOL)."""
+    """The forward's c and u after min(its steps, WF_F64_STEPS) steps (the
+    recorded step) against the plain f64 path, rel-L2 <= SLICE_RTOL (a
+    quad model: QUAD_RTOL)."""
     t0 = time.perf_counter()
     sim = wf.sims["forward"]
     rtol = QUAD_RTOL if sim.quad else SLICE_RTOL
     ref = _wf_ref(torch, wf, sim, dev)
     u0, c0 = ref.initial_state()
     n = int(round(float(ref.params.sim_time) / float(ref.params.sim_time_step)))
-    u_r, c_r, ok, _ = ref.build_simulate_fn(n, float(ref.params.sim_time_step))(
+    k = min(n, WF_F64_STEPS)
+    if k == n:
+        got = sim.solution
+    else:
+        steps = sim.results.get_recording_steps()
+        if len(steps) != n + 1:
+            raise AssertionError(f"{tag} {len(steps)} recorded steps of {n + 1}")
+        got = sim.results.get_result(steps[k])
+    u_r, c_r, ok, _ = ref.build_simulate_fn(k, float(ref.params.sim_time_step))(
         ref.make_theta(ref.params.as_dict()), u0, c0)
     if not bool(ok.all()):
         raise AssertionError(f"{tag} the f64 plain forward did not converge")
-    rel_c = _rel_l2(torch.as_tensor(sim.solution[1]), c_r[-1].cpu())
-    rel_u = _rel_l2(torch.as_tensor(sim.solution[0]), u_r[-1].cpu())
-    print(f"{tag} forward vs the f64 plain path on the card "
+    rel_c = _rel_l2(torch.as_tensor(got[1]), c_r[-1].cpu())
+    rel_u = _rel_l2(torch.as_tensor(got[0]), u_r[-1].cpu())
+    print(f"{tag} forward after {k} of {n} steps vs the f64 plain path on the card "
           f"({time.perf_counter() - t0:.1f} s): rel-L2 c {rel_c:.3e}, u {rel_u:.3e} "
           f"(<= {rtol})")
     if rel_c > rtol or rel_u > rtol:
         raise AssertionError(f"{tag} forward vs f64: c {rel_c:.3e}, u {rel_u:.3e}")
-    out.update(forward_rel_c=rel_c, forward_rel_u=rel_u)
+    out.update(forward_rel_c=rel_c, forward_rel_u=rel_u, forward_checked_step=k)
 
 
 def _wf_check_gradient(torch, wf, dev, tag, out):
@@ -2406,8 +2515,6 @@ def _wf_inverse(torch, wf, run, tag, maxiter, truth=True):
     Busy is the sum of the raw device events' durations: parsing the
     events of a window of millions of launches into ``key_averages`` took
     minutes (the quad inverse, 3.7 million)."""
-    from torch.autograd import DeviceType
-
     prof = {}
 
     def inverse():
@@ -2415,8 +2522,7 @@ def _wf_inverse(torch, wf, run, tag, maxiter, truth=True):
             opt_params=dict(WF_OPT, maxiter=maxiter)), cpu=False)
 
     _wf_stage(torch, run, "inverse", inverse)
-    busy = sum(e.duration_ns() for e in prof["p"].profiler.kineto_results.events()
-               if e.device_type() == DeviceType.CUDA) / 1e6
+    busy = _device_busy_ms(prof["p"])
     sec = run["seconds"]["inverse"]
     res, cols = wf.optimization_result, wf.optimization_progress
     calls = len(cols["J"])
@@ -2867,6 +2973,11 @@ EX_FORWARD = ("tumor_growth_2D_uniform", "tumor_growth_2D_subdomains",
               "tumor_growth_2D_uniform_reload", "comparison_2D_atlas",
               "comparison_3D_atlas")
 EX_TRACED = "tumor_growth_2D_uniform"
+# run without the profiler (busy and idle not measured): the reduced 2D
+# atlas adjoint's 18 L-BFGS-B iterations launch millions of kernels, and
+# its profiled run took 51.1 s against the 25.6 s of its stages (an H100 at
+# 700 W); its value_and_grad is profiled in [8]
+EX_UNPROFILED = ("brain_2D_atlas_reduced_domain_adjoint",)
 # [13c] runs it: its ranks are processes of their own, whose launches the
 # counts of this process do not see
 EX_SHARDED = "tumor_growth_3D_atlas_sharded"
@@ -2897,12 +3008,11 @@ def _ex_trace_kernels(path):
     return out, busy
 
 
-def _ex_run(torch, module, argv, dev, out_dir, traced, log_dir):
+def _ex_run(torch, module, argv, dev, out_dir, traced, log_dir, profiled=True):
     """One script's main() on the card at f32 with every launch count at 0
     just before it: (its result, seconds, launches by wrapper, bell_bmv's
-    by shape, device busy ms, the traced kernels or None)."""
-    from torch.autograd import DeviceType
-
+    by shape, device busy ms or None where not ``profiled``, the traced
+    kernels or None)."""
     from glimslib_tpu_torch.ops import bell_kernels as bk
     from glimslib_tpu_torch.utils.profiling import device_trace
 
@@ -2925,11 +3035,15 @@ def _ex_run(torch, module, argv, dev, out_dir, traced, log_dir):
             torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         traced_kernels, busy = _ex_trace_kernels(prof.trace_path)
-    else:
+    elif profiled:
         prof = _profile(torch, run, cpu=False)
         seconds = time.perf_counter() - t0
-        busy = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
-                   if e.device_type() == DeviceType.CUDA) / 1e6
+        busy = _device_busy_ms(prof)
+    else:
+        run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        busy = None
     launches = {w.__name__: w.launches for w in wrappers}
     return (box["out"], seconds, launches, dict(bk.batched_matvec.launches_by_shape),
             busy, traced_kernels)
@@ -3030,12 +3144,15 @@ def phase_examples(torch, dev, kernels):
             module = importlib.import_module(f"glimslib_tpu_torch.example_scripts.{name}")
             traced = name == EX_TRACED
             out, sec, launches, by_shape, busy, tk = _ex_run(
-                torch, module, argv, dev, tmp, traced, os.path.join(tmp, "trace"))
-            idle = max(0.0, 1 - busy / (1e3 * sec))
+                torch, module, argv, dev, tmp, traced, os.path.join(tmp, "trace"),
+                profiled=name not in EX_UNPROFILED)
+            idle = None if busy is None else max(0.0, 1 - busy / (1e3 * sec))
             row = dict(seconds=sec, launches=launches, device_busy_ms=busy, idle_share=idle,
                        stages={k: v["total_s"] for k, v in out.get("stages", {}).items()})
-            print(f"{tag} {sec:.2f} s, device busy {busy:.1f} ms, idle "
-                  f"{100 * idle:.1f}%; seconds by stage (Tracer): " + ", ".join(
+            print(f"{tag} {sec:.2f} s, " + (
+                "unprofiled (EX_UNPROFILED): device busy not measured" if busy is None
+                else f"device busy {busy:.1f} ms, idle {100 * idle:.1f}%")
+                + "; seconds by stage (Tracer): " + ", ".join(
                       f"{k} {v:.3f}" for k, v in row["stages"].items()))
             if by_shape:
                 row["bmv_by_shape"] = {"x".join(map(str, k)): n for k, n in by_shape.items()}
@@ -3120,10 +3237,12 @@ def phase_examples(torch, dev, kernels):
                     key: sum(r["launches"][w.__name__] for w in k["wrappers"])
                     for key, r in results.items()}
         total = sum(r["seconds"] for r in results.values())
-        busy = sum(r["device_busy_ms"] for r in results.values())
-        print(f"[12] scripts {total:.1f} s, device busy {busy:.1f} ms, idle "
-              f"{100 * max(0.0, 1 - busy / (1e3 * total)):.1f}%; examples phase "
-              f"{time.perf_counter() - t_phase:.1f} s")
+        timed = [r for r in results.values() if r["device_busy_ms"] is not None]
+        busy = sum(r["device_busy_ms"] for r in timed)
+        prof_s = sum(r["seconds"] for r in timed)
+        print(f"[12] scripts {total:.1f} s; the profiled ones {prof_s:.1f} s, device busy "
+              f"{busy:.1f} ms, idle {100 * max(0.0, 1 - busy / (1e3 * prof_s)):.1f}%; "
+              f"examples phase {time.perf_counter() - t_phase:.1f} s")
         return results, checks
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3134,6 +3253,9 @@ def phase_examples(torch, dev, kernels):
 # from [10]'s 5 to keep [13] short; a collective that waits longer than
 # SHARD_TIMEOUT_S raises in its rank.
 SHARD_QUAD_STEPS = 1
+# [13b]'s P1 box: its forward and value_and_grad take SHARD_P1_STEPS steps
+# (cut from N_STEPS to keep the script well inside its limit)
+SHARD_P1_STEPS = 2
 SHARD_TIMEOUT_S = 600
 # the tables use_sharding holds as a rank's slab (supernode blocks) or
 # rows (the two-level level's aggregates), by key
@@ -3199,8 +3321,6 @@ def _rank_busy(torch, mesh, run, profiled=None):
     every rank).  Every rank runs run() once a turn (its collectives need
     them all), and one rank a turn runs it under the profiler, so no two
     profile at once."""
-    from torch.autograd import DeviceType
-
     wall = busy = None
     for r in range(mesh.world) if profiled is None else profiled:
         if r != mesh.rank:
@@ -3209,8 +3329,7 @@ def _rank_busy(torch, mesh, run, profiled=None):
         t0 = time.perf_counter()
         prof = _profile(torch, run, cpu=False)
         wall = (time.perf_counter() - t0) * 1e3
-        busy = sum(_self_device_us(e) for e in prof.key_averages()
-                   if getattr(e, "device_type", None) == DeviceType.CUDA) / 1e3
+        busy = _device_busy_ms(prof)
     return wall, busy
 
 
@@ -3303,7 +3422,8 @@ def _rank13b(mesh, p1, quad):
     model's slab shapes and the P2 ones."""
     import torch
 
-    p1_out, box = _rank_model(torch, mesh, "[13b] P1", False, p1[0], N_STEPS, vg=p1[1])
+    p1_out, box = _rank_model(torch, mesh, "[13b] P1", False, p1[0], SHARD_P1_STEPS,
+                              vg=p1[1])
     quad_out, _ = _rank_model(torch, mesh, "[13b] quad", True, quad, SHARD_QUAD_STEPS,
                               box=box, timed=("P2 rd constant plane _P2BWrdC",
                                               "P2 supernode Jacobi _McSNP2"))
@@ -3388,21 +3508,33 @@ def _shard_world1(torch, dev, usim, keep):
     return out
 
 
-def _shard_two_ranks(torch, dev, keep):
-    """[13b]: two ranks sharing the card over gloo (module docstring);
-    returns its numbers and bell_bmv's slab rows for the kernels line."""
+def _rank_pair(mesh, a13, a14):
+    """One spawn's work on a rank: [13b] (:func:`_rank13b` on ``a13``),
+    then [14b] and [14d] (:func:`_rank14b` on ``a14``) with the
+    deterministic algorithms [13b]'s use_sharding turned on off again, as
+    in a process of their own; and each part's seconds."""
+    import torch
+
+    t0 = time.perf_counter()
+    b13 = _rank13b(mesh, *a13)
+    t1 = time.perf_counter()
+    torch.use_deterministic_algorithms(False)
+    torch.utils.deterministic.fill_uninitialized_memory = True
+    torch.cuda.empty_cache()
+    b14 = _rank14b(mesh, *a14)
+    return {"13b": b13, "14b": b14, "seconds": (t1 - t0, time.perf_counter() - t1)}
+
+
+def _shard_two_ranks(torch, keep, ranks, wall_s, rank_s):
+    """[13b]: two ranks sharing the card over gloo (module docstring), from
+    their results ``ranks`` (the spawn took ``wall_s`` seconds, [13b]'s
+    work in it ``rank_s``); returns its numbers and bell_bmv's slab rows
+    for the kernels line."""
     import numpy as np
 
-    from glimslib_tpu_torch.parallel import run_ranks
-
     p1, quad = keep["p1"], keep["quad"]
-    t0 = time.perf_counter()
-    ranks = run_ranks(_rank13b, 2, "gloo", dev,
-                      args=((p1["config"], (p1["targets"], p1["v0"], p1["vg_config"])),
-                            quad["config"]), timeout=SHARD_TIMEOUT_S)
-    wall_s = time.perf_counter() - t0
     out, slab_rows = {}, {}
-    for name, ref, f32, steps in (("p1", p1["ref"], p1["final"], N_STEPS),
+    for name, ref, f32, steps in (("p1", p1["ref_short"], p1["short"], SHARD_P1_STEPS),
                                   ("quad", quad["ref"], quad["final"], SHARD_QUAD_STEPS)):
         tag = f"[13b] {'P1 box' if name == 'p1' else 'quad flagship'}:"
         whole_bytes, whole = keep[name]["table_bytes"]
@@ -3454,10 +3586,12 @@ def _shard_two_ranks(torch, dev, keep):
                        idle_share=idle, launches_by_shape={
                            "x".join(map(str, k)): v for k, v in o["by_shape"].items()})
             if "J" in o:
-                rJ = abs(o["J"] - p1["J64"]) / abs(p1["J64"])
-                rg = float(np.linalg.norm(o["g"] - p1["g64"]) / np.linalg.norm(p1["g64"]))
-                dJ = abs(o["J"] - p1["J"]) / abs(p1["J"])
-                dg = float(np.linalg.norm(o["g"] - p1["g"]) / np.linalg.norm(p1["g"]))
+                J64, g64, J32, g32 = (p1[k] for k in ("J64_short", "g64_short", "J_short",
+                                                       "g_short"))
+                rJ = abs(o["J"] - J64) / abs(J64)
+                rg = float(np.linalg.norm(o["g"] - g64) / np.linalg.norm(g64))
+                dJ = abs(o["J"] - J32) / abs(J32)
+                dg = float(np.linalg.norm(o["g"] - g32) / np.linalg.norm(g32))
                 vidle = (max(0.0, 1 - o["vg_busy_ms"] / o["vg_wall_ms"])
                          if o["vg_busy_ms"] else None)
                 print(f"{tag} rank {r}: value_and_grad J {o['J']:.6e}, gradient "
@@ -3486,8 +3620,10 @@ def _shard_two_ranks(torch, dev, keep):
     for key, rec in slab_rows.items():
         rec["launches"] = sum(per[m]["by_shape"].get(key, 0)
                               for per in ranks for m in ("p1", "quad"))
-    print(f"[13b] two ranks (gloo, sharing the card): {wall_s:.1f} s with the spawn")
-    out["seconds"] = wall_s
+    print(f"[13b] two ranks (gloo, sharing the card): {rank_s:.1f} s on the ranks; the "
+          f"spawn, with [14b] and [14d] after it, {wall_s:.1f} s")
+    out["seconds"] = rank_s
+    out["spawn_seconds"] = wall_s
     return out, list(slab_rows.values())
 
 
@@ -3530,13 +3666,26 @@ def _shard_example(torch, dev, tmp):
 
 def phase_shard(torch, dev, kern, usim, keep):
     """[13]: block sharding (module docstring).  ``kern`` (the bell_bmv
-    row) gains the slab shapes; ``keep`` holds [9a]'s and [10]'s runs."""
+    row) gains the slab shapes; ``keep`` holds [9a]'s and [10]'s runs, and
+    gains [14b]'s rank results under "nodes_ranks" (its ranks run in
+    [13b]'s spawn)."""
     import shutil
     import tempfile
 
+    from glimslib_tpu_torch.parallel import run_ranks
+
     t_phase = time.perf_counter()
     out = {"world1": _shard_world1(torch, dev, usim, keep)}
-    two, slab_rows = _shard_two_ranks(torch, dev, keep)
+    # one spawn for [13b] and for [14b] and [14d] after it
+    p1 = keep["p1"]
+    t0 = time.perf_counter()
+    ranks = run_ranks(_rank_pair, NODES_WORLD, "gloo", dev, args=(
+        ((p1["config"], (p1["targets"], p1["v0"], p1["vg_config"])), keep["quad"]["config"]),
+        _nodes_rank_args(keep["lattice"])), timeout=SHARD_TIMEOUT_S)
+    wall_s = time.perf_counter() - t0
+    two, slab_rows = _shard_two_ranks(torch, keep, [r["13b"] for r in ranks], wall_s,
+                                      max(r["seconds"][0] for r in ranks))
+    keep["nodes_ranks"] = ([r["14b"] for r in ranks], max(r["seconds"][1] for r in ranks))
     out["two_ranks"] = two
     kern["slab_shapes"] = slab_rows
     tmp = tempfile.mkdtemp(prefix="glims_shard_")
@@ -3913,7 +4062,7 @@ def _nodes_world1(torch, dev, lat_ref, kernels, vg):
                               el_cg=[int(i) for i in sim.solver_info["el_cg_iters"]])
                 if label == "bench":
                     _, run = _time_runs(torch, simulate, args, dev, tag, N_STEPS)
-                else:  # the first run's rate (3 timed runs for the bench config only)
+                else:  # the first run's rate (timed runs for the bench config only)
                     run = dict(first_run_steps_per_s=N_STEPS / first_s)
                 run.update(collectives=coll.count, collective_ms=coll.ms)
                 rel = (_rel_l2(c_tr[-1], c_r), _rel_l2(u_tr[-1], u_r))
@@ -4098,14 +4247,29 @@ def _nodes_vg_report(ranks, ref, tag="[14d]"):
     return dict(ranks=rows, bit_equal=same, counts_equal=counts)
 
 
-def _nodes_two_ranks(torch, dev, lat_ref, vg):
-    """[14b]: NODES_WORLD ranks sharing the card over gloo, [9a]'s refined
-    config, N_STEPS steps (module docstring); returns its numbers and the
-    halo forms' launches summed over the ranks."""
+def _nodes_rank_args(vg):
+    """:func:`_rank14b`'s arguments: [9a]'s refined config, and ``vg``'s
+    (the lattice value_and_grad's) targets zero-padded to the padded box,
+    v0 and the config at newton_atol REFINED_NEWTON_ATOL."""
     import numpy as np
 
     from glimslib_tpu_torch.examples import REFINED_STEP_CONFIG
-    from glimslib_tpu_torch.parallel import run_ranks
+
+    n_real = (N + 1) ** 3
+    # pad_mesh_nodes pads whole planes of the slowest axis
+    n_pad = -(-(N + 1) // NODES_WORLD) * NODES_WORLD * (N + 1) ** 2
+    targets = {k: np.concatenate([v, np.zeros((n_pad - n_real,) + v.shape[1:], v.dtype)])
+               for k, v in vg["targets"].items()}
+    return (REFINED_STEP_CONFIG, (targets, vg["v0"], REFINED_STEP_CONFIG._replace(
+        newton_atol=REFINED_NEWTON_ATOL)))
+
+
+def _nodes_two_ranks(torch, dev, lat_ref, vg, ranks, wall_s):
+    """[14b]: NODES_WORLD ranks sharing the card over gloo, [9a]'s refined
+    config, N_STEPS steps (module docstring), from their results ``ranks``
+    ([13b]'s spawn; the work took ``wall_s`` seconds there); returns its
+    numbers and the halo forms' launches summed over the ranks."""
+    import numpy as np
 
     from glimslib_tpu_torch.examples import brain_sim
     from glimslib_tpu_torch.optimize.adjoint import InverseProblem, param_map_for_type
@@ -4121,15 +4285,6 @@ def _nodes_two_ranks(torch, dev, lat_ref, vg):
     del ref
     torch.cuda.empty_cache()
     ref_s = time.perf_counter() - t0
-    # pad_mesh_nodes pads whole planes of the slowest axis
-    n_pad = -(-(N + 1) // NODES_WORLD) * NODES_WORLD * (N + 1) ** 2
-    targets = {k: np.concatenate([v, np.zeros((n_pad - n_real,) + v.shape[1:], v.dtype)])
-               for k, v in vg["targets"].items()}
-    t0 = time.perf_counter()
-    ranks = run_ranks(_rank14b, NODES_WORLD, "gloo", dev,
-                      args=(REFINED_STEP_CONFIG, (targets, vg["v0"], REFINED_STEP_CONFIG._replace(
-                          newton_atol=REFINED_NEWTON_ATOL))), timeout=SHARD_TIMEOUT_S)
-    wall_s = time.perf_counter() - t0
     whole_bytes = ranks[0]["whole_bytes"]
     rows = []
     for r, o in enumerate(ranks):
@@ -4173,7 +4328,7 @@ def _nodes_two_ranks(torch, dev, lat_ref, vg):
     same = all(ranks[0][k] == o[k] for o in ranks for k in ("newton", "rd_cg", "el_cg",
                                                              "fix_cg"))
     print(f"[14b] Newton and CG counts equal on every rank: {same}; {NODES_WORLD} ranks "
-          f"(gloo, sharing the card) {wall_s:.1f} s with the spawn")
+          f"(gloo, sharing the card) {wall_s:.1f} s on the ranks, in [13b]'s spawn")
     if not same:
         raise AssertionError("[14b] the ranks took different solver paths")
     launches, transposed = {}, {}
@@ -4190,25 +4345,250 @@ def _nodes_two_ranks(torch, dev, lat_ref, vg):
             transposed)
 
 
-def phase_nodes(torch, dev, kernels, lat_ref, vg):
+def phase_nodes(torch, dev, kernels, lat_ref, vg, ranks):
     """[14]: node sharding of the lattice (module docstring).  ``lat_ref``
     = [3]'s f64 plain final (u, c); ``vg`` = [9a]'s lattice value_and_grad
     (targets, v0, the f64 J and gradient); ``kernels`` gains the halo-form
     rows with their launches in [14a] and [14b], and the transposed rows
-    with their launches in [14c]'s backward and [14d]'s."""
+    with their launches in [14c]'s backward and [14d]'s; ``ranks`` = [14b]'s
+    rank results and their seconds (:func:`phase_shard`)."""
     t_phase = time.perf_counter()
     out = {}
     out["world1"], rows, rows_T = _nodes_world1(torch, dev, lat_ref, kernels, vg)
     out["world1_s"] = time.perf_counter() - t_phase
     print(f"[14a] and [14c] {out['world1_s']:.1f} s")
     out["two_ranks"], out["value_and_grad_two_ranks"], launches, transposed = (
-        _nodes_two_ranks(torch, dev, lat_ref, vg))
+        _nodes_two_ranks(torch, dev, lat_ref, vg, *ranks))
     for row in rows:
         row["launches_14b"] = sum(launches[w.__name__] for w in row["wrappers"])
     for row in rows_T:
         row["launches_14d"] = transposed.get(row["form"], 0)
     out["seconds"] = time.perf_counter() - t_phase
     print(f"[14] node sharding phase {out['seconds']:.1f} s")
+    return out
+
+
+# [15]: the matrix-free jvp lane (operator_mode "matrix-free", the quad
+# model on a lattice mesh) and the gather residuals of a von Neumann
+# influx and a time-dependent source around the lanes' solves.  [15a] and
+# [15c] run MF_STEPS steps and [15b] QUAD_MF_STEPS (the jvp lane has no
+# kernel to hold, and a P2 jvp is tens of ms on the card).  The jvp lane
+# solves the same systems as the assembled lanes, so its state is held to
+# the lattice limit SLICE_RTOL against theirs, its J and gradient to the
+# lattice limits; [15b]'s quad state to QUAD_RTOL against [10c]'s.
+MF_STEPS = 2
+# [10c] keeps its state after SHARD_QUAD_STEPS steps for [13b]
+QUAD_MF_STEPS = SHARD_QUAD_STEPS
+MF_KERNEL = r"stencil_apply|stencil_pcg|bell_bmv"
+
+
+def _mf_run(torch, sim, tag, n_steps, profiled=True):
+    """One run of ``sim``'s simulate with every kernel wrapper's count at
+    0, then (``profiled``) one profiled run: the trajectory, the launches
+    (all must be 0), the kernels in the profile matching MF_KERNEL (must
+    be none), the Newton and CG counts by block, steps/s, busy ms and
+    idle share."""
+    from glimslib_tpu_torch.ops import bell_kernels as bk
+
+    wrappers = [w for g in _lattice_groups() for w in g] + [bk.batched_matvec]
+    args = (sim.make_theta(sim.params.as_dict()), *sim.initial_state())
+    simulate = sim.build_simulate_fn(n_steps, 1.0)
+    (u_tr, c_tr), launches, first_s = _drive(torch, sim, simulate, args, [], tag,
+                                             n_steps, shown=wrappers)
+    info = {k: [int(i) for i in v] for k, v in sim.solver_info.items() if v}
+    hits, busy, idle = None, None, None
+    t0 = time.perf_counter()
+    if profiled:
+        hits, busy, idle = _print_breakdown(torch, lambda: simulate(*args),
+                                            1e3 * first_s, tag, MF_KERNEL)
+    prof_s = time.perf_counter() - t0
+    sps = n_steps / first_s
+    print(f"{tag} steps/s {sps:.4f} (the first run's {first_s:.3f} s); lattice and "
+          f"halo-ELL kernels: wrapper launches {sum(launches.values())}"
+          + ("" if hits is None else f", kernels matching {MF_KERNEL!r} in the profiled "
+             f"run {sorted(hits)} (its run and processing {prof_s:.1f} s)"))
+    if sum(launches.values()) or hits:
+        raise AssertionError(f"{tag} the matrix-free lane launched kernels: {launches}, "
+                             f"{hits} in the profile")
+    return (u_tr, c_tr), dict(steps_per_s=sps, first_s=first_s, device_busy_ms=busy,
+                              idle_share=idle, launches=0,
+                              profiler_kernels=None if hits is None else len(hits),
+                              cg_iters=info)
+
+
+def _mf_lattice(torch, dev, lat, keep):
+    """[15a]: the P1 brain box on the matrix-free lane, MF_STEPS steps at
+    the benchmark's StepConfig and at REFINED_STEP_CONFIG, against the
+    auto lane's state after as many steps ([3]'s and [9a]'s runs, from
+    ``keep``); one value_and_grad of [7]'s problem at MF_STEPS steps on
+    both lanes (the auto lane's on [3]'s model ``lat``)."""
+    import numpy as np
+
+    from glimslib_tpu_torch.examples import (
+        BENCH_STEP_CONFIG, REFINED_STEP_CONFIG, adjoint_problem, brain_sim)
+    from glimslib_tpu_torch.optimize.adjoint import InverseProblem
+
+    t0 = time.perf_counter()
+    mf = brain_sim(n=N, dtype=torch.float32, device=dev)
+    mf.operator_mode = "matrix-free"
+    torch.cuda.synchronize()
+    print(f"[15a] N={N} matrix-free model set-up {time.perf_counter() - t0:.1f} s")
+    out = {}
+    for name, cfg in (("bench", BENCH_STEP_CONFIG), ("refined", REFINED_STEP_CONFIG)):
+        tag = f"[15a] matrix-free {name}:"
+        mf.step_config = cfg
+        # the profiler's breakdown of the bench run (cut from one a config)
+        (u_tr, c_tr), nums = _mf_run(torch, mf, tag, MF_STEPS, profiled=name == "bench")
+        want = keep[f"lattice_{name}_{MF_STEPS}"]
+        source = "[3]" if name == "bench" else "[9a]"
+        rel_c, rel_u = _rel_l2(c_tr[-1], want[1]), _rel_l2(u_tr[-1], want[0])
+        print(f"{tag} against the auto lane after {MF_STEPS} steps ({source}): "
+              f"rel-L2 c {rel_c:.3e}, u {rel_u:.3e} (<= {SLICE_RTOL})")
+        if max(rel_c, rel_u) > SLICE_RTOL:
+            raise AssertionError(f"{tag} c {rel_c:.3e}, u {rel_u:.3e}")
+        out[name] = dict(nums, rel_c=rel_c, rel_u=rel_u)
+        del u_tr, c_tr
+
+    # value_and_grad of [7]'s problem (its targets) at MF_STEPS steps
+    lat.step_config = BENCH_STEP_CONFIG
+    ip7, v0 = adjoint_problem(sim=lat)
+    mf.step_config = BENCH_STEP_CONFIG
+    got = {}
+    for lane, sim_ in (("assembled", lat), ("matrix-free", mf)):
+        ip = InverseProblem(sim_, ip7.param_names, ip7.targets, update_fn=ip7.update_fn,
+                            n_steps=MF_STEPS, dt=ip7.dt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        J, g = ip.value_and_grad(v0)
+        torch.cuda.synchronize()
+        got[lane] = (J, g, time.perf_counter() - t0, {
+            k: [int(i) for i in sim_.solver_info[k]]
+            for k in ("rd_adj_cg_iters", "el_adj_cg_iters")})
+    (J_a, g_a, s_a, _), (J, g, s_mf, adj) = got["assembled"], got["matrix-free"]
+    rel_J = abs(J - J_a) / abs(J_a)
+    rel_g = float(np.linalg.norm(g - g_a) / np.linalg.norm(g_a))
+    print(f"[15a] value_and_grad at {MF_STEPS} steps: matrix-free J {J:.8e}, gradient "
+          f"{g.tolist()} ({s_mf:.2f} s; adjoint CG {adj}); assembled J {J_a:.8e}, "
+          f"gradient {g_a.tolist()} ({s_a:.2f} s); rel J {rel_J:.3e} (<= "
+          f"{ADJ_J_RTOL['lattice']}), rel-L2 gradient {rel_g:.3e} (<= "
+          f"{ADJ_G_RTOL['lattice']})")
+    if rel_J > ADJ_J_RTOL["lattice"] or rel_g > ADJ_G_RTOL["lattice"]:
+        raise AssertionError(f"[15a] value_and_grad: J {rel_J:.3e}, gradient {rel_g:.3e}")
+    out["value_and_grad"] = dict(J=J, J_assembled=J_a, rel_J=rel_J, rel_grad=rel_g,
+                                 seconds=s_mf, seconds_assembled=s_a, adjoint_cg_iters=adj)
+    return out
+
+
+def _mf_quad(torch, dev, keep):
+    """[15b]: the quad brain model on the N=32 lattice box (the jvp lane),
+    QUAD_MF_STEPS refined steps, c against [10c]'s stripped-mesh run at
+    the same config (``keep``; the P2 dofs of both meshes share one
+    order: the Morton order of their coordinates)."""
+    from glimslib_tpu_torch.examples import brain_sim
+    from glimslib_tpu_torch.models.base import default_step_config
+
+    t0 = time.perf_counter()
+    sim = brain_sim(n=N, dtype=torch.float32, device=dev, quad=True)
+    sim.step_config = default_step_config(torch.float32)
+    u0, c0 = sim.initial_state()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    print(f"[15b] quad N={N} lattice: {sim.p2.n_dofs} P2 dofs, {sim.mesh.n_cells} tets; "
+          f"matrix-free {sim.matrix_free}; set-up {setup_s:.2f} s (model, P2 layout and "
+          f"the IV projection; no plan)")
+    if not sim.matrix_free or sim.p2.n_dofs != (2 * N + 1) ** 3:
+        raise AssertionError(f"[15b] quad lattice model: {sim.p2.n_dofs} dofs")
+    (u_tr, c_tr), nums = _mf_run(torch, sim, "[15b] quad matrix-free refined:",
+                                 QUAD_MF_STEPS)
+    rel_c = _rel_l2(c_tr[-1], keep["quad"]["final"][1])
+    rel_f64 = _rel_l2(c_tr[-1], keep["quad"]["ref"][1])
+    print(f"[15b] quad matrix-free refined: c after {QUAD_MF_STEPS} step(s) against "
+          f"[10c]'s on the stripped Morton mesh: rel-L2 {rel_c:.3e} (<= {QUAD_RTOL}); "
+          f"against [10b]'s f64 plain path {rel_f64:.3e}; step s "
+          f"{nums['first_s'] / QUAD_MF_STEPS:.2f}")
+    if rel_c > QUAD_RTOL:
+        raise AssertionError(f"[15b] c {rel_c:.3e}")
+    return dict(nums, setup_s=setup_s, rel_c=rel_c, rel_c_f64=rel_f64,
+                p2_dofs=sim.p2.n_dofs)
+
+
+def _influx(torch, dev, kernels, kern):
+    """[15c]: examples.influx_sim on the N=32 lattice (stencil_pcg<1>/<3>)
+    and on the n=32 unstructured box (bell_bmv), f32 refined, MF_STEPS
+    steps each, held to the lane's limit against the plain f64 path;
+    every kernel row of the lane gains its launches there."""
+    from glimslib_tpu_torch.examples import influx_sim
+    from glimslib_tpu_torch.ops import bell_kernels as bk
+    from glimslib_tpu_torch.solvers.coupled import StepConfig
+
+    out = {}
+    lat_rows = [k for k in kernels if "@" not in k["name"] and k["name"] != "bell_bmv"]
+    for lane, kw, limit in (("lattice", {}, SLICE_RTOL),
+                            ("unstructured", dict(unstructured=True), UNSTRUCT_RTOL)):
+        tag = f"[15c] influx {lane}:"
+        t0 = time.perf_counter()
+        sim = influx_sim(n=N, dtype=torch.float32, device=dev, **kw)
+        assert sim.step_config.refine_f64
+        theta = sim.make_theta(sim.params.as_dict())
+        sim._build_step()  # the stencil operators
+        aug = sim._augment_theta_with_operators({**theta, **sim.runtime_aux()})
+        streamed = sorted(k for k in ("_Mst", "_Cuc", "_Bell_rd_load", "_Bell_el_load")
+                          if k in aug)
+        del aug
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        groups = (_forward_groups(sim, _lattice_groups()) if lane == "lattice"
+                  else [(bk.batched_matvec,)])
+        simulate = sim.build_simulate_fn(MF_STEPS, 1.0)
+        args = (theta, *sim.initial_state())
+        (u_tr, c_tr), launches, first_s = _drive(
+            torch, sim, simulate, args, groups, tag, MF_STEPS,
+            shown=[w for g in _lattice_groups() for w in g] + [bk.batched_matvec])
+        # the same mesh: its plans are built once
+        ref = influx_sim(dtype=torch.float64, device=dev, plain=True, mesh=sim.mesh)
+        ref.step_config = StepConfig(newton_rtol=1e-10, newton_atol=1e-14, cg_rtol=1e-12,
+                                     cg_maxiter=4000)
+        t1 = time.perf_counter()
+        u_r, c_r, ok_r, newton_r = ref.build_simulate_fn(MF_STEPS, 1.0)(
+            ref.make_theta(ref.params.as_dict()), *ref.initial_state())
+        torch.cuda.synchronize()
+        rel_c, rel_u = _rel_l2(c_tr[-1], c_r[-1]), _rel_l2(u_tr[-1], u_r[-1])
+        print(f"{tag} set-up {setup_s:.1f} s; streamed residual planes {streamed} "
+              f"(the rd residual takes the gather form); against the f64 plain path "
+              f"({time.perf_counter() - t1:.1f} s, Newton {newton_r.tolist()}): rel-L2 c "
+              f"{rel_c:.3e}, u {rel_u:.3e} (<= {limit}); c grew from "
+              f"{float(args[2].sum()):.4f} to {float(c_tr[-1].sum()):.4f} (sum)")
+        if not bool(ok_r.all()) or max(rel_c, rel_u) > limit:
+            raise AssertionError(f"{tag} c {rel_c:.3e}, u {rel_u:.3e}")
+        if any(k in streamed for k in ("_Mst", "_Bell_rd_load")):
+            raise AssertionError(f"{tag} the rd residual streamed: {streamed}")
+        rows = lat_rows if lane == "lattice" else [kern]
+        for k in rows:
+            k["influx_launches"] = sum(launches[w] for w in k["wrappers"])
+        out[lane] = dict(first_s=first_s, steps_per_s=MF_STEPS / first_s, rel_c=rel_c,
+                         rel_u=rel_u, streamed=streamed, setup_s=setup_s,
+                         launches={w.__name__: n for w, n in launches.items() if n})
+        del sim, ref, u_tr, c_tr, u_r, c_r
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_matrix_free(torch, dev, lat, kernels, kern, keep):
+    """[15]: the matrix-free lane and the influx (module docstring)."""
+    t_phase = time.perf_counter()
+    out = {}
+    t0 = time.perf_counter()
+    out["lattice"] = _mf_lattice(torch, dev, lat, keep)
+    print(f"[15a] {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["quad"] = _mf_quad(torch, dev, keep)
+    print(f"[15b] {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["influx"] = _influx(torch, dev, kernels, kern)
+    print(f"[15c] {time.perf_counter() - t0:.1f} s")
+    print(f"[15] matrix-free phase {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -4235,9 +4615,10 @@ def main():
     print(f"[2] N={N} model set-up {time.perf_counter() - t0:.1f} s")
     kernels = phase_kernels(torch, sim, theta, dev)
     del theta
+    keep = {}
     ref, lat_state, lat_rel = phase_slice(
         torch, sim, brain_sim(n=N, dtype=torch.float64, device=dev, plain=True), dev,
-        kernels, f"[3] N={N}:", N_STEPS)
+        kernels, f"[3] N={N}:", N_STEPS, keep=keep)
 
     t0 = time.perf_counter()
     big = brain_sim(n=N64, dtype=torch.float32, device=dev)
@@ -4258,20 +4639,23 @@ def main():
     adjoint.update(adjoint2d)
     kern["atlas_2d_adjoint_launches"] = bmv2d
 
-    keep = {}
     defaults = phase_defaults(torch, dev, (sim, ref, lat_state, lat_rel),
                               (usim, uref, base6), keep)
     aux6 = usim.runtime_aux()
     keep["p1"]["table_bytes"] = _table_bytes(usim._augment_theta_with_operators(
         {**usim.make_theta(usim.params.as_dict()), **aux6}))
-    del sim, ref, uref, base6, aux6
+    del ref, uref, base6, aux6
     torch.cuda.empty_cache()
 
     quad = phase_quad(torch, dev, kern, keep)
     torch.cuda.empty_cache()
 
+    matrix_free = phase_matrix_free(torch, dev, sim, kernels, kern, keep)
+    del sim
+    torch.cuda.empty_cache()
+
     shard = phase_shard(torch, dev, kern, usim, keep)
-    lat_vg = keep["lattice"]
+    lat_vg, nodes_ranks = keep["lattice"], keep["nodes_ranks"]
     del usim, keep
     torch.cuda.empty_cache()
 
@@ -4281,12 +4665,13 @@ def main():
     examples, example_checks = phase_examples(torch, dev, kernels)
     torch.cuda.empty_cache()
 
-    nodes = phase_nodes(torch, dev, kernels, lat_state, lat_vg)
+    nodes = phase_nodes(torch, dev, kernels, lat_state, lat_vg, nodes_ranks)
     torch.cuda.empty_cache()
 
     drop = ("wrappers", "pattern", "iters")
     example_checks = {shape: [{k: v for k, v in row.items() if k not in drop}
                               for row in rows] for shape, rows in example_checks.items()}
+    print(json.dumps({"matrix_free": matrix_free}, default=str))
     print(json.dumps({"nodes": nodes}, default=str))
     print(json.dumps({"sharding": shard}, default=str))
     print(json.dumps({"examples": examples, "examples_kernel_checks": example_checks},

@@ -15,6 +15,9 @@ reference's workflow drives: with ``unstructured=True`` at n=32 it is the
 benchmark's quad flagship (274,625 P2 dofs), which at f32 takes
 :data:`UNSTRUCT_STEP_CONFIG` as the benchmark times it.
 
+``influx_sim`` is that box with a von Neumann influx of c and a
+time-dependent source (the gather residuals around the lane's solves).
+
 ``adjoint_problem`` is the benchmark's adjoint cell (``bench.py
 run_adjoint``): the 2-parameter inverse problem on that box (on the quad
 model with ``quad=True``).
@@ -76,8 +79,9 @@ def brain_sim(n=10, dtype=None, device=None, plain=False, unstructured=False,
               quad=False, mesh=None):
     """TumorGrowthBrain on the synthetic brain box, set up as the reference
     benchmark sets it up; on the card unless ``device`` says otherwise.
-    ``quad``: the quad model (needs ``unstructured``: the port runs it on
-    the unstructured lane only), at f32 with :data:`UNSTRUCT_STEP_CONFIG`.
+    ``quad``: the quad model, at f32 with :data:`UNSTRUCT_STEP_CONFIG`
+    (on the lattice mesh it takes the matrix-free jvp lane, as in the
+    reference).
     ``mesh``: the box mesh of another model (``n`` and ``unstructured``
     are then its), whose cached plans the two models share."""
     if mesh is None:
@@ -124,6 +128,59 @@ def brain_sim(n=10, dtype=None, device=None, plain=False, unstructured=False,
 
 # the adjoint cell's schedule (bench.py run_adjoint): 5 steps of dt = 1
 ADJ_STEPS = 5
+
+# influx_sim's flux through the boundary and its source's peak rate
+INFLUX_Q = 0.05
+INFLUX_SOURCE = 0.02
+
+
+def influx_source(x, t):
+    """s(x, t) = INFLUX_SOURCE t exp(-|x - (4, 5, 5)|^2 / 2) at the cell
+    midpoints ``x`` (a torch tensor (nc, 3)) and step time ``t``."""
+    import torch as _torch
+
+    x0 = _torch.tensor([4.0, 5.0, 5.0], dtype=x.dtype, device=x.device)
+    return INFLUX_SOURCE * t * _torch.exp(-((x - x0) ** 2).sum(dim=1) / 2.0)
+
+
+def influx_sim(n=10, dtype=None, device=None, plain=False, unstructured=False,
+               mesh=None):
+    """TumorGrowth on :func:`brain_sim`'s box and tissues with a von Neumann
+    influx of c and a time-dependent source: per-tissue coefficients by
+    name (brain_sim's, with D = 0.02 and rho = 0 outside GM and WM, so the
+    flux, scaled by the boundary cells' D, enters), an influx
+    :data:`INFLUX_Q` through the whole boundary, the source
+    :func:`influx_source`, the displacement clamped; 2 steps of dt = 1.
+    The concentration's residual takes the gather form on every lane
+    (``models/base.py``); the solves keep the lane's kernels.
+    ``unstructured`` and ``mesh`` as in :func:`brain_sim`."""
+    if mesh is None:
+        mesh = box_mesh((0, 0, 0), (10, 10, 10), n, n, n)
+        if unstructured:
+            mesh = Mesh.from_arrays(mesh.points, mesh.cells).reordered_morton()
+    r = np.linalg.norm((mesh.points - 5.0) / 5.0, axis=1)
+    labels = np.zeros(mesh.n_nodes)
+    for lab, rad in ((1, 0.95), (2, 0.80), (3, 0.62), (4, 0.20)):
+        labels[r < rad] = lab
+    sim = TumorGrowth(mesh, dtype=dtype, device=device, plain=plain)
+    sim.setup_global_parameters(
+        label_function=labels, domain_names=TISSUE_MAP,
+        boundaries={"boundary_all": _Boundary()}, dirichlet_bcs=_clamped(3),
+        von_neumann_bcs={"influx": {"bc_value": INFLUX_Q,
+                                    "named_boundary": "boundary_all",
+                                    "subspace_id": 1}})
+    center = np.array([6.0, 5.0, 5.0])
+    tissues = ("outside", "CSF", "GM", "WM", "Ventricles")
+    sim.setup_model_parameters(
+        iv_expression={0: np.zeros(3),
+                       1: lambda x: np.exp(-((x - center) ** 2).sum(axis=1) / 0.5)},
+        diffusion={**dict.fromkeys(tissues, 0.02), "WM": 0.1},
+        proliferation={"GM": 0.02, "WM": 0.1},
+        E={"outside": 10e3, "CSF": 1e3, "GM": 3e3, "WM": 3e3, "Ventricles": 1e3},
+        poisson={**dict.fromkeys(tissues, 0.45), "Ventricles": 0.3},
+        coupling=0.15, source_term=influx_source, sim_time=2, sim_time_step=1,
+    )
+    return sim
 
 
 def adjoint_problem(n=16, unstructured=False, dtype=None, device=None, sim=None,

@@ -13,7 +13,7 @@ Same orchestration API as the reference:
     u_traj, c_traj, ok, newton_iters = simulate(
         sim.make_theta(sim.params.as_dict()), *sim.initial_state())
 
-Two operator lanes, chosen by the mesh:
+Three operator lanes, chosen by the mesh and ``operator_mode``:
 
 - **Lattice meshes**: offset-stencil operators (``ops/stencil.py``) built
   once per simulate, the block-triangular Newton-CG step
@@ -40,6 +40,20 @@ Two operator lanes, chosen by the mesh:
   factored P2 channels; the residuals are the quadrature kernels of
   ``ops/p2.py``.  The elasticity block and its preconditioners are the P1
   lane's.
+- **The matrix-free jvp lane** (``operator_mode = "matrix-free"``, and
+  the quad models on lattice meshes, as in the reference): no assembled
+  operator, no stencil plane and no whole-solve kernel; each linear
+  solve is ``pcg`` on the ``torch.func.jvp`` of the masked per-cell
+  gather residuals (``ops/assembly.py P1Kernels``, ``ops/p2.py
+  P2Kernels``), Jacobi on the rd block (``rd_diag``) and per-node (d, d)
+  block-Jacobi on the elasticity block (``_BinvG``, hoisted once a
+  simulate), without warm starts.  It launches no CUDA kernel.
+
+A block whose equation carries a von Neumann facet term, or a
+time-dependent source or body force, leaves the streamed residual for
+the gather one on every lane (:meth:`Simulation._stencil_rd_residual_ok`,
+:meth:`Simulation._stencil_el_residual_ok`); its solves keep the lane's
+kernels.
 
 The lane's settings are the reference's defaults, fixed: supernodes of
 32 nodes, aggregates of 64, the coarse factors truncated to max(2048,
@@ -57,10 +71,11 @@ the trajectory gives the reference's exact gradient (``optimize/``).
 Solver non-convergence freezes the carried state and flags the remaining
 steps, as in the reference.  ``plain=True`` routes every kernel call
 through its plain torch version on any device: a reference run for
-checking the kernels on the card.  Outside the port so far (the quad
-models on lattice meshes, the ``cells`` sharding mode and ``nodes`` on an
-unstructured mesh, Chebyshev preconditioning, von Neumann BCs,
-time-dependent sources) the model raises ``NotImplementedError``.
+checking the kernels on the card.  Outside the port so far (the
+``cells`` sharding mode and ``nodes`` on an unstructured mesh, which need
+``parallel/nodeshard.py``, ``parallel/shard.py ShardedP1Kernels`` and
+``parallel/partition.py``; Chebyshev preconditioning) the model raises
+``NotImplementedError``.
 
 Sharding (:meth:`Simulation.use_sharding`) on every rank of a
 ``torch.distributed`` group.  Mode ``bell``: the model's supernode tables
@@ -186,18 +201,14 @@ class Simulation(ABC):
     _p2_sharded = False
     # set by use_sharding(mode='nodes'): this rank's node slab
     _node_slab = None
+    # 'auto': the assembled lanes (stencil planes on a lattice, halo-ELL
+    # planes elsewhere); 'matrix-free': the jvp lane everywhere
+    operator_mode = "auto"
 
     def __init__(self, mesh, time_dependent=True, dtype=None, device=None,
                  plain=False):
         self.lattice = mesh.lattice_strides is not None
         self.quad = self.CONCENTRATION_DEGREE == 2
-        if self.quad and self.lattice:
-            # the reference runs quad models on lattice meshes on its
-            # matrix-free jvp lane (no stencil builders for degree 2)
-            raise NotImplementedError(
-                "a quad (P2-concentration) model on a lattice-carrying mesh "
-                "takes the matrix-free jvp lane, which is not ported: pass a "
-                "mesh without lattice structure (Mesh.from_arrays)")
         self.logger = logging.getLogger(type(self).__name__)
         self.mesh = mesh
         self.time_dependent = time_dependent
@@ -219,6 +230,14 @@ class Simulation(ABC):
         # and of its backward
         self.solver_info = _new_solver_info()
         self.step_config = default_step_config(self.dtype)
+
+    @property
+    def matrix_free(self):
+        """True where the model takes the matrix-free jvp lane:
+        ``operator_mode = "matrix-free"``, or a quad model on a lattice
+        mesh (the stencil operators are P1; reference base.py:1028-1029,
+        :528-529)."""
+        return self.operator_mode == "matrix-free" or (self.quad and self.lattice)
 
     def use_sharding(self, device_mesh=None, n_devices=None, mode="auto"):
         """Distribute the simulation over the ranks of a process group (the
@@ -264,24 +283,32 @@ class Simulation(ABC):
         reduces its objective over the ranks.
 
         ``'cells'``, and ``'nodes'`` on an unstructured mesh, raise
-        ``NotImplementedError``: they run on the matrix-free jvp lane,
-        which the port does not have.  Returns the mesh."""
+        ``NotImplementedError``: they need the reference's
+        ``parallel/nodeshard.py``, ``parallel/shard.py ShardedP1Kernels``
+        and ``parallel/partition.py``, which the port does not have.  A
+        matrix-free model takes ``'cells'`` under ``auto``, as the
+        reference's does, and so raises; ``'nodes'`` on it, and on a model
+        with von Neumann conditions, raises too.  Returns the mesh."""
         if device_mesh is None:
             device_mesh = shard.make_device_mesh(n_devices, device=self.device)
         if device_mesh.device != shard.canonical_device(self.device):
             raise ValueError(f"the mesh of ranks is on {device_mesh.device}, the "
                              f"model on {self.device}")
         n_dev = device_mesh.world
-        bell_ok = not self.lattice
+        bell_ok = not self.lattice and not self.matrix_free
         why = None
         if mode == "auto":
-            if self.lattice and not self.quad and self.mesh.n_nodes % n_dev == 0:
+            if (self.lattice and not self.matrix_free
+                    and self.mesh.n_nodes % n_dev == 0):
                 mode = "nodes"
             elif bell_ok and self._get_bell_plan().nb % n_dev == 0:
                 mode = "bell"
             else:
                 mode = "cells"
-                if self.lattice:
+                if self.matrix_free:
+                    why = ("the assembled operators are off (operator_mode "
+                           "'matrix-free', or a quad model on a lattice mesh)")
+                elif self.lattice:
                     why = (f"lattice mesh with n_nodes={self.mesh.n_nodes} not "
                            f"divisible by {n_dev} devices (pad with "
                            "core.mesh.pad_mesh_nodes)")
@@ -323,9 +350,14 @@ class Simulation(ABC):
             if not self.lattice:
                 raise NotImplementedError(
                     "use_sharding: mode='nodes' on an unstructured mesh is the "
-                    "reference's owned/ghost node sharding (parallel/nodeshard.py), "
-                    "which swaps the element kernels and solves on the matrix-free "
-                    "jvp lane; that lane is not ported")
+                    "reference's owned/ghost node sharding (parallel/nodeshard.py "
+                    "NodeShardedP1Kernels, with parallel/partition.py), which the "
+                    "port does not have")
+            if self.matrix_free or self.bcs.von_neumann_bcs:
+                raise NotImplementedError(
+                    "use_sharding: mode='nodes' on the matrix-free lane or with von "
+                    "Neumann conditions (the rank's facet and jvp terms) is not "
+                    "ported; run the model unsharded")
             from glimslib_tpu_torch.parallel.gspmd import NodeSlab
 
             # raises the reference's divisibility error (pad_mesh_nodes)
@@ -339,10 +371,10 @@ class Simulation(ABC):
         elif mode == "cells":
             raise NotImplementedError(
                 "use_sharding: the reference takes mode='cells' here (shard-mapped "
-                "element kernels, parallel/shard.py ShardedP1Kernels)"
+                "element kernels, parallel/shard.py ShardedP1Kernels, with "
+                "parallel/partition.py)"
                 + (f", because {why}" if why else "")
-                + "; it swaps the element kernels and solves on the matrix-free jvp "
-                "lane, which is not ported")
+                + "; the port does not have those modules")
         else:
             raise ValueError(f"unknown sharding mode {mode!r}")
         self.device_mesh = device_mesh
@@ -412,7 +444,8 @@ class Simulation(ABC):
         )
         self.subdomains.setup_measures()
         self._setup_functionspace()
-        self.bcs = BoundaryConditions(self.functionspace, self.subdomains)
+        self.bcs = BoundaryConditions(self.functionspace, self.subdomains,
+                                      dtype=self.dtype, device=self.device)
         self.bcs.setup_dirichlet_boundary_conditions(dirichlet_bcs)
         self.bcs.setup_von_neumann_boundary_conditions(von_neumann_bcs)
         self._bc_cache = None
@@ -581,8 +614,10 @@ class Simulation(ABC):
         elasticity planes and block inverse, ``_WelM``/``_BinvM``/``_invdM``
         their mask-folded forms for the PCG kernels, ``_Wrd_const``/``_Mst``
         the constant rd planes, ``_Cuc`` the coupling planes, the constant
-        loads ``_rd_load``/``_el_load``, and ``_mirrors``, the cache of the
-        transposed planes the backward applies.  The solver state is built
+        loads ``_rd_load``/``_el_load`` (``_Mst``, ``_rd_load``, ``_Cuc``
+        and ``_el_load`` only where that block's residual streams), and
+        ``_mirrors``, the cache of the transposed planes the backward
+        applies.  The solver state is built
         without a graph: it feeds solvers only, so its cotangent is zero by
         design, as in the reference.  Under node sharding every key holds
         this rank's rows, the mask-folded forms are left out (they serve
@@ -609,20 +644,26 @@ class Simulation(ABC):
         theta["_Wrd_const"] = ops.build_rd_jacobian_const(
             theta["D"], theta["rho"], theta["dt"]
         )
-        theta["_Mst"] = ops.build_mass_planes()
-        # the kernels' node count: the halo-padded slab's under node sharding
-        zeros = torch.zeros(self.kernels.n_nodes, dtype=self.dtype, device=self.device)
-        load = self.kernels.rd_residual(
-            zeros, zeros, theta["D"], theta["rho"], theta["dt"],
-            source=theta["source"],
-        )
-        theta["_rd_load"] = -load  # the residual carried -dt s v
-        theta["_Cuc"] = ops.build_coupling_uc(
-            theta["mu"], theta["lam"], theta["coupling"]
-        )
-        theta["_el_load"] = self._body_load(theta)
+        # the streamed residuals where no facet or time-dependent term
+        # enters their block (else the gather residuals, reference
+        # base.py:1501-1524)
+        if self._stencil_rd_residual_ok():
+            theta["_Mst"] = ops.build_mass_planes()
+            # the kernels' node count: the halo-padded slab's under node sharding
+            zeros = torch.zeros(self.kernels.n_nodes, dtype=self.dtype,
+                                device=self.device)
+            load = self.kernels.rd_residual(
+                zeros, zeros, theta["D"], theta["rho"], theta["dt"],
+                source=theta["source"],
+            )
+            theta["_rd_load"] = -load  # the residual carried -dt s v
+        if self._stencil_el_residual_ok():
+            theta["_Cuc"] = ops.build_coupling_uc(
+                theta["mu"], theta["lam"], theta["coupling"]
+            )
+            theta["_el_load"] = self._body_load(theta)
         theta["_mirrors"] = stencil_kernels.MirrorCache(
-            [theta[k] for k in ("_Mst", "_Cuc", "_Wel", "_Wrd_const")])
+            [theta[k] for k in ("_Mst", "_Cuc", "_Wel", "_Wrd_const") if k in theta])
         return theta
 
     def _body_load(self, theta):
@@ -711,8 +752,9 @@ class Simulation(ABC):
         across parameter updates never changes a solution.
         ``setup_seconds`` records what the build took, by part, with the
         plans' build seconds (0 for a plan built before, by another sim of
-        the mesh, or handed to the model).  {} on lattice meshes."""
-        if self.lattice:
+        the mesh, or handed to the model).  {} on lattice meshes and on the
+        matrix-free lane."""
+        if self.lattice or self.matrix_free:
             return {}
         if self._aux_cache is not None:
             return self._aux_cache
@@ -845,7 +887,9 @@ class Simulation(ABC):
         ``_BellCuc`` (nb, s, d, Kh), ``_BellWrdC`` and ``_BellMrd`` (nb, s,
         Kh), reduced from the factored channel stacks when theta carries
         them, else through one fused assembly; the constant loads
-        ``_Bell_el_load`` and ``_Bell_rd_load``, and the supernode inverses
+        ``_Bell_el_load`` and ``_Bell_rd_load`` (the coupling and mass
+        planes and the loads only where that block's residual streams), and
+        the supernode inverses
         ``_BinvSN``/``_McSN`` (without a graph) when the aux did not carry
         them.  A quad model's residuals are the quadrature kernels, so it
         takes ``_BellWel`` and ``_BinvSN`` only, and the P2 planes of
@@ -857,26 +901,34 @@ class Simulation(ABC):
         m0 = self.kernels._m0
         mask_u, mask_c, _, _ = self._bc_masks_and_values()
         th = self._slab_input(theta)
-        planes = bell_factored.planes_from_theta(th, self.mesh.dim, want_cuc=True,
-                                                 want_rd=True, want_mrd=True)
+        want_cuc = self._stencil_el_residual_ok()
+        want_mrd = self._stencil_rd_residual_ok()
+        planes = bell_factored.planes_from_theta(th, self.mesh.dim, want_cuc=want_cuc,
+                                                 want_rd=True, want_mrd=want_mrd)
         if planes is None:
-            planes = bell.assemble_fused(bplan, [
-                bell.elasticity_entries(arrays, th["mu"], th["lam"]),
-                bell.coupling_uc_entries(arrays, th["mu"], th["lam"], th["coupling"]),
-                bell.rd_const_entries(arrays, th["D"], th["rho"], th["dt"], m0),
-                bell.mass_entries(arrays, m0),
-            ])
-        Wel, Wc, Wrd, Mrd = planes
-        theta["_BellWel"] = Wel.permute(0, 1, 3, 2, 4).contiguous()
-        theta["_BellCuc"] = Wc.permute(0, 1, 3, 2).contiguous()
-        theta["_BellWrdC"] = Wrd
-        theta["_BellMrd"] = Mrd
-        theta["_Bell_el_load"] = self._body_load(theta)
-        zeros = torch.zeros(self.mesh.n_nodes, dtype=self.dtype, device=self.device)
-        theta["_Bell_rd_load"] = -self.kernels.rd_residual(
-            zeros, zeros, theta["D"], theta["rho"], theta["dt"],
-            source=theta["source"],
-        )  # r(0) = -dt s v
+            ents = [bell.elasticity_entries(arrays, th["mu"], th["lam"])]
+            if want_cuc:
+                ents.append(bell.coupling_uc_entries(arrays, th["mu"], th["lam"],
+                                                     th["coupling"]))
+            ents.append(bell.rd_const_entries(arrays, th["D"], th["rho"], th["dt"], m0))
+            if want_mrd:
+                ents.append(bell.mass_entries(arrays, m0))
+            planes = bell.assemble_fused(bplan, ents)
+        planes = list(planes)
+        theta["_BellWel"] = planes.pop(0).permute(0, 1, 3, 2, 4).contiguous()
+        if want_cuc:
+            # the streamed elasticity residual R = A u + C c - load
+            theta["_BellCuc"] = planes.pop(0).permute(0, 1, 3, 2).contiguous()
+            theta["_Bell_el_load"] = self._body_load(theta)
+        Wrd = theta["_BellWrdC"] = planes.pop(0)
+        if want_mrd:
+            # the streamed rd residual R = W_const c + quad(c) - M c_prev - load
+            theta["_BellMrd"] = planes.pop(0)
+            zeros = torch.zeros(self.mesh.n_nodes, dtype=self.dtype, device=self.device)
+            theta["_Bell_rd_load"] = -self.kernels.rd_residual(
+                zeros, zeros, theta["D"], theta["rho"], theta["dt"],
+                source=theta["source"],
+            )  # r(0) = -dt s v
         with torch.no_grad():
             if "_BinvSN" not in theta:
                 theta["_BinvSN"] = bell.supernode_jacobi_inverse(
@@ -1021,12 +1073,61 @@ class Simulation(ABC):
     def displacement_mass_action(self, u):
         return self.kernels.mass_vector_residual(self._halo(u)[0])
 
+    # -- the gates of the streamed residuals (reference base.py:1547-1569) ------
+
+    def _stencil_rd_residual_ok(self):
+        """The streamed rd residual applies when the concentration equation
+        has no facet integral and no time-dependent source."""
+        if getattr(self, "_source_t", None) is not None:
+            return False
+        return not any(bc["subspace_id"] == self.SUBSPACE_CONCENTRATION
+                       for bc in self.bcs.von_neumann_bcs.values())
+
+    def _stencil_el_residual_ok(self):
+        """The streamed elasticity residual applies when nothing
+        time-dependent or facet-integral enters the u-equation."""
+        if getattr(self, "_body_force_t", None) is not None:
+            return False
+        return not any(bc["subspace_id"] == self.SUBSPACE_DISPLACEMENT
+                       for bc in self.bcs.von_neumann_bcs.values())
+
+    # -- the matrix-free jvp lane ------------------------------------------------
+
+    def _augment_matrix_free(self, theta):
+        """The jvp lane's theta-only state (reference base.py:1200-1221):
+        ``_BinvG``, the inverses of the per-node (d, d) elasticity blocks,
+        with Dirichlet and unreferenced nodes' blocks identity, built
+        without a graph (it feeds the preconditioner only)."""
+        mask_u, _, _, _ = self._bc_masks_and_values()
+        with torch.no_grad():
+            B = self.kernels.elasticity_diag_blocks(theta["mu"], theta["lam"])
+            theta["_BinvG"] = self.kernels.block_jacobi_inverse_blocks(B, mask=mask_u)
+        return theta
+
+    def _matrix_free_preconds(self):
+        """The jvp lane's preconditioners (reference base.py:1580-1625 with
+        no assembled operator): Jacobi from ``rd_diag`` on the rd block,
+        per-node block-Jacobi from ``_BinvG`` on the elasticity block."""
+        kern = self.kernels
+
+        def rd_precond(theta):
+            diag = self.rd_diag(theta)
+            return lambda r: r / diag
+
+        def el_precond(theta):
+            Binv = theta["_BinvG"]
+            return lambda r: kern.apply_block_jacobi(Binv, r)
+
+        return dict(rd_precond=rd_precond, el_precond=el_precond)
+
     # -- step and time loop ----------------------------------------------------
 
     def _augment_theta_with_operators(self, theta):
         """Theta-only operator planes, built once per simulate and never in
         the time loop."""
         theta = dict(theta)
+        if self.matrix_free:
+            return self._augment_matrix_free(theta)
         if self.lattice:
             if self._node_slab is not None:
                 # the replicated coefficients enter the slab work (their
@@ -1059,6 +1160,8 @@ class Simulation(ABC):
             config=self.step_config, record=record,
             rd_residual_hi=hi[0] if hi else None, el_residual_hi=hi[1] if hi else None,
         )
+        if self.matrix_free:
+            return make_step(**self._matrix_free_preconds(), **common)
         if self._node_slab is not None:
             return make_step(**self._node_builders(), reduce=self._reduce(), **common)
         if self.lattice:
@@ -1075,9 +1178,10 @@ class Simulation(ABC):
         converge, the state freezes and every later step is flagged
         (reference base.py:1843-1845).
 
-        Wherever the step takes the pcg branch (the unstructured lane, and
-        the lattice under node sharding, the reference's
-        ``_warm_start_ok``, base.py:1684-1692) each step starts from the
+        Wherever the step takes the pcg branch with assembled operators
+        (the unstructured lane, and the lattice under node sharding, the
+        reference's ``_warm_start_ok``, base.py:1684-1692; not the
+        matrix-free lane) each step starts from the
         linear extrapolation 2 x_k - x_{k-1} of the last two states.  On
         the unstructured lane, without concentration Dirichlet conditions,
         the Newton anchor ||r_c(c_prev)|| is carried algebraically as ||M
@@ -1092,7 +1196,7 @@ class Simulation(ABC):
         summed objective, the same on every rank (:meth:`use_sharding`)."""
         step = self._build_step()
         nodes = self._node_slab is not None
-        warm = not self.lattice or nodes
+        warm = (not self.lattice or nodes) and not self.matrix_free
         # the algebraic anchor is exact only when the concentration clamp
         # values are step-invariant: no concentration Dirichlet conditions
         no_c_dirichlet = not any(

@@ -4,19 +4,32 @@ of ``glimslib_tpu/models/tumor_growth.py``).
 Weak forms (reference simulation_tumor_growth.py:110-122):
 
   F_m  = inner(sigma(u), eps(v)) dx - inner(sigma(v), c*k*I) dx
-         - inner(body_force, v) dx
+         - inner(body_force, v) dx - vonNeumann(v)
   F_rd = c v dx + dt D grad(c).grad(v) dx - c_prev v dx
-         - dt rho c (1-c) v dx - dt source v dx
+         - dt rho c (1-c) v dx - dt source v dx - dt vonNeumann(D v)
 
-Both residuals are evaluated in their fully-streaming form: stencil
-planes through the CUDA stencil kernel on a lattice, assembled halo-ELL
-planes through the CUDA batched-matvec kernel on an unstructured mesh.
-Mixed-precision refinement takes its f64 residuals from the per-cell
-gather path of ``ops/assembly.py P1Kernels`` (:meth:`hi_residual_fns`).
-Under node sharding each residual takes this rank's rows, exchanges the
-halo of the fields it reads in one exchange, and returns the owned rows
-(the halo form of the stencil kernel; the gather path on the slab's
-cells).
+Each residual takes the form the theta keys of the lane select, as the
+reference's do: the fully-streaming form where theta carries its planes
+(``_Mst`` / ``_Cuc`` on a lattice: stencil planes through the CUDA
+stencil kernel; ``_Bell_rd_load`` / ``_Bell_el_load`` on an
+unstructured mesh: halo-ELL planes through the CUDA batched-matvec
+kernel), else the per-cell gather form of ``ops/assembly.py P1Kernels``
+with the source, the body force and the von Neumann facet terms.  The
+model leaves the streamed form of a block out of theta when that block
+has a facet term or a time-dependent source or body force
+(``models/base.py``), and the matrix-free lane never builds it.
+
+A ``source_term`` or ``body_force`` may be a callable ``f(x, t)``: ``x``
+the cell midpoints as a torch tensor (nc, dim) on the model's device
+(f64 for refinement's defect residuals, else the model's dtype), ``t``
+the step time (a float); it returns the per-cell values, (nc,) or (nc,
+dim), and is evaluated inside each step.
+
+Mixed-precision refinement takes its f64 residuals from the same gather
+path with f64 tables (:meth:`hi_residual_fns`).  Under node sharding each
+residual takes this rank's rows, exchanges the halo of the fields it
+reads in one exchange, and returns the owned rows (the halo form of the
+stencil kernel; the gather path on the slab's cells).
 """
 
 from __future__ import annotations
@@ -56,15 +69,28 @@ class TumorGrowth(Simulation):
             return self._tensor(lookup[self.subdomains.cell_labels])
         return self._tensor(value)
 
-    @staticmethod
-    def _check_static(source, body_force):
-        if callable(source) or callable(body_force):
-            raise NotImplementedError(
-                "time-dependent source terms and body forces are not ported yet"
-            )
-
     def _body_force(self, bf):
         return self._tensor(np.zeros(self.mesh.dim) if bf is None else bf)
+
+    # time-dependent source / body force: callables f(x_cell_midpoints, t)
+    # evaluated inside the step (set by make_theta)
+    _source_t = None
+    _body_force_t = None
+
+    def _midpoints(self, hi=False):
+        """The cell midpoints (this rank's slab cells under node sharding)
+        as a tensor on the model's device, f64 with ``hi``."""
+        attr = "_cell_mid_hi" if hi else "_cell_mid"
+        if getattr(self, attr, None) is None:
+            mid = self.mesh.cell_midpoints
+            if self._node_slab is not None:
+                mid = mid[self._node_slab.cell_ids]
+            setattr(self, attr, self._tensor(mid, torch.float64 if hi else None))
+        return getattr(self, attr)
+
+    def _at_midpoints(self, fn, t, hi):
+        x = self._midpoints(hi)
+        return torch.as_tensor(fn(x, t), dtype=x.dtype, device=x.device)
 
     def theta_class_labels(self):
         """The subdomain cell labels when every plane coefficient is a
@@ -89,7 +115,10 @@ class TumorGrowth(Simulation):
     def make_theta(self, params: Dict):
         src = params.get("source_term", 0.0)
         bf = params.get("body_force")
-        self._check_static(src, bf)
+        # a callable source or body force is evaluated in each step at the
+        # cell midpoints (the reference's Expression.t update)
+        self._source_t = src if callable(src) else None
+        self._body_force_t = bf if callable(bf) else None
         E = self._per_cell(params["E"])
         nu = self._per_cell(params["poisson"])
         return {
@@ -99,24 +128,81 @@ class TumorGrowth(Simulation):
             "mu": forms.compute_mu(E, nu),
             "lam": forms.compute_lambda(E, nu),
             "dt": self._tensor(float(params["sim_time_step"])),
-            "body_force": self._body_force(bf),
-            "source": self._per_cell(src),
+            "body_force": self._body_force(None if callable(bf) else bf),
+            "source": self._per_cell(0.0 if callable(src) else src),
         }
 
-    # -- residuals (streaming stencil form) ----------------------------------
+    # -- residuals -------------------------------------------------------------
+
+    def _vn_rd_term(self, theta, t, hi=False):
+        """sum over the concentration's von Neumann conditions of ∫ D q φ
+        ds (the flux scaled by the owning cell's D, reference
+        simulation_tumor_growth.py:120), or None; ``hi``: with the f64
+        facet kernels."""
+        out = None
+        for bc in self.bcs.von_neumann_bcs.values():
+            if bc["subspace_id"] != self.SUBSPACE_CONCENTRATION:
+                continue
+            kern = self.bcs.von_neumann_kernels(bc, hi=hi)
+            shape = kern.value_coords.shape[:2]
+            qv = torch.as_tensor(self.bcs.von_neumann_values(kern, bc["bc_value"], 1, t),
+                                 dtype=kern.dtype, device=kern.device).expand(shape)
+            D = theta["D"]
+            if D.dim() == 0:
+                qv = qv * D
+            else:
+                cells = torch.as_tensor(bc["facet_cells"], dtype=torch.int64,
+                                        device=kern.device)
+                qv = qv * D[cells][:, None]
+            term = kern.scalar_flux_residual(qv)
+            out = term if out is None else out + term
+        return out
+
+    def _rd_source(self, theta, t, hi):
+        source = theta["source"]
+        if self._source_t is not None:
+            source = source + self._at_midpoints(self._source_t, t, hi)
+        return source
+
+    def _el_body_force(self, theta, t, hi):
+        bf = theta["body_force"]
+        if self._body_force_t is not None:
+            bf = bf + self._at_midpoints(self._body_force_t, t, hi)
+        return bf
+
+    def _rd_gather(self, kern, c, c_prev, theta, t, hi=False):
+        """The gather form: ``kern.rd_residual`` with the source at t,
+        minus dt times the von Neumann term."""
+        c, c_prev = self._halo(c, c_prev)
+        r = kern.rd_residual(c, c_prev, theta["D"], theta["rho"], theta["dt"],
+                             source=self._rd_source(theta, t, hi), conc_max=1.0)
+        vn = self._vn_rd_term(theta, t, hi)
+        return r if vn is None else r - theta["dt"] * vn
+
+    def _el_gather(self, kern, u, c, theta, t, hi=False):
+        """The gather form: ``kern.elasticity_residual`` with the body
+        force at t, minus the tractions."""
+        u, c = self._halo(u, c)
+        r = kern.elasticity_residual(u, c, theta["mu"], theta["lam"], theta["coupling"],
+                                     body_force=self._el_body_force(theta, t, hi))
+        vn = self.bcs.von_neumann_residual(self.SUBSPACE_DISPLACEMENT, t, hi=hi)
+        return r if vn is None else r - vn
 
     def rd_residual(self, c, c_prev, theta, t):
-        """Lattice: R = W_const c + wc(c) c / 2 - M c_prev - load.
-        Unstructured: R = W_const c + dt rho / c_max ∫c²φ - M c_prev - load,
-        two halo-ELL matvecs and the per-cell quadratic pull."""
+        """Lattice streamed (``_Mst``): R = W_const c + wc(c) c / 2 - M
+        c_prev - load.  Unstructured streamed (``_Bell_rd_load``): R =
+        W_const c + dt rho / c_max ∫c²φ - M c_prev - load, two halo-ELL
+        matvecs and the per-cell quadratic pull.  Else the gather form."""
         k = self._k
-        if not self.lattice:
+        if "_Bell_rd_load" in theta:
             bplan = self._get_bell_plan()
             lin = (bell.apply_bell_scalar(bplan, theta["_BellWrdC"], c, k.bmv)
                    - bell.apply_bell_scalar(bplan, theta["_BellMrd"], c_prev, k.bmv))
             quad = self.kernels.rd_quad_residual(c, theta["rho"], theta["dt"],
                                                  conc_max=1.0)
             return lin + quad - theta["_Bell_rd_load"]
+        if "_Mst" not in theta:
+            return self._rd_gather(self.kernels, c, c_prev, theta, t)
         ops = self._stencil_ops
         c_h, cp_h = self._halo(c, c_prev)
         wc = ops.build_rd_wc(c_h, theta["rho"], theta["dt"], conc_max=1.0)
@@ -129,16 +215,19 @@ class TumorGrowth(Simulation):
         )
 
     def el_residual(self, u, c, theta, t):
-        """R = W_el u + C_uc c - load (stencil planes on a lattice,
-        halo-ELL matvecs on an unstructured mesh)."""
+        """R = W_el u + C_uc c - load (stencil planes ``_Cuc`` on a
+        lattice, halo-ELL matvecs ``_Bell_el_load`` on an unstructured
+        mesh), else the gather form."""
         k = self._k
-        if not self.lattice:
+        if "_Bell_el_load" in theta:
             bplan = self._get_bell_plan()
             return (
                 bell.apply_bell_vector(bplan, theta["_BellWel"], u, k.bmv)
                 + bell.apply_bell_coupling(bplan, theta["_BellCuc"], c, k.bmv)
                 - theta["_Bell_el_load"]
             )
+        if "_Cuc" not in theta:
+            return self._el_gather(self.kernels, u, c, theta, t)
         ops = self._stencil_ops
         mir, h = theta.get("_mirrors"), self._halo_rows
         u_h, c_h = self._halo(u, c)
@@ -174,15 +263,10 @@ class TumorGrowth(Simulation):
         k64 = self._get_kernels_hi()
 
         def rd_hi(c, c_prev, theta, t):
-            c, c_prev = self._halo(c, c_prev)
-            return k64.rd_residual(c, c_prev, theta["D"], theta["rho"], theta["dt"],
-                                   source=theta["source"], conc_max=1.0)
+            return self._rd_gather(k64, c, c_prev, theta, t, hi=True)
 
         def el_hi(u, c, theta, t):
-            u, c = self._halo(u, c)
-            return k64.elasticity_residual(u, c, theta["mu"], theta["lam"],
-                                           theta["coupling"],
-                                           body_force=theta["body_force"])
+            return self._el_gather(k64, u, c, theta, t, hi=True)
 
         return rd_hi, el_hi
 

@@ -64,7 +64,6 @@ class TumorGrowthBrain(TumorGrowth):
 
     def make_theta(self, params: Dict):
         p = params
-        self._check_static(p.get("rd_source_term", 0.0), p.get("body_force"))
         E_lut = self._tissue_lookup(
             {"CSF": p["E_CSF"], "GM": p["E_GM"], "WM": p["E_WM"],
              "Ventricles": p["E_VENT"], "outside": E_OUT},

@@ -21,6 +21,8 @@ class TumorGrowthBrain(_BrainP1):
 
     # function space and residuals from the quad model
     _setup_functionspace = _Quad._setup_functionspace
+    _p2_rd = _Quad._p2_rd
+    _p2_el = _Quad._p2_el
     rd_residual = _Quad.rd_residual
     el_residual = _Quad.el_residual
     rd_diag = _Quad.rd_diag

@@ -10,9 +10,18 @@ conditions on the concentration constrain the facets' edge-midpoint dofs
 too (``core/bcs.py``), and initial values are L2 projections onto the P2
 space (``core/functionspace.py``).
 
-The model runs the unstructured lane only (``models/base.py``): the
-assembled P2 rd Jacobian on the P2 supernode plan.  The reference's
-streamed P2 residual (``GLIMS_P2STREAM``, off by default) is not ported.
+Von Neumann fluxes on the concentration integrate over the facets'
+trace element (``ops/p2.py P2FacetKernels``), scaled by dt times the
+owning cell's D; tractions on the displacement take the P1 facet
+kernels.  A callable source or body force is evaluated at the cell
+midpoints in each step, as on the P1 model (the JAX package's quad model
+leaves it out of its residuals).
+
+On an unstructured mesh the model runs the unstructured lane: the
+assembled P2 rd Jacobian on the P2 supernode plan.  On a lattice mesh
+it runs the matrix-free jvp lane, as the reference's does (the stencil
+operators are P1).  The reference's streamed P2 residual
+(``GLIMS_P2STREAM``, off by default) is not ported.
 """
 
 from __future__ import annotations
@@ -35,14 +44,24 @@ class TumorGrowth(_TumorGrowthP1):
 
     # -- residuals over the P2 concentration space ---------------------------
 
+    def _p2_rd(self, p2k, c, c_prev, theta, t, hi=False):
+        r = p2k.rd_residual(c, c_prev, theta["D"], theta["rho"], theta["dt"],
+                            source=self._rd_source(theta, t, hi), conc_max=1.0)
+        vn = self._vn_rd_term(theta, t, hi)
+        return r if vn is None else r - theta["dt"] * vn
+
+    def _p2_el(self, kern, p2k, u, c, theta, t, hi=False):
+        r = kern.elasticity_residual_cint(
+            u, p2k.cell_integral(c), theta["mu"], theta["lam"], theta["coupling"],
+            body_force=self._el_body_force(theta, t, hi))
+        vn = self.bcs.von_neumann_residual(self.SUBSPACE_DISPLACEMENT, t, hi=hi)
+        return r if vn is None else r - vn
+
     def rd_residual(self, c, c_prev, theta, t):
-        return self.p2.rd_residual(c, c_prev, theta["D"], theta["rho"], theta["dt"],
-                                   source=theta["source"], conc_max=1.0)
+        return self._p2_rd(self.p2, c, c_prev, theta, t)
 
     def el_residual(self, u, c, theta, t):
-        return self.kernels.elasticity_residual_cint(
-            u, self.p2.cell_integral(c), theta["mu"], theta["lam"],
-            theta["coupling"], body_force=theta["body_force"])
+        return self._p2_el(self.kernels, self.p2, u, c, theta, t)
 
     def rd_diag(self, theta):
         return self.p2.rd_mass_stiffness_diag(theta["D"], theta["rho"], theta["dt"])
@@ -62,12 +81,9 @@ class TumorGrowth(_TumorGrowthP1):
         k64 = self._get_kernels_hi()
 
         def rd_hi(c, c_prev, theta, t):
-            return p2h.rd_residual(c, c_prev, theta["D"], theta["rho"], theta["dt"],
-                                   source=theta["source"], conc_max=1.0)
+            return self._p2_rd(p2h, c, c_prev, theta, t, hi=True)
 
         def el_hi(u, c, theta, t):
-            return k64.elasticity_residual_cint(
-                u, p2h.cell_integral(c), theta["mu"], theta["lam"], theta["coupling"],
-                body_force=theta["body_force"])
+            return self._p2_el(k64, p2h, u, c, theta, t, hi=True)
 
         return rd_hi, el_hi

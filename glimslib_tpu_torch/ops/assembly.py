@@ -276,8 +276,41 @@ class P1Kernels:
         ga2 = g * g
         return self._scatter_vector(v * (mu * (g2[:, None, :] + ga2) + lam * ga2))
 
-    # -- vector elasticity block (the gather path: refinement's f64 defect
-    # residuals) ---------------------------------------------------------
+    def elasticity_diag_blocks(self, mu, lam):
+        """Per-node (d, d) diagonal blocks of the elasticity operator,
+        A[(i,a),(i,b)] = Σ_cells V [μ(g_i[a] g_i[b] + δ_ab |g_i|²) + λ
+        g_i[a] g_i[b]], (n, d, d): the block-Jacobi preconditioner of the
+        matrix-free lane."""
+        g = self.grads_T  # (npe, d, nc)
+        v = self.vol
+        mu = self._cellco(mu)
+        lam = self._cellco(lam)
+        gg = g[:, :, None, :] * g[:, None, :, :]  # (npe, a, b, nc)
+        g2 = (g * g).sum(dim=1)  # (npe, nc)
+        eye = torch.eye(self.dim, dtype=self.dtype, device=self.device)[None, :, :, None]
+        contrib = v * (mu * (gg + eye * g2[:, None, None, :]) + lam * gg)
+        d = self.dim
+        ent = torch.movedim(contrib, -1, 1).reshape(-1, d * d)  # npe-major entries
+        out = torch.zeros((self.n_nodes, d * d), dtype=contrib.dtype, device=self.device)
+        return self._out_rows(out.index_add_(0, self.cells_flat, ent)).reshape(-1, d, d)
+
+    def block_jacobi_inverse_blocks(self, B, mask=None):
+        """The inverses of per-node (d, d) blocks, (n, d, d); the blocks of
+        nodes with any masked component (``mask`` (n, d): Dirichlet dofs,
+        nodes no cell references) are identity before inversion."""
+        if mask is not None:
+            eye = torch.eye(self.dim, dtype=B.dtype, device=B.device)[None]
+            B = torch.where(mask.any(dim=1)[:, None, None], eye, B)
+        return torch.linalg.inv(B)
+
+    @staticmethod
+    def apply_block_jacobi(Binv, r):
+        """r (n, d) -> (n, d), each node's block solve."""
+        return (Binv * r[:, None, :]).sum(dim=2)
+
+    # -- vector elasticity block (the gather path: the matrix-free lane,
+    # the residuals with facet or time-dependent terms, refinement's f64
+    # defect residuals) ----------------------------------------------------
 
     def elasticity_residual(self, u, c, mu, lam, coupling, body_force=None):
         """Residual of the growth-coupled linear elasticity equation,
@@ -348,3 +381,83 @@ class P1Kernels:
         (nc, d, d)."""
         ue = u[self.cells_T]  # (npe, nc, d)
         return torch.einsum("knb,kdn->nbd", ue, self.grads_T)
+
+
+# -- facet (boundary-integral) kernels: von Neumann conditions ----------------
+
+
+class FacetKernels:
+    """Surface-integral kernels over a set of facets (counterpart of
+    ``glimslib_tpu/ops/assembly.py FacetKernels``): ∫_Γ q φ_i ds (a
+    scalar flux) and ∫_Γ t·v ds (a traction), with the facet P1 mass
+    matrix M^f_ij = A (1 + δ_ij) / (d (d + 1)) on a (d-1)-simplex of d
+    nodes, in ``dtype`` on ``device``.
+
+    Built over exterior facets (``facet_idx`` into the mesh's boundary
+    facet arrays) or over explicit facet nodes (``facet_nodes`` (nf, d),
+    e.g. inter-tissue facets for the ``dS`` measure, their areas from the
+    facet geometry).  Accumulation into
+    the nodes is one static pull (``pull_accumulate``), so autograd and
+    ``torch.func.jvp`` pass through."""
+
+    def __init__(self, mesh, facet_idx, n_nodes, dtype=torch.float64, facet_nodes=None,
+                 device="cpu"):
+        self.dim = mesh.dim
+        self.dtype = dtype
+        self.device = torch.device(device)
+        if facet_nodes is None:
+            fidx = np.asarray(facet_idx, dtype=np.int64)
+            fnodes = mesh.boundary_facet_nodes[fidx]
+            area = mesh.boundary_facet_area[fidx]
+        else:
+            fnodes = np.asarray(facet_nodes, dtype=np.int64)
+            coords = mesh.points[fnodes]  # (nf, dim, dim)
+            if mesh.dim == 2:
+                area = np.linalg.norm(coords[:, 1] - coords[:, 0], axis=1)
+            elif mesh.dim == 3:
+                area = 0.5 * np.linalg.norm(np.cross(coords[:, 1] - coords[:, 0],
+                                                     coords[:, 2] - coords[:, 0]), axis=1)
+            else:
+                raise NotImplementedError("facet geometry needs dim 2 or 3")
+        kw = dict(dtype=dtype, device=self.device)
+        self.n_facets = len(fnodes)
+        self.facet_nodes = np.asarray(fnodes, dtype=np.int64)
+        self.facet_area = torch.as_tensor(area, **kw)
+        # where callables are evaluated: the facet nodes, (nf, d, dim)
+        self.value_coords = torch.as_tensor(mesh.points[fnodes], **kw)
+        self._pull = pull_index(make_scatter_plan(self.facet_nodes, n_nodes), self.device)
+        d = mesh.dim
+        M = np.full((d, d), 1.0 / (d * (d + 1)))
+        M[np.diag_indices(d)] *= 2.0
+        self.facet_mass_unit = torch.as_tensor(M, **kw)
+
+    def _value(self, x):
+        return torch.as_tensor(x, dtype=self.dtype, device=self.device)
+
+    def scalar_flux_residual(self, q):
+        """∫_Γ q φ_i ds with q a constant, per facet (nf,) or per facet
+        node (nf, d); returns (n_nodes,)."""
+        q = self._value(q)
+        if q.dim() <= 1:
+            qn = (q[:, None] if q.dim() == 1 else q).expand(self.n_facets, self.dim)
+        else:
+            qn = q
+        # contrib[f, i] = A_f sum_j M[i, j] qn[f, j]
+        contrib = self.facet_area[:, None] * (self.facet_mass_unit[None]
+                                              * qn[:, None, :]).sum(dim=2)
+        return pull_accumulate(self._pull, contrib.reshape(-1))
+
+    def traction_residual(self, t):
+        """∫_Γ t·v ds with t a constant (d,), per facet (nf, d) or per
+        facet node (nf, d_nodes, d); returns (n_nodes, d)."""
+        t = self._value(t)
+        if t.dim() <= 2:
+            tf = t if t.dim() == 2 else t[None, :]
+            tn = tf.expand(self.n_facets, t.shape[-1])[:, None, :].expand(
+                self.n_facets, self.dim, t.shape[-1])
+        else:
+            tn = t
+        # contrib[f, i, a] = A_f sum_j M[i, j] tn[f, j, a]
+        contrib = self.facet_area[:, None, None] * (
+            self.facet_mass_unit[None, :, :, None] * tn[:, None, :, :]).sum(dim=2)
+        return pull_accumulate(self._pull, contrib.reshape(-1, contrib.shape[-1]))

@@ -21,8 +21,8 @@ product).  Accumulation into the dofs is one static pull
 kernel for the adjoint.  The TPU's gather tricks (duplicated width-2
 rows, class-split pull plans) have no counterpart here.
 
-Von Neumann conditions on P2 (``P2FacetKernels``) are not ported: the
-boundary conditions raise for them.
+``P2FacetKernels``: von Neumann fluxes of a P2 field, by quadrature on
+the facets' trace element.
 """
 
 from __future__ import annotations
@@ -283,3 +283,61 @@ class P2Kernels:
     def vertex_dof_ids(self, nids):
         """Dof ids of vertex dofs given mesh-node indices."""
         return self.dof_rank[np.asarray(nids, np.int64)]
+
+
+class P2FacetKernels:
+    """Surface-integral kernels of a scalar P2 field on exterior facets,
+    ∫_Γ q φ_i ds by facet quadrature on the trace element (counterpart of
+    ``glimslib_tpu/ops/p2.py P2FacetKernels``): the cell's P2 basis
+    restricted to a facet is the P2 element of the (d-1)-simplex, its
+    dofs the facet's vertices and edge midpoints, so the kernels tabulate
+    ``P2Element(dim - 1)`` at a degree-4 facet rule.  In ``dtype`` on
+    ``device``; the accumulation is one static pull."""
+
+    def __init__(self, mesh, facet_idx, n_dofs, dtype=torch.float64, device="cpu"):
+        from glimslib_tpu_torch.core.mesh import EDGE_VERTICES
+
+        d = mesh.dim
+        if d < 2:
+            raise ValueError("P2 facet kernels need dim >= 2")
+        self.dim = d
+        self.dtype = dtype
+        self.device = torch.device(device)
+        kw = dict(dtype=dtype, device=self.device)
+        fidx = np.asarray(facet_idx, dtype=np.int64)
+        self.n_facets = len(fidx)
+        fnodes = mesh.boundary_facet_nodes[fidx]  # (nf, d) vertex ids
+        self.facet_area = torch.as_tensor(mesh.boundary_facet_area[fidx], **kw)
+        # facet dofs in P2Element(d - 1)'s order: vertices, then edges
+        fev = EDGE_VERTICES[d - 1]
+        if self.n_facets:
+            pairs = np.concatenate([fnodes[:, list(p)] for p in fev], axis=0)
+            eids = mesh.edge_ids_for_pairs(pairs).reshape(len(fev), self.n_facets).T
+        else:
+            eids = np.zeros((0, len(fev)), dtype=np.int32)
+        _, rank, _ = p2_dof_layout(mesh)
+        facet_dofs = rank[np.concatenate([fnodes, mesh.n_nodes + eids], axis=1)
+                          ].astype(np.int64)  # (nf, nfd), interleaved order
+        self._pull = pull_index(make_scatter_plan(facet_dofs, n_dofs), self.device)
+        qp, qw = simplex_quadrature(d - 1, 4)
+        vals, _ = P2Element(d - 1).tabulate(qp)  # (nq, nfd)
+        self.qw = torch.as_tensor(qw * math.factorial(d - 1), **kw)  # sums to 1
+        self.vals = torch.as_tensor(vals, **kw)
+        self.n_quad = len(qw)
+        # physical quadrature points of the affine facets, (nf, nq, dim)
+        p1v, _ = P1Element(d - 1).tabulate(qp)  # (nq, d)
+        X = mesh.points[fnodes]  # (nf, d, dim)
+        self.value_coords = torch.as_tensor(
+            np.sum(p1v[None, :, :, None] * X[:, None, :, :], axis=2), **kw)
+
+    def scalar_flux_residual(self, q):
+        """∫_Γ q φ_i ds with q a constant, per facet (nf,) or per facet
+        quadrature point (nf, nq); returns (n_dofs,)."""
+        q = torch.as_tensor(q, dtype=self.dtype, device=self.device)
+        if q.dim() <= 1:
+            qq = (q[:, None] if q.dim() == 1 else q).expand(self.n_facets, self.n_quad)
+        else:
+            qq = q
+        w = self.facet_area[:, None] * self.qw[None, :] * qq  # (nf, nq)
+        contrib = (w[:, :, None] * self.vals[None]).sum(dim=1)  # (nf, nfd)
+        return pull_accumulate(self._pull, contrib.reshape(-1))

@@ -6,7 +6,7 @@ does not depend on u), so one Newton solve of it is exactly: Newton-CG on
 the scalar c-block, then one SPD CG solve of the elasticity block with c
 known.  Dirichlet conditions are enforced by masked projection.
 
-Two branches of the reference are ported:
+Three branches of the reference are ported:
 
 - the lattice lane's whole-solve branch: both linear solves go through
   whole-solve PCG callables (``rd_cg``, ``el_cg``, the CUDA kernel
@@ -16,7 +16,15 @@ Two branches of the reference are ported:
   ``el_precond``, the chord method (the rd Jacobian frozen at the step's
   start, from ``rd_jacobian_chord`` when given), inexact-Newton forcing
   (``rd_cg_rtol``), and extrapolated warm starts whose tolerances stay
-  anchored at the unextrapolated points (``guess``, ``anchor_c``).
+  anchored at the unextrapolated points (``guess``, ``anchor_c``);
+- the matrix-free jvp branch (the reference's ``_masked_operator``),
+  taken when neither operators nor whole-solve callables are given: each
+  block's operator is the identity on masked dofs and, elsewhere, the
+  ``torch.func.jvp`` of the masked WORKING-dtype residual at the current
+  iterate (under refinement too: Newton measures the f64 residual, the
+  jvp differentiates the working one), preconditioned by ``rd_precond``
+  / ``el_precond``; the rd Jacobian is exact every Newton iteration.
+  The forward runs under ``no_grad``, which forward-mode AD ignores.
 
 The Newton and CG loops read their residual norms on the host once per
 iteration (the whole-solve kernels keep theirs on the device).  No
@@ -43,7 +51,8 @@ enabled and the state or a theta tensor requires it, the step runs as one
 ``no_grad`` and whose backward, given (u_bar, c_bar) at the converged
 (u, c), solves the two adjoint systems with the forward's own solvers
 (the whole-solve kernels, or ``pcg`` with the EXACT rd Jacobian, never
-the chord operator) and takes the residual VJPs with
+the chord operator, or on the jvp branch the jvp operators at the
+converged state, both blocks being symmetric) and takes the residual VJPs with
 ``torch.autograd.grad``:
 
     A_uu^T lam_u = u_bar
@@ -97,6 +106,12 @@ def _masked_op(raw_op, mask):
     return lambda v: torch.where(mask, v, raw_op(torch.where(mask, 0.0, v)))
 
 
+def _masked_operator(resid, x, mask):
+    """The jvp branch's SPD operator: identity on masked dofs, the jvp of
+    ``resid`` at ``x`` (P J P) elsewhere."""
+    return _masked_op(lambda v: torch.func.jvp(resid, (x,), (v,))[1], mask)
+
+
 def make_step(
     rd_residual: Callable,  # (c, c_prev, theta, t) -> (n,)
     el_residual: Callable,  # (u, c, theta, t) -> (n, d)
@@ -132,11 +147,14 @@ def make_step(
     cfg = config
     whole_solve = rd_cg is not None and el_cg is not None
     assembled = None not in (rd_jacobian, el_operator, rd_precond, el_precond)
-    if not (whole_solve or assembled):
-        raise NotImplementedError(
-            "make_step runs the whole-solve (rd_cg, el_cg) branch or the "
+    jvp = (rd_cg is None and el_cg is None and rd_jacobian is None
+           and el_operator is None and None not in (rd_precond, el_precond))
+    if not (whole_solve or assembled or jvp):
+        raise ValueError(
+            "make_step runs the whole-solve (rd_cg, el_cg) branch, the "
             "assembled-operator pcg branch (rd_jacobian, el_operator, "
-            "rd_precond, el_precond)"
+            "rd_precond, el_precond) or the matrix-free jvp branch "
+            "(rd_precond, el_precond alone)"
         )
     if cfg.refine_f64 and None in (rd_residual_hi, el_residual_hi):
         raise ValueError("refine_f64 needs rd_residual_hi and el_residual_hi")
@@ -171,11 +189,15 @@ def make_step(
         refine = cfg.refine_f64 and c_prev.dtype != torch.float64
         # the accuracy mode keeps the exact Jacobian every Newton iteration:
         # the chord method lands just under ftol, which costs its margin
-        freeze_jac = cfg.rd_modified_newton and not whole_solve and not refine
+        freeze_jac = cfg.rd_modified_newton and assembled and not refine
 
         # ---- c-block: Newton-CG ------------------------------------------
+        def resid_c_work(c):
+            return torch.where(mask_c, c - gc, rd_residual(c, c_prev, theta, t))
+
         # what Newton measures and corrects against: the working residual,
-        # or (refine) the f64 one, downcast
+        # or (refine) the f64 one, downcast; the jvp branch differentiates
+        # the working one
         if refine:
             f64 = torch.float64
             theta_hi = {k: v.to(f64) if (torch.is_tensor(v) and v.is_floating_point()
@@ -187,8 +209,7 @@ def make_step(
                 r = rd_residual_hi(c.to(f64), c_prev_hi, theta_hi, t)
                 return torch.where(mask_c, (c - gc).to(f64), r).to(c.dtype)
         else:
-            def resid_c(c):
-                return torch.where(mask_c, c - gc, rd_residual(c, c_prev, theta, t))
+            resid_c = resid_c_work
 
         if not whole_solve:
             Mc = _masked_op(rd_precond(theta), mask_c)
@@ -212,8 +233,11 @@ def make_step(
             if whole_solve:
                 dc, _ = _recorded("rd", rd_cg(theta, c, rhs))
             else:
-                A = (A_frozen if freeze_jac
-                     else _masked_op(rd_jacobian(theta, c), mask_c))
+                if jvp:
+                    A = _masked_operator(resid_c_work, c, mask_c)
+                else:
+                    A = (A_frozen if freeze_jac
+                         else _masked_op(rd_jacobian(theta, c), mask_c))
                 dc, _ = _pcg("rd", A, rhs, Mc, cfg.rd_cg_rtol or cfg.cg_rtol,
                              cfg.cg_atol)
             c_new = c + dc
@@ -226,6 +250,9 @@ def make_step(
         conv_c = fnorm <= max(ftol, cfg.newton_atol) and not bad
 
         # ---- u-block: one linear solve -----------------------------------
+        def resid_u_work(u):
+            return torch.where(mask_u, u - gu, el_residual(u, c, theta, t))
+
         if refine:
             c_hi = c.to(f64)
 
@@ -233,8 +260,7 @@ def make_step(
                 r = el_residual_hi(u.to(f64), c_hi, theta_hi, t)
                 return torch.where(mask_u, (u - gu).to(f64), r).to(u.dtype)
         else:
-            def resid_u(u):
-                return torch.where(mask_u, u - gu, el_residual(u, c, theta, t))
+            resid_u = resid_u_work
 
         u0 = torch.where(mask_u, gu, u_prev)
         ru = resid_u(u0)
@@ -247,7 +273,9 @@ def make_step(
         if whole_solve:
             du, info_u = _recorded("el", el_cg(theta, rhs_u))
         else:
-            Au = _masked_op(el_operator(theta), mask_u)
+            # the elasticity residual is affine in u: its jvp at u0 is A_uu
+            Au = (_masked_operator(resid_u_work, u0, mask_u) if jvp
+                  else _masked_op(el_operator(theta), mask_u))
             Mu = _masked_op(el_precond(theta), mask_u)
             if warm:
                 atol = max(cfg.cg_rtol * float(anchor_u), cfg.cg_atol)
@@ -286,9 +314,14 @@ def make_step(
         if whole_solve:
             lam_u, _ = _recorded("el_adj", el_cg(theta, rhs_u))
         else:
-            lam_u, _ = _pcg("el_adj", _masked_op(el_operator(theta), mask_u), rhs_u,
-                            _masked_op(el_precond(theta), mask_u), cfg.cg_rtol,
-                            cfg.cg_atol)
+            if jvp:
+                Au = _masked_operator(
+                    lambda uu: torch.where(mask_u, uu - gu, el_residual(uu, c, theta, t)),
+                    u, mask_u)
+            else:
+                Au = _masked_op(el_operator(theta), mask_u)
+            lam_u, _ = _pcg("el_adj", Au, rhs_u, _masked_op(el_precond(theta), mask_u),
+                            cfg.cg_rtol, cfg.cg_atol)
         # c_bar - (dR_u/dc)^T lam_u, and dR_u/dtheta^T lam_u
         with torch.enable_grad():
             th = {k: v.detach().requires_grad_(k in keys) if torch.is_tensor(v) else v
@@ -303,8 +336,14 @@ def make_step(
         if whole_solve:
             lam_c, _ = _recorded("rd_adj", rd_cg(theta, c, rhs_c))
         else:
-            lam_c, _ = _pcg("rd_adj", _masked_op(rd_jacobian(theta, c), mask_c),
-                            rhs_c, _masked_op(rd_precond(theta), mask_c),
+            if jvp:
+                Ac = _masked_operator(
+                    lambda cc: torch.where(mask_c, cc - gc,
+                                           rd_residual(cc, c_prev, theta, t)),
+                    c, mask_c)
+            else:
+                Ac = _masked_op(rd_jacobian(theta, c), mask_c)
+            lam_c, _ = _pcg("rd_adj", Ac, rhs_c, _masked_op(rd_precond(theta), mask_c),
                             cfg.cg_rtol, cfg.cg_atol)
         # dR_c/dc_prev^T lam_c and dR_c/dtheta^T lam_c
         wrt = ([c_prev] if need_c_prev else []) + [th[k] for k in keys]

@@ -31,6 +31,7 @@ from glimslib_tpu.models.tumor_growth import TumorGrowth as JaxTumorGrowth  # no
 from glimslib_tpu.models.tumor_growth_brain import TumorGrowthBrain as JaxBrain  # noqa: E402
 from glimslib_tpu.optimize import adjoint as jax_adjoint  # noqa: E402
 from glimslib_tpu.solvers.coupled import StepConfig as JaxStepConfig  # noqa: E402
+from glimslib_tpu.core import bcs as jax_bcs  # noqa: E402
 from glimslib_tpu.core import results as jax_results  # noqa: E402
 from glimslib_tpu.models import tumor_growth as jax_tg  # noqa: E402
 from glimslib_tpu.models import tumor_growth_brain as jax_tgb  # noqa: E402
@@ -49,7 +50,7 @@ from glimslib_tpu.visualisation import plotting as jax_plotting  # noqa: E402
 from glimslib_tpu import postprocess as jax_postprocess  # noqa: E402
 from glimslib_tpu.workflow import path_io as jax_path_io  # noqa: E402
 from glimslib_tpu_torch import examples  # noqa: E402
-from glimslib_tpu_torch.core import results  # noqa: E402
+from glimslib_tpu_torch.core import bcs, results  # noqa: E402
 from glimslib_tpu_torch.models import tumor_growth, tumor_growth_brain  # noqa: E402
 from glimslib_tpu_torch.optimize import lbfgsb  # noqa: E402
 from glimslib_tpu_torch.solvers.coupled import StepConfig  # noqa: E402
@@ -265,10 +266,12 @@ def _member(module, dotted):
     (profiling, jax_profiling, ["Tracer", "run_stats"]),
     (postprocess, jax_postprocess, ["PostProcessTumorGrowth.plot_all",
                                     "PostProcessTumorGrowth.plot_for_pub"]),
+    (bcs, jax_bcs, ["_facet_edge_dofs", "BoundaryConditions._boundary_nodes_for",
+                    "BoundaryConditions._boundary_facet_vertex_sets_for"]),
 ], ids=["image_io", "synthetic", "vtk_utils", "file_utils", "interpolation", "meshing",
         "image_registration_utils", "path_io", "data_io", "results", "lbfgsb",
         "tumor_growth", "tumor_growth_brain", "plotting", "visualisation_helpers",
-        "profiling", "postprocess_plots"])
+        "profiling", "postprocess_plots", "bcs_facet_selection"])
 def test_utils_copies_are_the_reference_code(copy, ref, names):
     """Each copied module (whole, past its copy header) or member is the
     JAX package's code byte for byte, import lines and the PORT_LINES of a

@@ -1020,3 +1020,76 @@ def test_nodes_mode_value_and_grad_against_plain_f64(world, backend):
         assert bwd["cg_scalar"] == bwd["cg_vector"] == 0, bwd
         assert min(bwd[k] for k in ("apply_scalar", "apply_vector",
                                     "apply_scalar_sum")) > 0, bwd
+
+
+# -- the gather residuals around the lanes' kernels; the matrix-free lane -------
+
+
+def _trajectory(sim, n_steps):
+    theta = sim.make_theta(sim.params.as_dict())
+    u, c, ok, _ = sim.build_simulate_fn(n_steps, 1.0)(theta, *sim.initial_state())
+    assert bool(ok.all())
+    return u[-1], c[-1]
+
+
+def _rel_l2(got, want):
+    return float(torch.linalg.vector_norm(got.double().cpu() - want.double().cpu())
+                 / torch.linalg.vector_norm(want.double().cpu()))
+
+
+@pytest.mark.parametrize("unstructured", [False, True], ids=["lattice", "unstructured"])
+def test_influx_and_time_dependent_source_on_the_card(unstructured):
+    """examples.influx_sim (a von Neumann influx of c, a time-dependent
+    source) at f32 refined, 2 steps: the solves launch the lane's kernels
+    (stencil_pcg<1>, <3>; bell_bmv) while the rd residual takes the gather
+    form; c and u within rel-L2 1e-4 of the plain path at f64."""
+    from glimslib_tpu_torch.examples import influx_sim
+    from glimslib_tpu_torch.solvers.coupled import StepConfig
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    sim = influx_sim(n=8, dtype=torch.float32, device=dev, unstructured=unstructured)
+    wrappers = (fc.cg_scalar, fc.cg_vector, bk.batched_matvec, sk.apply_scalar_sum)
+    for w in wrappers:
+        w.launches = 0
+    u, c = _trajectory(sim, 2)
+    torch.cuda.synchronize()
+    if unstructured:
+        assert bk.batched_matvec.launches > 0
+    else:
+        assert fc.cg_scalar.launches > 0 and fc.cg_vector.launches > 0
+    assert sk.apply_scalar_sum.launches == 0
+    ref = influx_sim(dtype=torch.float64, device=dev, plain=True, mesh=sim.mesh)
+    ref.step_config = StepConfig(newton_rtol=1e-10, newton_atol=1e-14, cg_rtol=1e-12)
+    u_r, c_r = _trajectory(ref, 2)
+    assert _rel_l2(c, c_r) <= 1e-4 and _rel_l2(u, u_r) <= 1e-4
+
+
+@pytest.mark.parametrize("quad", [False, True], ids=["p1", "quad"])
+def test_matrix_free_lane_on_the_card(quad):
+    """The jvp lane on the card (operator_mode "matrix-free"; the quad
+    model on a lattice mesh), f32 refined, 2 steps: no kernel launches,
+    c and u within rel-L2 1e-4 of the plain path at f64."""
+    from glimslib_tpu_torch.models.base import default_step_config
+    from glimslib_tpu_torch.solvers.coupled import StepConfig
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    sims = []
+    for dtype, plain in ((torch.float32, False), (torch.float64, True)):
+        sim = brain_sim(n=6, dtype=dtype, device=dev, plain=plain, quad=quad)
+        sim.operator_mode = "matrix-free"
+        sim.step_config = (default_step_config(dtype) if not plain else StepConfig(
+            newton_rtol=1e-10, newton_atol=1e-14, cg_rtol=1e-12))
+        sims.append(sim)
+    wrappers = (fc.cg_scalar, fc.cg_vector, bk.batched_matvec, sk.apply_scalar,
+                sk.apply_scalar_sum, sk.apply_vector, sk.apply_coupling)
+    for w in wrappers:
+        w.launches = 0
+    u, c = _trajectory(sims[0], 2)
+    torch.cuda.synchronize()
+    assert sum(w.launches for w in wrappers) == 0 and u.is_cuda
+    u_r, c_r = _trajectory(sims[1], 2)
+    assert _rel_l2(c, c_r) <= 1e-4 and _rel_l2(u, u_r) <= 1e-4

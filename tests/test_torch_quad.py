@@ -352,17 +352,6 @@ def test_quad_adjoint_matches_jax():
     assert abs(fd - g @ direction) <= 1e-5 * abs(fd), (fd, g @ direction)
 
 
-def test_quad_on_lattice_mesh_raises():
-    """The reference runs a quad model on a lattice mesh on its matrix-free
-    jvp lane, which the port does not have: both quad models raise."""
-    for model in (TumorGrowth, TumorGrowthBrain):
-        with pytest.raises(NotImplementedError, match="lattice"):
-            model(rectangle_mesh((0, 0), (1, 1), 3, 3), dtype=torch.float64,
-                  device="cpu")
-    with pytest.raises(NotImplementedError, match="lattice"):
-        brain_sim(n=3, dtype=torch.float64, device="cpu", quad=True)
-
-
 def test_export_computation_graph(tmp_path):
     """InverseProblem.export_computation_graph writes the autograd graph of
     one objective evaluation: the file names one _ImplicitStepBackward node

@@ -174,8 +174,8 @@ def test_use_sharding_raises_where_the_port_does_not_shard(one_rank):
     with pytest.raises(ValueError, match="needs the supernode halo-ELL path"):
         lat.use_sharding(mesh, mode="bell")
     uns = cases.port_sim()
-    for mode, match in (("nodes", "nodeshard.*matrix-free"),
-                        ("cells", "mode='cells'.*matrix-free")):
+    for mode, match in (("nodes", "nodeshard"),
+                        ("cells", "mode='cells'.*ShardedP1Kernels")):
         with pytest.raises(NotImplementedError, match=match):
             uns.use_sharding(mesh, mode=mode)
     with pytest.raises(ValueError, match="unknown sharding mode"):

@@ -165,27 +165,6 @@ def _tumor_growth_2d(**kw):
     return sim
 
 
-def _unstructured():
-    """Von Neumann conditions on an unstructured mesh: still outside the
-    port (the unstructured lane itself runs, tests/test_torch_unstructured.py)."""
-    from glimslib_tpu_torch.core.mesh import Mesh
-
-    m = box_mesh((0, 0, 0), (1, 1, 1), 2, 2, 2)
-    _tumor_growth_2d(mesh=Mesh.from_arrays(m.points, m.cells), von_neumann_bcs={
-        "flux": {"bc_value": 1.0, "named_boundary": "boundary_all",
-                 "subspace_id": 1}})
-
-
-def _von_neumann():
-    _tumor_growth_2d(von_neumann_bcs={"flux": {
-        "bc_value": 1.0, "named_boundary": "boundary_all", "subspace_id": 1}})
-
-
-def _time_dependent_source():
-    sim = _tumor_growth_2d(source_term=lambda x, t: 0.0 * x[:, 0] + t)
-    sim.make_theta(sim.params.as_dict())
-
-
 def _step_config(**kw):
     sim = _tumor_growth_2d()
     sim.step_config = StepConfig(**kw)
@@ -200,14 +179,9 @@ def test_plain_2d_lattice_runs():
     assert sim.results.get_recording_steps() == [0, 1] and np.isfinite(c).all()
 
 
-@pytest.mark.parametrize("case", [
-    "unstructured", "von_neumann", "time_dependent_source", "chebyshev", "sharding",
-])
+@pytest.mark.parametrize("case", ["chebyshev", "sharding"])
 def test_outside_slice_raises(case):
     run = {
-        "unstructured": _unstructured,
-        "von_neumann": _von_neumann,
-        "time_dependent_source": _time_dependent_source,
         "chebyshev": lambda: _step_config(precond_degree=3),
         # a lattice model: the reference's 'cells' mode, not ported (a world
         # of one rank, which the mode decision reads only; 'nodes', the

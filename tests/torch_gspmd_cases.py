@@ -20,9 +20,10 @@ TIGHT = dict(newton_rtol=1e-10, newton_atol=1e-14, cg_rtol=1e-12)
 def port_model(spec):
     """The port's model of ``spec``: {"kind": "brain" | "rect", "n", and
     optionally "pad_to", "dtype" ("float64" default), "config" ("tight"
-    for TIGHT, "default" for the dtype's default step)}."""
+    for TIGHT, "default" for the dtype's default step, "refined" for
+    ``examples.REFINED_STEP_CONFIG``)}."""
     from glimslib_tpu_torch.core.mesh import box_mesh, pad_mesh_nodes, rectangle_mesh
-    from glimslib_tpu_torch.examples import brain_sim, rect_sim
+    from glimslib_tpu_torch.examples import REFINED_STEP_CONFIG, brain_sim, rect_sim
     from glimslib_tpu_torch.solvers.coupled import StepConfig
 
     n, pad_to = spec["n"], spec.get("pad_to")
@@ -35,8 +36,11 @@ def port_model(spec):
         mesh = rectangle_mesh((-5, -5), (5, 5), n, n)
         sim = rect_sim(n, subdomains=True, dtype=dtype, device="cpu",
                        mesh=pad_mesh_nodes(mesh, pad_to) if pad_to else mesh)
-    if spec.get("config", "tight") == "tight":
+    config = spec.get("config", "tight")
+    if config == "tight":
         sim.step_config = StepConfig(**TIGHT)
+    elif config == "refined":
+        sim.step_config = REFINED_STEP_CONFIG
     return sim
 
 
@@ -167,6 +171,26 @@ def grad_rank(mesh, spec, opt_type, targets, v0, graph=None, maxiter=0):
                 start=slab.start, n_own=slab.n_own,
                 target_rows={k: tuple(v.shape) for k, v in ip.targets.items()},
                 mass_ones=sim.concentration_mass_action(ones).numpy())
+
+
+def objective_rank(mesh, spec, opt_type, targets, v0, n_steps, mode="nodes"):
+    """One rank: the model of ``spec`` under use_sharding(mesh, mode) (or
+    unsharded with ``mode`` None), ``InverseProblem.objective`` of
+    ``opt_type`` at ``v0`` over ``n_steps`` steps on the whole
+    ``targets``, and the Newton iterations a step of the forward at v0."""
+    from glimslib_tpu_torch.optimize.adjoint import InverseProblem
+
+    torch.set_num_threads(1)
+    sim = port_model(spec)
+    if mode is not None:
+        sim.use_sharding(mesh, mode=mode)
+    names, update = _param_map(spec, opt_type)
+    ip = InverseProblem(sim, names, targets, update_fn=update, n_steps=n_steps, dt=1.0)
+    J = float(ip.objective(np.asarray(v0)))
+    p = {**sim.params.as_dict(), **update(torch.as_tensor(np.asarray(v0), dtype=sim.dtype))}
+    _, _, ok, newton = sim.build_simulate_fn(n_steps, 1.0)(sim.make_theta(p),
+                                                           *sim.initial_state())
+    return dict(J=J, newton=newton.tolist(), ok=bool(ok.all()), mode=sim.sharding_mode)
 
 
 def exchange_rank(mesh, spec, seed):
