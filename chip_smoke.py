@@ -316,17 +316,17 @@ Phases, each printed on lines of their own:
 
 15. The matrix-free jvp lane and the gather residuals of a von Neumann
    influx and a time-dependent source.  [15a] the N=32 box with
-   ``operator_mode = "matrix-free"``, f32, MF_STEPS steps at the
-   benchmark's StepConfig and at REFINED_STEP_CONFIG: every kernel
-   wrapper's count 0 over the run, and no stencil_apply, stencil_pcg or
-   bell_bmv kernel in the bench run's profile; Newton and CG counts by
-   block, steps/s, busy ms and idle share (the bench run's profile); c
+   ``operator_mode = "matrix-free"``, f32, MF_STEPS step(s) (cut from 2
+   to fit [16]) at the benchmark's StepConfig and at
+   REFINED_STEP_CONFIG, unprofiled (cut to fit [16], whose profiles hold
+   the jvp lane's kernels): every kernel wrapper's count 0 over the run;
+   Newton and CG counts by block, steps/s; c
    and u within SLICE_RTOL of the auto lane after as many steps ([3]'s
    and [9a]'s runs); one value_and_grad of [7]'s problem at MF_STEPS
    steps on both lanes, J within 1e-4 and the gradient within 1e-3 of
    the assembled lane's.  [15b] the quad model on the N=32 lattice box
    (the jvp lane, 274,625 P2 dofs), QUAD_MF_STEPS refined step(s): no
-   kernel, set-up s, step s, busy ms and idle share, c within QUAD_RTOL
+   kernel, set-up s, step s (unprofiled, cut to fit [16]), c within QUAD_RTOL
    of [10c]'s stripped-mesh run after as many steps (the two meshes'
    P2 dofs share one order).  [15c] ``examples.influx_sim`` (an influx of
    c through the boundary, a time-dependent source) f32 refined, MF_STEPS
@@ -335,7 +335,30 @@ Phases, each printed on lines of their own:
    unstructured box (bell_bmv): c and u within the lane's limit of the
    f64 plain path; every kernel row gains its launches there.
 
-Then one JSON line with [15]'s numbers, one with [14]'s numbers, one with [13]'s numbers, one with [12]'s numbers and its kernel rows by lattice, one with [11]'s, one with [10]'s, one with [9]'s, one with [7]'s
+16. ``use_sharding(mode="cells")`` (``parallel/shard.py
+   ShardedP1Kernels``: a rank's block of cells from the native graph
+   partitioner, replicated vectors, one all_reduce a residual) and
+   ``mode="nodes"`` on an unstructured mesh (``parallel/nodeshard.py``:
+   owned rows, a ghost exchange), both on the matrix-free jvp lane.
+   [16a] world 1 over NCCL in this process on the n=32 Morton box (the
+   unstructured flagship's mesh), f32, SHARD16_STEPS steps at
+   REFINED_STEP_CONFIG a mode: the unsharded model on the jvp lane, then
+   'nodes' and 'cells' on the same mesh, each held to UNSTRUCT_RTOL
+   against it (bit-equality printed, or the max rel diff and why), with
+   the CG counts of both; per rank the owned rows, local cells, ghosts G
+   and published rows P (the cells of the block and the partitioner
+   under 'cells', which must be the native graph one); steps/s, device
+   busy ms and idle share (one profiled run), the collectives a step and
+   host ms each; every kernel wrapper's count 0 and no kernel of the
+   port in the profile (each mode's run is the profiled one).  [16b] NODES_WORLD gloo ranks sharing the card
+   (in [13b]'s spawn, after [14d]) on the 8^3 Morton box padded to 730
+   nodes, f64, SMALL16_STEPS step a mode and one value_and_grad: J, the
+   gradient, c and u bit-equal on every rank, J and the gradient within
+   SMALL16_J_RTOL / SMALL16_G_RTOL of the same problem unsharded on the
+   jvp lane (world 1, in this process), the collectives and their host ms, the rank's
+   layout, no kernel launch.
+
+Then one JSON line with [16]'s numbers, one with [15]'s numbers, one with [14]'s numbers, one with [13]'s numbers, one with [12]'s numbers and its kernel rows by lattice, one with [11]'s, one with [10]'s, one with [9]'s, one with [7]'s
 and [8]'s value_and_grad numbers, one with
 every kernel's numbers (each with its launches in the path and in one
 value_and_grad by forward and backward: [7]'s for the 3D rows, [8]'s for
@@ -1069,10 +1092,12 @@ def _check_pcg(torch, name, kern, plain, offs, Wm, Minv, b, cfg, replaces, tag,
                 us_per_iter=us_it, iters=it_k)
 
 
-def _print_breakdown(torch, run, run_ms, tag, detail=None, profiled=None):
+def _print_breakdown(torch, run, run_ms, tag, detail=None, profiled=None,
+                     run_name="the unprofiled run's"):
     """Device time by kernel over one profiled simulate, and the device's
     busy share: of the profiled run's wall time (the profiler adds host
-    overhead) and of ``run_ms``, the unprofiled run's mean wall time.
+    overhead) and of ``run_ms``, the unprofiled run's mean wall time
+    (``run_name`` names it).
     Kernels whose name matches ``detail`` are printed too, with their time
     a launch; returns ({name: ms a launch} for them, the device busy ms,
     the idle share of the unprofiled run).  ``profiled``: (profile, its
@@ -1091,7 +1116,7 @@ def _print_breakdown(torch, run, run_ms, tag, detail=None, profiled=None):
         return {}, None, None
     print(f"{tag} profiled run: device busy {busy_ms:.3f} ms = "
           f"{100 * busy_ms / wall_ms:.1f}% of its wall {wall_ms:.2f} ms; "
-          f"{100 * busy_ms / run_ms:.1f}% of the unprofiled run's "
+          f"{100 * busy_ms / run_ms:.1f}% of {run_name} "
           f"{run_ms:.2f} ms, so the device idles "
           f"{100 * max(0.0, 1 - busy_ms / run_ms):.1f}% of it")
     per_launch = {}
@@ -3512,7 +3537,8 @@ def _rank_pair(mesh, a13, a14):
     """One spawn's work on a rank: [13b] (:func:`_rank13b` on ``a13``),
     then [14b] and [14d] (:func:`_rank14b` on ``a14``) with the
     deterministic algorithms [13b]'s use_sharding turned on off again, as
-    in a process of their own; and each part's seconds."""
+    in a process of their own, then [16b] (:func:`_rank16b`); and each
+    part's seconds."""
     import torch
 
     t0 = time.perf_counter()
@@ -3522,7 +3548,11 @@ def _rank_pair(mesh, a13, a14):
     torch.utils.deterministic.fill_uninitialized_memory = True
     torch.cuda.empty_cache()
     b14 = _rank14b(mesh, *a14)
-    return {"13b": b13, "14b": b14, "seconds": (t1 - t0, time.perf_counter() - t1)}
+    t2 = time.perf_counter()
+    torch.cuda.empty_cache()
+    b16 = _rank16b(mesh)
+    return {"13b": b13, "14b": b14, "16b": b16,
+            "seconds": (t1 - t0, t2 - t1, time.perf_counter() - t2)}
 
 
 def _shard_two_ranks(torch, keep, ranks, wall_s, rank_s):
@@ -3667,7 +3697,8 @@ def _shard_example(torch, dev, tmp):
 def phase_shard(torch, dev, kern, usim, keep):
     """[13]: block sharding (module docstring).  ``kern`` (the bell_bmv
     row) gains the slab shapes; ``keep`` holds [9a]'s and [10]'s runs, and
-    gains [14b]'s rank results under "nodes_ranks" (its ranks run in
+    gains [14b]'s rank results under "nodes_ranks" and [16b]'s under
+    "shard16_ranks" (their ranks run in
     [13b]'s spawn)."""
     import shutil
     import tempfile
@@ -3686,6 +3717,7 @@ def phase_shard(torch, dev, kern, usim, keep):
     two, slab_rows = _shard_two_ranks(torch, keep, [r["13b"] for r in ranks], wall_s,
                                       max(r["seconds"][0] for r in ranks))
     keep["nodes_ranks"] = ([r["14b"] for r in ranks], max(r["seconds"][1] for r in ranks))
+    keep["shard16_ranks"] = ([r["16b"] for r in ranks], max(r["seconds"][2] for r in ranks))
     out["two_ranks"] = two
     kern["slab_shapes"] = slab_rows
     tmp = tempfile.mkdtemp(prefix="glims_shard_")
@@ -4376,7 +4408,10 @@ def phase_nodes(torch, dev, kernels, lat_ref, vg, ranks):
 # solves the same systems as the assembled lanes, so its state is held to
 # the lattice limit SLICE_RTOL against theirs, its J and gradient to the
 # lattice limits; [15b]'s quad state to QUAD_RTOL against [10c]'s.
-MF_STEPS = 2
+# MF_STEPS was cut from 2 to fit [16], which profiles the jvp lane on the
+# unstructured box of the same cells; [15a] and [15b] run unprofiled for
+# it too (their breakdowns stand in PERF.md §5).
+MF_STEPS = 1
 # [10c] keeps its state after SHARD_QUAD_STEPS steps for [13b]
 QUAD_MF_STEPS = SHARD_QUAD_STEPS
 MF_KERNEL = r"stencil_apply|stencil_pcg|bell_bmv"
@@ -4437,8 +4472,8 @@ def _mf_lattice(torch, dev, lat, keep):
     for name, cfg in (("bench", BENCH_STEP_CONFIG), ("refined", REFINED_STEP_CONFIG)):
         tag = f"[15a] matrix-free {name}:"
         mf.step_config = cfg
-        # the profiler's breakdown of the bench run (cut from one a config)
-        (u_tr, c_tr), nums = _mf_run(torch, mf, tag, MF_STEPS, profiled=name == "bench")
+        # unprofiled (cut from the bench run's breakdown to fit [16])
+        (u_tr, c_tr), nums = _mf_run(torch, mf, tag, MF_STEPS, profiled=False)
         want = keep[f"lattice_{name}_{MF_STEPS}"]
         source = "[3]" if name == "bench" else "[9a]"
         rel_c, rel_u = _rel_l2(c_tr[-1], want[1]), _rel_l2(u_tr[-1], want[0])
@@ -4498,8 +4533,9 @@ def _mf_quad(torch, dev, keep):
           f"the IV projection; no plan)")
     if not sim.matrix_free or sim.p2.n_dofs != (2 * N + 1) ** 3:
         raise AssertionError(f"[15b] quad lattice model: {sim.p2.n_dofs} dofs")
+    # unprofiled (cut from a breakdown to fit [16])
     (u_tr, c_tr), nums = _mf_run(torch, sim, "[15b] quad matrix-free refined:",
-                                 QUAD_MF_STEPS)
+                                 QUAD_MF_STEPS, profiled=False)
     rel_c = _rel_l2(c_tr[-1], keep["quad"]["final"][1])
     rel_f64 = _rel_l2(c_tr[-1], keep["quad"]["ref"][1])
     print(f"[15b] quad matrix-free refined: c after {QUAD_MF_STEPS} step(s) against "
@@ -4592,6 +4628,313 @@ def phase_matrix_free(torch, dev, lat, kernels, kern, keep):
     return out
 
 
+# [16]: use_sharding(mode="cells") (parallel/shard.py ShardedP1Kernels,
+# the native graph partitioner) and mode="nodes" on an unstructured mesh
+# (parallel/nodeshard.py), both on the matrix-free jvp lane.  [16a] runs
+# SHARD16_STEPS steps a mode at f32 with REFINED_STEP_CONFIG (the
+# reference's f32 default: refine_f64); every mode's state is held to
+# UNSTRUCT_RTOL against the unsharded model's on the jvp lane.  [16b]
+# runs the small padded Morton box (SMALL16_N, 729 nodes padded to 730)
+# at f64 with _small16_config() on NODES_WORLD gloo ranks, SMALL16_STEPS
+# step(s) (cut from 2: every CG iteration there makes 2-5 collectives
+# through the host), in [13b]'s spawn; its J and gradient are held to
+# SMALL16_J_RTOL / SMALL16_G_RTOL against the same problem unsharded on
+# the jvp lane (one process, world 1: one reference for both modes, cut
+# from a world-1 run of each mode over NCCL).
+SHARD16_STEPS = 2
+SMALL16_STEPS = 1
+SMALL16_N = 8
+SMALL16_J_RTOL = 1e-8
+SMALL16_G_RTOL = 1e-7
+SHARD16_MODES = ("nodes", "cells")
+
+
+def _small16_config():
+    """Tight enough that J and the gradients of the two worlds agree
+    within 1e-12 (7.7e-16 under 'nodes', 5.5e-13 under 'cells' on an H100
+    80GB HBM3 at 700 W), loose enough to keep [16b]'s collectives, 2-3 ms
+    each through gloo there, few."""
+    from glimslib_tpu_torch.solvers.coupled import StepConfig
+
+    return StepConfig(newton_rtol=1e-8, newton_atol=1e-12, cg_rtol=1e-10)
+
+
+def _small16_problem(torch, dev):
+    """[16b]'s model: brain_sim on the SMALL16_N box made unstructured,
+    Morton-ordered and padded for NODES_WORLD ranks, f64, on ``dev``;
+    with the whole targets of value_and_grad (type 2), made from its
+    initial values (so the same on every rank and at world 1)."""
+    import numpy as np
+
+    from glimslib_tpu_torch.core.mesh import Mesh, box_mesh, pad_mesh_nodes
+    from glimslib_tpu_torch.examples import brain_sim
+
+    m = box_mesh((0, 0, 0), (10, 10, 10), SMALL16_N, SMALL16_N, SMALL16_N)
+    mesh = pad_mesh_nodes(Mesh.from_arrays(m.points, m.cells).reordered_morton(),
+                          NODES_WORLD)
+    sim = brain_sim(dtype=torch.float64, device=dev, mesh=mesh)
+    sim.step_config = _small16_config()
+    iv = sim.params.create_initial_value_function()
+    c0 = np.asarray(iv[sim.SUBSPACE_CONCENTRATION])
+    targets = {"conc_T2": 0.5 * (np.tanh((1.5 * c0 - 0.12) / 0.01) + 1.0),
+               "disp": np.zeros_like(np.asarray(iv[sim.SUBSPACE_DISPLACEMENT]))}
+    return sim, targets
+
+
+def _layout16(sim):
+    """This rank's share under the model's mode: owned rows, local cells,
+    ghosts (real and the padded G) and published rows (real and P) under
+    'nodes'; the block's cells and the partitioner under 'cells'."""
+    if sim.sharding_mode is None:
+        return {}
+    k, rank = sim.kernels, sim.device_mesh.rank
+    if sim.sharding_mode == "nodes":
+        spec = k.spec
+        return dict(owned_rows=k.n_own, of_rows=k.n_total, local_cells=k._k.n_cells,
+                    ghosts=k._plan.n_ghost, G=spec.G, published=spec.n_pub[rank], P=spec.P)
+    return dict(owned_rows=k.n_nodes, of_rows=k.n_nodes, local_cells=len(k.block_cells),
+                of_cells=k.n_cells, partitioner=k.part.method)
+
+
+def _small16_run(torch, sim, targets):
+    """The small problem under its mode: SMALL16_STEPS steps (the whole
+    final state gathered under 'nodes') and one value_and_grad at
+    (0.05, 0.05), each with the collectives counted and timed, and every
+    kernel wrapper's launches; returns numpy values."""
+    import numpy as np
+
+    from glimslib_tpu_torch.ops import bell_kernels as bk
+    from glimslib_tpu_torch.optimize.adjoint import InverseProblem, param_map_for_type
+    from glimslib_tpu_torch.parallel import gather_rows
+
+    wrappers = [w for g in _lattice_groups() for w in g] + [bk.batched_matvec]
+    for w in wrappers:
+        w.launches = 0
+    names, update = param_map_for_type(2)
+    ip = InverseProblem(sim, names, targets, update_fn=update, n_steps=SMALL16_STEPS,
+                        dt=1.0)
+    simulate = sim.build_simulate_fn(SMALL16_STEPS, 1.0)
+    theta = sim.make_theta(sim.params.as_dict())
+    u0, c0 = sim.initial_state()
+    torch.cuda.synchronize()
+    with _Collectives() as coll:
+        t0 = time.perf_counter()
+        u, c, ok, newton = simulate(theta, u0, c0)
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+        n_fwd, ms_fwd = coll.count, coll.ms
+        counts = {k: [int(i) for i in v] for k, v in sim.solver_info.items() if v}
+        t0 = time.perf_counter()
+        J, g = ip.value_and_grad(np.array([0.05, 0.05]))
+        torch.cuda.synchronize()
+        vg_s = time.perf_counter() - t0
+    u, c = u[-1], c[-1]
+    rows = sim._node_rows
+    if rows is not None:
+        u = gather_rows(sim.device_mesh, u, rows.start, rows.n_total)
+        c = gather_rows(sim.device_mesh, c, rows.start, rows.n_total)
+    return dict(mode=sim.sharding_mode, ok=bool(ok.all()), newton=newton.tolist(),
+                cg=counts, u=u.cpu().numpy(), c=c.cpu().numpy(), J=J, g=g,
+                forward_s=fwd_s, value_and_grad_s=vg_s,
+                collectives=(n_fwd, coll.count - n_fwd),
+                collective_ms=(ms_fwd, coll.ms - ms_fwd),
+                launches=sum(w.launches for w in wrappers), layout=_layout16(sim))
+
+
+def _rank16b(mesh):
+    """[16b] on one rank: the small problem under 'nodes', then 'cells'
+    (:func:`_small16_run`), with this rank's layout."""
+    import torch
+
+    out = {}
+    for mode in SHARD16_MODES:
+        sim, targets = _small16_problem(torch, mesh.device)
+        sim.use_sharding(mesh, mode=mode)
+        out[mode] = _small16_run(torch, sim, targets)
+        del sim
+    return out
+
+
+def _run16(torch, sim, tag, profiled):
+    """One run of SHARD16_STEPS steps of ``sim`` with every kernel
+    wrapper's count and the collectives at 0 just before, under the
+    profiler (device activity only) where ``profiled`` (one run a mode,
+    cut from an unprofiled and a profiled one: its steps/s carry the
+    profiler's overhead): the trajectory and its numbers (launches and
+    kernels in the profile must be none; busy ms of the run and the idle
+    share of its wall)."""
+    from glimslib_tpu_torch.ops import bell_kernels as bk
+
+    wrappers = [w for g in _lattice_groups() for w in g] + [bk.batched_matvec]
+    args = (sim.make_theta(sim.params.as_dict()), *sim.initial_state())
+    simulate = sim.build_simulate_fn(SHARD16_STEPS, 1.0)
+    got = {}
+
+    def drive():
+        got["run"] = _drive(torch, sim, simulate, args, [], tag, SHARD16_STEPS,
+                            shown=wrappers)
+
+    with _Collectives() as coll:
+        if profiled:
+            t0 = time.perf_counter()
+            prof = _profile(torch, drive, cpu=False)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        else:
+            drive()
+    (u_tr, c_tr), launches, first_s = got["run"]
+    info = {k: [int(i) for i in v] for k, v in sim.solver_info.items() if v}
+    hits, busy, idle = None, None, None
+    if profiled:
+        hits, busy, idle = _print_breakdown(torch, None, 1e3 * first_s, tag, MF_KERNEL,
+                                            profiled=(prof, wall_ms),
+                                            run_name="the simulate's own")
+    per_step = coll.count / SHARD16_STEPS
+    each = coll.ms / max(coll.count, 1)
+    print(f"{tag} steps/s {SHARD16_STEPS / first_s:.4f} (the first run's {first_s:.3f} "
+          f"s{', profiled' if profiled else ''}); collectives {coll.count} ({per_step:.1f} a step, {each:.4f} ms of host "
+          f"time each); hand-written kernel launches {sum(launches.values())}"
+          + ("" if hits is None else f", kernels matching {MF_KERNEL!r} in the "
+             f"profiled run {sorted(hits)}"))
+    if sum(launches.values()) or hits:
+        raise AssertionError(f"{tag} the sharded jvp lane launched kernels: {launches}, "
+                             f"{hits}")
+    return (u_tr, c_tr), dict(steps_per_s=SHARD16_STEPS / first_s, first_s=first_s,
+                              device_busy_ms=busy, idle_share=idle, launches=0,
+                              collectives=coll.count, collectives_per_step=per_step,
+                              collective_ms_each=each, cg_iters=info)
+
+
+def _cells_nodes_world1(torch, dev):
+    """[16a] (module docstring), and [16b]'s reference: its problem
+    unsharded on the matrix-free lane."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from glimslib_tpu_torch.examples import REFINED_STEP_CONFIG, brain_sim
+    from glimslib_tpu_torch.native import meshops
+    from glimslib_tpu_torch.parallel import make_device_mesh
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0,
+                                world_size=1)
+        try:
+            mesh1 = make_device_mesh(device=dev)
+            t0 = time.perf_counter()
+            whole = brain_sim(n=N, dtype=torch.float32, device=dev, unstructured=True)
+            whole.operator_mode = "matrix-free"
+            whole.step_config = REFINED_STEP_CONFIG
+            torch.cuda.synchronize()
+            print(f"[16a] n={N} Morton box: {whole.mesh.n_nodes} nodes, "
+                  f"{whole.mesh.n_cells} tets; set-up {time.perf_counter() - t0:.1f} s; "
+                  f"REFINED_STEP_CONFIG, {SHARD16_STEPS} steps a mode; native mesh ops "
+                  f"library built: {meshops.available()}")
+            (u_w, c_w), base = _run16(torch, whole, "[16a] unsharded matrix-free:", False)
+            out["unsharded"] = base
+            for mode in SHARD16_MODES:
+                tag = f"[16a] {mode}, world 1:"
+                t0 = time.perf_counter()
+                sim = brain_sim(dtype=torch.float32, device=dev, mesh=whole.mesh)
+                sim.step_config = REFINED_STEP_CONFIG
+                sim.use_sharding(mesh1, mode=mode)
+                torch.cuda.synchronize()
+                setup_s = time.perf_counter() - t0
+                layout = _layout16(sim)
+                print(f"{tag} {type(sim.kernels).__name__}, set-up (model and "
+                      f"use_sharding) {setup_s:.1f} s; rank 0: {layout}")
+                if mode == "cells" and layout["partitioner"] != "graph":
+                    raise AssertionError(f"{tag} the partitioner was "
+                                         f"{layout['partitioner']}, not the native graph one")
+                (u, c), nums = _run16(torch, sim, tag, True)
+                bit = bool(torch.equal(u, u_w) and torch.equal(c, c_w))
+                rel = (_rel_l2(c[-1], c_w[-1]), _rel_l2(u[-1], u_w[-1]))
+                rmax = max(_rel_max(c, c_w)[1], _rel_max(u, u_w)[1])
+                why = ("" if bit else " (not bit-equal: " + (
+                    "point-Jacobi on the elasticity block, the reference's 'cells' "
+                    "preconditioner, takes other CG iterates" if mode == "cells" else
+                    "index_add_ on the card adds by atomics in no fixed order, so two "
+                    "runs of the same kernels differ in the last bits") + ")")
+                print(f"{tag} against the unsharded jvp-lane run: bit-equal {bit}; max rel "
+                      f"diff {rmax:.3e}{why}; rel-L2 c {rel[0]:.3e}, u {rel[1]:.3e} (<= "
+                      f"{UNSTRUCT_RTOL}); CG iterations by solve (one rd solve a Newton "
+                      f"iteration) {nums['cg_iters']} against the unsharded "
+                      f"{base['cg_iters']}")
+                if max(rel) > UNSTRUCT_RTOL:
+                    raise AssertionError(f"{tag} c {rel[0]:.3e}, u {rel[1]:.3e}")
+                out[mode] = dict(nums, setup_s=setup_s, layout=layout, bit_equal=bit,
+                                 max_rel_diff=rmax, rel_c=rel[0], rel_u=rel[1])
+                del sim, u, c
+                torch.cuda.empty_cache()
+            del whole, u_w, c_w
+            torch.cuda.empty_cache()
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.utils.deterministic.fill_uninitialized_memory = True
+            dist.destroy_process_group()
+    sim, targets = _small16_problem(torch, dev)
+    sim.operator_mode = "matrix-free"  # the lane the sharded modes take
+    ref = _small16_run(torch, sim, targets)
+    return out, ref
+
+
+def _cells_nodes_two_ranks(ranks, wall_s, ref):
+    """[16b]: the NODES_WORLD ranks' results ``ranks`` (from [13b]'s spawn,
+    ``wall_s`` seconds there) against each other and ``ref``, the problem
+    unsharded (world 1)."""
+    import numpy as np
+
+    out = {}
+    for mode in SHARD16_MODES:
+        tag = f"[16b] {mode}, {NODES_WORLD} gloo ranks:"
+        rs = [r[mode] for r in ranks]
+        same = all(r["J"] == rs[0]["J"] and np.array_equal(r["g"], rs[0]["g"])
+                   and np.array_equal(r["c"], rs[0]["c"]) and np.array_equal(r["u"], rs[0]["u"])
+                   and r["cg"] == rs[0]["cg"] for r in rs)
+        rel_J = abs(rs[0]["J"] - ref["J"]) / abs(ref["J"])
+        rel_g = float(np.linalg.norm(rs[0]["g"] - ref["g"]) / np.linalg.norm(ref["g"]))
+        rel_c = float(np.linalg.norm(rs[0]["c"] - ref["c"]) / np.linalg.norm(ref["c"]))
+        for r, o in enumerate(rs):
+            n_f, n_b = o["collectives"]
+            ms_f, ms_b = o["collective_ms"]
+            print(f"{tag} rank {r}: {o['layout']}; forward {o['forward_s']:.2f} s, "
+                  f"value_and_grad {o['value_and_grad_s']:.2f} s; collectives "
+                  f"{n_f} / {n_b} (forward / value_and_grad; {ms_f / max(n_f, 1):.3f} / "
+                  f"{ms_b / max(n_b, 1):.3f} ms each, host clock, gloo); Newton "
+                  f"{o['newton']}, CG iterations of the forward {o['cg']}; hand-written "
+                  f"kernel launches {o['launches']}")
+        print(f"{tag} J {rs[0]['J']:.15e}, gradient {rs[0]['g'].tolist()}; bit-equal on "
+              f"every rank (J, gradient, c, u, CG counts) {same}; against the unsharded "
+              f"model (world 1): rel J {rel_J:.3e} (<= {SMALL16_J_RTOL}), rel-L2 gradient "
+              f"{rel_g:.3e} (<= {SMALL16_G_RTOL}), c {rel_c:.3e}")
+        if (not same or not all(o["ok"] for o in rs) or rel_J > SMALL16_J_RTOL
+                or rel_g > SMALL16_G_RTOL or any(o["launches"] for o in rs)):
+            raise AssertionError(f"{tag} same {same}, J {rel_J:.3e}, gradient {rel_g:.3e}")
+        if mode == "cells" and any(o["layout"]["partitioner"] != "graph" for o in rs):
+            raise AssertionError(f"{tag} not the native graph partitioner")
+        out[mode] = dict(J=rs[0]["J"], rel_J=rel_J, rel_grad=rel_g, rel_c=rel_c,
+                         bit_equal=same, layouts=[o["layout"] for o in rs],
+                         collectives=[o["collectives"] for o in rs],
+                         collective_ms=[o["collective_ms"] for o in rs],
+                         forward_s=[o["forward_s"] for o in rs],
+                         value_and_grad_s=[o["value_and_grad_s"] for o in rs])
+    print(f"[16b] {NODES_WORLD} ranks: {wall_s:.1f} s on the ranks (in [13b]'s spawn)")
+    out["seconds_on_ranks"] = wall_s
+    return out
+
+
+def phase_cells_nodes(torch, dev, ranks):
+    """[16]: the 'cells' and unstructured 'nodes' modes (module
+    docstring); ``ranks`` = [16b]'s rank results and their seconds."""
+    t_phase = time.perf_counter()
+    out = {}
+    out["world1"], ref = _cells_nodes_world1(torch, dev)
+    out["two_ranks"] = _cells_nodes_two_ranks(*ranks, ref)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[16] cells and nodes phase {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     import torch
 
@@ -4656,6 +4999,7 @@ def main():
 
     shard = phase_shard(torch, dev, kern, usim, keep)
     lat_vg, nodes_ranks = keep["lattice"], keep["nodes_ranks"]
+    shard16_ranks = keep["shard16_ranks"]
     del usim, keep
     torch.cuda.empty_cache()
 
@@ -4668,9 +5012,13 @@ def main():
     nodes = phase_nodes(torch, dev, kernels, lat_state, lat_vg, nodes_ranks)
     torch.cuda.empty_cache()
 
+    cells_nodes = phase_cells_nodes(torch, dev, shard16_ranks)
+    torch.cuda.empty_cache()
+
     drop = ("wrappers", "pattern", "iters")
     example_checks = {shape: [{k: v for k, v in row.items() if k not in drop}
                               for row in rows] for shape, rows in example_checks.items()}
+    print(json.dumps({"cells_nodes": cells_nodes}, default=str))
     print(json.dumps({"matrix_free": matrix_free}, default=str))
     print(json.dumps({"nodes": nodes}, default=str))
     print(json.dumps({"sharding": shard}, default=str))

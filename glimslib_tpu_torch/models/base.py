@@ -71,24 +71,29 @@ the trajectory gives the reference's exact gradient (``optimize/``).
 Solver non-convergence freezes the carried state and flags the remaining
 steps, as in the reference.  ``plain=True`` routes every kernel call
 through its plain torch version on any device: a reference run for
-checking the kernels on the card.  Outside the port so far (the
-``cells`` sharding mode and ``nodes`` on an unstructured mesh, which need
-``parallel/nodeshard.py``, ``parallel/shard.py ShardedP1Kernels`` and
-``parallel/partition.py``; Chebyshev preconditioning) the model raises
+checking the kernels on the card.  Outside the port so far (Chebyshev
+preconditioning; quad models and von Neumann conditions under the
+``cells`` and ``nodes`` sharding modes) the model raises
 ``NotImplementedError``.
 
 Sharding (:meth:`Simulation.use_sharding`) on every rank of a
 ``torch.distributed`` group.  Mode ``bell``: the model's supernode tables
 live as this rank's slab of blocks, and its two-level factors and mode
 matrices as its aggregates' rows; node vectors stay replicated.  Mode
-``nodes`` (lattice meshes): the rank owns a slab of node rows
+``nodes`` on a lattice mesh: the rank owns a slab of node rows
 (``parallel/gspmd.py``); its planes, state and solver vectors hold those
 rows, each stencil apply reads them halo-padded through the halo form of
 ``stencil_apply``, and the solves take the reference's pcg branch with
 every dot product reduced over the ranks; a gradient goes through the
 halo exchange's transpose and the halo form's backward, and theta's
 coefficients enter the slab work through ``parallel.shard.enter`` (their
-cotangent summed over the ranks once).
+cotangent summed over the ranks once); on the matrix-free lane the gather
+residuals run on the slab's cells.  Mode ``cells``, and ``nodes`` on an
+unstructured mesh: the model's kernels become the sharded element kernels
+(``parallel/shard.py ShardedP1Kernels``, a rank's block of cells with
+replicated vectors; ``parallel/nodeshard.py NodeShardedP1Kernels``, owned
+rows and a ghost exchange) and the solves take the matrix-free jvp lane,
+the jvp and the gradient passing through the collectives.
 """
 
 from __future__ import annotations
@@ -199,8 +204,11 @@ class Simulation(ABC):
     _bell_slab = None
     _p2_slab = None
     _p2_sharded = False
-    # set by use_sharding(mode='nodes'): this rank's node slab
+    # set by use_sharding(mode='nodes'): this rank's node slab (lattice)
     _node_slab = None
+    # set by use_sharding(mode='nodes'): this rank's rows (start, n_own,
+    # n_total, own()): the lattice's slab or the unstructured kernels
+    _node_rows = None
     # 'auto': the assembled lanes (stencil planes on a lattice, halo-ELL
     # planes elsewhere); 'matrix-free': the jvp lane everywhere
     operator_mode = "auto"
@@ -234,10 +242,20 @@ class Simulation(ABC):
     @property
     def matrix_free(self):
         """True where the model takes the matrix-free jvp lane:
-        ``operator_mode = "matrix-free"``, or a quad model on a lattice
-        mesh (the stencil operators are P1; reference base.py:1028-1029,
-        :528-529)."""
-        return self.operator_mode == "matrix-free" or (self.quad and self.lattice)
+        ``operator_mode = "matrix-free"``, a quad model on a lattice mesh
+        (the stencil operators are P1; reference base.py:1028-1029,
+        :528-529), or sharded element kernels (``'cells'``, and ``'nodes'``
+        on an unstructured mesh: the reference's gates on
+        ``type(self.kernels)``, base.py:454-465, :530-531, :1030-1032)."""
+        return (self.operator_mode == "matrix-free" or (self.quad and self.lattice)
+                or self._sharded_kernels)
+
+    @property
+    def _sharded_kernels(self):
+        """True under ``'cells'`` and under ``'nodes'`` on an unstructured
+        mesh: the model's kernels are the sharded element kernels."""
+        return self.sharding_mode == "cells" or (self.sharding_mode == "nodes"
+                                                 and not self.lattice)
 
     def use_sharding(self, device_mesh=None, n_devices=None, mode="auto"):
         """Distribute the simulation over the ranks of a process group (the
@@ -248,8 +266,9 @@ class Simulation(ABC):
         model's device, which needs an initialised group (``torchrun``, or
         ``parallel.run_ranks``).  ``mode="auto"`` decides as the reference
         does: ``'nodes'`` on a lattice mesh whose node count the world
-        divides, ``'bell'`` where the supernode halo-ELL path runs and the
-        world divides its block count, else ``'cells'``.
+        divides (not on the matrix-free lane), ``'bell'`` where the
+        supernode halo-ELL path runs and the world divides its block
+        count, else ``'cells'``, with the reference's warning naming why.
 
         ``'bell'``: every supernode table (operator planes, factored
         channel stacks, supernode inverses; the quad models' P2 tables
@@ -263,8 +282,8 @@ class Simulation(ABC):
         memory not filled) for the process: the ranks must compute their
         replicated work bit for bit alike to take the same solver paths.
 
-        ``'nodes'`` (lattice meshes; ``n_nodes`` must divide by the world:
-        pad with :func:`~glimslib_tpu_torch.core.mesh.pad_mesh_nodes`
+        ``'nodes'`` on a lattice mesh (``n_nodes`` must divide by the
+        world: pad with :func:`~glimslib_tpu_torch.core.mesh.pad_mesh_nodes`
         first): the rank owns n / world node rows
         (:class:`~glimslib_tpu_torch.parallel.gspmd.NodeSlab`).  Its
         stencil planes, masks, state and trajectory hold those rows; each
@@ -274,21 +293,40 @@ class Simulation(ABC):
         mode there too: Jacobi on the rd block, block-Jacobi on the
         elasticity block, extrapolated warm starts, the chord Jacobian
         where refine_f64 is off) with every norm and dot product reduced
-        over the ranks.  ``build_simulate_fn``'s simulate takes and
-        returns the rank's rows; ``run()`` gathers the fields.  A
-        gradient through simulate is the gradient of the ranks' summed
-        objective, the same on every rank (the halo exchange's
-        transpose, the halo form's backward; theta's coefficients enter
-        the slab through ``shard.enter``); ``optimize.InverseProblem``
-        reduces its objective over the ranks.
+        over the ranks.  On the matrix-free lane the gather residuals run
+        on the slab's cells after one halo exchange, and the jvp
+        differentiates through it.
 
-        ``'cells'``, and ``'nodes'`` on an unstructured mesh, raise
-        ``NotImplementedError``: they need the reference's
-        ``parallel/nodeshard.py``, ``parallel/shard.py ShardedP1Kernels``
-        and ``parallel/partition.py``, which the port does not have.  A
-        matrix-free model takes ``'cells'`` under ``auto``, as the
-        reference's does, and so raises; ``'nodes'`` on it, and on a model
-        with von Neumann conditions, raises too.  Returns the mesh."""
+        ``'nodes'`` on an unstructured mesh (the same divisibility):
+        the owned/ghost node sharding of ``parallel/nodeshard.py``
+        (:class:`~glimslib_tpu_torch.parallel.nodeshard.NodeShardedP1Kernels`;
+        use a Morton-ordered mesh): the rank owns n / world rows and the
+        cells touching them, and each residual exchanges the ghost rows it
+        reads.  ``'cells'``: the element kernels on this rank's block of
+        cells (:class:`~glimslib_tpu_torch.parallel.shard.ShardedP1Kernels`,
+        the native graph partitioner), their node sums reduced over the
+        ranks; node vectors stay replicated, and on the card it turns on
+        deterministic algorithms as ``'bell'`` does.  Both swap the
+        model's kernels and run the matrix-free jvp lane, as the
+        reference's do: no assembled operator and no kernel of the port;
+        Jacobi on the rd block, and on the elasticity block per-node
+        block-Jacobi under ``'nodes'`` and point-Jacobi under ``'cells'``
+        (its kernels have no ``elasticity_diag_blocks``).
+
+        Under ``'nodes'`` ``build_simulate_fn``'s simulate takes and
+        returns the rank's rows and ``run()`` gathers the fields; a
+        gradient through simulate is the gradient of the ranks' summed
+        objective, the same on every rank (the exchanges' transposes;
+        theta's coefficients enter the rank's work through
+        ``shard.enter``, their cotangent summed over the ranks once);
+        ``optimize.InverseProblem`` reduces its objective over the ranks.
+        Under ``'cells'`` the fields are replicated.
+
+        Quad models under ``'cells'`` and ``'nodes'`` raise
+        ``NotImplementedError`` (the reference's quad models call
+        ``elasticity_residual_cint``, which its sharded kernels lack), and
+        so do von Neumann conditions (the rank's facet terms).  Returns
+        the mesh."""
         if device_mesh is None:
             device_mesh = shard.make_device_mesh(n_devices, device=self.device)
         if device_mesh.device != shard.canonical_device(self.device):
@@ -296,7 +334,6 @@ class Simulation(ABC):
                              f"model on {self.device}")
         n_dev = device_mesh.world
         bell_ok = not self.lattice and not self.matrix_free
-        why = None
         if mode == "auto":
             if (self.lattice and not self.matrix_free
                     and self.mesh.n_nodes % n_dev == 0):
@@ -316,6 +353,11 @@ class Simulation(ABC):
                     why = (f"supernode block count {self._get_bell_plan().nb} not "
                            f"divisible by {n_dev} devices (use a power-of-two "
                            "device count)")
+                self.logger.warning(
+                    "use_sharding(mode='auto') fell back to the SLOW 'cells' lane "
+                    "(replicated vectors, gather element kernels): %s", why)
+        if mode in ("cells", "nodes"):
+            self._refuse_sharded(mode)
         if mode == "bell":
             if not bell_ok:
                 raise ValueError("mode='bell' needs the supernode halo-ELL path "
@@ -326,13 +368,7 @@ class Simulation(ABC):
                     f"supernode block count {bplan.nb} not divisible by {n_dev} "
                     "devices (BellPlan pads nb to a multiple of 8; use a "
                     "power-of-two device count)")
-            if self.device.type == "cuda":
-                # every rank must compute the replicated work bit for bit
-                # alike, or the ranks' solvers stop at different iterations
-                # and their collectives part; on the card index_add_ and the
-                # backward of index_select add by atomics in no fixed order
-                torch.use_deterministic_algorithms(True, warn_only=True)
-                torch.utils.deterministic.fill_uninitialized_memory = False
+            self._deterministic_on_card()
             self._bell_slab = bell.SlabPlan(bplan, device_mesh)
             if self.quad:
                 p2plan = self._get_p2_plan()
@@ -346,40 +382,58 @@ class Simulation(ABC):
                         n_dev)
             # the frozen state is rebuilt as this rank's slabs
             self._aux_cache = None
-        elif mode == "nodes":
-            if not self.lattice:
-                raise NotImplementedError(
-                    "use_sharding: mode='nodes' on an unstructured mesh is the "
-                    "reference's owned/ghost node sharding (parallel/nodeshard.py "
-                    "NodeShardedP1Kernels, with parallel/partition.py), which the "
-                    "port does not have")
-            if self.matrix_free or self.bcs.von_neumann_bcs:
-                raise NotImplementedError(
-                    "use_sharding: mode='nodes' on the matrix-free lane or with von "
-                    "Neumann conditions (the rank's facet and jvp terms) is not "
-                    "ported; run the model unsharded")
+        elif mode == "nodes" and self.lattice:
             from glimslib_tpu_torch.parallel.gspmd import NodeSlab
 
             # raises the reference's divisibility error (pad_mesh_nodes)
             slab = NodeSlab(self.mesh, device_mesh.rank, n_dev, device=self.device)
-            self._node_slab = slab
+            self._node_slab = self._node_rows = slab
             self.kernels = P1Kernels(slab.local_mesh, dtype=self.dtype,
                                      device=self.device, rows=slab.own_rows)
-            self._kernels_hi = None
-            self._bc_cache = None
             self._stencil_ops = None
+        elif mode == "nodes":
+            from glimslib_tpu_torch.parallel.nodeshard import NodeShardedP1Kernels
+
+            # raises the reference's divisibility error (pad_mesh_nodes)
+            self.kernels = NodeShardedP1Kernels(self.mesh, device_mesh, dtype=self.dtype,
+                                                device=self.device)
+            self._node_rows = self.kernels
         elif mode == "cells":
-            raise NotImplementedError(
-                "use_sharding: the reference takes mode='cells' here (shard-mapped "
-                "element kernels, parallel/shard.py ShardedP1Kernels, with "
-                "parallel/partition.py)"
-                + (f", because {why}" if why else "")
-                + "; the port does not have those modules")
+            self._deterministic_on_card()
+            self.kernels = shard.ShardedP1Kernels(self.mesh, device_mesh, dtype=self.dtype,
+                                                  device=self.device)
         else:
             raise ValueError(f"unknown sharding mode {mode!r}")
+        if mode != "bell":
+            self._kernels_hi = self._cell_mid = self._cell_mid_hi = None
+            self._bc_cache = None
+            self._aux_cache = None
         self.device_mesh = device_mesh
         self.sharding_mode = mode
         return device_mesh
+
+    def _refuse_sharded(self, mode):
+        """The models and conditions ``'cells'`` and ``'nodes'`` do not run."""
+        if self.quad:
+            raise NotImplementedError(
+                f"use_sharding: mode={mode!r} on a quad model: the reference's quad "
+                "models call kernels.elasticity_residual_cint, which its sharded "
+                "kernels (ShardedP1Kernels, NodeShardedP1Kernels) do not have; use "
+                "mode='bell' on an unstructured mesh, or run the model unsharded")
+        if getattr(self, "bcs", None) is not None and self.bcs.von_neumann_bcs:
+            raise NotImplementedError(
+                f"use_sharding: mode={mode!r} with von Neumann conditions (the "
+                "rank's facet terms) is not ported; run the model unsharded")
+
+    def _deterministic_on_card(self):
+        """On the card: deterministic algorithms for the process.  Every rank
+        must compute the replicated work bit for bit alike, or the ranks'
+        solvers stop at different iterations and their collectives part;
+        on the card index_add_ and the backward of index_select add by
+        atomics in no fixed order."""
+        if self.device.type == "cuda":
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            torch.utils.deterministic.fill_uninitialized_memory = False
 
     # -- abstract model surface ----------------------------------------------
 
@@ -486,7 +540,7 @@ class Simulation(ABC):
     def _own(self, x):
         """This rank's rows of a whole node array under node sharding, else
         ``x``."""
-        return x if self._node_slab is None else self._node_slab.own(x)
+        return x if self._node_rows is None else self._node_rows.own(x)
 
     def _halo(self, *xs):
         """The halo-padded forms of node vectors (this rank's rows) under
@@ -504,8 +558,8 @@ class Simulation(ABC):
 
     def _reduce(self):
         """The solvers' ``reduce`` hook under node sharding (a sum over the
-        ranks), else None."""
-        return None if self._node_slab is None else self.device_mesh.all_reduce
+        ranks), else None (under ``'cells'`` the vectors are replicated)."""
+        return None if self._node_rows is None else self.device_mesh.all_reduce
 
     def _bc_masks_and_values(self):
         """(mask_u, mask_c, gu(t), gc(t)) on the model's device (this rank's
@@ -1097,7 +1151,11 @@ class Simulation(ABC):
         """The jvp lane's theta-only state (reference base.py:1200-1221):
         ``_BinvG``, the inverses of the per-node (d, d) elasticity blocks,
         with Dirichlet and unreferenced nodes' blocks identity, built
-        without a graph (it feeds the preconditioner only)."""
+        without a graph (it feeds the preconditioner only), where the
+        kernels have ``elasticity_diag_blocks`` (the reference's
+        ``hasattr`` gate: ``'cells'``'s kernels have not)."""
+        if not hasattr(self.kernels, "elasticity_diag_blocks"):
+            return theta
         mask_u, _, _, _ = self._bc_masks_and_values()
         with torch.no_grad():
             B = self.kernels.elasticity_diag_blocks(theta["mu"], theta["lam"])
@@ -1107,7 +1165,9 @@ class Simulation(ABC):
     def _matrix_free_preconds(self):
         """The jvp lane's preconditioners (reference base.py:1580-1625 with
         no assembled operator): Jacobi from ``rd_diag`` on the rd block,
-        per-node block-Jacobi from ``_BinvG`` on the elasticity block."""
+        per-node block-Jacobi from ``_BinvG`` on the elasticity block, or
+        where theta lacks it point-Jacobi from ``el_diag`` (reference
+        solvers/coupled.py:346-350)."""
         kern = self.kernels
 
         def rd_precond(theta):
@@ -1115,6 +1175,9 @@ class Simulation(ABC):
             return lambda r: r / diag
 
         def el_precond(theta):
+            if "_BinvG" not in theta:
+                diag = self.el_diag(theta)
+                return lambda r: r / diag
             Binv = theta["_BinvG"]
             return lambda r: kern.apply_block_jacobi(Binv, r)
 
@@ -1126,19 +1189,19 @@ class Simulation(ABC):
         """Theta-only operator planes, built once per simulate and never in
         the time loop."""
         theta = dict(theta)
+        if self._node_slab is not None:
+            # the replicated coefficients enter the slab work (their
+            # cotangent, each rank's part, summed over the ranks once),
+            # per-cell ones as the slab's cells
+            ids = torch.as_tensor(self._node_slab.cell_ids, device=self.device)
+            nc, mesh = self.mesh.n_cells, self.device_mesh
+            for k, v in theta.items():
+                if torch.is_tensor(v) and not k.startswith("_"):
+                    v = shard.enter(mesh, v)
+                    theta[k] = v[ids] if v.dim() == 1 and v.shape[0] == nc else v
         if self.matrix_free:
             return self._augment_matrix_free(theta)
         if self.lattice:
-            if self._node_slab is not None:
-                # the replicated coefficients enter the slab work (their
-                # cotangent, each rank's part, summed over the ranks once),
-                # per-cell ones as the slab's cells
-                ids = torch.as_tensor(self._node_slab.cell_ids, device=self.device)
-                nc, mesh = self.mesh.n_cells, self.device_mesh
-                for k, v in theta.items():
-                    if torch.is_tensor(v) and not k.startswith("_"):
-                        v = shard.enter(mesh, v)
-                        theta[k] = v[ids] if v.dim() == 1 and v.shape[0] == nc else v
             return self._augment_lattice(theta)
         for key in ("_TLCfac", "_TLCfacS"):
             if key in theta and theta[key].dtype == torch.bfloat16:
@@ -1161,7 +1224,8 @@ class Simulation(ABC):
             rd_residual_hi=hi[0] if hi else None, el_residual_hi=hi[1] if hi else None,
         )
         if self.matrix_free:
-            return make_step(**self._matrix_free_preconds(), **common)
+            return make_step(**self._matrix_free_preconds(), reduce=self._reduce(),
+                             **common)
         if self._node_slab is not None:
             return make_step(**self._node_builders(), reduce=self._reduce(), **common)
         if self.lattice:
@@ -1322,12 +1386,12 @@ class Simulation(ABC):
         # parameters that require grad (the run_for_adjoint runners given
         # tensors): the solution keeps its graph
         keep = u_traj.requires_grad or c_traj.requires_grad
-        if self._node_slab is not None:
+        rows = self._node_rows
+        if rows is not None:
             # the whole fields on every rank, from each rank's rows
             # (differentiable: a rank's rows of the replicated cotangent)
-            from glimslib_tpu_torch.parallel.gspmd import gather_nodes
-
-            whole = lambda x: gather_nodes(self.device_mesh, self._node_slab, x)  # noqa: E731
+            whole = lambda x: shard.gather_rows(self.device_mesh, x, rows.start,  # noqa: E731
+                                                rows.n_total)
             u_traj = whole(u_traj.movedim(1, 0)).movedim(0, 1)
             c_traj = whole(c_traj.movedim(1, 0)).movedim(0, 1)
             u0, c0 = whole(u0), whole(c0)

@@ -26,10 +26,13 @@ the step time (a float); it returns the per-cell values, (nc,) or (nc,
 dim), and is evaluated inside each step.
 
 Mixed-precision refinement takes its f64 residuals from the same gather
-path with f64 tables (:meth:`hi_residual_fns`).  Under node sharding each
-residual takes this rank's rows, exchanges the halo of the fields it
-reads in one exchange, and returns the owned rows (the halo form of the
-stencil kernel; the gather path on the slab's cells).
+path with f64 tables (:meth:`hi_residual_fns`; the sharded kernels at
+f64 under ``'cells'`` and the unstructured ``'nodes'``).  Under the
+lattice's node sharding each residual takes this rank's rows, exchanges
+the halo of the fields it reads in one exchange, and returns the owned
+rows (the halo form of the stencil kernel; the gather path on the slab's
+cells); under the unstructured one the sharded kernels exchange their
+ghost rows themselves.
 """
 
 from __future__ import annotations
@@ -247,7 +250,11 @@ class TumorGrowth(Simulation):
 
     def _get_kernels_hi(self):
         """An f64 :class:`P1Kernels` of the mesh (of this rank's node slab
-        under node sharding) on the model's device, built once."""
+        under the lattice's node sharding) on the model's device, built
+        once; under ``'cells'`` and the unstructured ``'nodes'`` the
+        sharded kernels at f64 over the same partition."""
+        if getattr(self, "_kernels_hi", None) is None and self._sharded_kernels:
+            self._kernels_hi = self.kernels.like(torch.float64)
         if getattr(self, "_kernels_hi", None) is None:
             slab = self._node_slab
             self._kernels_hi = P1Kernels(

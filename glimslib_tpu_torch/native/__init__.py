@@ -1,5 +1,8 @@
-"""The port's native host helpers (g++ library, ctypes, scipy fallback)."""
+"""The port's native host helpers (g++ library, ctypes, numpy and scipy
+fallbacks)."""
 
-from glimslib_tpu_torch.native.meshops import rcm_permutation
+from glimslib_tpu_torch.native.meshops import (
+    available, build, cell_adjacency, facets, partition_graph, rcm_permutation,
+)
 
-__all__ = ["rcm_permutation"]
+__all__ = ["available", "build", "cell_adjacency", "facets", "partition_graph", "rcm_permutation"]

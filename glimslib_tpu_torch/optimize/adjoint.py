@@ -24,13 +24,16 @@ heuristics (simulation_tumor_growth_brain_quad.py:151-210), e.g. the
 one objective evaluation as text, the counterpart of the reference's
 jaxpr dump.
 
-On a model under ``use_sharding(mode="nodes")`` every rank builds the
-problem on the same whole targets and keeps its rows of them; each L2
-term is the rank's owned rows against their halo-padded mass action, and
-the rank's partial J is summed over the ranks once
+On a model under ``use_sharding(mode="nodes")`` (lattice or
+unstructured) every rank builds the problem on the same whole targets
+and keeps its rows of them; each L2 term is the rank's owned rows
+against their mass action (its halo or ghost rows exchanged), and the
+rank's partial J is summed over the ranks once
 (``parallel.shard.reduce_sum``), so J and the gradient are the same on
 every rank, bit for bit, and ``minimize`` takes the same iterates on all
-of them.  Rank 0 alone writes ``export_computation_graph``'s file.
+of them.  Under ``mode="cells"`` the fields and the mass actions are
+replicated, so J is the same on every rank and is not summed again.
+Rank 0 alone writes ``export_computation_graph``'s file.
 """
 
 from __future__ import annotations

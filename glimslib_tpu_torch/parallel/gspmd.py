@@ -26,10 +26,12 @@ it serves a halo that reaches past the nearest neighbour (a rank of 16
 nodes under a halo of 21).  Point-to-point sends of the halo slices
 alone are later work.
 
-Differentiation.  The exchange is an autograd Function whose VJP is the
-transposed exchange: each rank writes the cotangents of its halo rows
-into the band at their global rows, one all-reduce sums them, and each
-owner adds the band rows it sent into the cotangent of its own rows
+Differentiation.  The exchange is an autograd Function whose JVP is the
+same exchange of the tangent (the matrix-free lane's ``torch.func.jvp``)
+and whose VJP is the transposed exchange: each rank writes the
+cotangents of its halo rows into the band at their global rows, one
+all-reduce sums them, and each owner adds the band rows it sent into the
+cotangent of its own rows
 (again one collective, none at world 1).  Every rank runs the same
 autograd graph, so the backward's collectives come in the same order on
 all of them.  :func:`gather_nodes` is differentiable as
@@ -157,9 +159,16 @@ def _exchange_T(mesh, slab, g_pad):
 
 class _HaloExchange(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x_own, mesh, slab):
-        ctx.mesh, ctx.slab = mesh, slab
+    def forward(x_own, mesh, slab):
         return _exchange(mesh, slab, x_own)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, ctx.mesh, ctx.slab = inputs
+
+    @staticmethod
+    def jvp(ctx, x_t, _mesh_t, _slab_t):
+        return _exchange(ctx.mesh, ctx.slab, x_t)
 
     @staticmethod
     @once_differentiable
@@ -171,19 +180,20 @@ def halo_exchange(mesh, slab, x_own):
     """``x_own`` (n_own, ...) with H rows of the neighbouring ranks on
     either side: (n_own + 2 H, ...), zeros where the rows lie outside the
     mesh.  One all-reduce over the exchange band (none at world 1), and
-    under grad one more in the backward (the transposed exchange).  Every
-    rank calls it at once."""
-    if torch.is_grad_enabled() and x_own.requires_grad:
-        return _HaloExchange.apply(x_own, mesh, slab)
-    return _exchange(mesh, slab, x_own)
+    one more for a tangent (``torch.func.jvp``: the same exchange) or in
+    the backward (the transposed exchange).  Every rank calls it at once.
+    Every call goes through the autograd Function: a collective called on
+    a tensor of a ``torch.func`` transform would move its primal alone."""
+    return _HaloExchange.apply(x_own, mesh, slab)
 
 
 def halo_exchange_many(mesh, slab, *xs):
     """:func:`halo_exchange` of several node vectors of one dtype, (n_own,)
     or (n_own, k), in one exchange: stacked as columns, exchanged, split
-    again (each padded vector contiguous).  A padded vector whose input
-    needs no gradient is detached, so no backward asks for its cotangent
-    (a residual VJP in u and c wants c's alone)."""
+    again (each padded vector contiguous).  Under grad a padded vector
+    whose input needs no gradient is detached, so no backward asks for its
+    cotangent (a residual VJP in u and c wants c's alone); a tangent
+    (``torch.func.jvp``) goes through every one."""
     if len(xs) == 1:
         return [halo_exchange(mesh, slab, xs[0])]
     cols = [x[:, None] if x.dim() == 1 else x for x in xs]
@@ -193,7 +203,8 @@ def halo_exchange_many(mesh, slab, *xs):
         k = c.shape[1]
         part = padded[:, j:j + k]
         part = (part[:, 0] if x.dim() == 1 else part).contiguous()
-        out.append(part if x.requires_grad else part.detach())
+        detach = torch.is_grad_enabled() and not x.requires_grad and part.requires_grad
+        out.append(part.detach() if detach else part)
         j += k
     return out
 

@@ -26,13 +26,20 @@ contracts it, and one collective re-replicates the result.
   the replicated cotangent; a rank-local partial sum made replicated is
   an ``all_reduce`` forward and the identity backward.
 
-The lattice's node sharding (``mode="nodes"``) is ``parallel/gspmd.py``.
-Not ported: ``ShardedP1Kernels`` (``mode="cells"``), the unstructured
-node sharding (``parallel/nodeshard.py``, ``mode="nodes"`` on a mesh
-without a lattice) and the partitioner they share
-(``parallel/partition.py``): both swap the model's element kernels and
-run the solves on the matrix-free jvp lane, which the port does not
-have.  ``use_sharding`` raises for them.
+The lattice's node sharding (``mode="nodes"``) is ``parallel/gspmd.py``,
+the unstructured one ``parallel/nodeshard.py``.
+
+:class:`ShardedP1Kernels` is ``mode="cells"`` (counterpart of the
+reference's class of that name): the mesh's cells are split into one
+block a rank (``parallel/partition.py``, the native graph partitioner),
+each rank evaluates the element kernels of its block on the replicated
+node vectors and accumulates into the rows its cells touch, and one
+``all_reduce`` (:func:`reduce_sum`) makes the result replicated.  The
+replicated inputs enter through :func:`enter`, so a gradient sums each
+rank's part of their cotangent once; under ``torch.func.jvp`` the
+tangent of the residual is summed by the same collective.  It has the
+reference's method surface and no ``elasticity_diag_blocks``: a model
+on it takes point-Jacobi on its elasticity block, as the reference's.
 """
 
 from __future__ import annotations
@@ -42,8 +49,10 @@ import os
 import queue
 import tempfile
 import traceback
+import types
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -113,9 +122,16 @@ def canonical_device(dev):
 
 class _Enter(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
+    def forward(x, mesh):
         return x.view_as(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mesh = inputs[1]
+
+    @staticmethod
+    def jvp(ctx, x_t, _mesh_t):
+        return x_t.view_as(x_t)
 
     @staticmethod
     def backward(ctx, g):
@@ -123,8 +139,9 @@ class _Enter(torch.autograd.Function):
 
 
 def enter(mesh, x):
-    """A replicated tensor ``x`` as the input of rank-local work: itself;
-    its cotangent, each rank's part, is summed over the ranks once."""
+    """A replicated tensor ``x`` as the input of rank-local work: itself
+    (its tangent too, under ``torch.func.jvp``); its cotangent, each
+    rank's part, is summed over the ranks once."""
     if mesh is not None and torch.is_grad_enabled() and x.requires_grad:
         return _Enter.apply(x, mesh)
     return x
@@ -153,8 +170,16 @@ def gather_rows(mesh, local, start, total):
 
 class _ReduceSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh):
+    def forward(x, mesh):
         return mesh.all_reduce(x.contiguous().clone())
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mesh = inputs[1]
+
+    @staticmethod
+    def jvp(ctx, x_t, _mesh_t):
+        return ctx.mesh.all_reduce(x_t.contiguous().clone())
 
     @staticmethod
     def backward(ctx, g):
@@ -164,12 +189,13 @@ class _ReduceSum(torch.autograd.Function):
 def reduce_sum(mesh, x):
     """The sum over the ranks of each rank's partial ``x``, the same on
     every rank (one ``all_reduce``): differentiable, each partial's
-    cotangent being the replicated result's."""
+    cotangent being the replicated result's, and under ``torch.func.jvp``
+    the tangent is summed by the same collective (one more).  Every call
+    goes through the autograd Function: a collective called on a tensor
+    of a ``torch.func`` transform would sum its primal alone."""
     if mesh is None:
         return x
-    if torch.is_grad_enabled() and x.requires_grad:
-        return _ReduceSum.apply(x, mesh)
-    return mesh.all_reduce(x.contiguous().clone())
+    return _ReduceSum.apply(x, mesh)
 
 
 # -- the launcher --------------------------------------------------------------
@@ -269,3 +295,100 @@ def run_ranks(fn, world: int, backend: str, device="cpu", args=(),
             + " gave no result (gloo aborts a rank whose collectives do not match "
             "the others')")
     return [got[r][1] for r in range(world)]
+
+
+# -- mode 'cells': the element kernels on a rank's block of cells --------------
+
+
+def local_coefficient(mesh, value, cell_ids, n_cells):
+    """A replicated coefficient as the input of a rank's cells: a tensor
+    enters (:func:`enter`) and a per-cell one, (nc, ...), is gathered at
+    the rank's ``cell_ids``; a Python number stays as it is."""
+    if not torch.is_tensor(value):
+        return value
+    value = enter(mesh, value)
+    if value.dim() >= 1 and value.shape[0] == n_cells:
+        return value.index_select(0, cell_ids)
+    return value
+
+
+def local_mesh(mesh, cell_ids, cells=None, n_nodes=None):
+    """The mesh of ``mesh``'s cells ``cell_ids`` (their node ids
+    ``cells``, default the mesh's, on ``n_nodes`` nodes, default the
+    mesh's), for the P1 kernels of one rank."""
+    return types.SimpleNamespace(
+        dim=mesh.dim, n_nodes=mesh.n_nodes if n_nodes is None else n_nodes,
+        n_cells=len(cell_ids),
+        cells=np.asarray(mesh.cells)[cell_ids] if cells is None else cells,
+        cell_volumes=np.asarray(mesh.cell_volumes)[cell_ids],
+        cell_grads=np.asarray(mesh.cell_grads)[cell_ids], lattice_strides=None)
+
+
+class ShardedP1Kernels:
+    """The P1 kernels of ``mode="cells"`` on this rank's block of cells
+    (module docstring): node vectors in and out are replicated, and every
+    member that accumulates onto the nodes ends in one ``all_reduce``.
+    ``part``: a :class:`~glimslib_tpu_torch.parallel.partition.CellPartition`
+    to reuse (:meth:`like`), else ``partition_cells(mesh, world)``."""
+
+    def __init__(self, mesh, device_mesh, dtype=torch.float64, device=None, part=None):
+        from glimslib_tpu_torch.ops.assembly import P1Kernels
+        from glimslib_tpu_torch.parallel.partition import partition_cells
+
+        self.mesh, self.device_mesh = mesh, device_mesh
+        self.device = device_mesh.device if device is None else torch.device(device)
+        self.dtype = dtype
+        self.dim, self.n_nodes, self.n_cells = mesh.dim, mesh.n_nodes, mesh.n_cells
+        self.npe = mesh.dim + 1
+        self.part = partition_cells(mesh, device_mesh.world) if part is None else part
+        p = device_mesh.rank
+        # the block's real cells (the reference's zero-volume pad slots add
+        # exact zeros)
+        ids = self.part.cell_perm[p][self.part.pad_mask[p] > 0]
+        self.block_cells = ids
+        self._k = P1Kernels(local_mesh(mesh, ids), dtype=dtype, device=self.device)
+        self._ids = torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
+        self._m0, self._t0 = self._k._m0, self._k._t0
+
+    def like(self, dtype):
+        """The same kernels at ``dtype`` over the same partition."""
+        return ShardedP1Kernels(self.mesh, self.device_mesh, dtype=dtype,
+                                device=self.device, part=self.part)
+
+    def _co(self, value):
+        return local_coefficient(self.device_mesh, value, self._ids, self.n_cells)
+
+    def _node(self, x):
+        return enter(self.device_mesh, x)
+
+    def _sum(self, partial):
+        return reduce_sum(self.device_mesh, partial)
+
+    def rd_residual(self, c, c_prev, D, rho, dt, source=0.0, conc_max=1.0):
+        co = self._co
+        return self._sum(self._k.rd_residual(
+            self._node(c), self._node(c_prev), co(D), co(rho), co(dt),
+            source=co(source), conc_max=conc_max))
+
+    def elasticity_residual(self, u, c, mu, lam, coupling, body_force=None):
+        co = self._co
+        return self._sum(self._k.elasticity_residual(
+            self._node(u), self._node(c), co(mu), co(lam), co(coupling),
+            body_force=None if body_force is None else co(body_force)))
+
+    def rd_mass_stiffness_diag(self, D, rho, dt):
+        return self._sum(self._k.rd_mass_stiffness_diag(self._co(D), rho, self._co(dt)))
+
+    def elasticity_diag(self, mu, lam):
+        return self._sum(self._k.elasticity_diag(self._co(mu), self._co(lam)))
+
+    def mass_residual(self, c):
+        return self._sum(self._k.mass_residual(self._node(c)))
+
+    def mass_vector_residual(self, u):
+        return self._sum(self._k.mass_vector_residual(self._node(u)))
+
+    def integrate_p1(self, c):
+        """∫ c dx (a 0-d tensor), the same on every rank."""
+        k = self._k
+        return self._sum(torch.sum(k.cell_integral(self._node(c))))

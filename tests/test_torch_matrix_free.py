@@ -25,7 +25,7 @@ against the JAX package and the scipy FEM, at f64 on the CPU.
   and a von Neumann influx through the P2 trace element (also on the
   unstructured lane);
 - a matrix-free model under ``use_sharding()`` takes the reference's
-  ``cells`` mode and raises, naming the modules the port lacks.
+  ``cells`` mode, with its warning.
 """
 
 import os
@@ -422,15 +422,22 @@ def test_quad_von_neumann_on_the_unstructured_lane():
     assert ok and _rel(c[-1], c_ref) < 1e-6 and _rel(u[-1], u_ref) < 1e-6
 
 
-def test_sharding_a_matrix_free_model_takes_cells():
+def test_sharding_a_matrix_free_model_takes_cells(caplog):
     """use_sharding's auto on a matrix-free model takes the reference's
-    'cells' mode and raises, naming the modules the port lacks and why."""
+    'cells' mode, says why, and swaps the model's kernels for
+    ShardedP1Kernels (tests/test_torch_nodeshard.py runs it at gloo
+    ranks); 'nodes' on the matrix-free lattice takes the rank's slab."""
+    import logging
+
+    from glimslib_tpu_torch.parallel import ShardedP1Kernels
+
     sim = _rect("torch", "matrix-free")
     mesh = DeviceMesh(None, 0, 1, torch.device("cpu"), "mesh_x", "gloo")
-    with pytest.raises(NotImplementedError, match="mode='cells'.*ShardedP1Kernels.*"
-                       "partition.py.*matrix-free") as err:
-        sim.use_sharding(mesh)
-    assert "lane, which is not ported" not in str(err.value)
-    with pytest.raises(NotImplementedError, match="mode='nodes' on the matrix-free"):
-        sim.use_sharding(mesh, mode="nodes")
-    assert sim.sharding_mode is None
+    with caplog.at_level(logging.WARNING):
+        assert sim.use_sharding(mesh) is mesh
+    assert sim.sharding_mode == "cells" and isinstance(sim.kernels, ShardedP1Kernels)
+    assert any("fell back to the SLOW 'cells' lane" in r.getMessage()
+               and "matrix-free" in r.getMessage() for r in caplog.records)
+    sim = _rect("torch", "matrix-free")
+    sim.use_sharding(mesh, mode="nodes")
+    assert sim.sharding_mode == "nodes" and sim._node_slab is not None and sim.matrix_free

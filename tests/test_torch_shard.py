@@ -26,8 +26,9 @@ here:
   only: the JAX package's own sharded quad adjoint aborts inside XLA's
   compile (tests/test_bellshard.py::test_quad_adjoint_gradient_matches_
   single_device, ROADMAP §3);
-- ``use_sharding`` raising for the modes and meshes the port does not
-  shard, and without a process group.
+- ``use_sharding`` raising for the modes and meshes 'bell' does not
+  take, and without a process group; 'cells' and 'nodes' on the
+  unstructured mesh, and auto's fallback to 'cells' with its warning.
 """
 
 import datetime
@@ -161,7 +162,9 @@ def one_rank():
             dist.destroy_process_group()
 
 
-def test_use_sharding_raises_where_the_port_does_not_shard(one_rank):
+def test_use_sharding_raises_where_the_port_does_not_shard(one_rank, caplog):
+    import logging
+
     from glimslib_tpu_torch.examples import brain_sim
 
     mesh = one_rank
@@ -174,22 +177,26 @@ def test_use_sharding_raises_where_the_port_does_not_shard(one_rank):
     with pytest.raises(ValueError, match="needs the supernode halo-ELL path"):
         lat.use_sharding(mesh, mode="bell")
     uns = cases.port_sim()
-    for mode, match in (("nodes", "nodeshard"),
-                        ("cells", "mode='cells'.*ShardedP1Kernels")):
-        with pytest.raises(NotImplementedError, match=match):
-            uns.use_sharding(mesh, mode=mode)
     with pytest.raises(ValueError, match="unknown sharding mode"):
         uns.use_sharding(mesh, mode="rows")
     assert lat.sharding_mode is None and uns.sharding_mode is None
+    # 'nodes' and 'cells' on the unstructured mesh swap its kernels (their
+    # own tests: tests/test_torch_nodeshard.py)
+    for mode, cls in (("nodes", "NodeShardedP1Kernels"), ("cells", "ShardedP1Kernels")):
+        other = cases.port_sim()
+        assert other.use_sharding(mesh, mode=mode) is mesh and other.sharding_mode == mode
+        assert type(other.kernels).__name__ == cls and other.matrix_free
     # where the world divides neither the nodes nor the blocks, auto takes
     # the reference's 'cells' and says why
     three = DeviceMesh(None, 0, 3, torch.device("cpu"), "mesh_x", "gloo")
-    with pytest.raises(NotImplementedError, match="mode='cells'.*n_nodes=125 not "
-                       "divisible by 3 devices"):
-        lat.use_sharding(three)
-    with pytest.raises(NotImplementedError, match="mode='cells'.*block count 16 not "
-                       "divisible by 3 devices"):
-        uns.use_sharding(three)
+    for sim, why in ((brain_sim(n=4, dtype=torch.float64, device="cpu"),
+                      "n_nodes=125 not divisible by 3 devices"),
+                     (cases.port_sim(), "block count 16 not divisible by 3 devices")):
+        with caplog.at_level(logging.WARNING):
+            caplog.clear()
+            assert sim.use_sharding(three) is three and sim.sharding_mode == "cells"
+        assert any("fell back to the SLOW 'cells' lane" in r.getMessage()
+                   and why in r.getMessage() for r in caplog.records), why
     with pytest.raises(ValueError, match="block count 16 not divisible by 3"):
         uns.use_sharding(three, mode="bell")
     with pytest.raises(ValueError, match="mesh of ranks is on meta, the model on cpu"):

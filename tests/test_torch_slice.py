@@ -183,11 +183,13 @@ def test_plain_2d_lattice_runs():
 def test_outside_slice_raises(case):
     run = {
         "chebyshev": lambda: _step_config(precond_degree=3),
-        # a lattice model: the reference's 'cells' mode, not ported (a world
-        # of one rank, which the mode decision reads only; 'nodes', the
-        # lattice's default, is held in tests/test_torch_gspmd.py)
-        "sharding": lambda: _tumor_growth_2d().use_sharding(DeviceMesh(
-            None, 0, 1, torch.device("cpu"), "mesh_x", "gloo"), mode="cells"),
+        # a quad model under the 'cells' mode, which the reference's quad
+        # models cannot run either (a world of one rank, which the mode
+        # decision reads only; the mode itself is held in
+        # tests/test_torch_nodeshard.py)
+        "sharding": lambda: brain_sim(n=2, dtype=torch.float64, device="cpu",
+                                      unstructured=True, quad=True).use_sharding(
+            DeviceMesh(None, 0, 1, torch.device("cpu"), "mesh_x", "gloo"), mode="cells"),
     }[case]
     with pytest.raises(NotImplementedError):
         run()
