@@ -243,8 +243,8 @@ Phases, each printed on lines of their own:
    the process (the ranks must compute their replicated work bit for bit
    alike); [13a] turns them off again after it.  [13b] two ranks sharing
    the card over gloo (``parallel.run_ranks``; [14b] and [14d] run in the
-   same spawn after it): per rank the n=32 box, SHARD_P1_STEPS steps (cut
-   from 5), and one value_and_grad of [9a]'s refined problem on its
+   same spawn after it): per rank the n=32 box, SHARD_P1_STEPS step (cut
+   from 5, then 2), and one value_and_grad of [9a]'s refined problem on its
    targets at as many steps, then the quad flagship, SHARD_QUAD_STEPS
    steps (cut from 5, then 2);
    per rank the slab's blocks, set-up seconds, the table bytes held
@@ -358,7 +358,34 @@ Phases, each printed on lines of their own:
    jvp lane (world 1, in this process), the collectives and their host ms, the rank's
    layout, no kernel launch.
 
-Then one JSON line with [16]'s numbers, one with [15]'s numbers, one with [14]'s numbers, one with [13]'s numbers, one with [12]'s numbers and its kernel rows by lattice, one with [11]'s, one with [10]'s, one with [9]'s, one with [7]'s
+17. Chebyshev preconditioning (``StepConfig.precond_degree`` CHEB_DEGREE)
+   and von Neumann conditions under ``cells`` and ``nodes``.  [17a] [3]'s
+   N=32 lattice (bench StepConfig) and [6]'s n=32 unstructured box,
+   CHEB_STEPS steps each at degree 0 and at CHEB_DEGREE, the counts at 0
+   before each: the Chebyshev lattice launches every stencil_apply form
+   and no stencil_pcg (the pcg branch on the stencil planes), the
+   Jacobi one both stencil_pcg; c and u of the two ways within SLICE_RTOL
+   (lattice) and UNSTRUCT_RTOL (unstructured); CG iterations, steps/s,
+   device busy ms and idle share both ways; the Chebyshev solves' forms
+   held against their plain versions on the run's planes, bell_bmv's
+   launches by shape (each one [5] holds; a new one raises) and its rd
+   Jacobian at the final state against plain; one value_and_grad of
+   [7]'s lattice cell each way, J within CHEB_J_RTOL (the warm-started
+   lanes' limit: the Chebyshev lattice warm-starts) and the gradient
+   within 1e-3 of each other, no stencil_pcg in the Chebyshev call.  [17b]
+   ``examples.influx_sim`` with the traction VN17_TRACTION, f32
+   REFINED_STEP_CONFIG, VN17_STEPS step: at world 1 over NCCL the N=32
+   lattice under 'nodes' (stencil_apply's halo form in the solves, no
+   stencil_pcg) and the n=32 Morton box under 'cells' and 'nodes' (no
+   launch), each within its lane's limit of the unsharded run, with the
+   rank's facets and the collectives; NODES_WORLD gloo ranks (in [13b]'s
+   spawn, after [16b]) on [16b]'s 730-node box at f64, VN17_STEPS step
+   and one value_and_grad a mode: J, the gradient, c and u bit-equal on
+   every rank and within VN17_RTOL of the same mode at world 1; and the
+   collectives a CG iteration of one forward step under 'nodes' at
+   degree 0 and CHEB_DEGREE.
+
+Then one JSON line with [17]'s numbers, one with [16]'s numbers, one with [15]'s numbers, one with [14]'s numbers, one with [13]'s numbers, one with [12]'s numbers and its kernel rows by lattice, one with [11]'s, one with [10]'s, one with [9]'s, one with [7]'s
 and [8]'s value_and_grad numbers, one with
 every kernel's numbers (each with its launches in the path and in one
 value_and_grad by forward and backward: [7]'s for the 3D rows, [8]'s for
@@ -466,9 +493,10 @@ WF_OPT = {"tol": 1e-8, "gtol": 1e-8}
 # and their f64 references get this cap, as [8]'s 512 x 512 does
 WF_CG_MAXITER = 6000
 # a forward is held to the plain f64 path at its recorded step
-# min(steps, WF_F64_STEPS): [11a]'s at step 5 of 10 (cut from 10: the f64
-# plain path's solves read the host every iteration, 31 s for 10 steps)
-WF_F64_STEPS = 5
+# min(steps, WF_F64_STEPS): [11a]'s at step 2 of 10 (cut from 10: the f64
+# plain path's solves read the host every iteration, 31 s for 10 steps;
+# then from 5, 16.6 s, to fit [17])
+WF_F64_STEPS = 2
 WF_V0 = 0.05
 WF_TRUTH = 0.1
 # L-BFGS-B's reach: the relative error of each recovered parameter of
@@ -1599,14 +1627,17 @@ def _vjp_passes(torch, sim, c, lattice, tag):
 
 
 def _adjoint_lane(torch, sim, ref, lane, groups, tag, problem, fd_dir=None,
-                  j_rtol=None, vjp_passes=True, keep=None):
+                  j_rtol=None, vjp_passes=True, keep=None, f64_calls=None):
     """value_and_grad on one lane (module docstring, [7]) of the inverse
     problem ``problem(sim)`` gives; ``ref`` is the lane's plain f64 model
     at its default tolerances; ``fd_dir`` a direction for a central
     difference of the f64 objective; ``j_rtol`` J's limit where it is not
     the lane's; ``vjp_passes`` whether to time the plain VJP passes;
     ``keep`` (a dict) gains the problem's targets, v0, step config, J and
-    gradient and the f64 ones ([13b] holds its sharded call to them).
+    gradient and the f64 ones ([13b] holds its sharded call to them);
+    ``f64_calls`` (a dict) the f64 value_and_grad calls by (model, steps,
+    dt, v0, targets' storage), made once ([9a] holds its refined call to
+    [7]'s).
     Every kernel must launch in the backward, and in the forward those a
     forward of the problem's step runs (:func:`_forward_groups`).
     Returns the launches of the instrumented call by wrapper and
@@ -1701,7 +1732,12 @@ def _adjoint_lane(torch, sim, ref, lane, groups, tag, problem, fd_dir=None,
     t0 = time.perf_counter()
     ip64 = type(ip)(ref, ip.param_names, ip.targets, update_fn=ip.update_fn,
                     n_steps=ip.n_steps, dt=ip.dt)
-    J64, g64 = ip64.value_and_grad(v0)
+    key = (id(ref), ip.n_steps, ip.dt, tuple(np.asarray(v0, np.float64).tolist()),
+           tuple((k, v.data_ptr()) for k, v in sorted(ip.targets.items())))
+    f64_calls = {} if f64_calls is None else f64_calls
+    if key not in f64_calls:
+        f64_calls[key] = ip64.value_and_grad(v0)
+    J64, g64 = f64_calls[key]
     rel_J = abs(J - J64) / abs(J64)
     rel_g = float(np.linalg.norm(g - g64) / np.linalg.norm(g64))
     j_lim = ADJ_J_RTOL[limit] if j_rtol is None else j_rtol
@@ -1754,18 +1790,22 @@ def _lattice_groups():
             (sk.apply_coupling,), (fc.cg_scalar,), (fc.cg_vector,)]
 
 
-def phase_adjoint(torch, sim, usim, refs, kernels):
+def phase_adjoint(torch, sim, usim, refs, kernels, keep):
     """[7]: value_and_grad on both lanes; every kernel row gains its
     launches in one call, forward and backward."""
     from glimslib_tpu_torch.examples import adjoint_problem
     from glimslib_tpu_torch.ops import bell_kernels as bk
 
     t0 = time.perf_counter()
-    problem = lambda s: adjoint_problem(sim=s)  # noqa: E731
+    # the problems and the f64 calls, by model: [9a] takes them again
+    problems = keep.setdefault("adjoint_problems", {})
+    f64_calls = keep.setdefault("f64_calls", {})
+    problem = lambda s: problems.setdefault(id(s), adjoint_problem(sim=s))  # noqa: E731
     lat, lat_nums = _adjoint_lane(torch, sim, refs[0], "lattice", _lattice_groups(),
-                                  "[7]", problem, ADJ_FD_DIR)
+                                  "[7]", problem, ADJ_FD_DIR, f64_calls=f64_calls)
     uns, uns_nums = _adjoint_lane(torch, usim, refs[1], "unstructured",
-                                  [(bk.batched_matvec,)], "[7]", problem)
+                                  [(bk.batched_matvec,)], "[7]", problem,
+                                  f64_calls=f64_calls)
     for k in kernels:
         if "@" in k["name"]:  # a row of another size
             continue
@@ -1876,12 +1916,20 @@ REFINED_NEWTON_ATOL = 1e-7
 FACTORED_RTOL = 1e-5
 
 
-def _refined_problem(sim):
+def _refined_problem(sim, problems):
     """[7]'s inverse problem (adjoint_problem, the lane's benchmark step)
-    with refine_f64 on, on the same targets."""
+    with refine_f64 on, on the same targets ([7]'s own from ``problems``,
+    where it ran on ``sim``: its f64 reference then stands for this one's
+    too)."""
+    from glimslib_tpu_torch.examples import BENCH_STEP_CONFIG, UNSTRUCT_STEP_CONFIG
     from glimslib_tpu_torch.examples import adjoint_problem
 
-    ip0, v0 = adjoint_problem(sim=sim)
+    if id(sim) in problems:
+        ip0, v0 = problems[id(sim)]
+        sim.step_config = (BENCH_STEP_CONFIG if sim.mesh.lattice_strides is not None
+                           else UNSTRUCT_STEP_CONFIG)
+    else:
+        ip0, v0 = adjoint_problem(sim=sim)
     sim.step_config = sim.step_config._replace(refine_f64=True)
     return type(ip0)(sim, ip0.param_names, ip0.targets, update_fn=ip0.update_fn,
                      n_steps=ip0.n_steps, dt=ip0.dt), v0
@@ -1952,7 +2000,9 @@ def phase_refined(torch, dev, lanes, keep=None):
                 correction_solves=fix, rel_c=rel_c, rel_u=rel_u, unrefined_rel=(rc0, ru0))
     for lane, sim, ref, _, _, groups in lanes:
         _, nums = _adjoint_lane(torch, sim, ref, f"{lane} refined", groups, "[9a]",
-                                _refined_problem, j_rtol=REFINED_J_RTOL,
+                                lambda s: _refined_problem(s, (keep or {}).get(
+                                    "adjoint_problems", {})),
+                                j_rtol=REFINED_J_RTOL, f64_calls=(keep or {}).get("f64_calls"),
                                 vjp_passes=False,
                                 keep=(None if keep is None else keep["p1"] if lane == "unstructured"
                                       else keep.setdefault("lattice", {})))
@@ -3278,9 +3328,10 @@ def phase_examples(torch, dev, kernels):
 # from [10]'s 5 to keep [13] short; a collective that waits longer than
 # SHARD_TIMEOUT_S raises in its rank.
 SHARD_QUAD_STEPS = 1
-# [13b]'s P1 box: its forward and value_and_grad take SHARD_P1_STEPS steps
-# (cut from N_STEPS to keep the script well inside its limit)
-SHARD_P1_STEPS = 2
+# [13b]'s P1 box: its forward and value_and_grad take SHARD_P1_STEPS
+# step(s) (cut from N_STEPS to keep the script well inside its limit, then
+# from 2 to fit [17]: ~2,300 gloo collectives a step at 2-3 ms each)
+SHARD_P1_STEPS = 1
 SHARD_TIMEOUT_S = 600
 # the tables use_sharding holds as a rank's slab (supernode blocks) or
 # rows (the two-level level's aggregates), by key
@@ -3537,8 +3588,8 @@ def _rank_pair(mesh, a13, a14):
     """One spawn's work on a rank: [13b] (:func:`_rank13b` on ``a13``),
     then [14b] and [14d] (:func:`_rank14b` on ``a14``) with the
     deterministic algorithms [13b]'s use_sharding turned on off again, as
-    in a process of their own, then [16b] (:func:`_rank16b`); and each
-    part's seconds."""
+    in a process of their own, then [16b] (:func:`_rank16b`) and [17b]
+    (:func:`_rank17b`); and each part's seconds."""
     import torch
 
     t0 = time.perf_counter()
@@ -3551,8 +3602,11 @@ def _rank_pair(mesh, a13, a14):
     t2 = time.perf_counter()
     torch.cuda.empty_cache()
     b16 = _rank16b(mesh)
-    return {"13b": b13, "14b": b14, "16b": b16,
-            "seconds": (t1 - t0, t2 - t1, time.perf_counter() - t2)}
+    t3 = time.perf_counter()
+    torch.cuda.empty_cache()
+    b17 = _rank17b(mesh)
+    return {"13b": b13, "14b": b14, "16b": b16, "17b": b17,
+            "seconds": (t1 - t0, t2 - t1, t3 - t2, time.perf_counter() - t3)}
 
 
 def _shard_two_ranks(torch, keep, ranks, wall_s, rank_s):
@@ -3697,8 +3751,8 @@ def _shard_example(torch, dev, tmp):
 def phase_shard(torch, dev, kern, usim, keep):
     """[13]: block sharding (module docstring).  ``kern`` (the bell_bmv
     row) gains the slab shapes; ``keep`` holds [9a]'s and [10]'s runs, and
-    gains [14b]'s rank results under "nodes_ranks" and [16b]'s under
-    "shard16_ranks" (their ranks run in
+    gains [14b]'s rank results under "nodes_ranks", [16b]'s under
+    "shard16_ranks" and [17b]'s under "vn17_ranks" (their ranks run in
     [13b]'s spawn)."""
     import shutil
     import tempfile
@@ -3718,6 +3772,7 @@ def phase_shard(torch, dev, kern, usim, keep):
                                       max(r["seconds"][0] for r in ranks))
     keep["nodes_ranks"] = ([r["14b"] for r in ranks], max(r["seconds"][1] for r in ranks))
     keep["shard16_ranks"] = ([r["16b"] for r in ranks], max(r["seconds"][2] for r in ranks))
+    keep["vn17_ranks"] = ([r["17b"] for r in ranks], max(r["seconds"][3] for r in ranks))
     out["two_ranks"] = two
     kern["slab_shapes"] = slab_rows
     tmp = tempfile.mkdtemp(prefix="glims_shard_")
@@ -4631,7 +4686,8 @@ def phase_matrix_free(torch, dev, lat, kernels, kern, keep):
 # [16]: use_sharding(mode="cells") (parallel/shard.py ShardedP1Kernels,
 # the native graph partitioner) and mode="nodes" on an unstructured mesh
 # (parallel/nodeshard.py), both on the matrix-free jvp lane.  [16a] runs
-# SHARD16_STEPS steps a mode at f32 with REFINED_STEP_CONFIG (the
+# SHARD16_STEPS step(s) a mode (cut from 2 to fit [17]: ~3 s a step of
+# the jvp lane a mode) at f32 with REFINED_STEP_CONFIG (the
 # reference's f32 default: refine_f64); every mode's state is held to
 # UNSTRUCT_RTOL against the unsharded model's on the jvp lane.  [16b]
 # runs the small padded Morton box (SMALL16_N, 729 nodes padded to 730)
@@ -4641,7 +4697,7 @@ def phase_matrix_free(torch, dev, lat, kernels, kern, keep):
 # SMALL16_J_RTOL / SMALL16_G_RTOL against the same problem unsharded on
 # the jvp lane (one process, world 1: one reference for both modes, cut
 # from a world-1 run of each mode over NCCL).
-SHARD16_STEPS = 2
+SHARD16_STEPS = 1
 SMALL16_STEPS = 1
 SMALL16_N = 8
 SMALL16_J_RTOL = 1e-8
@@ -4894,6 +4950,12 @@ def _cells_nodes_two_ranks(ranks, wall_s, ref):
         rel_J = abs(rs[0]["J"] - ref["J"]) / abs(ref["J"])
         rel_g = float(np.linalg.norm(rs[0]["g"] - ref["g"]) / np.linalg.norm(ref["g"]))
         rel_c = float(np.linalg.norm(rs[0]["c"] - ref["c"]) / np.linalg.norm(ref["c"]))
+        n_f0 = rs[0]["collectives"][0]
+        it0 = sum(map(sum, (v for k, v in rs[0]["cg"].items()
+                            if k in ("rd_cg_iters", "el_cg_iters"))))
+        print(f"{tag} the forward: {n_f0} collectives over {it0} CG iterations = "
+              f"{n_f0 / max(it0, 1):.2f} a CG iteration (the residuals and Newton's "
+              "norms counted in)")
         for r, o in enumerate(rs):
             n_f, n_b = o["collectives"]
             ms_f, ms_b = o["collective_ms"]
@@ -4932,6 +4994,451 @@ def phase_cells_nodes(torch, dev, ranks):
     out["two_ranks"] = _cells_nodes_two_ranks(*ranks, ref)
     out["seconds"] = time.perf_counter() - t_phase
     print(f"[16] cells and nodes phase {out['seconds']:.1f} s")
+    return out
+
+
+# [17]: Chebyshev preconditioning (StepConfig.precond_degree > 1) and von
+# Neumann conditions under the 'cells' and 'nodes' modes.  [17a] runs
+# CHEB_STEPS steps a way at degree CHEB_DEGREE and at 0 (Jacobi) on [3]'s
+# lattice (bench StepConfig) and [6]'s unstructured box, and one
+# value_and_grad of [7]'s lattice cell each way.  [17b] runs
+# examples.influx_sim with the traction VN17_TRACTION at f32
+# REFINED_STEP_CONFIG, VN17_STEPS step, at world 1 over NCCL, and on
+# NODES_WORLD gloo ranks (in [13b]'s spawn) the 730-node box of [16b] at
+# f64, VN17_STEPS step and one value_and_grad a mode, held to VN17_RTOL of
+# the same mode at world 1.
+CHEB_DEGREE = 3
+CHEB_STEPS = 2
+VN17_STEPS = 1
+VN17_TRACTION = (20.0, 0.0, 5.0)
+VN17_RTOL = 1e-12
+VN17_MODES = ("nodes", "cells")
+VN17_CG_RTOL = 1e-12
+# the Chebyshev lattice takes the pcg branch with warm starts, whose Newton
+# stops at newton_rtol one iteration after the guess: its J takes the
+# warm-started lanes' limit (PERF.md section 2), against the Jacobi run's
+CHEB_J_RTOL = ADJ_J_RTOL["unstructured"]
+
+
+def _cheb_way(torch, sim, dev, tag, groups, shown, none):
+    """One way of [17a] on ``sim`` (its step config set): a run with the
+    counts at 0 (``groups`` must launch, ``none`` must not), a timed run
+    and its profile; the trajectory and the numbers."""
+    simulate = sim.build_simulate_fn(CHEB_STEPS, 1.0)
+    args = (sim.make_theta(sim.params.as_dict()), *sim.initial_state())
+    (u, c), launches, first_s = _drive(torch, sim, simulate, args, groups, tag,
+                                      CHEB_STEPS, shown=shown + none)
+    if any(launches[w] for w in none):
+        raise AssertionError(f"{tag} launched {[w.__name__ for w in none]}: {launches}")
+    iters = {k: [int(i) for i in sim.solver_info[k]] for k in ("rd_cg_iters",
+                                                              "el_cg_iters")}
+    _, run = _time_runs(torch, simulate, args, dev, tag, CHEB_STEPS)
+    return (u, c), dict(run, launches={w.__name__: n for w, n in launches.items()},
+                        cg_iters=iters, first_s=first_s)
+
+
+def _cheb_lattice(torch, dev, sim, kernels):
+    """[17a] on [3]'s lattice model: Jacobi (the whole-solve stencil_pcg)
+    and Chebyshev (the pcg branch on the stencil planes: stencil_apply
+    only), c and u held to SLICE_RTOL of each other; each stencil_apply
+    form the Chebyshev solves launch held against its plain version on
+    the run's planes; the kernel rows gain their launches; then one
+    value_and_grad of [7]'s cell each way (J within CHEB_J_RTOL and the
+    gradient within the lattice limit of the Jacobi call's, no
+    stencil_pcg in the Chebyshev call)."""
+    import numpy as np
+
+    from glimslib_tpu_torch.examples import BENCH_STEP_CONFIG, adjoint_problem
+    from glimslib_tpu_torch.ops import fused_cg as fc
+    from glimslib_tpu_torch.ops import stencil_kernels as sk
+    from glimslib_tpu_torch.optimize.adjoint import InverseProblem
+
+    base = sim.step_config
+    applies = [sk.apply_scalar, sk.apply_scalar_sum, sk.apply_vector, sk.apply_coupling]
+    pcgs = [fc.cg_scalar, fc.cg_vector]
+    out, states = {}, {}
+    for degree in (0, CHEB_DEGREE):
+        sim.step_config = BENCH_STEP_CONFIG._replace(precond_degree=degree)
+        tag = f"[17a] N={N} lattice, degree {degree}:"
+        if degree:
+            groups, none = [(w,) for w in applies], pcgs
+        else:
+            groups, none = [(w,) for w in pcgs], []
+        states[degree], out[degree] = _cheb_way(
+            torch, sim, dev, tag, groups, [w for w in applies + pcgs if w not in none],
+            none)
+    (u0, c0), (u3, c3) = states[0], states[CHEB_DEGREE]
+    rel = (_rel_l2(c3[-1], c0[-1]), _rel_l2(u3[-1], u0[-1]))
+    print(f"[17a] lattice: Chebyshev against Jacobi after {CHEB_STEPS} steps: rel-L2 c "
+          f"{rel[0]:.3e}, u {rel[1]:.3e} (<= {SLICE_RTOL}); CG iterations Jacobi "
+          f"{out[0]['cg_iters']}, Chebyshev {out[CHEB_DEGREE]['cg_iters']}; busy "
+          f"{out[0]['device_busy_ms']} / {out[CHEB_DEGREE]['device_busy_ms']} ms, idle "
+          f"{out[0]['idle_share']} / {out[CHEB_DEGREE]['idle_share']}")
+    if max(rel) > SLICE_RTOL:
+        raise AssertionError(f"[17a] lattice Chebyshev vs Jacobi: {rel}")
+    # the forms the Chebyshev solves launch, on the run's planes
+    sim.step_config = BENCH_STEP_CONFIG._replace(precond_degree=CHEB_DEGREE)
+    sim._build_step()
+    theta = sim._augment_theta_with_operators(sim.make_theta(sim.params.as_dict()))
+    ops = sim._stencil_ops
+    offs = ops.offsets
+    rng = np.random.default_rng(17)
+    n, d = sim.mesh.n_nodes, sim.mesh.dim
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    W = theta["_Wrd_const"] + ops.build_rd_wc(c3[-1], theta["rho"], theta["dt"])
+    checks = [
+        _apply_row(torch, "stencil_apply<1,1> (the Chebyshev rd Jacobian)", sk.apply_scalar,
+                   sk.apply_scalar_plain, (offs, W, f32(rng.standard_normal(n))), None,
+                   None, (sk.apply_scalar,), None, 0, 0, None, "[17a]", None),
+        _apply_row(torch, "stencil_apply<3,3> (the Chebyshev elasticity operator)",
+                   sk.apply_vector, sk.apply_vector_plain,
+                   (offs, theta["_Wel"], f32(rng.standard_normal((n, d)))), None, None,
+                   (sk.apply_vector,), None, 0, 0, None, "[17a]", None)]
+    print(f"[17a] spectral bounds once a simulate: _lmax_u {float(theta['_lmax_u']):.6f}, "
+          f"_lmax_c {float(theta['_lmax_c']):.6f}")
+    launches = out[CHEB_DEGREE]["launches"]
+    for k in kernels:
+        if "@" in k["name"] or not set(k["wrappers"]) <= set(applies + pcgs):
+            continue
+        k["launches_17a"] = sum(launches[w.__name__] for w in k["wrappers"])
+    # one value_and_grad of [7]'s cell each way
+    ip, v0 = adjoint_problem(sim=sim)
+    vg = {}
+    for degree in (0, CHEB_DEGREE):
+        sim.step_config = BENCH_STEP_CONFIG._replace(precond_degree=degree)
+        p = InverseProblem(sim, ip.param_names, ip.targets, update_fn=ip.update_fn,
+                           n_steps=ip.n_steps, dt=ip.dt)
+        for w in applies + pcgs:
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        J, g = p.value_and_grad(v0)
+        torch.cuda.synchronize()
+        vg[degree] = dict(J=J, g=g, s=time.perf_counter() - t0,
+                          launches={w.__name__: w.launches for w in applies + pcgs},
+                          cg={k: [int(i) for i in v] for k, v in sim.solver_info.items()
+                              if v})
+    rel_J = abs(vg[CHEB_DEGREE]["J"] - vg[0]["J"]) / abs(vg[0]["J"])
+    rel_g = float(np.linalg.norm(vg[CHEB_DEGREE]["g"] - vg[0]["g"])
+                  / np.linalg.norm(vg[0]["g"]))
+    lc = vg[CHEB_DEGREE]["launches"]
+    print(f"[17a] value_and_grad of [7]'s cell ({ip.n_steps} steps): Jacobi J "
+          f"{vg[0]['J']:.9e} in {vg[0]['s']:.3f} s, Chebyshev J "
+          f"{vg[CHEB_DEGREE]['J']:.9e} in {vg[CHEB_DEGREE]['s']:.3f} s: rel J {rel_J:.3e} "
+          f"(<= {CHEB_J_RTOL}), rel-L2 gradient {rel_g:.3e} (<= "
+          f"{ADJ_G_RTOL['lattice']}); launches Chebyshev {lc}, Jacobi "
+          f"{vg[0]['launches']}; CG Chebyshev {vg[CHEB_DEGREE]['cg']}")
+    if (rel_J > CHEB_J_RTOL or rel_g > ADJ_G_RTOL["lattice"]
+            or lc["cg_scalar"] or lc["cg_vector"] or not lc["apply_scalar"]):
+        raise AssertionError(f"[17a] Chebyshev value_and_grad: J {rel_J:.3e}, "
+                             f"gradient {rel_g:.3e}, launches {lc}")
+    sim.step_config = base
+    return dict(runs=out, rel_c=rel[0], rel_u=rel[1], lmax_u=float(theta["_lmax_u"]),
+                lmax_c=float(theta["_lmax_c"]),
+                checks=[dict(name=r["name"], max_abs_err=r["max_abs_err"]) for r in checks],
+                value_and_grad={k: dict(v, g=list(map(float, v["g"]))) for k, v in vg.items()},
+                rel_J=rel_J, rel_grad=rel_g)
+
+
+def _cheb_unstructured(torch, dev, usim, kern):
+    """[17a] on [6]'s unstructured model: Jacobi-side (its supernode
+    block-Jacobi and coarse level) and Chebyshev around them, c and u held
+    to UNSTRUCT_RTOL of each other; bell_bmv's launches by shape, each
+    shape one [5] holds against plain (a new one raises), and the rd
+    Jacobian at the final state held again; the row gains its launches."""
+    import numpy as np
+
+    from glimslib_tpu_torch.examples import UNSTRUCT_STEP_CONFIG
+    from glimslib_tpu_torch.ops import bell
+    from glimslib_tpu_torch.ops import bell_kernels as bk
+
+    base = usim.step_config
+    out, states, shapes = {}, {}, {}
+    for degree in (0, CHEB_DEGREE):
+        usim.step_config = UNSTRUCT_STEP_CONFIG._replace(precond_degree=degree)
+        bk.batched_matvec.launches_by_shape = {}
+        states[degree], out[degree] = _cheb_way(
+            torch, usim, dev, f"[17a] n={N} unstructured, degree {degree}:",
+            [(bk.batched_matvec,)], [], [])
+        shapes[degree] = dict(bk.batched_matvec.launches_by_shape)
+    (u0, c0), (u3, c3) = states[0], states[CHEB_DEGREE]
+    rel = (_rel_l2(c3[-1], c0[-1]), _rel_l2(u3[-1], u0[-1]))
+    held = {tuple(r["shape"]) for r in kern["shapes"]}
+    new = sorted(set(shapes[CHEB_DEGREE]) - held)
+    print(f"[17a] unstructured: Chebyshev against Jacobi after {CHEB_STEPS} steps: rel-L2 "
+          f"c {rel[0]:.3e}, u {rel[1]:.3e} (<= {UNSTRUCT_RTOL}); CG iterations Jacobi "
+          f"{out[0]['cg_iters']}, Chebyshev {out[CHEB_DEGREE]['cg_iters']}; busy "
+          f"{out[0]['device_busy_ms']} / {out[CHEB_DEGREE]['device_busy_ms']} ms, idle "
+          f"{out[0]['idle_share']} / {out[CHEB_DEGREE]['idle_share']}; bell_bmv by (B, M, "
+          f"K) Jacobi {shapes[0]}, Chebyshev {shapes[CHEB_DEGREE]}: shapes [5] does not "
+          f"hold: {new}")
+    if max(rel) > UNSTRUCT_RTOL or new:
+        raise AssertionError(f"[17a] unstructured Chebyshev: {rel}, new shapes {new}")
+    usim.step_config = UNSTRUCT_STEP_CONFIG._replace(precond_degree=CHEB_DEGREE)
+    usim._build_step()
+    theta = usim._augment_theta_with_operators(
+        {**usim.make_theta(usim.params.as_dict()), **usim.runtime_aux()})
+    plan = usim._get_bell_plan()
+    k0 = usim.kernels
+    W = theta["_BellWrdC"] + bell.build_bell_rd_wc(
+        plan, usim._mesh_arrays(), k0.cells_flat, c3[-1], theta["rho"], theta["dt"],
+        k0._t0, 1.0)
+    x = torch.as_tensor(np.random.default_rng(17).standard_normal(W.shape[::2]),
+                        dtype=torch.float32, device=dev)
+    err, rel_k = _rel_max(bk.batched_matvec(W, x), bk.batched_matvec_plain(W, x))
+    print(f"[17a] bell_bmv on the rd Jacobian at the Chebyshev state {tuple(W.shape)}: "
+          f"max abs err {err:.3e}, max rel err {rel_k:.3e} (<= {BMV_RTOL})")
+    if rel_k > BMV_RTOL:
+        raise AssertionError(f"[17a] bell_bmv rd Jacobian: {rel_k:.3e}")
+    kern["launches_17a"] = out[CHEB_DEGREE]["launches"]["batched_matvec"]
+    usim.step_config = base
+    return dict(runs=out, rel_c=rel[0], rel_u=rel[1],
+                launches_by_shape={"x".join(map(str, s)): c
+                                   for s, c in shapes[CHEB_DEGREE].items()},
+                rd_jacobian_max_abs_err=err)
+
+
+def phase_chebyshev(torch, dev, sim, usim, kernels, kern):
+    """[17a] (module docstring)."""
+    t0 = time.perf_counter()
+    out = {"lattice": _cheb_lattice(torch, dev, sim, kernels)}
+    t1 = time.perf_counter()
+    out["unstructured"] = _cheb_unstructured(torch, dev, usim, kern)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[17a] Chebyshev phase {out['seconds']:.1f} s (lattice {t1 - t0:.1f} s)")
+    return out
+
+
+def _influx_update(sim, torch):
+    """[17b]'s parameter map (D_WM, rho_WM): per-cell diffusion and
+    proliferation, influx_sim's elsewhere."""
+    import numpy as np
+
+    names = {v: k for k, v in sim.subdomains.tissue_id_name_map.items()}
+    labels = np.asarray(sim.subdomains.cell_labels)
+    wm, gm = (torch.as_tensor(labels == names[t], dtype=sim.dtype, device=sim.device)
+              for t in ("WM", "GM"))
+    return lambda v: {"diffusion": v[0] * wm + 0.02 * (1.0 - wm),
+                      "proliferation": v[1] * wm + 0.02 * gm}
+
+
+def _vn17_config():
+    """[16b]'s step with the solves to VN17_CG_RTOL (two solves of one
+    system that part in their rounding alone, the ranks' sums, then stop
+    within VN17_RTOL of each other) and Chebyshev preconditioning of
+    CHEB_DEGREE: the sharded modes at two ranks take it too."""
+    return _small16_config()._replace(newton_rtol=1e-10, cg_rtol=VN17_CG_RTOL,
+                                      precond_degree=CHEB_DEGREE)
+
+
+def _small17_problem(torch, dev):
+    """[17b]'s rank model: influx_sim with the traction on [16b]'s padded
+    Morton box, f64, with whole targets made from its initial values."""
+    import numpy as np
+
+    from glimslib_tpu_torch.core.mesh import Mesh, box_mesh, pad_mesh_nodes
+    from glimslib_tpu_torch.examples import influx_sim
+
+    m = box_mesh((0, 0, 0), (10, 10, 10), SMALL16_N, SMALL16_N, SMALL16_N)
+    mesh = pad_mesh_nodes(Mesh.from_arrays(m.points, m.cells).reordered_morton(),
+                          NODES_WORLD)
+    sim = influx_sim(dtype=torch.float64, device=dev, mesh=mesh, traction=VN17_TRACTION)
+    sim.step_config = _vn17_config()
+    iv = sim.params.create_initial_value_function()
+    c0 = np.asarray(iv[sim.SUBSPACE_CONCENTRATION])
+    targets = {"conc_T2": 0.5 * (np.tanh((1.5 * c0 - 0.12) / 0.01) + 1.0),
+               "disp": np.zeros_like(np.asarray(iv[sim.SUBSPACE_DISPLACEMENT]))}
+    return sim, targets
+
+
+def _small17_run(torch, sim, targets):
+    """VN17_STEPS step(s) of [17b]'s model under its mode (the final state
+    gathered under 'nodes') and one value_and_grad at (0.05, 0.05), with
+    the collectives counted; numpy values."""
+    import numpy as np
+
+    from glimslib_tpu_torch.optimize.adjoint import InverseProblem
+    from glimslib_tpu_torch.parallel import gather_rows
+
+    ip = InverseProblem(sim, ["D_WM", "rho_WM"], targets,
+                        update_fn=_influx_update(sim, torch), n_steps=VN17_STEPS, dt=1.0)
+    simulate = sim.build_simulate_fn(VN17_STEPS, 1.0)
+    args = (sim.make_theta(sim.params.as_dict()), *sim.initial_state())
+    torch.cuda.synchronize()
+    with _Collectives() as coll:
+        t0 = time.perf_counter()
+        u, c, ok, newton = simulate(*args)
+        counts = {k: [int(i) for i in v] for k, v in sim.solver_info.items() if v}
+        n_fwd = coll.count
+        J, g = ip.value_and_grad(np.array([0.05, 0.05]))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    u, c = u[-1], c[-1]
+    rows = sim._node_rows
+    if rows is not None:
+        u = gather_rows(sim.device_mesh, u, rows.start, rows.n_total)
+        c = gather_rows(sim.device_mesh, c, rows.start, rows.n_total)
+    return dict(mode=sim.sharding_mode, ok=bool(ok.all()), newton=newton.tolist(),
+                cg=counts, u=u.cpu().numpy(), c=c.cpu().numpy(), J=J, g=g,
+                seconds=seconds, collectives=coll.count,
+                forward_collectives=(n_fwd, sum(map(sum, counts.values()))),
+                facets={name: len(sim._von_neumann_kernels(name, bc)[1])
+                        for name, bc in sim.bcs.von_neumann_bcs.items()})
+
+
+def _rank17b(mesh):
+    """[17b] on one rank: the model under 'nodes', then 'cells'
+    (:func:`_small17_run`)."""
+    import torch
+
+    out = {}
+    for mode in VN17_MODES:
+        sim, targets = _small17_problem(torch, mesh.device)
+        sim.use_sharding(mesh, mode=mode)
+        out[mode] = _small17_run(torch, sim, targets)
+        del sim
+    torch.use_deterministic_algorithms(False)
+    torch.utils.deterministic.fill_uninitialized_memory = True
+    return out
+
+
+def _vn17_one(torch, tag, whole, sim, rtol, groups, none):
+    """One world-1 check of [17b]: ``whole`` (unsharded) and ``sim``
+    (sharded) VN17_STEPS step(s) each, the counts at 0 before the sharded
+    run (``groups`` must launch, ``none`` must not); c and u within
+    ``rtol``."""
+    u_w, c_w, ok_w, _ = whole.build_simulate_fn(VN17_STEPS, 1.0)(
+        whole.make_theta(whole.params.as_dict()), *whole.initial_state())
+    simulate = sim.build_simulate_fn(VN17_STEPS, 1.0)
+    args = (sim.make_theta(sim.params.as_dict()), *sim.initial_state())
+    with _Collectives() as coll:
+        (u, c), launches, first_s = _drive(torch, sim, simulate, args, groups, tag,
+                                          VN17_STEPS, shown=none)
+    if any(launches[w] for w in none) or not bool(ok_w.all()):
+        raise AssertionError(f"{tag} launches {launches}, unsharded ok {ok_w.tolist()}")
+    rel = (_rel_l2(c[-1], c_w[-1]), _rel_l2(u[-1], u_w[-1]))
+    facets = {name: len(sim._von_neumann_kernels(name, bc)[1])
+              for name, bc in sim.bcs.von_neumann_bcs.items()}
+    print(f"{tag} against the unsharded run: rel-L2 c {rel[0]:.3e}, u {rel[1]:.3e} (<= "
+          f"{rtol}); the rank's facets {facets}; collectives {coll.count}; "
+          f"{first_s:.2f} s")
+    if max(rel) > rtol:
+        raise AssertionError(f"{tag} c {rel[0]:.3e}, u {rel[1]:.3e}")
+    return dict(rel_c=rel[0], rel_u=rel[1], seconds=first_s, collectives=coll.count,
+                launches={w.__name__: n for w, n in launches.items()}, facets=facets)
+
+
+def _vn_world1(torch, dev, meshes):
+    """[17b] at world 1 over NCCL in this process: the N=32 lattice under
+    'nodes' and the n=32 Morton box under 'cells' and 'nodes' (``meshes``:
+    [3]'s and [6]'s), each against its unsharded run (the lattice's own
+    lane; the Morton box's jvp lane, which both modes take); then [17b]'s
+    rank model under each mode, the reference of the two ranks."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from glimslib_tpu_torch.examples import REFINED_STEP_CONFIG, influx_sim
+    from glimslib_tpu_torch.ops import bell_kernels as bk
+    from glimslib_tpu_torch.ops import fused_cg as fc
+    from glimslib_tpu_torch.ops import stencil_kernels as sk
+    from glimslib_tpu_torch.parallel import make_device_mesh
+
+    every = [w for g in _lattice_groups() for w in g] + [bk.batched_matvec]
+    out, refs = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0,
+                                world_size=1)
+        try:
+            mesh1 = make_device_mesh(device=dev)
+
+            def model(**kw):
+                sim = influx_sim(dtype=torch.float32, device=dev, traction=VN17_TRACTION,
+                                 **kw)
+                sim.step_config = REFINED_STEP_CONFIG
+                return sim
+
+            whole = model(mesh=meshes[0])
+            sim = model(mesh=whole.mesh)
+            sim.use_sharding(mesh1, mode="nodes")
+            out["lattice_nodes"] = _vn17_one(
+                torch, f"[17b] N={N} lattice 'nodes', world 1:", whole, sim, SLICE_RTOL,
+                [(sk.apply_scalar,), (sk.apply_vector,)], [fc.cg_scalar, fc.cg_vector])
+            del whole, sim
+            whole = model(mesh=meshes[1])
+            whole.operator_mode = "matrix-free"
+            for mode in VN17_MODES:
+                sim = model(mesh=whole.mesh)
+                sim.use_sharding(mesh1, mode=mode)
+                out[f"unstructured_{mode}"] = _vn17_one(
+                    torch, f"[17b] n={N} Morton box '{mode}', world 1:", whole, sim,
+                    UNSTRUCT_RTOL, [], every)
+                del sim
+            del whole
+            torch.cuda.empty_cache()
+            for mode in VN17_MODES:
+                sim, targets = _small17_problem(torch, dev)
+                sim.use_sharding(mesh1, mode=mode)
+                refs[mode] = _small17_run(torch, sim, targets)
+                del sim
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.utils.deterministic.fill_uninitialized_memory = True
+            dist.destroy_process_group()
+    return out, refs
+
+
+def _vn_two_ranks(ranks, wall_s, refs):
+    """[17b]: the NODES_WORLD ranks' results (from [13b]'s spawn, ``wall_s``
+    seconds there) against each other and ``refs``, the same mode at
+    world 1; and the collectives a CG iteration under 'nodes'."""
+    import numpy as np
+
+    out = {}
+    for mode in VN17_MODES:
+        tag = f"[17b] {mode}, {NODES_WORLD} gloo ranks:"
+        rs, ref = [r[mode] for r in ranks], refs[mode]
+        same = all(r["J"] == rs[0]["J"] and np.array_equal(r["g"], rs[0]["g"])
+                   and np.array_equal(r["c"], rs[0]["c"]) and np.array_equal(r["u"], rs[0]["u"])
+                   for r in rs)
+        rel = dict(J=abs(rs[0]["J"] - ref["J"]) / abs(ref["J"]),
+                   g=float(np.linalg.norm(rs[0]["g"] - ref["g"]) / np.linalg.norm(ref["g"])),
+                   c=float(np.linalg.norm(rs[0]["c"] - ref["c"]) / np.linalg.norm(ref["c"])),
+                   u=float(np.linalg.norm(rs[0]["u"] - ref["u"]) / np.linalg.norm(ref["u"])))
+        print(f"{tag} J {rs[0]['J']:.15e}, gradient {rs[0]['g'].tolist()}; bit-equal on "
+              f"every rank {same}; against world 1 (NCCL, this process): rel J "
+              f"{rel['J']:.3e}, gradient {rel['g']:.3e}, c {rel['c']:.3e}, u {rel['u']:.3e} "
+              f"(<= {VN17_RTOL}); facets a rank {[r['facets'] for r in rs]} (world 1 "
+              f"{ref['facets']}); Newton {rs[0]['newton']}, CG {rs[0]['cg']}; collectives "
+              f"{[r['collectives'] for r in rs]} in {[round(r['seconds'], 2) for r in rs]} s")
+        if not same or not all(r["ok"] for r in rs) or max(rel.values()) > VN17_RTOL:
+            raise AssertionError(f"{tag} same {same}, {rel}")
+        out[mode] = dict(J=rs[0]["J"], rel=rel, bit_equal=same,
+                         facets=[r["facets"] for r in rs],
+                         collectives=[r["collectives"] for r in rs],
+                         seconds=[r["seconds"] for r in rs])
+    n, iters = ranks[0]["nodes"]["forward_collectives"]
+    per = n / max(iters, 1)
+    print(f"[17b] 'nodes', {NODES_WORLD} gloo ranks, the forward step at degree "
+          f"{CHEB_DEGREE}: {n} collectives over {iters} CG iterations = {per:.2f} a CG "
+          "iteration (the power iterations' norms, the polynomial's matvecs, the "
+          "residuals and Newton's norms counted in; [16b] the same at degree 0)")
+    out["collectives_per_cg_iteration"] = per
+    out["seconds_on_ranks"] = wall_s
+    return out
+
+
+def phase_vn_shard(torch, dev, ranks, meshes):
+    """[17b] (module docstring); ``ranks`` = the rank results and their
+    seconds, ``meshes`` [3]'s and [6]'s."""
+    t0 = time.perf_counter()
+    out = {}
+    out["world1"], refs = _vn_world1(torch, dev, meshes)
+    print(f"[17b] world 1: {time.perf_counter() - t0:.1f} s")
+    out["two_ranks"] = _vn_two_ranks(*ranks, refs)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[17b] von Neumann sharding phase {out['seconds']:.1f} s (and "
+          f"{ranks[1]:.1f} s on [13b]'s ranks)")
     return out
 
 
@@ -4975,7 +5482,7 @@ def main():
     kern, usim, uref, base6 = phase_unstructured(torch, dev)
     kernels.append(kern)
 
-    adjoint = phase_adjoint(torch, sim, usim, (ref, uref), kernels)
+    adjoint = phase_adjoint(torch, sim, usim, (ref, uref), kernels, keep)
 
     rows2d, adjoint2d, bmv2d = phase_2d(torch, dev)
     kernels += rows2d
@@ -4984,6 +5491,7 @@ def main():
 
     defaults = phase_defaults(torch, dev, (sim, ref, lat_state, lat_rel),
                               (usim, uref, base6), keep)
+    del keep["adjoint_problems"], keep["f64_calls"]
     aux6 = usim.runtime_aux()
     keep["p1"]["table_bytes"] = _table_bytes(usim._augment_theta_with_operators(
         {**usim.make_theta(usim.params.as_dict()), **aux6}))
@@ -4994,12 +5502,17 @@ def main():
     torch.cuda.empty_cache()
 
     matrix_free = phase_matrix_free(torch, dev, sim, kernels, kern, keep)
+    torch.cuda.empty_cache()
+
+    chebyshev = phase_chebyshev(torch, dev, sim, usim, kernels, kern)
+    meshes17 = [sim.mesh]
     del sim
     torch.cuda.empty_cache()
 
     shard = phase_shard(torch, dev, kern, usim, keep)
     lat_vg, nodes_ranks = keep["lattice"], keep["nodes_ranks"]
-    shard16_ranks = keep["shard16_ranks"]
+    shard16_ranks, vn17_ranks = keep["shard16_ranks"], keep["vn17_ranks"]
+    meshes17.append(usim.mesh)
     del usim, keep
     torch.cuda.empty_cache()
 
@@ -5015,9 +5528,14 @@ def main():
     cells_nodes = phase_cells_nodes(torch, dev, shard16_ranks)
     torch.cuda.empty_cache()
 
+    vn_shard = phase_vn_shard(torch, dev, vn17_ranks, meshes17)
+    del meshes17
+    torch.cuda.empty_cache()
+
     drop = ("wrappers", "pattern", "iters")
     example_checks = {shape: [{k: v for k, v in row.items() if k not in drop}
                               for row in rows] for shape, rows in example_checks.items()}
+    print(json.dumps({"chebyshev": chebyshev, "vn_shard": vn_shard}, default=str))
     print(json.dumps({"cells_nodes": cells_nodes}, default=str))
     print(json.dumps({"matrix_free": matrix_free}, default=str))
     print(json.dumps({"nodes": nodes}, default=str))

@@ -61,8 +61,9 @@ def resolve_profile():
     return p
 
 
-# Chebyshev preconditioning degree (0/1 = Jacobi/block-Jacobi alone).  The
-# port runs degree <= 1 only; a larger value raises at model build.
+# Chebyshev preconditioning degree (0/1 = the blocks' preconditioners
+# alone; > 1 wraps them in the Chebyshev polynomial of that degree, an
+# even one rounded up to odd), read into every model's default StepConfig.
 precond_degree = int(os.environ.get("GLIMS_PRECOND_DEGREE", "0"))
 
 # Mixed-precision refinement tri-state: "auto", "1", "0".

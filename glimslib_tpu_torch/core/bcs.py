@@ -213,7 +213,10 @@ class BoundaryConditions:
         ``self.von_neumann_bcs[name]`` = {"bc_value", "kernels",
         "kernel_factory" (dtype -> kernels on this device), "subspace_id",
         "facet_idx", "facet_cells" (the cell whose coefficients a facet
-        takes)}.  Incomplete specs are skipped with a warning."""
+        takes)}; a P1 entry's factory also takes ``n_rows``, ``keep`` and
+        ``node_map``, a rank's share of its facets
+        (:class:`~glimslib_tpu_torch.ops.assembly.FacetKernels`).
+        Incomplete specs are skipped with a warning."""
         von_neumann_bcs = von_neumann_bcs or {}
         m = self._subdomains.mesh
         n_nodes = m.n_nodes
@@ -261,9 +264,9 @@ class BoundaryConditions:
                         self._subdomains.subdomain_boundary_facet_cells(name)
                     )
 
-                    def factory(dtype, m=m, fn=interior_nodes, nn=n_nodes):
-                        return _facet_kernels(m, None, nn, dtype=dtype, facet_nodes=fn,
-                                              device=dev)
+                    def factory(dtype, n_rows=n_nodes, m=m, fn=interior_nodes, **share):
+                        return _facet_kernels(m, None, n_rows, dtype=dtype, facet_nodes=fn,
+                                              device=dev, **share)
 
                     self.von_neumann_bcs[bc_name] = {
                         "bc_value": bc_dict["bc_value"],
@@ -307,8 +310,9 @@ class BoundaryConditions:
                     return _p2_facet_kernels(m, fidx, nd, dtype=dtype, device=dev)
             else:
 
-                def factory(dtype, m=m, fidx=fidx, nn=n_nodes):
-                    return _facet_kernels(m, fidx, nn, dtype=dtype, device=dev)
+                def factory(dtype, n_rows=n_nodes, m=m, fidx=fidx, **share):
+                    return _facet_kernels(m, fidx, n_rows, dtype=dtype, device=dev,
+                                          **share)
 
             self.von_neumann_bcs[bc_name] = {
                 "bc_value": bc_dict["bc_value"],

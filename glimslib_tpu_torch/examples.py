@@ -75,6 +75,13 @@ class _Boundary:
         return on_boundary
 
 
+class _OffFaceX10:
+    """The boundary but its x = 10 face (the box's far face)."""
+
+    def inside(self, x, on_boundary):
+        return on_boundary and x[0] < 10.0 - 1e-9
+
+
 def brain_sim(n=10, dtype=None, device=None, plain=False, unstructured=False,
               quad=False, mesh=None):
     """TumorGrowthBrain on the synthetic brain box, set up as the reference
@@ -144,7 +151,7 @@ def influx_source(x, t):
 
 
 def influx_sim(n=10, dtype=None, device=None, plain=False, unstructured=False,
-               mesh=None):
+               mesh=None, traction=None):
     """TumorGrowth on :func:`brain_sim`'s box and tissues with a von Neumann
     influx of c and a time-dependent source: per-tissue coefficients by
     name (brain_sim's, with D = 0.02 and rho = 0 outside GM and WM, so the
@@ -153,7 +160,11 @@ def influx_sim(n=10, dtype=None, device=None, plain=False, unstructured=False,
     :func:`influx_source`, the displacement clamped; 2 steps of dt = 1.
     The concentration's residual takes the gather form on every lane
     (``models/base.py``); the solves keep the lane's kernels.
-    ``unstructured`` and ``mesh`` as in :func:`brain_sim`."""
+    ``unstructured`` and ``mesh`` as in :func:`brain_sim`.  ``traction``:
+    a constant traction (3,) through the whole boundary as well, the
+    displacement then clamped on the boundary but its x = 10 face (a
+    boundary predicate), where the traction acts; the elasticity residual
+    then takes its gather form too."""
     if mesh is None:
         mesh = box_mesh((0, 0, 0), (10, 10, 10), n, n, n)
         if unstructured:
@@ -163,12 +174,18 @@ def influx_sim(n=10, dtype=None, device=None, plain=False, unstructured=False,
     for lab, rad in ((1, 0.95), (2, 0.80), (3, 0.62), (4, 0.20)):
         labels[r < rad] = lab
     sim = TumorGrowth(mesh, dtype=dtype, device=device, plain=plain)
+    vn = {"influx": {"bc_value": INFLUX_Q, "named_boundary": "boundary_all",
+                     "subspace_id": 1}}
+    dirichlet = _clamped(3)
+    if traction is not None:
+        vn["traction"] = {"bc_value": np.asarray(traction, dtype=np.float64),
+                          "named_boundary": "boundary_all", "subspace_id": 0}
+        dirichlet = {"clamped": {"bc_value": np.zeros(3), "boundary": _OffFaceX10(),
+                                 "subspace_id": 0}}
     sim.setup_global_parameters(
         label_function=labels, domain_names=TISSUE_MAP,
-        boundaries={"boundary_all": _Boundary()}, dirichlet_bcs=_clamped(3),
-        von_neumann_bcs={"influx": {"bc_value": INFLUX_Q,
-                                    "named_boundary": "boundary_all",
-                                    "subspace_id": 1}})
+        boundaries={"boundary_all": _Boundary()}, dirichlet_bcs=dirichlet,
+        von_neumann_bcs=vn)
     center = np.array([6.0, 5.0, 5.0])
     tissues = ("outside", "CSF", "GM", "WM", "Ventricles")
     sim.setup_model_parameters(

@@ -19,7 +19,10 @@ Three operator lanes, chosen by the mesh and ``operator_mode``:
   once per simulate, the block-triangular Newton-CG step
   (``solvers/coupled.py``) with both linear solves in the whole-solve
   CUDA PCG kernel, and streaming residuals through the CUDA stencil
-  kernel.
+  kernel.  With Chebyshev preconditioning (``precond_degree > 1``) the
+  solves take the pcg branch on the stencil planes instead (every matvec
+  a launch of the stencil kernel, extrapolated warm starts), as under
+  node sharding, with the spectral bounds estimated once a simulate.
 - **Unstructured meshes** (P1): supernode halo-ELL operators
   (``ops/bell.py``) assembled once per simulate, every matvec and
   supernode block-Jacobi apply through the CUDA batched-matvec kernel;
@@ -71,10 +74,9 @@ the trajectory gives the reference's exact gradient (``optimize/``).
 Solver non-convergence freezes the carried state and flags the remaining
 steps, as in the reference.  ``plain=True`` routes every kernel call
 through its plain torch version on any device: a reference run for
-checking the kernels on the card.  Outside the port so far (Chebyshev
-preconditioning; quad models and von Neumann conditions under the
-``cells`` and ``nodes`` sharding modes) the model raises
-``NotImplementedError``.
+checking the kernels on the card.  Quad models under the ``cells`` and
+``nodes`` sharding modes raise ``NotImplementedError`` (the reference's
+cannot run them either).
 
 Sharding (:meth:`Simulation.use_sharding`) on every rank of a
 ``torch.distributed`` group.  Mode ``bell``: the model's supernode tables
@@ -93,7 +95,9 @@ unstructured mesh: the model's kernels become the sharded element kernels
 (``parallel/shard.py ShardedP1Kernels``, a rank's block of cells with
 replicated vectors; ``parallel/nodeshard.py NodeShardedP1Kernels``, owned
 rows and a ghost exchange) and the solves take the matrix-free jvp lane,
-the jvp and the gradient passing through the collectives.
+the jvp and the gradient passing through the collectives.  Von Neumann
+conditions take this rank's share of their facets under ``cells`` and
+``nodes`` (:meth:`Simulation._von_neumann_kernels`).
 """
 
 from __future__ import annotations
@@ -120,7 +124,8 @@ from glimslib_tpu_torch.ops.assembly import P1Kernels
 from glimslib_tpu_torch.ops.stencil import StencilOperators
 from glimslib_tpu_torch.parallel import shard
 from glimslib_tpu_torch.solvers import twolevel
-from glimslib_tpu_torch.solvers.coupled import StepConfig, make_step
+from glimslib_tpu_torch.solvers.cg import estimate_lmax
+from glimslib_tpu_torch.solvers.coupled import StepConfig, _masked_op, make_step
 
 logger = logging.getLogger(__name__)
 
@@ -209,6 +214,10 @@ class Simulation(ABC):
     # set by use_sharding(mode='nodes'): this rank's rows (start, n_own,
     # n_total, own()): the lattice's slab or the unstructured kernels
     _node_rows = None
+    # this rank's facet kernels of the von Neumann entries, by (name, hi)
+    _vn_cache = None
+    # the projected initial values, by the parameters' expressions
+    _iv_cache = None
     # 'auto': the assembled lanes (stencil planes on a lattice, halo-ELL
     # planes elsewhere); 'matrix-free': the jvp lane everywhere
     operator_mode = "auto"
@@ -322,11 +331,15 @@ class Simulation(ABC):
         ``optimize.InverseProblem`` reduces its objective over the ranks.
         Under ``'cells'`` the fields are replicated.
 
-        Quad models under ``'cells'`` and ``'nodes'`` raise
+        Von Neumann conditions run in every mode: under ``'cells'`` a rank
+        takes the facets whose owning cell lies in its block and adds
+        their terms to its partial residual before the one sum over the
+        ranks; under ``'nodes'`` the facets with a node among its rows,
+        their terms on its rows (:meth:`_von_neumann_kernels`).  Quad
+        models under ``'cells'`` and ``'nodes'`` raise
         ``NotImplementedError`` (the reference's quad models call
-        ``elasticity_residual_cint``, which its sharded kernels lack), and
-        so do von Neumann conditions (the rank's facet terms).  Returns
-        the mesh."""
+        ``elasticity_residual_cint``, which its sharded kernels lack).
+        Returns the mesh."""
         if device_mesh is None:
             device_mesh = shard.make_device_mesh(n_devices, device=self.device)
         if device_mesh.device != shard.canonical_device(self.device):
@@ -406,24 +419,20 @@ class Simulation(ABC):
             raise ValueError(f"unknown sharding mode {mode!r}")
         if mode != "bell":
             self._kernels_hi = self._cell_mid = self._cell_mid_hi = None
-            self._bc_cache = None
+            self._bc_cache = self._vn_cache = None
             self._aux_cache = None
         self.device_mesh = device_mesh
         self.sharding_mode = mode
         return device_mesh
 
     def _refuse_sharded(self, mode):
-        """The models and conditions ``'cells'`` and ``'nodes'`` do not run."""
+        """The models ``'cells'`` and ``'nodes'`` do not run."""
         if self.quad:
             raise NotImplementedError(
                 f"use_sharding: mode={mode!r} on a quad model: the reference's quad "
                 "models call kernels.elasticity_residual_cint, which its sharded "
                 "kernels (ShardedP1Kernels, NodeShardedP1Kernels) do not have; use "
                 "mode='bell' on an unstructured mesh, or run the model unsharded")
-        if getattr(self, "bcs", None) is not None and self.bcs.von_neumann_bcs:
-            raise NotImplementedError(
-                f"use_sharding: mode={mode!r} with von Neumann conditions (the "
-                "rank's facet terms) is not ported; run the model unsharded")
 
     def _deterministic_on_card(self):
         """On the card: deterministic algorithms for the process.  Every rank
@@ -502,7 +511,7 @@ class Simulation(ABC):
                                       dtype=self.dtype, device=self.device)
         self.bcs.setup_dirichlet_boundary_conditions(dirichlet_bcs)
         self.bcs.setup_von_neumann_boundary_conditions(von_neumann_bcs)
-        self._bc_cache = None
+        self._bc_cache = self._vn_cache = None
         self._aux_cache = None
 
     def setup_model_parameters(self, iv_expression, **kwargs):
@@ -561,6 +570,51 @@ class Simulation(ABC):
         ranks), else None (under ``'cells'`` the vectors are replicated)."""
         return None if self._node_rows is None else self.device_mesh.all_reduce
 
+    def _replicated_input(self, v):
+        """theta's replicated coefficient ``v`` as an input of this rank's
+        work outside the kernels (its von Neumann terms): under ``'cells'``
+        and the unstructured ``'nodes'`` it enters (``shard.enter``: its
+        cotangent summed over the ranks once); elsewhere theta is the
+        model's own (the lattice's slab entered it once a simulate)."""
+        return shard.enter(self.device_mesh, v) if self._sharded_kernels else v
+
+    def _von_neumann_kernels(self, name, bc, hi=False):
+        """The facet kernels of the von Neumann entry ``name`` and the
+        cells whose coefficients its facets take (indices into theta's
+        per-cell coefficients, a tensor): the entry's own, or under
+        ``'cells'`` and ``'nodes'`` this rank's share, built once
+        (``hi``: f64).  Under ``'cells'`` the rank takes the facets whose
+        owning cell lies in its block, on the whole node vector: its term
+        is a partial, summed over the ranks with the kernels' own.  Under
+        ``'nodes'`` it takes the facets with a node among its rows, their
+        nodes numbered in those rows, the others dropped: its term is its
+        rows of the whole one, and on the lattice's slab the cells are the
+        slab's."""
+        if self._vn_cache is None:
+            self._vn_cache = {}
+        key = (name, hi)
+        if key not in self._vn_cache:
+            kern = self.bcs.von_neumann_kernels(bc, hi=hi)
+            cells = np.asarray(bc["facet_cells"], dtype=np.int64)
+            if self.sharding_mode == "cells":
+                keep = np.flatnonzero(np.isin(cells, self.kernels.block_cells))
+                kern, cells = bc["kernel_factory"](kern.dtype, keep=keep), cells[keep]
+            elif self.sharding_mode == "nodes":
+                rows = self._node_rows
+                lo, hi_ = rows.start, rows.start + rows.n_own
+                fn = kern.facet_nodes
+                keep = np.flatnonzero(((fn >= lo) & (fn < hi_)).any(axis=1))
+                node_map = np.full(self.mesh.n_nodes, rows.n_own, dtype=np.int64)
+                node_map[lo:hi_] = np.arange(rows.n_own)
+                kern = bc["kernel_factory"](kern.dtype, n_rows=rows.n_own, keep=keep,
+                                            node_map=node_map)
+                cells = cells[keep]
+                if self._node_slab is not None:
+                    # a facet with an owned node lies on a cell of the slab
+                    cells = np.searchsorted(self._node_slab.cell_ids, cells)
+            self._vn_cache[key] = (kern, torch.as_tensor(cells, device=self.device))
+        return self._vn_cache[key]
+
     def _bc_masks_and_values(self):
         """(mask_u, mask_c, gu(t), gc(t)) on the model's device (this rank's
         rows under node sharding)."""
@@ -600,12 +654,20 @@ class Simulation(ABC):
 
     # -- lattice lane: offset stencils and whole-solve PCG ------------------------
 
+    def _get_stencil_ops(self):
+        """The mesh's offset-stencil operators (on this rank's node slab
+        under node sharding), built once: their plan and geometry do not
+        depend on theta."""
+        if self._stencil_ops is None:
+            self._stencil_ops = StencilOperators(self.mesh, dtype=self.dtype,
+                                                 device=self.device, slab=self._node_slab)
+        return self._stencil_ops
+
     def _stencil_operators(self):
         """Offset-stencil operators and the two whole-solve PCG callables
         (reference base.py:1023-1192, lattice branch; the TPU's VMEM
         fit checks and streamed-kernel selection have no counterpart)."""
-        ops = StencilOperators(self.mesh, dtype=self.dtype, device=self.device)
-        self._stencil_ops = ops
+        ops = self._get_stencil_ops()
         mask_u, mask_c, _, _ = self._bc_masks_and_values()
         cfg = self.step_config
         k = self._k
@@ -627,18 +689,25 @@ class Simulation(ABC):
 
         return rd_cg, el_cg
 
+    @property
+    def _lattice_pcg(self):
+        """True where a lattice model takes the pcg branch on its stencil
+        planes instead of the whole-solve kernels: under node sharding,
+        and with Chebyshev preconditioning (``precond_degree > 1``), as the
+        reference's ``fused_ok`` gate (base.py:1110-1115) decides."""
+        return (self.lattice and not self.matrix_free
+                and (self._node_slab is not None or self.step_config.precond_degree > 1))
+
     def _node_builders(self):
-        """Operator and preconditioner builders of the pcg branch on this
-        rank's node slab (reference base.py:1023-1192 with
-        ``_gspmd_mesh`` set, where the whole-solve kernels are off): the rd
-        Jacobian ``_Wrd_const`` plus ``build_rd_wc`` planes of the
-        halo-padded ``c``, the elasticity planes ``_Wel``, each applied
-        through the halo form of ``stencil_apply`` after one halo
-        exchange; Jacobi from ``rd_diag`` and block-Jacobi from ``_Binv``
-        on the owned rows."""
-        ops = StencilOperators(self.mesh, dtype=self.dtype, device=self.device,
-                               slab=self._node_slab)
-        self._stencil_ops = ops
+        """Operator and preconditioner builders of the lattice's pcg branch
+        (reference base.py:1023-1192 where the whole-solve kernels are
+        off), on this rank's node slab or, unsharded, on the whole mesh:
+        the rd Jacobian ``_Wrd_const`` plus ``build_rd_wc`` planes of the
+        (halo-padded) ``c``, the elasticity planes ``_Wel``, each applied
+        through ``stencil_apply`` (its halo form after one halo exchange
+        on a slab); Jacobi from ``rd_diag`` and block-Jacobi from
+        ``_Binv`` on the (owned) rows."""
+        ops = self._get_stencil_ops()
         k, h, halo = self._k, self._halo_rows, self._halo
 
         def rd_jacobian(theta, c):
@@ -666,7 +735,8 @@ class Simulation(ABC):
         """Theta-only stencil planes and mask-folded solver state (reference
         base.py:1440-1503, lattice branch).  Keys: ``_Wel``/``_Binv``
         elasticity planes and block inverse, ``_WelM``/``_BinvM``/``_invdM``
-        their mask-folded forms for the PCG kernels, ``_Wrd_const``/``_Mst``
+        their mask-folded forms for the PCG kernels (``_rd_diag``, the rd
+        Jacobi diagonal, in their place on the pcg branch), ``_Wrd_const``/``_Mst``
         the constant rd planes, ``_Cuc`` the coupling planes, the constant
         loads ``_rd_load``/``_el_load`` (``_Mst``, ``_rd_load``, ``_Cuc``
         and ``_el_load`` only where that block's residual streams), and
@@ -674,13 +744,12 @@ class Simulation(ABC):
         applies.  The solver state is built
         without a graph: it feeds solvers only, so its cotangent is zero by
         design, as in the reference.  Under node sharding every key holds
-        this rank's rows, the mask-folded forms are left out (they serve
-        the whole-solve kernel), ``_rd_diag`` holds the rd Jacobi
-        diagonal, and ``_mirrors`` builds the halo form's mirrored
-        (extended) planes."""
+        this rank's rows and ``_mirrors`` builds the halo form's mirrored
+        (extended) planes.  With Chebyshev preconditioning the spectral
+        bounds ``_lmax_u`` / ``_lmax_c`` (:meth:`_lattice_lmax`)."""
         ops = self._stencil_ops
         mask_u, mask_c, _, _ = self._bc_masks_and_values()
-        nodes = self._node_slab is not None
+        pcg = self._lattice_pcg
         Wel = ops.build_elasticity(theta["mu"], theta["lam"])
         theta["_Wel"] = Wel
         with torch.no_grad():
@@ -688,7 +757,7 @@ class Simulation(ABC):
             # block: identity there, which the mask folding keeps
             unused = self._tensor(self._own(self._unused_node_mask()), torch.bool)
             theta["_Binv"] = ops.block_jacobi_inverse(Wel, unused[:, None])
-            if nodes:
+            if pcg:
                 theta["_rd_diag"] = self.rd_diag(theta)
             else:
                 theta["_WelM"] = fused_cg.fold_mask_vector(ops.offsets, Wel, mask_u)
@@ -718,7 +787,44 @@ class Simulation(ABC):
             theta["_el_load"] = self._body_load(theta)
         theta["_mirrors"] = stencil_kernels.MirrorCache(
             [theta[k] for k in ("_Mst", "_Cuc", "_Wel", "_Wrd_const") if k in theta])
+        if self.step_config.precond_degree > 1:
+            theta.update(self._lattice_lmax(theta))
         return theta
+
+    def _lattice_lmax(self, theta):
+        """The Chebyshev spectral bounds of the lattice, once a simulate
+        (reference base.py:1504-1545): ``_lmax_u`` of the block-Jacobi
+        elasticity operator by power iteration, and ``_lmax_c``, that of
+        the constant rd planes under the Jacobi of their own diagonal plus
+        the bound 2 dt max(rho) max(lumped / diag) of the logistic
+        correction (its Jacobi-preconditioned row sums, c <= c_max).  Each
+        apply goes through ``stencil_apply`` (its halo form on a slab,
+        every norm and max then over the ranks).  Without a graph: the
+        bounds shape the preconditioner only."""
+        ops, k, h, halo = self._stencil_ops, self._k, self._halo_rows, self._halo
+        mask_u, mask_c, _, _ = self._bc_masks_and_values()
+        reduce = self._reduce()
+        start = 0 if self._node_rows is None else self._node_rows.start
+        n, d = mask_u.shape
+        kw = dict(device=self.device, reduce=reduce)
+        pcg = self._node_builders()
+        with torch.no_grad():
+            Wrd = theta["_Wrd_const"]
+            Au = _masked_op(pcg["el_operator"](theta), mask_u)
+            Mu = _masked_op(pcg["el_precond"](theta), mask_u)
+            Ac = _masked_op(lambda v: k.apply_scalar(ops.offsets, Wrd, halo(v)[0], halo=h),
+                            mask_c)
+            diag_c = torch.where(mask_c, 1.0, Wrd[ops.offsets.index(0)])
+            lmax_u = estimate_lmax(Au, Mu, (n, d), self.dtype, offset=start * d, **kw)
+            lmax_const = estimate_lmax(Ac, lambda r: r / diag_c, (n,), self.dtype,
+                                       offset=start, **kw)
+            rho_max = torch.max(torch.atleast_1d(theta["rho"]))
+            row_max = torch.max(torch.where(mask_c, 0.0, self.kernels.lumped_mass() / diag_c))
+            if reduce is not None:
+                # the slab's cells and rows: their maxima over the ranks
+                rho_max, row_max = self.device_mesh.all_max(torch.stack([rho_max, row_max]))
+            logistic = 2.0 * theta["dt"] * rho_max * row_max
+        return {"_lmax_u": lmax_u, "_lmax_c": lmax_const + logistic}
 
     def _body_load(self, theta):
         """Constant body load ∫ b·v = lumped mass ⊗ body force, (n, d)."""
@@ -1222,12 +1328,13 @@ class Simulation(ABC):
             mask_c=mask_c, mask_u=mask_u, bc_values_c=gc, bc_values_u=gu,
             config=self.step_config, record=record,
             rd_residual_hi=hi[0] if hi else None, el_residual_hi=hi[1] if hi else None,
+            reduce=self._reduce(),
+            row_start=0 if self._node_rows is None else self._node_rows.start,
         )
         if self.matrix_free:
-            return make_step(**self._matrix_free_preconds(), reduce=self._reduce(),
-                             **common)
-        if self._node_slab is not None:
-            return make_step(**self._node_builders(), reduce=self._reduce(), **common)
+            return make_step(**self._matrix_free_preconds(), **common)
+        if self._lattice_pcg:
+            return make_step(**self._node_builders(), **common)
         if self.lattice:
             rd_cg, el_cg = self._stencil_operators()
             return make_step(rd_cg=rd_cg, el_cg=el_cg, **common)
@@ -1243,9 +1350,9 @@ class Simulation(ABC):
         (reference base.py:1843-1845).
 
         Wherever the step takes the pcg branch with assembled operators
-        (the unstructured lane, and the lattice under node sharding, the
-        reference's ``_warm_start_ok``, base.py:1684-1692; not the
-        matrix-free lane) each step starts from the
+        (the unstructured lane, and the lattice under node sharding or
+        Chebyshev preconditioning, the reference's ``_warm_start_ok``,
+        base.py:1684-1692; not the matrix-free lane) each step starts from the
         linear extrapolation 2 x_k - x_{k-1} of the last two states.  On
         the unstructured lane, without concentration Dirichlet conditions,
         the Newton anchor ||r_c(c_prev)|| is carried algebraically as ||M
@@ -1259,8 +1366,7 @@ class Simulation(ABC):
         rank's rows; a gradient through simulate is that of the ranks'
         summed objective, the same on every rank (:meth:`use_sharding`)."""
         step = self._build_step()
-        nodes = self._node_slab is not None
-        warm = (not self.lattice or nodes) and not self.matrix_free
+        warm = (not self.lattice or self._lattice_pcg) and not self.matrix_free
         # the algebraic anchor is exact only when the concentration clamp
         # values are step-invariant: no concentration Dirichlet conditions
         no_c_dirichlet = not any(
@@ -1312,8 +1418,12 @@ class Simulation(ABC):
 
     def initial_state(self):
         """Projected initial values (u0, c0) as tensors, clamped to the
-        Dirichlet data at t=0 (this rank's rows under node sharding)."""
-        iv = self.params.create_initial_value_function()
+        Dirichlet data at t=0 (this rank's rows under node sharding).  The
+        L2 projection runs once for the parameters' expressions."""
+        p, cache = self.params, self._iv_cache
+        if cache is None or cache[0] is not p or cache[1] is not p._iv_expressions:
+            self._iv_cache = cache = (p, p._iv_expressions, p.create_initial_value_function())
+        iv = cache[2]
         u0 = self._tensor(self._own(iv[self.SUBSPACE_DISPLACEMENT]))
         c0 = self._tensor(self._own(iv[self.SUBSPACE_CONCENTRATION]))
         mask_u, mask_c, gu, gc = self._bc_masks_and_values()

@@ -141,23 +141,33 @@ class TumorGrowth(Simulation):
         """sum over the concentration's von Neumann conditions of ∫ D q φ
         ds (the flux scaled by the owning cell's D, reference
         simulation_tumor_growth.py:120), or None; ``hi``: with the f64
-        facet kernels."""
+        facet kernels.  Under ``'cells'`` and ``'nodes'`` this rank's share
+        (:meth:`~glimslib_tpu_torch.models.base.Simulation._von_neumann_kernels`),
+        D entering it as the kernels' coefficients do."""
         out = None
-        for bc in self.bcs.von_neumann_bcs.values():
+        for name, bc in self.bcs.von_neumann_bcs.items():
             if bc["subspace_id"] != self.SUBSPACE_CONCENTRATION:
                 continue
-            kern = self.bcs.von_neumann_kernels(bc, hi=hi)
+            kern, cells = self._von_neumann_kernels(name, bc, hi=hi)
             shape = kern.value_coords.shape[:2]
             qv = torch.as_tensor(self.bcs.von_neumann_values(kern, bc["bc_value"], 1, t),
                                  dtype=kern.dtype, device=kern.device).expand(shape)
-            D = theta["D"]
-            if D.dim() == 0:
-                qv = qv * D
-            else:
-                cells = torch.as_tensor(bc["facet_cells"], dtype=torch.int64,
-                                        device=kern.device)
-                qv = qv * D[cells][:, None]
+            D = self._replicated_input(theta["D"])
+            qv = qv * D if D.dim() == 0 else qv * D[cells][:, None]
             term = kern.scalar_flux_residual(qv)
+            out = term if out is None else out + term
+        return out
+
+    def _vn_el_term(self, t, hi=False):
+        """sum over the displacement's von Neumann conditions of ∫ t·v ds
+        (the tractions), or None; this rank's share as :meth:`_vn_rd_term`."""
+        out = None
+        for name, bc in self.bcs.von_neumann_bcs.items():
+            if bc["subspace_id"] != self.SUBSPACE_DISPLACEMENT:
+                continue
+            kern, _ = self._von_neumann_kernels(name, bc, hi=hi)
+            term = kern.traction_residual(
+                self.bcs.von_neumann_values(kern, bc["bc_value"], self.mesh.dim, t))
             out = term if out is None else out + term
         return out
 
@@ -175,20 +185,30 @@ class TumorGrowth(Simulation):
 
     def _rd_gather(self, kern, c, c_prev, theta, t, hi=False):
         """The gather form: ``kern.rd_residual`` with the source at t,
-        minus dt times the von Neumann term."""
+        minus dt times the von Neumann term (under ``'cells'`` the rank's
+        partial of it, added before the kernels' one sum over the ranks)."""
         c, c_prev = self._halo(c, c_prev)
-        r = kern.rd_residual(c, c_prev, theta["D"], theta["rho"], theta["dt"],
-                             source=self._rd_source(theta, t, hi), conc_max=1.0)
         vn = self._vn_rd_term(theta, t, hi)
-        return r if vn is None else r - theta["dt"] * vn
+        facet = {}
+        if vn is not None:
+            vn = self._replicated_input(theta["dt"]) * vn
+            if self.sharding_mode == "cells":
+                facet, vn = {"facet": -vn}, None
+        r = kern.rd_residual(c, c_prev, theta["D"], theta["rho"], theta["dt"],
+                             source=self._rd_source(theta, t, hi), conc_max=1.0, **facet)
+        return r if vn is None else r - vn
 
     def _el_gather(self, kern, u, c, theta, t, hi=False):
         """The gather form: ``kern.elasticity_residual`` with the body
-        force at t, minus the tractions."""
+        force at t, minus the tractions (under ``'cells'`` as
+        :meth:`_rd_gather`)."""
         u, c = self._halo(u, c)
+        vn = self._vn_el_term(t, hi)
+        facet = {}
+        if vn is not None and self.sharding_mode == "cells":
+            facet, vn = {"facet": -vn}, None
         r = kern.elasticity_residual(u, c, theta["mu"], theta["lam"], theta["coupling"],
-                                     body_force=self._el_body_force(theta, t, hi))
-        vn = self.bcs.von_neumann_residual(self.SUBSPACE_DISPLACEMENT, t, hi=hi)
+                                     body_force=self._el_body_force(theta, t, hi), **facet)
         return r if vn is None else r - vn
 
     def rd_residual(self, c, c_prev, theta, t):

@@ -54,7 +54,7 @@ class TumorGrowth(_TumorGrowthP1):
         r = kern.elasticity_residual_cint(
             u, p2k.cell_integral(c), theta["mu"], theta["lam"], theta["coupling"],
             body_force=self._el_body_force(theta, t, hi))
-        vn = self.bcs.von_neumann_residual(self.SUBSPACE_DISPLACEMENT, t, hi=hi)
+        vn = self._vn_el_term(t, hi)
         return r if vn is None else r - vn
 
     def rd_residual(self, c, c_prev, theta, t):

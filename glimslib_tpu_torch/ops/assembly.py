@@ -64,6 +64,28 @@ def make_scatter_plan(index_map: np.ndarray, n_segments: int) -> ScatterPlan:
     )
 
 
+def make_scatter_plan_dropping(index_map, n_segments):
+    """Numpy copy of ``glimslib_tpu/ops/assembly.py
+    make_scatter_plan_dropping``, its pull table: entries whose id is
+    ``>= n_segments`` are dropped (they claim no slot and do not inflate
+    the per-segment width K); padded slots hold ``n_entries``."""
+    flat = np.asarray(index_map, dtype=np.int64).ravel()
+    n_entries = len(flat)
+    order = np.argsort(flat, kind="stable")
+    sorted_ids = flat[order]
+    starts = np.searchsorted(sorted_ids, np.arange(n_segments))
+    ends = np.searchsorted(sorted_ids, np.arange(n_segments) + 1)
+    counts = ends - starts
+    K = int(counts.max()) if n_segments else 0
+    table = np.full((n_segments, max(K, 1)), n_entries, dtype=np.int32)
+    keep = sorted_ids < n_segments
+    within = np.arange(n_entries) - starts[
+        np.minimum(sorted_ids, max(n_segments - 1, 0))
+    ]
+    table[sorted_ids[keep], within[keep]] = order[keep]
+    return table
+
+
 def scatter_plan_from_pull(pull_table: np.ndarray, n_entries: int) -> ScatterPlan:
     """The plan of a pull table built otherwise (entries pulled by any
     number of segments, or by none): its push table padded to the largest
@@ -398,10 +420,16 @@ class FacetKernels:
     e.g. inter-tissue facets for the ``dS`` measure, their areas from the
     facet geometry).  Accumulation into
     the nodes is one static pull (``pull_accumulate``), so autograd and
-    ``torch.func.jvp`` pass through."""
+    ``torch.func.jvp`` pass through.
+
+    A rank's share under sharding (``parallel/``): ``keep`` selects the
+    facets (indices into the set above) and ``node_map`` (mesh node ->
+    row) numbers their nodes in the rank's ``n_nodes`` rows, a node it
+    maps to ``n_nodes`` or above being dropped; each kept row sums its
+    facets' contributions in the order the whole set does."""
 
     def __init__(self, mesh, facet_idx, n_nodes, dtype=torch.float64, facet_nodes=None,
-                 device="cpu"):
+                 device="cpu", keep=None, node_map=None):
         self.dim = mesh.dim
         self.dtype = dtype
         self.device = torch.device(device)
@@ -419,13 +447,22 @@ class FacetKernels:
                                                      coords[:, 2] - coords[:, 0]), axis=1)
             else:
                 raise NotImplementedError("facet geometry needs dim 2 or 3")
+        if keep is not None:
+            keep = np.asarray(keep, dtype=np.int64)
+            fnodes, area = np.asarray(fnodes)[keep], np.asarray(area)[keep]
         kw = dict(dtype=dtype, device=self.device)
         self.n_facets = len(fnodes)
         self.facet_nodes = np.asarray(fnodes, dtype=np.int64)
         self.facet_area = torch.as_tensor(area, **kw)
         # where callables are evaluated: the facet nodes, (nf, d, dim)
         self.value_coords = torch.as_tensor(mesh.points[fnodes], **kw)
-        self._pull = pull_index(make_scatter_plan(self.facet_nodes, n_nodes), self.device)
+        if node_map is None:
+            plan = make_scatter_plan(self.facet_nodes, n_nodes)
+        else:
+            rows = np.asarray(node_map, dtype=np.int64)[self.facet_nodes]
+            plan = scatter_plan_from_pull(
+                make_scatter_plan_dropping(rows, n_nodes), rows.size)
+        self._pull = pull_index(plan, self.device)
         d = mesh.dim
         M = np.full((d, d), 1.0 / (d * (d + 1)))
         M[np.diag_indices(d)] *= 2.0

@@ -39,30 +39,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from glimslib_tpu_torch.ops.assembly import P1Kernels
+from glimslib_tpu_torch.ops.assembly import P1Kernels, make_scatter_plan_dropping
 from glimslib_tpu_torch.parallel.shard import local_coefficient, local_mesh, reduce_sum
-
-
-def make_scatter_plan_dropping(index_map, n_segments):
-    """Numpy copy of ``glimslib_tpu/ops/assembly.py
-    make_scatter_plan_dropping``, its pull table: entries whose id is
-    ``>= n_segments`` are dropped (they claim no slot and do not inflate
-    the per-segment width K); padded slots hold ``n_entries``."""
-    flat = np.asarray(index_map, dtype=np.int64).ravel()
-    n_entries = len(flat)
-    order = np.argsort(flat, kind="stable")
-    sorted_ids = flat[order]
-    starts = np.searchsorted(sorted_ids, np.arange(n_segments))
-    ends = np.searchsorted(sorted_ids, np.arange(n_segments) + 1)
-    counts = ends - starts
-    K = int(counts.max()) if n_segments else 0
-    table = np.full((n_segments, max(K, 1)), n_entries, dtype=np.int32)
-    keep = sorted_ids < n_segments
-    within = np.arange(n_entries) - starts[
-        np.minimum(sorted_ids, max(n_segments - 1, 0))
-    ]
-    table[sorted_ids[keep], within[keep]] = order[keep]
-    return table
 
 
 class NodeShardSpec:

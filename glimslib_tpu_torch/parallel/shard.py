@@ -75,6 +75,12 @@ class DeviceMesh(NamedTuple):
         dist.all_reduce(t, group=self.group)
         return t
 
+    def all_max(self, t):
+        """The elementwise maximum of ``t`` over the ranks, in place;
+        returns it."""
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
+        return t
+
     def gather_rows(self, local, start, total):
         """The (total, ...) tensor whose rows [start, start + len(local))
         are this rank's ``local`` and whose other rows are the other
@@ -364,17 +370,21 @@ class ShardedP1Kernels:
     def _sum(self, partial):
         return reduce_sum(self.device_mesh, partial)
 
-    def rd_residual(self, c, c_prev, D, rho, dt, source=0.0, conc_max=1.0):
+    def rd_residual(self, c, c_prev, D, rho, dt, source=0.0, conc_max=1.0, facet=None):
+        """``facet``: this rank's partial of a facet term (its von Neumann
+        facets), added before the one sum over the ranks."""
         co = self._co
-        return self._sum(self._k.rd_residual(
-            self._node(c), self._node(c_prev), co(D), co(rho), co(dt),
-            source=co(source), conc_max=conc_max))
+        r = self._k.rd_residual(self._node(c), self._node(c_prev), co(D), co(rho), co(dt),
+                                source=co(source), conc_max=conc_max)
+        return self._sum(r if facet is None else r + facet)
 
-    def elasticity_residual(self, u, c, mu, lam, coupling, body_force=None):
+    def elasticity_residual(self, u, c, mu, lam, coupling, body_force=None, facet=None):
+        """``facet`` as in :meth:`rd_residual` (its tractions)."""
         co = self._co
-        return self._sum(self._k.elasticity_residual(
+        r = self._k.elasticity_residual(
             self._node(u), self._node(c), co(mu), co(lam), co(coupling),
-            body_force=None if body_force is None else co(body_force)))
+            body_force=None if body_force is None else co(body_force))
+        return self._sum(r if facet is None else r + facet)
 
     def rd_mass_stiffness_diag(self, D, rho, dt):
         return self._sum(self._k.rd_mass_stiffness_diag(self._co(D), rho, self._co(dt)))

@@ -27,13 +27,23 @@ Three branches of the reference are ported:
   The forward runs under ``no_grad``, which forward-mode AD ignores.
 
 The Newton and CG loops read their residual norms on the host once per
-iteration (the whole-solve kernels keep theirs on the device).  No
-Chebyshev preconditioning.
+iteration (the whole-solve kernels keep theirs on the device).
 
-Node sharding (``parallel/gspmd.py``): with a ``reduce`` hook the state
-and every vector hold a rank's rows, and every norm, sum and CG dot
-product is this rank's partial sum reduced over the ranks, so every
-convergence decision is the same on all of them.
+Chebyshev preconditioning (``StepConfig.precond_degree > 1``, the
+reference's ``coupled.py:247-260, 313-318, 370-376, 461-466, 490-495``):
+on the pcg and jvp branches every solve, forward and adjoint, takes the
+polynomial ``make_chebyshev_precond`` of its operator around the block's
+(masked) preconditioner.  Its spectral bound is theta's ``_lmax_c`` /
+``_lmax_u`` where the model precomputed them once a simulate (the
+lattice), else a power iteration (``estimate_lmax``): the rd bound once
+a step at the clamped ``c_prev`` on the exact Jacobian, the elasticity
+bound once a solve.  The whole-solve branch never takes the polynomial.
+
+Node sharding (``parallel/gspmd.py``, ``parallel/nodeshard.py``): with a
+``reduce`` hook the state and every vector hold a rank's rows (from
+global row ``row_start`` on), and every norm, sum, CG dot product and
+power-iteration norm is this rank's partial sum reduced over the ranks,
+so every convergence decision is the same on all of them.
 
 Mixed-precision refinement (``refine_f64``, on an f32 state): the solves
 stay in the working dtype, but Newton measures and corrects against the
@@ -73,7 +83,7 @@ from typing import Callable, NamedTuple
 import torch
 from torch.autograd.function import once_differentiable
 
-from glimslib_tpu_torch.solvers.cg import pcg
+from glimslib_tpu_torch.solvers.cg import estimate_lmax, make_chebyshev_precond, pcg
 
 
 class StepConfig(NamedTuple):
@@ -83,7 +93,8 @@ class StepConfig(NamedTuple):
     cg_rtol: float = 1e-12
     cg_atol: float = 0.0
     cg_maxiter: int = 2000
-    # Chebyshev degree on top of (block-)Jacobi; the port runs <= 1 only
+    # Chebyshev degree on top of the blocks' preconditioners (> 1: on; an
+    # even degree is rounded up to odd)
     precond_degree: int = 0
     # mixed-precision refinement: f64 residuals around the working-dtype
     # solves, plus one elasticity correction solve (module docstring);
@@ -131,6 +142,7 @@ def make_step(
     rd_residual_hi: Callable = None,  # f64 residuals for refine_f64
     el_residual_hi: Callable = None,
     reduce: Callable = None,  # (t) -> t summed over the ranks (node sharding)
+    row_start: int = 0,  # the global row of the vectors' first row (node sharding)
 ):
     """Build ``step(theta, u_prev, c_prev, t, guess=None, anchor_c=None)
     -> (u, c, converged, n_newton)``.
@@ -158,8 +170,6 @@ def make_step(
         )
     if cfg.refine_f64 and None in (rd_residual_hi, el_residual_hi):
         raise ValueError("refine_f64 needs rd_residual_hi and el_residual_hi")
-    if cfg.precond_degree > 1:
-        raise NotImplementedError("Chebyshev preconditioning (precond_degree > 1) is not ported")
     chord_src = rd_jacobian_chord or rd_jacobian
     refine_rtol = cfg.refine_cg_rtol or cfg.cg_rtol
 
@@ -181,6 +191,20 @@ def make_step(
     def _pcg(kind, A, b, M, rtol, atol):
         return _recorded(kind, pcg(A, b, M=M, rtol=rtol, atol=atol,
                                    maxiter=cfg.cg_maxiter, reduce=reduce))
+
+    cheb = cfg.precond_degree > 1 and not whole_solve
+
+    def lmax(theta, key, A, M, x):
+        """theta's precomputed spectral bound ``key``, else the power
+        iteration's on ``A`` preconditioned by ``M`` (vectors like ``x``)."""
+        if key in theta:
+            return theta[key]
+        return estimate_lmax(A, M, tuple(x.shape), x.dtype, device=x.device,
+                             reduce=reduce, offset=row_start * x[0].numel())
+
+    def poly(A, M, bound):
+        """The Chebyshev polynomial preconditioner of ``A`` around ``M``."""
+        return make_chebyshev_precond(A, M, bound, cfg.precond_degree)
 
     def solve(theta, u_prev, c_prev, t, guess=None, anchor_c=None):
         gc = bc_values_c(t)
@@ -214,6 +238,12 @@ def make_step(
         if not whole_solve:
             Mc = _masked_op(rd_precond(theta), mask_c)
         c = torch.where(mask_c, gc, c_prev)
+        if cheb:
+            # the bound once a step, at the clamped c_prev, on the exact
+            # Jacobian (the chord operator and the guess come after)
+            A0 = (_masked_operator(resid_c_work, c, mask_c) if jvp
+                  else _masked_op(rd_jacobian(theta, c), mask_c))
+            lmax_c = lmax(theta, "_lmax_c", A0, Mc, c)
         if warm and anchor_c is not None:
             f0 = float(anchor_c)
         else:
@@ -238,8 +268,8 @@ def make_step(
                 else:
                     A = (A_frozen if freeze_jac
                          else _masked_op(rd_jacobian(theta, c), mask_c))
-                dc, _ = _pcg("rd", A, rhs, Mc, cfg.rd_cg_rtol or cfg.cg_rtol,
-                             cfg.cg_atol)
+                dc, _ = _pcg("rd", A, rhs, poly(A, Mc, lmax_c) if cheb else Mc,
+                             cfg.rd_cg_rtol or cfg.cg_rtol, cfg.cg_atol)
             c_new = c + dc
             r_new = resid_c(c_new)
             fn_new = float(norm(r_new))
@@ -277,6 +307,8 @@ def make_step(
             Au = (_masked_operator(resid_u_work, u0, mask_u) if jvp
                   else _masked_op(el_operator(theta), mask_u))
             Mu = _masked_op(el_precond(theta), mask_u)
+            if cheb:
+                Mu = poly(Au, Mu, lmax(theta, "_lmax_u", Au, Mu, u0))
             if warm:
                 atol = max(cfg.cg_rtol * float(anchor_u), cfg.cg_atol)
                 du, info_u = _pcg("el", Au, rhs_u, Mu, 0.0, atol)
@@ -320,8 +352,10 @@ def make_step(
                     u, mask_u)
             else:
                 Au = _masked_op(el_operator(theta), mask_u)
-            lam_u, _ = _pcg("el_adj", Au, rhs_u, _masked_op(el_precond(theta), mask_u),
-                            cfg.cg_rtol, cfg.cg_atol)
+            Mu = _masked_op(el_precond(theta), mask_u)
+            if cheb:
+                Mu = poly(Au, Mu, lmax(theta, "_lmax_u", Au, Mu, u))
+            lam_u, _ = _pcg("el_adj", Au, rhs_u, Mu, cfg.cg_rtol, cfg.cg_atol)
         # c_bar - (dR_u/dc)^T lam_u, and dR_u/dtheta^T lam_u
         with torch.enable_grad():
             th = {k: v.detach().requires_grad_(k in keys) if torch.is_tensor(v) else v
@@ -343,8 +377,10 @@ def make_step(
                     c, mask_c)
             else:
                 Ac = _masked_op(rd_jacobian(theta, c), mask_c)
-            lam_c, _ = _pcg("rd_adj", Ac, rhs_c, _masked_op(rd_precond(theta), mask_c),
-                            cfg.cg_rtol, cfg.cg_atol)
+            Mc = _masked_op(rd_precond(theta), mask_c)
+            if cheb:
+                Mc = poly(Ac, Mc, lmax(theta, "_lmax_c", Ac, Mc, c))
+            lam_c, _ = _pcg("rd_adj", Ac, rhs_c, Mc, cfg.cg_rtol, cfg.cg_atol)
         # dR_c/dc_prev^T lam_c and dR_c/dtheta^T lam_c
         wrt = ([c_prev] if need_c_prev else []) + [th[k] for k in keys]
         g_c = [None] * len(wrt)

@@ -30,7 +30,8 @@ steps at tight tolerances.  Held here:
   package's single-device value_and_grad and bit-equal on every rank;
   ``run()`` gives the trajectory's last state;
 - (e) ``use_sharding()`` falls back to 'cells' where the JAX package's
-  does, with its warning; quad models and von Neumann conditions refuse;
+  does, with its warning; quad models refuse, von Neumann conditions
+  enter both modes;
 - the lattice's 'nodes' mode on the matrix-free lane at 2 ranks against
   the JAX package's matrix-free run (forward, J and gradient).
 """
@@ -327,8 +328,8 @@ def test_auto_falls_back_to_cells_with_the_warning(caplog):
     that divides neither the lattice's nodes nor the supernode blocks, a
     matrix-free model), the port's does, with the same warning; the
     mode swaps the kernels for ShardedP1Kernels on the world's blocks.
-    Quad models and von Neumann conditions refuse under 'cells' and
-    'nodes'."""
+    Quad models refuse under 'cells' and 'nodes'; a model with von Neumann
+    conditions enters both."""
     from glimslib_tpu_torch.examples import brain_sim
 
     three = DeviceMesh(None, 0, 3, torch.device("cpu"), "mesh_x", "gloo")
@@ -371,11 +372,13 @@ def test_auto_falls_back_to_cells_with_the_warning(caplog):
             quad.use_sharding(three._replace(world=1), mode=mode)
     from glimslib_tpu_torch.examples import influx_sim
 
-    vn = influx_sim(n=3, dtype=torch.float64, device="cpu", unstructured=True)
+    # von Neumann conditions enter both modes (their rank shares are held
+    # in tests/test_torch_vn_shard.py)
     for mode in ("cells", "nodes"):
-        with pytest.raises(NotImplementedError, match="von Neumann"):
-            vn.use_sharding(three._replace(world=1), mode=mode)
-    assert quad.sharding_mode is None and vn.sharding_mode is None
+        vn = influx_sim(n=3, dtype=torch.float64, device="cpu", unstructured=True)
+        vn.use_sharding(three._replace(world=1), mode=mode)
+        assert vn.sharding_mode == mode and vn.matrix_free
+    assert quad.sharding_mode is None
 
 
 # -- (c), (d) forward, value_and_grad and run() ---------------------------------------

@@ -169,6 +169,7 @@ def _step_config(**kw):
     sim = _tumor_growth_2d()
     sim.step_config = StepConfig(**kw)
     sim.run(save_method=None)
+    return sim
 
 
 def test_plain_2d_lattice_runs():
@@ -181,8 +182,19 @@ def test_plain_2d_lattice_runs():
 
 @pytest.mark.parametrize("case", ["chebyshev", "sharding"])
 def test_outside_slice_raises(case):
+    """A quad model under the 'cells' mode raises NotImplementedError.
+    Chebyshev preconditioning, refused before it was ported, builds and
+    steps: degree 3 takes the lattice's pcg branch (the stencil planes, no
+    whole-solve PCG) and records every step converged (its parity is
+    held in tests/test_torch_chebyshev.py)."""
+    if case == "chebyshev":
+        sim = _step_config(precond_degree=3)
+        assert sim._lattice_pcg and sim.step_config.precond_degree == 3
+        assert sim.results.get_recording_steps() == [0, 1]
+        assert len(sim.solver_info["el_cg_iters"]) == 1
+        assert np.isfinite(sim.results.get_result(1)[1]).all()
+        return
     run = {
-        "chebyshev": lambda: _step_config(precond_degree=3),
         # a quad model under the 'cells' mode, which the reference's quad
         # models cannot run either (a world of one rank, which the mode
         # decision reads only; the mode itself is held in
