@@ -385,7 +385,36 @@ Phases, each printed on lines of their own:
    collectives a CG iteration of one forward step under 'nodes' at
    degree 0 and CHEB_DEGREE.
 
-Then one JSON line with [17]'s numbers, one with [16]'s numbers, one with [15]'s numbers, one with [14]'s numbers, one with [13]'s numbers, one with [12]'s numbers and its kernel rows by lattice, one with [11]'s, one with [10]'s, one with [9]'s, one with [7]'s
+18. Geometric multigrid (``solvers/multigrid.py``), folded symmetric
+   stencils, the streamed P2 residual and the warm-start switches.  [18a]
+   [3]'s N=32 box at f32 (5 levels, 33^3 to 3^3, a dense 27-node bottom):
+   the scalar block at MG_SCALAR unmasked and the elasticity block at
+   MG_E, MG_NU clamped, each solved by pcg to MG_CG_RTOL with the V-cycle
+   (its build and solve launch stencil_apply, counted by level; and again
+   with plain=True, held to one V-cycle and x within MG_X_RTOL rel-L2 and
+   equal iterations), and with Jacobi / block-Jacobi; true residuals
+   within MG_RES_RTOL.  The elasticity V-cycle does not converge on this
+   box: its solve stops at MG_EL_MAXITER iterations and prints the
+   residual reached beside block-Jacobi's at as many (x is then held by
+   the one V-cycle alone).  Device busy ms and idle share of the V-cycle
+   and the Jacobi solves; every coarse level's stencil_apply <1,1> and
+   <3,3> held against plain and timed as in [2] (level 0 has [2]'s
+   shapes: held only), each row's launches those of the V-cycle's build
+   and solve at that level.  [18b] fold_sym and the folded applies on
+   [3]'s bench planes against the kernel's full-plane stencil_apply
+   (APPLY_RTOL) and block_jacobi_inverse_sym against the full-plane
+   inverse, with call times.  [18c] [10b]'s quad model and f64
+   reference, QUAD_STEPS steps a way at the default and at
+   GLIMS_P2STREAM=1 (its frozen state [10b]'s plus the P2 mass channel):
+   each held to QUAD_RTOL of the f64 plain path and of each other;
+   steps/s, busy ms and idle share, the rd residual evaluations a run and
+   the device ms of one (two bell_bmv launches an evaluation streamed),
+   and bell_bmv's launches both ways.  [18d] [6]'s model, WARM18_STEPS
+   steps at the defaults, at GLIMS_WARM_ORDER=3 and at
+   GLIMS_ALG_ANCHOR=0: Newton and CG counts, rd residual evaluations, c
+   and u within UNSTRUCT_RTOL of the default run.
+
+Then one JSON line with [18]'s numbers, one with [17]'s numbers, one with [16]'s numbers, one with [15]'s numbers, one with [14]'s numbers, one with [13]'s numbers, one with [12]'s numbers and its kernel rows by lattice, one with [11]'s, one with [10]'s, one with [9]'s, one with [7]'s
 and [8]'s value_and_grad numbers, one with
 every kernel's numbers (each with its launches in the path and in one
 value_and_grad by forward and backward: [7]'s for the 3D rows, [8]'s for
@@ -2339,6 +2368,8 @@ def phase_quad(torch, dev, kern, keep=None):
     ref_traj = (u_r[-1], c_r[-1])
     rel, rel_tight = _quad_vs_ref(torch, sim, (u_tr[-1], c_tr[-1]), args, ref_traj,
                                   "[10b]")
+    if keep is not None:
+        keep["quad18"] = dict(sim=sim, aux=aux, args=args, ref=ref_traj)
     ref.step_config = f64_defaults
 
     # [10c] the f32 default: refined in f64
@@ -5442,6 +5473,409 @@ def phase_vn_shard(torch, dev, ranks, meshes):
     return out
 
 
+# [18]: geometric multigrid, folded symmetric stencils, the streamed P2
+# residual and the warm-start switches.  [18a] runs on [3]'s N=32 box at
+# f32: the scalar block at MG_SCALAR (D, rho, dt; the JAX package's
+# stiffness-dominated test setting) unmasked, the elasticity block at
+# MG_E, MG_NU clamped on the boundary, each solved by pcg to MG_CG_RTOL
+# with the V-cycle (the level applies through the stencil kernel, and
+# again with plain=True, held to equal iterations and MG_X_RTOL) and with
+# (block-)Jacobi; MG's true residual within MG_RES_RTOL.  The elasticity
+# V-cycle does not reach MG_CG_RTOL on this box (an NVIDIA H100 80GB HBM3
+# at 700 W: 8.8e-3 after 4,000 iterations at f32; the near-incompressible
+# case the JAX package's notes name), so its solve stops at MG_EL_MAXITER
+# iterations and prints the residual it reached beside block-Jacobi's at
+# as many; the kernel is held against plain=True by one V-cycle
+# application (MG_X_RTOL) and equal iterations.  [18c] takes QUAD_STEPS
+# steps a way on [10b]'s model; [18d] WARM18_STEPS steps a way on [6]'s.
+MG_SCALAR = (5.0, 0.1, 1.0)
+MG_E, MG_NU = 1000.0, 0.45
+MG_CG_RTOL = 1e-6
+MG_MAXITER = 4000
+MG_EL_MAXITER = 50
+MG_X_RTOL = 1e-6
+MG_RES_RTOL = 1e-4
+WARM18_STEPS = 2
+
+
+def _mg_solve(torch, A, b, M, tag, way, maxiter=MG_MAXITER):
+    """One pcg solve to MG_CG_RTOL, timed: (x, {iters, wall_ms,
+    true_residual}, a function that repeats it).  It must converge unless
+    ``maxiter`` is below MG_MAXITER (a capped solve)."""
+    from glimslib_tpu_torch.solvers.cg import pcg
+
+    def solve():
+        return pcg(A, b, M=M, rtol=MG_CG_RTOL, maxiter=maxiter)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x, info = solve()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    iters = int(info["iters"])
+    res = float((b - A(x)).norm() / b.norm())
+    print(f"{tag} {way}: {iters} CG iterations, {wall_ms:.2f} ms, true residual {res:.3e}")
+    if (iters >= MG_MAXITER and maxiter == MG_MAXITER) or not res == res:
+        raise AssertionError(f"{tag} {way}: {iters} iterations, residual {res}")
+    return x, dict(iters=iters, wall_ms=wall_ms, true_residual=res), solve
+
+
+def _busy(torch, out, solve, tag, way):
+    """Adds the device busy ms of a profiled repeat of ``solve`` and the
+    idle share of the timed solve to ``out``."""
+    busy = _device_busy_ms(_profile(torch, solve, cpu=False))
+    out.update(device_busy_ms=busy, idle_share=max(0.0, 1 - busy / out["wall_ms"]))
+    print(f"{tag} {way}: device busy {busy:.3f} ms, idle {100 * out['idle_share']:.1f}% "
+          f"of the timed solve")
+
+
+def _mg_block(torch, dev, h, kind, tag):
+    """One block of [18a]: the V-cycle through the kernel (stencil_apply
+    launches counted by level during the solve), the same with
+    plain=True, and (block-)Jacobi; returns the numbers, the launches by
+    level and the built data."""
+    import numpy as np
+
+    from glimslib_tpu_torch.ops import stencil_kernels as sk
+    from glimslib_tpu_torch.solvers import multigrid as mg
+
+    ops = h.ops[0]
+    offs, n = ops.offsets, h.meshes[0].n_nodes
+    rng = np.random.default_rng(18)
+    if kind == "scalar":
+        D, rho, dt = MG_SCALAR
+        mask = torch.zeros(n, dtype=torch.bool, device=dev)
+        W = ops.build_rd_jacobian_const(D, rho, dt)
+        apply, plain, cls, args = sk.apply_scalar, sk.apply_scalar_plain, mg.MGScalar, MG_SCALAR
+        diag = W[offs.index(0)]
+        inner = lambda r: r / diag  # noqa: E731
+        b = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32, device=dev)
+        wrapper = sk.apply_scalar
+    else:
+        mask = torch.zeros((n, 3), dtype=torch.bool, device=dev)
+        mask[torch.as_tensor(h.meshes[0].boundary_nodes, device=dev)] = True
+        mu = MG_E / (2 * (1 + MG_NU))
+        lam = MG_E * MG_NU / ((1 + MG_NU) * (1 - 2 * MG_NU))
+        W = ops.build_elasticity(mu, lam)
+        apply, plain, cls, args = sk.apply_vector, sk.apply_vector_plain, mg.MGElasticity, (
+            mu, lam)
+        Binv = ops.block_jacobi_inverse(W, mask=mask)
+        inner = lambda r: torch.where(mask, r, ops.apply_block_jacobi(  # noqa: E731
+            Binv, torch.where(mask, 0.0, r)))
+        b = torch.where(mask, 0.0, torch.as_tensor(rng.standard_normal((n, 3)),
+                                                    dtype=torch.float32, device=dev))
+        wrapper = sk.apply_vector
+
+    def masked(fn):
+        return lambda v: torch.where(mask, v, fn(offs, W, torch.where(mask, 0.0, v)))
+
+    A, A_plain = masked(apply), masked(plain)
+    with torch.no_grad():
+        # the path: the V-cycle's build and its solve, launches counted by
+        # level (the dense bottom's columns launch in the build)
+        mg_k = cls(h, mask)
+        by_level = [0] * h.n_levels
+        orig = mg_k._apply_op
+
+        def counting(lv, d, v):
+            before = wrapper.launches
+            y = orig(lv, d, v)
+            by_level[lv] += wrapper.launches - before
+            return y
+
+        mg_k._apply_op = counting
+        wrapper.launches = 0
+        t0 = time.perf_counter()
+        data = mg_k.build(*args)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        built = list(by_level)
+        by_level = [0] * h.n_levels
+        cap = MG_MAXITER if kind == "scalar" else MG_EL_MAXITER
+        x_k, k_out, solve_k = _mg_solve(torch, A, b, lambda r: mg_k.apply(data, r), tag,
+                                        "V-cycle (kernel)", cap)
+        total = wrapper.launches
+        mg_k._apply_op = orig
+        mg_p = cls(h, mask, plain=True)
+        data_p = mg_p.build(*args)
+        rel_cycle = _rel_l2(mg_k.apply(data, b), mg_p.apply(data_p, b))
+        _busy(torch, k_out, solve_k, tag, "V-cycle (kernel)")
+        x_p, p_out, _ = _mg_solve(torch, A_plain, b, lambda r: mg_p.apply(data_p, r), tag,
+                                  "V-cycle (plain=True)", cap)
+        way = "Jacobi" if kind == "scalar" else "block-Jacobi"
+        x_j, j_out, solve_j = _mg_solve(torch, A, b, inner, tag, way)
+        _busy(torch, j_out, solve_j, tag, way)
+        if cap < MG_MAXITER:
+            _, j_out["at_cap"], _ = _mg_solve(torch, A, b, inner, tag,
+                                              f"{way} stopped at {cap}", cap)
+    rel_kp, rel_kj = _rel_l2(x_k, x_p), _rel_l2(x_k, x_j)
+    per_it = [c / max(k_out["iters"], 1) for c in by_level]
+    converged = cap == MG_MAXITER
+    print(f"{tag} {total} stencil_apply launches in the V-cycle's build and solve: the "
+          f"build by level {built}, the solve by level {by_level} (the fine operator's "
+          f"{total - sum(built) - sum(by_level)} outside the cycle); "
+          f"a CG iteration {', '.join(f'L{lv} {c:.1f}' for lv, c in enumerate(per_it))}; "
+          f"build {build_s:.2f} s; kernel vs plain=True: one V-cycle rel-L2 "
+          f"{rel_cycle:.3e} (<= {MG_X_RTOL}), iterations {k_out['iters']} / "
+          f"{p_out['iters']}, rel-L2 x {rel_kp:.3e}"
+          + (f" (<= {MG_X_RTOL})" if converged else "") + "; vs "
+          f"{way} rel-L2 x {rel_kj:.3e}, "
+          + (f"iterations {k_out['iters']} against {j_out['iters']} "
+             f"({j_out['iters'] / max(k_out['iters'], 1):.2f}x fewer)" if converged else
+             f"residual after {cap} iterations {k_out['true_residual']:.3e} against "
+             f"{way}'s {j_out['at_cap']['true_residual']:.3e}; {way} reaches "
+             f"{MG_CG_RTOL} in {j_out['iters']}"))
+    if (k_out["iters"] != p_out["iters"] or rel_cycle > MG_X_RTOL
+            or (converged and (rel_kp > MG_X_RTOL or max(
+                k_out["true_residual"], p_out["true_residual"]) > MG_RES_RTOL))
+            or min(by_level[:-1] if "Cinv" in data[-1] else by_level) < 1
+            or min(b_ + s_ for b_, s_ in zip(built, by_level)) < 1):
+        raise AssertionError(f"{tag} V-cycle: kernel {k_out}, plain {p_out}, rel "
+                             f"{rel_kp:.3e}, one cycle {rel_cycle:.3e}, launches by "
+                             f"level {by_level}")
+    return dict(mg=k_out, plain=p_out, jacobi=j_out, rel_cycle_plain=rel_cycle,
+                rel_x_plain=rel_kp,
+                rel_x_jacobi=rel_kj, launches=total, launches_by_level=by_level,
+                build_launches_by_level=built,
+                launches_per_iteration_by_level=per_it, build_s=build_s), data
+
+
+def _mg_level_rows(torch, dev, h, datas, blocks, tag):
+    """Each coarse level's stencil_apply forms against their plain version
+    and timed as in [2] (level 0 has [2]'s shapes: held, untimed); each
+    row's launches are the V-cycle's build and solve's at that level."""
+    import numpy as np
+
+    from glimslib_tpu_torch.ops import stencil_kernels as sk
+
+    cold = _cold_l2(torch, dev)
+    k1 = "glimslib_tpu/ops/stencil_pallas.py:108"
+    k2 = "glimslib_tpu/ops/stencil_pallas.py:151"
+    rng = np.random.default_rng(18)
+    rows = []
+    for lv in range(h.n_levels):
+        offs, n = h.ops[lv].offsets, h.meshes[lv].n_nodes
+        shape = "x".join(map(str, h.shapes[lv]))
+        for kind, kern, plain, d, replaces in (
+                ("scalar", sk.apply_scalar, sk.apply_scalar_plain, 1, k1),
+                ("elasticity", sk.apply_vector, sk.apply_vector_plain, 3, k2)):
+            W = datas[kind][lv]["W"]
+            x = torch.as_tensor(rng.standard_normal((n, d) if d > 1 else n),
+                                dtype=torch.float32, device=dev)
+            name = f"stencil_apply<{d},{d}>@MG L{lv} {shape}"
+            timed = lv > 0
+            A = _csr(torch, offs, [(W.reshape(len(offs), d, d, n), 1.0, 0)], n, d, d,
+                     n * d) if timed else None
+            row = _apply_row(
+                torch, name, kern, plain, (offs, W, x),
+                (lambda A=A, xf=x.reshape(-1): torch.mv(A, xf)) if timed else None,
+                (n, d) if d > 1 else (n,), (kern,),
+                rf"stencil_apply_kernel<{d}, ?{d}, ?1>",
+                4 * (W.numel() + 2 * x.numel()), 2 * W.numel(), replaces, tag, cold)
+            row["launches"] = (blocks[kind]["build_launches_by_level"][lv]
+                               + blocks[kind]["launches_by_level"][lv])
+            row["launches_in"] = f"{tag} the {kind} V-cycle's build and solve"
+            if timed:
+                rows.append(row)
+            del A
+    return rows
+
+
+def _fold_check(torch, dev, sim, tag):
+    """[18b]: the folded applies and block_jacobi_inverse_sym on [3]'s
+    bench planes against the kernel's full-plane stencil_apply and the
+    full-plane inverse; device time of each by CUDA events."""
+    import numpy as np
+
+    from glimslib_tpu_torch.ops import stencil_kernels as sk
+
+    theta = sim._augment_theta_with_operators(sim.make_theta(sim.params.as_dict()))
+    ops = sim._stencil_ops
+    offs, n, d = ops.offsets, sim.mesh.n_nodes, sim.mesh.dim
+    rng = np.random.default_rng(18)
+    u = torch.as_tensor(rng.standard_normal((n, d)), dtype=torch.float32, device=dev)
+    v = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32, device=dev)
+    out = {}
+    for form, W, x, full, sym in (
+            ("<3,3>", theta["_Wel"], u, sk.apply_vector, ops.apply_vector_sym),
+            ("<1,1>", theta["_Wrd_const"], v, sk.apply_scalar, ops.apply_scalar_sym)):
+        Ws = ops.fold_sym(W)
+        err, rel = _rel_max(sym(Ws, x), full(offs, W, x))
+        ms_sym = _time_ms(torch, lambda: sym(Ws, x), 20)
+        ms_full = _time_ms(torch, lambda: full(offs, W, x), 20)
+        print(f"{tag} {form}: {Ws.shape[0]} of {W.shape[0]} planes; folded apply vs "
+              f"the kernel's full-plane stencil_apply max abs err {err:.3e}, max rel "
+              f"{rel:.3e} (<= {APPLY_RTOL}); call {ms_sym:.4f} ms folded (plain torch) "
+              f"against {ms_full:.4f} ms (the kernel)")
+        if rel > APPLY_RTOL:
+            raise AssertionError(f"{tag} folded {form}: {rel:.3e}")
+        out[form] = dict(max_abs_err=err, folded_ms=ms_sym, kernel_ms=ms_full,
+                         planes=(Ws.shape[0], W.shape[0]))
+    Ws = ops.fold_sym(theta["_Wel"])
+    err, rel = _rel_max(ops.block_jacobi_inverse_sym(Ws), ops.block_jacobi_inverse(
+        theta["_Wel"]))
+    print(f"{tag} block_jacobi_inverse_sym vs the full-plane inverse: max rel {rel:.3e}")
+    if rel > APPLY_RTOL:
+        raise AssertionError(f"{tag} block_jacobi_inverse_sym: {rel:.3e}")
+    out["block_jacobi_inverse_sym_max_abs_err"] = err
+    return out
+
+
+def phase_mg(torch, dev, sim, kernels):
+    """[18a] and [18b] (module docstring); adds the MG level rows to
+    ``kernels``."""
+    from glimslib_tpu_torch.solvers.multigrid import LatticeHierarchy
+
+    t0 = time.perf_counter()
+    tag = f"[18a] N={N} MG:"
+    h = LatticeHierarchy(sim.mesh, torch.float32, device=dev)
+    print(f"{tag} {h.n_levels} levels " + ", ".join(
+        f"L{lv} {'x'.join(map(str, s))} ({m.n_nodes} nodes, {len(o.offsets)} offsets)"
+        for lv, (s, m, o) in enumerate(zip(h.shapes, h.meshes, h.ops)))
+        + f"; hierarchy {time.perf_counter() - t0:.2f} s")
+    blocks, datas = {}, {}
+    for kind in ("scalar", "elasticity"):
+        blocks[kind], datas[kind] = _mg_block(torch, dev, h, kind, f"{tag} {kind}:")
+    rows = _mg_level_rows(torch, dev, h, datas, blocks, "[18a]")
+    kernels += rows
+    fold = _fold_check(torch, dev, sim, "[18b] folded:")
+    print(f"[18a]-[18b] {time.perf_counter() - t0:.1f} s")
+    return dict(levels=[list(s) for s in h.shapes], blocks=blocks, folded=fold,
+                rows=[r["name"] for r in rows])
+
+
+def _p2_way(torch, dev, sim, args, stream, tag):
+    """One way of [18c]: the switch set (or not) before the simulate is
+    built, a counted run (the residual evaluations too), a timed and
+    profiled run, and the device ms of one residual evaluation at the
+    run's final state."""
+    from glimslib_tpu_torch.ops import bell_kernels as bk
+
+    if stream:
+        os.environ["GLIMS_P2STREAM"] = "1"
+    else:
+        os.environ.pop("GLIMS_P2STREAM", None)
+    # counted where the step takes it: set before the step is built
+    evals = []
+    rd = sim.rd_residual
+    sim.rd_residual = lambda *a: evals.append(1) or rd(*a)
+    try:
+        simulate = sim.build_simulate_fn(QUAD_STEPS, 1.0)
+        bk.batched_matvec.launches_by_shape = {}
+        (u, c), launches, _ = _drive(torch, sim, simulate, args, [(bk.batched_matvec,)],
+                                     tag, QUAD_STEPS)
+        n_evals = len(evals)
+        by_shape = dict(bk.batched_matvec.launches_by_shape)
+        _, run = _time_runs(torch, simulate, args, dev, tag, QUAD_STEPS)
+    finally:
+        del sim.rd_residual
+    theta = sim._augment_theta_with_operators({**args[0], **sim.runtime_aux()})
+    if ("_P2B_rd_load" in theta) != stream:
+        raise AssertionError(f"{tag} the streamed residual is {'off' if stream else 'on'}")
+    with torch.no_grad():
+        bk.batched_matvec.launches = 0
+        sim.rd_residual(c[-1], c[-2], theta, 1.0)
+        per_eval = bk.batched_matvec.launches
+        res_ms, src = _call_device_ms(torch, lambda: sim.rd_residual(
+            c[-1], c[-2], theta, 1.0))
+    os.environ.pop("GLIMS_P2STREAM", None)
+    print(f"{tag} {n_evals} rd residual evaluations in the run, {res_ms:.3f} ms of "
+          f"device time each ({src}) = {n_evals * res_ms:.1f} ms a run; bell_bmv "
+          f"{launches[bk.batched_matvec]} launches in the run (by shape {by_shape}), "
+          f"{per_eval} an evaluation")
+    return (u, c), dict(run, residual_evals=n_evals, residual_ms=res_ms,
+                        residual_ms_run=n_evals * res_ms,
+                        bell_bmv_launches=launches[bk.batched_matvec],
+                        bell_bmv_by_shape={"x".join(map(str, s)): k
+                                           for s, k in by_shape.items()},
+                        cg_iters={k: [int(i) for i in sim.solver_info[k]]
+                                  for k in ("rd_cg_iters", "el_cg_iters")},
+                        residual_launch_calls=per_eval)
+
+
+def phase_p2stream(torch, dev, quad, kern):
+    """[18c] on [10b]'s model and f64 reference (``quad``, from
+    phase_quad): the default and GLIMS_P2STREAM=1, the frozen state the
+    switch changes (the P2 mass channel, ``_FP2Mrd``, [10b]'s channel 0)
+    added to [10b]'s; both held to QUAD_RTOL of the f64 plain path and of
+    each other; the bell_bmv row gains the streamed run's launches."""
+    from glimslib_tpu_torch.examples import UNSTRUCT_STEP_CONFIG
+
+    t0 = time.perf_counter()
+    sim, aux, args, ref = quad["sim"], quad["aux"], quad["args"], quad["ref"]
+    sim.step_config = UNSTRUCT_STEP_CONFIG
+    out, finals = {}, {}
+    for way, stream in (("default", False), ("streamed", True)):
+        sim._aux_cache = {**aux, "_FP2Mrd": aux["_FP2Wrd"][0]} if stream else aux
+        tag = f"[18c] quad n={N} {way}:"
+        finals[way], out[way] = _p2_way(torch, dev, sim, args, stream, tag)
+        u, c = finals[way]
+        out[way]["rel_vs_f64"], _ = _quad_vs_ref(torch, sim, (u[-1], c[-1]), args, ref,
+                                                 tag)
+    sim._aux_cache = aux
+    rel = (_rel_l2(finals["streamed"][1][-1], finals["default"][1][-1]),
+           _rel_l2(finals["streamed"][0][-1], finals["default"][0][-1]))
+    d, s = out["default"], out["streamed"]
+    print(f"[18c] streamed against the default: rel-L2 c {rel[0]:.3e}, u {rel[1]:.3e} (<= "
+          f"{QUAD_RTOL}); the P2 rd residual {d['residual_ms_run']:.1f} -> "
+          f"{s['residual_ms_run']:.1f} ms a run ({d['residual_ms']:.3f} -> "
+          f"{s['residual_ms']:.3f} ms an evaluation); busy {d['device_busy_ms']} -> "
+          f"{s['device_busy_ms']} ms, idle {d['idle_share']} -> {s['idle_share']}; "
+          f"steps/s {d['steps_per_s']:.3f} -> {s['steps_per_s']:.3f}; bell_bmv "
+          f"{d['bell_bmv_launches']} -> {s['bell_bmv_launches']} launches; "
+          f"{time.perf_counter() - t0:.1f} s")
+    if max(rel) > QUAD_RTOL or s["residual_launch_calls"] != 2:
+        raise AssertionError(f"[18c] streamed vs default {rel}, bell_bmv launches an "
+                             f"evaluation {s['residual_launch_calls']}")
+    kern["quad_p2stream_launches"] = s["bell_bmv_launches"]
+    return dict(out, rel_c=rel[0], rel_u=rel[1])
+
+
+def phase_warm(torch, dev, usim):
+    """[18d] on [6]'s model: WARM18_STEPS steps at the defaults, at
+    GLIMS_WARM_ORDER=3 and at GLIMS_ALG_ANCHOR=0 (each read when the
+    simulate is built), Newton and CG counts, c and u of each switch
+    within UNSTRUCT_RTOL of the default run."""
+    from glimslib_tpu_torch.ops import bell_kernels as bk
+
+    t0 = time.perf_counter()
+    args = (usim.make_theta(usim.params.as_dict()), *usim.initial_state())
+    out, finals = {}, {}
+    for way, env in (("default", {}), ("GLIMS_WARM_ORDER=3", {"GLIMS_WARM_ORDER": "3"}),
+                     ("GLIMS_ALG_ANCHOR=0", {"GLIMS_ALG_ANCHOR": "0"})):
+        # counted where the step takes it: set before the step is built
+        evals = []
+        rd = usim.rd_residual
+        usim.rd_residual = lambda *a: evals.append(1) or rd(*a)
+        os.environ.update(env)
+        try:
+            simulate = usim.build_simulate_fn(WARM18_STEPS, 1.0)
+            for k in env:
+                os.environ.pop(k)
+            (u, c), launches, first_s = _drive(torch, usim, simulate, args,
+                                               [(bk.batched_matvec,)],
+                                               f"[18d] n={N} unstructured {way}:", WARM18_STEPS)
+        finally:
+            for k in env:
+                os.environ.pop(k, None)
+            del usim.rd_residual
+        finals[way] = (u[-1], c[-1])
+        out[way] = dict(cg_iters={k: [int(i) for i in usim.solver_info[k]]
+                                  for k in ("rd_cg_iters", "el_cg_iters")},
+                        rd_residual_evals=len(evals), first_s=first_s,
+                        bell_bmv_launches=launches[bk.batched_matvec])
+        if way != "default":
+            rel = (_rel_l2(c[-1], finals["default"][1]), _rel_l2(u[-1], finals["default"][0]))
+            out[way].update(rel_c=rel[0], rel_u=rel[1])
+            print(f"[18d] {way} against the default: rel-L2 c {rel[0]:.3e}, u {rel[1]:.3e} "
+                  f"(<= {UNSTRUCT_RTOL}); rd residual evaluations {len(evals)} against "
+                  f"{out['default']['rd_residual_evals']}")
+            if max(rel) > UNSTRUCT_RTOL:
+                raise AssertionError(f"[18d] {way}: {rel}")
+    print(f"[18d] {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main():
     import torch
 
@@ -5505,6 +5939,11 @@ def main():
     torch.cuda.empty_cache()
 
     chebyshev = phase_chebyshev(torch, dev, sim, usim, kernels, kern)
+    torch.cuda.empty_cache()
+
+    phase18 = {"mg": phase_mg(torch, dev, sim, kernels)}
+    phase18["p2stream"] = phase_p2stream(torch, dev, keep.pop("quad18"), kern)
+    phase18["warm"] = phase_warm(torch, dev, usim)
     meshes17 = [sim.mesh]
     del sim
     torch.cuda.empty_cache()
@@ -5535,6 +5974,7 @@ def main():
     drop = ("wrappers", "pattern", "iters")
     example_checks = {shape: [{k: v for k, v in row.items() if k not in drop}
                               for row in rows] for shape, rows in example_checks.items()}
+    print(json.dumps({"phase18": phase18}, default=str))
     print(json.dumps({"chebyshev": chebyshev, "vn_shard": vn_shard}, default=str))
     print(json.dumps({"cells_nodes": cells_nodes}, default=str))
     print(json.dumps({"matrix_free": matrix_free}, default=str))

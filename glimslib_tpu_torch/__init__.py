@@ -9,7 +9,9 @@ hand-written CUDA kernels for Hopper (``csrc/stencil.cu``, bound in
 meshes, supernode halo-ELL operators (``ops/bell.py``) whose batched
 contractions run in the CUDA kernel of ``csrc/bell.cu``
 (``ops/bell_kernels.py``), with supernode block-Jacobi plus two-level
-preconditioning (``solvers/twolevel.py``).  Both feed the
+preconditioning (``solvers/twolevel.py``); geometric multigrid on
+lattices (``solvers/multigrid.py``: its level applies launch the stencil
+kernel) is wired to no model, as in the JAX package.  Both lanes feed the
 block-triangular Newton-CG step (``solvers/coupled.py``) and the
 implicit-Euler time loop (``models/base.py``), on the card unless the
 caller asks for the CPU.  Above them: the adjoint inverse problem

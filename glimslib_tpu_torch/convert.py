@@ -44,8 +44,9 @@ _AUX_FLOAT = ("_BinvSN", "_McSN", "_TLCfac", "_TLCfacS",
               # the factored channel stacks (ops/bell_factored.py), raw
               # BellPlan.assemble layouts on both sides
               "_FWel", "_FCuc", "_FWrd", "_FMrd")
-# the factored P2 channels, (ch, nb, s, Kh) in the P2 plan's halo layout
-_AUX_P2_PLANES = ("_FP2Wrd",)
+# the factored P2 channels, (ch, nb, s, Kh) in the P2 plan's halo layout,
+# and the streamed P2 residual's mass channel (nb, s, Kh)
+_AUX_P2_PLANES = ("_FP2Wrd", "_FP2Mrd")
 _AUX_INDEX = ("_FReps", "_FWrdRhoReps", "_FWrdDReps",  # representative cells
               "_FP2RhoReps", "_FP2DReps")
 _AUX_NODE_LAST = {"_TLMt": (2, 0, 1), "_TLMtS": (1, 0)}  # -> node axis first
@@ -61,7 +62,7 @@ def _bf16_tensor(a, device):
     return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
 
 
-def _check_p2_layout(aux_np, a):
+def _check_p2_layout(aux_np, a, key):
     """A factored P2 stack carries over only in the port's flat halo
     layout: the reference's chunk-aligned halo (``GLIMS_P2_HALO_CHUNK`` >
     1, its default 4) rounds each block's external slots up to whole
@@ -69,14 +70,14 @@ def _check_p2_layout(aux_np, a):
     halo = aux_np.get("_P2BHalo")
     place = aux_np.get("_P2BPlace")
     if halo is None or place is None:
-        raise ValueError("_FP2Wrd without the reference's P2 plan tables "
+        raise ValueError(f"{key} without the reference's P2 plan tables "
                          "(_P2BHalo, _P2BPlace): its halo layout is unknown")
     nb, khe_rows = np.shape(halo)
-    s = a.shape[2]
-    if a.shape[3] != s + khe_rows or np.size(place) != nb * s * a.shape[3]:
+    s, kh = a.shape[-2:]
+    if kh != s + khe_rows or np.size(place) != nb * s * kh:
         raise ValueError(
-            f"_FP2Wrd {a.shape} is in a chunk-aligned halo layout ({khe_rows} "
-            f"gathered rows a block for {a.shape[3] - s} external slots); the "
+            f"{key} {a.shape} is in a chunk-aligned halo layout ({khe_rows} "
+            f"gathered rows a block for {kh - s} external slots); the "
             "port's P2 plan has a flat halo: build the reference's aux with "
             "GLIMS_P2_HALO_CHUNK=1")
 
@@ -92,11 +93,11 @@ def aux_from_numpy(aux_np, *, device="cpu", dtype=torch.float64):
     matrices arrive node-axis-last (``_TLMt`` (d, q, n_pad), ``_TLMtS``
     (qs, n_pad)) and are transposed back to (n_pad, d, q) and (n_pad, qs);
     plan tables (``_Bell*``, ``_P2B*``) are dropped.  The factored P2
-    stack ``_FP2Wrd`` carries over when the reference built its P2 plan
-    with a flat halo (``GLIMS_P2_HALO_CHUNK=1``) and raises otherwise.
-    Anything else (the TPU's block-lanes kernel layouts ``*T``, the
-    streamed P2 mass ``_FP2Mrd``) has no counterpart in the port and
-    raises."""
+    stack ``_FP2Wrd`` and the streamed P2 residual's mass channel
+    ``_FP2Mrd`` carry over when the reference built its P2 plan with a
+    flat halo (``GLIMS_P2_HALO_CHUNK=1``) and raise otherwise.  Anything
+    else (the TPU's block-lanes kernel layouts ``*T``) has no counterpart
+    in the port and raises."""
     out = {}
     unknown = []
     for k, v in aux_np.items():
@@ -104,7 +105,7 @@ def aux_from_numpy(aux_np, *, device="cpu", dtype=torch.float64):
             continue
         a = np.asarray(v)
         if k in _AUX_P2_PLANES:
-            _check_p2_layout(aux_np, a)
+            _check_p2_layout(aux_np, a, k)
             out[k] = torch.as_tensor(a.astype(np.float64), dtype=dtype, device=device)
             continue
         if k in _AUX_INDEX:

@@ -41,8 +41,10 @@ Three operator lanes, chosen by the mesh and ``operator_mode``:
   logistic correction, or its lumped row sums for the chord method), its
   supernode block-Jacobi ``_McSNP2`` without a coarse level, and the
   factored P2 channels; the residuals are the quadrature kernels of
-  ``ops/p2.py``.  The elasticity block and its preconditioners are the P1
-  lane's.
+  ``ops/p2.py``, or with ``GLIMS_P2STREAM=1`` the streamed rd residual
+  (:meth:`Simulation._p2_stream`: two ``bell_bmv`` matvecs of the P2
+  planes and the quadratic term).  The elasticity block and its
+  preconditioners are the P1 lane's.
 - **The matrix-free jvp lane** (``operator_mode = "matrix-free"``, and
   the quad models on lattice meshes, as in the reference): no assembled
   operator, no stencil plane and no whole-solve kernel; each linear
@@ -62,7 +64,9 @@ The lane's settings are the reference's defaults, fixed: supernodes of
 32 nodes, aggregates of 64, the coarse factors truncated to max(2048,
 3/5 of the coarse dimension) columns, the factored assembly wherever the
 model gives class labels.  ``GLIMS_TWOLEVEL_MIN_NODES`` (default 4000)
-sets the mesh size from which the two-level level is on.  On f32 models
+sets the mesh size from which the two-level level is on;
+``GLIMS_WARM_ORDER=3`` and ``GLIMS_ALG_ANCHOR=0`` change the warm starts
+(:meth:`Simulation.build_simulate_fn`).  On f32 models
 the default step refines in f64 (``config.resolve_refine_f64``;
 ``solvers/coupled.py``).
 
@@ -1036,7 +1040,8 @@ class Simulation(ABC):
         if self.quad:
             t0 = time.perf_counter()
             out.update(bell_factored.build_p2_cache(self._get_p2_plan(), self.p2,
-                                                    labels, support=support))
+                                                    labels, support=support,
+                                                    want_mass=self._p2_stream()))
             self._sync()
             times["factored_p2"] = time.perf_counter() - t0
         return out
@@ -1104,7 +1109,9 @@ class Simulation(ABC):
         ``_BellWel`` and ``_BinvSN`` as on the P1 lane, the P2 rd constant
         plane ``_P2BWrdC`` (nb2, s2, Kh2), reduced from the factored P2
         channels when theta carries them, else assembled, and ``_McSNP2``
-        (without a graph) when the aux did not carry it."""
+        (without a graph) when the aux did not carry it.  With the
+        streamed P2 residual (:meth:`_p2_stream`) also the P2 mass plane
+        ``_P2BMrd`` and the constant load ``_P2B_rd_load``."""
         bplan, p2plan = self._get_bell_plan(), self._get_p2_plan()
         mask_u, mask_c, _, _ = self._bc_masks_and_values()
         th = self._slab_input(theta)
@@ -1117,11 +1124,21 @@ class Simulation(ABC):
         # replicated P2 tables (a world that does not divide their blocks)
         # take theta's own coefficients
         th2 = th if self._p2_sharded else theta
-        Wrd2 = bell_factored.p2_planes_from_theta(th2)
-        if Wrd2 is None:
-            Wrd2 = p2_ell.build_p2_rd_const(p2plan, self.p2, th2["D"], th2["rho"],
-                                            th2["dt"])
-        theta["_P2BWrdC"] = Wrd2
+        p2_stream = self._p2_stream()
+        planes2 = bell_factored.p2_planes_from_theta(th2, want_mass=p2_stream)
+        if planes2 is None:
+            ents2 = [p2_ell.const_entries(self.p2, th2["D"], th2["rho"], th2["dt"])]
+            if p2_stream:
+                ents2.append(p2_ell.p2_mass_entries(self.p2))
+            planes2 = [p2plan.assemble(e) for e in ents2]
+        Wrd2 = theta["_P2BWrdC"] = planes2[0]
+        if p2_stream:
+            # the streamed P2 rd residual R = W_const c + q(c) - M c_prev - load
+            theta["_P2BMrd"] = planes2[1]
+            zeros = torch.zeros(self.p2.n_dofs, dtype=self.dtype, device=self.device)
+            theta["_P2B_rd_load"] = -self.p2.rd_residual(
+                zeros, zeros, theta["D"], theta["rho"], theta["dt"],
+                source=theta["source"])  # r(0) = -dt s v
         with torch.no_grad():
             if "_BinvSN" not in theta:
                 theta["_BinvSN"] = bell.supernode_jacobi_inverse(
@@ -1243,6 +1260,13 @@ class Simulation(ABC):
         return not any(bc["subspace_id"] == self.SUBSPACE_CONCENTRATION
                        for bc in self.bcs.von_neumann_bcs.values())
 
+    def _p2_stream(self):
+        """The streamed P2 rd residual (``GLIMS_P2STREAM=1``, off by
+        default; reference base.py:889-897, :1370-1416): a quad model's
+        unstructured lane where the streamed rd residual applies."""
+        return (self.quad and self._stencil_rd_residual_ok()
+                and os.environ.get("GLIMS_P2STREAM", "0") == "1")
+
     def _stencil_el_residual_ok(self):
         """The streamed elasticity residual applies when nothing
         time-dependent or facet-integral enters the u-equation."""
@@ -1353,20 +1377,29 @@ class Simulation(ABC):
         (the unstructured lane, and the lattice under node sharding or
         Chebyshev preconditioning, the reference's ``_warm_start_ok``,
         base.py:1684-1692; not the matrix-free lane) each step starts from the
-        linear extrapolation 2 x_k - x_{k-1} of the last two states.  On
-        the unstructured lane, without concentration Dirichlet conditions,
-        the Newton anchor ||r_c(c_prev)|| is carried algebraically as ||M
-        (c_k - c_{k-1})|| (reference base.py:1746-1886; the lattice has no
-        assembled mass plane for it).  The anchor only scales tolerances:
-        it is detached (the reference's ``stop_gradient``), so a frozen
-        step's zero norm puts no NaN in a gradient.  The trajectory is
-        stacked from the steps' outputs and keeps their graph.
+        linear extrapolation 2 x_k - x_{k-1} of the last two states, or
+        with ``GLIMS_WARM_ORDER=3`` the quadratic 3 x_k - 3 x_{k-1} +
+        x_{k-2} (a failed step collapses the history to the frozen state,
+        so later guesses start at it).  On the unstructured lane, without
+        concentration Dirichlet conditions, the Newton anchor
+        ||r_c(c_prev)|| is carried algebraically as ||M (c_k - c_{k-1})||
+        (reference base.py:1746-1886; the lattice has no assembled mass
+        plane for it) unless ``GLIMS_ALG_ANCHOR=0``, which leaves the step
+        to evaluate the exact anchor itself.  Both switches are read once,
+        here, when the function is built.  The anchor only scales
+        tolerances: it is detached (the reference's ``stop_gradient``), so
+        a frozen step's zero norm puts no NaN in a gradient.  The
+        trajectory is stacked from the steps' outputs and keeps their
+        graph.
 
         Under node sharding ``u0``, ``c0`` and the trajectory hold this
         rank's rows; a gradient through simulate is that of the ranks'
         summed objective, the same on every rank (:meth:`use_sharding`)."""
         step = self._build_step()
         warm = (not self.lattice or self._lattice_pcg) and not self.matrix_free
+        # 2 = linear extrapolation, 3 = quadratic (reference base.py:1750-1756)
+        quadratic = warm and int(os.environ.get("GLIMS_WARM_ORDER", "2")) >= 3
+        alg_anchor = os.environ.get("GLIMS_ALG_ANCHOR", "1") != "0"
         # the algebraic anchor is exact only when the concentration clamp
         # values are step-invariant: no concentration Dirichlet conditions
         no_c_dirichlet = not any(
@@ -1380,19 +1413,21 @@ class Simulation(ABC):
             theta = {**theta, **(self.runtime_aux() if aux is None else aux)}
             theta = self._augment_theta_with_operators(theta)
             mass_fn = (self._streamed_mass_action(theta)
-                       if warm and no_c_dirichlet else None)
+                       if warm and no_c_dirichlet and alg_anchor else None)
             anchor = None
             if mass_fn is not None:
                 c0a = torch.where(mask_c, gc(dt), c0)
                 r0a = torch.where(mask_c, 0.0, self.rd_residual(c0a, c0a, theta, dt))
                 anchor = torch.linalg.vector_norm(r0a).detach()
             u_traj, c_traj, ok_traj, newton = [], [], [], []
-            u_prev, c_prev, u_pp, c_pp = u0, c0, u0, c0
+            u_prev, c_prev, u_pp, c_pp, u_ppp, c_ppp = u0, c0, u0, c0, u0, c0
             ok = torch.ones((), dtype=torch.bool, device=c0.device)
             for i in range(n_steps):
                 t = (i + 1.0) * dt
                 if warm:
-                    guess = (2.0 * u_prev - u_pp, 2.0 * c_prev - c_pp)
+                    guess = ((3.0 * u_prev - 3.0 * u_pp + u_ppp,
+                              3.0 * c_prev - 3.0 * c_pp + c_ppp) if quadratic
+                             else (2.0 * u_prev - u_pp, 2.0 * c_prev - c_pp))
                     u, c, conv, n_newton = step(theta, u_prev, c_prev, t,
                                                 guess, anchor)
                 else:
@@ -1406,7 +1441,15 @@ class Simulation(ABC):
                     mdc = torch.where(mask_c, 0.0, mass_fn(c_out - c_prev))
                     anchor = torch.where(ok, torch.linalg.vector_norm(mdc),
                                          anchor).detach()
-                u_pp, c_pp, u_prev, c_prev = u_prev, c_prev, u_out, c_out
+                if quadratic:
+                    # a failed step collapses the history to the frozen state
+                    u_ppp = torch.where(ok, u_pp, u_out)
+                    c_ppp = torch.where(ok, c_pp, c_out)
+                    u_pp = torch.where(ok, u_prev, u_out)
+                    c_pp = torch.where(ok, c_prev, c_out)
+                else:
+                    u_pp, c_pp = u_prev, c_prev
+                u_prev, c_prev = u_out, c_out
                 u_traj.append(u_out)
                 c_traj.append(c_out)
                 ok_traj.append(ok)

@@ -20,8 +20,13 @@ leaves it out of its residuals).
 On an unstructured mesh the model runs the unstructured lane: the
 assembled P2 rd Jacobian on the P2 supernode plan.  On a lattice mesh
 it runs the matrix-free jvp lane, as the reference's does (the stencil
-operators are P1).  The reference's streamed P2 residual
-(``GLIMS_P2STREAM``, off by default) is not ported.
+operators are P1).  There ``GLIMS_P2STREAM=1`` (off by default) streams
+the rd residual: R = W_const c - M c_prev + q(c) - load, two matvecs of
+the assembled P2 planes through ``bell_bmv`` (the rd solve's route, the
+rank's slab apply under block sharding) and the quadratic term of
+``ops/p2_ell.py p2_cubic_residual``, in place of the quadrature gather
+and scatter; a von Neumann term or a callable source keeps the
+quadrature residual.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from glimslib_tpu_torch.models.tumor_growth import TumorGrowth as _TumorGrowthP1
+from glimslib_tpu_torch.ops import bell, p2_ell
 from glimslib_tpu_torch.ops.p2 import P2Kernels
 
 
@@ -58,6 +64,13 @@ class TumorGrowth(_TumorGrowthP1):
         return r if vn is None else r - vn
 
     def rd_residual(self, c, c_prev, theta, t):
+        if "_P2B_rd_load" in theta:
+            # streamed (GLIMS_P2STREAM=1): the same degree-6 sums, re-associated
+            plan, bmv = self._get_p2_plan(), self._k.bmv
+            lin = (bell.apply_bell_scalar(plan, theta["_P2BWrdC"], c, bmv)
+                   - bell.apply_bell_scalar(plan, theta["_P2BMrd"], c_prev, bmv))
+            quad = p2_ell.p2_cubic_residual(self.p2, c, theta["rho"], theta["dt"], 1.0)
+            return lin + quad - theta["_P2B_rd_load"]
         return self._p2_rd(self.p2, c, c_prev, theta, t)
 
     def el_residual(self, u, c, theta, t):

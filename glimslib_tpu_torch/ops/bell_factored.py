@@ -33,7 +33,8 @@ differentiates in the scalars.
 The quad models' P2 rd constant plane has channels of its own over the
 P2 plan (:func:`build_p2_cache`, :func:`p2_planes_from_theta`): [M_full,
 M_t (supp rho), K_t (supp D)], assembled one channel at a time (each is
-one P2 plane, 393 MB at f32 on the n=32 brain box).
+one P2 plane, 393 MB at f32 on the n=32 brain box); the streamed P2
+residual (``GLIMS_P2STREAM=1``) takes M_full as its mass plane too.
 """
 
 from __future__ import annotations
@@ -163,12 +164,13 @@ def planes_from_theta(theta, dim, want_cuc, want_rd, want_mrd):
 # -- P2 (quad) concentration plane (ops/p2_ell.py) ---------------------------
 
 
-def build_p2_cache(p2plan, p2k, labels, support=None):
+def build_p2_cache(p2plan, p2k, labels, support=None, want_mass=False):
     """Frozen per-class channels of the assembled P2 rd constant plane:
     ``_FP2Wrd`` (1 + |supp rho| + |supp D|, nb, s, Kh), channels [M_full,
     M_t for t in supp rho, K_t for t in supp D], with ``_FP2RhoReps`` /
-    ``_FP2DReps`` their representative cells.  One placement gather a
-    channel, without a graph."""
+    ``_FP2DReps`` their representative cells, and with ``want_mass`` (the
+    streamed P2 residual) ``_FP2Mrd``, the full mass channel.  One
+    placement gather a channel, without a graph."""
     from glimslib_tpu_torch.ops import p2_ell
 
     labels = np.asarray(labels)
@@ -192,17 +194,24 @@ def build_p2_cache(p2plan, p2k, labels, support=None):
                              dtype=dt, device=dev)
         for k, ent in enumerate(ents):
             planes[k] = p2plan.assemble(ent())
-    return {"_FP2Wrd": planes, "_FP2RhoReps": idx(reps[rho_i]),
-            "_FP2DReps": idx(reps[d_i])}
+    out = {"_FP2Wrd": planes, "_FP2RhoReps": idx(reps[rho_i]),
+           "_FP2DReps": idx(reps[d_i])}
+    if want_mass:
+        out["_FP2Mrd"] = planes[0]
+    return out
 
 
-def p2_planes_from_theta(theta):
-    """The P2 rd constant plane M − dt Σ rho_t M_t + dt Σ D_t K_t reduced
-    from the frozen channels, or None when theta does not carry them."""
-    if "_FP2Wrd" not in theta:
+def p2_planes_from_theta(theta, want_mass=False):
+    """[Wrd2] (+ [Mrd2] with ``want_mass``): the P2 rd constant plane M −
+    dt Σ rho_t M_t + dt Σ D_t K_t reduced from the frozen channels (and
+    the mass channel), or None when theta does not carry them."""
+    if "_FP2Wrd" not in theta or (want_mass and "_FP2Mrd" not in theta):
         return None
     G = theta["_FP2Wrd"]
     dt = torch.as_tensor(theta["dt"], dtype=G.dtype, device=G.device).reshape(1)
     rho_t = _at_reps(theta["rho"], theta["_FP2RhoReps"], G)
     D_t = _at_reps(theta["D"], theta["_FP2DReps"], G)
-    return _reduce(G, torch.cat([torch.ones_like(dt), -dt * rho_t, dt * D_t]))
+    planes = [_reduce(G, torch.cat([torch.ones_like(dt), -dt * rho_t, dt * D_t]))]
+    if want_mass:
+        planes.append(theta["_FP2Mrd"])
+    return planes

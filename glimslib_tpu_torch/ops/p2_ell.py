@@ -26,9 +26,14 @@ converges the exact residual.
 The plan has the reference's s = 64 and a flat halo (the reference's
 chunk-aligned halo, ``GLIMS_P2_HALO_CHUNK`` 4, gathers aligned 4-dof rows
 for the TPU's row-rate-bound gathers; on the card it only adds zero
-slots).  The reference's streamed residual helpers (``p2_mass_entries``,
-``p2_cubic_residual``, behind ``GLIMS_P2STREAM``, off by default) are
-not ported.
+slots).
+
+The streamed P2 rd residual (``GLIMS_P2STREAM=1``, off by default;
+``models/tumor_growth_quad.py``) is R = W_const c - M c_prev + q(c) -
+load: two assembled matvecs (the mass plane from
+:func:`p2_mass_entries`) and the quadratic logistic term
+:func:`p2_cubic_residual`, by the same degree-6 rule as the quadrature
+residual, so it equals ``P2Kernels.rd_residual`` to round-off.
 """
 
 from __future__ import annotations
@@ -132,3 +137,22 @@ def build_p2_rd_wc_lumped(p2k, c, rho, dt, conc_max):
     ceT = p2k.gather_T(c)  # (npe, nc)
     rowsum_T = (M0[:, :, None] * ceT[None, :, :]).sum(dim=1)
     return p2k.scatter_T(((2.0 * dt / conc_max) * rho * det) * rowsum_T)
+
+
+def p2_mass_entries(p2k):
+    """(npe, npe, nc) P2 consistent-mass entries det_e M0[i, j]."""
+    M0 = _ref(p2k, p2_ref_tensors(p2k.dim)[0])
+    _, det = _geom(p2k)
+    return M0[:, :, None] * det[None, None, :]
+
+
+def p2_cubic_residual(p2k, c, rho, dt, conc_max):
+    """(n_dofs,) quadratic logistic residual term q_i = dt rho / c_max ∫ c²
+    φ_i dx of P2 c, in the quadrature form with the cell axis last
+    (Σ_q w φ_i(q) c(q)², the residual's degree-6 rule), accumulated by the
+    P2 kernels' class-split scatter."""
+    _, det = _geom(p2k)
+    rho = p2k._co(rho)
+    cq = p2k.at_quad_T(p2k.gather_T(c))  # (nq, nc)
+    w = ((dt / conc_max) * rho * det)[None, :] * p2k.qw[:, None]
+    return p2k.scatter_T(p2k._test_T(w * cq * cq))

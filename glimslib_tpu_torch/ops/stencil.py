@@ -16,6 +16,10 @@ W[o, i] = 0 exactly.
 
 The ``apply_*`` methods run the plain torch versions of the CUDA stencil
 kernel (``ops/stencil_kernels.py``); the models call the kernel wrappers.
+A symmetric operator can be kept folded, as its offset >= 0 planes
+(``fold_sym``), and applied from them (``apply_scalar_sym``,
+``apply_vector_sym``, ``block_jacobi_inverse_sym``), in plain torch as in
+the JAX package; no path of either package calls them.
 
 On a rank's node slab (``parallel/gspmd.py NodeSlab``) the operators are
 built over the cells that touch an owned node, in node ids local to the
@@ -138,6 +142,13 @@ class StencilOperators:
         self._t0 = math.factorial(self.dim) / math.factorial(self.dim + 3)
         self.offsets = [int(o) for o in self.plan.offsets]
         self._eye = torch.eye(self.npe, **kw)
+        # folded storage of a symmetric operator: its offset >= 0 planes
+        # (A[i, i + o] = A[i + o, i]^T), the zero offset first
+        self.sym_idx = np.asarray([i for i, o in enumerate(self.offsets) if o >= 0],
+                                  dtype=np.int64)
+        sym_offsets = [self.offsets[i] for i in self.sym_idx]
+        assert sym_offsets[0] == 0
+        self.pos_offsets = sym_offsets[1:]
 
     def _cell_coeff(self, x):
         return torch.as_tensor(x, dtype=self.dtype, device=self.device)
@@ -239,11 +250,14 @@ class StencilOperators:
     def block_jacobi_inverse(self, W, mask=None):
         """Per-node (d, d) diagonal-block inverse from the zero-offset plane;
         masked (Dirichlet) nodes use the identity block.  Returns (d, d, n)."""
-        d = self.dim
-        B = W[self.offsets.index(0)]  # (d, d, n)
+        return self._block_inverse(W[self.offsets.index(0)], mask)
+
+    def _block_inverse(self, B, mask):
+        """Per-node inverses (d, d, n) of the diagonal blocks B (d, d, n),
+        the identity at masked nodes."""
         if mask is not None:
             m = mask.any(dim=1)
-            eye = torch.eye(d, dtype=B.dtype, device=B.device)[:, :, None]
+            eye = torch.eye(self.dim, dtype=B.dtype, device=B.device)[:, :, None]
             B = torch.where(m[None, None, :], eye, B)
         Binv = torch.linalg.inv(torch.movedim(B, -1, 0))
         return torch.movedim(Binv, 0, -1).contiguous()
@@ -251,6 +265,50 @@ class StencilOperators:
     def apply_block_jacobi(self, Binv, r):
         """r (n, d) -> (n, d): per-node block solve."""
         return apply_block_jacobi(Binv, r)
+
+    def block_jacobi_inverse_sym(self, Ws, mask=None):
+        """:meth:`block_jacobi_inverse` from folded planes (their first
+        plane is the zero offset)."""
+        return self._block_inverse(Ws[0], mask)
+
+    # -- folded symmetric planes (plain torch) ---------------------------------
+
+    def fold_sym(self, W):
+        """The offset >= 0 planes of a symmetric operator (plane axis
+        first), for the ``*_sym`` applies: the full-plane result from half
+        the planes."""
+        return W[torch.as_tensor(self.sym_idx, device=W.device)]
+
+    def apply_scalar_sym(self, Ws, vvec):
+        """Symmetric scalar matvec from folded planes: the +o plane serves
+        both directions, A[i, i+o] v[i+o] and, rolled, A[i+o, i] v[i]."""
+        acc = Ws[0] * vvec
+        for k, off in enumerate(self.pos_offsets):
+            w = Ws[k + 1]
+            acc = acc + w * torch.roll(vvec, -off)
+            acc = acc + torch.roll(w * vvec, off)
+        return acc
+
+    def apply_vector_sym(self, Ws, u):
+        """Symmetric vector matvec from folded planes (n_sym, d, d, n): the
+        reverse direction takes the transposed (a, b) block."""
+        d = self.dim
+        cols = []
+        for a in range(d):
+            acc = torch.zeros(u.shape[0], dtype=u.dtype, device=u.device)
+            for b in range(d):
+                acc = acc + Ws[0, a, b] * u[:, b]
+            cols.append(acc)
+        for k, off in enumerate(self.pos_offsets):
+            W = Ws[k + 1]
+            for a in range(d):
+                fwd = torch.zeros(u.shape[0], dtype=u.dtype, device=u.device)
+                rev = torch.zeros(u.shape[0], dtype=u.dtype, device=u.device)
+                for b in range(d):
+                    fwd = fwd + W[a, b] * torch.roll(u[:, b], -off)
+                    rev = rev + W[b, a] * u[:, b]
+                cols[a] = cols[a] + fwd + torch.roll(rev, off)
+        return torch.stack(cols, dim=1)
 
     # -- plain applications (torch.roll; ops/stencil_kernels.py) -------------
 

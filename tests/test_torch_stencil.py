@@ -257,3 +257,55 @@ def test_packed_offsets_cached_by_value(offsets):
         o % 100 for o in offsets]
     with pytest.raises(ValueError):
         kernel_build.pack_offsets(list(range(kernel_build.MAX_OFF + 1)), n)
+
+
+@pytest.mark.parametrize("kind", ["rect", "box"])
+def test_folded_symmetric_applies_match_full_and_jax(kind):
+    """fold_sym and the *_sym applies (tests/test_stencil.py:179-215) on
+    the 6 x 5 rectangle and the 3 x 4 x 3 box at f64: the folded
+    elasticity and rd Jacobian applies equal the port's full-plane ones
+    and the JAX package's folded ones (max abs 1e-12, values O(1-10)),
+    block_jacobi_inverse_sym the full-plane inverse and JAX's (1e-12);
+    the folded planes are JAX's exactly."""
+    if kind == "rect":
+        mt, mj = rectangle_mesh((0, 0), (2, 1), 6, 5), jax_rectangle_mesh((0, 0), (2, 1), 6, 5)
+    else:
+        mt, mj = box_mesh((0, 0, 0), (1, 2, 1), 3, 4, 3), jax_box_mesh(
+            (0, 0, 0), (1, 2, 1), 3, 4, 3)
+    ops, opsj = StencilOperators(mt), JaxStencilOperators(mj, dtype=jnp.float64)
+    assert ops.sym_idx.tolist() == np.asarray(opsj.sym_idx).tolist()
+    assert ops.pos_offsets == list(opsj.pos_offsets)
+    rng = np.random.default_rng(7)
+    mids = mt.cell_midpoints
+    mu, lam = 1.0 + mids[:, 0], 2.0 + mids[:, 1]
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64)  # noqa: E731
+    W = ops.build_elasticity(t(mu), t(lam))
+    Wj = opsj.build_elasticity(jnp.asarray(mu), jnp.asarray(lam))
+    Ws, Wsj = ops.fold_sym(W), opsj.fold_sym(Wj)
+    assert Ws.shape[0] == len(ops.pos_offsets) + 1
+    np.testing.assert_array_equal(Ws.numpy(), np.asarray(opsj.fold_sym(jnp.asarray(W.numpy()))))
+    u = rng.standard_normal((mt.n_nodes, mt.dim))
+    sym = ops.apply_vector_sym(Ws, t(u)).numpy()
+    np.testing.assert_allclose(sym, ops.apply_vector(W, t(u)).numpy(), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(sym, np.asarray(opsj.apply_vector_sym(Wsj, jnp.asarray(u))),
+                               rtol=0, atol=1e-12)
+
+    c = rng.standard_normal(mt.n_nodes)
+    Wrd = ops.build_rd_jacobian(t(0.1 * c + 0.5), t(0.3), t(0.2), 1.0)
+    Wrdj = opsj.build_rd_jacobian(jnp.asarray(0.1 * c + 0.5), jnp.asarray(0.3),
+                                  jnp.asarray(0.2), 1.0)
+    sym_s = ops.apply_scalar_sym(ops.fold_sym(Wrd), t(c)).numpy()
+    np.testing.assert_allclose(sym_s, ops.apply_scalar(Wrd, t(c)).numpy(), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(
+        sym_s, np.asarray(opsj.apply_scalar_sym(opsj.fold_sym(Wrdj), jnp.asarray(c))),
+        rtol=0, atol=1e-12)
+
+    mask = rng.random((mt.n_nodes, mt.dim)) < 0.2
+    for m in (None, mask):
+        tm = None if m is None else torch.as_tensor(m)
+        jm = None if m is None else jnp.asarray(m)
+        Binv = ops.block_jacobi_inverse_sym(Ws, mask=tm).numpy()
+        np.testing.assert_allclose(Binv, ops.block_jacobi_inverse(W, mask=tm).numpy(),
+                                   rtol=0, atol=1e-12)
+        np.testing.assert_allclose(Binv, np.asarray(opsj.block_jacobi_inverse_sym(Wsj, mask=jm)),
+                                   rtol=0, atol=1e-12)

@@ -12,6 +12,7 @@ the exact one to 5e-12; the port and the JAX package to 1e-8.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from glimslib_tpu.core.mesh import Mesh as JaxMesh
@@ -21,6 +22,15 @@ from glimslib_tpu_torch.core.mesh import Mesh, rectangle_mesh
 from glimslib_tpu_torch.models.tumor_growth import TumorGrowth
 
 N_STEPS = 4
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread a test: the suite runs one process a core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 class _All:
@@ -92,6 +102,87 @@ def test_algebraic_anchor_matches_exact(monkeypatch):
 def test_warm_start_matches_jax():
     """The port's final state equals the JAX package's (linear warm
     starts on both sides) to 1e-8 (max abs; states are O(1))."""
+    u_t, c_t = _final(_sim())
+    m = jax_rectangle_mesh((-5, -5), (5, 5), 14, 14)
+    sim = _setup(JaxTumorGrowth(JaxMesh.from_arrays(m.points, m.cells)))
+    theta = sim.make_theta(sim.params.as_dict())
+    iv = sim.params.create_initial_value_function()
+    aux = sim.runtime_aux()
+    args = (theta, jnp.asarray(iv[0], sim.dtype), jnp.asarray(iv[1], sim.dtype))
+    u_j, c_j, ok, _ = jax.jit(sim.build_simulate_fn(N_STEPS, 1.0))(
+        *(args + (aux,) if aux else args))
+    assert bool(np.asarray(ok).all()) and sim._warm_start_ok
+    assert np.abs(u_t - np.asarray(u_j[-1])).max() < 1e-8
+    assert np.abs(c_t - np.asarray(c_j[-1])).max() < 1e-8
+
+
+def test_quadratic_warm_start_matches_linear_and_cold(monkeypatch):
+    """GLIMS_WARM_ORDER=3 (the quadratic guess 3 x_k - 3 x_{k-1} +
+    x_{k-2}, read when the simulate is built) lands where the linear guess
+    and a cold start do, to 5e-9 (tests/test_warmstart.py:71-82)."""
+    u2, c2 = _final(_sim())
+    monkeypatch.setenv("GLIMS_WARM_ORDER", "3")
+    sim = _sim()
+    simulate = sim.build_simulate_fn(N_STEPS, 1.0)
+    monkeypatch.setenv("GLIMS_WARM_ORDER", "2")  # read at build time: no effect
+    u_tr, c_tr, ok, _ = simulate(sim.make_theta(sim.params.as_dict()), *sim.initial_state())
+    assert bool(ok.all())
+    u3, c3 = u_tr[-1].numpy(), c_tr[-1].numpy()
+    uc, cc = _cold(_sim())
+    tol = 5e-9
+    assert np.abs(u3 - u2).max() < tol and np.abs(c3 - c2).max() < tol
+    assert np.abs(u3 - uc).max() < tol and np.abs(c3 - cc).max() < tol
+    # the guesses differ, so the iterations may: the states do not
+    assert not np.array_equal(c3, c2) or not np.array_equal(u3, u2)
+
+
+def test_alg_anchor_switch_matches_exact(monkeypatch):
+    """GLIMS_ALG_ANCHOR=0 leaves the step to evaluate the exact anchor
+    ||r_c(c_prev)||; the trajectory equals the algebraic anchor's to 5e-12
+    (tests/test_warmstart.py:98-110), at both warm-start orders, and the
+    step evaluates the rd residual once more a step."""
+    for order in ("2", "3"):
+        monkeypatch.setenv("GLIMS_WARM_ORDER", order)
+        monkeypatch.setenv("GLIMS_ALG_ANCHOR", "1")
+        ua, ca = _final(_sim())
+        monkeypatch.setenv("GLIMS_ALG_ANCHOR", "0")
+        sim = _sim()
+        calls = []
+        rd = sim.rd_residual
+        monkeypatch.setattr(sim, "rd_residual", lambda *a: calls.append(1) or rd(*a))
+        ue, ce = _final(sim)
+        n_exact = len(calls)
+        monkeypatch.setenv("GLIMS_ALG_ANCHOR", "1")
+        sim = _sim()
+        calls.clear()
+        rd = sim.rd_residual
+        monkeypatch.setattr(sim, "rd_residual", lambda *a: calls.append(1) or rd(*a))
+        _final(sim)
+        assert n_exact > len(calls), (n_exact, len(calls))
+        assert np.abs(ua - ue).max() < 5e-12
+        assert np.abs(ca - ce).max() < 5e-12
+
+
+def test_quadratic_warm_start_on_the_chebyshev_lattice(monkeypatch):
+    """The lattice lane warm-starts where it takes the pcg branch
+    (Chebyshev preconditioning): GLIMS_WARM_ORDER=3 lands within 5e-9 of
+    the linear guess there too."""
+    out = {}
+    for order in ("2", "3"):
+        monkeypatch.setenv("GLIMS_WARM_ORDER", order)
+        sim = _setup(TumorGrowth(rectangle_mesh((-5, -5), (5, 5), 14, 14),
+                                 dtype=torch.float64, device="cpu"))
+        sim.step_config = sim.step_config._replace(precond_degree=3)
+        assert sim.lattice
+        out[order] = _final(sim)
+    assert np.abs(out["3"][0] - out["2"][0]).max() < 5e-9
+    assert np.abs(out["3"][1] - out["2"][1]).max() < 5e-9
+
+
+def test_quadratic_warm_start_matches_jax(monkeypatch):
+    """GLIMS_WARM_ORDER=3 on both sides: the port's final state equals the
+    JAX package's to 1e-8 (max abs)."""
+    monkeypatch.setenv("GLIMS_WARM_ORDER", "3")
     u_t, c_t = _final(_sim())
     m = jax_rectangle_mesh((-5, -5), (5, 5), 14, 14)
     sim = _setup(JaxTumorGrowth(JaxMesh.from_arrays(m.points, m.cells)))

@@ -136,6 +136,22 @@ def forward_rank(mesh, quad):
     return out
 
 
+def p2stream_rank(mesh):
+    """One rank, with GLIMS_P2STREAM=1 in the environment: the quad model
+    unsharded and sharded on the same mesh, N_STEPS each; whether the
+    sharded theta carries the streamed planes as the rank's slab (the
+    mass plane's blocks against the whole one's) and the constant load."""
+    torch.set_num_threads(1)
+    whole = port_sim(True)
+    sim = port_sim(True, mesh=whole.mesh)
+    whole_tables = _tables(whole)
+    sim.use_sharding(mesh)
+    tables = _tables(sim)
+    return dict(sharded=_run(sim), whole=_run(whole), p2_sharded=sim._p2_sharded,
+                mass=(tuple(tables["_P2BMrd"].shape), tuple(whole_tables["_P2BMrd"].shape)),
+                load="_P2B_rd_load" in tables and "_P2B_rd_load" in whole_tables)
+
+
 def grad_rank(mesh, quad, targets, v0):
     """One rank: value_and_grad of type 2 (D_WM, rho_WM) on the sharded
     model at ``v0`` with ``targets``; J and the gradient, and whether every
