@@ -2289,6 +2289,7 @@ def phase_quad(torch, dev, kern, keep=None):
     p2_dof_layout(Mesh.from_arrays(sim.mesh.points, sim.mesh.cells))
     layout_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
     t0 = time.perf_counter()
     aux = sim.runtime_aux()
     torch.cuda.synchronize()
@@ -2429,6 +2430,7 @@ def phase_quad(torch, dev, kern, keep=None):
     return dict(
         p2_dofs=p2.n_dofs, plan=dict(nb=pp.nb, s=pp.s, Kh=pp.Kh, slots=slots),
         setup_s=dict(model=model_s, p2_layout=layout_s, iv_projection=iv_s, **st),
+        frozen_state_peak_mib=(aux_peak - held) / 2**20,
         forward=dict(first_s=first_s, rel_c=rel[0], rel_u=rel[1],
                      rel_tight=rel_tight, weighted_bound_share=share, **iters, **run),
         refined=dict(rel_c=rel_r[0], rel_u=rel_r[1], rel_tight=rel_rt, **run_r),
@@ -3395,8 +3397,10 @@ def _bmv_roles(sim, aug):
     roles = [("elasticity operator _BellWel", aug["_BellWel"].reshape(nb, s * d, Kh * d)),
              ("elasticity supernode Jacobi _BinvSN", aug["_BinvSN"])]
     if sim.quad:
-        return roles + [("P2 rd constant plane _P2BWrdC", aug["_P2BWrdC"]),
-                        ("P2 supernode Jacobi _McSNP2", aug["_McSNP2"])]
+        # no P2 tables where the rd block is on the jvp lane (GLIMS_P2BELL=0)
+        return roles + ([("P2 rd constant plane _P2BWrdC", aug["_P2BWrdC"]),
+                         ("P2 supernode Jacobi _McSNP2", aug["_McSNP2"])]
+                        if "_P2BWrdC" in aug else [])
     return roles + [("coupling _BellCuc", aug["_BellCuc"].reshape(nb, s * d, Kh)),
                     ("rd constant planes _BellWrdC", aug["_BellWrdC"]),
                     ("rd supernode Jacobi _McSN", aug["_McSN"])]
@@ -5876,6 +5880,357 @@ def phase_warm(torch, dev, usim):
     return out
 
 
+# [19]: the reference's size and gate switches on the card.  Each
+# way runs SW_STEPS step(s) on a model whose plans and frozen state are built
+# under the switch (the cached ones set aside and put back after), with its
+# set-up by part, CG counts, launches, busy and idle, and its state against
+# the same model's default run; every bell_bmv shape a switch gives the
+# kernel is held against plain and timed as [5] does (_bmv_check).
+SW_STEPS = 1
+# [19a]'s forward on the node block-ELL lane
+ELL_STEPS = 2
+# [19d]'s quad box (cut from [10]'s n=32: the uninterleaved flagship P2
+# plan is Kh = 890, 248M slots at s = 32)
+SW_QUAD_N = 16
+SW_CACHED = ("_bell_plan", "_p2_plan", "_agg_plan", "_aux_cache", "_plan_seconds")
+
+
+class _Switched:
+    """``with _Switched(sim, env):`` the switches ``env`` set and the
+    model's cached plans and frozen state set aside (plans it builds meanwhile
+    are dropped from its mesh's cache at the end); with no switch the
+    model as it is."""
+
+    def __init__(self, sim, env):
+        self.sim, self.env = sim, env
+
+    def __enter__(self):
+        sim = self.sim
+        self.saved = {k: getattr(sim, k) for k in SW_CACHED}
+        self.setup = getattr(sim, "setup_seconds", None)
+        self.old = {k: os.environ.get(k) for k in self.env}
+        self.plans = set(getattr(sim.mesh, "_plan_cache", {}))
+        os.environ.update(self.env)
+        if self.env:
+            for k in SW_CACHED:
+                # the aggregation plan depends on one switch only
+                if k != "_agg_plan" or "GLIMS_TWOLEVEL_AGG" in self.env:
+                    setattr(sim, k, {} if k == "_plan_seconds" else None)
+        return sim
+
+    def __exit__(self, *exc):
+        sim = self.sim
+        for k, v in self.old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        for k, v in self.saved.items():
+            setattr(sim, k, v)
+        sim.setup_seconds = self.setup
+        cache = getattr(sim.mesh, "_plan_cache", {})
+        for k in set(cache) - self.plans:
+            del cache[k]
+        return False
+
+
+def _known_shapes(kern):
+    """The bell_bmv shapes that [5], [10a] and [19] have held and timed."""
+    return {tuple(r["shape"]) for r in kern["shapes"] + kern.get("p2_shapes", [])
+            + kern.get("switch_shapes", [])}
+
+
+def _sw_shapes(torch, sim, aug, dev, tag, kern, known):
+    """Hold and time (``_bmv_check``) each bell_bmv shape of the model's
+    tables that no phase has held yet; ``known`` gains them and
+    kern["switch_shapes"] their records."""
+    roles, seen = [], set()
+    for role, A in _bmv_roles(sim, aug):
+        shape = tuple(A.shape)
+        if shape not in known and shape not in seen:
+            seen.add(shape)
+            roles.append((role, A))
+    if roles:
+        recs = _bmv_check(torch, roles, dev, tag)
+        kern.setdefault("switch_shapes", []).extend(recs)
+        known.update(tuple(r["shape"]) for r in recs)
+
+
+def _sw_way(torch, dev, sim, env, tag, n_steps, kern, known, base=None, extra=None):
+    """One way of [19]: ``sim`` under the switches ``env`` (_Switched), its
+    frozen state built and timed by part with the peak memory of the
+    build, its new bell_bmv shapes held, one counted run, whose time
+    stands for a timed run's (no second unprofiled run), and one profiled
+    run, then ``extra(theta, aux, (u, c))`` (a dict of more numbers) under
+    the switches too; the final state against ``base`` ((u, c) of the
+    default run) within UNSTRUCT_RTOL.  Returns its numbers and final
+    (u, c)."""
+    from glimslib_tpu_torch.ops import bell_kernels as bk
+
+    with _Switched(sim, env):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        aux = sim.runtime_aux()
+        torch.cuda.synchronize()
+        aux_s = time.perf_counter() - t0
+        # the build's own peak: over what the card held before it
+        aux_peak = (torch.cuda.max_memory_allocated(dev) - held) / 2**20
+        theta = sim.make_theta(sim.params.as_dict())
+        args = (theta, *sim.initial_state())
+        sim._build_step()
+        bell_lane = sim._use_bell()
+        if bell_lane:
+            aug = sim._augment_theta_with_operators({**theta, **aux})
+            _sw_shapes(torch, sim, aug, dev, tag, kern, known)
+            del aug
+        simulate = sim.build_simulate_fn(n_steps, 1.0)
+        bk.batched_matvec.launches_by_shape = {}
+        groups = [(bk.batched_matvec,)] if bell_lane else []
+        (u, c), launches, first_s = _drive(torch, sim, simulate, args, groups, tag,
+                                           n_steps, shown=[bk.batched_matvec])
+        by_shape = dict(bk.batched_matvec.launches_by_shape)
+        if not bell_lane and launches[bk.batched_matvec]:
+            raise AssertionError(f"{tag} bell_bmv launched off the supernode lane")
+        missed = sorted(set(by_shape) - known)
+        if missed:
+            raise AssertionError(f"{tag} bell_bmv shapes no phase held: {missed}")
+        iters = {k: [int(i) for i in sim.solver_info[k]] for k in ("rd_cg_iters",
+                                                                    "el_cg_iters")}
+        print(f"{tag} steps/s {n_steps / first_s:.4f} (the counted run)")
+        _, busy, idle = _print_breakdown(torch, lambda: simulate(*args), 1e3 * first_s,
+                                         tag, run_name="the counted run's")
+        run = dict(steps_per_s=n_steps / first_s, device_busy_ms=busy, idle_share=idle)
+        run_peak = torch.cuda.max_memory_allocated(dev) / 2**20
+        setup = dict(sim.setup_seconds, frozen_state=aux_s)
+        print(f"{tag} frozen state {aux_s:.2f} s (" + ", ".join(
+            f"{k} {v:.2f}" for k, v in sim.setup_seconds.items()) + f"), keys "
+            f"{sorted(aux)}; peak memory of the build {aux_peak:.1f} MiB over the "
+            f"{held / 2**20:.1f} held before it; of the counted and profiled runs "
+            f"{run_peak:.1f} MiB")
+        out = dict(run, setup_s=setup, aux_keys=sorted(aux), aux_peak_mib=aux_peak,
+                   run_peak_mib=run_peak, cg_iters=iters, first_s=first_s,
+                   bell_bmv_launches=launches[bk.batched_matvec],
+                   bell_bmv_by_shape={"x".join(map(str, k)): v for k, v in by_shape.items()})
+        if bell_lane:
+            out["weighted_bound_share"] = _bmv_split(
+                {"shapes": kern["shapes"] + kern.get("p2_shapes", [])
+                 + kern.get("switch_shapes", [])}, by_shape, tag)
+        if extra is not None:
+            out.update(extra(theta, aux, (u, c)))
+    if base is not None:
+        rel = (_rel_l2(c[-1], base[1]), _rel_l2(u[-1], base[0]))
+        out.update(rel_c=rel[0], rel_u=rel[1])
+        print(f"{tag} against the default run: rel-L2 c {rel[0]:.3e}, u {rel[1]:.3e} "
+              f"(<= {UNSTRUCT_RTOL})")
+        if max(rel) > UNSTRUCT_RTOL:
+            raise AssertionError(f"{tag} against the default run {rel}")
+    return out, (u[-1], c[-1])
+
+
+def _ell_matvec_ms(torch, sim, theta, aux, tag):
+    """The node block-ELL matvecs' device ms a call on the model's planes
+    (``ops/ell.py``: plain torch, no TPU kernel behind them) beside their
+    bound (the values and x read once, y written once)."""
+    from glimslib_tpu_torch.ops import ell
+
+    theta = sim._augment_theta_with_operators({**theta, **aux})
+    adj = sim._get_ell_plan().adj_idx
+    u, c = sim.initial_state()
+    out = {}
+    for name, fn, W, x in (("apply_ell_vector", ell.apply_ell_vector, theta["_EllWel"], u),
+                           ("apply_ell_scalar", ell.apply_ell_scalar, theta["_EllWrd"], c)):
+        ms, src = _call_device_ms(torch, lambda: fn(adj, W, x), reps=10)
+        nbytes = W.numel() * 4 + adj.numel() * 8 + 2 * x.numel() * 4
+        bound_ms, bound_by = _bound(nbytes, 2 * W.numel())
+        print(f"{tag} {name} W {tuple(W.shape)}: {ms:.4f} ms of device time a call "
+              f"({src}), bound {bound_ms:.4f} ms ({bound_by}) = "
+              f"{100 * bound_ms / ms:.1f}%")
+        out[name] = dict(shape=list(W.shape), device_ms=ms, bound_ms=bound_ms)
+    return out
+
+
+def phase_switches_p1(torch, dev, usim, uref, base6, kern, keep):
+    """[19a] GLIMS_BELL=0 on [6]'s box: ELL_STEPS steps against [6]'s f64
+    plain path and one value_and_grad of [7]'s unstructured cell, J held to
+    [7]'s f64 J (its call reused); [19b] the size and gate switches on
+    [6]'s box, SW_STEPS step(s) each beside the default."""
+    import numpy as np
+
+    from glimslib_tpu_torch.examples import UNSTRUCT_STEP_CONFIG
+    from glimslib_tpu_torch.ops import bell_kernels as bk
+
+    t_phase = time.perf_counter()
+    usim.step_config = UNSTRUCT_STEP_CONFIG
+    known = _known_shapes(kern)
+    out = {}
+    u_r, c_r = base6["ref_traj"]
+
+    # [19a] the node block-ELL lane
+    tag = f"[19a] n={N} GLIMS_BELL=0:"
+    t0 = time.perf_counter()
+    ip7, v0 = keep["adjoint_problems"][id(usim)]
+
+    def ell_extra(theta, aux, final):
+        u, c = final
+        rel = (_rel_l2(c[-1], c_r[ELL_STEPS - 1]), _rel_l2(u[-1], u_r[ELL_STEPS - 1]))
+        print(f"{tag} against [6]'s f64 plain path after {ELL_STEPS} steps: rel-L2 c "
+              f"{rel[0]:.3e}, u {rel[1]:.3e} (<= {UNSTRUCT_RTOL})")
+        if max(rel) > UNSTRUCT_RTOL:
+            raise AssertionError(f"{tag} against the f64 plain path {rel}")
+        ip = type(ip7)(usim, ip7.param_names, ip7.targets, update_fn=ip7.update_fn,
+                       n_steps=ip7.n_steps, dt=ip7.dt)
+        bk.batched_matvec.launches = 0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        J, g = ip.value_and_grad(v0)
+        torch.cuda.synchronize()
+        vg_s = time.perf_counter() - t1
+        if bk.batched_matvec.launches:
+            raise AssertionError(f"{tag} bell_bmv launched in value_and_grad")
+        info = {k: [int(i) for i in v] for k, v in usim.solver_info.items()}
+        _, busy, idle = _print_breakdown(torch, lambda: ip.value_and_grad(v0), 1e3 * vg_s,
+                                         f"{tag} value_and_grad:")
+        # [7]'s f64 call on the same targets (_adjoint_lane's key)
+        key = (id(uref), ip.n_steps, ip.dt, tuple(np.asarray(v0, np.float64).tolist()),
+               tuple((k, v.data_ptr()) for k, v in sorted(ip.targets.items())))
+        J64, g64 = keep["f64_calls"][key]
+        rel_J = abs(J - J64) / abs(J64)
+        rel_g = float(np.linalg.norm(g - g64) / np.linalg.norm(g64))
+        print(f"{tag} value_and_grad {vg_s:.3f} s: J {J:.6e} against [7]'s f64 J "
+              f"{J64:.6e}: rel {rel_J:.3e} (<= {ADJ_J_RTOL['unstructured']}), gradient "
+              f"rel-L2 {rel_g:.3e} (<= {ADJ_G_RTOL['unstructured']}); adjoint CG rd "
+              f"{info['rd_adj_cg_iters']}, elasticity {info['el_adj_cg_iters']}; "
+              f"bell_bmv launches 0")
+        if rel_J > ADJ_J_RTOL["unstructured"] or rel_g > ADJ_G_RTOL["unstructured"]:
+            raise AssertionError(f"{tag} value_and_grad J {rel_J:.3e}, gradient {rel_g:.3e}")
+        return dict(rel_c=rel[0], rel_u=rel[1],
+                    matvecs=_ell_matvec_ms(torch, usim, theta, aux, tag),
+                    value_and_grad=dict(seconds=vg_s, J=J, rel_J=rel_J, rel_grad=rel_g,
+                                        device_busy_ms=busy, idle_share=idle,
+                                        adjoint_cg_iters={"rd": info["rd_adj_cg_iters"],
+                                                          "el": info["el_adj_cg_iters"]}))
+
+    way, _ = _sw_way(torch, dev, usim, {"GLIMS_BELL": "0"}, tag, ELL_STEPS, kern, known,
+                     extra=ell_extra)
+    out["ell"] = way
+    print(f"[19a] {time.perf_counter() - t0:.1f} s")
+
+    # [19b] the size and gate switches, each against the default
+    t0 = time.perf_counter()
+    out["default"], base = _sw_way(torch, dev, usim, {}, f"[19b] n={N} default:", SW_STEPS,
+                                   kern, known)
+    for env in ({"GLIMS_BELL_S": "16"}, {"GLIMS_BELL_S": "64"}, {"GLIMS_TWOLEVEL": "0"},
+                {"GLIMS_TWOLEVEL_AGG": "32"}, {"GLIMS_COARSE_K": "0"},
+                {"GLIMS_TWOLEVEL_BF16": "0"}, {"GLIMS_FACTORED": "0"}):
+        name = ",".join(f"{k}={v}" for k, v in env.items())
+        tag = f"[19b] n={N} {name}:"
+        extra = None
+        if "GLIMS_FACTORED" in env:
+            def extra(theta, aux, final, tag=tag):
+                ms, src = _call_device_ms(
+                    torch, lambda: usim._augment_theta_with_operators({**theta, **aux}))
+                print(f"{tag} per-simulate assembly {ms:.3f} ms of device time ({src})")
+                return dict(assembly_device_ms=ms)
+        way, _ = _sw_way(torch, dev, usim, env, tag, SW_STEPS, kern, known, base, extra)
+        out[name] = way
+    print(f"[19b] {time.perf_counter() - t0:.1f} s")
+    print(f"[19a-b] phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def _p2_plan_numbers(sim, tag):
+    """The quad model's P2 plan: nb, s, Kh, gathered rows a block, dense
+    slots and the index bytes of its placement."""
+    pp = sim._get_p2_plan()
+    slots = pp.nb * pp.s * pp.Kh
+    print(f"{tag} P2 plan nb={pp.nb}, s={pp.s}, Kh={pp.Kh} (halo chunk "
+          f"{pp.halo_chunk}: {pp.khe_rows} gathered rows a block for {pp.Khe} slots), "
+          f"{slots} dense slots, {4 * slots / 1e6:.1f} MB a f32 plane")
+    return dict(p2_plan=dict(nb=pp.nb, s=pp.s, Kh=pp.Kh, khe_rows=pp.khe_rows,
+                             halo_chunk=pp.halo_chunk, slots=slots))
+
+
+def phase_switches_quad(torch, dev, quad, quad10, kern):
+    """[19c] on [10b]'s quad flagship (``quad``: its model and frozen state;
+    ``quad10``: [10]'s numbers, the default's set-up and peak): GLIMS_P2_S=32,
+    GLIMS_P2_HALO_CHUNK=4 and GLIMS_ASSEMBLE_CHUNK_SLOTS at the reference's
+    32,000,000, SW_STEPS step(s) each beside the default, at the f32
+    default (refined in f64: the exact P2 Jacobian, ``build_p2_rd_wc``,
+    every Newton iteration); [19d] GLIMS_P2BELL=0 and GLIMS_P2_INTERLEAVE=0
+    on the SW_QUAD_N box (its own mesh for the canonical P2 order), at the
+    f32 default and newton_atol QUAD_NEWTON_ATOL, so that the lanes' states
+    compare."""
+    import numpy as np
+
+    from glimslib_tpu_torch.examples import brain_sim
+    from glimslib_tpu_torch.models.base import default_step_config
+    from glimslib_tpu_torch.solvers.coupled import StepConfig
+
+    t_phase = time.perf_counter()
+    sim = quad["sim"]
+    # the f32 default, refined: the exact P2 Jacobian every Newton iteration
+    sim.step_config = default_step_config(torch.float32)
+    sim._aux_cache = quad["aux"]
+    known = _known_shapes(kern)
+    out = {}
+    tag = f"[19c] quad n={N} default:"
+    out["quad_default"], base = _sw_way(torch, dev, sim, {}, tag, SW_STEPS, kern, known,
+                                        extra=lambda *a: _p2_plan_numbers(sim, tag))
+    # the default's frozen state was built in [10]
+    out["quad_default"]["setup_s"] = quad10["setup_s"]
+    out["quad_default"]["aux_peak_mib"] = quad10["frozen_state_peak_mib"]
+    print(f"{tag} [10]'s frozen state: peak memory of the build "
+          f"{quad10['frozen_state_peak_mib']:.1f} MiB over what the card held")
+    for env in ({"GLIMS_P2_S": "32"}, {"GLIMS_P2_HALO_CHUNK": "4"},
+                {"GLIMS_ASSEMBLE_CHUNK_SLOTS": "32000000"}):
+        name = ",".join(f"{k}={v}" for k, v in env.items())
+        tag = f"[19c] quad n={N} {name}:"
+        out[name], _ = _sw_way(torch, dev, sim, env, tag, SW_STEPS, kern, known, base,
+                               extra=lambda *a, tag=tag: _p2_plan_numbers(sim, tag))
+        torch.cuda.empty_cache()
+    del sim
+    print(f"[19c] {time.perf_counter() - t_phase:.1f} s")
+
+    t0 = time.perf_counter()
+    cfg = StepConfig(**{**default_step_config(torch.float32)._asdict(),
+                        "newton_atol": QUAD_NEWTON_ATOL})
+    small = brain_sim(n=SW_QUAD_N, dtype=torch.float32, device=dev, unstructured=True,
+                      quad=True)
+    small.step_config = cfg
+    tag = f"[19d] quad n={SW_QUAD_N} default:"
+    out["quad_small_default"], base = _sw_way(torch, dev, small, {}, tag, SW_STEPS, kern, known,
+                                         extra=lambda *a: _p2_plan_numbers(small, tag))
+    tag = f"[19d] quad n={SW_QUAD_N} GLIMS_P2BELL=0:"
+    out["GLIMS_P2BELL=0"], _ = _sw_way(torch, dev, small, {"GLIMS_P2BELL": "0"}, tag,
+                                       SW_STEPS, kern, known, base)
+    # the canonical P2 order is the mesh's: a model on a mesh of its own
+    os.environ["GLIMS_P2_INTERLEAVE"] = "0"
+    try:
+        canon = brain_sim(n=SW_QUAD_N, dtype=torch.float32, device=dev, unstructured=True,
+                          quad=True)
+    finally:
+        os.environ.pop("GLIMS_P2_INTERLEAVE")
+    if not np.array_equal(canon.p2.dof_perm, np.arange(canon.p2.n_dofs)):
+        raise AssertionError("[19d] GLIMS_P2_INTERLEAVE=0 did not give the canonical order")
+    canon.step_config = cfg
+    tag = f"[19d] quad n={SW_QUAD_N} GLIMS_P2_INTERLEAVE=0:"
+    # its c in the canonical order against the default's, mapped there
+    rank = torch.as_tensor(small.p2.dof_rank, device=dev)
+    way, _ = _sw_way(torch, dev, canon, {"GLIMS_P2_INTERLEAVE": "0"}, tag, SW_STEPS, kern,
+                     known, (base[0], base[1][rank]),
+                     extra=lambda *a: _p2_plan_numbers(canon, tag))
+    out["GLIMS_P2_INTERLEAVE=0"] = way
+    del small, canon
+    torch.cuda.empty_cache()
+    print(f"[19d] {time.perf_counter() - t0:.1f} s")
+    kern["max_abs_err"] = max([kern["max_abs_err"]] + [r["max_abs_err"] for r in
+                                                       kern.get("switch_shapes", [])])
+    print(f"[19c-d] phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main():
     import torch
 
@@ -5925,6 +6280,7 @@ def main():
 
     defaults = phase_defaults(torch, dev, (sim, ref, lat_state, lat_rel),
                               (usim, uref, base6), keep)
+    switches = phase_switches_p1(torch, dev, usim, uref, base6, kern, keep)
     del keep["adjoint_problems"], keep["f64_calls"]
     aux6 = usim.runtime_aux()
     keep["p1"]["table_bytes"] = _table_bytes(usim._augment_theta_with_operators(
@@ -5942,8 +6298,9 @@ def main():
     torch.cuda.empty_cache()
 
     phase18 = {"mg": phase_mg(torch, dev, sim, kernels)}
-    phase18["p2stream"] = phase_p2stream(torch, dev, keep.pop("quad18"), kern)
+    phase18["p2stream"] = phase_p2stream(torch, dev, keep["quad18"], kern)
     phase18["warm"] = phase_warm(torch, dev, usim)
+    switches.update(phase_switches_quad(torch, dev, keep.pop("quad18"), quad, kern))
     meshes17 = [sim.mesh]
     del sim
     torch.cuda.empty_cache()
@@ -5974,6 +6331,7 @@ def main():
     drop = ("wrappers", "pattern", "iters")
     example_checks = {shape: [{k: v for k, v in row.items() if k not in drop}
                               for row in rows] for shape, rows in example_checks.items()}
+    print(json.dumps({"switches": switches}, default=str))
     print(json.dumps({"phase18": phase18}, default=str))
     print(json.dumps({"chebyshev": chebyshev, "vn_shard": vn_shard}, default=str))
     print(json.dumps({"cells_nodes": cells_nodes}, default=str))

@@ -29,6 +29,7 @@ base_dir = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 output_dir = os.environ.get("GLIMS_OUTPUT_DIR", os.path.join(base_dir, "output"))
 output_dir_simulation_tmp = os.path.join(output_dir, "simulation_tmp")
 output_dir_testing = os.path.join(output_dir, "testing")
+test_data_dir = os.environ.get("GLIMS_TEST_DATA_DIR", os.path.join(base_dir, "test_data"))
 
 # -- external tool locations (glimslib_tpu/config.py:23-28) ------------------
 # Optional binaries: utils/meshing.py and utils/image_registration_utils.py

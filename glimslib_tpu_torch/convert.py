@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from glimslib_tpu_torch.ops import p2_ell
+
 
 def theta_from_numpy(theta_np, *, device="cpu", dtype=torch.float64):
     """{name: array} (physical coefficients only, no underscore keys) ->
@@ -62,11 +64,11 @@ def _bf16_tensor(a, device):
     return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
 
 
-def _check_p2_layout(aux_np, a, key):
-    """A factored P2 stack carries over only in the port's flat halo
-    layout: the reference's chunk-aligned halo (``GLIMS_P2_HALO_CHUNK`` >
-    1, its default 4) rounds each block's external slots up to whole
-    chunks, so its Kh and slot order differ."""
+def _check_p2_layout(aux_np, a, key, halo_chunk):
+    """A factored P2 stack carries over only where the port's P2 plan has
+    the reference's halo: chunk-aligned at the same G (``halo_chunk``, the
+    port's ``GLIMS_P2_HALO_CHUNK``), whose Kh rounds each block's external
+    slots up to whole chunks of G."""
     halo = aux_np.get("_P2BHalo")
     place = aux_np.get("_P2BPlace")
     if halo is None or place is None:
@@ -74,15 +76,16 @@ def _check_p2_layout(aux_np, a, key):
                          "(_P2BHalo, _P2BPlace): its halo layout is unknown")
     nb, khe_rows = np.shape(halo)
     s, kh = a.shape[-2:]
-    if kh != s + khe_rows or np.size(place) != nb * s * kh:
+    if kh != s + khe_rows * halo_chunk or np.size(place) != nb * s * kh:
         raise ValueError(
-            f"{key} {a.shape} is in a chunk-aligned halo layout ({khe_rows} "
-            f"gathered rows a block for {kh - s} external slots); the "
-            "port's P2 plan has a flat halo: build the reference's aux with "
-            "GLIMS_P2_HALO_CHUNK=1")
+            f"{key} {a.shape} is in another halo layout ({khe_rows} gathered "
+            f"rows a block for {kh - s} external slots) than the port's P2 "
+            f"plan (chunks of {halo_chunk} dofs a row): build the reference's "
+            f"aux with GLIMS_P2_HALO_CHUNK={halo_chunk}, or the port's model "
+            f"with the reference's value")
 
 
-def aux_from_numpy(aux_np, *, device="cpu", dtype=torch.float64):
+def aux_from_numpy(aux_np, *, device="cpu", dtype=torch.float64, p2_halo_chunk=None):
     """The JAX package's ``runtime_aux()`` arrays (numpy) -> the port's
     ``simulate(..., aux=...)`` dict, so both packages precondition with
     identical frozen arrays.
@@ -94,18 +97,22 @@ def aux_from_numpy(aux_np, *, device="cpu", dtype=torch.float64):
     (qs, n_pad)) and are transposed back to (n_pad, d, q) and (n_pad, qs);
     plan tables (``_Bell*``, ``_P2B*``) are dropped.  The factored P2
     stack ``_FP2Wrd`` and the streamed P2 residual's mass channel
-    ``_FP2Mrd`` carry over when the reference built its P2 plan with a
-    flat halo (``GLIMS_P2_HALO_CHUNK=1``) and raise otherwise.  Anything
+    ``_FP2Mrd`` carry over when the reference built its P2 plan with the
+    halo chunk of the port's (``p2_halo_chunk``, default the port's
+    ``GLIMS_P2_HALO_CHUNK``: 1, a flat halo, where unset) and raise
+    otherwise.  Anything
     else (the TPU's block-lanes kernel layouts ``*T``) has no counterpart
     in the port and raises."""
     out = {}
     unknown = []
+    if p2_halo_chunk is None:
+        p2_halo_chunk = p2_ell.p2_halo_chunk()
     for k, v in aux_np.items():
         if k in _AUX_PLAN_TABLES:
             continue
         a = np.asarray(v)
         if k in _AUX_P2_PLANES:
-            _check_p2_layout(aux_np, a, k)
+            _check_p2_layout(aux_np, a, k, p2_halo_chunk)
             out[k] = torch.as_tensor(a.astype(np.float64), dtype=dtype, device=device)
             continue
         if k in _AUX_INDEX:

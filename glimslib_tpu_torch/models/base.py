@@ -54,21 +54,39 @@ Three operator lanes, chosen by the mesh and ``operator_mode``:
   block-Jacobi on the elasticity block (``_BinvG``, hoisted once a
   simulate), without warm starts.  It launches no CUDA kernel.
 
+- **The node block-ELL lane** (``GLIMS_BELL=0`` on an unstructured mesh,
+  as in the reference): the elasticity operator and the P1 rd Jacobian
+  assembled per node (``ops/ell.py``: one row gather and a multiply-sum a
+  matvec, plain torch on every device), the gather residuals, Jacobi on
+  the rd block and per-node block-Jacobi inside the two-level level on
+  the elasticity block, no supernode state; a quad model's rd block on
+  the jvp lane beside it.
+
 A block whose equation carries a von Neumann facet term, or a
 time-dependent source or body force, leaves the streamed residual for
 the gather one on every lane (:meth:`Simulation._stencil_rd_residual_ok`,
 :meth:`Simulation._stencil_el_residual_ok`); its solves keep the lane's
 kernels.
 
-The lane's settings are the reference's defaults, fixed: supernodes of
-32 nodes, aggregates of 64, the coarse factors truncated to max(2048,
-3/5 of the coarse dimension) columns, the factored assembly wherever the
-model gives class labels.  ``GLIMS_TWOLEVEL_MIN_NODES`` (default 4000)
-sets the mesh size from which the two-level level is on;
-``GLIMS_WARM_ORDER=3`` and ``GLIMS_ALG_ANCHOR=0`` change the warm starts
-(:meth:`Simulation.build_simulate_fn`).  On f32 models
-the default step refines in f64 (``config.resolve_refine_f64``;
-``solvers/coupled.py``).
+The reference's switches are read with its names, values and meaning,
+where it reads them (each plan on a mesh is cached by its sizes; the P2
+dof layout is cached on the mesh, so a model under another
+``GLIMS_P2_INTERLEAVE`` needs a mesh of its own): ``GLIMS_BELL`` (0: the
+node block-ELL lane), ``GLIMS_BELL_S`` (supernode size, 32),
+``GLIMS_P2_S`` (the P2 plan's, else ``GLIMS_BELL_S``, else 64),
+``GLIMS_P2BELL`` (0: a quad model's rd block on the jvp lane),
+``GLIMS_P2_INTERLEAVE`` (0: the canonical P2 dof order),
+``GLIMS_P2_HALO_CHUNK`` and ``GLIMS_ASSEMBLE_CHUNK_SLOTS``
+(``ops/bell.py``; both off where unset, unlike the reference's defaults),
+``GLIMS_TWOLEVEL`` (0: no coarse level), ``GLIMS_TWOLEVEL_MIN_NODES``
+(4000), ``GLIMS_TWOLEVEL_AGG`` (aggregate size, 64), ``GLIMS_COARSE_K``
+(the coarse factors' width: auto, max(2048, 3/5 of the coarse
+dimension); 0 the full factor; or an integer), ``GLIMS_TWOLEVEL_BF16``
+(0: f32 coarse factors on f32 models), ``GLIMS_FACTORED`` (0: no
+factored channel stacks), ``GLIMS_P2STREAM``; ``GLIMS_WARM_ORDER=3`` and
+``GLIMS_ALG_ANCHOR=0`` change the warm starts
+(:meth:`Simulation.build_simulate_fn`).  On f32 models the default step
+refines in f64 (``config.resolve_refine_f64``; ``solvers/coupled.py``).
 
 Both lanes are differentiable: ``simulate`` keeps the autograd graph
 through the time loop (each step is the implicit-function-theorem adjoint
@@ -170,10 +188,16 @@ def _new_solver_info():
 
 
 def _coarse_k(dim_c):
-    """Spectral-truncation width of a coarse factor: the reference's
-    default, max(2048, 3/5 dim_c) columns, or None (the full factor)."""
-    k = max(2048, (3 * dim_c) // 5)
-    return k if k < dim_c else None
+    """Spectral-truncation width of a coarse factor, or None (the full
+    factor), by ``GLIMS_COARSE_K`` as in the reference (base.py:735-752):
+    ``auto`` (the default) max(2048, 3/5 dim_c) columns, ``0`` the full
+    factor, an integer that many columns (below dim_c)."""
+    v = os.environ.get("GLIMS_COARSE_K", "auto").strip().lower()
+    if v in ("auto", ""):
+        k = max(2048, (3 * dim_c) // 5)
+        return k if k < dim_c else None
+    k = int(v)
+    return k if 0 < k < dim_c else None
 
 
 def default_step_config(dtype):
@@ -350,7 +374,7 @@ class Simulation(ABC):
             raise ValueError(f"the mesh of ranks is on {device_mesh.device}, the "
                              f"model on {self.device}")
         n_dev = device_mesh.world
-        bell_ok = not self.lattice and not self.matrix_free
+        bell_ok = self._use_bell()
         if mode == "auto":
             if (self.lattice and not self.matrix_free
                     and self.mesh.n_nodes % n_dev == 0):
@@ -366,6 +390,10 @@ class Simulation(ABC):
                     why = (f"lattice mesh with n_nodes={self.mesh.n_nodes} not "
                            f"divisible by {n_dev} devices (pad with "
                            "core.mesh.pad_mesh_nodes)")
+                elif not bell_ok:
+                    why = ("supernode halo-ELL path inactive (needs an "
+                           "unstructured mesh, GLIMS_BELL != 0, and "
+                           "operator_mode != 'matrix-free')")
                 else:
                     why = (f"supernode block count {self._get_bell_plan().nb} not "
                            f"divisible by {n_dev} devices (use a power-of-two "
@@ -387,7 +415,7 @@ class Simulation(ABC):
                     "power-of-two device count)")
             self._deterministic_on_card()
             self._bell_slab = bell.SlabPlan(bplan, device_mesh)
-            if self.quad:
+            if self._use_p2_bell():
                 p2plan = self._get_p2_plan()
                 self._p2_sharded = p2plan.nb % n_dev == 0
                 if self._p2_sharded:
@@ -837,42 +865,69 @@ class Simulation(ABC):
 
     # -- unstructured lane: supernode halo-ELL and two-level PCG ------------------
 
-    def _mesh_plan(self, name, build):
-        """The plan ``name`` of this mesh on this device, built by
-        ``build()`` once and cached on the (immutable) mesh object, as
-        ``p2_dof_layout`` is: the sims of one mesh share it.  Its build
-        seconds go into ``_plan_seconds`` of the sim that built it."""
+    def _mesh_plan(self, name, build, *sizes):
+        """The plan ``name`` of this mesh on this device at ``sizes`` (its
+        supernode size and halo chunk), built by ``build()`` once and
+        cached on the (immutable) mesh object, as ``p2_dof_layout`` is: the
+        sims of one mesh share it.  Its build seconds go into
+        ``_plan_seconds`` of the sim that built it."""
         cache = getattr(self.mesh, "_plan_cache", None)
         if cache is None:
             cache = {}
             object.__setattr__(self.mesh, "_plan_cache", cache)
-        key = (name, str(self.device))
+        key = (name, str(self.device)) + sizes
         if key not in cache:
             t0 = time.perf_counter()
             cache[key] = build()
             self._plan_seconds[name] = time.perf_counter() - t0
         return cache[key]
 
+    def _use_bell(self):
+        """The supernode halo-ELL lane (the reference's gate, base.py:454-465):
+        an unstructured mesh off the matrix-free lane, unless
+        ``GLIMS_BELL=0``, which puts the model on the node block-ELL lane
+        (:meth:`_ell_builders`)."""
+        return (os.environ.get("GLIMS_BELL", "1") != "0" and not self.lattice
+                and not self.matrix_free)
+
+    def _use_p2_bell(self):
+        """A quad model's assembled P2 rd Jacobian on the P2 supernode plan
+        (reference base.py:478-490): on the supernode lane unless
+        ``GLIMS_P2BELL=0``, which leaves its rd block on the jvp lane beside
+        the supernode elasticity block."""
+        return (self.quad and self._use_bell()
+                and os.environ.get("GLIMS_P2BELL", "1") != "0")
+
     def _get_bell_plan(self):
-        """The mesh's supernode plan, or under block sharding this rank's
-        slab of it (:class:`~glimslib_tpu_torch.ops.bell.SlabPlan`)."""
+        """The mesh's supernode plan (``GLIMS_BELL_S`` nodes a supernode,
+        default 32), or under block sharding this rank's slab of it
+        (:class:`~glimslib_tpu_torch.ops.bell.SlabPlan`)."""
         if self._bell_slab is not None:
             return self._bell_slab
         if self._bell_plan is None:
+            s = int(os.environ.get("GLIMS_BELL_S", "32"))
             self._bell_plan = self._mesh_plan(
-                "bell_plan", lambda: bell.BellPlan(self.mesh, s=32, device=self.device))
+                "bell_plan", lambda: bell.BellPlan(self.mesh, s=s, device=self.device), s)
         return self._bell_plan
 
     def _get_p2_plan(self):
-        """The supernode plan over the P2 dofs of a quad model (s = 64,
-        the reference's default, base.py:492-509), or this rank's slab of
-        it."""
+        """The supernode plan over the P2 dofs of a quad model, or this
+        rank's slab of it: s from ``GLIMS_P2_S``, else ``GLIMS_BELL_S``,
+        else 64 (reference base.py:492-509), the halo chunk from
+        ``GLIMS_P2_HALO_CHUNK`` (``ops/p2_ell.py p2_halo_chunk``)."""
         if self._p2_slab is not None:
             return self._p2_slab
         if self._p2_plan is None:
+            s = int(os.environ.get("GLIMS_P2_S", os.environ.get("GLIMS_BELL_S", "64")))
             self._p2_plan = self._mesh_plan(
-                "p2_plan", lambda: p2_ell.make_p2_plan(self.p2, s=64))
+                "p2_plan", lambda: p2_ell.make_p2_plan(self.p2, s=s), s,
+                p2_ell.p2_halo_chunk())
         return self._p2_plan
+
+    def _get_ell_plan(self):
+        """The mesh's node-adjacency ELL plan (the ``GLIMS_BELL=0`` lane's
+        operators and the two-level coarse build)."""
+        return self._mesh_plan("ell_plan", lambda: ell.EllPlan(self.mesh, device=self.device))
 
     def _coarse_slab(self):
         """This rank's aggregates of the two-level level, or None unsharded."""
@@ -894,14 +949,18 @@ class Simulation(ABC):
         return self.kernels.grads_T, self.kernels.vol
 
     def _twolevel_aggplan(self):
-        """The coarse aggregation plan (64-node aggregates), or None on
+        """The coarse aggregation plan (``GLIMS_TWOLEVEL_AGG`` nodes an
+        aggregate, default 64), or None under ``GLIMS_TWOLEVEL=0`` and on
         meshes below ``GLIMS_TWOLEVEL_MIN_NODES`` nodes (default 4000), as
-        in the reference (base.py:704-733)."""
+        in the reference (base.py:703-733)."""
+        if os.environ.get("GLIMS_TWOLEVEL", "1") == "0":
+            return None
         if self.mesh.n_nodes < int(os.environ.get("GLIMS_TWOLEVEL_MIN_NODES",
                                                   "4000")):
             return None
         if self._agg_plan is None:
-            self._agg_plan = twolevel.AggPlan(self.mesh, agg_size=64)
+            self._agg_plan = twolevel.AggPlan(
+                self.mesh, agg_size=int(os.environ.get("GLIMS_TWOLEVEL_AGG", "64")))
         return self._agg_plan
 
     def runtime_aux(self):
@@ -911,22 +970,29 @@ class Simulation(ABC):
         ``_McSN`` (nb, s, s) (a quad model: ``_McSNP2`` (nb2, s2, s2) on
         the P2 plan), the factored channel stacks (:meth:`_factored_aux`),
         and, when the two-level level is on, its arrays
-        (:meth:`_twolevel_aux`), the coarse factors in bf16 on f32 models.
-        A preconditioner shapes iteration counts only, so freezing it
-        across parameter updates never changes a solution.
-        ``setup_seconds`` records what the build took, by part, with the
-        plans' build seconds (0 for a plan built before, by another sim of
-        the mesh, or handed to the model).  {} on lattice meshes and on the
-        matrix-free lane."""
+        (:meth:`_twolevel_aux`), the coarse factors in bf16 on f32 models
+        unless ``GLIMS_TWOLEVEL_BF16=0``.  On the node block-ELL lane
+        (``GLIMS_BELL=0``) the two-level arrays alone.  A preconditioner
+        shapes iteration counts only, so freezing it across parameter
+        updates never changes a solution.  ``setup_seconds`` records what
+        the build took, by part, with the plans' build seconds (0 for a
+        plan built before, by another sim of the mesh, or handed to the
+        model).  {} on lattice meshes and on the matrix-free lane."""
         if self.lattice or self.matrix_free:
             return {}
         if self._aux_cache is not None:
             return self._aux_cache
         theta0 = self.make_theta(self.params.as_dict())
+        if not self._use_bell():
+            times = {}
+            aux = self._twolevel_bf16(self._twolevel_aux(theta0, times))
+            self._finish_aux(aux, times)
+            return aux
         mask_u, mask_c, _, _ = self._bc_masks_and_values()
         bplan = self._get_bell_plan()
         times = {"bell_plan": self._plan_seconds.get("bell_plan", 0.0)}
-        if self.quad:
+        p2 = self._use_p2_bell()
+        if p2:
             p2plan = self._get_p2_plan()
             times["p2_plan"] = self._plan_seconds.get("p2_plan", 0.0)
         arrays = self._mesh_arrays()
@@ -944,7 +1010,7 @@ class Simulation(ABC):
             del Wrd
         self._sync()
         times["supernode_jacobi"] = time.perf_counter() - t0
-        if self.quad:
+        if p2:
             t0 = time.perf_counter()
             Wrd2 = p2_ell.build_p2_rd_const(p2plan, self.p2, theta0["D"],
                                             theta0["rho"], theta0["dt"])
@@ -954,26 +1020,37 @@ class Simulation(ABC):
             self._sync()
             times["p2_supernode_jacobi"] = time.perf_counter() - t0
         aux.update(self._factored_aux(times))
-        tl = self._twolevel_aux(theta0, times)
-        if tl and self.dtype == torch.float32:
-            # half the factors' memory traffic, the coarse apply's cost; the
-            # Gram form stays PSD in any storage precision
+        aux.update(self._twolevel_bf16(self._twolevel_aux(theta0, times)))
+        self._finish_aux(aux, times)
+        return aux
+
+    def _twolevel_bf16(self, tl):
+        """The two-level arrays with the coarse factors in bf16 on f32
+        models, unless ``GLIMS_TWOLEVEL_BF16=0`` (reference base.py:807-811,
+        :836-840): half the factors' memory traffic, the coarse apply's
+        cost; the Gram form stays PSD in any storage precision."""
+        if self.dtype == torch.float32 and os.environ.get("GLIMS_TWOLEVEL_BF16",
+                                                          "1") != "0":
             for k in ("_TLCfac", "_TLCfacS"):
                 if k in tl:
                     tl[k] = tl[k].to(torch.bfloat16)
-        aux.update(tl)
+        return tl
+
+    def _finish_aux(self, aux, times):
+        """Record and cache the frozen state ``aux`` built in ``times``."""
         self.setup_seconds = times
         self.logger.info("runtime aux built: %s", {k: f"{v:.2f} s"
                                                    for k, v in times.items()})
         self._aux_cache = aux
-        return aux
 
     def _twolevel_aux(self, theta0, times):
         """The two-level level's frozen arrays at the parameters of
         ``theta0``, {} where the level is off: the coarse Gram factors
-        ``_TLCfac`` / ``_TLCfacS`` in the working dtype and the masked mode
-        matrices ``_TLMt`` (n_pad, d, q) / ``_TLMtS`` (n_pad, qs); the
-        build's seconds go into ``times``."""
+        ``_TLCfac`` / ``_TLCfacS`` in the working dtype and the masked
+        mode matrices ``_TLMt`` (n_pad, d, q) / ``_TLMtS`` (n_pad, qs); the
+        build's seconds go into ``times``.  The level does not depend on
+        the operator lane: its coarse matrices come from the node
+        block-ELL values on either."""
         agg = self._twolevel_aggplan()
         if agg is None:
             return {}
@@ -981,8 +1058,9 @@ class Simulation(ABC):
         arrays = self._mesh_arrays()
         m0 = self.kernels._m0
         aux = {}
+        eplan = self._get_ell_plan()
+        times["ell_plan"] = self._plan_seconds.get("ell_plan", 0.0)
         t0 = time.perf_counter()
-        eplan = ell.EllPlan(self.mesh, device=self.device)
         B = ell.build_ell_elasticity(eplan, arrays, theta0["mu"], theta0["lam"])
         Ac = twolevel.build_coarse(agg, eplan.adj_idx, B, mask_u)
         del B
@@ -1024,7 +1102,10 @@ class Simulation(ABC):
         elasticity channels and the P2 rd channels of ``build_p2_cache``)
         where the model guarantees class-wise constant coefficients
         (:meth:`theta_class_labels`), {} otherwise.  Their build seconds
-        go into ``times``."""
+        go into ``times``.  {} under ``GLIMS_FACTORED=0``: every simulate
+        then assembles its planes (reference base.py:858-864)."""
+        if os.environ.get("GLIMS_FACTORED", "1") == "0":
+            return {}
         labels = self.theta_class_labels()
         if labels is None:
             return {}
@@ -1037,7 +1118,7 @@ class Simulation(ABC):
             want_cuc=p1, want_rd=p1, want_mrd=p1, support=support)
         self._sync()
         times["factored"] = time.perf_counter() - t0
-        if self.quad:
+        if self._use_p2_bell():
             t0 = time.perf_counter()
             out.update(bell_factored.build_p2_cache(self._get_p2_plan(), self.p2,
                                                     labels, support=support,
@@ -1111,8 +1192,10 @@ class Simulation(ABC):
         channels when theta carries them, else assembled, and ``_McSNP2``
         (without a graph) when the aux did not carry it.  With the
         streamed P2 residual (:meth:`_p2_stream`) also the P2 mass plane
-        ``_P2BMrd`` and the constant load ``_P2B_rd_load``."""
-        bplan, p2plan = self._get_bell_plan(), self._get_p2_plan()
+        ``_P2BMrd`` and the constant load ``_P2B_rd_load``.  Under
+        ``GLIMS_P2BELL=0`` the elasticity block's alone: the rd block is
+        on the jvp lane."""
+        bplan = self._get_bell_plan()
         mask_u, mask_c, _, _ = self._bc_masks_and_values()
         th = self._slab_input(theta)
         planes = bell_factored.planes_from_theta(th, self.mesh.dim, want_cuc=False,
@@ -1121,6 +1204,14 @@ class Simulation(ABC):
             planes = bell.assemble_fused(bplan, [bell.elasticity_entries(
                 self._mesh_arrays(), th["mu"], th["lam"])])
         theta["_BellWel"] = planes[0].permute(0, 1, 3, 2, 4).contiguous()
+        if "_BinvSN" not in theta:
+            with torch.no_grad():
+                theta["_BinvSN"] = bell.supernode_jacobi_inverse(
+                    bplan, bell.extract_self_blocks_vector(bplan, theta["_BellWel"]),
+                    mask=mask_u)
+        if not self._use_p2_bell():
+            return theta
+        p2plan = self._get_p2_plan()
         # replicated P2 tables (a world that does not divide their blocks)
         # take theta's own coefficients
         th2 = th if self._p2_sharded else theta
@@ -1130,7 +1221,7 @@ class Simulation(ABC):
             ents2 = [p2_ell.const_entries(self.p2, th2["D"], th2["rho"], th2["dt"])]
             if p2_stream:
                 ents2.append(p2_ell.p2_mass_entries(self.p2))
-            planes2 = [p2plan.assemble(e) for e in ents2]
+            planes2 = [bell.assemble_maybe_chunked(p2plan, e) for e in ents2]
         Wrd2 = theta["_P2BWrdC"] = planes2[0]
         if p2_stream:
             # the streamed P2 rd residual R = W_const c + q(c) - M c_prev - load
@@ -1139,12 +1230,8 @@ class Simulation(ABC):
             theta["_P2B_rd_load"] = -self.p2.rd_residual(
                 zeros, zeros, theta["D"], theta["rho"], theta["dt"],
                 source=theta["source"])  # r(0) = -dt s v
-        with torch.no_grad():
-            if "_BinvSN" not in theta:
-                theta["_BinvSN"] = bell.supernode_jacobi_inverse(
-                    bplan, bell.extract_self_blocks_vector(bplan, theta["_BellWel"]),
-                    mask=mask_u)
-            if "_McSNP2" not in theta:
+        if "_McSNP2" not in theta:
+            with torch.no_grad():
                 theta["_McSNP2"] = bell.supernode_jacobi_inverse(
                     p2plan, bell.extract_self_blocks_scalar(p2plan, Wrd2), mask=mask_c)
         return theta
@@ -1154,8 +1241,12 @@ class Simulation(ABC):
         concentration block: the P1 halo-ELL operators with their
         supernode block-Jacobi and the scalar coarse level, or (a quad
         model) the assembled P2 operators on the P2 plan with supernode
-        block-Jacobi alone (reference base.py:617-659, :1671-1680)."""
+        block-Jacobi alone (reference base.py:617-659, :1671-1680), or
+        under ``GLIMS_P2BELL=0`` no operator (the jvp lane) and Jacobi on
+        ``rd_diag``."""
         bmv = self._k.bmv
+        if self.quad and not self._use_p2_bell():
+            return None, None, self._matrix_free_preconds()["rd_precond"]
         if self.quad:
             p2plan, p2k = self._get_p2_plan(), self.p2
 
@@ -1231,6 +1322,62 @@ class Simulation(ABC):
                     rd_precond=rd_precond, el_precond=el_precond,
                     rd_jacobian_chord=rd_jacobian_chord)
 
+    def _augment_ell(self, theta):
+        """The node block-ELL lane's theta-only state (``GLIMS_BELL=0``;
+        reference base.py:1424-1439): the elasticity values ``_EllWel``
+        (n, K, d, d), the P1 rd constant values ``_EllWrd`` (n, K) and the
+        per-node block-Jacobi inverses ``_BinvG``, all without a graph
+        (they feed the solvers only: the residuals are the gather ones)."""
+        plan, arrays = self._get_ell_plan(), self._mesh_arrays()
+        theta = self._augment_matrix_free(theta)
+        with torch.no_grad():
+            theta["_EllWel"] = ell.build_ell_elasticity(plan, arrays, theta["mu"],
+                                                        theta["lam"])
+            if not self.quad:
+                theta["_EllWrd"] = ell.build_ell_rd_const(
+                    plan, arrays, theta["D"], theta["rho"], theta["dt"],
+                    self.kernels._m0)
+        return theta
+
+    def _ell_builders(self):
+        """Operator and preconditioner builders of the node block-ELL lane
+        (``GLIMS_BELL=0``; reference base.py:665-697, :1573-1712): the
+        elasticity operator on ``_EllWel`` with per-node block-Jacobi
+        (``_BinvG``) inside the two-level level where it is on, and, on P1
+        models, the rd Jacobian ``_EllWrd`` plus the exact logistic
+        correction of the iterate, frozen at the step's start by the chord
+        method (no lumped chord operator), with Jacobi on ``rd_diag``.  A
+        quad model's rd block takes the jvp lane.  Every matvec is
+        ``ops/ell.py``'s row gather and multiply-sum."""
+        plan, arrays, kern = self._get_ell_plan(), self._mesh_arrays(), self.kernels
+        adj = plan.adj_idx
+        agg = self._twolevel_aggplan()
+
+        def el_operator(theta):
+            B = theta["_EllWel"]
+            return lambda u: ell.apply_ell_vector(adj, B, u)
+
+        rd_jacobian = None
+        if not self.quad:
+            def rd_jacobian(theta, c):
+                W = theta["_EllWrd"] + ell.build_ell_rd_wc(
+                    plan, arrays, kern.cells_flat, c, theta["rho"], theta["dt"],
+                    kern._t0, 1.0)
+                return lambda v: ell.apply_ell_scalar(adj, W, v)
+
+        pre = self._matrix_free_preconds()
+
+        def el_precond(theta):
+            base = pre["el_precond"](theta)
+            if agg is None or "_TLCfac" not in theta:
+                return base
+            return twolevel.make_twolevel_precond(
+                agg, theta["_TLCfac"], theta["_TLMt"], base, theta.get("_TLCfacT"),
+                self._coarse_slab())
+
+        return dict(rd_jacobian=rd_jacobian, el_operator=el_operator,
+                    rd_precond=pre["rd_precond"], el_precond=el_precond)
+
     def _streamed_mass_action(self, theta):
         """v -> M v through the assembled mass plane (feeds the algebraic
         rd anchor; a quad model's is its P2 mass action), or None on the
@@ -1264,7 +1411,7 @@ class Simulation(ABC):
         """The streamed P2 rd residual (``GLIMS_P2STREAM=1``, off by
         default; reference base.py:889-897, :1370-1416): a quad model's
         unstructured lane where the streamed rd residual applies."""
-        return (self.quad and self._stencil_rd_residual_ok()
+        return (self._use_p2_bell() and self._stencil_rd_residual_ok()
                 and os.environ.get("GLIMS_P2STREAM", "0") == "1")
 
     def _stencil_el_residual_ok(self):
@@ -1338,6 +1485,8 @@ class Simulation(ABC):
                 # row-major copies of the bf16 factors' transposes, for
                 # the coarse term's first product (solvers/twolevel.py)
                 theta[key + "T"] = theta[key].T.contiguous()
+        if not self._use_bell():
+            return self._augment_ell(theta)
         return self._augment_bell(theta)
 
     def _build_step(self):
@@ -1356,13 +1505,21 @@ class Simulation(ABC):
             row_start=0 if self._node_rows is None else self._node_rows.start,
         )
         if self.matrix_free:
-            return make_step(**self._matrix_free_preconds(), **common)
-        if self._lattice_pcg:
-            return make_step(**self._node_builders(), **common)
-        if self.lattice:
+            builders = self._matrix_free_preconds()
+        elif self._lattice_pcg:
+            builders = self._node_builders()
+        elif self.lattice:
             rd_cg, el_cg = self._stencil_operators()
-            return make_step(rd_cg=rd_cg, el_cg=el_cg, **common)
-        return make_step(**self._bell_builders(), **common)
+            builders = dict(rd_cg=rd_cg, el_cg=el_cg)
+        elif self._use_bell():
+            builders = self._bell_builders()
+        else:
+            builders = self._ell_builders()
+        # extrapolated warm starts where both blocks have an assembled
+        # operator and pcg owns the stopping rule (reference base.py:1684-1692)
+        self._warm_start_ok = (builders.get("rd_jacobian") is not None
+                               and builders.get("el_operator") is not None)
+        return make_step(**builders, **common)
 
     def build_simulate_fn(self, n_steps: int, dt: float):
         """``simulate(theta, u0, c0, aux=None) -> (u_traj, c_traj, ok,
@@ -1373,10 +1530,11 @@ class Simulation(ABC):
         converge, the state freezes and every later step is flagged
         (reference base.py:1843-1845).
 
-        Wherever the step takes the pcg branch with assembled operators
-        (the unstructured lane, and the lattice under node sharding or
-        Chebyshev preconditioning, the reference's ``_warm_start_ok``,
-        base.py:1684-1692; not the matrix-free lane) each step starts from the
+        Wherever the step takes the pcg branch with assembled operators on
+        both blocks (the unstructured lanes, and the lattice under node
+        sharding or Chebyshev preconditioning, the reference's
+        ``_warm_start_ok``, base.py:1684-1692; not the matrix-free lane nor
+        a quad model's jvp rd block) each step starts from the
         linear extrapolation 2 x_k - x_{k-1} of the last two states, or
         with ``GLIMS_WARM_ORDER=3`` the quadratic 3 x_k - 3 x_{k-1} +
         x_{k-2} (a failed step collapses the history to the frozen state,
@@ -1396,7 +1554,7 @@ class Simulation(ABC):
         rank's rows; a gradient through simulate is that of the ranks'
         summed objective, the same on every rank (:meth:`use_sharding`)."""
         step = self._build_step()
-        warm = (not self.lattice or self._lattice_pcg) and not self.matrix_free
+        warm = self._warm_start_ok
         # 2 = linear extrapolation, 3 = quadratic (reference base.py:1750-1756)
         quadratic = warm and int(os.environ.get("GLIMS_WARM_ORDER", "2")) >= 3
         alg_anchor = os.environ.get("GLIMS_ALG_ANCHOR", "1") != "0"

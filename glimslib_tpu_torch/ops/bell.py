@@ -22,15 +22,21 @@ Also the matching supernode block-Jacobi: the (s d x s d) self-block of
 each supernode, inverted once.
 
 The plan serves any dof space (P1 nodes, or the P2 dofs of
-``ops/p2_ell.py``).  What the TPU build needed and the port leaves out:
-the aux-threaded table dicts (``tables()``), chunk-aligned halos
-(``halo_chunk``: aligned G-dof gather rows for the TPU's row-rate-bound
-gathers; on the card they only add zero slots, 1.85x the table bytes of
-the P2 flagship plan), the block-lanes kernel layouts (``*_T``,
-``transpose_tables_T``) and the memory-bounded chunked scalar assembly (a
-TPU compile-memory bound).  The plan's index tables live on its device
-as int64 tensors; every sentinel points at a zero row appended at gather
-time.
+``ops/p2_ell.py``).  The reference's chunk-aligned halo (``halo_chunk``
+G, the P2 plan's ``GLIMS_P2_HALO_CHUNK``) and its memory-bounded scalar
+assembly (:func:`assemble_scalar_chunked`, selected by
+:func:`assemble_maybe_chunked` under ``GLIMS_ASSEMBLE_CHUNK_SLOTS``) are
+here with the reference's tables and values; the port's defaults leave
+both off, where the reference's turn them on for limits of the TPU (its
+row-rate-bound gathers; its compiler's memory planner) that the card
+does not have: on the card the chunked halo adds zero slots (1.85x the
+table bytes of the P2 flagship plan at G = 4) and the one-shot P2
+placement peaks at 7.5 GB of the card's 80.  Left out are the
+aux-threaded table dicts (``tables()``) and the block-lanes kernel
+layouts (``*_T``, ``transpose_tables_T``): the port's plans hold their
+tables, and it has one kernel layout.  The plan's index tables live on
+its device as int64 tensors; every sentinel points at a zero row
+appended at gather time.
 
 Block sharding (``Simulation.use_sharding(mode="bell")``, the
 reference's ``shard_ctx`` and ``_bmv`` under ``shard_map``): a
@@ -49,12 +55,13 @@ before: b0 = 0, no crossing.
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 import torch
 
 from glimslib_tpu_torch.ops.assembly import (
-    make_scatter_plan, pull_accumulate, pull_index, scatter_plan_from_pull,
+    ScatterPlan, make_scatter_plan, pull_accumulate, pull_index,
 )
 from glimslib_tpu_torch.ops.bell_kernels import batched_matvec
 from glimslib_tpu_torch.parallel import shard
@@ -62,9 +69,15 @@ from glimslib_tpu_torch.parallel import shard
 
 class BellPlan:
     """Host-precomputed supernode halo structure over one dof space; the
-    numpy arrays are those of the reference's plan (at ``halo_chunk`` 1),
-    and their int64 tensor copies (``*_idx``, the pulls'
+    numpy arrays are those of the reference's plan at the same ``s`` and
+    ``halo_chunk``, and their int64 tensor copies (``*_idx``, the pulls'
     :class:`PullIndex`) live on ``device``.
+
+    ``halo_chunk`` G > 1 is the reference's chunk-aligned halo: a block's
+    external slots are whole aligned chunks of G consecutive dofs
+    (``khe_rows`` chunks, ``Khe = G khe_rows`` slots, those of dofs the
+    block does not couple to zero), gathered as rows of the dof vector
+    reshaped (chunks, G).
 
     Pass a ``mesh`` (P1: the dofs are the mesh nodes) or an explicit dof
     connectivity ``conn`` (nc, npe) over ``n`` dofs (the P2 space of
@@ -77,7 +90,7 @@ class BellPlan:
     mesh = None
 
     def __init__(self, mesh=None, s: int = 32, device="cpu", conn=None, n=None,
-                 prefix: str = "_Bell"):
+                 prefix: str = "_Bell", halo_chunk: int = 1):
         if mesh is not None:
             cells = np.asarray(mesh.cells, dtype=np.int64)
             n = mesh.n_nodes
@@ -88,6 +101,7 @@ class BellPlan:
         self.n = n
         self.npe = npe
         self.s = s = int(s)
+        self.halo_chunk = G = max(int(halo_chunk), 1)
         nb_real = (n + s - 1) // s
         # the reference's block-count rounding (to 128 when that wastes
         # <= 6.25%, else to 8), kept so plans are identical; padded blocks
@@ -97,40 +111,51 @@ class BellPlan:
         self.nb = nb
         self.n_pad = nb * s
 
-        # unique node-adjacency pairs, in (i, j, cell) entry order
-        rows = np.repeat(cells.T, npe, axis=0).reshape(npe, npe, nc)
-        cols = np.tile(cells.T, (npe, 1)).reshape(npe, npe, nc)
-        rflat = rows.ravel()
-        cflat = cols.ravel()
-        uniq = np.unique(rflat * n + cflat)
+        # unique node-adjacency pairs: the (row, col) keys of the entries in
+        # (i, j, cell) order, sorted stably (an entry's pair is the run of
+        # equal keys it falls in, its entries in entry order)
+        ct = cells.T
+        key = (ct[:, None, :] * n + ct[None, :, :]).ravel()
+        order = np.argsort(key, kind="stable")
+        skey = key[order]
+        first = np.empty(len(skey), dtype=bool)
+        first[:1] = True
+        np.not_equal(skey[1:], skey[:-1], out=first[1:])
+        uniq = skey[first]
+        pair_sorted = np.cumsum(first) - 1
+        del key, skey, first
         ur = (uniq // n).astype(np.int64)
         uc = (uniq % n).astype(np.int64)
 
         # own-first halo per supernode: slots [s, s + Khe) are the sorted
-        # external neighbours (uniq is row-major sorted, so block ids are
-        # nondecreasing)
+        # external neighbours, or with G > 1 the sorted aligned G-dof chunks
+        # holding them, slot s + G (chunk position) + c % G.  Built for all
+        # blocks at once: the unique (block, neighbour or chunk) keys sort
+        # by block, then by neighbour, as the reference's per-block unique
         br = ur // s
-        bounds = np.searchsorted(br, np.arange(nb + 1))
-        exts = []
-        for b in range(nb):
-            h = np.unique(uc[bounds[b]:bounds[b + 1]])
-            exts.append(h[(h < b * s) | (h >= (b + 1) * s)])
-        Khe = max((len(e) for e in exts), default=0)
-        self.Khe = Khe
+        ext = uc // s != br
+        eb, ec = br[ext], uc[ext]
+        ev = ec if G == 1 else ec // G
+        # the sentinel: the zero row appended to the (n,) or (chunks, G) source
+        sentinel = n if G == 1 else -(-n // G)
+        width = sentinel + 1
+        ekey = eb * width + ev
+        ukey, ext_of = np.unique(ekey, return_inverse=True)
+        ub, uv = ukey // width, ukey % width
+        bstart = np.searchsorted(ub, np.arange(nb + 1))
+        # gathered rows a block: dofs, or chunks of G dofs
+        self.khe_rows = khe_rows = int(np.diff(bstart).max()) if nb else 0
+        self.Khe = Khe = khe_rows * G
         self.Kh = Kh = s + Khe
-        ext_ids = np.full((nb, max(Khe, 1)), n, dtype=np.int32)
-        for b, e in enumerate(exts):
-            ext_ids[b, : len(e)] = e
-        self.ext_ids = ext_ids[:, :Khe]
+        ext_ids = np.full((nb, max(khe_rows, 1)), sentinel, dtype=np.int32)
+        ext_ids[ub, np.arange(len(ukey)) - bstart[ub]] = uv
+        self.ext_ids = ext_ids[:, :khe_rows]
 
         # kh slot of each unique pair's column: own -> local index,
-        # external -> s + position in the block's sorted external halo
-        kh_u = np.empty(len(uniq), dtype=np.int64)
-        for b in range(nb):
-            sl = slice(bounds[b], bounds[b + 1])
-            c = uc[sl]
-            own = (c >= b * s) & (c < (b + 1) * s)
-            kh_u[sl] = np.where(own, c - b * s, s + np.searchsorted(exts[b], c))
+        # external -> s + its place in the block's sorted external halo
+        kh_u = uc - br * s
+        pos = ext_of - bstart[eb]
+        kh_u[ext] = s + pos if G == 1 else s + pos * G + ec % G
         dense_slot = ur * Kh + kh_u  # (b*s + i_loc) * Kh + kh
 
         # class-split assembly plans: diagonal entries per node,
@@ -143,15 +168,17 @@ class BellPlan:
         self.n_off = len(off_u)
         off_rank = np.full(len(uniq), -1, dtype=np.int64)
         off_rank[off_u] = np.arange(self.n_off)
-        e_rows = rflat.reshape(npe, npe, nc)[ii != jj].ravel()
-        e_cols = cflat.reshape(npe, npe, nc)[ii != jj].ravel()
-        e_pair = np.searchsorted(uniq, e_rows * n + e_cols)
-        self.off_plan = make_scatter_plan(off_rank[e_pair], self.n_off)
-        # placement: dense slot -> [off-pairs | diag nodes | zero sentinel]
+        self.off_plan = _off_pair_plan(order, pair_sorted, off_rank, npe, nc, self.n_off)
+        # placement: dense slot -> [off-pairs | diag nodes | zero sentinel];
+        # each pair has one slot, so an entry of the placement's source is
+        # pulled by one slot (an unused node's diagonal by none: -1)
         place = np.full(nb * s * Kh, self.n_off + n, dtype=np.int64)
         place[dense_slot[~isdiag_u]] = off_rank[off_u]
         place[dense_slot[isdiag_u]] = self.n_off + ur[isdiag_u]
         self.place = place.astype(np.int32)
+        self.entry_slot = np.full(self.n_off + n, -1, dtype=np.int64)
+        self.entry_slot[:self.n_off] = dense_slot[off_u]
+        self.entry_slot[self.n_off + ur[isdiag_u]] = dense_slot[isdiag_u]
 
         self.device = torch.device(device)
         idx = lambda a: torch.as_tensor(  # noqa: E731
@@ -166,9 +193,15 @@ class BellPlan:
     def place_pull(self):
         """The placement as a pull of one entry a slot (its slots, int64
         on the device: the plan's largest index), built at first use: a
-        model that shards the plan pulls through its slab's."""
-        return pull_index(scatter_plan_from_pull(
-            self.place.astype(np.int64)[:, None], self.n_off + self.n), self.device)
+        model that shards the plan pulls through its slab's.  Its push
+        table is each entry's one slot in this plan's (or slab's) range,
+        else the sentinel."""
+        lo, n_slots = self.b0 * self.s * self.Kh, len(self.place)
+        local = self.entry_slot - lo
+        push = np.where((local >= 0) & (local < n_slots), local, n_slots)
+        return pull_index(ScatterPlan(
+            pull_table=self.place.astype(np.int64)[:, None], push_table=push[:, None],
+            n_entries=self.n_off + self.n, n_segments=n_slots), self.device)
 
     @property
     def place_idx(self):
@@ -216,14 +249,37 @@ class SlabPlan(BellPlan):
         self.base, self.mesh = plan, mesh
         self.b0, self.b1 = mesh.rank * nbl, (mesh.rank + 1) * nbl
         self.nb, self.nb_total = nbl, plan.nb
-        for k in ("prefix", "n", "npe", "s", "n_pad", "Khe", "Kh", "n_off", "device",
-                  "diag_plan", "off_plan", "off_entry_idx", "diag_idx", "off_idx",
-                  "off_entry_t"):
+        for k in ("prefix", "n", "npe", "s", "n_pad", "halo_chunk", "khe_rows", "Khe",
+                  "Kh", "n_off", "device", "diag_plan", "off_plan", "off_entry_idx",
+                  "diag_idx", "off_idx", "off_entry_t", "entry_slot"):
             setattr(self, k, getattr(plan, k))
         self.ext_ids = plan.ext_ids[self.b0:self.b1]
         self.ext_idx = plan.ext_idx[self.b0:self.b1].clone()
         slots = self.s * self.Kh
         self.place = plan.place[self.b0 * slots:self.b1 * slots]
+
+
+def _off_pair_plan(order, pair_sorted, off_rank, npe, nc, n_off):
+    """``make_scatter_plan`` of the off-diagonal entries (numbered in the
+    (i, j != i, cell) order of ``off_entry_idx``) onto their pairs' ranks,
+    from the entries' stable sort by pair (``order``, their pairs
+    ``pair_sorted``): each pair's entries in entry order, as
+    ``make_scatter_plan``'s stable sort gives them."""
+    ij = order // nc
+    off = ij % (npe + 1) != 0  # i != j: the diagonal slots are ij = i (npe + 1)
+    ij = ij[off]
+    ent = (ij - (ij + npe) // (npe + 1)) * nc + order[off] % nc
+    seg = off_rank[pair_sorted[off]]
+    counts = np.bincount(seg, minlength=n_off)
+    starts = np.cumsum(counts) - counts
+    n_ent = len(ent)
+    table = np.full((n_off, max(int(counts.max()) if n_off else 0, 1)), n_ent,
+                    dtype=np.int32)
+    table[seg, np.arange(n_ent) - starts[seg]] = ent
+    index_map = np.empty(n_ent, dtype=np.int64)
+    index_map[ent] = seg
+    return ScatterPlan(pull_table=table, push_table=index_map[:, None], n_entries=n_ent,
+                       n_segments=n_off)
 
 
 def _t(x, like):
@@ -291,6 +347,57 @@ def assemble_fused(plan: BellPlan, ents):
     return outs
 
 
+def _gather_sum_chunked(table, x, rows_per_chunk):
+    """:func:`~glimslib_tpu_torch.ops.assembly.pull_accumulate`'s sum of
+    x (entries,) over a (rows, K) pull table, ``rows_per_chunk`` rows at
+    a time."""
+    rows, K = table.shape
+    padded = torch.cat([x, x.new_zeros(1)])
+    out = []
+    for a in range(0, rows, rows_per_chunk):
+        t = table[a:a + rows_per_chunk]
+        got = padded.index_select(0, t.reshape(-1))
+        out.append(got if K == 1 else got.reshape(t.shape[0], K).sum(dim=1))
+    return torch.cat(out)
+
+
+def assemble_scalar_chunked(plan: BellPlan, ent, rows_per_chunk: int = None):
+    """``plan.assemble`` of a scalar entry tensor (npe, npe, nc), bit-equal
+    to it, with every gather of the class-split pulls and of the placement
+    taken ``rows_per_chunk`` slots (default 2^19) at a time, as the
+    reference's memory-bounded assembly (``ops/bell.py:390-446``) does
+    under ``lax.map``.  Differentiable through torch's own VJP of the
+    gathers."""
+    rc = int(rows_per_chunk or (1 << 19))
+    npe = plan.npe
+    flat = ent.reshape(npe * npe, -1)
+    k = torch.arange(npe, device=flat.device)
+    diag_flat = flat.reshape(npe, npe, -1)[k, k].reshape(-1)
+    off_flat = flat.index_select(0, plan.off_entry_t).reshape(-1)
+    dpull, opull = plan.diag_idx.pull, plan.off_idx.pull
+    diag_vals = _gather_sum_chunked(dpull, diag_flat, max(1, rc // dpull.shape[1]))
+    off_vals = _gather_sum_chunked(opull, off_flat, max(1, rc // opull.shape[1]))
+    vals = _gather_sum_chunked(plan.place_pull.pull, torch.cat([off_vals, diag_vals]), rc)
+    return vals.reshape(plan.nb, plan.s, plan.Kh)
+
+
+def assemble_maybe_chunked(plan: BellPlan, ent):
+    """A scalar plane's assembly: :func:`assemble_scalar_chunked` where
+    ``GLIMS_ASSEMBLE_CHUNK_SLOTS`` is set and the plan has more dense slots
+    than it says (the reference's selector, ``ops/bell.py:449-466``, whose
+    default is 32,000,000), else ``plan.assemble``.  Unset, the port never
+    chunks: the reference's default answers the TPU compiler's memory
+    planner, and on the card the one-shot P2 placement pull of the quad
+    flagship peaks at 7.5 GB of 80 (``PERF.md``), where 98.3M slots would
+    take the chunked path in every Newton iteration's ``build_p2_rd_wc``
+    (~190 gather launches)."""
+    thresh = os.environ.get("GLIMS_ASSEMBLE_CHUNK_SLOTS")
+    if (thresh is not None and ent.dim() == 3
+            and plan.nb * plan.s * plan.Kh > int(thresh)):
+        return assemble_scalar_chunked(plan, ent)
+    return plan.assemble(ent)
+
+
 def build_bell_elasticity(plan: BellPlan, mesh_arrays, mu, lam):
     """(nb, s, d, Kh, d) elasticity operator values."""
     W = plan.assemble(elasticity_entries(mesh_arrays, mu, lam))
@@ -306,9 +413,8 @@ def _cell_values(cells_flat, c, npe):
     return c[cells_flat].reshape(npe, -1)  # (npe, nc)
 
 
-def build_bell_rd_wc(plan: BellPlan, mesh_arrays, cells_flat, c, rho, dt, t0,
-                     conc_max):
-    """(nb, s, Kh) values of the logistic Jacobian correction
+def rd_wc_entries(mesh_arrays, cells_flat, c, rho, dt, t0, conc_max):
+    """(npe, npe, nc) entries of the logistic Jacobian correction
     +2 dt rho W(c)/c_max, W(c)_ij = vol t0 (S + c_i + c_j + δij (S + 2 c_i))."""
     g, vol = mesh_arrays
     npe = g.shape[0]
@@ -319,7 +425,14 @@ def build_bell_rd_wc(plan: BellPlan, mesh_arrays, cells_flat, c, rho, dt, t0,
     W = (vol * t0) * (
         S + ce[:, None, :] + ce[None, :, :] + eye * (S + 2.0 * ce[:, None, :])
     )
-    return plan.assemble((2.0 * dt / conc_max) * rho * W)
+    return (2.0 * dt / conc_max) * rho * W
+
+
+def build_bell_rd_wc(plan: BellPlan, mesh_arrays, cells_flat, c, rho, dt, t0,
+                     conc_max):
+    """(nb, s, Kh) values of :func:`rd_wc_entries`."""
+    return plan.assemble(rd_wc_entries(mesh_arrays, cells_flat, c, rho, dt, t0,
+                                       conc_max))
 
 
 def build_bell_rd_wc_lumped(plan: BellPlan, mesh_arrays, cells_flat, c, rho,
@@ -346,24 +459,33 @@ def _own_rows(plan: BellPlan, flat, width):
     return own.reshape(plan.nb, width)
 
 
+def _gather_source(plan: BellPlan, x):
+    """x (n, ...) as the rows the external slots gather: the dofs, or
+    (G > 1) the aligned G-dof chunks, with the sentinel's zero row
+    appended."""
+    n, tail = x.shape[0], tuple(x.shape[1:])
+    G = plan.halo_chunk
+    rows = n + 1 if G == 1 else -(-n // G) + 1
+    xp = torch.cat([x, x.new_zeros((rows * G - n,) + tail)])
+    return xp if G == 1 else xp.reshape((rows, -1))
+
+
 def _halo_vector(plan: BellPlan, x):
     """(nb, Kh*d) halo operand of x (n, d): own slots by reshape, external
-    slots by one gather (sentinel n -> the appended zero row)."""
+    slots by one gather of dof (or chunk) rows."""
     n, d = x.shape
     x = plan.enter(x)
     xo = _own_rows(plan, x.reshape(-1), plan.s * d)
-    xp = torch.cat([x, x.new_zeros((1, d))])
-    xe = xp.index_select(0, plan.ext_idx.reshape(-1)).reshape(plan.nb, -1)
-    return torch.cat([xo, xe], dim=1)
+    xe = _gather_source(plan, x).index_select(0, plan.ext_idx.reshape(-1))
+    return torch.cat([xo, xe.reshape(plan.nb, -1)], dim=1)
 
 
 def _halo_scalar(plan: BellPlan, x):
     """(nb, Kh) halo operand of x (n,)."""
     x = plan.enter(x)
     xo = _own_rows(plan, x, plan.s)
-    xp = torch.cat([x, x.new_zeros(1)])
-    xe = xp.index_select(0, plan.ext_idx.reshape(-1)).reshape(plan.nb, plan.Khe)
-    return torch.cat([xo, xe], dim=1)
+    xe = _gather_source(plan, x).index_select(0, plan.ext_idx.reshape(-1))
+    return torch.cat([xo, xe.reshape(plan.nb, plan.Khe)], dim=1)
 
 
 def apply_bell_vector(plan: BellPlan, W, x, bmv=batched_matvec):

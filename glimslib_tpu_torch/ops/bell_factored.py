@@ -170,7 +170,8 @@ def build_p2_cache(p2plan, p2k, labels, support=None, want_mass=False):
     M_t for t in supp rho, K_t for t in supp D], with ``_FP2RhoReps`` /
     ``_FP2DReps`` their representative cells, and with ``want_mass`` (the
     streamed P2 residual) ``_FP2Mrd``, the full mass channel.  One
-    placement gather a channel, without a graph."""
+    placement gather a channel (``bell.assemble_maybe_chunked``), without
+    a graph."""
     from glimslib_tpu_torch.ops import p2_ell
 
     labels = np.asarray(labels)
@@ -193,7 +194,7 @@ def build_p2_cache(p2plan, p2k, labels, support=None, want_mass=False):
         planes = torch.empty((len(ents), p2plan.nb, p2plan.s, p2plan.Kh),
                              dtype=dt, device=dev)
         for k, ent in enumerate(ents):
-            planes[k] = p2plan.assemble(ent())
+            planes[k] = bell.assemble_maybe_chunked(p2plan, ent())
     out = {"_FP2Wrd": planes, "_FP2RhoReps": idx(reps[rho_i]),
            "_FP2DReps": idx(reps[d_i])}
     if want_mass:

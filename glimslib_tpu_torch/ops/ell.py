@@ -1,11 +1,17 @@
-"""Node block-ELL operator values (counterpart of the part of
-``glimslib_tpu/ops/ell.py`` that the two-level coarse build reads).
+"""Node block-ELL operators (counterpart of ``glimslib_tpu/ops/ell.py``).
 
-The reference builds the frozen Galerkin coarse matrices of the
-unstructured path from node-adjacency ELL values once per model
-(``glimslib_tpu/models/base.py`` ``runtime_aux``): B (n, K, d, d) with
-column ids ``adj`` (n, K), sentinel n.  The ELL matvecs (the
-``GLIMS_BELL=0`` operator fallback) are not ported.
+The operator lane of unstructured meshes under ``GLIMS_BELL=0``
+(``models/base.py``): the elasticity operator and the rd Jacobian are
+assembled into a node-adjacency ELL layout
+
+    B (n, K, d, d)   with column ids  adj (n, K), sentinel n
+
+and every CG matvec is one row gather of ``x`` at ``adj`` (the sentinel
+row zero) and a multiply-sum.  The same values feed the two-level coarse
+build on either lane (``models/base.py runtime_aux``).  The matvecs are
+plain torch on every device: the reference computes them with XLA
+gathers outside any Pallas kernel, so no TPU kernel stands behind them.
+Every function is differentiable in its values and in ``x``.
 """
 
 from __future__ import annotations
@@ -14,7 +20,7 @@ import numpy as np
 import torch
 
 from glimslib_tpu_torch.ops.assembly import make_scatter_plan, pull_accumulate, pull_index
-from glimslib_tpu_torch.ops.bell import elasticity_entries, rd_const_entries
+from glimslib_tpu_torch.ops.bell import elasticity_entries, rd_const_entries, rd_wc_entries
 
 
 class EllPlan:
@@ -67,3 +73,27 @@ def build_ell_elasticity(plan: EllPlan, mesh_arrays, mu, lam):
 def build_ell_rd_const(plan: EllPlan, mesh_arrays, D, rho, dt, m0):
     """(n, K) values of M + dt D K - dt rho M."""
     return plan.assemble(rd_const_entries(mesh_arrays, D, rho, dt, m0))
+
+
+def build_ell_rd_wc(plan: EllPlan, mesh_arrays, cells_flat, c, rho, dt, t0, conc_max):
+    """(n, K) values of the logistic Jacobian correction +2 dt rho W(c)/c_max,
+    W(c)_ij = vol t0 (S + c_i + c_j + δij (S + 2 c_i))."""
+    return plan.assemble(rd_wc_entries(mesh_arrays, cells_flat, c, rho, dt, t0,
+                                       conc_max))
+
+
+def _rows(adj_idx, x):
+    """(n, K, ...) rows of x at the adjacency, the sentinel n a zero row."""
+    n, K = adj_idx.shape
+    xp = torch.cat([x, x.new_zeros((1,) + tuple(x.shape[1:]))])
+    return xp.index_select(0, adj_idx.reshape(-1)).reshape((n, K) + tuple(x.shape[1:]))
+
+
+def apply_ell_vector(adj_idx, B, x):
+    """y[i, a] = sum_k sum_b B[i, k, a, b] x[adj[i, k], b]; x (n, d)."""
+    return (B * _rows(adj_idx, x)[:, :, None, :]).sum(dim=(1, 3))
+
+
+def apply_ell_scalar(adj_idx, W, x):
+    """y[i] = sum_k W[i, k] x[adj[i, k]]; x (n,)."""
+    return (W * _rows(adj_idx, x)).sum(dim=1)

@@ -7,9 +7,9 @@ the same mesh (``simulation_tumor_growth_quad.py:69``).  These kernels
 integrate with tabulated quadrature of degree 6, exact for the cubic
 ``c^2 v`` logistic term with P2 ``c``.
 
-Dof layout: the shared interleaved Morton numbering of
-:func:`p2_dof_layout` over ``[vertex dofs (n_nodes) | edge dofs
-(n_edges)]``; per-cell P2 connectivity ``rank[[cells | n_nodes +
+Dof layout: the shared numbering of :func:`p2_dof_layout` (interleaved
+Morton order unless ``GLIMS_P2_INTERLEAVE=0``) over ``[vertex dofs
+(n_nodes) | edge dofs (n_edges)]``; per-cell P2 connectivity ``rank[[cells | n_nodes +
 cell_edges]]``.
 
 Geometry is affine (P1 simplices), so physical basis gradients are
@@ -28,6 +28,7 @@ the facets' trace element.
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 import torch
@@ -38,39 +39,47 @@ from glimslib_tpu_torch.ops.assembly import make_scatter_plan, pull_accumulate, 
 
 def p2_dof_layout(mesh):
     """Shared P2 dof numbering for a mesh: ``(perm, rank, n_edges)``, a
-    copy of the reference's (``p2.py:30-77``) at its default, the
-    interleaved order.
+    copy of the reference's (``p2.py:30-77``).
 
     ``perm[new_id] = canonical_id`` and ``rank[canonical_id] = new_id``,
-    where canonical = ``[vertices | n_nodes + edges]``.  The dofs are
-    numbered in Morton order over their coordinates (vertices at vertex
-    positions, edge dofs at midpoints), so vertex and edge dofs that are
-    spatial neighbours get nearby ids and the supernode halo-ELL plan of
-    ``ops/p2_ell.py`` stays compact.
+    where canonical = ``[vertices | n_nodes + edges]``.  By default the
+    dofs are numbered in Morton order over their coordinates (vertices at
+    vertex positions, edge dofs at midpoints), so vertex and edge dofs
+    that are spatial neighbours get nearby ids and the supernode halo-ELL
+    plan of ``ops/p2_ell.py`` stays compact.  ``GLIMS_P2_INTERLEAVE=0``
+    keeps the canonical order, as in the reference (every vertex-edge
+    coupling then lies outside its supernode: the reference's flagship P2
+    plan at s = 32 has Kh = 890 there, against 240 interleaved).
 
-    Cached on the mesh object; every P2 consumer (P2Kernels, FunctionSpace
-    projections, Dirichlet conditions) maps through this one layout."""
+    Cached on the mesh object at the first call, the switch read then;
+    every P2 consumer (P2Kernels, FunctionSpace projections, Dirichlet
+    conditions) maps through this one layout, so a model built under
+    another value of the switch needs a mesh of its own."""
     cached = getattr(mesh, "_p2_layout_cache", None)
     if cached is not None:
         return cached
     edge_nodes, _ = mesh.edges()
-    ne = len(edge_nodes)
-    pts = np.asarray(mesh.points, np.float64)
-    coords = np.concatenate([pts, pts[edge_nodes].mean(axis=1)], axis=0)
-    bits = 10
-    lo, hi = coords.min(axis=0), coords.max(axis=0)
-    qv = ((coords - lo) / np.maximum(hi - lo, 1e-30) * ((1 << bits) - 1)
-          ).astype(np.uint64)
-    d = coords.shape[1]
-    code = np.zeros(len(coords), np.uint64)
-    for b in range(bits):
-        for a in range(d):
-            code |= (
-                (qv[:, a] >> np.uint64(b)) & np.uint64(1)
-            ) << np.uint64(b * d + a)
-    perm = np.argsort(code, kind="stable").astype(np.int64)
-    rank = np.empty_like(perm)
-    rank[perm] = np.arange(len(perm))
+    n, ne = mesh.n_nodes, len(edge_nodes)
+    if os.environ.get("GLIMS_P2_INTERLEAVE", "1") == "0":
+        perm = np.arange(n + ne, dtype=np.int64)
+        rank = perm
+    else:
+        pts = np.asarray(mesh.points, np.float64)
+        coords = np.concatenate([pts, pts[edge_nodes].mean(axis=1)], axis=0)
+        bits = 10
+        lo, hi = coords.min(axis=0), coords.max(axis=0)
+        qv = ((coords - lo) / np.maximum(hi - lo, 1e-30) * ((1 << bits) - 1)
+              ).astype(np.uint64)
+        d = coords.shape[1]
+        code = np.zeros(len(coords), np.uint64)
+        for b in range(bits):
+            for a in range(d):
+                code |= (
+                    (qv[:, a] >> np.uint64(b)) & np.uint64(1)
+                ) << np.uint64(b * d + a)
+        perm = np.argsort(code, kind="stable").astype(np.int64)
+        rank = np.empty_like(perm)
+        rank[perm] = np.arange(len(perm))
     out = (perm, rank, ne)
     object.__setattr__(mesh, "_p2_layout_cache", out)
     return out
@@ -78,7 +87,7 @@ def p2_dof_layout(mesh):
 
 def p2_dof_coordinates(mesh):
     """(n_dofs, d) coordinates of the P2 dofs (vertices, then edge
-    midpoints) in the interleaved order of :func:`p2_dof_layout`."""
+    midpoints) in the order of :func:`p2_dof_layout`."""
     perm, _, _ = p2_dof_layout(mesh)
     pts = mesh.points
     return np.concatenate([pts, pts[mesh.edges()[0]].mean(axis=1)], axis=0)[perm]

@@ -23,10 +23,13 @@ The chord operator replaces the consistent logistic correction by its
 row sums, Σ_j W(c)_ij = det Σ_k c_k M0[i, k] (Σ_j φj = 1): Newton still
 converges the exact residual.
 
-The plan has the reference's s = 64 and a flat halo (the reference's
-chunk-aligned halo, ``GLIMS_P2_HALO_CHUNK`` 4, gathers aligned 4-dof rows
-for the TPU's row-rate-bound gathers; on the card it only adds zero
-slots).
+The model's plan has the reference's s (``GLIMS_P2_S``, else
+``GLIMS_BELL_S``, else 64) and the halo of ``GLIMS_P2_HALO_CHUNK``: 1, a
+flat halo, where unset.  The reference defaults to 4, aligned 4-dof
+gather rows for the TPU's row-rate-bound gathers; on the card they only
+add zero slots (1.85x the table bytes of the flagship plan).  The planes
+assemble through ``ops/bell.py assemble_maybe_chunked`` (chunked only
+under ``GLIMS_ASSEMBLE_CHUNK_SLOTS``).
 
 The streamed P2 rd residual (``GLIMS_P2STREAM=1``, off by default;
 ``models/tumor_growth_quad.py``) is R = W_const c - M c_prev + q(c) -
@@ -39,12 +42,13 @@ residual, so it equals ``P2Kernels.rd_residual`` to round-off.
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 import torch
 
 from glimslib_tpu_torch.core.elements import P2Element, simplex_quadrature
-from glimslib_tpu_torch.ops.bell import BellPlan
+from glimslib_tpu_torch.ops.bell import BellPlan, assemble_maybe_chunked
 
 
 @functools.lru_cache(maxsize=None)
@@ -67,12 +71,19 @@ def p2_ref_tensors(dim: int, quad_degree: int = 6):
     return M0, T, C
 
 
+def p2_halo_chunk():
+    """``GLIMS_P2_HALO_CHUNK``: the P2 plan's chunk-aligned halo width G,
+    1 (a flat halo) where unset."""
+    return max(int(os.environ.get("GLIMS_P2_HALO_CHUNK", "1")), 1)
+
+
 def make_p2_plan(p2k, s: int = 64, device=None):
     """Supernode halo-ELL plan over the P2 dof space (the interleaved
     Morton layout keeps contiguous supernodes compact), on ``device``
-    (default: the kernels')."""
+    (default: the kernels'), with the halo of :func:`p2_halo_chunk`."""
     return BellPlan(conn=p2k.cell_dofs, n=p2k.n_dofs, s=s, prefix="_P2B",
-                    device=p2k.device if device is None else device)
+                    device=p2k.device if device is None else device,
+                    halo_chunk=p2_halo_chunk())
 
 
 def _ref(p2k, a):
@@ -112,7 +123,7 @@ def const_entries(p2k, D, rho, dt):
 
 def build_p2_rd_const(plan: BellPlan, p2k, D, rho, dt):
     """(nb, s, Kh) halo-ELL values of M + dt D K - dt rho M over P2."""
-    return plan.assemble(const_entries(p2k, D, rho, dt))
+    return assemble_maybe_chunked(plan, const_entries(p2k, D, rho, dt))
 
 
 def build_p2_rd_wc(plan: BellPlan, p2k, c, rho, dt, conc_max):
@@ -125,7 +136,7 @@ def build_p2_rd_wc(plan: BellPlan, p2k, c, rho, dt, conc_max):
     W = C[:, :, 0, None] * ceT[0][None, None, :]
     for k in range(1, p2k.npe):
         W = W + C[:, :, k, None] * ceT[k][None, None, :]
-    return plan.assemble(((2.0 * dt / conc_max) * rho * det) * W)
+    return assemble_maybe_chunked(plan, ((2.0 * dt / conc_max) * rho * det) * W)
 
 
 def build_p2_rd_wc_lumped(p2k, c, rho, dt, conc_max):

@@ -18,13 +18,20 @@ Three branches of the reference are ported:
   (``rd_cg_rtol``), and extrapolated warm starts whose tolerances stay
   anchored at the unextrapolated points (``guess``, ``anchor_c``);
 - the matrix-free jvp branch (the reference's ``_masked_operator``),
-  taken when neither operators nor whole-solve callables are given: each
-  block's operator is the identity on masked dofs and, elsewhere, the
-  ``torch.func.jvp`` of the masked WORKING-dtype residual at the current
-  iterate (under refinement too: Newton measures the f64 residual, the
-  jvp differentiates the working one), preconditioned by ``rd_precond``
-  / ``el_precond``; the rd Jacobian is exact every Newton iteration.
-  The forward runs under ``no_grad``, which forward-mode AD ignores.
+  taken by a block whose operator is not given: its operator is the
+  identity on masked dofs and, elsewhere, the ``torch.func.jvp`` of the
+  masked WORKING-dtype residual at the current iterate (under refinement
+  too: Newton measures the f64 residual, the jvp differentiates the
+  working one), preconditioned by ``rd_precond`` / ``el_precond``; a jvp
+  rd block's Jacobian is exact every Newton iteration.  The forward runs
+  under ``no_grad``, which forward-mode AD ignores.
+
+Outside the whole-solve branch each block takes its branch alone, as in
+the reference (``coupled.py:255, 309, 366, 457, 478``): the assembled
+operator where the model gives it, else the jvp, forward, refined and in
+the adjoint, so a model may run its elasticity block on an assembled
+operator beside a jvp rd block (the quad models under ``GLIMS_BELL=0`` or
+``GLIMS_P2BELL=0``).  The chord method needs an assembled rd block.
 
 The Newton and CG loops read their residual norms on the host once per
 iteration (the whole-solve kernels keep theirs on the device).
@@ -158,16 +165,17 @@ def make_step(
     forward or adjoint, on either branch, is reported to ``record``."""
     cfg = config
     whole_solve = rd_cg is not None and el_cg is not None
-    assembled = None not in (rd_jacobian, el_operator, rd_precond, el_precond)
-    jvp = (rd_cg is None and el_cg is None and rd_jacobian is None
-           and el_operator is None and None not in (rd_precond, el_precond))
-    if not (whole_solve or assembled or jvp):
+    pcg_branch = (rd_cg is None and el_cg is None
+                  and None not in (rd_precond, el_precond))
+    if not (whole_solve or pcg_branch):
         raise ValueError(
-            "make_step runs the whole-solve (rd_cg, el_cg) branch, the "
-            "assembled-operator pcg branch (rd_jacobian, el_operator, "
-            "rd_precond, el_precond) or the matrix-free jvp branch "
-            "(rd_precond, el_precond alone)"
+            "make_step runs the whole-solve (rd_cg, el_cg) branch or the pcg "
+            "branch (rd_precond, el_precond, with rd_jacobian and el_operator "
+            "where a block has an assembled operator, else its jvp)"
         )
+    # the pcg branch's blocks: assembled operator, else the jvp
+    jvp_c = pcg_branch and rd_jacobian is None
+    jvp_u = pcg_branch and el_operator is None
     if cfg.refine_f64 and None in (rd_residual_hi, el_residual_hi):
         raise ValueError("refine_f64 needs rd_residual_hi and el_residual_hi")
     chord_src = rd_jacobian_chord or rd_jacobian
@@ -213,7 +221,8 @@ def make_step(
         refine = cfg.refine_f64 and c_prev.dtype != torch.float64
         # the accuracy mode keeps the exact Jacobian every Newton iteration:
         # the chord method lands just under ftol, which costs its margin
-        freeze_jac = cfg.rd_modified_newton and assembled and not refine
+        freeze_jac = (cfg.rd_modified_newton and pcg_branch and not jvp_c
+                      and not refine)
 
         # ---- c-block: Newton-CG ------------------------------------------
         def resid_c_work(c):
@@ -241,7 +250,7 @@ def make_step(
         if cheb:
             # the bound once a step, at the clamped c_prev, on the exact
             # Jacobian (the chord operator and the guess come after)
-            A0 = (_masked_operator(resid_c_work, c, mask_c) if jvp
+            A0 = (_masked_operator(resid_c_work, c, mask_c) if jvp_c
                   else _masked_op(rd_jacobian(theta, c), mask_c))
             lmax_c = lmax(theta, "_lmax_c", A0, Mc, c)
         if warm and anchor_c is not None:
@@ -263,7 +272,7 @@ def make_step(
             if whole_solve:
                 dc, _ = _recorded("rd", rd_cg(theta, c, rhs))
             else:
-                if jvp:
+                if jvp_c:
                     A = _masked_operator(resid_c_work, c, mask_c)
                 else:
                     A = (A_frozen if freeze_jac
@@ -304,7 +313,7 @@ def make_step(
             du, info_u = _recorded("el", el_cg(theta, rhs_u))
         else:
             # the elasticity residual is affine in u: its jvp at u0 is A_uu
-            Au = (_masked_operator(resid_u_work, u0, mask_u) if jvp
+            Au = (_masked_operator(resid_u_work, u0, mask_u) if jvp_u
                   else _masked_op(el_operator(theta), mask_u))
             Mu = _masked_op(el_precond(theta), mask_u)
             if cheb:
@@ -346,7 +355,7 @@ def make_step(
         if whole_solve:
             lam_u, _ = _recorded("el_adj", el_cg(theta, rhs_u))
         else:
-            if jvp:
+            if jvp_u:
                 Au = _masked_operator(
                     lambda uu: torch.where(mask_u, uu - gu, el_residual(uu, c, theta, t)),
                     u, mask_u)
@@ -370,7 +379,7 @@ def make_step(
         if whole_solve:
             lam_c, _ = _recorded("rd_adj", rd_cg(theta, c, rhs_c))
         else:
-            if jvp:
+            if jvp_c:
                 Ac = _masked_operator(
                     lambda cc: torch.where(mask_c, cc - gc,
                                            rd_residual(cc, c_prev, theta, t)),

@@ -64,6 +64,7 @@ from glimslib_tpu_torch.utils import profiling  # noqa: E402
 from glimslib_tpu_torch.visualisation import helpers, plotting  # noqa: E402
 
 from reference_fem import ReferenceFEM  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 TIGHT = dict(newton_rtol=1e-10, newton_atol=1e-14, cg_rtol=1e-12)
 F64 = torch.float64

@@ -38,6 +38,7 @@ from glimslib_tpu_torch.ops.assembly import P1Kernels  # noqa: E402
 from glimslib_tpu_torch.ops.stencil import StencilOperators  # noqa: E402
 from glimslib_tpu_torch.optimize import adjoint  # noqa: E402
 from glimslib_tpu_torch.solvers.coupled import StepConfig  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 TIGHT = dict(newton_rtol=1e-10, newton_atol=1e-14, cg_rtol=1e-12)
 F64 = torch.float64

@@ -37,6 +37,7 @@ from glimslib_tpu_torch.models.tumor_growth import TumorGrowth  # noqa: E402
 from glimslib_tpu_torch.solvers.coupled import StepConfig  # noqa: E402
 
 from reference_fem import ReferenceFEM  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 TIGHT = dict(newton_rtol=1e-10, newton_atol=1e-14, cg_rtol=1e-12)
 LANES = ("lattice", "unstructured", "jvp")
@@ -224,14 +225,6 @@ def jax_runs(tmp_path_factory):
                                     tmp_path_factory.mktemp(f"jax_{name}"))
         return got[name]
     return get
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _check(name, out, mesh):

@@ -19,6 +19,7 @@ from glimslib_tpu.ops.assembly import P1Kernels as JaxP1Kernels
 from glimslib_tpu_torch.core.mesh import Mesh, box_mesh
 from glimslib_tpu_torch.ops import bell, bell_kernels
 from glimslib_tpu_torch.ops.assembly import P1Kernels
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 N_BOX = 5
 

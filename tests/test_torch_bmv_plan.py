@@ -1,9 +1,10 @@
 """The launch plan of ``bell_bmv`` (``glimslib_tpu_torch/ops/bell_kernels.py
 bmv_plan``), on the CPU: no card is needed.
 
-At the twelve (B, M, K) shapes the unstructured paths give the kernel and
-at ragged ones, on 132 and 114 SMs: the persistent blocks' static
-schedule covers every row of the flat (B M, K) table exactly once; every
+At the twelve (B, M, K) shapes the unstructured paths give the kernel, the
+seventeen the reference's switches give it, and at ragged ones, on 132
+and 114 SMs: the persistent blocks' static schedule covers every row of
+the flat (B M, K) table exactly once; every
 bulk span's source offset and size is a multiple of 16 bytes; a stage
 holds its span's rows and the b-vectors they touch; shared memory fits a
 block; an SM keeps at least 64 KB of A in flight wherever the table gives
@@ -26,6 +27,16 @@ REPO_SHAPES = [
     (1152, 96, 474), (1152, 96, 158), (1152, 96, 96), (1152, 32, 158),
     (1152, 32, 32), (4352, 64, 353), (4352, 64, 64), (88, 64, 200),
     (88, 64, 64), (88, 32, 100), (88, 32, 32), (88, 64, 100),
+]
+# the shapes the reference's switches give the kernel (chip_smoke.py [19]):
+# GLIMS_BELL_S=16 and 64 on the n=32 box, GLIMS_P2_S=32 and
+# GLIMS_P2_HALO_CHUNK=4 on the quad flagship, the n=16 quad box with
+# GLIMS_P2_INTERLEAVE=0 and at its defaults
+SWITCH_SHAPES = [
+    (2304, 48, 306), (2304, 48, 48), (2304, 48, 102), (2304, 16, 102), (2304, 16, 16),
+    (568, 192, 750), (568, 192, 192), (568, 192, 250), (568, 64, 250), (568, 64, 64),
+    (8704, 32, 240), (8704, 32, 32), (4352, 64, 652), (160, 96, 474), (160, 96, 96),
+    (568, 64, 353), (568, 64, 1374),
 ]
 RAGGED_SHAPES = [(1, 1, 1), (3, 5, 7), (7, 13, 1001), (2, 3, 16384), (5, 3, 6)]
 IN_FLIGHT_MIN = 64 << 10
@@ -64,7 +75,7 @@ def _check_plan(plan, B, M, K, sms):
 
 
 @pytest.mark.parametrize("sms", [132, 114])
-@pytest.mark.parametrize("shape", REPO_SHAPES)
+@pytest.mark.parametrize("shape", REPO_SHAPES + SWITCH_SHAPES)
 def test_bmv_plan_at_the_repo_shapes(shape, sms):
     plan = bk.bmv_plan(*shape, sms)
     # M K is a multiple of 4 at every repo shape: every span is staged by TMA

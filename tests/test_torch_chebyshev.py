@@ -61,17 +61,10 @@ from glimslib_tpu_torch.core.mesh import rectangle_mesh  # noqa: E402
 from glimslib_tpu_torch.models.tumor_growth import TumorGrowth  # noqa: E402
 from glimslib_tpu_torch.parallel import run_ranks  # noqa: E402
 from glimslib_tpu_torch.solvers import cg  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 LANES = ("lattice", "stripped", "matrix_free", "quad")
 DEGREES = (3, 6)
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rel(a, b):

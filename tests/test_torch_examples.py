@@ -26,6 +26,7 @@ from glimslib_tpu_torch.example_scripts import RUNS
 from glimslib_tpu_torch.example_scripts.example_config import (
     BoundaryAll, gaussian_iv, labelled_slice_vtu, synthetic_atlas_path,
 )
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F64 = torch.float64
@@ -36,14 +37,6 @@ PARITY_RTOL = 1e-10
 # to 12 (J 3.6e-11 to 6.6e-11)
 GRAD_RTOL = 1e-9
 SMALL_ATLAS = ["--atlas", "20", "18", "6", "--z", "3"]
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rel(a, b):

@@ -31,6 +31,7 @@ from glimslib_tpu_torch.ops import bell_factored  # noqa: E402
 from glimslib_tpu_torch.optimize.adjoint import (  # noqa: E402
     InverseProblem, param_map_for_type, thresh,
 )
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 PLANES = ("_BellWel", "_BellCuc", "_BellWrdC", "_BellMrd")
 STACKS = ("_FWel", "_FCuc", "_FWrd", "_FMrd")

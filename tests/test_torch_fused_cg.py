@@ -32,6 +32,7 @@ from glimslib_tpu.solvers.cg import pcg as jax_pcg
 from glimslib_tpu_torch.core.mesh import box_mesh, rectangle_mesh
 from glimslib_tpu_torch.ops import fused_cg as fc
 from glimslib_tpu_torch.ops.stencil import StencilOperators
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 N = 5
 

@@ -53,6 +53,7 @@ from glimslib_tpu_torch.core.mesh import box_mesh, rectangle_mesh  # noqa: E402
 from glimslib_tpu_torch.ops import stencil_kernels as sk  # noqa: E402
 from glimslib_tpu_torch.ops.stencil import stencil_offsets  # noqa: E402
 from glimslib_tpu_torch.parallel import make_device_mesh, run_ranks  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 LATTICE_RTOL = 5e-5  # the f32 lattice limit (chip_smoke.py SLICE_RTOL)
 # every plane and load a 'nodes' model builds, by its node axis

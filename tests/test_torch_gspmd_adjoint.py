@@ -59,6 +59,8 @@ from __graft_entry__ import _brain_sim as jax_brain_sim  # noqa: E402
 from glimslib_tpu.solvers.coupled import StepConfig as JaxStepConfig  # noqa: E402
 from glimslib_tpu_torch.ops import stencil_kernels as sk  # noqa: E402
 from glimslib_tpu_torch.parallel import run_ranks  # noqa: E402
+from torch_once import once  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 # dryrun_multichip's first leg: type 5 at these values
 V_BOX5 = np.array([0.08, 0.015, 0.08, 0.015, 0.1])
@@ -108,14 +110,16 @@ def _jax_gradient(spec, opt_type, v0):
 
 
 @pytest.fixture(scope="module")
-def jax_grads():
-    """The JAX gradient of each case, computed once a case a worker."""
+def jax_grads(tmp_path_factory):
+    """The JAX gradient of each case, computed once a case a session
+    (tests/torch_once.py)."""
     got = {}
 
     def get(name):
         if name not in got:
             spec, opt_type, v0, _ = CASES[name]
-            got[name] = _jax_gradient(spec, opt_type, v0)
+            got[name] = once(tmp_path_factory, f"gspmd_adjoint-{name}",
+                             lambda: _jax_gradient(spec, opt_type, v0))
         return got[name]
     return get
 

@@ -59,17 +59,10 @@ from glimslib_tpu_torch.solvers.coupled import StepConfig  # noqa: E402
 from glimslib_tpu_torch.solvers.newton import newton  # noqa: E402
 
 from reference_fem import ReferenceFEMP2  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 TIGHT = dict(newton_rtol=1e-10, newton_atol=1e-14, cg_rtol=1e-12)
 F64 = torch.float64
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rel(a, b):

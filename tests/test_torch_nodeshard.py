@@ -68,17 +68,11 @@ from glimslib_tpu_torch.native import meshops  # noqa: E402
 from glimslib_tpu_torch.parallel import (  # noqa: E402
     DeviceMesh, NodeShardSpec, ShardedP1Kernels, partition_cells, run_ranks)
 from glimslib_tpu_torch.parallel.partition import morton_order  # noqa: E402
+from torch_once import once  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 WORLDS = (2, 4)
 RANK_TIMEOUT = 300
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rel(a, b):
@@ -149,10 +143,9 @@ def _jax_gradient(sim, traj):
     return targets, float(J), np.asarray(g)
 
 
-@pytest.fixture(scope="module")
-def jax_ref():
+def _jax_matrix_free():
     """The JAX package's single-device matrix-free run of the Morton box,
-    its targets, J and gradient (computed once a worker)."""
+    its targets, J and gradient."""
     mp = pytest.MonkeyPatch()
     try:
         sim = _jax_model()
@@ -161,6 +154,13 @@ def jax_ref():
         mp.undo()
     targets, J, g = _jax_gradient(sim, traj)
     return dict(traj, targets=targets, J=J, g=g)
+
+
+@pytest.fixture(scope="module")
+def jax_ref(tmp_path_factory):
+    """:func:`_jax_matrix_free`, computed once a session
+    (tests/torch_once.py)."""
+    return once(tmp_path_factory, "nodeshard-matrix-free", _jax_matrix_free)
 
 
 def _counts(out):

@@ -39,16 +39,8 @@ from glimslib_tpu_torch.ops import bell, bell_factored, p2_ell  # noqa: E402
 from glimslib_tpu_torch.ops.p2 import P2Kernels, p2_dof_layout  # noqa: E402
 
 from reference_fem import ReferenceFEMP2  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One intra-op thread a test: the suite runs one process a core."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 def _rel(a, b):
     a = np.asarray(a, np.float64).ravel()

@@ -43,17 +43,9 @@ from glimslib_tpu_torch.parallel import run_ranks  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import torch_shard_cases as shard_cases  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 N_STEPS = 2
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One intra-op thread a test: the suite runs one process a core."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture

@@ -40,6 +40,7 @@ from glimslib_tpu_torch.workflow.image_based_optimization import BoundaryAll, TI
 from glimslib_tpu_torch.workflow.image_based_optimization_atlas import (
     ImageBasedOptimizationAtlas,
 )
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 NAMES = {0: "displacement", 1: "concentration"}
 FIXED = dict(E_GM=3e3, E_WM=3e3, E_CSF=1e3, E_VENT=1e3,

@@ -17,14 +17,7 @@ from glimslib_tpu.models.tumor_growth_brain import TumorGrowthBrain as JaxBrain
 from glimslib_tpu.utils import profiling as jax_profiling
 from glimslib_tpu_torch import examples
 from glimslib_tpu_torch.utils import profiling
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 def _scopes(tracer):

@@ -50,18 +50,10 @@ from glimslib_tpu_torch.models.tumor_growth_quad import TumorGrowth  # noqa: E40
 from glimslib_tpu_torch.optimize.adjoint import InverseProblem, param_map_for_type  # noqa: E402
 
 from reference_fem import ReferenceFEMP2  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 N_STEPS = 3
 
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One intra-op thread a test: the suite runs one process a core."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 def _rel(a, b):
     a = np.asarray(a, np.float64).ravel()
@@ -220,13 +212,29 @@ def test_forward_matches_jax_f64(quad_env, case):
 
 def test_chunk_aligned_p2_aux_raises(monkeypatch):
     """A factored P2 stack built on the reference's chunk-aligned halo
-    (GLIMS_P2_HALO_CHUNK=4, its default) has another slot layout: the
-    conversion raises and says so."""
+    (GLIMS_P2_HALO_CHUNK=4, its default) carries into a port model whose
+    P2 plan has the same halo (the switch set for the port too), and the
+    two compute the same (rel 1e-10); into a port model with a flat halo
+    the conversion raises and says so."""
     monkeypatch.setenv("GLIMS_P2_HALO_CHUNK", "4")
-    _, mj = _morton("rect", 5)
-    sim_j = _setup_quad(JaxQuad(mj))
+    mt, mj = _morton("rect", 5)
+    sim_j = _setup_quad(JaxQuad(mj), sim_time=2)
     aux = {k: np.asarray(v) for k, v in sim_j.runtime_aux().items()}
     assert "_FP2Wrd" in aux
+    sim_t = _setup_quad(TumorGrowth(mt, dtype=torch.float64, device="cpu"), sim_time=2)
+    assert sim_t._get_p2_plan().halo_chunk == 4
+    carried = convert.aux_from_numpy(aux)
+    own = sim_t.runtime_aux()
+    assert carried["_FP2Wrd"].shape == own["_FP2Wrd"].shape
+    assert _rel(carried["_FP2Wrd"], own["_FP2Wrd"]) <= 1e-10
+    theta = sim_t.make_theta(sim_t.params.as_dict())
+    a = sim_t.build_simulate_fn(2, 1.0)(theta, *sim_t.initial_state(), carried)
+    b = sim_t.build_simulate_fn(2, 1.0)(theta, *sim_t.initial_state(), own)
+    assert bool(a[2].all()) and bool(b[2].all())
+    assert _rel(a[1], b[1]) <= 1e-10 and _rel(a[0], b[0]) <= 1e-10
+    with pytest.raises(ValueError, match="GLIMS_P2_HALO_CHUNK=1"):
+        convert.aux_from_numpy(aux, p2_halo_chunk=1)
+    monkeypatch.setenv("GLIMS_P2_HALO_CHUNK", "1")
     with pytest.raises(ValueError, match="GLIMS_P2_HALO_CHUNK=1"):
         convert.aux_from_numpy(aux)
 

@@ -42,6 +42,7 @@ from glimslib_tpu_torch.ops.assembly import P1Kernels  # noqa: E402
 from glimslib_tpu_torch.solvers.coupled import StepConfig  # noqa: E402
 
 from reference_fem import ReferenceFEM  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 def _rel(a, b):

@@ -34,6 +34,7 @@ from glimslib_tpu_torch.core.results import Results
 from glimslib_tpu_torch.optimize.lbfgsb import OptimizationProgress
 from glimslib_tpu_torch.solvers.coupled import StepConfig
 from glimslib_tpu_torch.utils import data_io, image_io, vtk_utils
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 TIGHT = dict(newton_rtol=1e-10, newton_atol=1e-14, cg_rtol=1e-12)
 NAMES = {0: "displacement", 1: "concentration"}

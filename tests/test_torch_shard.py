@@ -49,6 +49,7 @@ from test_bellshard import _run as jax_run  # noqa: E402
 from test_bellshard import _sim as jax_sim  # noqa: E402
 from test_bellshard import _sim_quad as jax_sim_quad  # noqa: E402
 from glimslib_tpu_torch.parallel import DeviceMesh, make_device_mesh, run_ranks  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 WORLD = 2
 V0 = np.array([0.05, 0.05])

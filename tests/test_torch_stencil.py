@@ -32,6 +32,7 @@ from glimslib_tpu_torch.core.mesh import box_mesh, rectangle_mesh  # noqa: E402
 from glimslib_tpu_torch.examples import brain_sim  # noqa: E402
 from glimslib_tpu_torch.ops import stencil_kernels as sk  # noqa: E402
 from glimslib_tpu_torch.ops.stencil import StencilOperators  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 def _rel(a, b):

@@ -24,6 +24,7 @@ from glimslib_tpu_torch.core.mesh import Mesh, box_mesh
 from glimslib_tpu_torch.ops import ell
 from glimslib_tpu_torch.ops.assembly import P1Kernels
 from glimslib_tpu_torch.solvers import twolevel as tl
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 AGG = 16
 

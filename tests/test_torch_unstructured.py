@@ -35,6 +35,7 @@ from glimslib_tpu_torch.models.tumor_growth_brain import TumorGrowthBrain  # noq
 from glimslib_tpu_torch.solvers.coupled import StepConfig  # noqa: E402
 
 from reference_fem import ReferenceFEM  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 N_STEPS = 3
 

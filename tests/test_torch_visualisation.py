@@ -23,16 +23,9 @@ from glimslib_tpu.visualisation import plotting as jax_plotting
 from glimslib_tpu_torch import examples
 from glimslib_tpu_torch.core.mesh import rectangle_mesh
 from glimslib_tpu_torch.visualisation import helpers, plotting
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _mesh_and_fields(n=7):

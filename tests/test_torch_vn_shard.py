@@ -56,19 +56,13 @@ from glimslib_tpu.solvers.coupled import StepConfig as JaxStepConfig  # noqa: E4
 from glimslib_tpu_torch import examples  # noqa: E402
 from glimslib_tpu_torch.models.tumor_growth import TumorGrowth  # noqa: E402
 from glimslib_tpu_torch.parallel import DeviceMesh, run_ranks  # noqa: E402
+from torch_once import once  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 WORLDS = (2, 4)
 CASES = [("cells", "stripped"), ("nodes", "stripped"), ("nodes", "lattice")]
 RANK_TIMEOUT = 300
 N_BOUNDARY_FACETS = 12 * cases.N * cases.N  # the box's triangles
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rel(a, b):
@@ -237,31 +231,36 @@ def _jax_trajectory(sim, monkeypatch):
                 el=sorted(i for nd, i in rec if nd == 2))
 
 
-_JAX = {}
+def _jax_unsharded(kind):
+    """The JAX package's unsharded run of the model, its targets, J and
+    gradient."""
+    mp = pytest.MonkeyPatch()
+    try:
+        sim = _jax_model(kind)
+        traj = _jax_trajectory(sim, mp)
+    finally:
+        mp.undo()
+    targets = {"conc_T2": np.asarray(thresh(jnp.asarray(traj["c"][-1]), 0.12)),
+               "disp": traj["u"][-1]}
+    wm, gm = (m.astype(np.float64) for m in cases.tissue_masks(sim))
+    J, g = JaxInverseProblem(
+        sim, ["D_WM", "rho_WM"], targets,
+        update_fn=cases.update_fn(jnp.asarray(wm), jnp.asarray(gm)),
+        n_steps=cases.N_STEPS, dt=1.0).value_and_grad(np.asarray(cases.V0))
+    return dict(traj, targets=targets, J=float(J), g=np.asarray(g))
 
 
 @pytest.fixture(scope="module")
-def jax_ref():
-    """kind -> the JAX package's unsharded run of the model, its targets,
-    J and gradient (each computed once a worker)."""
+def jax_ref(tmp_path_factory):
+    """kind -> :func:`_jax_unsharded`, computed once a session
+    (tests/torch_once.py)."""
+    got = {}
 
     def get(kind):
-        if kind not in _JAX:
-            mp = pytest.MonkeyPatch()
-            try:
-                sim = _jax_model(kind)
-                traj = _jax_trajectory(sim, mp)
-            finally:
-                mp.undo()
-            targets = {"conc_T2": np.asarray(thresh(jnp.asarray(traj["c"][-1]), 0.12)),
-                       "disp": traj["u"][-1]}
-            wm, gm = (m.astype(np.float64) for m in cases.tissue_masks(sim))
-            J, g = JaxInverseProblem(
-                sim, ["D_WM", "rho_WM"], targets,
-                update_fn=cases.update_fn(jnp.asarray(wm), jnp.asarray(gm)),
-                n_steps=cases.N_STEPS, dt=1.0).value_and_grad(np.asarray(cases.V0))
-            _JAX[kind] = dict(traj, targets=targets, J=float(J), g=np.asarray(g))
-        return _JAX[kind]
+        if kind not in got:
+            got[kind] = once(tmp_path_factory, f"vn_shard-{kind}",
+                             lambda: _jax_unsharded(kind))
+        return got[kind]
 
     return get
 

@@ -12,7 +12,6 @@ the exact one to 5e-12; the port and the JAX package to 1e-8.
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from glimslib_tpu.core.mesh import Mesh as JaxMesh
@@ -20,17 +19,9 @@ from glimslib_tpu.core.mesh import rectangle_mesh as jax_rectangle_mesh
 from glimslib_tpu.models.tumor_growth import TumorGrowth as JaxTumorGrowth
 from glimslib_tpu_torch.core.mesh import Mesh, rectangle_mesh
 from glimslib_tpu_torch.models.tumor_growth import TumorGrowth
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 N_STEPS = 4
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One intra-op thread a test: the suite runs one process a core."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 class _All:

@@ -42,6 +42,8 @@ from glimslib_tpu_torch.workflow.image_based_optimization_atlas import (
 from glimslib_tpu_torch.workflow.image_based_optimization_patient import (
     ImageBasedOptimizationPatient,
 )
+from torch_once import once  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIGHT = dict(newton_rtol=1e-10, newton_atol=1e-14, cg_rtol=1e-12)
@@ -138,15 +140,21 @@ def _run_atlas(wf, jax_side):
 
 @pytest.fixture(scope="module")
 def atlas(tmp_path_factory):
-    """Both packages' atlas pipelines on the same labelmap: (port, jax)."""
-    d = tmp_path_factory.mktemp("atlas")
-    paths = _write_atlas(d)
-    jax_out = _run_atlas(JaxAtlas(str(d / "jax"), path_to_labels_atlas=paths["labels"],
-                                  image_z_slice=4), True)
-    port_out = _run_atlas(ImageBasedOptimizationAtlas(
-        str(d / "port"), path_to_labels_atlas=paths["labels"], image_z_slice=4,
-        device="cpu", dtype=F64), False)
-    return port_out, jax_out
+    """Both packages' atlas pipelines on the same labelmap: (port, jax), run
+    once a session (tests/torch_once.py) in a directory its workers share."""
+
+    def run():
+        d = tmp_path_factory.mktemp("atlas")
+        paths = _write_atlas(d)
+        jax_out = _run_atlas(JaxAtlas(str(d / "jax"), path_to_labels_atlas=paths["labels"],
+                                      image_z_slice=4), True)
+        port_out = _run_atlas(ImageBasedOptimizationAtlas(
+            str(d / "port"), path_to_labels_atlas=paths["labels"], image_z_slice=4,
+            device="cpu", dtype=F64), False)
+        return port_out, jax_out
+
+    port_out, jax_out = once(tmp_path_factory, "workflow-atlas", run)
+    return _frozen(port_out), _frozen(jax_out)
 
 
 def test_domain_and_paths_equal_the_jax_packages(atlas):

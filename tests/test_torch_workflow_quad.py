@@ -57,6 +57,7 @@ from glimslib_tpu_torch.workflow.image_based_optimization_atlas import (
 from glimslib_tpu_torch.workflow.image_based_optimization_patient import (
     ImageBasedOptimizationPatient,
 )
+from torch_once import once
 
 TIGHT = dict(newton_rtol=1e-10, newton_atol=1e-14, cg_rtol=1e-12)
 F64 = torch.float64
@@ -213,16 +214,23 @@ def _run_atlas_quad(wf, jax_side):
 
 @pytest.fixture(scope="module")
 def atlas_quad(tmp_path_factory):
-    """Both packages' quad atlas pipelines on the same labelmap: (port, jax)."""
-    d = tmp_path_factory.mktemp("atlas_quad")
-    path = _write_labels(d, (20, 20, 8))
-    jax_out = _run_atlas_quad(JaxAtlas(str(d / "jax"), path_to_labels_atlas=path,
-                                       image_z_slice=4, model="quad"), True)
-    with _one_torch_thread():
-        port_out = _run_atlas_quad(ImageBasedOptimizationAtlas(
-            str(d / "port"), path_to_labels_atlas=path, image_z_slice=4, model="quad",
-            device="cpu", dtype=F64), False)
-    return port_out, jax_out
+    """Both packages' quad atlas pipelines on the same labelmap: (port, jax),
+    run once a session (tests/torch_once.py) in a directory its workers
+    share."""
+
+    def run():
+        d = tmp_path_factory.mktemp("atlas_quad")
+        path = _write_labels(d, (20, 20, 8))
+        jax_out = _run_atlas_quad(JaxAtlas(str(d / "jax"), path_to_labels_atlas=path,
+                                           image_z_slice=4, model="quad"), True)
+        with _one_torch_thread():
+            port_out = _run_atlas_quad(ImageBasedOptimizationAtlas(
+                str(d / "port"), path_to_labels_atlas=path, image_z_slice=4, model="quad",
+                device="cpu", dtype=F64), False)
+        return port_out, jax_out
+
+    port_out, jax_out = once(tmp_path_factory, "workflow-atlas-quad", run)
+    return _frozen(port_out), _frozen(jax_out)
 
 
 def test_quad_mesh_is_the_stripped_lattice_with_the_jax_p2_layout(atlas_quad):

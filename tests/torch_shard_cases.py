@@ -120,8 +120,11 @@ def forward_rank(mesh, quad):
                          place=np.array_equal(s.place, w.place[s.b0 * s.s * s.Kh:
                                                                s.b1 * s.s * s.Kh]))
                     for s, w in plans]
-    out["mesh_plans_whole"] = all(type(p) is bell.BellPlan
-                                  for p in whole.mesh._plan_cache.values())
+    # the mesh's plans (supernode plans, and the node-adjacency plan of the
+    # coarse build) stay whole: no slab among them
+    cached = list(whole.mesh._plan_cache.values())
+    out["mesh_plans_whole"] = (any(type(p) is bell.BellPlan for p in cached)
+                               and not any(isinstance(p, bell.SlabPlan) for p in cached))
     # the coarse factors: built whole on every rank (bit-equal across the
     # ranks), kept as the rank's rows
     aux_w, aux_s = whole.runtime_aux(), sim.runtime_aux()
