@@ -414,7 +414,21 @@ Phases, each printed on lines of their own:
    GLIMS_ALG_ANCHOR=0: Newton and CG counts, rd residual evaluations, c
    and u within UNSTRUCT_RTOL of the default run.
 
-Then one JSON line with [18]'s numbers, one with [17]'s numbers, one with [16]'s numbers, one with [15]'s numbers, one with [14]'s numbers, one with [13]'s numbers, one with [12]'s numbers and its kernel rows by lattice, one with [11]'s, one with [10]'s, one with [9]'s, one with [7]'s
+20. The public members the port gained last (PR 21), on [3]'s and [6]'s
+   models, no model built: [20a] build_bell_mass and
+   build_bell_coupling_uc on [6]'s box against the model's _BellMrd and
+   _BellCuc (bit-equal printed, held to API_TABLE_RTOL), applied through
+   bell_bmv (2 launches, counted) against the plain apply
+   (API_BMV_RTOL), both shapes held and timed as [5] does; [20b]
+   cg_fixed_iters(API_CG_ITERS) with Jacobi on [3]'s rd planes through
+   stencil_apply, and torch.autograd.grad of |x|^2 wrt b through the
+   kernel's autograd rule (the transposed launches on mirrored planes):
+   launches forward and backward, x and the gradient against the same
+   solve on the plain apply (API_RTOL), the <1,1> form timed as [2]
+   does; [20c] stiffness_residual and integrate_p1 on [6]'s box on the
+   card against the f64 CPU kernels (API_RTOL).
+
+Then one JSON line with [20]'s numbers, one with [19]'s, one with [18]'s numbers, one with [17]'s numbers, one with [16]'s numbers, one with [15]'s numbers, one with [14]'s numbers, one with [13]'s numbers, one with [12]'s numbers and its kernel rows by lattice, one with [11]'s, one with [10]'s, one with [9]'s, one with [7]'s
 and [8]'s value_and_grad numbers, one with
 every kernel's numbers (each with its launches in the path and in one
 value_and_grad by forward and backward: [7]'s for the 3D rows, [8]'s for
@@ -1080,6 +1094,24 @@ def phase_kernels(torch, sim, theta, dev, tag="[2]", suffix="", grids=(), forced
     return results
 
 
+# the last system's plain solve, its result and host ms: a solve checked
+# again in another launch mode or grid reuses them (cut from a plain solve
+# and a timed one a check)
+_LAST_PLAIN = {}
+
+
+def _plain_pcg(torch, plain, args, timed):
+    """(x, info, host ms or None) of the plain pcg on ``args``, kept for the
+    next call on the same tensors and settings."""
+    last = _LAST_PLAIN.get("args")
+    if last is None or len(last) != len(args) or any(a is not b for a, b in zip(last, args)):
+        _LAST_PLAIN.clear()
+        _LAST_PLAIN.update(args=args, out=plain(*args), ms=None)
+    if timed and _LAST_PLAIN["ms"] is None:
+        _LAST_PLAIN["ms"] = _host_ms(torch, lambda: plain(*args))
+    return (*_LAST_PLAIN["out"], _LAST_PLAIN["ms"])
+
+
 def _check_pcg(torch, name, kern, plain, offs, Wm, Minv, b, cfg, replaces, tag,
                mode=None, blocks=None, timed=True):
     """One whole solve of the kernel against the plain pcg, and its times
@@ -1099,7 +1131,7 @@ def _check_pcg(torch, name, kern, plain, offs, Wm, Minv, b, cfg, replaces, tag,
         def call():
             return fc._pcg_cuda(d, offs, W4, Minv, b, *args[4:], mode, blocks)
     x_k, info_k, plan = call()
-    x_p, info_p = plain(*args)
+    x_p, info_p, plain_ms = _plain_pcg(torch, plain, args, timed)
     torch.cuda.synchronize()
     it_k, it_p = int(info_k["iters"]), int(info_p["iters"])
     err, rel = _rel_max(x_k, x_p)
@@ -1121,7 +1153,6 @@ def _check_pcg(torch, name, kern, plain, offs, Wm, Minv, b, cfg, replaces, tag,
     dev_ms = _launch_ms(torch, call, 3)
     prof_ms = _kernel_device_ms(torch, call, 2,
                                 rf"stencil_pcg_kernel<{d}, ?{fc.MODES[plan.mode]}>")
-    plain_ms = _host_ms(torch, lambda: plain(*args))
     n_off, n = Wm.shape[0], b.shape[0]
     bound_ms, bound_by = _bound(*_pcg_work(n_off, d, n, it_k))
     stream_it = _pcg_stream_bytes(n_off, d, n)
@@ -6231,6 +6262,181 @@ def phase_switches_quad(torch, dev, quad, quad10, kern):
     return out
 
 
+# [20]: the public members the port gained last, on the kernels they
+# reach: the mass and coupling tables built by build_bell_mass /
+# build_bell_coupling_uc on [6]'s box, applied through bell_bmv, and
+# cg_fixed_iters on [3]'s rd operator through stencil_apply, forward and
+# backward (its gradient wrt b through the kernel's autograd rule).
+API_CG_ITERS = 50
+API_RTOL = 1e-5
+API_BMV_RTOL = 1e-6
+API_TABLE_RTOL = 1e-6
+
+
+def _api_tables(torch, dev, usim):
+    """[20a]: the two tables against the model's own planes, and their
+    applies through bell_bmv (counted) against the plain apply."""
+    import numpy as np
+
+    from glimslib_tpu_torch.ops import bell
+    from glimslib_tpu_torch.ops import bell_kernels as bk
+
+    tag = f"[20a] n={N} unstructured:"
+    theta = usim.make_theta(usim.params.as_dict())
+    aug = usim._augment_theta_with_operators({**theta, **usim.runtime_aux()})
+    plan, arrays = usim._get_bell_plan(), usim._mesh_arrays()
+    M = bell.build_bell_mass(plan, arrays, usim.kernels._m0)
+    C = bell.build_bell_coupling_uc(plan, arrays, theta["mu"], theta["lam"],
+                                    theta["coupling"])
+    same = {}
+    for name, got, key in (("build_bell_mass", M, "_BellMrd"),
+                           ("build_bell_coupling_uc", C, "_BellCuc")):
+        _, rel = _rel_max(got, aug[key])
+        same[name] = dict(bit_equal=bool(torch.equal(got, aug[key])), max_rel=rel)
+        print(f"{tag} {name} {tuple(got.shape)} vs the model's {key}: bit-equal "
+              f"{same[name]['bit_equal']}, max rel {rel:.3e} (<= {API_TABLE_RTOL})")
+        if rel > API_TABLE_RTOL:
+            raise AssertionError(f"{tag} {name} vs {key}: {rel:.3e}")
+    n = usim.mesh.n_nodes
+    c = torch.as_tensor(np.random.default_rng(20).random(n), dtype=torch.float32,
+                        device=dev)
+    bk.batched_matvec.launches = 0
+    bk.batched_matvec.launches_by_shape = {}
+    y_m = bell.apply_bell_scalar(plan, M, c, bk.batched_matvec)
+    y_c = bell.apply_bell_coupling(plan, C, c, bk.batched_matvec)
+    torch.cuda.synchronize()
+    launches = bk.batched_matvec.launches
+    by_shape = dict(bk.batched_matvec.launches_by_shape)
+    if launches != 2:
+        raise AssertionError(f"{tag} bell_bmv launched {launches} times, not 2")
+    errs = {}
+    for name, got, want in (
+            ("mass apply", y_m, bell.apply_bell_scalar(plan, M, c, bk.batched_matvec_plain)),
+            ("coupling apply", y_c,
+             bell.apply_bell_coupling(plan, C, c, bk.batched_matvec_plain))):
+        err, rel = _rel_max(got, want)
+        errs[name] = rel
+        print(f"{tag} {name} through bell_bmv vs the plain apply: max abs err {err:.3e}, "
+              f"max rel {rel:.3e} (<= {API_BMV_RTOL})")
+        if not bool(torch.isfinite(got).all()) or rel > API_BMV_RTOL:
+            raise AssertionError(f"{tag} {name}: {rel:.3e}")
+    nb, s, Kh, d = plan.nb, plan.s, plan.Kh, usim.mesh.dim
+    shapes = _bmv_check(torch, [("mass build_bell_mass", M),
+                                ("coupling build_bell_coupling_uc",
+                                 C.reshape(nb, s * d, Kh))], dev, "[20a]")
+    rows = []
+    for rec in shapes:
+        B, Mr, K = rec["shape"]
+        rows.append(dict(
+            name=f"bell_bmv@[20a] {rec['role']} ({B}, {Mr}, {K})", route="cuda",
+            source=BELL_SRC, replaces="glimslib_tpu/ops/bell_pallas.py:56",
+            wrappers=(bk.batched_matvec,), launches=by_shape.get((B, Mr, K), 0),
+            launches_in=f"{tag} the two applies", max_abs_err=rec["max_abs_err"],
+            ms=rec["device_ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+            bound_by=rec["bound_by"], library_ms=rec["library_ms"], call_ms=rec["ms"]))
+    return rows, dict(tables=same, applies_max_rel=errs, bell_bmv_launches=launches,
+                      by_shape={"x".join(map(str, k)): v for k, v in by_shape.items()})
+
+
+def _api_cg(torch, dev, sim):
+    """[20b]: cg_fixed_iters on [3]'s rd operator (its theta-only planes
+    _Wrd_const) with Jacobi, through stencil_apply (counted forward and
+    backward) and the plain apply: x and the gradient of |x|^2 wrt b."""
+    import numpy as np
+
+    from glimslib_tpu_torch.ops import stencil_kernels as sk
+    from glimslib_tpu_torch.solvers.cg import cg_fixed_iters
+
+    tag = f"[20b] N={N} lattice:"
+    theta = sim._augment_theta_with_operators(sim.make_theta(sim.params.as_dict()))
+    offs, W = sim._stencil_ops.offsets, theta["_Wrd_const"].detach()
+    diag = W[list(offs).index(0)]
+    cache = sk.MirrorCache([W])
+    b0 = torch.as_tensor(np.random.default_rng(20).standard_normal(sim.mesh.n_nodes),
+                         dtype=torch.float32, device=dev)
+
+    def solve(apply):
+        """x and d|x|^2/db, and the launches of each."""
+        sk.apply_scalar.launches = 0
+        b = b0.clone().requires_grad_(True)
+        x = cg_fixed_iters(apply, b, M=lambda r: r / diag, iters=API_CG_ITERS)
+        torch.cuda.synchronize()
+        fwd = sk.apply_scalar.launches
+        sk.apply_scalar.launches = 0
+        (g,) = torch.autograd.grad(torch.sum(x * x), b)
+        torch.cuda.synchronize()
+        return x.detach(), g, fwd, sk.apply_scalar.launches
+
+    t0 = time.perf_counter()
+    x, g, fwd, bwd = solve(lambda v: sk.apply_scalar(offs, W, v, cache=cache))
+    run_s = time.perf_counter() - t0
+    # A(x0) at x0 = 0 needs no gradient: one more launch forward
+    if fwd != API_CG_ITERS + 1 or bwd != API_CG_ITERS:
+        raise AssertionError(f"{tag} stencil_apply launches forward {fwd}, backward {bwd}")
+    x_p, g_p, _, _ = solve(lambda v: sk.apply_scalar_plain(offs, W, v))
+    res = float((sk.apply_scalar_plain(offs, W, x) - b0).norm() / b0.norm())
+    rel = (_rel_max(x, x_p)[1], _rel_max(g, g_p)[1])
+    print(f"{tag} cg_fixed_iters({API_CG_ITERS}) through stencil_apply: {fwd} launches "
+          f"forward, {bwd} backward (transposed, mirrored planes), {run_s:.3f} s; "
+          f"residual {res:.3e}; x vs the plain apply max rel {rel[0]:.3e}, gradient "
+          f"wrt b {rel[1]:.3e} (<= {API_RTOL})")
+    if max(rel) > API_RTOL or not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"{tag} kernel vs plain {rel}")
+    n = sim.mesh.n_nodes
+    v = torch.as_tensor(np.random.default_rng(21).standard_normal(n), dtype=torch.float32,
+                        device=dev)
+    A = _csr(torch, offs, [(W.reshape(len(offs), 1, 1, n), 1.0, 0)], n, 1, 1, n)
+    row = _apply_row(torch, f"stencil_apply<1,1>@[20b] N={N} rd operator", sk.apply_scalar,
+                     sk.apply_scalar_plain, (offs, W, v), lambda: torch.mv(A, v), (n,),
+                     (sk.apply_scalar,), r"stencil_apply_kernel<1, ?1, ?1>",
+                     4 * (W.numel() + 2 * n), 2 * W.numel(),
+                     "glimslib_tpu/ops/stencil_pallas.py:108", "[20b]", _cold_l2(torch, dev))
+    row.update(launches=fwd + bwd, launches_forward=fwd, launches_backward=bwd,
+               launches_in=f"{tag} cg_fixed_iters and its gradient")
+    return [row], dict(launches_forward=fwd, launches_backward=bwd, seconds=run_s,
+                       residual=res, x_max_rel=rel[0], grad_max_rel=rel[1])
+
+
+def _api_p1(torch, dev, usim):
+    """[20c]: stiffness_residual and integrate_p1 on [6]'s box on the card
+    (f32) against the f64 CPU kernels."""
+    import numpy as np
+
+    from glimslib_tpu_torch.ops.assembly import P1Kernels
+
+    tag = f"[20c] n={N} unstructured:"
+    k64 = P1Kernels(usim.mesh, dtype=torch.float64, device="cpu")
+    rng = np.random.default_rng(22)
+    c = rng.random(usim.mesh.n_nodes)
+    D = 0.5 + rng.random(usim.mesh.n_cells)
+    kc = usim.kernels
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    out = {}
+    for name, got, want in (
+            ("stiffness_residual", kc.stiffness_residual(f32(c), f32(D)),
+             k64.stiffness_residual(torch.as_tensor(c), torch.as_tensor(D))),
+            ("integrate_p1", kc.integrate_p1(f32(c)), k64.integrate_p1(torch.as_tensor(c)))):
+        _, rel = _rel_max(got.cpu(), want)
+        out[name] = rel
+        print(f"{tag} {name} on the card (f32) vs f64 on the CPU: max rel {rel:.3e} "
+              f"(<= {API_RTOL})")
+        if rel > API_RTOL:
+            raise AssertionError(f"{tag} {name}: {rel:.3e}")
+    return out
+
+
+def phase_api(torch, dev, sim, usim, kernels):
+    """[20] (module docstring); adds its rows to ``kernels``."""
+    t0 = time.perf_counter()
+    rows, tables = _api_tables(torch, dev, usim)
+    cg_rows, cg = _api_cg(torch, dev, sim)
+    p1 = _api_p1(torch, dev, usim)
+    kernels += rows + cg_rows
+    out = dict(bell=tables, cg_fixed_iters=cg, p1=p1, seconds=time.perf_counter() - t0)
+    print(f"[20] API phase {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     import torch
 
@@ -6301,6 +6507,7 @@ def main():
     phase18["p2stream"] = phase_p2stream(torch, dev, keep["quad18"], kern)
     phase18["warm"] = phase_warm(torch, dev, usim)
     switches.update(phase_switches_quad(torch, dev, keep.pop("quad18"), quad, kern))
+    api = phase_api(torch, dev, sim, usim, kernels)
     meshes17 = [sim.mesh]
     del sim
     torch.cuda.empty_cache()
@@ -6331,6 +6538,7 @@ def main():
     drop = ("wrappers", "pattern", "iters")
     example_checks = {shape: [{k: v for k, v in row.items() if k not in drop}
                               for row in rows] for shape, rows in example_checks.items()}
+    print(json.dumps({"api": api}, default=str))
     print(json.dumps({"switches": switches}, default=str))
     print(json.dumps({"phase18": phase18}, default=str))
     print(json.dumps({"chebyshev": chebyshev, "vn_shard": vn_shard}, default=str))

@@ -364,3 +364,7 @@ class BoundaryConditions:
                 term = kern.traction_residual(v) * scale
             out = term if out is None else out + term
         return out
+
+    def time_update_bcs(self, time, kind="dirichlet"):
+        """No-op: condition values are callables evaluated when a step is
+        solved.  Kept for the reference's API."""

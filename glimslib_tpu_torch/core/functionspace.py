@@ -42,6 +42,10 @@ class SubSpace:
     def shape(self):
         return (self.n_dofs, self.dim) if self.rank == 1 else (self.n_dofs,)
 
+    @property
+    def size(self) -> int:
+        return self.n_dofs * self.value_size
+
 
 class SubSpaces:
     """Registry of subspaces."""
@@ -55,16 +59,30 @@ class SubSpaces:
         self._subspaces[subspace_id] = subspace
         self.names[subspace_id] = subspace.name
 
+    def get_subspace_ids(self):
+        return list(self._subspaces.keys())
+
     def get_subspace(self, subspace_id: int) -> SubSpace:
         return self._subspaces[subspace_id]
+
+    def exists(self, subspace_id: int) -> bool:
+        return subspace_id in self._subspaces
 
 
 class FunctionSpace:
     """Mixed P1/P2 function space over a Mesh; ``element_spec`` lists
-    ``(rank, degree)`` per subspace.  P2 projections run on ``device``."""
+    ``(rank, degree)`` per subspace.  ``dtype`` is the numpy dtype of
+    :meth:`zero_function`'s and :meth:`interpolate`'s arrays; P2
+    projections run on ``device``."""
 
-    def __init__(self, mesh, device="cpu"):
+    def __init__(self, mesh, projection_parameters=None, dtype=np.float64,
+                 device="cpu"):
         self.mesh = mesh
+        self.dtype = dtype
+        self.projection_parameters = projection_parameters or {
+            "solver_type": "cg",
+            "preconditioner_type": "jacobi",
+        }
         self.device = torch.device(device)
         self.subspaces: Optional[SubSpaces] = None
         self._kernels_cache = None
@@ -99,6 +117,40 @@ class FunctionSpace:
 
         return p2_dof_coordinates(self.mesh)
 
+    # -- field containers ---------------------------------------------------
+
+    def zero_function(self) -> Dict[int, np.ndarray]:
+        """Dict of zero arrays per subspace: the 'mixed function'."""
+        return {
+            sid: np.zeros(self.subspaces.get_subspace(sid).shape, self.dtype)
+            for sid in self.subspaces.get_subspace_ids()
+        }
+
+    def pack(self, fields: Dict[int, object]):
+        """Mixed function dict -> flat vector (sorted subspace ids, each
+        field ravelled): a tensor when any field is one, else numpy."""
+        parts = [fields[sid] for sid in sorted(fields)]
+        if any(isinstance(v, torch.Tensor) for v in parts):
+            like = next(v for v in parts if isinstance(v, torch.Tensor))
+            return torch.cat([
+                torch.as_tensor(v, device=like.device).reshape(-1) for v in parts
+            ])
+        return np.concatenate([np.ravel(v) for v in parts])
+
+    def unpack(self, flat):
+        """Flat vector -> mixed function dict (views of ``flat``, a tensor
+        or a numpy array)."""
+        out, ofs = {}, 0
+        for sid in self.subspaces.get_subspace_ids():
+            ss = self.subspaces.get_subspace(sid)
+            out[sid] = flat[ofs:ofs + ss.size].reshape(ss.shape)
+            ofs += ss.size
+        return out
+
+    def split_function(self, fields, subspace_id: int):
+        """One subspace's field of a mixed function dict."""
+        return fields[subspace_id]
+
     def _eval_expression(self, expr, coords, value_size, time=None):
         """Evaluate a constant / array / callable expression at coords."""
         n = len(coords)
@@ -115,6 +167,14 @@ class FunctionSpace:
         if vals.shape == (value_size,) and value_size > 1:
             return np.broadcast_to(vals, (n, value_size)).copy()
         return vals  # already nodal
+
+    def interpolate(self, expr, subspace_id: int, time=None):
+        """Nodal interpolation of an expression onto a subspace: its value
+        at :meth:`dof_coordinates` (P2: the interleaved dof order)."""
+        ss = self.subspaces.get_subspace(subspace_id)
+        coords = self.dof_coordinates(subspace_id)
+        vals = self._eval_expression(expr, coords, ss.value_size, time)
+        return np.asarray(vals, dtype=self.dtype)
 
     def _kernels(self):
         if self._kernels_cache is None:

@@ -12,6 +12,7 @@ import logging
 from typing import Dict, List
 
 import numpy as np
+import torch
 
 logger = logging.getLogger(__name__)
 
@@ -61,8 +62,18 @@ class Parameters:
         if name not in self._param_names:
             self._param_names.append(name)
 
+    def get_names(self):
+        return list(self._param_names)
+
     def as_dict(self):
         return {n: getattr(self, n) for n in self._param_names}
+
+    def cell_coefficient(self, name: str):
+        """Per-cell coefficient array (or the scalar) of a parameter."""
+        v = getattr(self, name)
+        if isinstance(v, TissueCoefficient):
+            return v.per_cell()
+        return v
 
     def set_initial_value_expressions(self, iv_expression: Dict[int, object]):
         self._iv_expressions = iv_expression
@@ -74,14 +85,30 @@ class Parameters:
             raise ValueError("no initial value expressions set")
         return self._functionspace.project_over_space(self._iv_expressions)
 
+    def time_update_parameters(self, time):
+        """No-op: time-dependent parameters are callables evaluated when a
+        step is solved.  Kept for the reference's API."""
+
 
 class TissueCoefficient:
-    """Heterogeneous per-tissue coefficient: ``values[cell_labels]``."""
+    """Heterogeneous per-tissue coefficient: ``values[cell_labels]``.
+    ``values`` is numpy, or a tensor (kept as given, so a gradient flows
+    to it through :meth:`per_cell`)."""
 
     def __init__(self, values, cell_labels, tissue_map=None):
-        self.values = np.asarray(values, dtype=np.float64)
+        if isinstance(values, torch.Tensor):
+            self.values = values
+        else:
+            self.values = np.asarray(values, dtype=np.float64)
         self.cell_labels = np.asarray(cell_labels, dtype=np.int64)
         self.tissue_map = tissue_map or {}
 
     def per_cell(self):
+        if isinstance(self.values, torch.Tensor):
+            return self.values[torch.as_tensor(self.cell_labels,
+                                               device=self.values.device)]
         return self.values[self.cell_labels]
+
+    def with_values(self, values):
+        """The same labels and tissue map with other per-label values."""
+        return TissueCoefficient(values, self.cell_labels, self.tissue_map)

@@ -525,6 +525,11 @@ class Simulation(ABC):
         can be nonzero; a name it lacks keeps every class."""
         return {}
 
+    def run_for_adjoint(self, parameters, output_dir=None):
+        """The subclasses' runner of one forward for a differentiable
+        objective (the base model has none)."""
+        raise NotImplementedError
+
     # -- global setup ---------------------------------------------------------
 
     def setup_global_parameters(self, label_function=None, subdomains=None,
@@ -1762,6 +1767,14 @@ class Simulation(ABC):
             self.functionspace, self.subdomains, output_dir=output_dir
         )
         self.results.data.load_from_hdf5(path_to_hdf5)
+
+    def reload_from_orbax(self, path, output_dir=None):
+        """The reference's reload of an Orbax checkpoint: Orbax is a JAX
+        library, so this raises (reload the ``.npz`` store with
+        :meth:`reload_from_hdf5`)."""
+        from glimslib_tpu_torch.core.results import _ORBAX
+
+        raise NotImplementedError(_ORBAX)
 
     # -- postprocess hook ----------------------------------------------------
 

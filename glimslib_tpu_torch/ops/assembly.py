@@ -162,6 +162,77 @@ def pull_accumulate(index: PullIndex, contrib):
     return _Pull.apply(index.pull, index.push, contrib)
 
 
+def scatter(plan: ScatterPlan, contrib_flat):
+    """Accumulate per-entry contributions (n_entries, ...) into segments
+    (n_segments, ...) through the plan's pull table, on the contributions'
+    device."""
+    return pull_accumulate(pull_index(plan, contrib_flat.device), contrib_flat)
+
+
+# -- the per-cell element contributions (cell axis last), shared by
+# P1Kernels' residuals and diagonals --------------------------------------
+
+
+def rd_element_contrib(ce, cpe, gT, vol, D, rho, dt, source, conc_max, m0, t0,
+                       dim):
+    """Fisher-KPP implicit-Euler element contributions (npe, nc).
+
+    ce/cpe (npe, nc), gT (npe, d, nc), vol (nc,); D/rho/source scalar or
+    (nc,).  The mass and cubic terms are the closed forms
+    (M c)_i = m0 (S + c_i), (T:cc)_i = t0 (S^2 + 2 c_i S + Q + 2 c_i^2)
+    with S = sum_j c_j, Q = sum_j c_j^2."""
+    dc = ce - cpe
+    m_diff = m0 * (dc.sum(dim=0) + dc)
+    grad_c = (ce[:, None, :] * gT).sum(dim=0)  # (d, nc)
+    k_term = (grad_c[None] * gT).sum(dim=1)  # (npe, nc)
+    S = ce.sum(dim=0)
+    Q = (ce * ce).sum(dim=0)
+    m_c = m0 * (S + ce)
+    t_cc = t0 * (S * S + Q + 2.0 * ce * (S + ce))
+    return vol * (
+        m_diff
+        + (dt * D) * k_term
+        - (dt * rho) * (m_c - t_cc / conc_max)
+        - (dt * source / (dim + 1))
+    )
+
+
+def rd_diag_contrib(gT, vol, D, dt, m0, dim):
+    """Jacobi diagonal of (M + dt D K), element contributions (npe, nc)."""
+    mdiag = (2.0 * m0) * vol
+    g2 = (gT * gT).sum(dim=1)  # (npe, nc)
+    return mdiag.expand(g2.shape) + (dt * D) * vol * g2
+
+
+def elasticity_element_contrib(ue, c_int, gT, vol, mu, lam, coupling, bf_T,
+                               dim):
+    """Growth-coupled elasticity element contributions (npe, d, nc).
+
+    ue (d, npe, nc), c_int (nc,) the per-cell ∫c, gT (npe, d, nc), bf_T
+    None | (d, 1) | (d, nc)."""
+    d = dim
+    # grad_u[a, b] = sum_j ue[a, j] g[j, b]
+    grad_u = (ue[:, None, :, :] * gT.permute(1, 0, 2)[None]).sum(dim=2)
+    eps = 0.5 * (grad_u + grad_u.transpose(0, 1))  # (d, d, nc)
+    tr_eps = eps.diagonal(dim1=0, dim2=1).sum(dim=-1)  # (nc,)
+    eye = torch.eye(d, dtype=eps.dtype, device=eps.device)[:, :, None]
+    sigma = 2.0 * mu * eps + (lam * tr_eps) * eye  # (d, d, nc)
+    # term_stress[i, a] = vol sum_b sigma[a, b] g[i, b]
+    term_stress = vol * (gT[:, None, :, :] * sigma[None]).sum(dim=2)
+    kfac = coupling * (2.0 * mu + d * lam) * c_int  # (nc,)
+    contrib = term_stress - kfac * gT
+    if bf_T is not None:
+        contrib = contrib - (vol / (d + 1)) * bf_T[None]
+    return contrib
+
+
+def elasticity_diag_contrib(gT, vol, mu, lam):
+    """Elasticity Jacobi diagonal, element contributions (npe, d, nc)."""
+    g2 = (gT * gT).sum(dim=1)  # (npe, nc)
+    ga2 = gT * gT  # (npe, d, nc)
+    return vol * (mu * (g2[:, None, :] + ga2) + lam * ga2)
+
+
 class P1Kernels:
     """Per-mesh P1 kernels of the coupled Fisher-KPP + elasticity system.
 
@@ -222,30 +293,13 @@ class P1Kernels:
     def _mass_apply(self, xe):
         return self._m0 * (xe.sum(dim=0) + xe)
 
-    def _cubic_apply(self, ce):
-        S = ce.sum(dim=0)
-        Q = (ce * ce).sum(dim=0)
-        return self._t0 * (S * S + Q + 2.0 * ce * (S + ce))
-
     def rd_residual(self, c, c_prev, D, rho, dt, source=0.0, conc_max=1.0):
         """Implicit-Euler Fisher-KPP residual (von Neumann terms excluded):
         R_i = ∫ c v + dt D ∇c·∇v - c_prev v - dt ρ c(1-c/c_max) v - dt s v."""
-        g = self.grads_T
-        v = self.vol
-        D = self._cellco(D)
-        rho = self._cellco(rho)
-        source = self._cellco(source)
-        ce = self._gather_T(c)
-        cpe = self._gather_T(c_prev)
-        m_diff = self._mass_apply(ce - cpe)
-        grad_c = (ce[:, None, :] * g).sum(dim=0)  # (d, nc)
-        k_term = (grad_c[None] * g).sum(dim=1)  # (npe, nc)
-        contrib = v * (
-            m_diff
-            + (dt * D) * k_term
-            - (dt * rho) * (self._mass_apply(ce) - self._cubic_apply(ce) / conc_max)
-            - (dt * source / (self.dim + 1))
-        )
+        contrib = rd_element_contrib(
+            self._gather_T(c), self._gather_T(c_prev), self.grads_T, self.vol,
+            self._cellco(D), self._cellco(rho), dt, self._cellco(source),
+            conc_max, self._m0, self._t0, self.dim)
         return self._scatter_scalar(contrib)
 
     @property
@@ -281,22 +335,13 @@ class P1Kernels:
     def rd_mass_stiffness_diag(self, D, rho, dt):
         """Diagonal of (M + dt D K), the Jacobi preconditioner of the
         concentration block (rho unused, kept for interface parity)."""
-        g = self.grads_T
-        v = self.vol
-        D = self._cellco(D)
-        mdiag = torch.diagonal(self.mass_unit)[:, None] * v[None]
-        kdiag = (dt * D) * v * (g * g).sum(dim=1)
-        return self._scatter_scalar(mdiag + kdiag)
+        return self._scatter_scalar(rd_diag_contrib(
+            self.grads_T, self.vol, self._cellco(D), dt, self._m0, self.dim))
 
     def elasticity_diag(self, mu, lam):
         """Diagonal of the elasticity stiffness operator per (node, comp)."""
-        g = self.grads_T
-        v = self.vol
-        mu = self._cellco(mu)
-        lam = self._cellco(lam)
-        g2 = (g * g).sum(dim=1)
-        ga2 = g * g
-        return self._scatter_vector(v * (mu * (g2[:, None, :] + ga2) + lam * ga2))
+        return self._scatter_vector(elasticity_diag_contrib(
+            self.grads_T, self.vol, self._cellco(mu), self._cellco(lam)))
 
     def elasticity_diag_blocks(self, mu, lam):
         """Per-node (d, d) diagonal blocks of the elasticity operator,
@@ -347,27 +392,14 @@ class P1Kernels:
         per-cell integral ``c_int`` (nc,): the growth strain couples
         through ∫_e c dx only, which is how a P2 concentration enters
         (``models/tumor_growth_quad.py``)."""
-        ue = u[self.cells_T].permute(2, 0, 1)  # (d, npe, nc)
-        d = self.dim
-        g = self.grads_T  # (npe, d, nc)
-        v = self.vol
-        mu = self._cellco(mu)
-        lam = self._cellco(lam)
-        coupling = self._cellco(coupling)
-        # grad_u[a, b] = sum_j ue[a, j] g[j, b]
-        grad_u = (ue[:, None, :, :] * g.permute(1, 0, 2)[None]).sum(dim=2)
-        eps = 0.5 * (grad_u + grad_u.transpose(0, 1))  # (d, d, nc)
-        tr_eps = eps.diagonal(dim1=0, dim2=1).sum(dim=-1)  # (nc,)
-        eye = torch.eye(d, dtype=eps.dtype, device=eps.device)[:, :, None]
-        sigma = 2.0 * mu * eps + (lam * tr_eps) * eye  # (d, d, nc)
-        # term_stress[i, a] = v sum_b sigma[a, b] g[i, b]
-        term_stress = v * (g[:, None, :, :] * sigma[None]).sum(dim=2)  # (npe, d, nc)
-        kfac = coupling * (2.0 * mu + d * lam) * c_int  # (nc,)
-        contrib = term_stress - kfac * g
+        bf_T = None
         if body_force is not None:
             bf = self._cellco(body_force)
             bf_T = bf[:, None] if bf.dim() == 1 else bf.T  # (d, 1) or (d, nc)
-            contrib = contrib - (v / (d + 1)) * bf_T[None]
+        contrib = elasticity_element_contrib(
+            u[self.cells_T].permute(2, 0, 1), c_int, self.grads_T, self.vol,
+            self._cellco(mu), self._cellco(lam), self._cellco(coupling), bf_T,
+            self.dim)
         return self._scatter_vector(contrib)
 
     def mass_residual(self, c):
@@ -388,6 +420,29 @@ class P1Kernels:
         """Row-sum lumped mass vector (n,)."""
         contrib = (self.vol / (self.dim + 1)).expand(self.npe, self.n_cells)
         return self._scatter_scalar(contrib)
+
+    def gather(self, nodal):
+        """nodal (n, ...) -> per-cell (nc, npe, ...) (cell-major)."""
+        return nodal[self.cells_T.T]
+
+    def stiffness_residual(self, c, D=1.0):
+        """∫ D ∇c·∇v dx, (n,) -> (n,)."""
+        g = self.grads_T
+        grad_c = (self._gather_T(c)[:, None, :] * g).sum(dim=0)  # (d, nc)
+        contrib = (self._cellco(D) * self.vol) * (grad_c[None] * g).sum(dim=1)
+        return self._scatter_scalar(contrib)
+
+    def integrate_cellwise(self, values_per_cell):
+        """∫ f dx of a piecewise-constant f: Σ f_e V_e (a 0-d tensor)."""
+        return torch.sum(values_per_cell * self.vol)
+
+    def integrate_p1(self, c):
+        """∫ c dx of a P1 field: Σ_e V_e mean(c_e) (a 0-d tensor)."""
+        return torch.sum(self.cell_integral(c))
+
+    def cell_gradient(self, c):
+        """Per-cell (constant) gradient of a P1 scalar field, (nc, d)."""
+        return (self._gather_T(c)[:, None, :] * self.grads_T).sum(dim=0).T
 
     def cell_average(self, c):
         """Per-cell average of P1 fields, (..., n) -> (..., nc)."""

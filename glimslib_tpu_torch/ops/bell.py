@@ -189,6 +189,22 @@ class BellPlan:
         self.off_entry_t = idx(self.off_entry_idx)
         self.nb_total = self.b1 = nb
 
+    @property
+    def halo_ids(self):
+        """The (nb, Kh) dof id of every halo slot (sentinel n for padding),
+        the chunk-aligned halo expanded to its dofs: a diagnostic view;
+        the applies gather :attr:`ext_ids` only."""
+        blocks = self.b0 + np.arange(self.nb)  # a slab's blocks of the plan
+        own = blocks[:, None] * self.s + np.arange(self.s)[None, :]
+        own = np.where(own < self.n, own, self.n).astype(np.int32)
+        ext = self.ext_ids
+        if self.halo_chunk > 1:
+            G = self.halo_chunk
+            ext = (ext[:, :, None].astype(np.int64) * G
+                   + np.arange(G)[None, None, :]).reshape(self.nb, -1)
+            ext = np.where(ext < self.n, ext, self.n).astype(np.int32)
+        return np.concatenate([own, ext], axis=1)
+
     @functools.cached_property
     def place_pull(self):
         """The placement as a pull of one entry a slot (its slots, int64
@@ -407,6 +423,21 @@ def build_bell_elasticity(plan: BellPlan, mesh_arrays, mu, lam):
 def build_bell_rd_const(plan: BellPlan, mesh_arrays, D, rho, dt, m0):
     """(nb, s, Kh) values of M + dt D K - dt rho M."""
     return plan.assemble(rd_const_entries(mesh_arrays, D, rho, dt, m0))
+
+
+def build_bell_mass(plan: BellPlan, mesh_arrays, m0):
+    """(nb, s, Kh) values of the P1 mass matrix M_ij = m0 (1 + δij) vol a
+    cell: the c_prev operand of the streamed rd residual
+    R = W_const c + quad(c) - M c_prev - load (the model's ``_BellMrd``)."""
+    return plan.assemble(mass_entries(mesh_arrays, m0))
+
+
+def build_bell_coupling_uc(plan: BellPlan, mesh_arrays, mu, lam, coupling):
+    """(nb, s, d, Kh) values of the growth-coupling operator C, scalar
+    concentration -> vector force, of the streamed elasticity residual
+    R = A u + C c - load (the model's ``_BellCuc``)."""
+    W = plan.assemble(coupling_uc_entries(mesh_arrays, mu, lam, coupling))
+    return W.permute(0, 1, 3, 2).contiguous()  # (nb, s, Kh, d) -> (nb, s, d, Kh)
 
 
 def _cell_values(cells_flat, c, npe):

@@ -144,9 +144,21 @@ class P2Kernels:
 
     # -- basics --------------------------------------------------------------
 
+    def gather(self, f):
+        """(n_dofs,) -> (nc, npe) cell-dof values, cell-major."""
+        return f[self.cell_dofs_T.T]
+
+    def gather2(self, f, f2):
+        """Two fields at once: -> (nc, npe, 2)."""
+        return torch.stack([f, f2], dim=-1)[self.cell_dofs_T.T]
+
     def gather_T(self, f):
         """(n_dofs,) -> (npe, nc) cell-dof values, cell axis last."""
         return f[self.cell_dofs_T]
+
+    def gather2_T(self, f, f2):
+        """Two fields at once, cell axis last: -> (npe, nc, 2)."""
+        return torch.stack([f, f2], dim=-1)[self.cell_dofs_T]
 
     def at_quad_T(self, feT):
         """(npe, nc) dof values -> (nq, nc) values at the quadrature points."""
@@ -154,6 +166,21 @@ class P2Kernels:
         for i in range(1, self.npe):
             out = out + self.vals[:, i, None] * feT[i][None, :]
         return out
+
+    def at_quad(self, fe):
+        """(nc, npe) dof values -> (nc, nq) values at the quadrature points."""
+        return (self.vals[None] * fe[:, None, :]).sum(dim=-1)
+
+    def ref_grad_at_quad(self, fe):
+        """(nc, npe) -> reference-space gradient (nc, nq, d)."""
+        return (self.rgrads[None] * fe[:, None, :, None]).sum(dim=2)
+
+    def phys_grad_at_quad(self, fe):
+        """(nc, npe) -> physical gradient (nc, nq, d), through the affine
+        map A[e, a, :] = grad(lambda_{a+1})."""
+        rg = self.ref_grad_at_quad(fe)  # (nc, nq, a)
+        A = self.A_T.permute(2, 0, 1)  # (nc, a, d)
+        return (rg[..., :, None] * A[:, None, :, :]).sum(dim=-2)
 
     def _test_T(self, wq):
         """(nq, nc) weighted point values -> (npe, nc) Σ_q vals[q, i] wq[q]."""

@@ -38,12 +38,15 @@ Rank 0 alone writes ``export_computation_graph``'s file.
 
 from __future__ import annotations
 
+import logging
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from glimslib_tpu_torch.parallel.shard import reduce_sum
+
+logger = logging.getLogger(__name__)
 
 CONC_THRESHOLD_LEVELS = {"T2": 0.12, "T1": 0.80}  # reference l.52-53
 THRESH_SMOOTHNESS = 0.01  # reference l.1404

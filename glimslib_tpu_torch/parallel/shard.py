@@ -45,6 +45,7 @@ on it takes point-Jacobi on its elasticity block, as the reference's.
 from __future__ import annotations
 
 import datetime
+import importlib
 import os
 import queue
 import tempfile
@@ -207,8 +208,20 @@ def reduce_sum(mesh, x):
 # -- the launcher --------------------------------------------------------------
 
 
+# what a forkserver imports once, so that CPU ranks start without
+# importing torch and the port anew
+_CPU_PRELOAD = ["torch", "torch.distributed", "glimslib_tpu_torch.examples",
+                "glimslib_tpu_torch.optimize.adjoint"]
+
+
 def _rank_main(rank, world, backend, device, store, timeout_s, threads, fn, args,
-               results):
+               results, environ=None):
+    if environ is not None:
+        # a forked rank starts from its server's environment and settings:
+        # take the caller's, and read the settings again from them
+        os.environ.clear()
+        os.environ.update(environ)
+        importlib.reload(config)
     torch.set_num_threads(threads)
     dev = torch.device(device)
     if dev.type == "cuda":
@@ -243,7 +256,10 @@ def run_ranks(fn, world: int, backend: str, device="cpu", args=(),
     The kernels are built here, before the ranks start, where ``device``
     is a card.  A rank's exception is raised here with its traceback; a
     collective that waits longer than ``timeout`` seconds raises in its
-    rank, and the ranks are stopped after ``timeout`` seconds in all."""
+    rank, and the ranks are stopped after ``timeout`` seconds in all.
+    CPU ranks fork from a server process that imports torch and the port
+    once (each rank takes the caller's environment as it is at the call);
+    ranks on a card are spawned."""
     import multiprocessing as mp
 
     dev = torch.device(device)
@@ -257,14 +273,22 @@ def run_ranks(fn, world: int, backend: str, device="cpu", args=(),
         from glimslib_tpu_torch import _build
 
         _build.build_all()
-    ctx = mp.get_context("spawn")
+    if dev.type == "cpu":
+        # forked from a server that imported torch and the port once in
+        # this process's life; a card's ranks are spawned
+        ctx = mp.get_context("forkserver")
+        ctx.set_forkserver_preload(_CPU_PRELOAD)
+        environ = dict(os.environ)
+    else:
+        ctx, environ = mp.get_context("spawn"), None
     results = ctx.Queue()
     with tempfile.TemporaryDirectory(prefix="glims_ranks_") as tmp:
         store = os.path.join(tmp, "store")
         procs = [ctx.Process(
             target=_rank_main,
             args=(r, world, backend, str(dev), store, timeout,
-                  max(1, torch.get_num_threads() // world), fn, tuple(args), results))
+                  max(1, torch.get_num_threads() // world), fn, tuple(args), results,
+                  environ))
             for r in range(world)]
         for p in procs:
             p.start()

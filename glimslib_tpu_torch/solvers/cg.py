@@ -1,6 +1,6 @@
 """Preconditioned conjugate gradients and the Chebyshev polynomial
 preconditioner (counterpart of ``glimslib_tpu/solvers/cg.py``: ``pcg``,
-``estimate_lmax``, ``make_chebyshev_precond``).
+``cg_fixed_iters``, ``estimate_lmax``, ``make_chebyshev_precond``).
 
 ``pcg`` is the solver of the pcg and jvp branches (``solvers/coupled.py``)
 and the plain reference of the whole-solve CUDA kernels in
@@ -60,6 +60,35 @@ def pcg(A, b, x0=None, M=None, rtol=1e-10, atol=0.0, maxiter=500, reduce=None):
         "iters": torch.tensor(k, dtype=torch.int32, device=b.device),
         "resnorm": torch.sqrt(rr),
     }
+
+
+def cg_fixed_iters(A, b, x0=None, M=None, iters=50):
+    """CG with a fixed iteration count: no host read and no early exit, so
+    autograd differentiates through the whole loop (``A`` and ``M`` any
+    differentiable callables, a kernel wrapper with its autograd rule
+    included).  A zero ``p.Ap`` or ``r.z`` divides by 1 instead, so a
+    converged solve keeps its iterate."""
+    if x0 is None:
+        x0 = torch.zeros_like(b)
+    if M is None:
+        M = lambda r: r  # noqa: E731
+    x = x0
+    r = b - A(x0)
+    z = M(r)
+    p = z
+    rz = _dot(r, z)
+    for _ in range(iters):
+        Ap = A(p)
+        pAp = _dot(p, Ap)
+        alpha = rz / torch.where(pAp == 0, torch.ones_like(pAp), pAp)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = M(r)
+        rz_new = _dot(r, z)
+        beta = rz_new / torch.where(rz == 0, torch.ones_like(rz), rz)
+        p = z + beta * p
+        rz = rz_new
+    return x
 
 
 def estimate_lmax(A, Minner, shape_like, dtype, iters=12, safety=1.1, device=None,

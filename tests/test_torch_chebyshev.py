@@ -14,12 +14,14 @@ in glimslib_tpu_torch against the JAX package, on the CPU at f64.
   iteration's norms reduced over the ranks, its start vector the rows of
   the whole one), the same box stripped of its lattice (the supernode
   halo-ELL lane), the lattice on the matrix-free jvp lane and the quad
-  model on the stripped n = 3 box.  2 steps, then ``value_and_grad`` of
-  type 2: forward c and u and J within rel 1e-8 of the JAX package's run
-  at the same degree (its unsharded lattice for both lattice runs, its
-  pcg branch being the one its 'nodes' mode takes), the Newton counts
-  equal and every solve's CG count,
-  forward and adjoint, within one of the JAX package's (on the
+  model on the stripped n = 3 box.  ``value_and_grad`` of type 2 at V0
+  (2 steps) on the targets of the port's unsharded forward at the set-up
+  parameters: the forward inside it (c and u of every step) and J within
+  rel 1e-8 of the JAX package's value_and_grad at the same degree (one
+  jitted program, its forward handed out by a debug callback; its
+  unsharded lattice for both lattice runs, its pcg branch being the one
+  its 'nodes' mode takes), the Newton counts equal and every solve's CG
+  count, forward and adjoint, within one of the JAX package's (on the
   supernode lanes with the rd preconditioner its model builds and leaves
   unused wired into its step, ``_wire_rd_precond``); the gradient within
   1e-8;
@@ -52,15 +54,14 @@ import torch_chebyshev_cases as cases  # noqa: E402
 from __graft_entry__ import _brain_sim as jax_brain_sim  # noqa: E402
 from glimslib_tpu.core.mesh import Mesh as JaxMesh  # noqa: E402
 from glimslib_tpu.core.mesh import pad_mesh_nodes as jax_pad  # noqa: E402
-from glimslib_tpu.optimize.adjoint import InverseProblem as JaxInverseProblem  # noqa: E402
-from glimslib_tpu.optimize.adjoint import param_map_for_type, thresh  # noqa: E402
+from glimslib_tpu.optimize.adjoint import param_map_for_type  # noqa: E402
 from glimslib_tpu.solvers import cg as jax_cg  # noqa: E402
-from glimslib_tpu.solvers import coupled as jax_coupled  # noqa: E402
 from glimslib_tpu.solvers.coupled import StepConfig as JaxStepConfig  # noqa: E402
 from glimslib_tpu_torch.core.mesh import rectangle_mesh  # noqa: E402
 from glimslib_tpu_torch.models.tumor_growth import TumorGrowth  # noqa: E402
 from glimslib_tpu_torch.parallel import run_ranks  # noqa: E402
 from glimslib_tpu_torch.solvers import cg  # noqa: E402
+from torch_jax_vg import value_and_grad_with_forward  # noqa: E402
 from torch_threads import one_torch_thread  # noqa: E402,F401
 
 LANES = ("lattice", "stripped", "matrix_free", "quad")
@@ -133,49 +134,18 @@ def _jax_model(lane, degree):
     return sim
 
 
-def _jax_run(sim, monkeypatch):
-    """The JAX package's trajectory (initial values clamped as its run()
-    does), its targets, J and gradient of type 2 at V0, with the CG
-    iterations of the forward's solves and of value_and_grad's, by block,
-    sorted; on the supernode lane with its rd preconditioner wired
+def _jax_run(sim, monkeypatch, targets):
+    """The JAX package's value_and_grad of type 2 at V0 on ``targets`` with
+    the forward inside it (tests/torch_jax_vg.py: one jitted program), on
+    the supernode lane with its rd preconditioner wired
     (:func:`_wire_rd_precond`)."""
-    rec = []
-    pcg = jax_coupled.pcg
-
-    def counted(A, b, **kw):
-        x, info = pcg(A, b, **kw)
-        jax.debug.callback(lambda it, nd=b.ndim: rec.append((nd, int(it))), info["iters"])
-        return x, info
-
-    def take():
-        out = {"rd": sorted(i for nd, i in rec if nd == 1),
-               "el": sorted(i for nd, i in rec if nd == 2)}
-        rec.clear()
-        return out
-
-    with monkeypatch.context() as m:
-        m.setattr(jax_coupled, "pcg", counted)
-        if sim.mesh.lattice_strides is None and sim.operator_mode != "matrix-free":
-            _wire_rd_precond(sim, m)
-        theta = sim.make_theta(sim.params.as_dict())
-        iv = sim.params.create_initial_value_function()
-        mask_u, mask_c, gu, gc = sim._bc_masks_and_values()
-        u0 = jnp.where(mask_u, gu(0.0), jnp.asarray(iv[0]))
-        c0 = jnp.where(mask_c, gc(0.0), jnp.asarray(iv[1]))
-        u, c, ok, newton = sim.build_simulate_fn(cases.N_STEPS, 1.0)(theta, u0, c0)
-        c = np.asarray(jax.block_until_ready(c))
-        counts = take()
-        targets = {"conc_T2": np.asarray(thresh(jnp.asarray(c[-1]), 0.12)),
-                   "disp": np.asarray(u)[-1]}
-        names, update = param_map_for_type(2)
-        J, g = JaxInverseProblem(sim, names, targets, update_fn=update,
-                                 n_steps=cases.N_STEPS, dt=1.0).value_and_grad(
-            np.asarray(cases.V0))
-        g = np.asarray(jax.block_until_ready(g))
-        vg = take()
-    assert bool(np.asarray(ok).all())
-    return dict(u=np.asarray(u), c=c, newton=np.asarray(newton).tolist(), counts=counts,
-                vg_counts=vg, targets=targets, J=float(J), g=g)
+    if sim.mesh.lattice_strides is None and sim.operator_mode != "matrix-free":
+        _wire_rd_precond(sim, monkeypatch)
+    names, update = param_map_for_type(2)
+    out = value_and_grad_with_forward(sim, names, update, targets, cases.V0,
+                                      cases.N_STEPS, monkeypatch)
+    assert out["ok"]
+    return out
 
 
 def _wire_rd_precond(sim, monkeypatch):
@@ -214,11 +184,12 @@ def test_lane_matches_jax(lane, degree, monkeypatch):
     """(b) (module docstring)."""
     # the JAX package's P2 plan with the port's flat halo
     monkeypatch.setenv("GLIMS_P2_HALO_CHUNK", "1")
-    want = _jax_run(_jax_model(lane, degree), monkeypatch)
-    outs = [cases.run(cases.port_model(lane, degree), want["targets"])]
+    outs = [cases.run(cases.port_model(lane, degree))]
+    targets = outs[0]["targets"]
+    want = _jax_run(_jax_model(lane, degree), monkeypatch, targets)
     if lane == "lattice":
         ranks = run_ranks(cases.nodes_rank, cases.NODES_WORLD, "gloo", "cpu",
-                          args=(degree, want["targets"]), timeout=300)
+                          args=(degree, targets), timeout=300)
         for r in ranks[1:]:
             assert r["J"] == ranks[0]["J"] and np.array_equal(r["g"], ranks[0]["g"])
             assert np.array_equal(r["c"], ranks[0]["c"])

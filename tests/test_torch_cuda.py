@@ -1093,3 +1093,55 @@ def test_matrix_free_lane_on_the_card(quad):
     assert sum(w.launches for w in wrappers) == 0 and u.is_cuda
     u_r, c_r = _trajectory(sims[1], 2)
     assert _rel_l2(c, c_r) <= 1e-4 and _rel_l2(u, u_r) <= 1e-4
+
+
+@pytest.mark.parametrize("table", ["mass", "coupling"])
+def test_bell_mass_and_coupling_tables_through_the_kernel(unstructured, table):
+    """``build_bell_mass`` / ``build_bell_coupling_uc`` on the card, equal
+    to the model's ``_BellMrd`` / ``_BellCuc`` to 1e-6, applied through
+    bell_bmv (one launch) against the plain apply (max rel 1e-5)."""
+    from glimslib_tpu_torch.ops import bell
+
+    sim, _, theta = unstructured
+    plan, arrays = sim._get_bell_plan(), sim._mesh_arrays()
+    th = sim.make_theta(sim.params.as_dict())
+    if table == "mass":
+        W, key, apply = (bell.build_bell_mass(plan, arrays, sim.kernels._m0), "_BellMrd",
+                         bell.apply_bell_scalar)
+    else:
+        W, key, apply = (bell.build_bell_coupling_uc(plan, arrays, th["mu"], th["lam"],
+                                                     th["coupling"]),
+                         "_BellCuc", bell.apply_bell_coupling)
+    assert W.is_cuda and _rel_max(W, theta[key]) <= 1e-6
+    c = torch.as_tensor(np.random.default_rng(9).random(sim.mesh.n_nodes),
+                        dtype=torch.float32, device=W.device)
+    before = bk.batched_matvec.launches
+    got = apply(plan, W, c, bk.batched_matvec)
+    torch.cuda.synchronize()
+    assert bk.batched_matvec.launches == before + 1
+    assert _rel_max(got, apply(plan, W, c, bk.batched_matvec_plain)) <= 1e-5
+
+
+def test_cg_fixed_iters_through_stencil_apply_value_and_gradient(lattice):
+    """``cg_fixed_iters`` (30 iterations, Jacobi) on the rd planes through
+    stencil_apply, and the gradient of |x|^2 wrt b through the kernel's
+    autograd rule (transposed launches), against the same solve on the
+    plain apply: max rel 1e-5 both."""
+    from glimslib_tpu_torch.solvers.cg import cg_fixed_iters
+
+    sim, theta, v, _ = lattice
+    offs = sim._stencil_ops.offsets
+    W = theta["_Wrd_const"].detach()
+    diag = W[list(offs).index(0)]
+    out = {}
+    for way, apply in (("kernel", lambda x: sk.apply_scalar(offs, W, x)),
+                       ("plain", lambda x: sk.apply_scalar_plain(offs, W, x))):
+        before = sk.apply_scalar.launches
+        b = v.clone().requires_grad_(True)
+        x = cg_fixed_iters(apply, b, M=lambda r: r / diag, iters=30)
+        (g,) = torch.autograd.grad(torch.sum(x * x), b)
+        torch.cuda.synchronize()
+        out[way] = x.detach(), g, sk.apply_scalar.launches - before
+    assert out["kernel"][2] == 31 + 30 and out["plain"][2] == 0
+    for i in range(2):
+        assert _rel_max(out["kernel"][i], out["plain"][i]) <= 1e-5

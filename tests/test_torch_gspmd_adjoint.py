@@ -5,7 +5,8 @@ torch on one thread a rank), at f64, against the JAX package.
 
 The JAX side is the JAX package's single-device ``value_and_grad`` of the
 unpadded model with tight tolerances (tests/torch_gspmd_cases.py TIGHT),
-one a case in a module fixture; the JAX package's own node-sharded
+on targets from the port's unsharded forward of that model, one a case a
+session (tests/torch_once.py); the JAX package's own node-sharded
 gradient equals it (``__graft_entry__.dryrun_multichip``'s first leg)
 but takes too long to compile here.  Both packages take the pcg branch
 with warm starts there.  Held here:
@@ -76,14 +77,25 @@ CASES = {
 
 
 def _jax_gradient(spec, opt_type, v0):
-    """The JAX package's single-device (targets, J, gradient) of the
-    unpadded model of ``spec``: targets from its forward run at the
-    model's parameters (T2, T1 and displacement on the brain box; c and
-    u on the rectangle), then value_and_grad at ``v0``."""
+    """(targets, J, gradient): targets from the port's unsharded, unpadded
+    forward of ``spec`` at the model's parameters (T2, T1 and displacement
+    on the brain box; c and u on the rectangle), then the JAX package's
+    single-device value_and_grad at ``v0`` on them."""
     from glimslib_tpu.optimize.adjoint import (
-        InverseProblem, param_map_for_type, thresh, tumor_growth_param_map,
+        InverseProblem, param_map_for_type, tumor_growth_param_map,
     )
+    from glimslib_tpu_torch.optimize.adjoint import thresh
 
+    whole = cases.port_model({k: v for k, v in spec.items() if k != "pad_to"})
+    u, c, ok, _ = whole.build_simulate_fn(cases.N_STEPS, 1.0)(
+        whole.make_theta(whole.params.as_dict()), *whole.initial_state())
+    assert bool(ok.all())
+    u_T, c_T = u[-1], c[-1]
+    if spec["kind"] == "brain":
+        targets = {"conc_T2": thresh(c_T, 0.12).numpy(),
+                   "conc_T1": thresh(c_T, 0.80).numpy(), "disp": u_T.numpy()}
+    else:
+        targets = {"conc": c_T.numpy(), "disp": u_T.numpy()}
     if spec["kind"] == "brain":
         sim = jax_brain_sim(n=spec["n"], dims=3, dtype=jnp.float64)
         names, update = param_map_for_type(opt_type)
@@ -93,16 +105,6 @@ def _jax_gradient(spec, opt_type, v0):
         sim = _jax_rect_sim(spec["n"], subdomains=True)
         names, update = tumor_growth_param_map(opt_type)
     sim.step_config = JaxStepConfig(**cases.TIGHT)
-    iv = sim.params.create_initial_value_function()
-    u, c, ok, _ = sim.build_simulate_fn(cases.N_STEPS, 1.0)(
-        sim.make_theta(sim.params.as_dict()), jnp.asarray(iv[0]), jnp.asarray(iv[1]))
-    assert bool(np.asarray(ok).all())
-    u_T, c_T = np.asarray(u[-1]), np.asarray(c[-1])
-    if spec["kind"] == "brain":
-        targets = {"conc_T2": np.asarray(thresh(jnp.asarray(c_T), 0.12)),
-                   "conc_T1": np.asarray(thresh(jnp.asarray(c_T), 0.80)), "disp": u_T}
-    else:
-        targets = {"conc": c_T, "disp": u_T}
     ip = InverseProblem(sim, names, targets, update_fn=update, n_steps=cases.N_STEPS,
                         dt=1.0)
     J, g = ip.value_and_grad(v0)

@@ -279,24 +279,27 @@ def test_matrix_free_value_and_grad_matches_jax():
     """J and the gradient on the matrix-free lane (the IFT backward's
     adjoint solves on the jvp operators) within 1e-8 of the JAX
     package's matrix-free value_and_grad: the benchmark's adjoint cell
-    (type 2, v0 = 0.05) on the n=4 box, 2 steps."""
+    (type 2, v0 = 0.05) on the n=4 box, 2 steps, on the targets of the
+    port's matrix-free forward at the set-up parameters."""
     from glimslib_tpu.optimize.adjoint import InverseProblem as JaxIP
     from glimslib_tpu.optimize.adjoint import param_map_for_type as jax_map
-    from glimslib_tpu.optimize.adjoint import thresh as jax_thresh
-    from glimslib_tpu_torch.optimize.adjoint import InverseProblem, param_map_for_type
+    from glimslib_tpu_torch.optimize.adjoint import (
+        InverseProblem, param_map_for_type, thresh)
 
-    sim_j = jax_brain_sim(n=4, dims=3, dtype=jnp.float64)
-    sim_j.step_config = JaxStepConfig(**TIGHT)
-    sim_j.operator_mode = "matrix-free"
-    u, c, ok, _ = _trajectory(sim_j, 2, "jax")
-    targets = {"conc_T2": np.asarray(jax_thresh(jnp.asarray(c[-1]), 0.12)), "disp": u[-1]}
-    v0 = np.array([0.05, 0.05])
-    names, update = jax_map(2)
-    J_j, g_j = JaxIP(sim_j, names, targets, update_fn=update, n_steps=2,
-                     dt=1.0).value_and_grad(v0)
     sim = brain_sim(n=4, dtype=F64, device="cpu")
     sim.step_config = StepConfig(**TIGHT)
     sim.operator_mode = "matrix-free"
+    # the targets of the port's forward at the set-up parameters
+    u, c, ok, _ = _trajectory(sim, 2)
+    assert ok
+    targets = {"conc_T2": thresh(torch.as_tensor(c[-1]), 0.12).numpy(), "disp": u[-1]}
+    v0 = np.array([0.05, 0.05])
+    sim_j = jax_brain_sim(n=4, dims=3, dtype=jnp.float64)
+    sim_j.step_config = JaxStepConfig(**TIGHT)
+    sim_j.operator_mode = "matrix-free"
+    names, update = jax_map(2)
+    J_j, g_j = JaxIP(sim_j, names, targets, update_fn=update, n_steps=2,
+                     dt=1.0).value_and_grad(v0)
     names, update = param_map_for_type(2)
     J, g = InverseProblem(sim, names, targets, update_fn=update, n_steps=2,
                           dt=1.0).value_and_grad(v0)

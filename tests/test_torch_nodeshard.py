@@ -23,17 +23,20 @@ steps at tight tolerances.  Held here:
   jvp, the sum over the ranks of their parts (the collectives carry the
   tangent);
 - (c), (d) forward trajectories and ``value_and_grad`` of both modes at 2
-  and 4 ranks: 'cells' against the JAX package's 'cells' run (rel-L2
-  1e-8, the same Newton and CG counts: point-Jacobi on the elasticity
-  block), 'nodes' against its single-device matrix-free run (the same
-  counts: block-Jacobi); J and the gradient within rel 1e-8 of the JAX
-  package's single-device value_and_grad and bit-equal on every rank;
-  ``run()`` gives the trajectory's last state;
+  and 4 ranks, on the targets of the port's unsharded forward: 'cells'
+  against the JAX package's 'cells' run (rel-L2 1e-8, the same Newton and
+  CG counts: point-Jacobi on the elasticity block), 'nodes' (the forward
+  inside value_and_grad, at V0) against the forward inside the JAX
+  package's single-device matrix-free value_and_grad (the same counts:
+  block-Jacobi; tests/torch_jax_vg.py, one jitted program); J and the
+  gradient within rel 1e-8 of that value_and_grad and bit-equal on every
+  rank; ``run()`` gives the trajectory's last state;
 - (e) ``use_sharding()`` falls back to 'cells' where the JAX package's
   does, with its warning; quad models refuse, von Neumann conditions
   enter both modes;
 - the lattice's 'nodes' mode on the matrix-free lane at 2 ranks against
-  the JAX package's matrix-free run (forward, J and gradient).
+  the JAX package's matrix-free value_and_grad (the forward inside it,
+  J and gradient).
 """
 
 import inspect
@@ -62,6 +65,7 @@ from glimslib_tpu.parallel import partition as jax_partition  # noqa: E402
 from glimslib_tpu.parallel.shard import ShardedP1Kernels as JaxSharded  # noqa: E402
 from glimslib_tpu.parallel.shard import make_device_mesh as jax_device_mesh  # noqa: E402
 from glimslib_tpu.solvers import coupled as jax_coupled  # noqa: E402
+from glimslib_tpu.optimize.adjoint import param_map_for_type as jax_param_map  # noqa: E402
 from glimslib_tpu.solvers.coupled import StepConfig as JaxStepConfig  # noqa: E402
 from glimslib_tpu_torch.core.mesh import rectangle_mesh  # noqa: E402
 from glimslib_tpu_torch.native import meshops  # noqa: E402
@@ -69,6 +73,7 @@ from glimslib_tpu_torch.parallel import (  # noqa: E402
     DeviceMesh, NodeShardSpec, ShardedP1Kernels, partition_cells, run_ranks)
 from glimslib_tpu_torch.parallel.partition import morton_order  # noqa: E402
 from torch_once import once  # noqa: E402
+from torch_jax_vg import value_and_grad_with_forward  # noqa: E402
 from torch_threads import one_torch_thread  # noqa: E402,F401
 
 WORLDS = (2, 4)
@@ -130,37 +135,29 @@ def _jax_trajectory(sim, monkeypatch):
     return dict(u=np.asarray(u), c=c, newton=np.asarray(newton).tolist(), counts=counts)
 
 
-def _jax_gradient(sim, traj):
-    """Targets from the trajectory's last state, and the JAX package's J
-    and gradient of type 2 at V0 over N_STEPS steps."""
-    from glimslib_tpu.optimize.adjoint import InverseProblem, param_map_for_type, thresh
-
-    targets = {"conc_T2": np.asarray(thresh(jnp.asarray(traj["c"][-1]), 0.12)),
-               "disp": traj["u"][-1]}
-    names, update = param_map_for_type(2)
-    J, g = InverseProblem(sim, names, targets, update_fn=update, n_steps=cases.N_STEPS,
-                          dt=1.0).value_and_grad(np.asarray(cases.V0))
-    return targets, float(J), np.asarray(g)
-
-
-def _jax_matrix_free():
-    """The JAX package's single-device matrix-free run of the Morton box,
-    its targets, J and gradient."""
-    mp = pytest.MonkeyPatch()
+def _jax_value_and_grad(lattice=False, world=2, monkeypatch=None):
+    """The JAX package's single-device matrix-free value_and_grad of type 2
+    at V0 on the targets of the port's unsharded forward
+    (:func:`cases.targets`), with the forward inside it
+    (tests/torch_jax_vg.py: one jitted program)."""
+    targets = cases.targets(lattice, world)
+    names, update = jax_param_map(2)
+    mp = monkeypatch or pytest.MonkeyPatch()
     try:
-        sim = _jax_model()
-        traj = _jax_trajectory(sim, mp)
+        out = value_and_grad_with_forward(_jax_model(lattice, world), names, update,
+                                          targets, cases.V0, cases.N_STEPS, mp)
     finally:
-        mp.undo()
-    targets, J, g = _jax_gradient(sim, traj)
-    return dict(traj, targets=targets, J=J, g=g)
+        if monkeypatch is None:
+            mp.undo()
+    assert out["ok"]
+    return dict(out, targets=targets)
 
 
 @pytest.fixture(scope="module")
 def jax_ref(tmp_path_factory):
-    """:func:`_jax_matrix_free`, computed once a session
-    (tests/torch_once.py)."""
-    return once(tmp_path_factory, "nodeshard-matrix-free", _jax_matrix_free)
+    """:func:`_jax_value_and_grad` of the Morton box, computed once a
+    session (tests/torch_once.py)."""
+    return once(tmp_path_factory, "nodeshard-matrix-free", _jax_value_and_grad)
 
 
 def _counts(out):
@@ -178,6 +175,10 @@ def _check_ranks(ranks, world, mode):
         for key in ("u", "c", "g", "run_c", "run_u"):
             assert np.array_equal(out[key], ranks[0][key]), key
         assert out["J"] == ranks[0]["J"]
+        for key in ("u", "c"):
+            assert np.array_equal(out["v0"][key], ranks[0]["v0"][key]), key
+        for key in ("newton", "rd_cg", "el_cg"):
+            assert out["v0"][key] == ranks[0]["v0"][key], key
         # run() gives the trajectory's last state
         assert np.array_equal(out["run_c"], out["c"][-1])
         assert np.array_equal(out["run_u"], out["u"][-1])
@@ -395,16 +396,17 @@ def test_forward_and_gradient_match_jax(mode, world, jax_ref, monkeypatch):
     if mode == "cells":
         jsim = _jax_model(matrix_free=False)
         jsim.use_sharding(jax_device_mesh(world), mode="cells")
-        want = _jax_trajectory(jsim, monkeypatch)
+        want, got = _jax_trajectory(jsim, monkeypatch), out
         # point-Jacobi on the elasticity block, as the reference's 'cells'
         assert out["kernels"] == "ShardedP1Kernels" and out["aug"] == []
     else:
-        want = jax_ref
+        # the forward inside value_and_grad, at V0
+        want, got = jax_ref, out["v0"]
         assert out["kernels"] == "NodeShardedP1Kernels" and out["aug"] == ["_BinvG"]
-    assert out["newton"] == want["newton"] and _counts(out) == want["counts"]
+    assert got["newton"] == want["newton"] and _counts(got) == want["counts"]
     for k in range(cases.N_STEPS):
-        assert _rel(out["c"][k], want["c"][k]) <= 1e-8
-        assert _rel(out["u"][k], want["u"][k]) <= 1e-8
+        assert _rel(got["c"][k], want["c"][k]) <= 1e-8
+        assert _rel(got["u"][k], want["u"][k]) <= 1e-8
     assert abs(out["J"] - jax_ref["J"]) <= 1e-8 * abs(jax_ref["J"])
     assert _rel(out["g"], jax_ref["g"]) <= 1e-8, (out["g"], jax_ref["g"])
     assert all(len(v) == cases.N_STEPS for v in out["adj"].values())
@@ -414,19 +416,20 @@ def test_lattice_nodes_on_the_matrix_free_lane_matches_jax(monkeypatch):
     """The lattice's 'nodes' mode on the matrix-free lane (the gather
     residuals on the slab's cells after a halo exchange that carries the
     jvp's tangent) at 2 ranks on the box padded to 150 nodes, against the
-    JAX package's single-device matrix-free run: the trajectory at rel-L2
-    1e-8 with its Newton and CG counts, J and the gradient at rel 1e-8,
+    JAX package's single-device matrix-free value_and_grad on the targets
+    of the port's unsharded forward: the forward inside it at rel-L2 1e-8
+    with its Newton and CG counts, J and the gradient at rel 1e-8,
     bit-equal on both ranks."""
-    jsim = _jax_model(lattice=True, world=2)
-    want = _jax_trajectory(jsim, monkeypatch)
-    targets, J, g = _jax_gradient(jsim, want)
-    ranks = run_ranks(cases.model_rank, 2, "gloo", "cpu", args=("nodes", targets, True),
-                      timeout=RANK_TIMEOUT)
+    want = _jax_value_and_grad(lattice=True, world=2, monkeypatch=monkeypatch)
+    ranks = run_ranks(cases.model_rank, 2, "gloo", "cpu",
+                      args=("nodes", want["targets"], True), timeout=RANK_TIMEOUT)
     _check_ranks(ranks, 2, "nodes")
     out = ranks[0]
     assert out["kernels"] == "P1Kernels" and out["aug"] == ["_BinvG"]
-    assert out["newton"] == want["newton"] and _counts(out) == want["counts"]
-    assert out["c"].shape[1] == 150
-    assert _rel(out["c"][-1], want["c"][-1]) <= 1e-8
-    assert _rel(out["u"][-1], want["u"][-1]) <= 1e-8
+    got = out["v0"]
+    assert got["newton"] == want["newton"] and _counts(got) == want["counts"]
+    assert out["c"].shape[1] == got["c"].shape[1] == 150
+    assert _rel(got["c"][-1], want["c"][-1]) <= 1e-8
+    assert _rel(got["u"][-1], want["u"][-1]) <= 1e-8
+    J, g = want["J"], want["g"]
     assert abs(out["J"] - J) <= 1e-8 * abs(J) and _rel(out["g"], g) <= 1e-8

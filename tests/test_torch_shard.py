@@ -21,7 +21,7 @@ here:
   the mesh caches stay whole for the unsharded model beside it; the
   coarse factors are built bit-equal on both ranks;
 - value_and_grad (type 2) against the JAX package's single-device
-  gradient: J rtol 1e-10, gradient rtol 1e-8, J and gradient bit-equal on
+  gradient on the targets of the port's unsharded forward: J rtol 1e-10, gradient rtol 1e-8, J and gradient bit-equal on
   both ranks.  The quad gradient is held against JAX's single-device one
   only: the JAX package's own sharded quad adjoint aborts inside XLA's
   compile (tests/test_bellshard.py::test_quad_adjoint_gradient_matches_
@@ -115,10 +115,15 @@ def test_sharded_trajectory_and_slabs(twolevel_env, quad):
 
 
 def _jax_gradient(quad):
-    from glimslib_tpu.optimize.adjoint import InverseProblem, param_map_for_type, thresh
+    """Targets from the port's unsharded forward at the set-up parameters,
+    and the JAX package's single-device J and gradient on them."""
+    from glimslib_tpu.optimize.adjoint import InverseProblem, param_map_for_type
+    from glimslib_tpu_torch.optimize.adjoint import thresh
 
-    sim, u, c = _jax_forward(quad)
-    targets = {"conc_T2": np.asarray(thresh(jnp.asarray(c[-1]), 0.12)), "disp": u[-1]}
+    u, c, ok, _ = cases._run(cases.port_sim(quad))
+    assert ok.all()
+    targets = {"conc_T2": thresh(torch.as_tensor(c[-1]), 0.12).numpy(), "disp": u[-1]}
+    sim = jax_sim_quad() if quad else jax_sim()
     names, update = param_map_for_type(2)
     ip = InverseProblem(sim, names, targets, update_fn=update, n_steps=cases.N_STEPS,
                         dt=1.0)

@@ -172,24 +172,25 @@ def test_coarse_level_switches_match_jax(case, monkeypatch):
 
 def test_factored_off_matches_factored_and_jax(monkeypatch):
     """GLIMS_FACTORED=0: no channel stacks; forward, J and the gradient
-    within 1e-10 of the factored run and 1e-8 of the JAX package's."""
+    within 1e-10 of the factored run and, on the targets of its forward,
+    1e-8 of the JAX package's value_and_grad (and the forward inside it)."""
     fac = cases.box_brain(4)
     assert any(k.startswith("_F") for k in fac.runtime_aux())
     monkeypatch.setenv("GLIMS_FACTORED", "0")
-    jsim = J.box_brain(4)
-    J.wire_rd_precond(jsim, monkeypatch)
-    want = J.jax_run(jsim, monkeypatch, grad=True)
-    assert not any(k.startswith("_F") for k in want["aux"])
     sim = cases.box_brain(4)
     assert not any(k.startswith("_F") for k in sim.runtime_aux())
-    out = cases.run(sim, want["targets"])
+    out = cases.run(sim, "own")
+    jsim = J.box_brain(4)
+    J.wire_rd_precond(jsim, monkeypatch)
+    want = J.jax_vg(jsim, monkeypatch, out["targets"])
+    assert not any(k.startswith("_F") for k in want["aux"])
     monkeypatch.delenv("GLIMS_FACTORED")
-    ref = cases.run(fac, want["targets"])
+    ref = cases.run(fac, out["targets"])
     for k in ("u", "c"):
         assert np.abs(out[k] - ref[k]).max() <= 1e-10 * np.abs(ref[k]).max(), k
     assert abs(out["J"] - ref["J"]) <= 1e-10 * abs(ref["J"])
     assert rel(out["g"], ref["g"]) <= 1e-10
-    J.check_forward(out, want)
+    J.check_forward(out["v0"], want)
     assert abs(out["J"] - want["J"]) <= 1e-8 * abs(want["J"])
     assert rel(out["g"], want["g"]) <= 1e-8
 
@@ -200,18 +201,19 @@ def test_factored_off_matches_factored_and_jax(monkeypatch):
 def test_p2bell_off_matches_jax(monkeypatch):
     """GLIMS_P2BELL=0: the quad model's rd block on the jvp lane (no P2
     plan, no P2 state), its elasticity block on the supernode lane;
-    forward and value_and_grad within 1e-8 of the JAX package's."""
+    value_and_grad (on the targets of the port's forward) and the forward
+    inside it within 1e-8 of the JAX package's."""
     monkeypatch.setenv("GLIMS_P2BELL", "0")
-    want = J.jax_run(J.box_brain(3, quad=True), monkeypatch, grad=True)
     sim = cases.box_brain(3, quad=True)
     b = sim._bell_builders()
     assert b["rd_jacobian"] is None and b["el_operator"] is not None
     aux = sim.runtime_aux()
     assert "_BinvSN" in aux and not any(k.startswith(("_McSNP2", "_FP2")) for k in aux)
-    assert sorted(aux) == [k for k in want["aux"] if k not in _AUX_PLAN_TABLES]
-    out = cases.run(sim, want["targets"])
+    out = cases.run(sim, "own")
     assert sim._p2_plan is None and not sim._warm_start_ok
-    J.check_forward(out, want)
+    want = J.jax_vg(J.box_brain(3, quad=True), monkeypatch, out["targets"])
+    assert sorted(aux) == [k for k in want["aux"] if k not in _AUX_PLAN_TABLES]
+    J.check_forward(out["v0"], want)
     assert abs(out["J"] - want["J"]) <= 1e-8 * abs(want["J"])
     assert rel(out["g"], want["g"]) <= 1e-8
 

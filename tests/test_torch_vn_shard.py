@@ -24,8 +24,9 @@ at tight tolerances.  Held here:
   map at 2 and 4 ranks: 'cells' and 'nodes' on the stripped box, 'nodes'
   on the lattice, against the JAX package's run of the same mode on its
   virtual devices (forward, with Newton counts equal and CG counts within
-  one) and against its unsharded run (forward, J and the gradient), all
-  within rel 1e-8, bit-equal on every rank; ``run()`` under 'cells' at
+  one) and against its unsharded value_and_grad at V0 on the targets of
+  the port's unsharded forward (the forward inside it, J and the
+  gradient), all within rel 1e-8, bit-equal on every rank; ``run()`` under 'cells' at
   2 ranks writes on rank 0 alone the unsharded run's files with its
   fields;
 - (c) the 'bell' mode takes the same model at 2 ranks as the JAX
@@ -48,8 +49,6 @@ from glimslib_tpu.core.mesh import Mesh as JaxMesh  # noqa: E402
 from glimslib_tpu.core.mesh import box_mesh as jax_box_mesh  # noqa: E402
 from glimslib_tpu.core.mesh import pad_mesh_nodes as jax_pad  # noqa: E402
 from glimslib_tpu.models.tumor_growth import TumorGrowth as JaxTumorGrowth  # noqa: E402
-from glimslib_tpu.optimize.adjoint import InverseProblem as JaxInverseProblem  # noqa: E402
-from glimslib_tpu.optimize.adjoint import thresh  # noqa: E402
 from glimslib_tpu.parallel.shard import make_device_mesh as jax_device_mesh  # noqa: E402
 from glimslib_tpu.solvers import coupled as jax_coupled  # noqa: E402
 from glimslib_tpu.solvers.coupled import StepConfig as JaxStepConfig  # noqa: E402
@@ -57,6 +56,7 @@ from glimslib_tpu_torch import examples  # noqa: E402
 from glimslib_tpu_torch.models.tumor_growth import TumorGrowth  # noqa: E402
 from glimslib_tpu_torch.parallel import DeviceMesh, run_ranks  # noqa: E402
 from torch_once import once  # noqa: E402
+from torch_jax_vg import value_and_grad_with_forward  # noqa: E402
 from torch_threads import one_torch_thread  # noqa: E402,F401
 
 WORLDS = (2, 4)
@@ -232,22 +232,20 @@ def _jax_trajectory(sim, monkeypatch):
 
 
 def _jax_unsharded(kind):
-    """The JAX package's unsharded run of the model, its targets, J and
-    gradient."""
+    """The JAX package's unsharded value_and_grad at V0 on the targets of
+    the port's unsharded forward (:func:`cases.targets`), with the forward
+    inside it (tests/torch_jax_vg.py: one jitted program)."""
+    targets = cases.targets(kind)
+    sim = _jax_model(kind)
+    wm, gm = (m.astype(np.float64) for m in cases.tissue_masks(sim))
     mp = pytest.MonkeyPatch()
     try:
-        sim = _jax_model(kind)
-        traj = _jax_trajectory(sim, mp)
+        out = value_and_grad_with_forward(
+            sim, ["D_WM", "rho_WM"], cases.update_fn(jnp.asarray(wm), jnp.asarray(gm)),
+            targets, cases.V0, cases.N_STEPS, mp)
     finally:
         mp.undo()
-    targets = {"conc_T2": np.asarray(thresh(jnp.asarray(traj["c"][-1]), 0.12)),
-               "disp": traj["u"][-1]}
-    wm, gm = (m.astype(np.float64) for m in cases.tissue_masks(sim))
-    J, g = JaxInverseProblem(
-        sim, ["D_WM", "rho_WM"], targets,
-        update_fn=cases.update_fn(jnp.asarray(wm), jnp.asarray(gm)),
-        n_steps=cases.N_STEPS, dt=1.0).value_and_grad(np.asarray(cases.V0))
-    return dict(traj, targets=targets, J=float(J), g=np.asarray(g))
+    return dict(out, targets=targets)
 
 
 @pytest.fixture(scope="module")
@@ -274,7 +272,7 @@ def _check_ranks(ranks, world, mode):
         assert out["mode"] == mode and out["ok"]
         for key in ("newton", "rd_cg", "el_cg", "kernels"):
             assert out[key] == ranks[0][key], key
-        for key in ("u", "c", "g"):
+        for key in ("u", "c", "u_v0", "c_v0", "g"):
             assert np.array_equal(out[key], ranks[0][key]), key
         assert out["J"] == ranks[0]["J"]
         if "run_c" in out:
@@ -307,10 +305,11 @@ def test_forward_and_gradient_match_jax(mode, kind, world, jax_ref, monkeypatch,
     same = _jax_trajectory(jsim, monkeypatch)
     assert out["newton"] == same["newton"]
     assert _within_one(out["rd_cg"], same["rd"]) and _within_one(out["el_cg"], same["el"])
-    for want in (same, ref):
-        for k in range(cases.N_STEPS):
-            assert _rel(out["c"][k], want["c"][k]) <= 1e-8
-            assert _rel(out["u"][k], want["u"][k]) <= 1e-8
+    for k in range(cases.N_STEPS):
+        assert _rel(out["c"][k], same["c"][k]) <= 1e-8
+        assert _rel(out["u"][k], same["u"][k]) <= 1e-8
+        assert _rel(out["c_v0"][k], ref["c"][k]) <= 1e-8
+        assert _rel(out["u_v0"][k], ref["u"][k]) <= 1e-8
     assert abs(out["J"] - ref["J"]) <= 1e-8 * abs(ref["J"])
     assert _rel(out["g"], ref["g"]) <= 1e-8, (out["g"], ref["g"])
     if files:

@@ -15,6 +15,8 @@ numpy arrays and plain values."""
 import numpy as np
 import torch
 
+from torch_vg import value_and_grad_with_forward
+
 N_STEPS = 2
 TIGHT = dict(newton_rtol=1e-10, newton_atol=1e-14, cg_rtol=1e-12)
 V0 = (0.05, 0.05)  # the benchmark's adjoint cell (type 2)
@@ -40,28 +42,33 @@ def port_model(lane, degree):
     return sim
 
 
-def run(sim, targets, mesh=None):
-    """N_STEPS steps (the whole trajectory gathered under node sharding),
-    the Newton and CG counts of the forward, then ``value_and_grad`` of
-    type 2 at V0 on ``targets`` with the CG counts of its forward and
-    adjoint solves."""
-    from glimslib_tpu_torch.optimize.adjoint import InverseProblem, param_map_for_type
+def run(sim, targets=None, mesh=None):
+    """``value_and_grad`` of type 2 at V0 on ``targets`` (None: conc_T2 and
+    disp of this model's N_STEPS-step forward at its set-up parameters)
+    and the forward that runs inside it (its whole trajectory gathered
+    under node sharding): its Newton and CG counts, then those of the
+    adjoint solves too."""
+    from glimslib_tpu_torch.optimize.adjoint import (
+        InverseProblem, param_map_for_type, thresh)
     from glimslib_tpu_torch.parallel import gather_rows
 
-    theta = sim.make_theta(sim.params.as_dict())
-    u, c, ok, newton = sim.build_simulate_fn(N_STEPS, 1.0)(theta, *sim.initial_state())
+    if targets is None:
+        theta = sim.make_theta(sim.params.as_dict())
+        u, c, _, _ = sim.build_simulate_fn(N_STEPS, 1.0)(theta, *sim.initial_state())
+        targets = {"conc_T2": thresh(c[-1], 0.12).numpy(), "disp": u[-1].numpy()}
+    names, update = param_map_for_type(2)
+    ip = InverseProblem(sim, names, targets, update_fn=update, n_steps=N_STEPS, dt=1.0)
+    J, g, (u, c, ok, newton) = value_and_grad_with_forward(ip, V0)
     rows = sim._node_rows
     if rows is not None:
         whole = lambda a: gather_rows(mesh, a.movedim(1, 0), rows.start,  # noqa: E731
                                       rows.n_total).movedim(0, 1)
         u, c = whole(u), whole(c)
-    counts = _counts(sim, "rd_cg_iters", "el_cg_iters")
-    names, update = param_map_for_type(2)
-    J, g = InverseProblem(sim, names, targets, update_fn=update, n_steps=N_STEPS,
-                          dt=1.0).value_and_grad(np.asarray(V0))
-    vg = _counts(sim, "rd_cg_iters", "rd_adj_cg_iters", "el_cg_iters", "el_adj_cg_iters")
     return dict(u=u.numpy(), c=c.numpy(), ok=bool(ok.all()), newton=newton.tolist(),
-                counts=counts, vg_counts=vg, J=J, g=g, pcg=bool(sim._lattice_pcg))
+                counts=_counts(sim, "rd_cg_iters", "el_cg_iters"),
+                vg_counts=_counts(sim, "rd_cg_iters", "rd_adj_cg_iters", "el_cg_iters",
+                                  "el_adj_cg_iters"),
+                J=J, g=g, pcg=bool(sim._lattice_pcg), targets=targets)
 
 
 def _counts(sim, *kinds):

@@ -12,6 +12,8 @@ return numpy arrays and plain values."""
 import numpy as np
 import torch
 
+from torch_vg import value_and_grad_with_forward
+
 N = 4  # the box: 125 nodes, 384 tets
 PAD = 4  # padded to 128 nodes: 64 rows a rank at 2 ranks, 32 at 4
 N_STEPS = 2
@@ -125,12 +127,24 @@ def trajectory(sim, n_steps=N_STEPS):
     return sim.build_simulate_fn(n_steps, 1.0)(theta, *sim.initial_state())
 
 
+def targets(lattice=False, world=2):
+    """conc_T2 and disp of the unsharded model's N_STEPS-step forward at
+    its set-up parameters."""
+    from glimslib_tpu_torch.optimize.adjoint import thresh
+
+    u, c, ok, _ = trajectory(port_model(lattice, world))
+    assert bool(ok.all())
+    return {"conc_T2": thresh(c[-1], 0.12).numpy(), "disp": u[-1].numpy()}
+
+
 def model_rank(mesh, mode, targets, lattice=False):
     """One rank: the model under ``use_sharding(mesh, mode)``, N_STEPS
     steps (the whole trajectory gathered under 'nodes'), the Newton and CG
     counts, the preconditioner state the lane builds, then
     ``InverseProblem.value_and_grad`` of type 2 at V0 on the whole
-    ``targets``, and ``run()``'s solution (rank 0 writes no file here)."""
+    ``targets`` with the forward inside it (``v0``: its trajectory,
+    gathered under 'nodes', and its counts), and ``run()``'s solution
+    (rank 0 writes no file here)."""
     from glimslib_tpu_torch.optimize.adjoint import InverseProblem, param_map_for_type
     from glimslib_tpu_torch.parallel import gather_rows
 
@@ -147,14 +161,18 @@ def model_rank(mesh, mode, targets, lattice=False):
     info = {k: [int(i) for i in v] for k, v in sim.solver_info.items()}
     names, update = param_map_for_type(2)
     ip = InverseProblem(sim, names, targets, update_fn=update, n_steps=N_STEPS, dt=1.0)
-    J, g = ip.value_and_grad(np.asarray(V0))
-    adj = {k: [int(i) for i in sim.solver_info[k]] for k in ("rd_adj_cg_iters",
-                                                             "el_adj_cg_iters")}
+    J, g, (u_v, c_v, ok_v, newton_v) = value_and_grad_with_forward(ip, V0)
+    if rows is not None:
+        u_v, c_v = whole(u_v), whole(c_v)
+    vg = {k: [int(i) for i in v] for k, v in sim.solver_info.items()}
     sol = sim.run(save_method=None)
     return dict(mode=sim.sharding_mode, kernels=type(sim.kernels).__name__,
                 u=u.numpy(), c=c.numpy(), ok=bool(ok.all()), newton=newton.tolist(),
                 rd_cg=info["rd_cg_iters"], el_cg=info["el_cg_iters"],
                 aug=sorted(k for k in aug if k.startswith("_")), J=J, g=g,
-                adj=adj,
+                adj={k: vg[k] for k in ("rd_adj_cg_iters", "el_adj_cg_iters")},
+                v0=dict(u=u_v.numpy(), c=c_v.numpy(), ok=bool(ok_v.all()),
+                        newton=newton_v.tolist(), rd_cg=vg["rd_cg_iters"],
+                        el_cg=vg["el_cg_iters"]),
                 run_c=np.asarray(sol[1]), run_u=np.asarray(sol[0]),
                 matrix_free=sim.matrix_free)

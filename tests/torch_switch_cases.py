@@ -11,6 +11,8 @@ f64 with the TIGHT step.  ``run`` returns numpy arrays and plain values.
 import numpy as np
 import torch
 
+from torch_vg import value_and_grad_with_forward
+
 N_STEPS = 2
 TIGHT = dict(newton_rtol=1e-10, newton_atol=1e-14, cg_rtol=1e-12)
 V0 = (0.05, 0.05)  # the benchmark's adjoint cell (type 2)
@@ -100,8 +102,9 @@ def _counts(sim, *kinds):
 
 def run(sim, targets=None, n_steps=N_STEPS):
     """``n_steps`` steps with the Newton and CG counts of the forward; with
-    ``targets`` (None: the run's own final state) ``value_and_grad`` of
-    type 2 at V0 too."""
+    ``targets`` (a string: conc_T2 and disp of the run's own final state)
+    ``value_and_grad`` of type 2 at V0 too, with the forward inside it
+    (``v0``: its trajectory and counts)."""
     from glimslib_tpu_torch.optimize.adjoint import (
         InverseProblem, param_map_for_type, thresh,
     )
@@ -114,9 +117,11 @@ def run(sim, targets=None, n_steps=N_STEPS):
         if isinstance(targets, str):
             targets = {"conc_T2": thresh(c[-1], 0.12).numpy(), "disp": u[-1].numpy()}
         names, update = param_map_for_type(2)
-        J, g = InverseProblem(sim, names, targets, update_fn=update, n_steps=n_steps,
-                              dt=1.0).value_and_grad(np.asarray(V0))
-        out.update(J=J, g=g)
+        ip = InverseProblem(sim, names, targets, update_fn=update, n_steps=n_steps, dt=1.0)
+        J, g, (u, c, ok, newton) = value_and_grad_with_forward(ip, V0)
+        out.update(J=J, g=g, targets=targets, v0=dict(
+            u=u.numpy(), c=c.numpy(), ok=bool(ok.all()), newton=newton.tolist(),
+            counts=_counts(sim, "rd_cg_iters", "el_cg_iters")))
     return out
 
 

@@ -10,10 +10,10 @@ import torch_switch_cases as cases
 from __graft_entry__ import _brain_sim
 from glimslib_tpu.core.mesh import Mesh as JaxMesh
 from glimslib_tpu.core.mesh import box_mesh as jax_box_mesh
-from glimslib_tpu.optimize.adjoint import InverseProblem as JaxInverseProblem
-from glimslib_tpu.optimize.adjoint import param_map_for_type, thresh
+from glimslib_tpu.optimize.adjoint import param_map_for_type
 from glimslib_tpu.solvers import coupled as jax_coupled
 from glimslib_tpu.solvers.coupled import StepConfig as JaxStepConfig
+from torch_jax_vg import value_and_grad_with_forward
 
 
 def rel(a, b):
@@ -67,11 +67,10 @@ def ell_brain(n=6):
     return sim
 
 
-def jax_run(sim, monkeypatch, grad=False):
+def jax_run(sim, monkeypatch):
     """The JAX package's trajectory (its runtime_aux passed, initial values
     clamped as its run() does) with the CG iterations of its solves by
-    block, sorted; with ``grad`` value_and_grad of type 2 at V0 on the
-    targets of its final state."""
+    block, sorted."""
     rec = []
     pcg = jax_coupled.pcg
 
@@ -94,16 +93,18 @@ def jax_run(sim, monkeypatch, grad=False):
         counts = {"rd": sorted(i for nd, i in rec if nd == 1),
                   "el": sorted(i for nd, i in rec if nd == 2)}
     assert bool(np.asarray(ok).all())
-    out = dict(u=np.asarray(u), c=c, newton=np.asarray(newton).tolist(), counts=counts,
-               aux=sorted(aux))
-    if grad:
-        targets = {"conc_T2": np.asarray(thresh(jnp.asarray(c[-1]), 0.12)),
-                   "disp": np.asarray(u)[-1]}
-        names, update = param_map_for_type(2)
-        J, g = JaxInverseProblem(sim, names, targets, update_fn=update,
-                                 n_steps=cases.N_STEPS, dt=1.0).value_and_grad(
-            np.asarray(cases.V0))
-        out.update(targets=targets, J=float(J), g=np.asarray(g))
+    return dict(u=np.asarray(u), c=c, newton=np.asarray(newton).tolist(), counts=counts,
+                aux=sorted(aux))
+
+
+def jax_vg(sim, monkeypatch, targets):
+    """The JAX package's value_and_grad of type 2 at V0 on ``targets`` with
+    the forward inside it and its frozen state's keys
+    (tests/torch_jax_vg.py: one jitted program)."""
+    names, update = param_map_for_type(2)
+    out = value_and_grad_with_forward(sim, names, update, targets, cases.V0,
+                                      cases.N_STEPS, monkeypatch)
+    assert out["ok"]
     return out
 
 

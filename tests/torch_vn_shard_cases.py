@@ -16,6 +16,8 @@ numpy arrays and plain values."""
 import numpy as np
 import torch
 
+from torch_vg import value_and_grad_with_forward
+
 N = 4  # the box: 125 nodes, 384 tets
 PAD = 4  # padded for 2 and 4 ranks
 N_STEPS = 2
@@ -68,10 +70,21 @@ def trajectory(sim, n_steps=N_STEPS):
     return sim.build_simulate_fn(n_steps, 1.0)(theta, *sim.initial_state())
 
 
+def targets(kind):
+    """conc_T2 and disp of the unsharded port model's N_STEPS-step forward
+    at its set-up parameters."""
+    from glimslib_tpu_torch.optimize.adjoint import thresh
+
+    u, c, ok, _ = trajectory(port_model(kind))
+    assert bool(ok.all())
+    return {"conc_T2": thresh(c[-1], 0.12).numpy(), "disp": u[-1].numpy()}
+
+
 def model_rank(mesh, mode, kind, targets, out_dir=None):
     """One rank: the model under ``use_sharding(mesh, mode)``, N_STEPS
     steps (gathered under 'nodes'), its Newton and CG counts, then
-    ``InverseProblem.value_and_grad`` at V0 on the whole ``targets``, and
+    ``InverseProblem.value_and_grad`` at V0 on the whole ``targets`` with
+    the trajectory of the forward inside it (``u_v0``, ``c_v0``), and
     where ``out_dir`` is given ``run()`` with VTU output into it (rank 0
     alone writes)."""
     from glimslib_tpu_torch.optimize.adjoint import InverseProblem
@@ -90,10 +103,13 @@ def model_rank(mesh, mode, kind, targets, out_dir=None):
     wm, gm = (torch.as_tensor(m, dtype=torch.float64) for m in tissue_masks(sim))
     ip = InverseProblem(sim, ["D_WM", "rho_WM"], targets,
                         update_fn=update_fn(wm, gm), n_steps=N_STEPS, dt=1.0)
-    J, g = ip.value_and_grad(np.asarray(V0))
+    J, g, (u_v0, c_v0, _, _) = value_and_grad_with_forward(ip, V0)
+    if rows is not None:
+        u_v0, c_v0 = whole(u_v0), whole(c_v0)
     out = dict(mode=sim.sharding_mode, kernels=type(sim.kernels).__name__,
                u=u.numpy(), c=c.numpy(), ok=bool(ok.all()), newton=newton.tolist(),
                rd_cg=info["rd_cg_iters"], el_cg=info["el_cg_iters"], J=J, g=g,
+               u_v0=u_v0.numpy(), c_v0=c_v0.numpy(),
                facets={name: len(sim._von_neumann_kernels(name, bc)[1])
                        for name, bc in sim.bcs.von_neumann_bcs.items()})
     if out_dir is not None:
